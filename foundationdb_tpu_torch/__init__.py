@@ -1,0 +1,20 @@
+"""foundationdb_tpu_torch: the Resolver's conflict check in PyTorch + CUDA.
+
+A port of the device layer of `foundationdb_tpu` (JAX) to PyTorch on an
+NVIDIA Hopper GPU.  The layout mirrors the JAX package module for module,
+so each counterpart sits at the same relative path:
+
+  txn/       -- Version, KeyRange, CommitTransactionRef, CommitResult
+  core/      -- FdbError / err()
+  ops/       -- digest encode (host) + search, rank, scan and range-max
+                (device: plain-torch versions beside CUDA kernel wrappers)
+  conflict/  -- EncodedBatch, the ConflictSet contract, the CPU oracle, the
+                fused point-batch step + merge (fused.py) and the backend
+                that drives them (torch_backend.py)
+  kernels/   -- nvcc build of csrc/*.cu, ctypes bindings, launch counters
+  csrc/      -- the hand-written CUDA kernels (sm_90a)
+
+The package imports torch and numpy only.  Entry points run on `cuda`
+unless the caller passes `device="cpu"`; with no device given and no CUDA
+present, construction raises instead of quietly running on the CPU.
+"""

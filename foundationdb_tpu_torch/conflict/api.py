@@ -1,0 +1,90 @@
+"""ConflictSet: the Resolver's write-history + batch conflict detection.
+
+Opaque-factory boundary mirroring the reference's ConflictSet.h:30-52
+(newConflictSet / ConflictBatch::addTransaction / detectConflicts), with a
+backend selector: "torch" (the PyTorch + CUDA backend, on `cuda` unless
+the caller passes device="cpu") or "cpu" (the exact oracle).
+
+Abstract semantics (the parity contract, from fdbserver/SkipList.cpp):
+
+  The history is a piecewise-constant function V(k): key -> last-write
+  version, plus oldest_version (the MVCC window floor).  For a batch of
+  transactions resolving at commit version `now`:
+
+  1. too-old:   txn is TOO_OLD iff read_snapshot < oldest_version and it has
+                read conflict ranges (SkipList.cpp:819-827).
+  2. history:   txn conflicts iff any read range [b,e) has
+                max{V(k) : k in [b,e)} > read_snapshot  (SkipList.cpp:443).
+  3. intra:     scanning txns in batch order, a txn conflicts iff any read
+                range overlaps a write range of an earlier txn that SURVIVED
+                (was not conflicted/too-old) (SkipList.cpp:874-906).
+  4. insert:    all write ranges of surviving txns are written into the
+                history: V(k) := now for k in each range (SkipList.cpp:989).
+  5. gc:        oldest_version := max(oldest_version, new_oldest_version);
+                segments wholly below oldest_version may be merged — never
+                affecting any future decision (SkipList.cpp:576 removeBefore).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from ..txn.types import CommitResult, CommitTransactionRef, Version
+
+
+class ConflictSet:
+    """Abstract conflict set. Subclasses: OracleConflictSet,
+    TorchConflictSet."""
+
+    def __init__(self, oldest_version: Version = 0) -> None:
+        self.oldest_version: Version = oldest_version
+
+    def resolve(self, transactions: Sequence[CommitTransactionRef],
+                now: Version,
+                new_oldest_version: Optional[Version] = None
+                ) -> List[CommitResult]:
+        """Resolve one commit batch at version `now`; updates history and
+        (optionally) advances the MVCC window floor. Returns one
+        CommitResult per transaction, in input order."""
+        raise NotImplementedError
+
+    def resolve_with_conflicts(self, transactions, now: Version,
+                               new_oldest_version: Optional[Version] = None):
+        """(verdicts, {txn_index: [(begin, end), ...]}) — the conflicting
+        READ ranges of CONFLICT-verdict transactions that set
+        report_conflicting_keys.  The base implementation is CONSERVATIVE:
+        every read range of a conflicted reporter (a superset of the true
+        culprits); OracleConflictSet reports the exact ranges."""
+        verdicts = self.resolve(transactions, now, new_oldest_version)
+        return verdicts, conservative_conflict_ranges(verdicts, transactions)
+
+    def clear(self, version: Version) -> None:
+        """Reset all history (reference clearConflictSet)."""
+        raise NotImplementedError
+
+
+def conservative_conflict_ranges(verdicts, transactions) -> dict:
+    """{txn_index: [(begin, end), ...]} reporting EVERY read range of each
+    conflicted reporter."""
+    ranges: dict = {}
+    for i, (v, tr) in enumerate(zip(verdicts, transactions)):
+        if v == CommitResult.CONFLICT and \
+                getattr(tr, "report_conflicting_keys", False):
+            ranges[i] = [(r.begin, r.end)
+                         for r in tr.read_conflict_ranges]
+    return ranges
+
+
+def new_conflict_set(backend: str = "torch", oldest_version: Version = 0,
+                     **kwargs) -> ConflictSet:
+    """"torch": TorchConflictSet (kwargs: capacity, delta_capacity,
+    gc_interval_batches, device -- `cuda` by default; construction raises
+    when no CUDA device is present and none was named).  "cpu": the
+    oracle."""
+    if backend == "cpu":
+        from .oracle import OracleConflictSet
+        return OracleConflictSet(oldest_version)
+    if backend == "torch":
+        from .torch_backend import TorchConflictSet
+        return TorchConflictSet(oldest_version, **kwargs)
+    raise ValueError(f"unknown conflict set backend {backend!r}")

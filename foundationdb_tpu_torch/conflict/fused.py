@@ -1,0 +1,554 @@
+"""Fused two-tier conflict resolution: the compact point step and the merge.
+
+The port of the compact half of foundationdb_tpu/conflict/fused.py.  The
+window is tiered as there:
+
+  BASE   bk/bv[CAP]   merged history, read-only between merges, with its
+                      doubling range-max table (built at merge time)
+  DELTA  dk/dv[DCAP]  small sorted segment array absorbing the last few
+                      batches' writes, with its table refreshed by
+                      delta_table_step after every insert and merge
+
+and three device programs drive it:
+
+  make_resolve_step_compact  per batch: unpack the single uint8 buffer,
+                             too-old, history probe over both tiers, the
+                             Jacobi intra-batch fixpoint, the sort-free
+                             delta insert, int8 verdicts + a 12-byte tail
+  delta_table_step           the delta's range-max table
+  make_merge_step            overlay delta onto base, removeBefore GC,
+                             version rebase, rebuild the base table
+
+Idiomatic PyTorch: plain functions on tensors with an explicit device, and
+IN-PLACE state updates where the reference donated its buffers
+(fused.py:423 and :690 there): the step writes dk/dv/dsize/flag in place,
+the merge bk/bv/table/size and the reset delta.  Each block below is a
+wrapper with a plain-torch version, taken for CPU tensors and with
+impl="plain", and a hand-written CUDA kernel for CUDA tensors; on the CUDA
+path all array work runs in kernels (torch only allocates, views and
+copies between host and device).
+
+State layout on the device: digests as rows int32[N, 8] (ops/digest.py),
+scalars (size, dsize, flag) as int32[1] tensors, booleans as int32 0/1.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels as _k
+from ..ops.digest import (ROW_PAD, history_probe, lex_eq, max_rows,
+                          rank_count, searchsorted, widen_unique)
+from ..ops.rangemax import NEG_INF, build_sparse_table
+from ..ops.scan import compact_rows, inclusive_scan, scatter_max, scatter_set
+from ..txn.types import CommitResult
+from .window import WindowState, make_window_state
+
+RES_CONFLICT = int(CommitResult.CONFLICT)
+RES_TOO_OLD = int(CommitResult.TOO_OLD)
+RES_COMMITTED = int(CommitResult.COMMITTED)
+RES_INVALID = -1
+
+INF_I32 = (1 << 31) - 1
+
+# Per-batch output layout: int8[t_cap + 12] = [codes[t_cap] as int8,
+# then flag, delta_size, base_size as 4 little-endian bytes each].
+OUT_FLAG = 0
+OUT_DSIZE = 1
+OUT_BSIZE = 2
+OUT_EXTRA = 12  # tail bytes
+
+# Compact point-batch wire format (make_resolve_step_compact): one uint8
+# buffer per batch.
+#
+#   ubytes  uint8[u_pad, L+1]   unique sorted begin-key digests, compacted
+#                               to L prefix bytes + the length-marker byte
+#   r_uid   int32[r_pad]        each read's slot in the unique table
+#   w_uid   int32[w_pad]        each write's slot
+#   r_start int32[t_cap]        first read index per txn
+#   w_start int32[t_cap]
+#   t_snap  int32[t_cap]        rebased snapshot versions
+#   t_flags uint8[t_cap]        bit0 = has_reads
+#   scalars int32[6]            u_n, n_r, n_w, n_t, now_rel, oldest_rel
+COMPACT_SCALARS = 6
+
+
+def compact_layout(t_cap: int, r_pad: int, w_pad: int, u_pad: int,
+                   lw: int) -> dict:
+    """Byte offsets of each section of the compact buffer.  Every section
+    starts 4-byte aligned so the int32 sections read through one int32
+    view of the buffer."""
+    o = 0
+    lay = {}
+    for name, nbytes in (
+            ("ubytes", u_pad * lw), ("r_uid", 4 * r_pad),
+            ("w_uid", 4 * w_pad), ("r_start", 4 * t_cap),
+            ("w_start", 4 * t_cap), ("t_snap", 4 * t_cap),
+            ("t_flags", t_cap), ("scalars", 4 * COMPACT_SCALARS)):
+        lay[name] = o
+        o += (nbytes + 3) & ~3
+    lay["total"] = o
+    return lay
+
+
+def make_delta_state(d_cap: int, device="cpu") -> WindowState:
+    """Fresh transparent delta: one segment covering all keys at NEG_INF."""
+    return make_window_state(d_cap, NEG_INF, device)
+
+
+def delta_table_step(dv: torch.Tensor, out=None, impl=None) -> torch.Tensor:
+    """The delta's range-max table (build_sparse_table), refreshed after
+    every insert and merge; written into `out` in place when given."""
+    return build_sparse_table(dv, out=out, impl=impl)
+
+
+def _iota(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Blocks of the per-batch step
+# ---------------------------------------------------------------------------
+
+def txn_prep(r_start, w_start, t_snap, t_flags, scal, r_pad: int,
+             w_pad: int, impl=None):
+    """Too-old per txn and the rank counts that rebuild each read's and
+    write's txn from the per-txn start offsets (reference fused.py:324-330):
+    (too_old int32[t_cap], r_cnt int32[r_pad], w_cnt int32[w_pad]), where
+    r_txn = r_cnt - 1.  Kernel: ib_txn_prep + inclusive_scan."""
+    t_cap = t_snap.shape[0]
+    dev = t_snap.device
+    if _k.use_kernel(t_snap, impl):
+        too_old = torch.empty((t_cap,), dtype=torch.int32, device=dev)
+        hist_r = torch.zeros((r_pad + 1,), dtype=torch.int32, device=dev)
+        hist_w = torch.zeros((w_pad + 1,), dtype=torch.int32, device=dev)
+        _k.launch("txn_prep", "ib_txn_prep", t_cap, r_pad, w_pad, r_start,
+                  w_start, t_snap, t_flags, scal, too_old, hist_r, hist_w)
+        return (too_old, inclusive_scan(hist_r[:r_pad], impl),
+                inclusive_scan(hist_w[:w_pad], impl))
+    t_valid = _iota(t_cap, dev) < scal[3]
+    t_has_reads = (t_flags & 1) != 0
+    too_old = (t_valid & t_has_reads & (t_snap < scal[5])).to(torch.int32)
+    r_cnt = rank_count(torch.where(t_valid, r_start, r_pad), r_pad, "plain")
+    w_cnt = rank_count(torch.where(t_valid, w_start, w_pad), w_pad, "plain")
+    return too_old, r_cnt, w_cnt
+
+
+def read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap, scal,
+                    vmax_u, u_pad: int, impl=None) -> dict:
+    """Per read: its txn, liveness (valid and not too-old) and unique-key
+    slot, and the history verdict scatter-maxed per txn; per write: its
+    txn, base eligibility and slot (reference fused.py:332-371).  Returns
+    int32 arrays r_txn, r_live, r_slot, hist, w_txn, w_ok, w_slot.
+    Kernels: ib_read_prep, ib_write_prep."""
+    r_pad, w_pad, t_cap = r_uid.shape[0], w_uid.shape[0], t_snap.shape[0]
+    dev = r_uid.device
+    if _k.use_kernel(r_uid, impl):
+        e = dict(dtype=torch.int32, device=dev)
+        o = {name: torch.empty((r_pad,), **e)
+             for name in ("r_txn", "r_live", "r_slot")}
+        o.update({name: torch.empty((w_pad,), **e)
+                  for name in ("w_txn", "w_ok", "w_slot")})
+        o["hist"] = torch.zeros((t_cap,), **e)
+        _k.launch("read_write_prep", "ib_read_prep", r_pad, t_cap, u_pad,
+                  r_uid, r_cnt, too_old, t_snap, scal, vmax_u, o["r_txn"],
+                  o["r_live"], o["r_slot"], o["hist"])
+        _k.launch("read_write_prep", "ib_write_prep", w_pad, t_cap, u_pad,
+                  w_uid, w_cnt, too_old, scal, o["w_txn"], o["w_ok"],
+                  o["w_slot"])
+        return o
+    r_txn = r_cnt - 1
+    r_valid = _iota(r_pad, dev) < scal[1]
+    r_txn_c = torch.clamp(r_txn, 0, t_cap - 1).long()
+    r_live = r_valid & (too_old[r_txn_c] == 0)
+    snap_r = t_snap[r_txn_c]
+    r_slot = torch.clamp(r_uid, 0, u_pad - 1)
+    hist_bits = r_live & (vmax_u[r_slot.long()] > snap_r)
+    hist = scatter_max(torch.zeros((t_cap,), dtype=torch.int32, device=dev),
+                       torch.where(r_live, r_txn, t_cap), hist_bits)
+    w_txn = w_cnt - 1
+    w_valid = _iota(w_pad, dev) < scal[2]
+    w_txn_c = torch.clamp(w_txn, 0, t_cap - 1).long()
+    w_ok = w_valid & (too_old[w_txn_c] == 0)
+    return {"r_txn": r_txn, "r_live": r_live.to(torch.int32),
+            "r_slot": r_slot, "hist": hist, "w_txn": w_txn,
+            "w_ok": w_ok.to(torch.int32),
+            "w_slot": torch.clamp(w_uid, 0, u_pad - 1)}
+
+
+def intra_batch_fixpoint(hist, r_txn, r_live, r_slot, w_txn, w_ok, w_slot,
+                         u_pad: int, impl=None):
+    """The intra-batch fixpoint (checkIntraBatchConflicts,
+    SkipList.cpp:874-906; reference fused.py:373-385): a reader conflicts
+    iff an EARLIER SURVIVING txn of the batch wrote its key.  Jacobi
+    rounds recompute from the history-only baseline until nothing
+    changes.  Returns (conflicted int32[t_cap], rounds int32[1]).
+    Kernel: ib_fixpoint, one persistent CTA looping on the device."""
+    t_cap = hist.shape[0]
+    dev = hist.device
+    if _k.use_kernel(hist, impl):
+        e = dict(dtype=torch.int32, device=dev)
+        conf = torch.empty((t_cap,), **e)
+        rounds = torch.empty((1,), **e)
+        _k.launch("intra_batch_fixpoint", "ib_fixpoint", t_cap,
+                  r_txn.shape[0], w_txn.shape[0], u_pad, hist, r_txn, r_live,
+                  r_slot, w_txn, w_ok, w_slot,
+                  torch.empty((u_pad + 1,), **e), torch.empty((t_cap,), **e),
+                  conf, rounds)
+        return conf, rounds
+    w_txn_c = torch.clamp(w_txn, 0, t_cap - 1).long()
+    live = r_live != 0
+    r_scatter = torch.where(live, r_txn, t_cap)
+    conf = hist.clone()
+    rounds = 0
+    while True:
+        rounds += 1
+        w_active = (w_ok != 0) & (conf[w_txn_c] == 0)
+        cover = torch.full((u_pad + 1,), INF_I32, dtype=torch.int32,
+                           device=dev)
+        cover.scatter_reduce_(
+            0, torch.where(w_active, w_slot, u_pad).long(),
+            torch.where(w_active, w_txn, INF_I32), "amin")
+        intra_hit = live & (cover[r_slot.long()] < r_txn)
+        new_conf = scatter_max(hist.clone(), r_scatter, intra_hit)
+        changed = bool((new_conf != conf).any())
+        conf = new_conf
+        if not changed:
+            break
+    return conf, torch.tensor([rounds], dtype=torch.int32, device=dev)
+
+
+def batch_codes(scal, too_old, conf, w_txn, codes_out, impl=None):
+    """Verdict codes into codes_out (int8[t_cap]: INVALID / TOO_OLD /
+    CONFLICT / COMMITTED) and the insert mask of surviving txns' writes
+    (int32[w_pad]) (reference fused.py:388-405).  Kernel: ib_codes."""
+    t_cap, w_pad = too_old.shape[0], w_txn.shape[0]
+    dev = too_old.device
+    if _k.use_kernel(too_old, impl):
+        w_ins = torch.empty((w_pad,), dtype=torch.int32, device=dev)
+        _k.launch("batch_codes", "ib_codes", t_cap, w_pad, scal, too_old,
+                  conf, w_txn, codes_out, w_ins)
+        return w_ins
+    t_valid = _iota(t_cap, dev) < scal[3]
+    old = too_old != 0
+    cf = conf != 0
+    codes = torch.where(
+        ~t_valid, RES_INVALID,
+        torch.where(old, RES_TOO_OLD,
+                    torch.where(cf, RES_CONFLICT, RES_COMMITTED)))
+    codes_out.copy_(codes.to(torch.int8))
+    survivor = t_valid & ~old & ~cf
+    w_txn_c = torch.clamp(w_txn, 0, t_cap - 1).long()
+    w_ins = (_iota(w_pad, dev) < scal[2]) & survivor[w_txn_c]
+    return w_ins.to(torch.int32)
+
+
+def _point_insert(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel, flag,
+                  bsize=None, tail=None, impl=None) -> None:
+    """Sort-free delta insert for point batches, IN PLACE on dk/dv/dsize;
+    flag |= overflow, and on overflow the delta keeps its old state
+    (reference fused.py:157-247, where the overflow bit is returned).
+
+    u_k/u_e are the batch's unique begin/end keys, sorted with MAX padding
+    and disjoint as ranges (tpu_backend._pack_compact's guarantees), so the
+    union sweep reduces to a scatter-max of the survivor mask over
+    unique-key slots and the new-boundary sequence is the interleave
+    [b0, e0, b1, e1, ...] compacted by rank.  now_rel is int32[1] on the
+    device.  With `tail` (int32[3]), flag / new delta size / bsize are
+    written there (the verdict tail).  Kernels: pi_* (point_insert) on top
+    of searchsorted, rank_count, inclusive_scan and compact_rows."""
+    if _k.use_kernel(dk, impl):
+        _point_insert_kernel(dk, dv, dsize, u_k, u_e, w_uidx, w_ins,
+                             now_rel, flag, bsize, tail)
+        return
+    d_cap, w_cap = dk.shape[0], u_k.shape[0]
+    dev = dk.device
+    p_ = "plain"
+    m_valid = torch.zeros((w_cap,), dtype=torch.int32, device=dev)
+    m_valid.scatter_reduce_(0, torch.clamp(w_uidx, 0, w_cap - 1).long(),
+                            w_ins.to(torch.int32), "amax")
+    mv = m_valid != 0
+    mb = torch.where(mv[:, None], u_k, -1)
+    me = torch.where(mv[:, None], u_e, -1)
+
+    idx_cap = _iota(d_cap, dev)
+    live = idx_cap < dsize
+    slot = searchsorted(dk, me, False, p_) - 1
+    cont_v = dv[torch.clamp(slot, 0, d_cap - 1).long()]
+    p = searchsorted(dk, me, True, p_)
+    present_end = lex_eq(dk[torch.clamp(p, max=d_cap - 1).long()], me) & (
+        p < dsize)
+    cnt_b = rank_count(searchsorted(dk, mb, True, p_), d_cap, p_)
+    cnt_e = rank_count(p, d_cap, p_)
+    keep = (live & ~(cnt_b > cnt_e)).to(torch.int32)
+    kincl = inclusive_scan(keep, p_)
+    kept_count = kincl[-1]
+    old_rows = max_rows(d_cap, dev)
+    old_v = torch.full((d_cap,), NEG_INF, dtype=torch.int32, device=dev)
+    compact_rows(keep, kincl, dk, dv, old_rows, old_v, impl=p_)
+
+    end_valid = mv & ~present_end
+    il_rows = torch.stack([u_k, u_e], dim=1).reshape(2 * w_cap, ROW_PAD)
+    il_valid = torch.stack([mv, end_valid], dim=1).reshape(
+        2 * w_cap).to(torch.int32)
+    il_v = torch.stack(
+        [torch.where(mv, now_rel, NEG_INF),
+         torch.where(end_valid, cont_v, NEG_INF)], dim=1).reshape(2 * w_cap)
+    nincl = inclusive_scan(il_valid, p_)
+    new_count = nincl[-1]
+    cnew_rows = max_rows(2 * w_cap, dev)
+    cnew_v = torch.full((2 * w_cap,), NEG_INF, dtype=torch.int32,
+                        device=dev)
+    compact_rows(il_valid, nincl, il_rows, il_v.to(torch.int32), cnew_rows,
+                 cnew_v, impl=p_)
+    new_valid = _iota(2 * w_cap, dev) < new_count
+
+    pos_new = searchsorted(old_rows, cnew_rows, True, p_) + _iota(
+        2 * w_cap, dev)
+    pos_old = idx_cap + rank_count(
+        searchsorted(old_rows, cnew_rows, False, p_), d_cap, p_)
+    new_size = kept_count + new_count
+    overflow = new_size > d_cap
+    old_dst = torch.where((idx_cap < kept_count) & ~overflow, pos_old, d_cap)
+    new_dst = torch.where(new_valid & ~overflow, pos_new, d_cap)
+    out_rows = scatter_set(max_rows(d_cap, dev), old_dst, old_rows)
+    out_rows = scatter_set(out_rows, new_dst, cnew_rows)
+    out_v = torch.full((d_cap,), NEG_INF, dtype=torch.int32, device=dev)
+    out_v = scatter_set(out_v, old_dst, old_v)
+    out_v = scatter_set(out_v, new_dst, cnew_v)
+    dk.copy_(torch.where(overflow, dk, out_rows))
+    dv.copy_(torch.where(overflow, dv, out_v))
+    dsize.copy_(torch.where(overflow, dsize, new_size))
+    flag.copy_(flag | overflow.to(torch.int32))
+    if tail is not None:
+        tail.copy_(torch.cat([flag, dsize, bsize]))
+
+
+def _point_insert_kernel(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel,
+                         flag, bsize, tail) -> None:
+    d_cap, u_pad = dk.shape[0], u_k.shape[0]
+    n2 = 2 * u_pad
+    dev = dk.device
+    e = dict(dtype=torch.int32, device=dev)
+    m_valid = torch.zeros((u_pad,), **e)
+    _k.launch("point_insert", "pi_mark", w_uidx.shape[0], w_uidx, w_ins,
+              u_pad, m_valid)
+    cont_v = torch.empty((u_pad,), **e)
+    present_end = torch.empty((u_pad,), **e)
+    hist_b = torch.zeros((d_cap + 1,), **e)
+    hist_e = torch.zeros((d_cap + 1,), **e)
+    _k.launch("point_insert", "pi_probe", dk, d_cap, dv, dsize, u_k, u_e,
+              m_valid, u_pad, cont_v, present_end, hist_b, hist_e)
+    cnt_b = inclusive_scan(hist_b[:d_cap])
+    cnt_e = inclusive_scan(hist_e[:d_cap])
+    keep = torch.empty((d_cap,), **e)
+    _k.launch("point_insert", "pi_keep", d_cap, dsize, cnt_b, cnt_e, keep)
+    kincl = inclusive_scan(keep)
+    old_rows = max_rows(d_cap, dev)
+    old_v = torch.full((d_cap,), NEG_INF, **e)
+    compact_rows(keep, kincl, dk, dv, old_rows, old_v)
+
+    il_valid = torch.empty((n2,), **e)
+    _k.launch("point_insert", "pi_il_valid", u_pad, m_valid, present_end,
+              il_valid)
+    nincl = inclusive_scan(il_valid)
+    cnew_rows = max_rows(n2, dev)
+    cnew_v = torch.full((n2,), NEG_INF, **e)
+    _k.launch("point_insert", "pi_il_compact", n2, il_valid, nincl, u_k, u_e,
+              cont_v, now_rel, cnew_rows, cnew_v)
+
+    pos_l = searchsorted(old_rows, cnew_rows, True)
+    cnt_o = rank_count(searchsorted(old_rows, cnew_rows, False), d_cap)
+    out_rows = max_rows(d_cap, dev)
+    out_v = torch.full((d_cap,), NEG_INF, **e)
+    _k.launch("point_insert", "pi_scatter_old", d_cap, kincl, nincl, n2,
+              cnt_o, old_rows, old_v, out_rows, out_v)
+    _k.launch("point_insert", "pi_scatter_new", d_cap, kincl, nincl, n2,
+              pos_l, cnew_rows, cnew_v, out_rows, out_v)
+    if bsize is None:
+        bsize = torch.zeros((1,), **e)
+    _k.launch("point_insert", "pi_commit", d_cap, kincl, nincl, n2,
+              out_rows, out_v, dk, dv, dsize, flag, bsize, tail)
+
+
+# ---------------------------------------------------------------------------
+# Programs
+# ---------------------------------------------------------------------------
+
+def make_resolve_step_compact(cap: int, d_cap: int, t_cap: int, r_pad: int,
+                              w_pad: int, u_pad: int, lw: int, impl=None):
+    """Per-batch step over the compact single-buffer point layout — the
+    production path for all_point batches (reference fused.py:251).
+
+    fn(bk, bv, table, size, dk, dv, dtable, dsize, flag, buf)
+      -> (dk, dv, dsize, flag, out)
+    buf is the packed batch (uint8, on the state's device); dk/dv/dsize/
+    flag are updated IN PLACE and returned; out = int8[t_cap + 12]
+    (codes, then flag / delta size / base size as int32 bytes).  `dtable`
+    is the delta table over the INPUT delta (delta_table_step)."""
+    lay = compact_layout(t_cap, r_pad, w_pad, u_pad, lw)
+
+    def step(bk, bv, table, size, dk, dv, dtable, dsize, flag, buf):
+        buf32 = buf.view(torch.int32)
+
+        def i32(name, n):
+            o = lay[name] // 4
+            return buf32[o:o + n]
+
+        ub = buf[lay["ubytes"]:lay["ubytes"] + u_pad * lw]
+        r_uid, w_uid = i32("r_uid", r_pad), i32("w_uid", w_pad)
+        r_start, w_start = i32("r_start", t_cap), i32("w_start", t_cap)
+        t_snap = i32("t_snap", t_cap)
+        t_flags = buf[lay["t_flags"]:lay["t_flags"] + t_cap]
+        scal = i32("scalars", COMPACT_SCALARS)
+
+        u_b, u_e = widen_unique(ub, scal, lw, u_pad, impl)
+        too_old, r_cnt, w_cnt = txn_prep(r_start, w_start, t_snap, t_flags,
+                                         scal, r_pad, w_pad, impl)
+        vmax_u = history_probe(bk, table, dk, dtable, u_b, u_e, impl)
+        rw = read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap,
+                             scal, vmax_u, u_pad, impl)
+        conflicted, _ = intra_batch_fixpoint(
+            rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"],
+            rw["w_txn"], rw["w_ok"], rw["w_slot"], u_pad, impl)
+        out = torch.empty((t_cap + OUT_EXTRA,), dtype=torch.int8,
+                          device=buf.device)
+        w_ins = batch_codes(scal, too_old, conflicted, rw["w_txn"],
+                            out[:t_cap], impl)
+        _point_insert(dk, dv, dsize, u_b, u_e, w_uid, w_ins, scal[4:5], flag,
+                      bsize=size, tail=out[t_cap:].view(torch.int32),
+                      impl=impl)
+        return dk, dv, dsize, flag, out
+
+    return step
+
+
+def make_merge_step(cap: int, d_cap: int, impl=None):
+    """The merge: overlay delta onto base + removeBefore GC + rebase +
+    base table + delta reset (reference fused.py:593).
+
+    fn(bk, bv, table, size, dk, dv, dsize, flag, scalars)
+      -> (bk, bv, table, size, dk, dv, dsize, flag), all updated IN PLACE.
+    scalars = (new_oldest_rel, rebase_delta), host ints.  The merged
+    sequence is placed in an s_cap = CAP + DCAP scratch before the base is
+    rewritten, since the placement reads bk."""
+    s_cap = cap + d_cap
+
+    def merge(bk, bv, table, size, dk, dv, dsize, flag, scalars):
+        new_oldest_rel, rebase_delta = int(scalars[0]), int(scalars[1])
+        if _k.use_kernel(bk, impl):
+            _merge_kernel(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
+                          rebase_delta, s_cap)
+        else:
+            _merge_plain(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
+                         rebase_delta, s_cap)
+        build_sparse_table(bv, out=table, impl=impl)
+        return bk, bv, table, size, dk, dv, dsize, flag
+
+    return merge
+
+
+def _merge_plain(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
+                 rebase_delta, s_cap) -> None:
+    cap, d_cap = bk.shape[0], dk.shape[0]
+    dev = bk.device
+    p_ = "plain"
+    idx_b, idx_d = _iota(cap, dev), _iota(d_cap, dev)
+    live_b = idx_b < size
+    live_d = idx_d < dsize
+
+    # Pointwise-max values at every boundary of either tier (where delta
+    # covers a key its version is newer than base's, so max == overlay).
+    pl = searchsorted(bk, dk, True, p_)
+    pr = searchsorted(bk, dk, False, p_)
+    slot_db = torch.clamp(rank_count(pl, cap, p_) - 1, 0, d_cap - 1)
+    v_b = torch.maximum(bv, dv[slot_db.long()])
+    slot_bd = torch.clamp(pr - 1, 0, cap - 1)
+    v_d = torch.maximum(dv, bv[slot_bd.long()])
+
+    # Dedup: a base boundary with an equal live delta boundary is dropped.
+    p = rank_count(pr, cap, p_)
+    dup_b = (p < dsize) & lex_eq(dk[torch.clamp(p, max=d_cap - 1).long()],
+                                 bk)
+    keep_b = live_b & ~dup_b
+
+    # Merged-order positions via cross ranks.
+    rank_b = inclusive_scan(keep_b.to(torch.int32), p_) - 1
+    d_before = torch.minimum(p, dsize)
+    pos_b = torch.where(keep_b, rank_b + d_before, s_cap)
+    b_before_raw = torch.minimum(pl, size)
+    drop_prefix = inclusive_scan(dup_b.to(torch.int32), p_)
+    drops_before = torch.where(
+        b_before_raw > 0,
+        drop_prefix[torch.clamp(b_before_raw - 1, 0, cap - 1).long()], 0)
+    pos_d = torch.where(live_d, idx_d + b_before_raw - drops_before, s_cap)
+
+    s_rows = max_rows(s_cap, dev)
+    sv = torch.full((s_cap,), NEG_INF, dtype=torch.int32, device=dev)
+    scatter_set(s_rows, pos_b, bk)
+    scatter_set(sv, pos_b, torch.where(keep_b, v_b, NEG_INF))
+    scatter_set(s_rows, pos_d, dk)
+    scatter_set(sv, pos_d, torch.where(live_d, v_d, NEG_INF))
+    m_size = keep_b.sum(dtype=torch.int32) + live_d.sum(dtype=torch.int32)
+
+    # removeBefore GC (SkipList.cpp:576 wasAbove: drop a boundary when it
+    # and its predecessor are both below the floor) + version rebase.
+    idx_s = _iota(s_cap, dev)
+    live_s = idx_s < m_size
+    above = sv >= new_oldest_rel
+    prev_above = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                            above[:-1]])
+    keep_s = (live_s & ((idx_s == 0) | above | prev_above)).to(torch.int32)
+    ks_incl = inclusive_scan(keep_s, p_)
+    final_size = ks_incl[-1]
+    out_rows = max_rows(cap, dev)
+    out_v = torch.full((cap,), NEG_INF, dtype=torch.int32, device=dev)
+    compact_rows(keep_s, ks_incl, s_rows, sv, out_rows, out_v,
+                 rebase=rebase_delta, impl=p_)
+    bk.copy_(out_rows)
+    bv.copy_(out_v)
+    # On overflow the state is poisoned (entries dropped); the sticky flag
+    # makes every later wait() fail loudly rather than mis-verdict.
+    flag.copy_(flag | (final_size > cap).to(torch.int32))
+    size.copy_(torch.clamp(final_size, max=cap))
+    fresh = make_delta_state(d_cap, dev)
+    dk.copy_(fresh.bk)
+    dv.copy_(fresh.bv)
+    dsize.copy_(fresh.size)
+
+
+def _merge_kernel(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
+                  rebase_delta, s_cap) -> None:
+    cap, d_cap = bk.shape[0], dk.shape[0]
+    dev = bk.device
+    e = dict(dtype=torch.int32, device=dev)
+    hist_l = torch.zeros((cap + 1,), **e)
+    hist_r = torch.zeros((cap + 1,), **e)
+    v_d = torch.empty((d_cap,), **e)
+    bbr = torch.empty((d_cap,), **e)
+    _k.launch("merge", "mg_probe_delta", d_cap, dk, bk, cap, bv, dv, size,
+              hist_l, hist_r, v_d, bbr)
+    cnt_l = inclusive_scan(hist_l[:cap])
+    p = inclusive_scan(hist_r[:cap])
+    keep_b = torch.empty((cap,), **e)
+    dup_b = torch.empty((cap,), **e)
+    v_b = torch.empty((cap,), **e)
+    _k.launch("merge", "mg_base", cap, bk, bv, dk, dv, d_cap, size, dsize,
+              cnt_l, p, keep_b, dup_b, v_b)
+    kb_incl = inclusive_scan(keep_b)
+    drop_prefix = inclusive_scan(dup_b)
+    s_rows = max_rows(s_cap, dev)
+    sv = torch.full((s_cap,), NEG_INF, **e)
+    _k.launch("merge", "mg_place_base", cap, keep_b, kb_incl, p, dsize, bk,
+              v_b, s_cap, s_rows, sv)
+    _k.launch("merge", "mg_place_delta", d_cap, dsize, bbr, drop_prefix, cap,
+              dk, v_d, s_cap, s_rows, sv)
+    keep_s = torch.empty((s_cap,), **e)
+    _k.launch("merge", "mg_gc_mask", s_cap, kb_incl, cap, dsize, d_cap, sv,
+              new_oldest_rel, keep_s)
+    ks_incl = inclusive_scan(keep_s)
+    # Everything that reads the old base and delta has been enqueued:
+    # refill both and compact the merged sequence into the base.
+    _k.launch("merge", "mg_reset", cap, bk, bv, d_cap, dk, dv)
+    compact_rows(keep_s, ks_incl, s_rows, sv, bk, bv, rebase=rebase_delta)
+    _k.launch("merge", "mg_finish", ks_incl, s_cap, cap, size, dsize, flag)

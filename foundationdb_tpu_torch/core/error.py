@@ -1,0 +1,29 @@
+"""Error codes (trimmed to what the conflict path raises).
+
+Mirrors the reference's flow/error_definitions.h error-code contract."""
+
+from __future__ import annotations
+
+
+class FdbError(Exception):
+    """An error with a FoundationDB-compatible numeric code."""
+
+    def __init__(self, code: int, name: str = "", message: str = ""):
+        self.code = code
+        self.name = name or _CODE_TO_NAME.get(code, f"error_{code}")
+        super().__init__(message or self.name)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"FdbError({self.code}, {self.name!r})"
+
+
+ERROR_CODES = {
+    "inverted_range": 2005,
+    "internal_error": 4100,
+}
+
+_CODE_TO_NAME = {v: k for k, v in ERROR_CODES.items()}
+
+
+def err(name: str, message: str = "") -> FdbError:
+    return FdbError(ERROR_CODES[name], name, message)

@@ -1,0 +1,120 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, it
+never falls back to the CPU on its own, and it refuses the batches whose
+path is not ported yet instead of detouring them."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_MODULES = [
+    "foundationdb_tpu_torch", "foundationdb_tpu_torch.kernels",
+    "foundationdb_tpu_torch.conflict.torch_backend",
+    "foundationdb_tpu_torch.conflict.fused",
+    "foundationdb_tpu_torch.conflict.oracle",
+    "foundationdb_tpu_torch.conflict.encoded",
+    "foundationdb_tpu_torch.ops.digest", "foundationdb_tpu_torch.ops.scan",
+    "foundationdb_tpu_torch.ops.rangemax", "chip_smoke"]
+
+
+def test_port_imports_no_jax():
+    """In a fresh interpreter, importing every port module (and
+    chip_smoke) loads no jax and no foundationdb_tpu module."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'foundationdb_tpu' or "
+        "m.startswith('foundationdb_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_device_raises_without_cuda(monkeypatch):
+    from foundationdb_tpu_torch.conflict.api import new_conflict_set
+    from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchConflictSet()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        new_conflict_set("torch")
+    assert TorchConflictSet(device="cpu").device.type == "cpu"
+    assert isinstance(new_conflict_set("cpu"), OracleConflictSet)
+    with pytest.raises(ValueError):
+        new_conflict_set("tpu")
+
+
+def test_kernel_impl_needs_a_cuda_tensor():
+    """impl="kernel" on a CPU tensor raises instead of running the plain
+    version; an unknown impl raises too."""
+    from foundationdb_tpu_torch.ops.scan import inclusive_scan
+    x = torch.ones(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        inclusive_scan(x, impl="kernel")
+    with pytest.raises(ValueError):
+        inclusive_scan(x, impl="fast")
+    assert inclusive_scan(x).tolist() == list(range(1, 9))
+
+
+def test_general_interval_batch_raises():
+    """A range read (not all_point) needs the general interval path."""
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
+    cs = TorchConflictSet(device="cpu", capacity=1 << 10)
+    txn = CommitTransactionRef(read_conflict_ranges=[KeyRange(b"a", b"c")],
+                               write_conflict_ranges=[KeyRange(b"a",
+                                                               b"a\x00")],
+                               read_snapshot=0)
+    with pytest.raises(NotImplementedError, match="general interval path"):
+        cs.resolve([txn], 10)
+
+
+def test_digest_adjacent_writes_raise():
+    """Point batches that _pack_compact rejects (two written keys whose
+    digests are adjacent: k and k + b"\\x00") raise as well."""
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
+    cs = TorchConflictSet(device="cpu", capacity=1 << 10)
+    txns = [CommitTransactionRef(write_conflict_ranges=[KeyRange(k, k + b"\0")])
+            for k in (b"k", b"k\x00")]
+    with pytest.raises(NotImplementedError):
+        cs.resolve(txns, 10)
+    # The same keys in separate batches are fine.
+    assert [int(v) for v in cs.resolve(txns[:1], 20)] == [2]
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """chip_smoke.py in a directory without the rest of the repository
+    exits non-zero and prints no result line."""
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_sources_name_no_jax():
+    """No source file of the port imports jax or the JAX package."""
+    pkg = os.path.join(REPO, "foundationdb_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            text = open(os.path.join(root, f)).read()
+            for line in text.splitlines():
+                s = line.strip()
+                if s.startswith(("import ", "from ")):
+                    assert "jax" not in s, (f, s)
+                    assert "foundationdb_tpu" not in s.replace(
+                        "foundationdb_tpu_torch", ""), (f, s)

@@ -1,0 +1,314 @@
+"""Every CUDA kernel of the port against its plain-torch version, on the card.
+
+Marked `cuda`: each test asks for the `dev` fixture, which skips when no
+CUDA device is present (this file runs on a GPU machine, where
+JAX is not installed, so it imports only numpy, torch and the port).  All
+data is integer, so every comparison is exact (tolerance 0).
+
+Run on the card: python -m pytest -m cuda tests/test_torch_kernels.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from foundationdb_tpu_torch import kernels as K
+from foundationdb_tpu_torch.conflict import fused
+from foundationdb_tpu_torch.conflict.encoded import EncodedBatch
+from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+from foundationdb_tpu_torch.conflict.torch_backend import (TorchConflictSet,
+                                                           state_to_numpy)
+from foundationdb_tpu_torch.ops import digest, rangemax, scan
+from foundationdb_tpu_torch.ops.rangemax import NEG_INF
+from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
+
+pytestmark = pytest.mark.cuda
+
+KEYSPACE = 6000
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only there)")
+    K.build()
+    return torch.device("cuda")
+
+
+def same(got, want):
+    if isinstance(got, (tuple, list)):
+        for g, w in zip(got, want):
+            same(g, w)
+        return
+    if isinstance(got, dict):
+        for k in got:
+            same(got[k], want[k])
+        return
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu().long(), want.cpu().long())
+
+
+def key_digests(kids) -> np.ndarray:
+    kids = np.asarray(kids, dtype=np.int64)
+    mat = np.empty((kids.size, 15), dtype=np.uint8)
+    mat[:, 0] = ord("k")
+    x = kids.copy()
+    for d in range(14):
+        mat[:, 14 - d] = 48 + x % 10
+        x //= 10
+    return digest.encode_fixed(mat)
+
+
+def sorted_rows(rng, n: int, cap: int, edge=False) -> torch.Tensor:
+    """All-keys boundary + n distinct point boundaries, MAX-padded rows."""
+    if edge:
+        lanes = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
+                          0xFFFFFFFF], np.uint32)
+        d = lanes[rng.integers(0, lanes.size, size=(8, n))]
+    else:
+        d = key_digests(rng.choice(KEYSPACE, size=n, replace=False))
+        d[7] += rng.integers(0, 2, size=n).astype(np.uint32)
+    s = np.unique(digest.planar_to_s24(d))[:cap - 1]
+    planar = s.view(np.uint8).reshape(-1, 32).view(">u4").astype(np.uint32).T
+    out = digest.max_digest_block(cap)
+    out[:, 0] = 0
+    out[:, 1:1 + planar.shape[1]] = planar
+    return torch.from_numpy(digest.planar_to_rows(out)), 1 + planar.shape[1]
+
+
+def make_state(dev, seed=1, cap=1 << 12, d_cap=1 << 10, live_b=2000,
+               live_d=300, flag=0) -> dict:
+    rng = np.random.default_rng(seed)
+    bk, size = sorted_rows(rng, live_b, cap)
+    dk, dsize = sorted_rows(rng, live_d, d_cap)
+    bv = torch.full((cap,), NEG_INF, dtype=torch.int32)
+    bv[:size] = torch.from_numpy(rng.integers(0, 4000, size=size,
+                                              dtype=np.int32))
+    dv = torch.full((d_cap,), NEG_INF, dtype=torch.int32)
+    dv[1:dsize] = torch.from_numpy(rng.integers(4000, 6000, size=dsize - 1,
+                                                dtype=np.int32))
+    st = {"bk": bk, "bv": bv, "size": torch.tensor([size], dtype=torch.int32),
+          "dk": dk, "dv": dv,
+          "dsize": torch.tensor([dsize], dtype=torch.int32),
+          "flag": torch.tensor([flag], dtype=torch.int32)}
+    st["table"] = rangemax.build_sparse_table(bv)
+    st["dtable"] = rangemax.build_sparse_table(dv)
+    return {k: v.to(dev) for k, v in st.items()}
+
+
+def copy(st):
+    return {k: v.clone() for k, v in st.items()}
+
+
+def packed_batch(seed, n_txns=3000, now=7000, oldest=2500):
+    """A point batch over the state's keyspace, packed and stamped."""
+    rng = np.random.default_rng(seed)
+    kids = rng.zipf(1.2, size=3 * n_txns) % KEYSPACE
+    d = key_digests(kids)
+    e = d.copy()
+    e[7] += 1
+    nr = 2 * n_txns
+    enc = EncodedBatch(
+        n_txns=n_txns,
+        t_snap=rng.integers(oldest - 500, now, size=n_txns).astype(np.int64),
+        t_has_reads=np.ones(n_txns, bool),
+        r_txn=np.arange(nr, dtype=np.int32) // 2, r_begin=d[:, :nr],
+        r_end=e[:, :nr], w_txn=np.arange(n_txns, dtype=np.int32),
+        w_begin=d[:, nr:], w_end=e[:, nr:], all_point=True)
+    packed = TorchConflictSet._pack_compact(enc)
+    meta = packed["meta"]
+    meta[packed["snap_off"]:packed["snap_off"] + n_txns] = enc.t_snap
+    meta[packed["scalar_off"]:packed["scalar_off"] + 2] = (now, oldest)
+    return packed
+
+
+def step_inputs(dev, packed):
+    t_cap, r_pad, w_pad, u_pad, lw = packed["shapes"]
+    lay = fused.compact_layout(t_cap, r_pad, w_pad, u_pad, lw)
+    buf = torch.from_numpy(packed["buf"]).to(dev)
+    b32 = buf.view(torch.int32)
+
+    def i32(name, n):
+        return b32[lay[name] // 4:lay[name] // 4 + n]
+
+    return {"buf": buf, "ub": buf[:u_pad * lw], "r_uid": i32("r_uid", r_pad),
+            "w_uid": i32("w_uid", w_pad), "r_start": i32("r_start", t_cap),
+            "w_start": i32("w_start", t_cap), "t_snap": i32("t_snap", t_cap),
+            "t_flags": buf[lay["t_flags"]:lay["t_flags"] + t_cap],
+            "scal": i32("scalars", fused.COMPACT_SCALARS),
+            "shapes": packed["shapes"]}
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 << 20])
+def test_inclusive_scan(dev, n):
+    x = torch.randint(-3, 4, (n,), dtype=torch.int32, device=dev)
+    same(scan.inclusive_scan(x), scan.inclusive_scan(x, impl="plain"))
+
+
+def test_rank_count(dev):
+    pos = torch.randint(-5, 70000, (200000,), dtype=torch.int32, device=dev)
+    for out_len in (1, 1000, 65536):
+        same(digest.rank_count(pos, out_len),
+             digest.rank_count(pos, out_len, impl="plain"))
+
+
+@pytest.mark.parametrize("rebase", [None, 0, 100, -(1 << 31) + 5])
+def test_compact_rows(dev, rebase):
+    n = 100000
+    keep = (torch.rand(n, device=dev) < 0.6).to(torch.int32)
+    incl = scan.inclusive_scan(keep)
+    rows = torch.randint(-(1 << 31), (1 << 31) - 1, (n, 8),
+                         dtype=torch.int32, device=dev)
+    vals = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), dtype=torch.int32,
+                         device=dev)
+    vals[:10] = NEG_INF
+    outs = []
+    for impl in (None, "plain"):
+        dr = torch.full((n // 2, 8), -1, dtype=torch.int32, device=dev)
+        dv = torch.full((n // 2,), 7, dtype=torch.int32, device=dev)
+        scan.compact_rows(keep, incl, rows, vals, dr, dv, rebase=rebase,
+                          impl=impl)
+        outs.append((dr, dv))
+    same(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("cap", [1, 2, 1024, 1 << 20])
+def test_build_sparse_table(dev, cap):
+    v = torch.randint(-(1 << 31) + 1, (1 << 31) - 1, (cap,),
+                      dtype=torch.int32, device=dev)
+    same(rangemax.build_sparse_table(v),
+         rangemax.build_sparse_table(v, impl="plain"))
+
+
+@pytest.mark.parametrize("edge", [False, True])
+def test_searchsorted_and_history(dev, edge):
+    rng = np.random.default_rng(3)
+    bk, _ = sorted_rows(rng, 2000, 4096, edge)
+    dk, _ = sorted_rows(rng, 300, 1024, edge)
+    bk, dk = bk.to(dev), dk.to(dev)
+    q = torch.cat([bk[torch.randint(0, 4096, (3000,))],
+                   dk[torch.randint(0, 1024, (1000,))],
+                   torch.randint(-(1 << 31), (1 << 31) - 1, (500, 8),
+                                 dtype=torch.int32).to(dev)])
+    for left in (True, False):
+        for table in (bk, dk):
+            same(digest.searchsorted(table, q, left),
+                 digest.searchsorted(table, q, left, impl="plain"))
+    qe = q.clone()
+    qe[:, 7] += 1
+    bv = torch.randint(-100, 5000, (4096,), dtype=torch.int32, device=dev)
+    dv = torch.randint(-100, 5000, (1024,), dtype=torch.int32, device=dev)
+    bt, dt = rangemax.build_sparse_table(bv), rangemax.build_sparse_table(dv)
+    same(digest.history_probe(bk, bt, dk, dt, q, qe),
+         digest.history_probe(bk, bt, dk, dt, q, qe, impl="plain"))
+
+
+def test_step_blocks(dev):
+    """widen_unique, txn_prep, read_write_prep, the fixpoint and the codes,
+    each on the plain version's inputs."""
+    st = make_state(dev)
+    x = step_inputs(dev, packed_batch(4))
+    t_cap, r_pad, w_pad, u_pad, lw = x["shapes"]
+    P = "plain"
+    ub = digest.widen_unique(x["ub"], x["scal"], lw, u_pad, P)
+    same(digest.widen_unique(x["ub"], x["scal"], lw, u_pad), ub)
+    prep = fused.txn_prep(x["r_start"], x["w_start"], x["t_snap"],
+                          x["t_flags"], x["scal"], r_pad, w_pad, P)
+    same(fused.txn_prep(x["r_start"], x["w_start"], x["t_snap"],
+                        x["t_flags"], x["scal"], r_pad, w_pad), prep)
+    too_old, r_cnt, w_cnt = prep
+    vmax = digest.history_probe(st["bk"], st["table"], st["dk"],
+                                st["dtable"], *ub, P)
+    rw = fused.read_write_prep(x["r_uid"], x["w_uid"], r_cnt, w_cnt, too_old,
+                               x["t_snap"], x["scal"], vmax, u_pad, P)
+    same(fused.read_write_prep(x["r_uid"], x["w_uid"], r_cnt, w_cnt,
+                               too_old, x["t_snap"], x["scal"], vmax, u_pad),
+         rw)
+    args = (rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"], rw["w_txn"],
+            rw["w_ok"], rw["w_slot"], u_pad)
+    conf, rounds = fused.intra_batch_fixpoint(*args, impl=P)
+    got, got_rounds = fused.intra_batch_fixpoint(*args)
+    same(got, conf)
+    assert int(got_rounds[0]) == int(rounds[0]) >= 2
+    codes = [torch.empty((t_cap,), dtype=torch.int8, device=dev)
+             for _ in range(2)]
+    w_ins = fused.batch_codes(x["scal"], too_old, conf, rw["w_txn"], codes[0],
+                              P)
+    same(fused.batch_codes(x["scal"], too_old, conf, rw["w_txn"], codes[1]),
+         w_ins)
+    same(codes[1], codes[0])
+    assert {0, 1, 2} <= set(codes[0][:3000].tolist())
+
+
+@pytest.mark.parametrize("d_cap,live_d,flag", [(1 << 10, 300, 0),
+                                               (1 << 10, 1000, 0),
+                                               (1 << 12, 300, 1)])
+def test_resolve_step_program(dev, d_cap, live_d, flag):
+    """The whole per-batch program, kernel against plain, on state copies;
+    the second case overflows the delta (old delta kept, flag set)."""
+    st = make_state(dev, d_cap=d_cap, live_d=live_d, flag=flag)
+    packed = packed_batch(5)
+    outs = []
+    for impl in (None, "plain"):
+        s = copy(st)
+        step = fused.make_resolve_step_compact(1 << 12, d_cap,
+                                               *packed["shapes"], impl=impl)
+        buf = torch.from_numpy(packed["buf"]).to(dev)
+        outs.append(step(s["bk"], s["bv"], s["table"], s["size"], s["dk"],
+                         s["dv"], s["dtable"], s["dsize"], s["flag"], buf))
+    same(outs[0], outs[1])
+    assert int(outs[0][3][0]) == (1 if flag or live_d == 1000 else 0)
+
+
+@pytest.mark.parametrize("floor,rebase,live_b", [(0, 0, 2000),
+                                                 (3500, 1500, 2000),
+                                                 (-(1 << 31) + 2, 100, 2000),
+                                                 (0, 0, 4000)])
+def test_merge_program(dev, floor, rebase, live_b):
+    """The merge, kernel against plain: GC, rebase (at the wrap edge in
+    the third case) and base overflow (the fourth)."""
+    st = make_state(dev, live_b=live_b)
+    st["bv"][0] = NEG_INF + 5
+    outs = []
+    for impl in (None, "plain"):
+        s = copy(st)
+        m = fused.make_merge_step(1 << 12, 1 << 10, impl=impl)
+        outs.append(m(s["bk"], s["bv"], s["table"], s["size"], s["dk"],
+                      s["dv"], s["dsize"], s["flag"], (floor, rebase)))
+    same(outs[0], outs[1])
+    assert int(outs[0][7][0]) == (live_b == 4000)
+
+
+def test_backend_stream_kernels_equal_plain_and_oracle(dev):
+    """TorchConflictSet on the card, kernels against impl="plain" at state
+    level and against the oracle, over a stream that crosses merges, a
+    delta growth and a clear()."""
+    rng = np.random.default_rng(8)
+    kw = dict(capacity=1 << 14, delta_capacity=1 << 10, gc_interval_batches=3,
+              device=dev)
+    kern, plain = TorchConflictSet(0, **kw), TorchConflictSet(0, impl="plain",
+                                                               **kw)
+    oracle = OracleConflictSet(0)
+    version = 1000
+    for i, n in enumerate([400, 400, 600, 400, 0, 400, 400]):
+        if n == 0:
+            for cs in (kern, plain, oracle):
+                cs.clear(version)
+            continue
+        prev, version = version, version + 1000
+        kids = rng.zipf(1.2, size=2 * n) % 5000
+        keys = [b"k%014d" % int(k) for k in kids]
+        snaps = np.maximum(prev - rng.integers(0, 2000, size=n), 0)
+        txns = [CommitTransactionRef(
+            read_conflict_ranges=[KeyRange(keys[t], keys[t] + b"\x00")],
+            write_conflict_ranges=[KeyRange(keys[n + t], keys[n + t] + b"\0")],
+            read_snapshot=int(snaps[t])) for t in range(n)]
+        floor = max(version - 5000, 0)
+        a = [int(v) for v in kern.resolve(txns, version, floor)]
+        b = [int(v) for v in plain.resolve(txns, version, floor)]
+        c = [int(v) for v in oracle.resolve(txns, version, floor)]
+        assert a == b == c, i
+        sa, sb = state_to_numpy(kern), state_to_numpy(plain)
+        for k in sa:
+            assert np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])), k
+    assert kern.profile["merges"] >= 2
