@@ -15,14 +15,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   2. every kernel wrapper, and the three device programs, through the
      kernel and through its plain-torch version on the card on identical
      inputs at the main path's shapes: outputs must be bit-equal (all of
-     it is integer data; tolerance 0); times by CUDA events;
+     it is integer data; tolerance 0); times by CUDA events (a wrapper's
+     row: the device time of its own launches, without host gaps);
   3. the main path: 3 warmup batches, 10 measured at pipeline depth 8
      (crossing merges), 8 at depth 1 for the p50 (and host packing alone
      on the same batches); verdict parity against the oracle on 2
-     high-contention batches and against PointOracle (held equal to the
-     oracle on those batches first) on 2 low-contention batches; state
-     equality of the kernel path against impl="plain" over a short stream
-     that crosses a merge;
+     high-contention batches and on 2 low-contention batches of 10K txns,
+     and against PointOracle (held equal to the oracle on all of those
+     first) on 2 full-size low-contention batches; state equality of the
+     kernel path against impl="plain" over a short stream that crosses a
+     merge;
   4. the kernels line (launch counts of the main path's run, all > 0);
   5. the last line: {"ok": true, "device": {...}}.
 
@@ -50,8 +52,10 @@ CAPACITY = 1 << 21
 DELTA_CAPACITY = 1 << 20
 N_WARMUP, N_MEASURED, N_LATENCY, DEPTH = 3, 10, 8, 8
 N_PARITY, N_LOWC = 2, 2
+N_LOWC_SMALL, N_LOWC_SMALL_TXNS = 2, 10_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 REPS = 5
+BACKLOG_CYCLES = 50_000_000  # ~25 ms of sleep at the H100's ~2 GHz
 DEVICE = "cuda"
 
 
@@ -60,12 +64,12 @@ def log(msg: str) -> None:
 
 
 # ---------------------------------------------------------------- workload
-def gen_batch(rng, prev: int, keyspace: int, zipf: bool):
+def gen_batch(rng, prev: int, keyspace: int, zipf: bool, txns: int = TXNS):
     """The bench's config-2 batch (bench.py gen_batch): columns + the key
     ids and snapshots the oracle's object form is built from."""
     from foundationdb_tpu_torch.conflict.encoded import EncodedBatch
     from foundationdb_tpu_torch.ops.digest import encode_fixed
-    n = TXNS * (READS + 1)
+    n = txns * (READS + 1)
     if zipf:
         kids = (rng.zipf(1.2, size=n) % keyspace).astype(np.int64)
     else:
@@ -78,16 +82,16 @@ def gen_batch(rng, prev: int, keyspace: int, zipf: bool):
         mat[:, 14 - d] = 48 + x % 10
         x //= 10
     snaps = np.maximum(prev - rng.integers(0, 2 * VERSIONS_PER_BATCH,
-                                           size=TXNS), 0)
-    nr = TXNS * READS
+                                           size=txns), 0)
+    nr = txns * READS
     begin = encode_fixed(mat[:, :15])
     end = encode_fixed(mat)
     enc = EncodedBatch(
-        n_txns=TXNS, t_snap=snaps.astype(np.int64),
-        t_has_reads=np.ones((TXNS,), dtype=bool),
+        n_txns=txns, t_snap=snaps.astype(np.int64),
+        t_has_reads=np.ones((txns,), dtype=bool),
         r_txn=np.arange(nr, dtype=np.int32) // READS,
         r_begin=begin[:, :nr], r_end=end[:, :nr],
-        w_txn=np.arange(TXNS, dtype=np.int32),
+        w_txn=np.arange(txns, dtype=np.int32),
         w_begin=begin[:, nr:], w_end=end[:, nr:], all_point=True)
     return enc, kids, snaps
 
@@ -95,12 +99,13 @@ def gen_batch(rng, prev: int, keyspace: int, zipf: bool):
 def to_transactions(kids, snaps):
     from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
     keys = [b"k%014d" % int(k) for k in kids]
-    nr = TXNS * READS
+    txns = len(snaps)
+    nr = txns * READS
     return [CommitTransactionRef(
         read_conflict_ranges=[KeyRange(k, k + b"\x00") for k in
                               keys[t * READS:(t + 1) * READS]],
         write_conflict_ranges=[KeyRange(keys[nr + t], keys[nr + t] + b"\x00")],
-        read_snapshot=int(snaps[t])) for t in range(TXNS)]
+        read_snapshot=int(snaps[t])) for t in range(txns)]
 
 
 class PointOracle:
@@ -110,8 +115,9 @@ class PointOracle:
     scan over every earlier surviving write (quadratic in a batch's
     survivors: hours for a 100K-txn batch that mostly commits) becomes one
     membership test.  History, insertion and GC are the oracle copy's own
-    VersionHistory.  It is held equal to OracleConflictSet itself on the
-    high-contention batches before it judges the low-contention ones."""
+    VersionHistory.  It is held equal to OracleConflictSet itself, on
+    high-contention batches and on smaller low-contention ones, before it
+    judges the full-size low-contention batches."""
 
     def __init__(self):
         from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
@@ -122,10 +128,11 @@ class PointOracle:
             combine_write_ranges
         o, hist = self._o, self._o.history
         keys = [b"k%014d" % int(k) for k in kids]
-        nr = TXNS * READS
-        codes = np.full((TXNS,), 2, dtype=np.int8)
+        txns = len(snaps)
+        nr = txns * READS
+        codes = np.full((txns,), 2, dtype=np.int8)
         written, survivors = set(), []
-        for t in range(TXNS):
+        for t in range(txns):
             snap = int(snaps[t])
             if snap < o.oldest_version:          # every txn reads
                 codes[t] = 1
@@ -145,11 +152,11 @@ class PointOracle:
         return codes
 
 
-def make_stream(rng, count: int, keyspace=KEYSPACE, zipf=True):
+def make_stream(rng, count: int, keyspace=KEYSPACE, zipf=True, txns=TXNS):
     out, version = [], 1_000
     for _ in range(count):
         prev, version = version, version + VERSIONS_PER_BATCH
-        out.append((version, *gen_batch(rng, prev, keyspace, zipf)))
+        out.append((version, *gen_batch(rng, prev, keyspace, zipf, txns)))
     return out
 
 
@@ -159,8 +166,9 @@ def floor(v: int) -> int:
 
 # ------------------------------------------------------------- measurement
 def cuda_ms(fn, reps: int = REPS, setup=None) -> float:
-    """Mean device milliseconds of fn() over reps, by CUDA events; setup()
-    runs before each rep, outside the timed span."""
+    """Mean milliseconds of fn() on the device's timeline over reps, by
+    CUDA events around the call (host gaps between its launches included);
+    setup() runs before each rep, outside the timed span."""
     import torch
     total = 0.0
     for _ in range(reps):
@@ -172,6 +180,48 @@ def cuda_ms(fn, reps: int = REPS, setup=None) -> float:
         b.record()
         b.synchronize()
         total += a.elapsed_time(b)
+    return total / reps
+
+
+def device_ms(fn, reps: int = REPS, setup=None, counter=None) -> float:
+    """Mean device milliseconds per call of fn(), without host gaps: a
+    sleep kernel holds the stream while the host enqueues the call, so
+    every launch is queued before the card reaches it (a rep whose sleep
+    ended first is taken again with a longer sleep).  With `counter`, the
+    time is the sum over the launches counted under that name, each
+    bracketed by its own pair of events (kernels.timed_launches), so a
+    wrapper's row holds its own kernels and not those of the wrappers it
+    calls; without, it is the whole call."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    total, cycles = 0.0, BACKLOG_CYCLES
+    for _ in range(reps):
+        for _attempt in range(4):
+            if setup is not None:
+                setup()
+            torch.cuda._sleep(cycles)
+            held = torch.cuda.Event()
+            held.record()
+            a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+            with K.timed_launches() as timed:
+                a.record()
+                fn()
+                b.record()
+            backlogged = not held.query()
+            torch.cuda.synchronize()
+            if backlogged:
+                break
+            cycles *= 4
+        else:
+            raise AssertionError("the host could not enqueue one call "
+                                 "within the stream's sleep")
+        if counter is None:
+            total += a.elapsed_time(b)
+            continue
+        pairs = timed.get(counter, [])
+        if not pairs:
+            raise AssertionError(f"{counter}: no launch under its counter")
+        total += sum(s.elapsed_time(e) for s, e in pairs)
     return total / reps
 
 
@@ -328,10 +378,12 @@ def compare_kernels(cs, packed, buf):
                   max(cs.oldest_version - cs.version_base, 0)))
 
     # Least bytes of the history probe: the unique keys in, the maxima
-    # out, the table rows a batch of searches touches, two range-max
-    # gathers per key and tier.
-    probe_bytes = (nbytes(u_b, u_e, vmax) + 2 * search_bytes(cs.bk, u_pad)
-                   + 2 * search_bytes(cs.dk, u_pad) + 4 * 4 * u_pad)
+    # out, the table rows a batch of searches touches in each tier (once:
+    # a key's begin and end searches walk the same rows, since no row lies
+    # between b and its successor e but b itself), two range-max gathers
+    # per key and tier.
+    probe_bytes = (nbytes(u_b, u_e, vmax) + search_bytes(cs.bk, u_pad)
+                   + search_bytes(cs.dk, u_pad) + 4 * 4 * u_pad)
     # name -> (fn(impl) -> outputs, bytes bound, library call or None);
     # stateful cases get a fresh copy of the state per call.
     cases = {
@@ -372,11 +424,14 @@ def compare_kernels(cs, packed, buf):
         "batch_codes": (
             lambda i: _codes(fused, scal, too_old, conf, rw["w_txn"], i),
             nbytes(too_old, conf, rw["w_txn"], codes, w_ins), None),
+        # The pi_* kernels: the batch's keys and verdicts in, the delta
+        # read and rewritten (its scans and searches are rows of their own).
         "point_insert": ("insert", nbytes(cs.dk, cs.dv, u_b, u_e, w_uid,
                                           w_ins) + nbytes(cs.dk, cs.dv),
                          None),
-        "merge": ("merge", nbytes(cs.bk, cs.bv, cs.dk, cs.dv)
-                  + nbytes(cs.bk, cs.bv, cs.table, cs.dk, cs.dv), None),
+        # The mg_* kernels: base and delta in, the merged base and the reset
+        # delta out (the base table is build_sparse_table's row).
+        "merge": ("merge", 2 * nbytes(cs.bk, cs.bv, cs.dk, cs.dv), None),
     }
     stateful = {"insert": insert_run, "merge": merge_run}
     from foundationdb_tpu_torch import kernels as K
@@ -397,15 +452,15 @@ def compare_kernels(cs, packed, buf):
             setup_p = state_copy()
             want = run("plain", setup_p)
             err = require_equal(name, got, want)
-            ms = cuda_ms(lambda: go("kernel"), setup=setup)
+            ms = device_ms(lambda: go("kernel"), setup=setup, counter=name)
             plain = cuda_ms(lambda: go("plain"), reps=2, setup=setup)
         else:
             got = fn("kernel")
             want = fn("plain")
             err = require_equal(name, got, want)
-            ms = cuda_ms(lambda: fn("kernel"))
+            ms = device_ms(lambda: fn("kernel"), counter=name)
             plain = cuda_ms(lambda: fn("plain"), reps=2)
-        lib = cuda_ms(library) if library is not None else None
+        lib = device_ms(library) if library is not None else None
         src, ref = K.KERNELS[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"foundationdb_tpu_torch/csrc/{src}.cu",
@@ -413,8 +468,8 @@ def compare_kernels(cs, packed, buf):
                      "ms": ms, "plain_ms": plain,
                      "bound_ms": bound_ms(n_bytes), "bound_by": "bytes",
                      "library_ms": lib})
-        log(f"{name}: bit-equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bound_ms(n_bytes):.4f} ms")
+        log(f"{name}: bit-equal; own kernels {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bound_ms(n_bytes):.4f} ms")
 
     # The three device programs, kernel against plain, on state copies.
     programs = {}
@@ -431,7 +486,11 @@ def compare_kernels(cs, packed, buf):
             got = fused.delta_table_step(cs.dv, impl="kernel")
             want = fused.delta_table_step(cs.dv, impl="plain")
             require_equal(prog, got, want)
-            ms = cuda_ms(lambda: fused.delta_table_step(cs.dv, out=cs.dtable))
+
+            def kern():
+                fused.delta_table_step(cs.dv, out=cs.dtable)
+
+            setup = None
             plain = cuda_ms(lambda: fused.delta_table_step(cs.dv,
                                                            impl="plain"), 2)
         else:
@@ -442,12 +501,16 @@ def compare_kernels(cs, packed, buf):
             def setup(holder=holder):
                 holder["st"] = state_copy()
 
-            ms = cuda_ms(lambda: run("kernel", holder["st"]), setup=setup)
+            def kern(run=run, holder=holder):
+                run("kernel", holder["st"])
+
             plain = cuda_ms(lambda: run("plain", holder["st"]), 2, setup)
-        programs[prog] = {"ms": ms, "plain_ms": plain,
+        ms = cuda_ms(kern, setup=setup)
+        dev_ms = device_ms(kern, setup=setup)
+        programs[prog] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
                           "bound_ms": bound_ms(n_bytes)}
-        log(f"program {prog}: bit-equal; kernel {ms:.3f} ms, "
-            f"plain {plain:.3f} ms")
+        log(f"program {prog}: bit-equal; kernel {ms:.3f} ms "
+            f"({dev_ms:.3f} ms without host gaps), plain {plain:.3f} ms")
     return rows, programs
 
 
@@ -538,6 +601,24 @@ def main_path(smi: str):
             if bad:
                 raise AssertionError(f"parity: {bad} verdicts differ from "
                                      f"the oracle on batch {i}")
+    log("oracle parity, low contention, smaller batches")
+    small = make_stream(rng, N_LOWC_SMALL, KEYSPACE_LOW, zipf=False,
+                        txns=N_LOWC_SMALL_TXNS)
+    oracle, point = OracleConflictSet(0), PointOracle()
+    cs_small = TorchConflictSet(0, capacity=CAPACITY,
+                                delta_capacity=DELTA_CAPACITY, device=DEVICE)
+    for i, (v, enc, kids, snaps) in enumerate(small):
+        want = np.asarray([int(x) for x in oracle.resolve(
+            to_transactions(kids, snaps), v, floor(v))], dtype=np.int8)
+        if not np.array_equal(point.resolve(kids, snaps, v, floor(v)), want):
+            raise AssertionError(f"the point oracle differs from the oracle "
+                                 f"on small low-contention batch {i}")
+        got = cs_small.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+        bad = int(np.sum(got != want))
+        if bad:
+            raise AssertionError(f"parity: {bad} verdicts differ from the "
+                                 f"oracle on small low-contention batch {i}")
+    del cs_small
     log("oracle parity, low contention")
     low = make_stream(rng, N_LOWC, KEYSPACE_LOW, zipf=False)
     cs_low = TorchConflictSet(0, capacity=CAPACITY,
@@ -555,10 +636,11 @@ def main_path(smi: str):
     if commit_low < 0.8:
         raise AssertionError(f"low-contention regime degenerate: {commit_low}")
     print(f"parity: verdicts equal the oracle on {N_PARITY} high-contention "
-          f"batches and the point oracle (itself equal to the oracle on "
-          f"{N_WARMUP + N_PARITY} batches) on {N_LOWC} low-contention "
-          f"batches (commit rates {commit_rate:.4f} / {commit_low:.4f})",
-          flush=True)
+          f"batches and on {N_LOWC_SMALL} low-contention batches of "
+          f"{N_LOWC_SMALL_TXNS} txns, and the point oracle (itself equal to "
+          f"the oracle on those {N_WARMUP + N_PARITY} + {N_LOWC_SMALL} "
+          f"batches) on {N_LOWC} low-contention batches of {TXNS} txns "
+          f"(commit rates {commit_rate:.4f} / {commit_low:.4f})", flush=True)
 
     log("state equality, kernels against impl='plain'")
     kern = TorchConflictSet(0, capacity=CAPACITY,

@@ -17,13 +17,14 @@ show the path really went through the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -95,11 +96,28 @@ _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64}
 _lock = threading.Lock()
 _fns: Dict[str, object] = {}
 BUILD_SECONDS = None
+# counter -> [(start, end) CUDA events], while timed_launches() is active.
+_timed: Optional[Dict[str, List[tuple]]] = None
 
 
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def timed_launches():
+    """Bracket every launch made inside the block by a pair of CUDA events
+    on its stream, and yield {counter: [(start, end), ...]}.  The sum of
+    a counter's elapsed times is the device time of that wrapper's own
+    kernels, without the launches of the wrappers it calls; read it once
+    the stream has finished.  For measurement only."""
+    global _timed
+    _timed = {}
+    try:
+        yield _timed
+    finally:
+        _timed = None
 
 
 def nvcc_path() -> str:
@@ -205,9 +223,17 @@ def launch(counter: str, fn_name: str, *args) -> None:
                 f"{fn_name}: kernel arguments must be contiguous int32/int8/"
                 f"uint8 tensors on one CUDA device, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _fns[fn_name](*[_arg(a) for a in args], stream)
+    stream = torch.cuda.current_stream(dev)
+    timed = _timed
+    if timed is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+    rc = _fns[fn_name](*[_arg(a) for a in args], stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: "
                            f"cudaError {rc}")
+    if timed is not None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        timed.setdefault(counter, []).append((start, end))
     LAUNCHES[counter] += 1
