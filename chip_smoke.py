@@ -1,32 +1,50 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA conflict path on one NVIDIA GPU.
 
-Drives foundationdb_tpu_torch's point-batch main path (the resolver's
-production route: TorchConflictSet.resolve_encoded_async -> _pack_compact
--> the compact step, the delta table, the merge) at the size of the
-bench's config 2: 100K transactions per batch, 2 point reads + 1 point
-write each, zipf(1.2) keys over a 1M keyspace as 15-byte b"k%014d" keys,
-capacity 2^21, delta capacity 2^20, snapshots up to 2,000 versions behind,
+Drives foundationdb_tpu_torch's three paths through the entry points a
+resolver calls, each at full size:
+
+  point    TorchConflictSet.resolve_encoded_async -> _pack_compact -> the
+           compact step, the delta table, the merge, at the bench's config
+           2: 100K txns per batch, 2 point reads + 1 point write each,
+           zipf(1.2) keys over a 1M keyspace as 15-byte b"k%014d" keys;
+  general  the same entry point -> _pack -> the general interval step
+           (range reads, range writes, keys over 31 bytes), the delta
+           table, the merge, at config 3 (BASELINE.json configs[2]): 50K
+           txns per batch, 8 read ranges of 1-100 records each over 50M
+           records, one point write per txn and a clear every 10th txn,
+           1,024-byte keys;
+  window   a one-shard window: window_query -> window_insert every config-3
+           batch, window_gc every 8 batches (window_query is the entry
+           __graft_entry__.py hands out).
+
+Capacity 2^21, delta capacity 2^20, snapshots up to 2,000 versions behind,
 1,000 versions per batch, the window floor 5 batches back.
 
-Phases (each prints its lines; any failure raises and exits non-zero):
+Phases (each prints its lines and its seconds; any failure raises and
+exits non-zero):
   1. toolchain: the card's name and power limit, CUDA, nvcc; build the
      kernels from csrc/ (one nvcc per source, in parallel);
-  2. every kernel wrapper, and the three device programs, through the
-     kernel and through its plain-torch version on the card on identical
-     inputs at the main path's shapes: outputs must be bit-equal (all of
-     it is integer data; tolerance 0); times by CUDA events (a wrapper's
-     row: the device time of its own launches, without host gaps);
-  3. the main path: 3 warmup batches, 10 measured at pipeline depth 8
-     (crossing merges), 8 at depth 1 for the p50 (and host packing alone
-     on the same batches); verdict parity against the oracle on 2
-     high-contention batches and on 2 low-contention batches of 10K txns,
-     and against PointOracle (held equal to the oracle on all of those
-     first) on 2 full-size low-contention batches; state equality of the
-     kernel path against impl="plain" over a short stream that crosses a
-     merge;
-  4. the kernels line (launch counts of the main path's run, all > 0);
-  5. the last line: {"ok": true, "device": {...}}.
+  2. every config-2 kernel wrapper and program through the kernel and
+     through its plain-torch version on the card on identical inputs:
+     outputs must be bit-equal (all integer data; tolerance 0); times by
+     CUDA events (a wrapper's row: the device time of its own launches);
+  3. the point path: 3 warmup batches, 10 at pipeline depth 8, 8 at depth
+     1; oracle parity in both contention regimes; kernel-vs-plain state
+     equality across a merge;
+  4. every new wrapper and the programs #4-#7 (general step, window_query,
+     window_insert, window_gc), kernel against plain at config-3 shapes;
+  5. the general path on config 3 (3 + 10 at depth 8 + 8 at depth 1): the
+     path_general line, commit rate in 0.05-0.95;
+  6. oracle parity on 6 batches of 1,000 config-3 txns over 1M records,
+     full 1,024-byte keys, too-old snapshots included;
+  7. kernel-vs-plain state equality at full config-3 size across a merge;
+  8. the window path on 10 config-3 batches, bits and state against the
+     plain versions, then bits against the oracle's history on small
+     batches;
+  9. the JSON lines (programs and paths; kernels with launches per path,
+     each wrapper > 0 on the paths that use it), the card's name and power
+     limit, and the last line: {"ok": true, "device": {...}}.
 
 Run it from the repository root: python3 chip_smoke.py
 """
@@ -61,6 +79,34 @@ DEVICE = "cuda"
 
 def log(msg: str) -> None:
     print(f"# {msg}", file=sys.stderr, flush=True)
+
+
+PHASE_SECONDS = {}
+_T_LAST = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    """Print and keep the seconds since the previous phase ended."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = now - _T_LAST[0]
+    _T_LAST[0] = now
+    print(f"phase: {name} took {PHASE_SECONDS[name]:.1f} s", flush=True)
+
+
+# The wrappers each path must launch (counted with the counts set to 0
+# just before the path is driven and read just after).
+_SHARED = ["searchsorted", "rank_count", "inclusive_scan", "compact_rows",
+           "build_sparse_table"]
+PATH_KERNELS = {
+    "point": ["widen_unique", "history_probe", "txn_prep", "read_write_prep",
+              "intra_batch_fixpoint", "batch_codes", "point_insert", "merge",
+              *_SHARED],
+    "general": ["history_probe", "merge", "sort_rows", "general_prep",
+                "interval_fixpoint", "general_codes", "union_ranges",
+                "window_insert", *_SHARED],
+    "window": ["window_query", "sort_rows", "union_ranges", "window_insert",
+               "window_gc", *_SHARED],
+}
 
 
 # ---------------------------------------------------------------- workload
@@ -162,6 +208,104 @@ def make_stream(rng, count: int, keyspace=KEYSPACE, zipf=True, txns=TXNS):
 
 def floor(v: int) -> int:
     return max(v - WINDOW, 0)
+
+
+# ---------------------------------------------------------------- config 3
+# BASELINE.json configs[2] / BASELINE.md:25, "range-read heavy": 50K txns
+# per batch, each with 8 read ranges of s records, s uniform in 1-100
+# (YCSB workload E's scan length, maxscanlength=100, uniform) starting
+# uniformly over 50M records; one point write per txn at a uniform record
+# and, every 10th txn, one clear of 1-100 records.  Keys are 1,024 bytes:
+# an 8-byte big-endian id, then 1,016 filler bytes.  Record r has id 2r and
+# a range over records [r, r+s) ends at id 2(r+s)-1: begins are even and
+# ends odd, so the 31-byte digest (ends rounded up one ulp) orders every
+# pair of keys as the full keys do, and verdicts must equal the oracle's.
+RECORDS = 50_000_000
+TXNS3 = 50_000
+READS3 = 8
+SCAN_MAX = 100
+CLEAR_EVERY = 10
+KEY_BYTES = 1024
+FILL = ord("v")
+RECORDS_SMALL, TXNS_SMALL, N_ORACLE3 = 1_000_000, 1_000, 6
+N_WARMUP3, N_MEASURED3, N_LATENCY3 = 3, 10, 8
+N_WINDOW3, GC_EVERY3 = 10, 8
+
+
+def digests3(ids, end: bool):
+    """Digests of the 1,024-byte keys of `ids`, encoded from their first 32
+    bytes (encode_fixed with the true lengths); ends round up."""
+    from foundationdb_tpu_torch.ops.digest import encode_fixed
+    ids = np.asarray(ids, dtype=np.int64).ravel()
+    mat = np.full((ids.size, 32), FILL, dtype=np.uint8)
+    mat[:, :8] = ids.astype(">u8").view(np.uint8).reshape(-1, 8)
+    return encode_fixed(mat, np.full(ids.size, KEY_BYTES), round_up=end)
+
+
+def full_key(i: int) -> bytes:
+    return int(i).to_bytes(8, "big") + bytes([FILL]) * (KEY_BYTES - 8)
+
+
+def gen_batch3(rng, prev: int, oldest: int, records: int = RECORDS,
+               txns: int = TXNS3, too_old: float = 0.0):
+    """One config-3 batch: (EncodedBatch, the record draws the oracle's
+    objects are built from).  A `too_old` share of the snapshots sits
+    just below `oldest`, the floor in force when the batch arrives."""
+    from foundationdb_tpu_torch.conflict.encoded import EncodedBatch
+    r0 = rng.integers(0, records - SCAN_MAX, size=(txns, READS3))
+    s = rng.integers(1, SCAN_MAX + 1, size=(txns, READS3))
+    q = rng.integers(0, records, size=txns)
+    ct = np.arange(0, txns, CLEAR_EVERY)
+    c0 = rng.integers(0, records - SCAN_MAX, size=ct.size)
+    cs = rng.integers(1, SCAN_MAX + 1, size=ct.size)
+    snaps = np.maximum(prev - rng.integers(0, 2 * VERSIONS_PER_BATCH,
+                                           size=txns), 0)
+    if too_old:
+        snaps[rng.random(txns) < too_old] = max(oldest - 1, 0)
+    w_txn = np.concatenate([np.arange(txns), ct]).astype(np.int32)
+    order = np.argsort(w_txn, kind="stable")
+    wb = np.concatenate([digests3(2 * q, False), digests3(2 * c0, False)], 1)
+    we = np.concatenate([digests3(2 * q, True),
+                         digests3(2 * (c0 + cs) - 1, True)], 1)
+    enc = EncodedBatch(
+        n_txns=txns, t_snap=snaps.astype(np.int64),
+        t_has_reads=np.ones((txns,), dtype=bool),
+        r_txn=np.arange(txns * READS3, dtype=np.int32) // READS3,
+        r_begin=digests3(2 * r0, False), r_end=digests3(2 * (r0 + s) - 1, True),
+        w_txn=w_txn[order], w_begin=wb[:, order], w_end=we[:, order])
+    return enc, (r0, s, q, ct, c0, cs, snaps)
+
+
+def transactions3(draws):
+    """The batch as CommitTransactionRef objects over the full keys."""
+    from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
+    r0, s, q, ct, c0, cs, snaps = draws
+    clears = {int(t): (int(a), int(b)) for t, a, b in zip(ct, c0, cs)}
+    out = []
+    for t in range(len(snaps)):
+        wk = full_key(2 * q[t])
+        writes = [KeyRange(wk, wk + b"\x00")]
+        if t in clears:
+            a, b = clears[t]
+            writes.append(KeyRange(full_key(2 * a), full_key(2 * (a + b) - 1)))
+        out.append(CommitTransactionRef(
+            read_conflict_ranges=[
+                KeyRange(full_key(2 * a), full_key(2 * (a + b) - 1))
+                for a, b in zip(r0[t], s[t])],
+            write_conflict_ranges=writes, read_snapshot=int(snaps[t])))
+    return out
+
+
+def make_stream3(rng, count: int, records: int = RECORDS, txns: int = TXNS3,
+                 too_old: float = 0.0):
+    """`count` batches, 1,000 versions apart, from past the first window
+    (so every batch's floor is above 0)."""
+    out, version = [], 1_000 + WINDOW
+    for _ in range(count):
+        prev, version = version, version + VERSIONS_PER_BATCH
+        out.append((version, *gen_batch3(rng, prev, floor(prev), records,
+                                         txns, too_old)))
+    return out
 
 
 # ------------------------------------------------------------- measurement
@@ -347,6 +491,7 @@ def compare_kernels(cs, packed, buf):
     s_v = torch.arange(CAPACITY + DELTA_CAPACITY, dtype=torch.int32,
                        device=DEVICE)
     ks_incl = scan.inclusive_scan(keep_s, P)
+    keep_bool = keep_s.bool()
     dpos = digest.searchsorted(cs.dk, u_e, True, P)
     rw_in = (rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"],
              rw["w_txn"], rw["w_ok"], rw["w_slot"])
@@ -404,7 +549,8 @@ def compare_kernels(cs, packed, buf):
                                                 dtype=torch.int32)),
         "compact_rows": (
             lambda i: _compact(scan, keep_s, ks_incl, s_rows, s_v, i),
-            nbytes(keep_s, ks_incl) + 2 * int(keep_s.sum()) * 36, None),
+            nbytes(keep_s, ks_incl) + 2 * int(keep_s.sum()) * 36,
+            lambda: s_rows[keep_bool]),
         "build_sparse_table": (
             lambda i: rangemax.build_sparse_table(cs.bv, impl=i),
             nbytes(cs.bv, cs.table), None),
@@ -460,7 +606,10 @@ def compare_kernels(cs, packed, buf):
             err = require_equal(name, got, want)
             ms = device_ms(lambda: fn("kernel"), counter=name)
             plain = cuda_ms(lambda: fn("plain"), reps=2)
-        lib = device_ms(library) if library is not None else None
+        # Boolean-mask indexing synchronises the host (its output size is
+        # read back), so that library call is timed on the timeline.
+        lib = (None if library is None else cuda_ms(library)
+               if name == "compact_rows" else device_ms(library))
         src, ref = K.KERNELS[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"foundationdb_tpu_torch/csrc/{src}.cu",
@@ -671,6 +820,463 @@ def main_path(smi: str):
     return launches, path
 
 
+# ------------------------------------------------------- config 3 phases
+def rows_of(planar):
+    import torch
+    from foundationdb_tpu_torch.ops.digest import planar_to_rows
+    return torch.from_numpy(planar_to_rows(planar)).to(DEVICE)
+
+
+def window_inputs(enc, base: int):
+    """The window path's view of a batch: every read with its txn's
+    snapshot, every write, all valid; versions relative to `base`."""
+    import torch
+    nr, nw = enc.r_txn.shape[0], enc.w_txn.shape[0]
+    snap = (enc.t_snap[enc.r_txn] - base).astype(np.int32)
+    ones = torch.ones((max(nr, nw),), dtype=torch.int32, device=DEVICE)
+    return (rows_of(enc.r_begin), rows_of(enc.r_end),
+            torch.from_numpy(snap).to(DEVICE), ones[:nr],
+            rows_of(enc.w_begin), rows_of(enc.w_end), ones[:nw])
+
+
+def warmed_general_state():
+    """A backend on the card after 3 config-3 batches and a merge, one more
+    batch (the delta non-empty) and the next batch packed and stamped; a
+    window (path 3) holding the same 5 batches' writes; the stream."""
+    import torch
+    from foundationdb_tpu_torch.conflict import window
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    cs = TorchConflictSet(0, capacity=CAPACITY, delta_capacity=DELTA_CAPACITY,
+                          device=DEVICE)
+    stream = make_stream3(np.random.default_rng(17), 6)
+    for v, enc, _ in stream[:3]:
+        cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+    cs.merge()
+    v, enc, _ = stream[3]
+    cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+    v, enc, _ = stream[4]
+    packed = cs._pack(enc)
+    cs._stamp(packed, v, cs.oldest_version, enc.n_txns)
+    cs.oldest_version = floor(v)
+    cs.synchronize()
+    win = window.make_window_state(CAPACITY, 0, DEVICE)
+    for v, enc, _ in stream[:5]:
+        *_, wb, we, wv = window_inputs(enc, 0)
+        window.window_insert(win, wb, we, wv, v)
+    torch.cuda.synchronize()
+    return cs, packed, win, stream
+
+
+def compare_general(cs, packed, win, stream):
+    """Each new wrapper, kernel against plain at config-3 shapes, and the
+    programs #4-#7."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict import fused, window
+    from foundationdb_tpu_torch.ops import digest
+    from foundationdb_tpu_torch.ops.sort import sort_rows
+    P = "plain"
+    t_cap, r_cap, w_cap = packed["caps"]
+    n_rows = 2 * (r_cap + w_cap)
+    buf = torch.from_numpy(packed["buf"]).to(DEVICE)
+    digests = buf[:32 * n_rows].view(torch.int32).view(n_rows, 8)
+    meta = buf[32 * n_rows:].view(torch.int32)
+    m = fused.unpack_meta(meta, t_cap, r_cap, w_cap)
+    r_b, r_e = digests[:r_cap], digests[r_cap:2 * r_cap]
+    w_b = digests[2 * r_cap:2 * r_cap + w_cap]
+    w_e = digests[2 * r_cap + w_cap:]
+    u_cap = fused._next_pow2(n_rows)
+    log_u = u_cap.bit_length() - 1
+
+    # Intermediates of the general step, from the plain versions.
+    vmax = digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable, r_b, r_e,
+                                P)
+    g = fused.general_prep(m, vmax, P)
+    universe = digest.max_rows(u_cap, DEVICE)
+    sort_rows(digests, out=universe[:n_rows], impl=P)
+    r_pos = digest.searchsorted(universe, digests[:2 * r_cap], True, P)
+    w_pos = digest.searchsorted(universe, digests[2 * r_cap:], True, P)
+    fix_in = (g["hist"], m["r_txn"], g["r_live"], r_pos[:r_cap],
+              r_pos[r_cap:], m["w_txn"], g["w_ok"], w_pos[:w_cap],
+              w_pos[w_cap:])
+    conf, rounds = fused.interval_fixpoint(*fix_in, log_u, impl=P)
+    codes = torch.empty((t_cap,), dtype=torch.int8, device=DEVICE)
+    w_ins = fused.general_codes(m["t_valid"], g["too_old"], conf, m["w_txn"],
+                                m["w_valid"], codes, P)
+    log(f"config 3: {int(rounds[0])} Jacobi rounds on this batch, "
+        f"{int(w_ins.sum())} surviving writes of {int(m['w_valid'].sum())}")
+    # Path 3's inputs: the next batch's reads against the window of the
+    # five before it; its writes.
+    v5, enc5, _ = stream[5]
+    q_b, q_e, q_snap, q_valid, ww_b, ww_e, ww_valid = window_inputs(enc5, 0)
+    nq = q_b.shape[0]
+    now5 = torch.tensor([v5], dtype=torch.int32, device=DEVICE)
+
+    def delta_copy():
+        return {k: getattr(cs, k).clone() for k in
+                ("bk", "bv", "table", "size", "dk", "dv", "dtable", "dsize",
+                 "flag")}
+
+    def win_copy():
+        return {"bk": win.bk.clone(), "bv": win.bv.clone(),
+                "size": win.size.clone()}
+
+    def insert_run(impl, st):
+        tail = torch.zeros((3,), dtype=torch.int32, device=DEVICE)
+        window.window_insert(window.WindowState(st["dk"], st["dv"],
+                                                st["dsize"]),
+                             w_b, w_e, w_ins, m["now_rel"], flag=st["flag"],
+                             bsize=st["size"], tail=tail, impl=impl)
+        return st["dk"], st["dv"], st["dsize"], st["flag"], tail
+
+    def gc_run(impl, st):
+        return tuple(window.window_gc(window.WindowState(
+            st["bk"], st["bv"], st["size"]), floor(v5), floor(v5), impl=impl))
+
+    def win_insert_run(impl, st):
+        st2, ovf = window.window_insert(window.WindowState(
+            st["bk"], st["bv"], st["size"]), ww_b, ww_e, ww_valid, now5,
+            impl=impl)
+        return (*st2, ovf)
+
+    def step_run(impl, st):
+        step = fused.make_resolve_step(CAPACITY, cs.d_cap, t_cap, r_cap,
+                                       w_cap, impl=impl)
+        return step(st["bk"], st["bv"], st["table"], st["size"], st["dk"],
+                    st["dv"], st["dtable"], st["dsize"], st["flag"],
+                    digests, meta)
+
+    def query_run(impl):
+        return window.window_query(win.bk, win.bv, q_b, q_e, q_snap, q_valid,
+                                   impl=impl)
+
+    meta_in = [m[k] for k in ("r_txn", "r_valid", "w_txn", "w_valid",
+                              "t_snap", "t_has_reads", "t_valid")]
+    bits = query_run("kernel")
+    # name -> (fn(impl) or (run, state copy), least bytes); no single
+    # PyTorch call computes any of these functions (library_ms null).
+    cases = {
+        # Rows in once and out once (the permutation is scratch).
+        "sort_rows": (lambda i: sort_rows(digests, impl=i)[0],
+                      2 * nbytes(digests)),
+        "general_prep": (lambda i: fused.general_prep(m, vmax, i),
+                         nbytes(*meta_in, vmax, *g.values())),
+        "interval_fixpoint": (
+            lambda i: fused.interval_fixpoint(*fix_in, log_u, impl=i)[0],
+            nbytes(*fix_in, conf)),
+        "general_codes": (
+            lambda i: _gen_codes(fused, m, g, conf, i),
+            nbytes(m["t_valid"], g["too_old"], conf, m["w_txn"],
+                   m["w_valid"], codes, w_ins)),
+        "union_ranges": (lambda i: window._union_ranges(w_b, w_e, w_ins, i),
+                         nbytes(w_b, w_e, w_ins) + 2 * nbytes(w_b)
+                         + 8 * w_cap),
+        # Its own kernels (wi_*, pi_*): the writes in, the delta read and
+        # rewritten (the union, sort, scans and searches are their rows).
+        "window_insert": ((insert_run, delta_copy),
+                          nbytes(cs.dk, cs.dv, w_b, w_e, w_ins)
+                          + nbytes(cs.dk, cs.dv)),
+        # wq_query: the queries in, the bits out, the table rows a batch of
+        # searches touches, two range-max gathers per query.
+        "window_query": (query_run,
+                         nbytes(q_b, q_e, q_snap, q_valid, bits)
+                         + search_bytes(win.bk, 2 * nq) + 8 * nq),
+        # wg_keep: the versions in, the keep mask out.
+        "window_gc": ((gc_run, win_copy), nbytes(win.bv) + 4 * CAPACITY),
+    }
+    rows = []
+    for name, (fn, n_bytes) in cases.items():
+        if isinstance(fn, tuple):
+            run, copy_fn = fn
+            holder = {}
+
+            def setup(copy_fn=copy_fn, holder=holder):
+                holder["st"] = copy_fn()
+
+            def go(i, run=run, holder=holder):
+                return run(i, holder["st"])
+
+            setup()
+            got = go("kernel")
+            want = run("plain", copy_fn())
+            err = require_equal(name, got, want)
+            ms = device_ms(lambda: go("kernel"), setup=setup, counter=name)
+            plain = cuda_ms(lambda: go("plain"), reps=2, setup=setup)
+        else:
+            got = fn("kernel")
+            err = require_equal(name, got, fn("plain"))
+            ms = device_ms(lambda: fn("kernel"), counter=name)
+            plain = cuda_ms(lambda: fn("plain"), reps=2)
+        src, ref = K.KERNELS[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"foundationdb_tpu_torch/csrc/{src}.cu",
+                     "replaces": ref, "launches": 0, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound_ms(n_bytes), "bound_by": "bytes",
+                     "library_ms": None})
+        log(f"{name}: bit-equal; own kernels {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bound_ms(n_bytes):.4f} ms")
+
+    probe_bytes = (nbytes(r_b, r_e, vmax) + search_bytes(cs.bk, 2 * r_cap)
+                   + search_bytes(cs.dk, 2 * r_cap) + 4 * 4 * r_cap)
+    programs = {}
+    for prog, run, copy_fn, n_bytes in (
+            # The batch in, the history probe, the delta read and
+            # rewritten, the codes and tail out.
+            ("general_step", step_run, delta_copy,
+             nbytes(digests, meta) + probe_bytes + 2 * nbytes(cs.dk, cs.dv)
+             + t_cap + 12),
+            # The versions and the table rows the searches touch in, the
+            # queries in, the bits out.
+            ("window_query", None, None,
+             nbytes(win.bv, q_b, q_e, q_snap, q_valid, bits)
+             + search_bytes(win.bk, 2 * nq)),
+            ("window_insert", win_insert_run, win_copy,
+             2 * nbytes(win.bk, win.bv) + nbytes(ww_b, ww_e, ww_valid)),
+            ("window_gc", gc_run, win_copy, 2 * nbytes(win.bk, win.bv))):
+        if run is None:
+            def kern():
+                query_run("kernel")
+
+            setup = None
+            plain = cuda_ms(lambda: query_run("plain"), 2)
+        else:
+            require_equal(prog, run("kernel", copy_fn()),
+                          run("plain", copy_fn()))
+            holder = {}
+
+            def setup(holder=holder, copy_fn=copy_fn):
+                holder["st"] = copy_fn()
+
+            def kern(run=run, holder=holder):
+                run("kernel", holder["st"])
+
+            plain = cuda_ms(lambda: run("plain", holder["st"]), 2, setup)
+        ms = cuda_ms(kern, setup=setup)
+        dev_ms = device_ms(kern, setup=setup)
+        programs[prog] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                          "bound_ms": bound_ms(n_bytes)}
+        log(f"program {prog}: bit-equal; kernel {ms:.3f} ms "
+            f"({dev_ms:.3f} ms without host gaps), plain {plain:.3f} ms")
+    return rows, programs
+
+
+def _gen_codes(fused, m, g, conf, impl):
+    import torch
+    codes = torch.empty(conf.shape, dtype=torch.int8, device=DEVICE)
+    return fused.general_codes(m["t_valid"], g["too_old"], conf, m["w_txn"],
+                               m["w_valid"], codes, impl), codes
+
+
+def general_path(smi: str):
+    """Path 2: TorchConflictSet on config 3 (and the launch counts of its
+    run)."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    log("generating the config-3 stream")
+    batches = make_stream3(np.random.default_rng(2027),
+                           N_WARMUP3 + N_MEASURED3 + N_LATENCY3)
+    K.reset_counts()
+    cs = TorchConflictSet(0, capacity=CAPACITY, delta_capacity=DELTA_CAPACITY,
+                          device=DEVICE)
+    for v, enc, _ in batches[:N_WARMUP3]:
+        cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+    merges0 = cs.profile["merges"]
+    cs.synchronize()
+    rounds0 = int(cs.jacobi_rounds[0])
+    inflight, results, n_ranges = deque(), [], 0
+    t0 = time.perf_counter()
+    for v, enc, _ in batches[N_WARMUP3:N_WARMUP3 + N_MEASURED3]:
+        inflight.append((enc, cs.resolve_encoded_async(enc, v, floor(v))))
+        if len(inflight) > DEPTH:
+            e, h = inflight.popleft()
+            results.append(h.wait_codes().copy())
+            n_ranges += e.n_ranges
+    while inflight:
+        e, h = inflight.popleft()
+        results.append(h.wait_codes().copy())
+        n_ranges += e.n_ranges
+    rate = n_ranges / (time.perf_counter() - t0)
+    merges = cs.profile["merges"] - merges0
+    cs.synchronize()
+    rounds = (int(cs.jacobi_rounds[0]) - rounds0) / N_MEASURED3
+    lats = []
+    for v, enc, _ in batches[N_WARMUP3 + N_MEASURED3:]:
+        t1 = time.perf_counter()
+        cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+        lats.append(time.perf_counter() - t1)
+    p50 = float(np.percentile(lats, 50) * 1e3)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    packs = []
+    for _, enc, _ in batches[N_WARMUP3 + N_MEASURED3:]:
+        t1 = time.perf_counter()
+        TorchConflictSet._pack(enc)
+        packs.append(time.perf_counter() - t1)
+    pack_ms = float(np.percentile(packs, 50) * 1e3)
+    commit_rate = float(np.mean([np.mean(r == 2) for r in results]))
+    if merges < 1:
+        raise AssertionError("the measured config-3 batches crossed no merge")
+    if cs.profile["compact_batches"] or not cs.profile["general_batches"]:
+        raise AssertionError("config 3 did not run on the general path")
+    print(f"path_general: {rate:.1f} ranges/s at depth {DEPTH} over "
+          f"{N_MEASURED3} batches ({merges} merges, {rounds:.2f} Jacobi "
+          f"rounds per batch), p50 resolve {p50:.3f} ms at depth 1 (host "
+          f"packing alone {pack_ms:.3f} ms), commit rate {commit_rate:.4f} "
+          f"-- {smi}", flush=True)
+    if not 0.05 <= commit_rate <= 0.95:
+        raise AssertionError(f"config 3 contention out of range: "
+                             f"{commit_rate}")
+    path = {"ranges_per_s": rate, "p50_resolve_ms": p50,
+            "p50_pack_ms": pack_ms, "commit_rate": commit_rate,
+            "merges_measured": merges, "jacobi_rounds_per_batch": rounds,
+            "batches_measured": N_MEASURED3, "depth": DEPTH,
+            "txns_per_batch": TXNS3, "card": smi}
+    return launches, path, batches
+
+
+def oracle_parity3():
+    """Path 2's verdicts against the oracle, over the full 1,024-byte keys,
+    on small batches of the config-3 generator (too-old snapshots
+    included)."""
+    from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    cs = TorchConflictSet(0, capacity=CAPACITY, delta_capacity=DELTA_CAPACITY,
+                          device=DEVICE)
+    oracle = OracleConflictSet(0)
+    seen = set()
+    for i, (v, enc, draws) in enumerate(make_stream3(
+            np.random.default_rng(2028), N_ORACLE3, RECORDS_SMALL, TXNS_SMALL,
+            too_old=0.02)):
+        want = np.asarray([int(x) for x in oracle.resolve(
+            transactions3(draws), v, floor(v))], dtype=np.int8)
+        got = cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+        bad = int(np.sum(got != want))
+        if bad:
+            raise AssertionError(f"config-3 parity: {bad} verdicts differ "
+                                 f"from the oracle on batch {i}")
+        seen.update(int(c) for c in want)
+    if seen != {0, 1, 2}:
+        raise AssertionError(f"config-3 parity batches lack a verdict: {seen}")
+    print(f"parity_general: verdicts equal the oracle on {N_ORACLE3} batches "
+          f"of {TXNS_SMALL} txns over {RECORDS_SMALL} records (full "
+          f"{KEY_BYTES}-byte keys; committed, conflicted and too-old txns)",
+          flush=True)
+
+
+def state_equality3(batches):
+    """The kernel path against impl="plain" at full config-3 size, every
+    state array and the codes after every batch, across a merge."""
+    from foundationdb_tpu_torch.conflict.torch_backend import (
+        TorchConflictSet, state_to_numpy)
+    kw = dict(capacity=CAPACITY, delta_capacity=DELTA_CAPACITY,
+              gc_interval_batches=2, device=DEVICE)
+    kern, plain = TorchConflictSet(0, **kw), TorchConflictSet(0, impl="plain",
+                                                               **kw)
+    for v, enc, _ in batches[:4]:
+        a = kern.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+        b = plain.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+        if not np.array_equal(a, b):
+            raise AssertionError("config 3: kernel and plain verdicts differ")
+        sa, sb = state_to_numpy(kern), state_to_numpy(plain)
+        for k in sa:
+            if not np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])):
+                raise AssertionError(f"config 3: kernel and plain state "
+                                     f"differ: {k}")
+    if kern.profile["merges"] < 1:
+        raise AssertionError("config-3 state-equality stream crossed no "
+                             "merge")
+    print(f"state_general: kernel path equals the plain path on 4 config-3 "
+          f"batches and {kern.profile['merges']} merge(s), every state array",
+          flush=True)
+
+
+def window_path(smi: str, batches):
+    """Path 3: a one-shard window, window_query -> window_insert every
+    batch, window_gc every GC_EVERY3 batches; bits and state held against
+    the plain versions at full size, then against the oracle's history on
+    small batches.  Returns the launch counts of the kernel run."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict import window
+    from foundationdb_tpu_torch.conflict.oracle import (VersionHistory,
+                                                        combine_write_ranges)
+    kern = window.make_window_state(CAPACITY, 0, DEVICE)
+    plain = window.make_window_state(CAPACITY, 0, DEVICE)
+    K.reset_counts()
+    base, lats, gcs, n_ranges, conflicts = 0, [], 0, 0, 0
+    for i, (v, enc, _) in enumerate(batches[:N_WINDOW3]):
+        q_b, q_e, snap, q_v, w_b, w_e, w_v = window_inputs(enc, base)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bits = window.window_query(kern.bk, kern.bv, q_b, q_e, snap, q_v)
+        _, ovf = window.window_insert(kern, w_b, w_e, w_v, v - base)
+        if (i + 1) % GC_EVERY3 == 0:
+            window.window_gc(kern, floor(v) - base, floor(v) - base)
+            gcs += 1
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t1)
+        n_ranges += enc.n_ranges
+        want = window.window_query(plain.bk, plain.bv, q_b, q_e, snap, q_v,
+                                   impl="plain")
+        window.window_insert(plain, w_b, w_e, w_v, v - base, impl="plain")
+        if (i + 1) % GC_EVERY3 == 0:
+            window.window_gc(plain, floor(v) - base, floor(v) - base,
+                             impl="plain")
+            base = floor(v)
+        require_equal(f"window bits, batch {i}", bits, want)
+        require_equal(f"window state, batch {i}", tuple(kern), tuple(plain))
+        if int(ovf[0]):
+            raise AssertionError(f"window overflow on batch {i}")
+        conflicts += int(bits.sum())
+    launches = dict(K.LAUNCHES)
+    p50 = float(np.percentile(lats, 50) * 1e3)
+    rate = n_ranges / sum(lats)
+    conflict_share = conflicts / sum(b[1].r_txn.shape[0]
+                                     for b in batches[:N_WINDOW3])
+    del kern, plain
+
+    # The oracle's history on small batches of the same generator.
+    small = window.make_window_state(1 << 16, 0, DEVICE)
+    hist, base, checked, gc_floor = VersionHistory(0), 0, 0, 0
+    for i, (v, enc, draws) in enumerate(make_stream3(
+            np.random.default_rng(2029), N_ORACLE3, RECORDS_SMALL,
+            TXNS_SMALL)):
+        q_b, q_e, snap, q_v, w_b, w_e, w_v = window_inputs(enc, base)
+        bits = window.window_query(small.bk, small.bv, q_b, q_e, snap,
+                                   q_v).cpu().numpy()
+        txns = transactions3(draws)
+        reads = [(r.begin, r.end, t.read_snapshot) for t in txns
+                 for r in t.read_conflict_ranges]
+        for j, (b, e, sn) in enumerate(reads):
+            # Below the GC floor a verdict is no longer defined.
+            if sn >= gc_floor:
+                checked += 1
+                if bool(bits[j]) != (hist.query_max(b, e) > sn):
+                    raise AssertionError(f"window bits differ from the "
+                                         f"oracle's history, batch {i}")
+        window.window_insert(small, w_b, w_e, w_v, v - base)
+        hist.insert_many(combine_write_ranges(
+            [(w.begin, w.end) for t in txns
+             for w in t.write_conflict_ranges]), v)
+        if i == 3:
+            gc_floor = floor(v)
+            window.window_gc(small, gc_floor - base, gc_floor - base)
+            hist.remove_before(gc_floor)
+            base = gc_floor
+    print(f"path_window: {rate:.1f} ranges/s over {N_WINDOW3} config-3 "
+          f"batches ({gcs} gc), p50 batch {p50:.3f} ms (query + insert), "
+          f"{conflict_share:.4f} of reads newer than their snapshot; bits "
+          f"and state equal the plain versions on every batch, and bits "
+          f"equal the oracle's history on {checked} reads of {N_ORACLE3} "
+          f"small batches -- {smi}", flush=True)
+    path = {"ranges_per_s": rate, "p50_batch_ms": p50, "gcs": gcs,
+            "batches": N_WINDOW3, "reads_conflicting": conflict_share,
+            "oracle_reads_checked": checked, "card": smi}
+    return launches, path
+
+
 def main() -> int:
     try:
         import torch
@@ -688,22 +1294,59 @@ def main() -> int:
     sys.path.insert(0, here)
     os.chdir(here)
     smi = toolchain()
+    phase_done("toolchain and build")
 
-    log("phase 2: kernels against their plain versions")
+    log("phase 2: kernels against their plain versions (config 2)")
     cs, packed, buf = warmed_state()
     rows, programs = compare_kernels(cs, packed, buf)
     del cs, buf
     torch.cuda.empty_cache()
+    phase_done("config-2 kernels")
 
-    log("phase 3: the main path")
-    launches, path = main_path(smi)
+    log("phase 3: the point path (config 2)")
+    launches = {}
+    launches["point"], path = main_path(smi)
+    phase_done("point path")
+
+    log("phase 4: the new kernels against their plain versions (config 3)")
+    cs, packed, win, stream = warmed_general_state()
+    rows3, programs3 = compare_general(cs, packed, win, stream)
+    rows += rows3
+    programs.update(programs3)
+    del cs, packed, win, stream
+    torch.cuda.empty_cache()
+    phase_done("config-3 kernels")
+
+    log("phase 5: the general interval path (config 3)")
+    launches["general"], path_general, batches3 = general_path(smi)
+    phase_done("general path")
+    log("phase 6: oracle parity on small config-3 batches")
+    oracle_parity3()
+    phase_done("config-3 oracle parity")
+    log("phase 7: kernel against plain state at full config-3 size")
+    state_equality3(batches3)
+    torch.cuda.empty_cache()
+    phase_done("config-3 state equality")
+    log("phase 8: the window path (config 3)")
+    launches["window"], path_window = window_path(smi, batches3)
+    del batches3
+    phase_done("window path")
+
     for row in rows:
-        row["launches"] = launches[row["name"]]
-    missing = [r["name"] for r in rows if r["launches"] <= 0]
+        by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+    missing = [f"{r['name']} ({p})" for r in rows for p, names in
+               PATH_KERNELS.items()
+               if r["name"] in names and r["launches_by_path"][p] <= 0]
+    missing += [r["name"] for r in rows if r["launches"] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
+        raise AssertionError(f"kernels not launched on their paths: "
                              f"{missing}")
-    print(json.dumps({"programs": programs, "path": path}), flush=True)
+    print(json.dumps({"programs": programs, "path": path,
+                      "path_general": path_general,
+                      "path_window": path_window,
+                      "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
-"""Fused two-tier conflict resolution: the compact point step and the merge.
+"""Fused two-tier conflict resolution: the per-batch steps and the merge.
 
-The port of the compact half of foundationdb_tpu/conflict/fused.py.  The
-window is tiered as there:
+The port of foundationdb_tpu/conflict/fused.py.  The window is tiered as
+there:
 
   BASE   bk/bv[CAP]   merged history, read-only between merges, with its
                       doubling range-max table (built at merge time)
@@ -9,12 +9,19 @@ window is tiered as there:
                       batches' writes, with its table refreshed by
                       delta_table_step after every insert and merge
 
-and three device programs drive it:
+and four device programs drive it:
 
-  make_resolve_step_compact  per batch: unpack the single uint8 buffer,
-                             too-old, history probe over both tiers, the
-                             Jacobi intra-batch fixpoint, the sort-free
-                             delta insert, int8 verdicts + a 12-byte tail
+  make_resolve_step_compact  per point batch: unpack the single uint8
+                             buffer, too-old, history probe over both
+                             tiers, the Jacobi intra-batch fixpoint, the
+                             sort-free delta insert, int8 verdicts + a
+                             12-byte tail
+  make_resolve_step          per general batch (range reads and writes,
+                             long keys): too-old, the two-tier history
+                             probe, the sorted endpoint universe, the
+                             Jacobi fixpoint over interval structures
+                             (ops/segtree.py), window_insert into the
+                             delta, the same verdicts and tail
   delta_table_step           the delta's range-max table
   make_merge_step            overlay delta onto base, removeBefore GC,
                              version rebase, rebuild the base table
@@ -41,8 +48,10 @@ from ..ops.digest import (ROW_PAD, history_probe, lex_eq, max_rows,
                           rank_count, searchsorted, widen_unique)
 from ..ops.rangemax import NEG_INF, build_sparse_table
 from ..ops.scan import compact_rows, inclusive_scan, scatter_max, scatter_set
+from ..ops.segtree import build_min_table, interval_min_cover, range_min
+from ..ops.sort import sort_rows
 from ..txn.types import CommitResult
-from .window import WindowState, make_window_state
+from .window import WindowState, make_window_state, window_insert
 
 RES_CONFLICT = int(CommitResult.CONFLICT)
 RES_TOO_OLD = int(CommitResult.TOO_OLD)
@@ -51,12 +60,26 @@ RES_INVALID = -1
 
 INF_I32 = (1 << 31) - 1
 
+N_SCALARS = 2  # now_rel, oldest_rel
+
 # Per-batch output layout: int8[t_cap + 12] = [codes[t_cap] as int8,
 # then flag, delta_size, base_size as 4 little-endian bytes each].
 OUT_FLAG = 0
 OUT_DSIZE = 1
 OUT_BSIZE = 2
 OUT_EXTRA = 12  # tail bytes
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n - 1).bit_length(), 1)
+
+
+def meta_size(t_cap: int, r_cap: int, w_cap: int) -> int:
+    """int32 slots of the general step's metadata block:
+    r_txn[R], r_valid[R], w_txn[W], w_valid[W], t_snap[T], t_has_reads[T],
+    t_valid[T], now_rel, oldest_rel."""
+    return 2 * r_cap + 2 * w_cap + 3 * t_cap + N_SCALARS
+
 
 # Compact point-batch wire format (make_resolve_step_compact): one uint8
 # buffer per batch.
@@ -418,6 +441,190 @@ def make_resolve_step_compact(cap: int, d_cap: int, t_cap: int, r_pad: int,
         _point_insert(dk, dv, dsize, u_b, u_e, w_uid, w_ins, scal[4:5], flag,
                       bsize=size, tail=out[t_cap:].view(torch.int32),
                       impl=impl)
+        return dk, dv, dsize, flag, out
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Blocks of the general interval step
+# ---------------------------------------------------------------------------
+
+def general_prep(meta: dict, vmax: torch.Tensor, impl=None) -> dict:
+    """Too-old per txn (SkipList.cpp:819), live reads and their history
+    verdicts scatter-maxed per txn, and the writers' base eligibility
+    (reference fused.py:479-511).  meta holds the views of the metadata
+    block (r_txn, r_valid, w_txn, w_valid, t_snap, t_has_reads, t_valid,
+    oldest_rel as int32[1]); vmax is history_probe over each read.
+    Returns int32 arrays too_old, r_live, hist, w_ok.
+    Kernels: ig_txn, ig_rw."""
+    t_cap = meta["t_snap"].shape[0]
+    r_cap, w_cap = meta["r_txn"].shape[0], meta["w_txn"].shape[0]
+    dev = vmax.device
+    if _k.use_kernel(vmax, impl):
+        e = dict(dtype=torch.int32, device=dev)
+        o = {"too_old": torch.empty((t_cap,), **e),
+             "r_live": torch.empty((r_cap,), **e),
+             "hist": torch.zeros((t_cap,), **e),
+             "w_ok": torch.empty((w_cap,), **e)}
+        _k.launch("general_prep", "ig_txn", t_cap, meta["t_snap"],
+                  meta["t_has_reads"], meta["t_valid"], meta["oldest_rel"],
+                  o["too_old"])
+        _k.launch("general_prep", "ig_rw", r_cap, w_cap, t_cap, meta["r_txn"],
+                  meta["r_valid"], meta["w_txn"], meta["w_valid"],
+                  o["too_old"], meta["t_snap"], vmax, o["r_live"], o["hist"],
+                  o["w_ok"])
+        return o
+    too_old = ((meta["t_valid"] != 0) & (meta["t_has_reads"] != 0)
+               & (meta["t_snap"] < meta["oldest_rel"]))
+    r_txn = meta["r_txn"]
+    r_txn_c = torch.clamp(r_txn, 0, t_cap - 1).long()
+    r_live = (meta["r_valid"] != 0) & ~too_old[r_txn_c]
+    hist_bits = r_live & (vmax > meta["t_snap"][r_txn_c])
+    hist = scatter_max(torch.zeros((t_cap,), dtype=torch.int32, device=dev),
+                       torch.where(r_live, r_txn, t_cap), hist_bits)
+    w_txn_c = torch.clamp(meta["w_txn"], 0, t_cap - 1).long()
+    w_ok = (meta["w_valid"] != 0) & ~too_old[w_txn_c]
+    return {"too_old": too_old.to(torch.int32),
+            "r_live": r_live.to(torch.int32), "hist": hist,
+            "w_ok": w_ok.to(torch.int32)}
+
+
+def interval_fixpoint(hist, r_txn, r_live, r_pb, r_pe, w_txn, w_ok, w_pb,
+                      w_pe, log_u: int, rounds_acc=None, impl=None):
+    """The general intra-batch fixpoint (checkIntraBatchConflicts,
+    SkipList.cpp:874-906; reference fused.py:531-547): a reader conflicts
+    iff an EARLIER SURVIVING txn of the batch wrote a range overlapping
+    its own.  Reads and writes arrive as spans [pb, pe) of gaps of the
+    sorted endpoint universe (U = 1 << log_u gaps); each Jacobi round
+    builds the min-writer cover (ops/segtree.py), answers every read's
+    range min, and recomputes from the history-only baseline, until
+    nothing changes.  Returns (conflicted int32[t_cap], rounds int32[1]);
+    with rounds_acc (int32[1]) the round count is also added there.
+    Kernel: sg_fixpoint, one cooperative persistent launch whose rounds
+    loop on the device."""
+    t_cap = hist.shape[0]
+    dev = hist.device
+    e = dict(dtype=torch.int32, device=dev)
+    if _k.use_kernel(hist, impl):
+        u = 1 << log_u
+        conf = torch.empty((t_cap,), **e)
+        rounds = torch.empty((1,), **e)
+        _k.launch("interval_fixpoint", "sg_fixpoint", t_cap, r_txn.shape[0],
+                  w_txn.shape[0], log_u, hist, r_txn, r_live, r_pb, r_pe,
+                  w_txn, w_ok, w_pb, w_pe, torch.empty((2 * u,), **e),
+                  torch.empty((log_u + 1, u), **e),
+                  torch.empty((t_cap,), **e), torch.zeros((2,), **e), conf,
+                  rounds, rounds_acc)
+        return conf, rounds
+    p_ = "plain"
+    w_txn_c = torch.clamp(w_txn, 0, t_cap - 1).long()
+    live = r_live != 0
+    r_scatter = torch.where(live, r_txn, t_cap)
+    conf = hist.clone()
+    rounds = 0
+    while True:
+        rounds += 1
+        w_active = (w_ok != 0) & (conf[w_txn_c] == 0)
+        cover = interval_min_cover(w_pb, w_pe, w_txn, w_active, log_u, p_)
+        m = range_min(build_min_table(cover, p_), r_pb, r_pe, p_)
+        intra_hit = live & (m < r_txn)
+        new_conf = scatter_max(hist.clone(), r_scatter, intra_hit)
+        changed = bool((new_conf != conf).any())
+        conf = new_conf
+        if not changed:
+            break
+    rounds_t = torch.tensor([rounds], **e)
+    if rounds_acc is not None:
+        rounds_acc.add_(rounds_t)
+    return conf, rounds_t
+
+
+def general_codes(t_valid, too_old, conf, w_txn, w_valid, codes_out,
+                  impl=None):
+    """Verdict codes into codes_out (int8[t_cap]) and the insert mask of
+    surviving txns' writes (int32[w_cap]) (reference fused.py:550-566).
+    Kernel: ig_codes."""
+    t_cap, w_cap = too_old.shape[0], w_txn.shape[0]
+    dev = too_old.device
+    if _k.use_kernel(too_old, impl):
+        w_ins = torch.empty((w_cap,), dtype=torch.int32, device=dev)
+        _k.launch("general_codes", "ig_codes", t_cap, w_cap, t_valid,
+                  too_old, conf, w_txn, w_valid, codes_out, w_ins)
+        return w_ins
+    tv = t_valid != 0
+    old = too_old != 0
+    cf = conf != 0
+    codes_out.copy_(torch.where(
+        ~tv, RES_INVALID,
+        torch.where(old, RES_TOO_OLD,
+                    torch.where(cf, RES_CONFLICT, RES_COMMITTED))).to(
+                        torch.int8))
+    survivor = tv & ~old & ~cf
+    w_txn_c = torch.clamp(w_txn, 0, t_cap - 1).long()
+    return ((w_valid != 0) & survivor[w_txn_c]).to(torch.int32)
+
+
+def unpack_meta(meta: torch.Tensor, t_cap: int, r_cap: int,
+                w_cap: int) -> dict:
+    """Views of the metadata block's sections (layout at meta_size)."""
+    out, o = {}, 0
+    for name, n in (("r_txn", r_cap), ("r_valid", r_cap), ("w_txn", w_cap),
+                    ("w_valid", w_cap), ("t_snap", t_cap),
+                    ("t_has_reads", t_cap), ("t_valid", t_cap),
+                    ("now_rel", 1), ("oldest_rel", 1)):
+        out[name] = meta[o:o + n]
+        o += n
+    return out
+
+
+def make_resolve_step(cap: int, d_cap: int, t_cap: int, r_cap: int,
+                      w_cap: int, impl=None):
+    """Per-batch step of the general interval path (reference
+    fused.py:427, one device): range reads and writes, keys of any
+    length, point batches the compact layout rejects.
+
+    fn(bk, bv, table, size, dk, dv, dtable, dsize, flag, digests, meta,
+       rounds_acc=None) -> (dk, dv, dsize, flag, out)
+    digests: rows int32[2R + 2W, 8] = r_b | r_e | w_b | w_e, MAX padded;
+    meta: int32[meta_size(T, R, W)].  dk/dv/dsize/flag are updated IN
+    PLACE and returned; out = int8[t_cap + 12] (codes, then flag / delta
+    size / base size as int32 bytes).  `dtable` is the delta table over
+    the INPUT delta (delta_table_step).  rounds_acc (int32[1]), when
+    given, accumulates the fixpoint's round count."""
+    u_cap = _next_pow2(2 * (r_cap + w_cap))
+    log_u = u_cap.bit_length() - 1
+
+    def step(bk, bv, table, size, dk, dv, dtable, dsize, flag, digests,
+             meta, rounds_acc=None):
+        m = unpack_meta(meta, t_cap, r_cap, w_cap)
+        r_b, r_e = digests[:r_cap], digests[r_cap:2 * r_cap]
+        w_b = digests[2 * r_cap:2 * r_cap + w_cap]
+        w_e = digests[2 * r_cap + w_cap:]
+
+        # History: max(base, delta) over [b, e) against each snapshot.
+        vmax = history_probe(bk, table, dk, dtable, r_b, r_e, impl)
+        g = general_prep(m, vmax, impl)
+
+        # The endpoint gap universe: every endpoint of the batch sorted
+        # (MAX padded to u_cap), and each range as a span of its gaps.
+        universe = max_rows(u_cap, digests.device)
+        sort_rows(digests, out=universe[:digests.shape[0]], impl=impl)
+        r_pos = searchsorted(universe, digests[:2 * r_cap], True, impl)
+        w_pos = searchsorted(universe, digests[2 * r_cap:], True, impl)
+        conflicted, _ = interval_fixpoint(
+            g["hist"], m["r_txn"], g["r_live"], r_pos[:r_cap],
+            r_pos[r_cap:], m["w_txn"], g["w_ok"], w_pos[:w_cap],
+            w_pos[w_cap:], log_u, rounds_acc, impl)
+
+        # Verdicts, then the surviving writes into the DELTA at `now`.
+        out = torch.empty((t_cap + OUT_EXTRA,), dtype=torch.int8,
+                          device=digests.device)
+        w_ins = general_codes(m["t_valid"], g["too_old"], conflicted,
+                              m["w_txn"], m["w_valid"], out[:t_cap], impl)
+        window_insert(WindowState(dk, dv, dsize), w_b, w_e, w_ins,
+                      m["now_rel"], flag=flag, bsize=size,
+                      tail=out[t_cap:].view(torch.int32), impl=impl)
         return dk, dv, dsize, flag, out
 
     return step

@@ -10,9 +10,11 @@ after that copy is the only thing ResolveHandle.wait_codes synchronises.
 Merge scheduling stays on the host's sound bound of delta occupancy, so
 the host never waits on the device to decide.
 
-Only point batches run here (the compact single-buffer layout).  A batch
-that is not all_point, or that _pack_compact rejects, needs the general
-interval path, which is not ported yet: it raises NotImplementedError.
+Two paths: point batches take the compact single-buffer layout
+(_pack_compact, make_resolve_step_compact); every other batch -- range
+reads, range writes, keys over 31 bytes, and point batches _pack_compact
+rejects -- takes the general interval path (_pack, make_resolve_step),
+whose digests and metadata travel as one buffer too.
 
 Versions are int32 offsets from self.version_base (rebased during merges).
 Capacity overflow sets a sticky device flag surfaced as an error at the
@@ -128,7 +130,7 @@ class ResolveHandle:
 
 
 class TorchConflictSet(ConflictSet):
-    """Point-batch conflict resolution on one device.
+    """Conflict resolution on one device.
 
     device: "cuda" (the default; construction raises when no CUDA device
     is present) or "cpu" (the plain-torch versions, for tests).  impl:
@@ -158,7 +160,12 @@ class TorchConflictSet(ConflictSet):
         self._inflight: List[ResolveHandle] = []
         self._gc_interval = gc_interval_batches
         self.profile = {"batches": 0, "txns": 0, "txn_slots": 0,
-                        "merges": 0, "compact_batches": 0}
+                        "merges": 0, "compact_batches": 0,
+                        "general_batches": 0}
+        with self._on_stream():
+            # Jacobi rounds of the general steps, summed on the device.
+            self.jacobi_rounds = torch.zeros((1,), dtype=torch.int32,
+                                             device=self.device)
         self._reset_state(oldest_version)
 
     def _on_stream(self):
@@ -339,12 +346,51 @@ class TorchConflictSet(ConflictSet):
                 "caps": (t_cap, r_pad, w_pad),
                 "shapes": (t_cap, r_pad, w_pad, u_pad, lw)}
 
-    def _pack(self, enc: EncodedBatch):
+    @staticmethod
+    def _pack(enc: EncodedBatch):
+        """Bucket-pad the columnar batch into device input: the compact
+        single-buffer layout for point batches, else the general layout,
+        one uint8 buffer holding the digest rows r_b | r_e | w_b | w_e
+        (MAX padded, int32[2R + 2W, 8]) and then the int32 metadata block
+        (fused.meta_size), the same content as the JAX backend's
+        digests + meta pair."""
         if enc.all_point:
-            packed = self._pack_compact(enc)
+            packed = TorchConflictSet._pack_compact(enc)
             if packed is not None:
                 return packed
-        raise NotImplementedError("general interval path: later slice")
+        from ..ops.digest import DIGEST_BYTES, KEY_LANES
+        n = enc.n_txns
+        nr = enc.r_txn.shape[0]
+        nw = enc.w_txn.shape[0]
+        t_cap = _bucket(n)
+        r_cap = _bucket(nr)
+        w_cap = _bucket(nw)
+        n_rows = 2 * r_cap + 2 * w_cap
+        d_bytes = n_rows * DIGEST_BYTES
+        buf = np.empty((d_bytes + 4 * fused.meta_size(t_cap, r_cap, w_cap),),
+                       dtype=np.uint8)
+        rows = buf[:d_bytes].view(np.uint32).reshape(n_rows, KEY_LANES)
+        rows.fill(0xFFFFFFFF)
+        rows[:nr] = enc.r_begin.T
+        rows[r_cap:r_cap + nr] = enc.r_end.T
+        rows[2 * r_cap:2 * r_cap + nw] = enc.w_begin.T
+        rows[2 * r_cap + w_cap:2 * r_cap + w_cap + nw] = enc.w_end.T
+        # The metadata block; the scalar slots at its end and the
+        # snapshots are stamped at dispatch time.
+        meta = buf[d_bytes:].view(np.int32)
+        meta.fill(0)
+        o = 0
+        meta[o:o + nr] = enc.r_txn; o += r_cap
+        meta[o:o + nr] = 1; o += r_cap
+        meta[o:o + nw] = enc.w_txn; o += w_cap
+        meta[o:o + nw] = 1; o += w_cap
+        snap_off = o; o += t_cap
+        meta[o:o + n] = enc.t_has_reads; o += t_cap
+        meta[o:o + n] = 1; o += t_cap
+        return {"compact": False, "buf": buf, "meta": meta,
+                "snap_off": snap_off, "scalar_off": o,
+                "t_snap_abs": enc.t_snap, "nw": nw,
+                "caps": (t_cap, r_cap, w_cap)}
 
     def _dispatch(self, enc, now: Version, oldest_floor: Version,
                   n_txns: int) -> ResolveHandle:
@@ -372,7 +418,8 @@ class TorchConflictSet(ConflictSet):
         self.profile["batches"] += 1
         self.profile["txns"] += n_txns
         self.profile["txn_slots"] += t_cap
-        self.profile["compact_batches"] += 1
+        self.profile["compact_batches" if enc["compact"]
+                     else "general_batches"] += 1
         with self._lock:
             self._inflight.append(handle)
         return handle
@@ -394,21 +441,35 @@ class TorchConflictSet(ConflictSet):
         meta[sc:sc + 2] = (self._rel(now), self._rel(oldest_floor))
 
     def _invoke_step(self, enc, n_txns: int, t_cap: int) -> ResolveHandle:
-        """One h2d copy of the packed buffer, the step, the delta table for
-        the NEXT batch, and one d2h copy of the verdicts — all enqueued on
-        the backend's stream with no host synchronisation."""
-        step = fused.make_resolve_step_compact(
-            self.capacity, self.d_cap, *enc["shapes"], impl=self.impl)
+        """One h2d copy of the packed buffer, the step (compact or
+        general), the delta table for the NEXT batch, and one d2h copy of
+        the verdicts — all enqueued on the backend's stream with no host
+        synchronisation."""
         host_buf = torch.from_numpy(enc["buf"])
+        state = (self.bk, self.bv, self.table, self.size, self.dk, self.dv,
+                 self.dtable, self.dsize, self.flag)
         with self._on_stream():
             if self._stream is not None:
                 host_buf = host_buf.pin_memory()
                 buf = host_buf.to(self.device, non_blocking=True)
             else:
                 buf = host_buf.clone()
-            _, _, _, _, out = step(self.bk, self.bv, self.table, self.size,
-                                   self.dk, self.dv, self.dtable,
-                                   self.dsize, self.flag, buf)
+            if enc["compact"]:
+                step = fused.make_resolve_step_compact(
+                    self.capacity, self.d_cap, *enc["shapes"],
+                    impl=self.impl)
+                _, _, _, _, out = step(*state, buf)
+            else:
+                _, r_cap, w_cap = enc["caps"]
+                step = fused.make_resolve_step(self.capacity, self.d_cap,
+                                               t_cap, r_cap, w_cap,
+                                               impl=self.impl)
+                n_rows = 2 * (r_cap + w_cap)
+                digests = buf[:32 * n_rows].view(torch.int32).view(n_rows,
+                                                                   8)
+                meta = buf[32 * n_rows:].view(torch.int32)
+                _, _, _, _, out = step(*state, digests, meta,
+                                       rounds_acc=self.jacobi_rounds)
             fused.delta_table_step(self.dv, out=self.dtable, impl=self.impl)
             if self._stream is None:
                 return ResolveHandle(self, out, None, None, n_txns, t_cap)

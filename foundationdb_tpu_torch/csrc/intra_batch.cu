@@ -9,6 +9,12 @@
 //   ib_fixpoint    -- :373-385 the Jacobi intra-batch fixpoint
 //                     (lax.while_loop), iterated ON THE DEVICE;
 //   ib_codes       -- :388-405 survivors, the insert mask and verdict codes.
+// and of the general interval step (make_resolve_step):
+//   ig_txn         -- :479 too-old per txn from the metadata block;
+//   ig_rw          -- :482-511 live reads, their history verdicts (from the
+//                     two-tier maxima of history_probe) scatter-maxed per
+//                     txn, and the writers' base eligibility;
+//   ig_codes       -- :550-566 survivors, the insert mask and the codes.
 //
 // Bound on the card: bytes for the prep and code passes (each array read
 // and written once).  The fixpoint is latency-bound: one persistent CTA
@@ -158,6 +164,69 @@ __global__ void k_codes(int t_cap, int w_pad, const int* __restrict__ scal,
   }
 }
 
+// ------------------------------------------------- general interval step
+__global__ void k_gen_txn(int t_cap, const int* __restrict__ t_snap,
+                          const int* __restrict__ t_has_reads,
+                          const int* __restrict__ t_valid,
+                          const int* __restrict__ oldest_rel,
+                          int* __restrict__ too_old) {
+  const int oldest = oldest_rel[0];
+  GRID_STRIDE(t, t_cap) {
+    too_old[t] = (t_valid[t] && t_has_reads[t] && t_snap[t] < oldest) ? 1 : 0;
+  }
+}
+
+__global__ void k_gen_rw(int r_cap, int w_cap, int t_cap,
+                         const int* __restrict__ r_txn,
+                         const int* __restrict__ r_valid,
+                         const int* __restrict__ w_txn,
+                         const int* __restrict__ w_valid,
+                         const int* __restrict__ too_old,
+                         const int* __restrict__ t_snap,
+                         const int* __restrict__ vmax,
+                         int* __restrict__ r_live, int* __restrict__ hist,
+                         int* __restrict__ w_ok) {
+  long n = r_cap > w_cap ? r_cap : w_cap;
+  GRID_STRIDE(i, n) {
+    if (i < r_cap) {
+      int rt = r_txn[i];
+      int tc = clampi(rt, 0, t_cap - 1);
+      bool live = r_valid[i] && !too_old[tc];
+      r_live[i] = live ? 1 : 0;
+      if (live && vmax[i] > t_snap[tc]) {
+        long d = scatter_index(rt, t_cap);
+        if (d >= 0) hist[d] = 1;
+      }
+    }
+    if (i < w_cap) {
+      int tc = clampi(w_txn[i], 0, t_cap - 1);
+      w_ok[i] = (w_valid[i] && !too_old[tc]) ? 1 : 0;
+    }
+  }
+}
+
+__global__ void k_gen_codes(int t_cap, int w_cap,
+                            const int* __restrict__ t_valid,
+                            const int* __restrict__ too_old,
+                            const int* __restrict__ conf,
+                            const int* __restrict__ w_txn,
+                            const int* __restrict__ w_valid,
+                            int8_t* __restrict__ codes,
+                            int* __restrict__ w_ins) {
+  long n = t_cap > w_cap ? t_cap : w_cap;
+  GRID_STRIDE(i, n) {
+    if (i < t_cap) {
+      int c = !t_valid[i] ? -1 : (too_old[i] ? 1 : (conf[i] ? 0 : 2));
+      codes[i] = (int8_t)c;
+    }
+    if (i < w_cap) {
+      int tc = clampi(w_txn[i], 0, t_cap - 1);
+      bool surv = t_valid[tc] && !too_old[tc] && !conf[tc];
+      w_ins[i] = (w_valid[i] && surv) ? 1 : 0;
+    }
+  }
+}
+
 #define S(stream) (cudaStream_t)(stream)
 #define RET return (int)cudaGetLastError()
 
@@ -220,5 +289,40 @@ extern "C" int ib_codes(int t_cap, int w_pad, const void* scal,
   k_codes<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
       t_cap, w_pad, (const int*)scal, (const int*)too_old, (const int*)conf,
       (const int*)w_txn, (int8_t*)codes, (int*)w_ins);
+  RET;
+}
+
+extern "C" int ig_txn(int t_cap, const void* t_snap, const void* t_has_reads,
+                      const void* t_valid, const void* oldest_rel,
+                      void* too_old, void* stream) {
+  k_gen_txn<<<blocks_for(t_cap, THREADS), THREADS, 0, S(stream)>>>(
+      t_cap, (const int*)t_snap, (const int*)t_has_reads,
+      (const int*)t_valid, (const int*)oldest_rel, (int*)too_old);
+  RET;
+}
+
+extern "C" int ig_rw(int r_cap, int w_cap, int t_cap, const void* r_txn,
+                     const void* r_valid, const void* w_txn,
+                     const void* w_valid, const void* too_old,
+                     const void* t_snap, const void* vmax, void* r_live,
+                     void* hist, void* w_ok, void* stream) {
+  long n = r_cap > w_cap ? r_cap : w_cap;
+  k_gen_rw<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
+      r_cap, w_cap, t_cap, (const int*)r_txn, (const int*)r_valid,
+      (const int*)w_txn, (const int*)w_valid, (const int*)too_old,
+      (const int*)t_snap, (const int*)vmax, (int*)r_live, (int*)hist,
+      (int*)w_ok);
+  RET;
+}
+
+extern "C" int ig_codes(int t_cap, int w_cap, const void* t_valid,
+                        const void* too_old, const void* conf,
+                        const void* w_txn, const void* w_valid, void* codes,
+                        void* w_ins, void* stream) {
+  long n = t_cap > w_cap ? t_cap : w_cap;
+  k_gen_codes<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
+      t_cap, w_cap, (const int*)t_valid, (const int*)too_old,
+      (const int*)conf, (const int*)w_txn, (const int*)w_valid,
+      (int8_t*)codes, (int*)w_ins);
   RET;
 }

@@ -118,6 +118,7 @@ __global__ void k_compact(long n, const int* __restrict__ keep,
     long d = scatter_index((long)incl[i] - 1, n_dst);
     if (d < 0) continue;
     store_row(dst_rows, d, load_row(src_rows, i));
+    if (src_v == nullptr) continue;  // rows only
     int v = src_v[i];
     if (do_rebase) {
       v = (int)((uint32_t)v - (uint32_t)rebase);

@@ -1,0 +1,160 @@
+// window: the window programs' own kernels.
+//
+// Replaces (foundationdb_tpu, conflict/window.py):
+//   wq_query     -- :66-82 window_query: searchsorted_right(begin) - 1,
+//                   searchsorted_left(end), the range max over the sparse
+//                   table, `valid & max > snap`, fused per query;
+//   wu_endpoints -- :95-104 _union_ranges' sweep input: begins then ends
+//                   (MAX where invalid), the begins-first tie, +1 / -1;
+//   wu_marks     -- :110-112 the merged starts and ends of the coverage
+//                   sweep (the sort, cumsum and compactions are sort.cu's
+//                   and rank_scan.cu's);
+//   wi_new       -- :170-180 window_insert's new boundaries: merged begins
+//                   at `now`, merged ends not already present at their
+//                   continuing version, MAX / NEG_INF elsewhere;
+//   wi_valid     -- :186 the non-MAX mask of the sorted new boundaries;
+//   wg_keep      -- :226-231 window_gc's removeBefore keep mask.
+// window_insert's probe, keep mask, interleave scatters and overflow
+// commit are the point insert's pi_* kernels (rank_scan.cu), which compute
+// the same thing on any sorted, MAX-padded set of merged ranges.
+//
+// Bound on the card: bytes.  Every kernel here reads its inputs once and
+// writes its outputs once; wq_query adds the table rows its binary
+// searches touch and two range-max gathers per query.
+//
+// Design: one thread per element, grid-stride loops; digests move as
+// 32-byte rows (common.cuh).
+#include "common.cuh"
+
+__global__ void k_query(const uint32_t* __restrict__ bk, int cap, int nbits,
+                        const int* __restrict__ table,
+                        const uint32_t* __restrict__ qb,
+                        const uint32_t* __restrict__ qe,
+                        const int* __restrict__ snap,
+                        const int* __restrict__ valid, long nq,
+                        int* __restrict__ out) {
+  GRID_STRIDE(i, nq) {
+    int lo = search_rows(bk, cap, nbits, load_row(qb, i), false) - 1;
+    int hi = search_rows(bk, cap, nbits, load_row(qe, i), true);
+    int m = range_max(table, cap, lo, hi);
+    out[i] = (valid[i] != 0 && m > snap[i]) ? 1 : 0;
+  }
+}
+
+__global__ void k_endpoints(long w, const uint32_t* __restrict__ wb,
+                            const uint32_t* __restrict__ we,
+                            const int* __restrict__ wvalid,
+                            uint32_t* __restrict__ digests,
+                            int* __restrict__ tie, int* __restrict__ delta) {
+  GRID_STRIDE(i, w) {
+    bool v = wvalid[i] != 0;
+    store_row(digests, i, v ? load_row(wb, i) : max_row());
+    store_row(digests, w + i, v ? load_row(we, i) : max_row());
+    tie[i] = 0;
+    tie[w + i] = 1;
+    delta[i] = v ? 1 : 0;
+    delta[w + i] = v ? -1 : 0;
+  }
+}
+
+__global__ void k_marks(long n2, const int* __restrict__ s_delta,
+                        const int* __restrict__ cov,
+                        int* __restrict__ is_start, int* __restrict__ is_end) {
+  GRID_STRIDE(i, n2) {
+    int d = s_delta[i];
+    int c = cov[i];
+    is_start[i] = (d > 0 && c == 1) ? 1 : 0;
+    is_end[i] = (d < 0 && c == 0) ? 1 : 0;
+  }
+}
+
+__global__ void k_new(long w, const uint32_t* __restrict__ mb,
+                      const uint32_t* __restrict__ me,
+                      const int* __restrict__ m_incl, long n2,
+                      const int* __restrict__ present_end,
+                      const int* __restrict__ cont_v,
+                      const int* __restrict__ now_rel,
+                      uint32_t* __restrict__ new_rows,
+                      int* __restrict__ new_v) {
+  const int m_count = m_incl[n2 - 1];
+  const int now = now_rel[0];
+  GRID_STRIDE(k, w) {
+    bool mv = k < m_count;
+    bool ev = mv && !present_end[k];
+    store_row(new_rows, k, mv ? load_row(mb, k) : max_row());
+    new_v[k] = mv ? now : NEG_INF_I32;
+    store_row(new_rows, w + k, ev ? load_row(me, k) : max_row());
+    new_v[w + k] = ev ? cont_v[k] : NEG_INF_I32;
+  }
+}
+
+__global__ void k_valid(long n2, const uint32_t* __restrict__ rows,
+                        int* __restrict__ valid) {
+  GRID_STRIDE(i, n2) { valid[i] = row_eq(load_row(rows, i), max_row()) ? 0 : 1; }
+}
+
+__global__ void k_gc_keep(int cap, const int* __restrict__ size,
+                          const int* __restrict__ bv, int oldest,
+                          int* __restrict__ keep) {
+  const int sz = size[0];
+  GRID_STRIDE(i, cap) {
+    bool above = bv[i] >= oldest;
+    bool prev = i == 0 ? true : bv[i - 1] >= oldest;
+    keep[i] = (i < sz && (i == 0 || above || prev)) ? 1 : 0;
+  }
+}
+
+#define S(stream) (cudaStream_t)(stream)
+#define RET return (int)cudaGetLastError()
+
+extern "C" int wq_query(const void* bk, int cap, const void* table,
+                        const void* qb, const void* qe, const void* snap,
+                        const void* valid, long nq, void* out, void* stream) {
+  k_query<<<blocks_for(nq, THREADS), THREADS, 0, S(stream)>>>(
+      (const uint32_t*)bk, cap, log2_pow2(cap), (const int*)table,
+      (const uint32_t*)qb, (const uint32_t*)qe, (const int*)snap,
+      (const int*)valid, nq, (int*)out);
+  RET;
+}
+
+extern "C" int wu_endpoints(long w, const void* wb, const void* we,
+                            const void* wvalid, void* digests, void* tie,
+                            void* delta, void* stream) {
+  k_endpoints<<<blocks_for(w, THREADS), THREADS, 0, S(stream)>>>(
+      w, (const uint32_t*)wb, (const uint32_t*)we, (const int*)wvalid,
+      (uint32_t*)digests, (int*)tie, (int*)delta);
+  RET;
+}
+
+extern "C" int wu_marks(long n2, const void* s_delta, const void* cov,
+                        void* is_start, void* is_end, void* stream) {
+  k_marks<<<blocks_for(n2, THREADS), THREADS, 0, S(stream)>>>(
+      n2, (const int*)s_delta, (const int*)cov, (int*)is_start,
+      (int*)is_end);
+  RET;
+}
+
+extern "C" int wi_new(long w, const void* mb, const void* me,
+                      const void* m_incl, long n2, const void* present_end,
+                      const void* cont_v, const void* now_rel, void* new_rows,
+                      void* new_v, void* stream) {
+  k_new<<<blocks_for(w, THREADS), THREADS, 0, S(stream)>>>(
+      w, (const uint32_t*)mb, (const uint32_t*)me, (const int*)m_incl, n2,
+      (const int*)present_end, (const int*)cont_v, (const int*)now_rel,
+      (uint32_t*)new_rows, (int*)new_v);
+  RET;
+}
+
+extern "C" int wi_valid(long n2, const void* rows, void* valid,
+                        void* stream) {
+  k_valid<<<blocks_for(n2, THREADS), THREADS, 0, S(stream)>>>(
+      n2, (const uint32_t*)rows, (int*)valid);
+  RET;
+}
+
+extern "C" int wg_keep(int cap, const void* size, const void* bv, int oldest,
+                       void* keep, void* stream) {
+  k_gc_keep<<<blocks_for(cap, THREADS), THREADS, 0, S(stream)>>>(
+      cap, (const int*)size, (const int*)bv, oldest, (int*)keep);
+  RET;
+}

@@ -29,7 +29,8 @@ from typing import Dict, List, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("digest_search", "sparse_table", "rank_scan", "intra_batch")
+SOURCES = ("digest_search", "sparse_table", "rank_scan", "intra_batch",
+           "sort", "segtree", "window")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -50,6 +51,14 @@ KERNELS = {
     "batch_codes": ("intra_batch", _REF + "conflict/fused.py:388"),
     "point_insert": ("rank_scan", _REF + "conflict/fused.py:157"),
     "merge": ("rank_scan", _REF + "conflict/fused.py:607"),
+    "sort_rows": ("sort", _REF + "conflict/fused.py:524"),
+    "general_prep": ("intra_batch", _REF + "conflict/fused.py:479"),
+    "interval_fixpoint": ("segtree", _REF + "conflict/fused.py:531"),
+    "general_codes": ("intra_batch", _REF + "conflict/fused.py:562"),
+    "window_query": ("window", _REF + "conflict/window.py:66"),
+    "union_ranges": ("window", _REF + "conflict/window.py:85"),
+    "window_insert": ("window", _REF + "conflict/window.py:127"),
+    "window_gc": ("window", _REF + "conflict/window.py:219"),
 }
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -89,6 +98,19 @@ _SIGS = {
         "ib_write_prep": "iii" "pppp" "ppp" "p",
         "ib_fixpoint": "iiii" "ppppppp" "pppp" "p",
         "ib_codes": "ii" "pppppp" "p",
+        "ig_txn": "i" "ppppp" "p",
+        "ig_rw": "iii" "pppppppppp" "p",
+        "ig_codes": "ii" "ppppppp" "p",
+    },
+    "sort": {"so_sort": "l" "pppppp" "p"},
+    "segtree": {"sg_fixpoint": "iiii" "ppppppppp" "pppppp" "p" "p"},
+    "window": {
+        "wq_query": "pipppp" "plp" "p",
+        "wu_endpoints": "l" "pppppp" "p",
+        "wu_marks": "l" "pppp" "p",
+        "wi_new": "lppp" "l" "ppppp" "p",
+        "wi_valid": "lpp" "p",
+        "wg_keep": "ippip" "p",
     },
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64}

@@ -76,13 +76,14 @@ def rebase_versions(v: torch.Tensor, rebase: int) -> torch.Tensor:
 
 
 def compact_rows(keep: torch.Tensor, incl: torch.Tensor,
-                 src_rows: torch.Tensor, src_v: torch.Tensor,
-                 dst_rows: torch.Tensor, dst_v: torch.Tensor,
+                 src_rows: torch.Tensor, src_v: Optional[torch.Tensor],
+                 dst_rows: torch.Tensor, dst_v: Optional[torch.Tensor],
                  rebase: Optional[int] = None, impl=None) -> None:
     """Order-preserving compaction in place: for every i with keep[i],
     dst[incl[i] - 1] = src[i] (rows and values), writes past the end of
-    dst dropped; incl is the inclusive scan of keep.  With `rebase` the
-    values are rebased as rebase_versions does.  Kernel: rs_compact."""
+    dst dropped; incl is the inclusive scan of keep.  src_v / dst_v may
+    both be None (rows only).  With `rebase` the values are rebased as
+    rebase_versions does.  Kernel: rs_compact."""
     n_dst = dst_rows.shape[0]
     if _k.use_kernel(keep, impl):
         _k.launch("compact_rows", "rs_compact", keep.numel(), keep, incl,
@@ -90,6 +91,7 @@ def compact_rows(keep: torch.Tensor, incl: torch.Tensor,
                   int(rebase or 0), int(rebase is not None))
         return
     idx = torch.where(keep != 0, incl - 1, n_dst)
-    vals = src_v if rebase is None else rebase_versions(src_v, rebase)
     scatter_set(dst_rows, idx, src_rows)
-    scatter_set(dst_v, idx, vals)
+    if src_v is not None:
+        vals = src_v if rebase is None else rebase_versions(src_v, rebase)
+        scatter_set(dst_v, idx, vals)

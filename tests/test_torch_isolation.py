@@ -1,6 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, it
-never falls back to the CPU on its own, and it refuses the batches whose
-path is not ported yet instead of detouring them."""
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+it never falls back to the CPU on its own.  Batches that leave the compact
+point layout take the general interval path."""
 
 import os
 import shutil
@@ -15,10 +15,13 @@ PORT_MODULES = [
     "foundationdb_tpu_torch", "foundationdb_tpu_torch.kernels",
     "foundationdb_tpu_torch.conflict.torch_backend",
     "foundationdb_tpu_torch.conflict.fused",
+    "foundationdb_tpu_torch.conflict.window",
     "foundationdb_tpu_torch.conflict.oracle",
     "foundationdb_tpu_torch.conflict.encoded",
     "foundationdb_tpu_torch.ops.digest", "foundationdb_tpu_torch.ops.scan",
-    "foundationdb_tpu_torch.ops.rangemax", "chip_smoke"]
+    "foundationdb_tpu_torch.ops.rangemax",
+    "foundationdb_tpu_torch.ops.segtree", "foundationdb_tpu_torch.ops.sort",
+    "chip_smoke"]
 
 
 def test_port_imports_no_jax():
@@ -67,30 +70,40 @@ def test_kernel_impl_needs_a_cuda_tensor():
 
 
 def test_general_interval_batch_raises():
-    """A range read (not all_point) needs the general interval path."""
+    """A range read (not all_point) takes the general interval path, which
+    no longer raises: it resolves as the oracle does (a later range read
+    over the written key conflicts)."""
+    from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
     from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
     cs = TorchConflictSet(device="cpu", capacity=1 << 10)
+    oracle = OracleConflictSet(0)
     txn = CommitTransactionRef(read_conflict_ranges=[KeyRange(b"a", b"c")],
                                write_conflict_ranges=[KeyRange(b"a",
                                                                b"a\x00")],
                                read_snapshot=0)
-    with pytest.raises(NotImplementedError, match="general interval path"):
-        cs.resolve([txn], 10)
+    for now in (10, 20):
+        got = [int(v) for v in cs.resolve([txn], now)]
+        assert got == [int(v) for v in oracle.resolve([txn], now)]
+    assert got == [0]
+    assert cs.profile["general_batches"] == 2
+    assert cs.profile["compact_batches"] == 0
 
 
 def test_digest_adjacent_writes_raise():
     """Point batches that _pack_compact rejects (two written keys whose
-    digests are adjacent: k and k + b"\\x00") raise as well."""
+    digests are adjacent: k and k + b"\\x00") no longer raise: they take
+    the general interval path and commit, as in the oracle."""
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
     from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
     cs = TorchConflictSet(device="cpu", capacity=1 << 10)
     txns = [CommitTransactionRef(write_conflict_ranges=[KeyRange(k, k + b"\0")])
             for k in (b"k", b"k\x00")]
-    with pytest.raises(NotImplementedError):
-        cs.resolve(txns, 10)
-    # The same keys in separate batches are fine.
+    assert [int(v) for v in cs.resolve(txns, 10)] == [2, 2]
+    assert cs.profile["general_batches"] == 1
+    # The same keys in separate batches take the compact path.
     assert [int(v) for v in cs.resolve(txns[:1], 20)] == [2]
+    assert cs.profile["compact_batches"] == 1
 
 
 def test_chip_smoke_alone_fails(tmp_path):

@@ -312,3 +312,183 @@ def test_backend_stream_kernels_equal_plain_and_oracle(dev):
         for k in sa:
             assert np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])), k
     assert kern.profile["merges"] >= 2
+
+
+# ---------------------------------------------------------------------------
+# the general interval path and the window programs
+# ---------------------------------------------------------------------------
+
+def range_rows(rng, n: int, span: int = 30, keyspace: int = KEYSPACE):
+    """Begin / end rows of n ranges [key(a), key(a + s)) over the
+    15-byte keys."""
+    a = rng.integers(0, keyspace, size=n)
+    s = rng.integers(1, span, size=n)
+    return (torch.from_numpy(digest.planar_to_rows(key_digests(a))),
+            torch.from_numpy(digest.planar_to_rows(key_digests(a + s))))
+
+
+@pytest.mark.parametrize("n,with_tie,edge", [(1, False, False),
+                                             (5000, True, True),
+                                             (100000, False, True),
+                                             (1 << 21, False, False)])
+def test_sort_rows(dev, n, with_tie, edge):
+    from foundationdb_tpu_torch.ops.sort import sort_rows
+    rng = np.random.default_rng(n)
+    if edge:
+        lanes = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
+                          0xFFFFFFFF], np.uint32)
+        planar = lanes[rng.integers(0, lanes.size, size=(8, n))]
+        planar[:, rng.integers(0, n, size=n // 10 + 1)] = 0xFFFFFFFF
+    else:
+        planar = key_digests(rng.integers(0, 1 << 40, size=n))
+        planar[:, n // 2:] = 0xFFFFFFFF
+    rows = torch.from_numpy(digest.planar_to_rows(planar)).to(dev)
+    tie = (torch.randint(-3, 3, (n,), dtype=torch.int32, device=dev)
+           if with_tie else None)
+    pay = torch.arange(n, dtype=torch.int32, device=dev)
+    same(sort_rows(rows, tie=tie, payload=pay),
+         sort_rows(rows, tie=tie, payload=pay, impl="plain"))
+
+
+def window_after_inserts(dev, cap=1 << 12, batches=4, w=256, impl=None):
+    """A window on the card after a few batches of range inserts."""
+    from foundationdb_tpu_torch.conflict import window
+    rng = np.random.default_rng(11)
+    st = window.make_window_state(cap, 0, dev)
+    for b in range(batches):
+        wb, we = range_rows(rng, w)
+        valid = torch.from_numpy((rng.random(w) < 0.9).astype(np.int32))
+        window.window_insert(st, wb.to(dev), we.to(dev), valid.to(dev),
+                             1000 * (b + 1), impl=impl)
+    return st
+
+
+def test_window_programs(dev):
+    """window_insert (a chain, then one that overflows), window_query and
+    window_gc (at the rebase's wrap edge), kernel against plain."""
+    from foundationdb_tpu_torch.conflict import window
+    kern = window_after_inserts(dev)
+    plain = window_after_inserts(dev, impl="plain")
+    same(tuple(kern), tuple(plain))
+    rng = np.random.default_rng(12)
+    qb, qe = range_rows(rng, 5000, span=60)
+    snap = torch.from_numpy(rng.integers(0, 5000, size=5000,
+                                         dtype=np.int32)).to(dev)
+    valid = torch.ones(5000, dtype=torch.int32, device=dev)
+    got = window.window_query(kern.bk, kern.bv, qb.to(dev), qe.to(dev), snap,
+                              valid)
+    same(got, window.window_query(kern.bk, kern.bv, qb.to(dev), qe.to(dev),
+                                  snap, valid, impl="plain"))
+    assert 0 < int(got.sum()) < 5000
+    small = [window_after_inserts(dev, cap=256, batches=1, impl=i)
+             for i in (None, "plain")]
+    wb, we = range_rows(rng, 256)
+    ones = torch.ones(256, dtype=torch.int32, device=dev)
+    outs = [window.window_insert(s, wb.to(dev), we.to(dev), ones, 9000,
+                                 impl=i) for s, i in zip(small,
+                                                         (None, "plain"))]
+    same(outs[0], outs[1])
+    assert int(outs[0][1][0]) == 1                   # overflowed
+    kern.bv[0] = NEG_INF + 5
+    plain.bv[0] = NEG_INF + 5
+    for floor, rebase in ((2500, 1500), (-(1 << 31) + 2, 100)):
+        same(tuple(window.window_gc(kern, floor, rebase)),
+             tuple(window.window_gc(plain, floor, rebase, impl="plain")))
+
+
+def general_batch(rng, n_txns: int, now: int, oldest: int):
+    """A range batch (2 range reads, 1 range write per txn) packed and
+    stamped, and its shapes."""
+    nr = 2 * n_txns
+    rb, re_ = range_rows(rng, nr)
+    wb, we = range_rows(rng, n_txns, span=5)
+    enc = EncodedBatch(
+        n_txns=n_txns,
+        t_snap=rng.integers(oldest - 500, now, size=n_txns).astype(np.int64),
+        t_has_reads=np.ones(n_txns, bool),
+        r_txn=np.arange(nr, dtype=np.int32) // 2,
+        r_begin=digest.rows_to_planar(rb), r_end=digest.rows_to_planar(re_),
+        w_txn=np.arange(n_txns, dtype=np.int32),
+        w_begin=digest.rows_to_planar(wb), w_end=digest.rows_to_planar(we))
+    packed = TorchConflictSet._pack(enc)
+    meta = packed["meta"]
+    meta[packed["snap_off"]:packed["snap_off"] + n_txns] = enc.t_snap
+    meta[packed["scalar_off"]:packed["scalar_off"] + 2] = (now, oldest)
+    return packed
+
+
+@pytest.mark.parametrize("d_cap,live_d,flag", [(1 << 10, 300, 0),
+                                               (1 << 10, 1000, 0),
+                                               (1 << 12, 300, 1)])
+def test_general_step_program(dev, d_cap, live_d, flag):
+    """The whole general step, kernel against plain, on state copies; the
+    second case overflows the delta.  The fixpoint's rounds agree too."""
+    st = make_state(dev, d_cap=d_cap, live_d=live_d, flag=flag)
+    packed = general_batch(np.random.default_rng(13), 3000, 7000, 2500)
+    t_cap, r_cap, w_cap = packed["caps"]
+    n_rows = 2 * (r_cap + w_cap)
+    buf = torch.from_numpy(packed["buf"]).to(dev)
+    digests = buf[:32 * n_rows].view(torch.int32).view(n_rows, 8)
+    meta = buf[32 * n_rows:].view(torch.int32)
+    outs, rounds = [], []
+    for impl in (None, "plain"):
+        s = copy(st)
+        acc = torch.zeros(1, dtype=torch.int32, device=dev)
+        step = fused.make_resolve_step(1 << 12, d_cap, t_cap, r_cap, w_cap,
+                                       impl=impl)
+        outs.append(step(s["bk"], s["bv"], s["table"], s["size"], s["dk"],
+                         s["dv"], s["dtable"], s["dsize"], s["flag"],
+                         digests, meta, rounds_acc=acc))
+        rounds.append(int(acc[0]))
+    same(outs[0], outs[1])
+    assert rounds[0] == rounds[1] >= 2
+    assert int(outs[0][3][0]) == (1 if flag or live_d == 1000 else 0)
+    codes = outs[0][4][:3000].tolist()
+    assert {0, 1, 2} <= set(codes)
+
+
+def test_backend_range_stream_kernels_equal_plain_and_oracle(dev):
+    """TorchConflictSet on the card with range reads and writes (and keys
+    over 31 bytes, with ids in their first bytes so the oracle agrees),
+    kernels against impl="plain" at state level and against the oracle,
+    crossing a merge on each side of a clear()."""
+    rng = np.random.default_rng(14)
+    kw = dict(capacity=1 << 14, delta_capacity=1 << 11,
+              gc_interval_batches=3, device=dev)
+    kern, plain = TorchConflictSet(0, **kw), TorchConflictSet(0, impl="plain",
+                                                               **kw)
+    oracle = OracleConflictSet(0)
+    version = 1000
+
+    def k(i, long):
+        return (b"%08d" % i + b"z" * 40) if long else b"k%014d" % i
+
+    for i, n in enumerate([300, 300, 500, 300, 300, 0, 300, 300, 300, 300]):
+        if n == 0:
+            for cs in (kern, plain, oracle):
+                cs.clear(version)
+            continue
+        prev, version = version, version + 1000
+        long = i % 2 == 1
+        txns = []
+        for t in range(n):
+            a, b = (int(x) for x in rng.integers(0, 3000, size=2))
+            s = int(rng.integers(1, 20))
+            txns.append(CommitTransactionRef(
+                read_conflict_ranges=[KeyRange(k(2 * a, long),
+                                               k(2 * (a + s) + 1, long))],
+                write_conflict_ranges=[KeyRange(k(2 * b, long),
+                                                k(2 * b, long) + b"\x00")],
+                read_snapshot=int(max(prev - rng.integers(0, 2000), 0))))
+        floor = max(version - 5000, 0)
+        a = [int(v) for v in kern.resolve(txns, version, floor)]
+        b = [int(v) for v in plain.resolve(txns, version, floor)]
+        c = [int(v) for v in oracle.resolve(txns, version, floor)]
+        assert a == b == c, i
+        sa, sb = state_to_numpy(kern), state_to_numpy(plain)
+        for key_ in sa:
+            assert np.array_equal(np.asarray(sa[key_]),
+                                  np.asarray(sb[key_])), key_
+    assert kern.profile["merges"] >= 2
+    assert kern.profile["general_batches"] == 9
+    assert int(kern.jacobi_rounds[0]) == int(plain.jacobi_rounds[0]) >= 9
