@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA conflict path on one NVIDIA GPU.
 
-Drives foundationdb_tpu_torch's three paths through the entry points a
+Drives foundationdb_tpu_torch's five paths through the entry points a
 resolver calls, each at full size:
 
   point    TorchConflictSet.resolve_encoded_async -> _pack_compact -> the
@@ -16,10 +16,19 @@ resolver calls, each at full size:
            1,024-byte keys;
   window   a one-shard window: window_query -> window_insert every config-3
            batch, window_gc every 8 batches (window_query is the entry
-           __graft_entry__.py hands out).
+           __graft_entry__.py hands out);
+  sharded  ShardedTorchConflictSet.resolve_encoded_async, four key-range
+           shards on the one card, at config 5 (BASELINE.json configs[4]):
+           65,536 txns per batch, 2 point reads + 1 point write each,
+           uniform over 100M keys, 2^20 boundaries and a 2^18 delta per
+           shard, equi-depth splits, the floor frozen while the window
+           fills to >= 1,000,000 in-flight writes at depth 3;
+  sharded_window
+           ShardedWindow.resolve_step at kr=4, q=1, 2^21 boundaries per
+           shard, on the config-3 batches of the window path.
 
-Capacity 2^21, delta capacity 2^20, snapshots up to 2,000 versions behind,
-1,000 versions per batch, the window floor 5 batches back.
+Paths 1-3: capacity 2^21, delta capacity 2^20, snapshots up to 2,000
+versions behind, 1,000 versions per batch, the window floor 5 batches back.
 
 Phases (each prints its lines and its seconds; any failure raises and
 exits non-zero):
@@ -42,7 +51,22 @@ exits non-zero):
   8. the window path on 10 config-3 batches, bits and state against the
      plain versions, then bits against the oracle's history on small
      batches;
-  9. the JSON lines (programs and paths; kernels with launches per path,
+  9. the shard wrappers (clip_rows, shard_combine, shard_commit) and the
+     programs #8 (sharded compact step and merge at config 5, sharded
+     general step at config 3) and #9 (sharded window step and gc), kernel
+     against plain;
+ 10. the sharded path on config 5: fill, p50 at depth 1, shard balance,
+     the at-capacity probe (2,048 committed writes re-read at snapshot 0
+     must all conflict);
+ 11. the sharded backend against the oracle on small batches (config 5,
+     zipf, config 3), and kernel-vs-plain state at full config-5 size
+     across a merge;
+ 12. the config-3 stream through four shards: codes equal the one-device
+     general path's;
+ 13. the sharded window on the config-3 batches (bits equal the one-shard
+     window's), on spread random batches (bits and state equal the plain
+     versions) and on an overflow of one shard (every shard unchanged);
+ 14. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it), the card's name and power
      limit, and the last line: {"ok": true, "device": {...}}.
 
@@ -106,6 +130,13 @@ PATH_KERNELS = {
                 "window_insert", *_SHARED],
     "window": ["window_query", "sort_rows", "union_ranges", "window_insert",
                "window_gc", *_SHARED],
+    "sharded": ["widen_unique", "history_probe", "txn_prep",
+                "read_write_prep", "intra_batch_fixpoint", "batch_codes",
+                "point_insert", "merge", "clip_rows", "shard_combine",
+                *_SHARED],
+    "sharded_window": ["window_query", "sort_rows", "union_ranges",
+                       "window_insert", "window_gc", "clip_rows",
+                       "shard_combine", "shard_commit", *_SHARED],
 }
 
 
@@ -366,6 +397,29 @@ def device_ms(fn, reps: int = REPS, setup=None, counter=None) -> float:
         if not pairs:
             raise AssertionError(f"{counter}: no launch under its counter")
         total += sum(s.elapsed_time(e) for s, e in pairs)
+    return total / reps
+
+
+def kernel_sum_ms(fn, reps: int = REPS, setup=None) -> float:
+    """Mean device milliseconds per call of fn() as the sum of the times of
+    its own kernels, each launch between a pair of CUDA events
+    (kernels.timed_launches); torch's own fill and copy kernels are not in
+    it.  For the sharded programs, which enqueue four shards' launches:
+    held behind a sleep (device_ms), their host stalls before the whole
+    call is enqueued (the launch queue fills), so device_ms cannot
+    separate their device time from the host's."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    total = 0.0
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        with K.timed_launches() as timed:
+            fn()
+        torch.cuda.synchronize()
+        total += sum(s.elapsed_time(e) for pairs in timed.values()
+                     for s, e in pairs)
     return total / reps
 
 
@@ -1136,30 +1190,32 @@ def general_path(smi: str):
     return launches, path, batches
 
 
-def oracle_parity3():
-    """Path 2's verdicts against the oracle, over the full 1,024-byte keys,
-    on small batches of the config-3 generator (too-old snapshots
-    included)."""
+def small_stream3(seed: int):
+    """Small batches of the config-3 generator, too-old snapshots
+    included."""
+    return make_stream3(np.random.default_rng(seed), N_ORACLE3,
+                        RECORDS_SMALL, TXNS_SMALL, too_old=0.02)
+
+
+def oracle_parity3(make_cs, stream, label: str = "parity_general"):
+    """A backend's verdicts against the oracle, over the full 1,024-byte
+    keys, on small batches of the config-3 generator."""
     from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
-    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
-    cs = TorchConflictSet(0, capacity=CAPACITY, delta_capacity=DELTA_CAPACITY,
-                          device=DEVICE)
+    cs = make_cs()
     oracle = OracleConflictSet(0)
     seen = set()
-    for i, (v, enc, draws) in enumerate(make_stream3(
-            np.random.default_rng(2028), N_ORACLE3, RECORDS_SMALL, TXNS_SMALL,
-            too_old=0.02)):
+    for i, (v, enc, draws) in enumerate(stream):
         want = np.asarray([int(x) for x in oracle.resolve(
             transactions3(draws), v, floor(v))], dtype=np.int8)
         got = cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
         bad = int(np.sum(got != want))
         if bad:
-            raise AssertionError(f"config-3 parity: {bad} verdicts differ "
-                                 f"from the oracle on batch {i}")
+            raise AssertionError(f"{label}: {bad} verdicts differ from the "
+                                 f"oracle on batch {i}")
         seen.update(int(c) for c in want)
     if seen != {0, 1, 2}:
-        raise AssertionError(f"config-3 parity batches lack a verdict: {seen}")
-    print(f"parity_general: verdicts equal the oracle on {N_ORACLE3} batches "
+        raise AssertionError(f"{label}: the batches lack a verdict: {seen}")
+    print(f"{label}: verdicts equal the oracle on {N_ORACLE3} batches "
           f"of {TXNS_SMALL} txns over {RECORDS_SMALL} records (full "
           f"{KEY_BYTES}-byte keys; committed, conflicted and too-old txns)",
           flush=True)
@@ -1277,6 +1333,617 @@ def window_path(smi: str, batches):
     return launches, path
 
 
+# ---------------------------------------------------------------- config 5
+# BASELINE.json configs[4], "Sharded version window across 4 chips:
+# psum-merged conflict bitmap, 1M in-flight ranges" (bench.py:86-95,
+# run_config5 at bench.py:423): four key-range shards, here all on one
+# card, 2^20 boundaries and a 2^18 delta per shard; 65,536 txns a batch,
+# 2 point reads + 1 point write each, uniform over 100M keys; equi-depth
+# splits from a 2,000-txn sample; the floor frozen at 0 while the stream
+# fills the window to >= 1,000,000 committed in-flight writes at pipeline
+# depth 3; then the at-capacity probe of bench.py:520-537.
+N_SHARDS = 4
+CONFIG5_TXNS = 65_536
+CONFIG5_TARGET = 1_000_000
+CONFIG5_CAPACITY = 1 << 22          # across the shards
+CONFIG5_DELTA = 1 << 20
+CONFIG5_DEPTH = 3
+CONFIG5_SAMPLE_TXNS = 2_000
+CONFIG5_BATCHES = 24                # generated ahead; the fill stops early
+N_LATENCY5, N_PROBE5 = 4, 2048
+N_PARITY5, PARITY5_TXNS = 2, 2_000
+# The sharded general path: the config-3 stream through four shards.
+CAPACITY3S, DELTA3S, N_SHARDED3 = 1 << 19, 1 << 18, 8
+N_SPREAD_WINDOW, SMALL_WINDOW = 4, 1 << 12
+
+
+def shard_mesh():
+    from foundationdb_tpu_torch.parallel import make_conflict_mesh
+    return make_conflict_mesh([DEVICE] * N_SHARDS)
+
+
+def config5_splits(rng):
+    """Equi-depth splits from the writes of a 2,000-txn sample batch, as
+    bench.py:454-456 cuts them."""
+    from foundationdb_tpu_torch.parallel import splits_from_sample
+    sample, _, _ = gen_batch(rng, 1_000, KEYSPACE_LOW, False,
+                             CONFIG5_SAMPLE_TXNS)
+    return splits_from_sample(sample.w_begin, N_SHARDS)
+
+
+def make_stream5(rng, count: int):
+    out, version = [], 2_000
+    for _ in range(count):
+        prev, version = version, version + VERSIONS_PER_BATCH
+        out.append((version, *gen_batch(rng, prev, KEYSPACE_LOW, False,
+                                        CONFIG5_TXNS)))
+    return out
+
+
+def sharded_backend(splits, impl=None, capacity=CONFIG5_CAPACITY // N_SHARDS,
+                    delta=CONFIG5_DELTA // N_SHARDS, gc=8):
+    from foundationdb_tpu_torch.parallel import ShardedTorchConflictSet
+    return ShardedTorchConflictSet(shard_mesh(), 0, capacity=capacity,
+                                   delta_capacity=delta,
+                                   gc_interval_batches=gc, splits=splits,
+                                   impl=impl)
+
+
+def save_shards(cs):
+    from foundationdb_tpu_torch.parallel.sharded_resolver import \
+        SHARDED_STATE_KEYS
+    cs.synchronize()
+    return [{k: getattr(sh, k).clone() for k in SHARDED_STATE_KEYS}
+            for sh in cs.shards]
+
+
+def load_shards(cs, saved):
+    for sh, st in zip(cs.shards, saved):
+        for k, v in st.items():
+            getattr(sh, k).copy_(v)
+
+
+def shard_tensors(cs):
+    from foundationdb_tpu_torch.parallel.sharded_resolver import \
+        SHARDED_STATE_KEYS
+    return tuple(getattr(sh, k) for sh in cs.shards
+                 for k in SHARDED_STATE_KEYS)
+
+
+def warm_sharded(splits, stream, capacity, delta):
+    """A sharded backend after 3 batches of `stream`, a merge and one more
+    batch (the delta non-empty), the next batch packed and stamped, and a
+    plain-version backend holding the same state."""
+    cs = sharded_backend(splits, capacity=capacity, delta=delta)
+    for v, enc, *_ in stream[:3]:
+        cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+    cs.merge()
+    v, enc, *_ = stream[3]
+    cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+    v, enc, *_ = stream[4]
+    packed = cs._pack(enc)
+    cs._stamp(packed, v, cs.oldest_version, enc.n_txns)
+    cs.oldest_version = floor(v)
+    plain = sharded_backend(splits, impl="plain", capacity=capacity,
+                            delta=delta)
+    plain.d_cap = cs.d_cap
+    saved = save_shards(cs)
+    for sh, st in zip(plain.shards, saved):
+        for k, t in st.items():
+            setattr(sh, k, t.clone())
+    plain.synchronize()
+    return cs, plain, packed, saved
+
+
+def time_program(programs, prog, kern, plain, load_k, load_p, n_bytes):
+    """A sharded program, kernel against plain on the same state (restored
+    before every call by load_*), then timed on the timeline, as the sum
+    of its own kernels' device times (kernel_sum_ms), and its plain
+    version on the timeline."""
+    load_k()
+    load_p()
+    err = require_equal(prog, kern(), plain())
+    ms = cuda_ms(kern, setup=load_k)
+    dev_ms = kernel_sum_ms(kern, setup=load_k)
+    plain_ms = cuda_ms(plain, 2, load_p)
+    programs[prog] = {"ms": ms, "kernel_sum_ms": dev_ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms(n_bytes),
+                      "max_abs_err": err}
+    log(f"program {prog}: bit-equal; kernel {ms:.3f} ms ({dev_ms:.3f} ms "
+        f"summed over its kernels), plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms(n_bytes):.4f} ms")
+
+
+def kernel_row(name, fn, n_bytes, library=None, setup=None):
+    """A wrapper's row: kernel against plain, its own launches timed."""
+    from foundationdb_tpu_torch import kernels as K
+    if setup is not None:
+        setup()
+    got = fn("kernel")
+    if setup is not None:
+        setup()
+    err = require_equal(name, got, fn("plain"))
+    ms = device_ms(lambda: fn("kernel"), setup=setup, counter=name)
+    plain = cuda_ms(lambda: fn("plain"), reps=2, setup=setup)
+    lib = None if library is None else device_ms(library)
+    src, ref = K.KERNELS[name]
+    log(f"{name}: bit-equal; own kernels {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bound_ms(n_bytes):.4f} ms")
+    return {"name": name, "route": "cuda",
+            "source": f"foundationdb_tpu_torch/csrc/{src}.cu",
+            "replaces": ref, "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound_ms(n_bytes),
+            "bound_by": "bytes", "library_ms": lib}
+
+
+def compare_sharded(splits5, stream5, stream3):
+    """Phase 9: the shard kernels and programs #8 (the sharded compact and
+    general steps, the sharded merge) and #9 (the sharded window step and
+    gc), kernel against plain at the paths' shapes."""
+    import torch
+    from foundationdb_tpu_torch.conflict import fused
+    from foundationdb_tpu_torch.ops import digest, shard
+    from foundationdb_tpu_torch.parallel import ShardedWindow
+    rows, programs = [], {}
+    cs, plain, packed, saved = warm_sharded(
+        splits5, stream5, CONFIG5_CAPACITY // N_SHARDS,
+        CONFIG5_DELTA // N_SHARDS)
+    host_buf = torch.from_numpy(packed["buf"]).pin_memory()
+    t_cap, r_pad, w_pad, u_pad, lw = packed["shapes"]
+    step = fused.make_resolve_step_compact(cs.capacity, cs.d_cap,
+                                           *packed["shapes"], impl="plain")
+    buf = host_buf.to(DEVICE)
+    sh1 = cs.shards[1]
+    h = step.history(sh1.bk, sh1.table, sh1.dk, sh1.dtable, buf, sh1.bounds)
+    hists = torch.stack([step.history(sh.bk, sh.table, sh.dk, sh.dtable, buf,
+                                      sh.bounds)["rw"]["hist"]
+                         for sh in cs.shards])
+    u_b, u_e = h["u_b"], h["u_e"]
+    clip_out = shard.clip_rows(u_b, u_e, *sh1.bounds, impl="plain")
+    log(f"config 5: shard 1 owns {int(clip_out[2].sum())} of {u_pad} unique "
+        f"keys (u_n {int(h['scal'][0])})")
+    rows.append(kernel_row(
+        "clip_rows", lambda i: shard.clip_rows(u_b, u_e, *sh1.bounds, impl=i),
+        nbytes(u_b, u_e, *clip_out)))
+    rows.append(kernel_row(
+        "shard_combine", lambda i: shard.shard_combine(hists, impl=i),
+        nbytes(hists) + 4 * t_cap,
+        library=lambda: torch.amax(hists, dim=0)))
+
+    def load_k():
+        load_shards(cs, saved)
+
+    def load_p():
+        load_shards(plain, saved)
+
+    def run_step(c):
+        out, _ = c._run_step(packed, host_buf)
+        return (out,) + shard_tensors(c)
+
+    def probe_bytes(sh, n_q, q_bytes):
+        return (q_bytes + search_bytes(sh.bk, n_q) + search_bytes(sh.dk, n_q)
+                + 4 * 4 * n_q + 4 * n_q)
+
+    # The batch in once; per shard the probe of its clipped keys and its
+    # delta read and rewritten; the codes and tail out.
+    step_bytes = (nbytes(buf) + t_cap + 12 + sum(
+        probe_bytes(sh, u_pad, nbytes(u_b, u_e)) + 2 * nbytes(sh.dk, sh.dv)
+        for sh in cs.shards))
+    time_program(programs, "sharded_step", lambda: run_step(cs),
+                 lambda: run_step(plain), load_k, load_p, step_bytes)
+    scalars = (cs._rel(cs.oldest_version),
+               max(cs.oldest_version - cs.version_base, 0))
+
+    def run_merge(c):
+        c._merge_state(fused.make_merge_step(c.capacity, c.d_cap, c.impl),
+                       scalars)
+        c._refresh_dtable()
+        return shard_tensors(c)
+
+    merge_bytes = sum(2 * nbytes(sh.bk, sh.bv, sh.dk, sh.dv)
+                      + nbytes(sh.table, sh.dtable) for sh in cs.shards)
+    time_program(programs, "sharded_merge", lambda: run_merge(cs),
+                 lambda: run_merge(plain), load_k, load_p, merge_bytes)
+    del cs, plain, saved, hists, h, buf
+    torch.cuda.empty_cache()
+
+    # The sharded general step at config 3, equi-depth splits from its
+    # writes.
+    splits3 = general_splits(stream3)
+    cs, plain, packed, saved = warm_sharded(splits3, stream3, CAPACITY3S,
+                                            DELTA3S)
+    host_buf = torch.from_numpy(packed["buf"]).pin_memory()
+    t_cap, r_cap, w_cap = packed["caps"]
+    digests, meta = cs._general_views(host_buf, packed["caps"])
+
+    def load_k():
+        load_shards(cs, saved)
+
+    def load_p():
+        load_shards(plain, saved)
+
+    gen_bytes = (nbytes(digests, meta) + t_cap + 12 + sum(
+        probe_bytes(sh, 2 * r_cap, 2 * nbytes(digests[:r_cap]))
+        + 2 * nbytes(sh.dk, sh.dv) for sh in cs.shards))
+    time_program(programs, "sharded_general_step", lambda: run_step(cs),
+                 lambda: run_step(plain), load_k, load_p, gen_bytes)
+    del cs, plain, saved
+    torch.cuda.empty_cache()
+
+    # The sharded window at kr=4, q=1, 2^21 boundaries per shard: the
+    # window of the first five config-3 batches, then the sixth batch's
+    # step; the gc at its floor.
+    wins = [ShardedWindow(shard_mesh(), CAPACITY, impl=i)
+            for i in (None, "plain")]
+    for v, enc, _ in stream3[:5]:
+        wins[0].resolve_step(*window_inputs(enc, 0), v)
+    torch.cuda.synchronize()
+    wsaved = [tuple(t.clone() for t in st) for st in wins[0].shard_states()]
+    v5, enc5, _ = stream3[5]
+    inputs = window_inputs(enc5, 0)
+    nq, nw = inputs[0].shape[0], inputs[4].shape[0]
+
+    def wload(w):
+        def load():
+            for st, sv in zip(w.shard_states(), wsaved):
+                for t, s in zip(st, sv):
+                    t.copy_(s)
+        return load
+
+    def wstep(w):
+        bits, ovf = w.resolve_step(*inputs, v5)
+        return (bits, ovf) + tuple(t for st in w.shard_states() for t in st)
+
+    def wgc(w):
+        w.gc(floor(v5), floor(v5))
+        return tuple(t for st in w.shard_states() for t in st)
+
+    st0 = wins[0].shard_states()[0]
+    # Per shard: the queries in, the table rows the searches touch, the
+    # state read and rewritten by the insert; the bits out.
+    wstep_bytes = (nbytes(*inputs) + 4 * nq + N_SHARDS * (
+        search_bytes(st0.bk, 2 * nq) + 8 * nq
+        + 2 * nbytes(st0.bk, st0.bv)))
+    time_program(programs, "sharded_window_step", lambda: wstep(wins[0]),
+                 lambda: wstep(wins[1]), wload(wins[0]), wload(wins[1]),
+                 wstep_bytes)
+    time_program(programs, "sharded_gc", lambda: wgc(wins[0]),
+                 lambda: wgc(wins[1]), wload(wins[0]), wload(wins[1]),
+                 N_SHARDS * 2 * nbytes(st0.bk, st0.bv))
+    flag = torch.ones((1,), dtype=torch.int32, device=DEVICE)
+    target = tuple(t.clone() for t in st0)
+
+    def commit_setup():
+        for t, s in zip(target, wsaved[1]):
+            t.copy_(s)
+
+    # shard_commit on a set overflow: the saved window copied back.
+    def commit(impl):
+        shard.shard_commit(flag, wsaved[0], target, impl=impl)
+        return tuple(t.clone() for t in target)
+
+    rows.append(kernel_row("shard_commit", commit,
+                           2 * nbytes(*wsaved[0]) + 4, setup=commit_setup))
+    log(f"sharded window: {nq} queries and {nw} writes a step; shard sizes "
+        f"{wins[0].shard_sizes()}")
+    return rows, programs
+
+
+def general_splits(stream3):
+    """Equi-depth splits from the writes of the config-3 stream's first
+    batch."""
+    from foundationdb_tpu_torch.parallel import splits_from_sample
+    return splits_from_sample(stream3[0][1].w_begin, N_SHARDS)
+
+
+def sharded_path(smi: str, splits, batches):
+    """Path 4: config 5, four shards on one card, through the entry point a
+    resolver calls; the fill, the depth-1 latency and the at-capacity
+    probe, with the launch counts of that run."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
+    K.reset_counts()
+    cs = sharded_backend(splits)
+    v, enc, probe_kids, _ = batches[0]
+    codes = cs.resolve_encoded_async(enc, v, 0).wait_codes().copy()
+    inserted, n_ranges, used = int(np.sum(codes == 2)), 0, 1
+    inflight = deque()
+
+    def drain_one():
+        nonlocal inserted, n_ranges
+        e, h = inflight.popleft()
+        inserted += int(np.sum(h.wait_codes() == 2))
+        n_ranges += e.n_ranges
+
+    t0 = time.perf_counter()
+    while inserted < CONFIG5_TARGET:
+        if used + N_LATENCY5 >= len(batches):
+            raise AssertionError("config 5: the stream ran out before the "
+                                 "window held the target")
+        v, enc, _, _ = batches[used]
+        used += 1
+        inflight.append((enc, cs.resolve_encoded_async(enc, v, 0)))
+        while len(inflight) >= CONFIG5_DEPTH:
+            drain_one()
+    while inflight:
+        drain_one()
+    dt = time.perf_counter() - t0
+    fill_batches = used
+    lats = []
+    for v, enc, _, _ in batches[used:used + N_LATENCY5]:
+        t1 = time.perf_counter()
+        inserted += int(np.sum(cs.resolve_encoded_async(enc, v, 0)
+                               .wait_codes() == 2))
+        lats.append(time.perf_counter() - t1)
+    used += N_LATENCY5
+    p50 = float(np.percentile(lats, 50) * 1e3)
+    # The at-capacity probe: 2,048 of the first batch's committed writes,
+    # re-read at snapshot 0, must all conflict.
+    nr = CONFIG5_TXNS * READS
+    committed = np.asarray(probe_kids[nr:])[codes == 2][:N_PROBE5]
+    probe = [CommitTransactionRef(
+        read_snapshot=0, read_conflict_ranges=[KeyRange(k, k + b"\x00")])
+        for k in (b"k%014d" % int(x) for x in committed)]
+    verdicts = cs.resolve(probe, v + VERSIONS_PER_BATCH, 0)
+    conflicts = sum(1 for x in verdicts if int(x) == 0)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    sizes = cs.shard_sizes()
+    packs = []
+    for _, enc, _, _ in batches[used - N_LATENCY5:used]:
+        t1 = time.perf_counter()
+        TorchConflictSet._pack_compact(enc)
+        packs.append(time.perf_counter() - t1)
+    pack_ms = float(np.percentile(packs, 50) * 1e3)
+    rate = n_ranges / dt
+    merges = cs.profile["merges"]
+    print(f"path_sharded: {inserted} committed in-flight writes after "
+          f"{used} batches ({fill_batches} to fill at depth "
+          f"{CONFIG5_DEPTH}, {merges} merges), fill {rate:.1f} ranges/s, "
+          f"p50 resolve {p50:.3f} ms at depth 1 (host packing alone "
+          f"{pack_ms:.3f} ms), shard base sizes {sizes}, probe "
+          f"{conflicts}/{len(probe)} conflicts -- {smi}", flush=True)
+    if inserted < CONFIG5_TARGET:
+        raise AssertionError(f"config 5 holds {inserted} writes")
+    if len(probe) != N_PROBE5 or conflicts != len(probe):
+        raise AssertionError(f"config 5 probe: {conflicts}/{len(probe)}")
+    if min(sizes) <= 1 or max(sizes) > 2 * np.mean(sizes):
+        raise AssertionError(f"config 5 shards unbalanced: {sizes}")
+    if cs.profile["general_batches"] != 0:
+        raise AssertionError("config 5 left the compact path")
+    path = {"in_flight_writes": inserted, "fill_ranges_per_s": rate,
+            "fill_batches": fill_batches, "batches": used,
+            "p50_resolve_ms": p50, "p50_pack_ms": pack_ms,
+            "merges": merges, "shard_base_sizes": sizes,
+            "probe_conflicts": conflicts, "probe_reads": len(probe),
+            "n_shards": N_SHARDS, "depth": CONFIG5_DEPTH,
+            "txns_per_batch": CONFIG5_TXNS, "card": smi}
+    return launches, path
+
+
+def sharded_parity(splits5):
+    """The sharded backend's verdicts against the oracle on small config-5
+    batches (low contention) and on zipf batches over 1M keys (high
+    contention, deep intra-batch chains), and on small config-3 batches
+    through the sharded general path."""
+    from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+    from foundationdb_tpu_torch.parallel import splits_from_sample
+    rng = np.random.default_rng(5056)
+    for name, keyspace, zipf in (("low", KEYSPACE_LOW, False),
+                                 ("high", KEYSPACE, True)):
+        stream = make_stream(rng, N_PARITY5, keyspace, zipf, PARITY5_TXNS)
+        cs = sharded_backend(splits_from_sample(stream[0][1].w_begin,
+                                                N_SHARDS), gc=2)
+        oracle = OracleConflictSet(0)
+        for i, (v, enc, kids, snaps) in enumerate(stream):
+            want = np.asarray([int(x) for x in oracle.resolve(
+                to_transactions(kids, snaps), v, floor(v))], dtype=np.int8)
+            got = cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"sharded parity ({name} contention): "
+                                     f"{int(np.sum(got != want))} verdicts "
+                                     f"differ on batch {i}")
+        cs.merge()
+        if min(cs.shard_sizes()) <= 1:
+            raise AssertionError(f"sharded parity ({name}): a shard holds "
+                                 f"nothing: {cs.shard_sizes()}")
+    print(f"parity_sharded: verdicts equal the oracle on {N_PARITY5} "
+          f"low-contention config-5 batches and {N_PARITY5} zipf batches of "
+          f"{PARITY5_TXNS} txns, four shards with equi-depth splits",
+          flush=True)
+    stream = small_stream3(2031)
+    oracle_parity3(lambda: sharded_backend(general_splits(stream),
+                                           capacity=CAPACITY3S,
+                                           delta=DELTA3S), stream,
+                   "parity_sharded_general")
+
+
+def sharded_state_equality(splits5, batches):
+    """The sharded kernel path against impl="plain" at full config-5 size,
+    every shard's state and the codes after every batch, across a
+    merge."""
+    from foundationdb_tpu_torch.parallel import sharded_state_to_numpy
+    kern = sharded_backend(splits5, gc=2)
+    plain = sharded_backend(splits5, impl="plain", gc=2)
+    for v, enc, _, _ in batches[:3]:
+        a = kern.resolve_encoded_async(enc, v, 0).wait_codes()
+        b = plain.resolve_encoded_async(enc, v, 0).wait_codes()
+        if not np.array_equal(a, b):
+            raise AssertionError("config 5: kernel and plain verdicts differ")
+        sa, sb = sharded_state_to_numpy(kern), sharded_state_to_numpy(plain)
+        for k in sa:
+            if not np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])):
+                raise AssertionError(f"config 5: kernel and plain state "
+                                     f"differ: {k}")
+    if kern.profile["merges"] < 1:
+        raise AssertionError("config-5 state-equality stream crossed no "
+                             "merge")
+    print(f"state_sharded: kernel path equals the plain path on 3 config-5 "
+          f"batches and {kern.profile['merges']} merge(s), every array of "
+          f"every shard", flush=True)
+
+
+def sharded_general(smi: str, batches3):
+    """The config-3 stream through four shards (equi-depth splits from its
+    writes): codes equal the one-device general path's on every batch."""
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.ops.digest import planar_to_s24
+    splits = general_splits(batches3)
+    one = TorchConflictSet(0, capacity=CAPACITY, delta_capacity=DELTA_CAPACITY,
+                           device=DEVICE)
+    want = [one.resolve_encoded_async(enc, v, floor(v)).wait_codes().copy()
+            for v, enc, _ in batches3[:N_SHARDED3]]
+    del one
+    cs = sharded_backend(splits, capacity=CAPACITY3S, delta=DELTA3S, gc=4)
+    lats, straddle = [], 0
+    cuts = planar_to_s24(np.ascontiguousarray(splits[1:-1].T))
+    for i, (v, enc, _) in enumerate(batches3[:N_SHARDED3]):
+        t1 = time.perf_counter()
+        got = cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
+        lats.append(time.perf_counter() - t1)
+        bad = int(np.sum(got != want[i]))
+        if bad:
+            raise AssertionError(f"sharded general: {bad} codes differ from "
+                                 f"one device on batch {i}")
+        rb, re_ = planar_to_s24(enc.r_begin), planar_to_s24(enc.r_end)
+        straddle += int(sum(np.sum((rb < c) & (re_ > c)) for c in cuts))
+    sizes = cs.shard_sizes()
+    if cs.profile["general_batches"] != N_SHARDED3 or cs.profile["merges"] < 1:
+        raise AssertionError(f"sharded general: {cs.profile}")
+    if min(sizes) <= 1:
+        raise AssertionError(f"sharded general: a shard holds nothing: "
+                             f"{sizes}")
+    p50 = float(np.percentile(lats, 50) * 1e3)
+    print(f"path_sharded_general: codes equal the one-device general path on "
+          f"{N_SHARDED3} config-3 batches ({straddle} reads straddle a "
+          f"split, {cs.profile['merges']} merges), p50 resolve {p50:.3f} ms "
+          f"at depth 1, shard base sizes {sizes} -- {smi}", flush=True)
+    return {"batches": N_SHARDED3, "reads_straddling": straddle,
+            "p50_resolve_ms": p50, "shard_base_sizes": sizes,
+            "merges": cs.profile["merges"], "card": smi}
+
+
+def random_ranges(rng, n: int):
+    """n ranges of uniform random full-width digests as rows: begin, and
+    an end a little above it (lane 1 raised), most inside one shard."""
+    import torch
+    from foundationdb_tpu_torch.ops.digest import planar_to_rows
+    b = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(
+        np.uint32)
+    b[1] &= 0x7FFFFFFF
+    e = b.copy()
+    e[1] += rng.integers(1, 1 << 20, size=n).astype(np.uint32)
+    return (torch.from_numpy(planar_to_rows(b)).to(DEVICE),
+            torch.from_numpy(planar_to_rows(e)).to(DEVICE))
+
+
+def sharded_window_path(smi: str, batches):
+    """Path 5: ShardedWindow at kr=4, q=1 on one card, 2^21 boundaries per
+    shard, on the config-3 batches of path 3 (their bits equal the
+    one-shard window's), with the launch counts of that run; then spread
+    batches against the plain versions and an overflow that leaves every
+    shard unchanged."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict import window
+    from foundationdb_tpu_torch.parallel import ShardedWindow
+    one = window.make_window_state(CAPACITY, 0, DEVICE)
+    want, base = [], 0
+    for i, (v, enc, _) in enumerate(batches[:N_WINDOW3]):
+        q_b, q_e, snap, q_v, w_b, w_e, w_v = window_inputs(enc, base)
+        want.append(window.window_query(one.bk, one.bv, q_b, q_e, snap, q_v))
+        window.window_insert(one, w_b, w_e, w_v, v - base)
+        if (i + 1) % GC_EVERY3 == 0:
+            window.window_gc(one, floor(v) - base, floor(v) - base)
+            base = floor(v)
+    del one
+    torch.cuda.synchronize()
+    K.reset_counts()
+    sw = ShardedWindow(shard_mesh(), CAPACITY)
+    base, lats, n_ranges = 0, [], 0
+    for i, (v, enc, _) in enumerate(batches[:N_WINDOW3]):
+        inputs = window_inputs(enc, base)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bits, ovf = sw.resolve_step(*inputs, v - base)
+        if (i + 1) % GC_EVERY3 == 0:
+            sw.gc(floor(v) - base, floor(v) - base)
+            base = floor(v)
+        torch.cuda.synchronize()
+        lats.append(time.perf_counter() - t1)
+        n_ranges += enc.n_ranges
+        require_equal(f"sharded window bits, batch {i}", bits, want[i])
+        if int(ovf[0]):
+            raise AssertionError(f"sharded window overflow on batch {i}")
+    launches = dict(K.LAUNCHES)
+    sizes3 = sw.shard_sizes()
+    del sw, want
+    p50 = float(np.percentile(lats, 50) * 1e3)
+    rate = n_ranges / sum(lats)
+    # Spread batches: uniform random full-width digests at config 3's
+    # counts, kernels against the plain versions, bits and state.
+    rng = np.random.default_rng(2032)
+    nq, nw = batches[0][1].r_txn.shape[0], batches[0][1].w_txn.shape[0]
+    wins = [ShardedWindow(shard_mesh(), CAPACITY, impl=i)
+            for i in (None, "plain")]
+    for i in range(N_SPREAD_WINDOW):
+        q_b, q_e = random_ranges(rng, nq)
+        w_b, w_e = random_ranges(rng, nw)
+        snap = torch.from_numpy(rng.integers(0, 1000 * i + 1, size=nq,
+                                             dtype=np.int32)).to(DEVICE)
+        ones = torch.ones((max(nq, nw),), dtype=torch.int32, device=DEVICE)
+        outs = [w.resolve_step(q_b, q_e, snap, ones[:nq], w_b, w_e,
+                               ones[:nw], 1000 * (i + 1)) for w in wins]
+        require_equal(f"spread window bits, batch {i}", outs[0], outs[1])
+        for a, b in zip(wins[0].state_to_numpy(), wins[1].state_to_numpy()):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"spread window state, batch {i}")
+    sizes_spread = wins[0].shard_sizes()
+    if min(sizes_spread) <= 1:
+        raise AssertionError(f"spread batches left a shard empty: "
+                             f"{sizes_spread}")
+    del wins
+    # Overflow: a small window, one batch spread, then a skewed batch that
+    # overflows shard 2 alone; every shard must keep its state.
+    small = [ShardedWindow(shard_mesh(), SMALL_WINDOW, impl=i)
+             for i in (None, "plain")]
+    q_b, q_e = random_ranges(rng, 1024)
+    snap = torch.zeros((1024,), dtype=torch.int32, device=DEVICE)
+    ones = torch.ones((max(SMALL_WINDOW, 1024),), dtype=torch.int32,
+                      device=DEVICE)
+    w_b, w_e = random_ranges(rng, 512)
+    for w in small:
+        w.resolve_step(q_b, q_e, snap, ones[:1024], w_b, w_e, ones[:512], 10)
+    before = [w.state_to_numpy() for w in small]
+    # SMALL_WINDOW disjoint point-like ranges whose lane 0 (0x80000001, as
+    # int32 bits) lies in shard 2's quarter of the even splits.
+    w_b, _ = random_ranges(rng, SMALL_WINDOW)
+    w_b[:, 0] = -(1 << 31) + 1
+    w_e = w_b.clone()
+    w_e[:, 7] += 1
+    for w, b in zip(small, before):
+        bits, ovf = w.resolve_step(q_b, q_e, snap, ones[:1024], w_b, w_e,
+                                   ones[:SMALL_WINDOW], 20)
+        if int(ovf[0]) != 1:
+            raise AssertionError("the skewed batch did not overflow")
+        for x, y in zip(w.state_to_numpy(), b):
+            if not np.array_equal(x, y):
+                raise AssertionError("an overflowed step changed a shard")
+    print(f"path_sharded_window: {rate:.1f} ranges/s over {N_WINDOW3} "
+          f"config-3 batches (1 gc), p50 step {p50:.3f} ms; bits equal the "
+          f"one-shard window's on every batch (even splits put these keys "
+          f"on shard 0: shard sizes {sizes3}); on {N_SPREAD_WINDOW} spread "
+          f"batches (shard sizes {sizes_spread}) bits and state equal the "
+          f"plain versions; an overflow of one shard left every shard "
+          f"unchanged -- {smi}", flush=True)
+    path = {"ranges_per_s": rate, "p50_step_ms": p50,
+            "batches": N_WINDOW3, "shard_sizes_config3": sizes3,
+            "shard_sizes_spread": sizes_spread, "card": smi}
+    return launches, path
+
+
 def main() -> int:
     try:
         import torch
@@ -1321,7 +1988,10 @@ def main() -> int:
     launches["general"], path_general, batches3 = general_path(smi)
     phase_done("general path")
     log("phase 6: oracle parity on small config-3 batches")
-    oracle_parity3()
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    oracle_parity3(lambda: TorchConflictSet(
+        0, capacity=CAPACITY, delta_capacity=DELTA_CAPACITY, device=DEVICE),
+        small_stream3(2028))
     phase_done("config-3 oracle parity")
     log("phase 7: kernel against plain state at full config-3 size")
     state_equality3(batches3)
@@ -1329,8 +1999,38 @@ def main() -> int:
     phase_done("config-3 state equality")
     log("phase 8: the window path (config 3)")
     launches["window"], path_window = window_path(smi, batches3)
-    del batches3
     phase_done("window path")
+
+    log("phase 9: the shard kernels and the sharded programs against their "
+        "plain versions")
+    rng5 = np.random.default_rng(5055)
+    splits5 = config5_splits(rng5)
+    log("generating the config-5 stream")
+    batches5 = make_stream5(rng5, CONFIG5_BATCHES)
+    rows9, programs9 = compare_sharded(splits5, batches5, batches3)
+    rows += rows9
+    programs.update(programs9)
+    torch.cuda.empty_cache()
+    phase_done("sharded kernels")
+    log("phase 10: config 5, four shards on one card")
+    launches["sharded"], path_sharded = sharded_path(smi, splits5, batches5)
+    torch.cuda.empty_cache()
+    phase_done("sharded path")
+    log("phase 11: sharded parity and kernel-vs-plain state at config 5")
+    sharded_parity(splits5)
+    sharded_state_equality(splits5, batches5)
+    del batches5
+    torch.cuda.empty_cache()
+    phase_done("sharded parity and state")
+    log("phase 12: the config-3 stream through four shards")
+    path_sharded_general = sharded_general(smi, batches3)
+    torch.cuda.empty_cache()
+    phase_done("sharded general path")
+    log("phase 13: the sharded window")
+    launches["sharded_window"], path_sharded_window = sharded_window_path(
+        smi, batches3)
+    del batches3
+    phase_done("sharded window path")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -1346,6 +2046,9 @@ def main() -> int:
     print(json.dumps({"programs": programs, "path": path,
                       "path_general": path_general,
                       "path_window": path_window,
+                      "path_sharded": path_sharded,
+                      "path_sharded_general": path_sharded_general,
+                      "path_sharded_window": path_sharded_window,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

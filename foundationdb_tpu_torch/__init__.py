@@ -9,8 +9,11 @@ so each counterpart sits at the same relative path:
   ops/       -- digest encode (host) + search, rank, scan and range-max
                 (device: plain-torch versions beside CUDA kernel wrappers)
   conflict/  -- EncodedBatch, the ConflictSet contract, the CPU oracle, the
-                fused point-batch step + merge (fused.py) and the backend
-                that drives them (torch_backend.py)
+                fused per-batch steps + merge (fused.py), the window
+                programs (window.py) and the backend that drives them
+                (torch_backend.py)
+  parallel/  -- the same sharded by key range over a grid of devices
+                (ConflictMesh, ShardedTorchConflictSet, ShardedWindow)
   kernels/   -- nvcc build of csrc/*.cu, ctypes bindings, launch counters
   csrc/      -- the hand-written CUDA kernels (sm_90a)
 

@@ -3,7 +3,9 @@
 Opaque-factory boundary mirroring the reference's ConflictSet.h:30-52
 (newConflictSet / ConflictBatch::addTransaction / detectConflicts), with a
 backend selector: "torch" (the PyTorch + CUDA backend, on `cuda` unless
-the caller passes device="cpu") or "cpu" (the exact oracle).
+the caller passes device="cpu"), "sharded" (the same backend with its
+window key-range-sharded over a mesh of the visible cards) or "cpu" (the
+exact oracle).
 
 Abstract semantics (the parity contract, from fdbserver/SkipList.cpp):
 
@@ -34,7 +36,7 @@ from ..txn.types import CommitResult, CommitTransactionRef, Version
 
 class ConflictSet:
     """Abstract conflict set. Subclasses: OracleConflictSet,
-    TorchConflictSet."""
+    TorchConflictSet, ShardedTorchConflictSet."""
 
     def __init__(self, oldest_version: Version = 0) -> None:
         self.oldest_version: Version = oldest_version
@@ -76,15 +78,24 @@ def conservative_conflict_ranges(verdicts, transactions) -> dict:
 
 
 def new_conflict_set(backend: str = "torch", oldest_version: Version = 0,
-                     **kwargs) -> ConflictSet:
+                     mesh=None, **kwargs) -> ConflictSet:
     """"torch": TorchConflictSet (kwargs: capacity, delta_capacity,
     gc_interval_batches, device -- `cuda` by default; construction raises
-    when no CUDA device is present and none was named).  "cpu": the
-    oracle."""
+    when no CUDA device is present and none was named).  "sharded":
+    ShardedTorchConflictSet over `mesh`, by default a mesh of every
+    visible card (raises when there is none; kwargs: capacity and
+    delta_capacity per shard, gc_interval_batches, splits).  Neither is
+    supervised yet.  "cpu": the oracle."""
     if backend == "cpu":
         from .oracle import OracleConflictSet
         return OracleConflictSet(oldest_version)
     if backend == "torch":
         from .torch_backend import TorchConflictSet
         return TorchConflictSet(oldest_version, **kwargs)
+    if backend == "sharded":
+        from ..parallel.sharded_resolver import ShardedTorchConflictSet
+        from ..parallel.sharded_window import make_conflict_mesh
+        return ShardedTorchConflictSet(
+            make_conflict_mesh() if mesh is None else mesh, oldest_version,
+            **kwargs)
     raise ValueError(f"unknown conflict set backend {backend!r}")

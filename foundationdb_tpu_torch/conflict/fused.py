@@ -9,7 +9,10 @@ there:
                       batches' writes, with its table refreshed by
                       delta_table_step after every insert and merge
 
-and four device programs drive it:
+and four device programs drive it (each per-batch step splits where the
+key-range-sharded reference runs its collective, into the history,
+resolve and insert halves that parallel/sharded_resolver.py drives per
+shard):
 
   make_resolve_step_compact  per point batch: unpack the single uint8
                              buffer, too-old, history probe over both
@@ -41,6 +44,8 @@ scalars (size, dsize, flag) as int32[1] tensors, booleans as int32 0/1.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import kernels as _k
@@ -49,6 +54,7 @@ from ..ops.digest import (ROW_PAD, history_probe, lex_eq, max_rows,
 from ..ops.rangemax import NEG_INF, build_sparse_table
 from ..ops.scan import compact_rows, inclusive_scan, scatter_max, scatter_set
 from ..ops.segtree import build_min_table, interval_min_cover, range_min
+from ..ops.shard import clip_rows
 from ..ops.sort import sort_rows
 from ..txn.types import CommitResult
 from .window import WindowState, make_window_state, window_insert
@@ -114,9 +120,12 @@ def compact_layout(t_cap: int, r_pad: int, w_pad: int, u_pad: int,
     return lay
 
 
-def make_delta_state(d_cap: int, device="cpu") -> WindowState:
-    """Fresh transparent delta: one segment covering all keys at NEG_INF."""
-    return make_window_state(d_cap, NEG_INF, device)
+def make_delta_state(d_cap: int, device=None,
+                     first: Optional[torch.Tensor] = None) -> WindowState:
+    """Fresh transparent delta: one segment covering all keys (from
+    `first`, a shard's lower split, when given) at NEG_INF.  device None
+    means `cuda` (window.resolve_device)."""
+    return make_window_state(d_cap, NEG_INF, device, first)
 
 
 def delta_table_step(dv: torch.Tensor, out=None, impl=None) -> torch.Tensor:
@@ -267,7 +276,7 @@ def batch_codes(scal, too_old, conf, w_txn, codes_out, impl=None):
 
 
 def _point_insert(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel, flag,
-                  bsize=None, tail=None, impl=None) -> None:
+                  bsize=None, tail=None, impl=None, u_own=None) -> None:
     """Sort-free delta insert for point batches, IN PLACE on dk/dv/dsize;
     flag |= overflow, and on overflow the delta keeps its old state
     (reference fused.py:157-247, where the overflow bit is returned).
@@ -278,11 +287,13 @@ def _point_insert(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel, flag,
     unique-key slots and the new-boundary sequence is the interleave
     [b0, e0, b1, e1, ...] compacted by rank.  now_rel is int32[1] on the
     device.  With `tail` (int32[3]), flag / new delta size / bsize are
-    written there (the verdict tail).  Kernels: pi_* (point_insert) on top
-    of searchsorted, rank_count, inclusive_scan and compact_rows."""
+    written there (the verdict tail).  With `u_own` (int32 0/1 [U], a
+    key-range shard's begin-in-bounds mask) only the owned unique keys are
+    inserted (reference fused.py:175-177).  Kernels: pi_* (point_insert)
+    on top of searchsorted, rank_count, inclusive_scan and compact_rows."""
     if _k.use_kernel(dk, impl):
         _point_insert_kernel(dk, dv, dsize, u_k, u_e, w_uidx, w_ins,
-                             now_rel, flag, bsize, tail)
+                             now_rel, flag, bsize, tail, u_own)
         return
     d_cap, w_cap = dk.shape[0], u_k.shape[0]
     dev = dk.device
@@ -291,6 +302,8 @@ def _point_insert(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel, flag,
     m_valid.scatter_reduce_(0, torch.clamp(w_uidx, 0, w_cap - 1).long(),
                             w_ins.to(torch.int32), "amax")
     mv = m_valid != 0
+    if u_own is not None:
+        mv = mv & (u_own != 0)
     mb = torch.where(mv[:, None], u_k, -1)
     me = torch.where(mv[:, None], u_e, -1)
 
@@ -348,14 +361,14 @@ def _point_insert(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel, flag,
 
 
 def _point_insert_kernel(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel,
-                         flag, bsize, tail) -> None:
+                         flag, bsize, tail, u_own) -> None:
     d_cap, u_pad = dk.shape[0], u_k.shape[0]
     n2 = 2 * u_pad
     dev = dk.device
     e = dict(dtype=torch.int32, device=dev)
     m_valid = torch.zeros((u_pad,), **e)
     _k.launch("point_insert", "pi_mark", w_uidx.shape[0], w_uidx, w_ins,
-              u_pad, m_valid)
+              u_pad, u_own, m_valid)
     cont_v = torch.empty((u_pad,), **e)
     present_end = torch.empty((u_pad,), **e)
     hist_b = torch.zeros((d_cap + 1,), **e)
@@ -398,52 +411,104 @@ def _point_insert_kernel(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel,
 # Programs
 # ---------------------------------------------------------------------------
 
-def make_resolve_step_compact(cap: int, d_cap: int, t_cap: int, r_pad: int,
-                              w_pad: int, u_pad: int, lw: int, impl=None):
+class CompactStep:
     """Per-batch step over the compact single-buffer point layout — the
     production path for all_point batches (reference fused.py:251).
 
-    fn(bk, bv, table, size, dk, dv, dtable, dsize, flag, buf)
+    step(bk, bv, table, size, dk, dv, dtable, dsize, flag, buf)
       -> (dk, dv, dsize, flag, out)
     buf is the packed batch (uint8, on the state's device); dk/dv/dsize/
     flag are updated IN PLACE and returned; out = int8[t_cap + 12]
     (codes, then flag / delta size / base size as int32 bytes).  `dtable`
-    is the delta table over the INPUT delta (delta_table_step)."""
-    lay = compact_layout(t_cap, r_pad, w_pad, u_pad, lw)
+    is the delta table over the INPUT delta (delta_table_step).
 
-    def step(bk, bv, table, size, dk, dv, dtable, dsize, flag, buf):
+    The call is the composition of three halves, split where the sharded
+    reference (axis_name) runs its collective; a key-range-sharded caller
+    (parallel/sharded_resolver.py) runs them itself:
+
+      history(...)  per shard: unpack, too-old, the history probe (over
+                    keys clipped to the shard's bounds when given), the
+                    per-txn history bits (read_write_prep)
+      resolve(...)  once, on the combined bits: the fixpoint and the codes
+      insert(...)   per shard: the delta insert of the surviving writes
+                    (of the keys the shard owns when bounds were given)"""
+
+    def __init__(self, cap: int, d_cap: int, t_cap: int, r_pad: int,
+                 w_pad: int, u_pad: int, lw: int, impl=None) -> None:
+        self.t_cap, self.r_pad, self.w_pad = t_cap, r_pad, w_pad
+        self.u_pad, self.lw, self.impl = u_pad, lw, impl
+        self.lay = compact_layout(t_cap, r_pad, w_pad, u_pad, lw)
+
+    def history(self, bk, table, dk, dtable, buf, bounds=None) -> dict:
+        """Everything up to the history bits `h["rw"]["hist"]`.  bounds,
+        when given, is the shard's (lo, hi) rows: each unique key's range
+        is clipped to it and its maximum is NEG_INF where nothing of it is
+        owned (reference fused.py:340-357)."""
+        lay, impl, u_pad = self.lay, self.impl, self.u_pad
         buf32 = buf.view(torch.int32)
 
         def i32(name, n):
             o = lay[name] // 4
             return buf32[o:o + n]
 
-        ub = buf[lay["ubytes"]:lay["ubytes"] + u_pad * lw]
-        r_uid, w_uid = i32("r_uid", r_pad), i32("w_uid", w_pad)
-        r_start, w_start = i32("r_start", t_cap), i32("w_start", t_cap)
-        t_snap = i32("t_snap", t_cap)
-        t_flags = buf[lay["t_flags"]:lay["t_flags"] + t_cap]
+        ub = buf[lay["ubytes"]:lay["ubytes"] + u_pad * self.lw]
+        r_uid, w_uid = i32("r_uid", self.r_pad), i32("w_uid", self.w_pad)
+        t_snap = i32("t_snap", self.t_cap)
+        t_flags = buf[lay["t_flags"]:lay["t_flags"] + self.t_cap]
         scal = i32("scalars", COMPACT_SCALARS)
 
-        u_b, u_e = widen_unique(ub, scal, lw, u_pad, impl)
-        too_old, r_cnt, w_cnt = txn_prep(r_start, w_start, t_snap, t_flags,
-                                         scal, r_pad, w_pad, impl)
-        vmax_u = history_probe(bk, table, dk, dtable, u_b, u_e, impl)
+        u_b, u_e = widen_unique(ub, scal, self.lw, u_pad, impl)
+        too_old, r_cnt, w_cnt = txn_prep(
+            i32("r_start", self.t_cap), i32("w_start", self.t_cap), t_snap,
+            t_flags, scal, self.r_pad, self.w_pad, impl)
+        u_own = None
+        if bounds is None:
+            vmax_u = history_probe(bk, table, dk, dtable, u_b, u_e, impl)
+        else:
+            cu_b, cu_e, owned, u_own = clip_rows(u_b, u_e, *bounds,
+                                                 impl=impl)
+            vmax_u = history_probe(bk, table, dk, dtable, cu_b, cu_e, impl,
+                                   own=owned)
         rw = read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap,
                              scal, vmax_u, u_pad, impl)
+        return {"u_b": u_b, "u_e": u_e, "u_own": u_own, "w_uid": w_uid,
+                "scal": scal, "too_old": too_old, "rw": rw}
+
+    def resolve(self, h: dict, hist: torch.Tensor,
+                out: torch.Tensor) -> torch.Tensor:
+        """The intra-batch fixpoint from the (combined) history bits, the
+        codes into out[:t_cap]; returns the insert mask w_ins."""
+        rw = h["rw"]
         conflicted, _ = intra_batch_fixpoint(
-            rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"],
-            rw["w_txn"], rw["w_ok"], rw["w_slot"], u_pad, impl)
-        out = torch.empty((t_cap + OUT_EXTRA,), dtype=torch.int8,
+            hist, rw["r_txn"], rw["r_live"], rw["r_slot"], rw["w_txn"],
+            rw["w_ok"], rw["w_slot"], self.u_pad, self.impl)
+        return batch_codes(h["scal"], h["too_old"], conflicted, rw["w_txn"],
+                           out[:self.t_cap], self.impl)
+
+    def insert(self, h: dict, dk, dv, dsize, flag, size, w_ins,
+               tail) -> None:
+        """The surviving writes into the delta, IN PLACE; flag, delta size
+        and `size` into tail (int32[3])."""
+        _point_insert(dk, dv, dsize, h["u_b"], h["u_e"], h["w_uid"], w_ins,
+                      h["scal"][4:5], flag, bsize=size, tail=tail,
+                      impl=self.impl, u_own=h["u_own"])
+
+    def __call__(self, bk, bv, table, size, dk, dv, dtable, dsize, flag,
+                 buf):
+        h = self.history(bk, table, dk, dtable, buf)
+        out = torch.empty((self.t_cap + OUT_EXTRA,), dtype=torch.int8,
                           device=buf.device)
-        w_ins = batch_codes(scal, too_old, conflicted, rw["w_txn"],
-                            out[:t_cap], impl)
-        _point_insert(dk, dv, dsize, u_b, u_e, w_uid, w_ins, scal[4:5], flag,
-                      bsize=size, tail=out[t_cap:].view(torch.int32),
-                      impl=impl)
+        w_ins = self.resolve(h, h["rw"]["hist"], out)
+        self.insert(h, dk, dv, dsize, flag, size, w_ins,
+                    out[self.t_cap:].view(torch.int32))
         return dk, dv, dsize, flag, out
 
-    return step
+
+def make_resolve_step_compact(cap: int, d_cap: int, t_cap: int, r_pad: int,
+                              w_pad: int, u_pad: int, lw: int,
+                              impl=None) -> CompactStep:
+    """The compact point step for one bucket shape (CompactStep)."""
+    return CompactStep(cap, d_cap, t_cap, r_pad, w_pad, u_pad, lw, impl)
 
 
 # ---------------------------------------------------------------------------
@@ -578,77 +643,126 @@ def unpack_meta(meta: torch.Tensor, t_cap: int, r_cap: int,
     return out
 
 
-def make_resolve_step(cap: int, d_cap: int, t_cap: int, r_cap: int,
-                      w_cap: int, impl=None):
+class GeneralStep:
     """Per-batch step of the general interval path (reference
-    fused.py:427, one device): range reads and writes, keys of any
-    length, point batches the compact layout rejects.
+    fused.py:427): range reads and writes, keys of any length, point
+    batches the compact layout rejects.
 
-    fn(bk, bv, table, size, dk, dv, dtable, dsize, flag, digests, meta,
-       rounds_acc=None) -> (dk, dv, dsize, flag, out)
+    step(bk, bv, table, size, dk, dv, dtable, dsize, flag, digests, meta,
+         rounds_acc=None) -> (dk, dv, dsize, flag, out)
     digests: rows int32[2R + 2W, 8] = r_b | r_e | w_b | w_e, MAX padded;
     meta: int32[meta_size(T, R, W)].  dk/dv/dsize/flag are updated IN
     PLACE and returned; out = int8[t_cap + 12] (codes, then flag / delta
     size / base size as int32 bytes).  `dtable` is the delta table over
     the INPUT delta (delta_table_step).  rounds_acc (int32[1]), when
-    given, accumulates the fixpoint's round count."""
-    u_cap = _next_pow2(2 * (r_cap + w_cap))
-    log_u = u_cap.bit_length() - 1
+    given, accumulates the fixpoint's round count.
 
-    def step(bk, bv, table, size, dk, dv, dtable, dsize, flag, digests,
-             meta, rounds_acc=None):
-        m = unpack_meta(meta, t_cap, r_cap, w_cap)
+    As CompactStep, the call composes history (per shard; reads clipped
+    to the shard's bounds when given), resolve (once) and insert (per
+    shard; writes clipped to the bounds when given)."""
+
+    def __init__(self, cap: int, d_cap: int, t_cap: int, r_cap: int,
+                 w_cap: int, impl=None) -> None:
+        self.t_cap, self.r_cap, self.w_cap, self.impl = (t_cap, r_cap, w_cap,
+                                                         impl)
+        self.u_cap = _next_pow2(2 * (r_cap + w_cap))
+        self.log_u = self.u_cap.bit_length() - 1
+
+    def history(self, bk, table, dk, dtable, digests, meta,
+                bounds=None) -> dict:
+        """Everything up to the history bits `h["g"]["hist"]`: max(base,
+        delta) over each read against its snapshot, and general_prep.
+        With bounds (the shard's (lo, hi) rows) each read is clipped to
+        them and a read with nothing owned contributes NEG_INF (reference
+        fused.py:485-502)."""
+        r_cap = self.r_cap
         r_b, r_e = digests[:r_cap], digests[r_cap:2 * r_cap]
-        w_b = digests[2 * r_cap:2 * r_cap + w_cap]
-        w_e = digests[2 * r_cap + w_cap:]
+        if bounds is None:
+            vmax = history_probe(bk, table, dk, dtable, r_b, r_e, self.impl)
+        else:
+            cr_b, cr_e, owned, _ = clip_rows(r_b, r_e, *bounds,
+                                             impl=self.impl)
+            vmax = history_probe(bk, table, dk, dtable, cr_b, cr_e,
+                                 self.impl, own=owned)
+        m = unpack_meta(meta, self.t_cap, r_cap, self.w_cap)
+        return {"digests": digests, "m": m, "bounds": bounds,
+                "g": general_prep(m, vmax, self.impl)}
 
-        # History: max(base, delta) over [b, e) against each snapshot.
-        vmax = history_probe(bk, table, dk, dtable, r_b, r_e, impl)
-        g = general_prep(m, vmax, impl)
-
+    def resolve(self, h: dict, hist: torch.Tensor, out: torch.Tensor,
+                rounds_acc=None) -> torch.Tensor:
+        """The endpoint universe, the fixpoint from the (combined) history
+        bits, the codes into out[:t_cap]; returns the insert mask."""
+        impl, r_cap, w_cap = self.impl, self.r_cap, self.w_cap
+        digests, m, g = h["digests"], h["m"], h["g"]
         # The endpoint gap universe: every endpoint of the batch sorted
         # (MAX padded to u_cap), and each range as a span of its gaps.
-        universe = max_rows(u_cap, digests.device)
+        universe = max_rows(self.u_cap, digests.device)
         sort_rows(digests, out=universe[:digests.shape[0]], impl=impl)
         r_pos = searchsorted(universe, digests[:2 * r_cap], True, impl)
         w_pos = searchsorted(universe, digests[2 * r_cap:], True, impl)
         conflicted, _ = interval_fixpoint(
-            g["hist"], m["r_txn"], g["r_live"], r_pos[:r_cap],
-            r_pos[r_cap:], m["w_txn"], g["w_ok"], w_pos[:w_cap],
-            w_pos[w_cap:], log_u, rounds_acc, impl)
+            hist, m["r_txn"], g["r_live"], r_pos[:r_cap], r_pos[r_cap:],
+            m["w_txn"], g["w_ok"], w_pos[:w_cap], w_pos[w_cap:], self.log_u,
+            rounds_acc, impl)
+        return general_codes(m["t_valid"], g["too_old"], conflicted,
+                             m["w_txn"], m["w_valid"], out[:self.t_cap],
+                             impl)
 
-        # Verdicts, then the surviving writes into the DELTA at `now`.
-        out = torch.empty((t_cap + OUT_EXTRA,), dtype=torch.int8,
-                          device=digests.device)
-        w_ins = general_codes(m["t_valid"], g["too_old"], conflicted,
-                              m["w_txn"], m["w_valid"], out[:t_cap], impl)
+    def insert(self, h: dict, dk, dv, dsize, flag, size, w_ins,
+               tail) -> None:
+        """The surviving writes into the delta at `now`, IN PLACE (clipped
+        to the shard's bounds when history had them, reference
+        fused.py:553-555); flag, delta size and `size` into tail
+        (int32[3])."""
+        o = 2 * self.r_cap
+        w_b = h["digests"][o:o + self.w_cap]
+        w_e = h["digests"][o + self.w_cap:]
+        if h["bounds"] is not None:
+            w_b, w_e, w_ins, _ = clip_rows(w_b, w_e, *h["bounds"],
+                                           valid=w_ins, impl=self.impl)
         window_insert(WindowState(dk, dv, dsize), w_b, w_e, w_ins,
-                      m["now_rel"], flag=flag, bsize=size,
-                      tail=out[t_cap:].view(torch.int32), impl=impl)
+                      h["m"]["now_rel"], flag=flag, bsize=size, tail=tail,
+                      impl=self.impl)
+
+    def __call__(self, bk, bv, table, size, dk, dv, dtable, dsize, flag,
+                 digests, meta, rounds_acc=None):
+        h = self.history(bk, table, dk, dtable, digests, meta)
+        out = torch.empty((self.t_cap + OUT_EXTRA,), dtype=torch.int8,
+                          device=digests.device)
+        w_ins = self.resolve(h, h["g"]["hist"], out, rounds_acc)
+        self.insert(h, dk, dv, dsize, flag, size, w_ins,
+                    out[self.t_cap:].view(torch.int32))
         return dk, dv, dsize, flag, out
 
-    return step
+
+def make_resolve_step(cap: int, d_cap: int, t_cap: int, r_cap: int,
+                      w_cap: int, impl=None) -> GeneralStep:
+    """The general interval step for one bucket shape (GeneralStep)."""
+    return GeneralStep(cap, d_cap, t_cap, r_cap, w_cap, impl)
 
 
 def make_merge_step(cap: int, d_cap: int, impl=None):
     """The merge: overlay delta onto base + removeBefore GC + rebase +
     base table + delta reset (reference fused.py:593).
 
-    fn(bk, bv, table, size, dk, dv, dsize, flag, scalars)
+    fn(bk, bv, table, size, dk, dv, dsize, flag, scalars, first=None)
       -> (bk, bv, table, size, dk, dv, dsize, flag), all updated IN PLACE.
-    scalars = (new_oldest_rel, rebase_delta), host ints.  The merged
-    sequence is placed in an s_cap = CAP + DCAP scratch before the base is
-    rewritten, since the placement reads bk."""
+    scalars = (new_oldest_rel, rebase_delta), host ints.  The reset
+    delta's covering boundary is the zero digest, or `first` (a row
+    int32[8]): a key-range shard's lower split, the sharded reference's
+    dk0_first (fused.py:679-683).  The merged sequence is placed in an
+    s_cap = CAP + DCAP scratch before the base is rewritten, since the
+    placement reads bk."""
     s_cap = cap + d_cap
 
-    def merge(bk, bv, table, size, dk, dv, dsize, flag, scalars):
+    def merge(bk, bv, table, size, dk, dv, dsize, flag, scalars, first=None):
         new_oldest_rel, rebase_delta = int(scalars[0]), int(scalars[1])
         if _k.use_kernel(bk, impl):
             _merge_kernel(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
-                          rebase_delta, s_cap)
+                          rebase_delta, s_cap, first)
         else:
             _merge_plain(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
-                         rebase_delta, s_cap)
+                         rebase_delta, s_cap, first)
         build_sparse_table(bv, out=table, impl=impl)
         return bk, bv, table, size, dk, dv, dsize, flag
 
@@ -656,7 +770,7 @@ def make_merge_step(cap: int, d_cap: int, impl=None):
 
 
 def _merge_plain(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
-                 rebase_delta, s_cap) -> None:
+                 rebase_delta, s_cap, first) -> None:
     cap, d_cap = bk.shape[0], dk.shape[0]
     dev = bk.device
     p_ = "plain"
@@ -718,14 +832,14 @@ def _merge_plain(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
     # makes every later wait() fail loudly rather than mis-verdict.
     flag.copy_(flag | (final_size > cap).to(torch.int32))
     size.copy_(torch.clamp(final_size, max=cap))
-    fresh = make_delta_state(d_cap, dev)
+    fresh = make_delta_state(d_cap, dev, first)
     dk.copy_(fresh.bk)
     dv.copy_(fresh.bv)
     dsize.copy_(fresh.size)
 
 
 def _merge_kernel(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
-                  rebase_delta, s_cap) -> None:
+                  rebase_delta, s_cap, first) -> None:
     cap, d_cap = bk.shape[0], dk.shape[0]
     dev = bk.device
     e = dict(dtype=torch.int32, device=dev)
@@ -756,6 +870,6 @@ def _merge_kernel(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
     ks_incl = inclusive_scan(keep_s)
     # Everything that reads the old base and delta has been enqueued:
     # refill both and compact the merged sequence into the base.
-    _k.launch("merge", "mg_reset", cap, bk, bv, d_cap, dk, dv)
+    _k.launch("merge", "mg_reset", cap, bk, bv, d_cap, dk, dv, first)
     compact_rows(keep_s, ks_incl, s_rows, sv, bk, bv, rebase=rebase_delta)
     _k.launch("merge", "mg_finish", ks_incl, s_cap, cap, size, dsize, flag)

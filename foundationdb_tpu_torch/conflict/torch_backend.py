@@ -37,7 +37,7 @@ from ..txn.types import CommitResult, CommitTransactionRef, Version
 from . import fused
 from .api import ConflictSet
 from .encoded import EncodedBatch
-from .window import make_window_state
+from .window import make_window_state, resolve_device
 
 DEFAULT_CAPACITY = 1 << 17  # max resident history segments
 
@@ -60,16 +60,6 @@ def _fine_bucket(n: int) -> int:
     if n <= _FINE_GRAN:
         return _bucket(n)
     return (n + _FINE_GRAN - 1) // _FINE_GRAN * _FINE_GRAN
-
-
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchConflictSet: no CUDA device is available; pass "
-                "device='cpu' to run the plain-torch versions on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class ResolveHandle:
@@ -148,7 +138,7 @@ class TorchConflictSet(ConflictSet):
                  gc_interval_batches: int = 8, device=None,
                  impl: Optional[str] = None) -> None:
         super().__init__(oldest_version)
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.impl = impl
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -230,24 +220,30 @@ class TorchConflictSet(ConflictSet):
         self.profile["merges"] += 1
         delta_reb = max(self.oldest_version - self.version_base, 0)
         scalars = (self._rel(self.oldest_version), delta_reb)
-        mstep = fused.make_merge_step(self.capacity, self.d_cap, self.impl)
         with self._on_stream():
-            mstep(self.bk, self.bv, self.table, self.size, self.dk, self.dv,
-                  self.dsize, self.flag, scalars)
+            self._merge_state(fused.make_merge_step(
+                self.capacity, self.d_cap, self.impl), scalars)
             if self.d_cap != self._d_cap0:
                 # The delta is empty post-merge: shrink an outlier-batch
                 # growth back so later batches don't keep paying for it.
                 self.d_cap = self._d_cap0
                 self._new_delta()
             else:
-                fused.delta_table_step(self.dv, out=self.dtable,
-                                       impl=self.impl)
+                self._refresh_dtable()
         self.version_base += delta_reb
         with self._lock:
             self._batches_since_merge = 0
             self._delta_bound = 1
             self._delta_epoch += 1
             self._needs.clear()
+
+    def _merge_state(self, mstep, scalars) -> None:
+        mstep(self.bk, self.bv, self.table, self.size, self.dk, self.dv,
+              self.dsize, self.flag, scalars)
+
+    def _refresh_dtable(self) -> None:
+        """The delta table for the next batch, after an insert or a merge."""
+        fused.delta_table_step(self.dv, out=self.dtable, impl=self.impl)
 
     def _grow_delta(self, needed: int) -> None:
         """Re-provision the (empty, just-merged) delta tier at a larger
@@ -446,31 +442,10 @@ class TorchConflictSet(ConflictSet):
         the verdicts — all enqueued on the backend's stream with no host
         synchronisation."""
         host_buf = torch.from_numpy(enc["buf"])
-        state = (self.bk, self.bv, self.table, self.size, self.dk, self.dv,
-                 self.dtable, self.dsize, self.flag)
         with self._on_stream():
             if self._stream is not None:
                 host_buf = host_buf.pin_memory()
-                buf = host_buf.to(self.device, non_blocking=True)
-            else:
-                buf = host_buf.clone()
-            if enc["compact"]:
-                step = fused.make_resolve_step_compact(
-                    self.capacity, self.d_cap, *enc["shapes"],
-                    impl=self.impl)
-                _, _, _, _, out = step(*state, buf)
-            else:
-                _, r_cap, w_cap = enc["caps"]
-                step = fused.make_resolve_step(self.capacity, self.d_cap,
-                                               t_cap, r_cap, w_cap,
-                                               impl=self.impl)
-                n_rows = 2 * (r_cap + w_cap)
-                digests = buf[:32 * n_rows].view(torch.int32).view(n_rows,
-                                                                   8)
-                meta = buf[32 * n_rows:].view(torch.int32)
-                _, _, _, _, out = step(*state, digests, meta,
-                                       rounds_acc=self.jacobi_rounds)
-            fused.delta_table_step(self.dv, out=self.dtable, impl=self.impl)
+            out, keep = self._run_step(enc, host_buf)
             if self._stream is None:
                 return ResolveHandle(self, out, None, None, n_txns, t_cap)
             host_out = torch.empty(out.shape, dtype=out.dtype,
@@ -478,8 +453,43 @@ class TorchConflictSet(ConflictSet):
             host_out.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
-        return ResolveHandle(self, host_out, event, (host_buf, buf, out),
+        return ResolveHandle(self, host_out, event, (host_buf, keep, out),
                              n_txns, t_cap)
+
+    @staticmethod
+    def _device_buf(host_buf: torch.Tensor, device) -> torch.Tensor:
+        """The packed batch on `device` (a non-blocking copy from pinned
+        memory on a CUDA device, a private copy on the CPU)."""
+        if device.type == "cuda":
+            return host_buf.to(device, non_blocking=True)
+        return host_buf.clone()
+
+    @staticmethod
+    def _general_views(buf: torch.Tensor, caps):
+        """The general layout's digest rows and metadata block in `buf`."""
+        _, r_cap, w_cap = caps
+        n_rows = 2 * (r_cap + w_cap)
+        return (buf[:32 * n_rows].view(torch.int32).view(n_rows, 8),
+                buf[32 * n_rows:].view(torch.int32))
+
+    def _run_step(self, enc, host_buf):
+        """The step and the next batch's delta table; returns the verdict
+        buffer and what must outlive the launches."""
+        buf = self._device_buf(host_buf, self.device)
+        state = (self.bk, self.bv, self.table, self.size, self.dk, self.dv,
+                 self.dtable, self.dsize, self.flag)
+        if enc["compact"]:
+            step = fused.make_resolve_step_compact(
+                self.capacity, self.d_cap, *enc["shapes"], impl=self.impl)
+            _, _, _, _, out = step(*state, buf)
+        else:
+            step = fused.make_resolve_step(self.capacity, self.d_cap,
+                                           *enc["caps"], impl=self.impl)
+            _, _, _, _, out = step(*state,
+                                   *self._general_views(buf, enc["caps"]),
+                                   rounds_acc=self.jacobi_rounds)
+        self._refresh_dtable()
+        return out, buf
 
     # -- public API ---------------------------------------------------------
     def resolve_encoded_async(self, batch: EncodedBatch, now: Version,

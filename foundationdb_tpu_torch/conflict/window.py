@@ -47,13 +47,30 @@ class WindowState(NamedTuple):
     size: torch.Tensor  # int32[1]
 
 
-def make_window_state(cap: int, init_version_rel: int = 0,
-                      device="cpu") -> WindowState:
-    """One segment covering all keys (digest(b"") = all zeros) at
-    init_version_rel; everything past it MAX / NEG_INF."""
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: `device` as given, or `cuda` when
+    it is None.  With no device given and no CUDA device present this
+    raises; nothing falls back to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain-torch versions on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def make_window_state(cap: int, init_version_rel: int = 0, device=None,
+                      first: Optional[torch.Tensor] = None) -> WindowState:
+    """One segment covering all keys at init_version_rel; everything past
+    it MAX / NEG_INF.  The segment starts at digest(b"") = all zeros, or
+    at `first` (a row int32[8]): a key-range shard's lower split, as the
+    reference's sharded state starts (sharded_resolver.py:89-99).  device
+    None means `cuda` (resolve_device)."""
     assert cap & (cap - 1) == 0, "capacity must be a power of two"
+    device = resolve_device(device)
     bk = max_rows(cap, device)
-    bk[0] = 0
+    bk[0] = 0 if first is None else first
     bv = torch.full((cap,), NEG_INF, dtype=torch.int32, device=device)
     bv[0] = init_version_rel
     return WindowState(bk, bv, torch.ones((1,), dtype=torch.int32,
@@ -67,9 +84,11 @@ def window_state_to_numpy(state: WindowState):
             np.int32(int(state.size.cpu()[0])))
 
 
-def window_state_from_numpy(bk, bv, size, device="cpu") -> WindowState:
+def window_state_from_numpy(bk, bv, size, device=None) -> WindowState:
     """A WindowState from the JAX package's layout (bk planar uint32[8,
-    CAP], bv int32[CAP], size an int32 scalar)."""
+    CAP], bv int32[CAP], size an int32 scalar), on `device` (None means
+    `cuda`, as make_window_state)."""
+    device = resolve_device(device)
     return WindowState(
         torch.from_numpy(planar_to_rows(np.asarray(bk))).to(device),
         torch.from_numpy(np.array(bv, dtype=np.int32)).to(device),

@@ -7,7 +7,9 @@
 //   ds_search  -- ops/digest.py:243 _searchsorted (searchsorted_left/right);
 //   ds_history -- conflict/fused.py:351-355: searchsorted_interval
 //                 (ops/digest.py:322) over base and delta, each fused with
-//                 range_max (ops/rangemax.py:35), max of the two tiers.
+//                 range_max (ops/rangemax.py:35), max of the two tiers;
+//                 with an owned mask (a key-range shard's, fused.py:357)
+//                 NEG_INF where the key is not owned.
 //
 // Bound on the card: bytes.  All of it is integer data movement; each probe
 // reads one 32-byte row (one sector) of the table, so the floor is the
@@ -64,8 +66,13 @@ __global__ void k_history(const uint32_t* __restrict__ bk, int cap, int nb,
                           const int* __restrict__ dtable,
                           const uint32_t* __restrict__ u_b,
                           const uint32_t* __restrict__ u_e, int u_pad,
+                          const int* __restrict__ own,
                           int* __restrict__ vmax) {
   GRID_STRIDE(u, u_pad) {
+    if (own != nullptr && !own[u]) {
+      vmax[u] = NEG_INF_I32;
+      continue;
+    }
     Row b = load_row(u_b, u);
     Row e = load_row(u_e, u);
     int pb = search_rows(bk, cap, nb, b, false);
@@ -97,11 +104,12 @@ extern "C" int ds_search(const void* table, int cap, const void* q, int nq,
 extern "C" int ds_history(const void* bk, int cap, const void* table,
                           const void* dk, int dcap, const void* dtable,
                           const void* u_b, const void* u_e, int u_pad,
-                          void* vmax, void* stream) {
+                          const void* own, void* vmax, void* stream) {
   k_history<<<blocks_for(u_pad, THREADS), THREADS, 0,
               (cudaStream_t)stream>>>(
       (const uint32_t*)bk, cap, log2_pow2(cap), (const int*)table,
       (const uint32_t*)dk, dcap, log2_pow2(dcap), (const int*)dtable,
-      (const uint32_t*)u_b, (const uint32_t*)u_e, u_pad, (int*)vmax);
+      (const uint32_t*)u_b, (const uint32_t*)u_e, u_pad, (const int*)own,
+      (int*)vmax);
   return (int)cudaGetLastError();
 }

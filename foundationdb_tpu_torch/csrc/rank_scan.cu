@@ -129,11 +129,16 @@ __global__ void k_compact(long n, const int* __restrict__ keep,
 }
 
 // ------------------------------------------------------- point insert
+// m_valid[slot] = max over the writes at slot of w_ins, and with an owned
+// mask (a key-range shard's, fused.py:175-177) only where the slot's key
+// is owned.
 __global__ void k_pi_mark(long w_pad, const int* __restrict__ w_uid,
                           const int* __restrict__ w_ins, int u_pad,
+                          const int* __restrict__ u_own,
                           int* __restrict__ m_valid) {
   GRID_STRIDE(w, w_pad) {
-    if (w_ins[w]) m_valid[clampi(w_uid[w], 0, u_pad - 1)] = 1;
+    int slot = clampi(w_uid[w], 0, u_pad - 1);
+    if (w_ins[w] && (u_own == nullptr || u_own[slot])) m_valid[slot] = 1;
   }
 }
 
@@ -376,9 +381,12 @@ __global__ void k_mg_gc_mask(long s_cap, const int* __restrict__ kb_incl,
   }
 }
 
+// The reset delta's covering boundary is the zero digest, or a key-range
+// shard's lower split `first` (fused.py:679-683, dk0_first).
 __global__ void k_mg_reset(int cap, uint32_t* __restrict__ bk,
                            int* __restrict__ bv, int dcap,
-                           uint32_t* __restrict__ dk, int* __restrict__ dv) {
+                           uint32_t* __restrict__ dk, int* __restrict__ dv,
+                           const uint32_t* __restrict__ first) {
   long n = cap > dcap ? cap : dcap;
   GRID_STRIDE(i, n) {
     if (i < cap) {
@@ -388,8 +396,12 @@ __global__ void k_mg_reset(int cap, uint32_t* __restrict__ bk,
     if (i < dcap) {
       Row r = max_row();
       if (i == 0) {
+        if (first != nullptr) {
+          r = load_row(first, 0);
+        } else {
 #pragma unroll
-        for (int l = 0; l < 8; ++l) r.l[l] = 0u;
+          for (int l = 0; l < 8; ++l) r.l[l] = 0u;
+        }
       }
       store_row(dk, i, r);
       dv[i] = NEG_INF_I32;
@@ -441,9 +453,11 @@ extern "C" int rs_compact(long n, const void* keep, const void* incl,
 }
 
 extern "C" int pi_mark(long w_pad, const void* w_uid, const void* w_ins,
-                       int u_pad, void* m_valid, void* stream) {
+                       int u_pad, const void* u_own, void* m_valid,
+                       void* stream) {
   k_pi_mark<<<blocks_for(w_pad, THREADS), THREADS, 0, S(stream)>>>(
-      w_pad, (const int*)w_uid, (const int*)w_ins, u_pad, (int*)m_valid);
+      w_pad, (const int*)w_uid, (const int*)w_ins, u_pad, (const int*)u_own,
+      (int*)m_valid);
   RET;
 }
 
@@ -576,10 +590,11 @@ extern "C" int mg_gc_mask(long s_cap, const void* kb_incl, int cap,
 }
 
 extern "C" int mg_reset(int cap, void* bk, void* bv, int dcap, void* dk,
-                        void* dv, void* stream) {
+                        void* dv, const void* first, void* stream) {
   long n = cap > dcap ? cap : dcap;
   k_mg_reset<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
-      cap, (uint32_t*)bk, (int*)bv, dcap, (uint32_t*)dk, (int*)dv);
+      cap, (uint32_t*)bk, (int*)bv, dcap, (uint32_t*)dk, (int*)dv,
+      (const uint32_t*)first);
   RET;
 }
 

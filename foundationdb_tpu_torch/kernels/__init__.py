@@ -30,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("digest_search", "sparse_table", "rank_scan", "intra_batch",
-           "sort", "segtree", "window")
+           "sort", "segtree", "window", "shard")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -59,6 +59,9 @@ KERNELS = {
     "union_ranges": ("window", _REF + "conflict/window.py:85"),
     "window_insert": ("window", _REF + "conflict/window.py:127"),
     "window_gc": ("window", _REF + "conflict/window.py:219"),
+    "clip_rows": ("shard", _REF + "parallel/sharded_window.py:166"),
+    "shard_combine": ("shard", _REF + "conflict/fused.py:362"),
+    "shard_commit": ("shard", _REF + "parallel/sharded_window.py:183"),
 }
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -68,7 +71,7 @@ _SIGS = {
     "digest_search": {
         "ds_widen": "pii" "ppp" "p",
         "ds_search": "pipiip" "p",
-        "ds_history": "pippipppip" "p",
+        "ds_history": "pippipppi" "pp" "p",
     },
     "sparse_table": {"st_level": "ppii" "p"},
     "rank_scan": {
@@ -76,7 +79,7 @@ _SIGS = {
         "rs_scan_tiles": "pplp" "p",
         "rs_scan_add": "plp" "p",
         "rs_compact": "lppppppl" "ii" "p",
-        "pi_mark": "lppip" "p",
+        "pi_mark": "lppi" "pp" "p",
         "pi_probe": "pipppppl" "pppp" "p",
         "pi_keep": "ipppp" "p",
         "pi_il_valid": "lppp" "p",
@@ -89,7 +92,7 @@ _SIGS = {
         "mg_place_base": "ipppppp" "lpp" "p",
         "mg_place_delta": "ipppi" "pplpp" "p",
         "mg_gc_mask": "lpipipip" "p",
-        "mg_reset": "ippipp" "p",
+        "mg_reset": "ippipp" "p" "p",
         "mg_finish": "plippp" "p",
     },
     "intra_batch": {
@@ -111,6 +114,11 @@ _SIGS = {
         "wi_new": "lppp" "l" "ppppp" "p",
         "wi_valid": "lpp" "p",
         "wg_keep": "ippip" "p",
+    },
+    "shard": {
+        "sh_clip": "l" "ppppp" "pppp" "p",
+        "sh_combine": "pill" "p" "p",
+        "sh_commit": "pi" "ppp" "ppp" "p",
     },
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64}

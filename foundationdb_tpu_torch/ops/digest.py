@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import kernels as _k
-from .rangemax import range_max
+from .rangemax import NEG_INF, range_max
 
 SALT_LANES = 2     # tenant-salt column: bytes 0..7 (the 8-byte tenant prefix)
 SALT_BYTES = 4 * SALT_LANES
@@ -189,6 +189,20 @@ def lex_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a == b).all(dim=-1)
 
 
+def lex_max_rows(a: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """Row-wise lexicographic max(a[i], row); a: [N, 8], row: [8].  The
+    plain version of the reference's lex_max_cols (clips digest ranges to
+    a key-range shard's lower bound)."""
+    b = row.expand_as(a)
+    return torch.where(lex_less(a, b)[:, None], b, a)
+
+
+def lex_min_rows(a: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """Row-wise lexicographic min(a[i], row) (reference lex_min_cols)."""
+    b = row.expand_as(a)
+    return torch.where(lex_less(b, a)[:, None], b, a)
+
+
 def _searchsorted_plain(table: torch.Tensor, queries: torch.Tensor,
                         side_left) -> torch.Tensor:
     """The branchless loop of the reference's _searchsorted over rows:
@@ -261,19 +275,24 @@ def searchsorted_interval(table: torch.Tensor, q_begin: torch.Tensor,
 
 def history_probe(bk: torch.Tensor, table: torch.Tensor, dk: torch.Tensor,
                   dtable: torch.Tensor, u_b: torch.Tensor, u_e: torch.Tensor,
-                  impl=None) -> torch.Tensor:
+                  impl=None, own=None) -> torch.Tensor:
     """max{V(k) : k in [u_b, u_e)} over base and delta, per unique key
-    (conflict/fused.py:351-355 of the reference): int32[U].
+    (conflict/fused.py:351-355 of the reference): int32[U].  With `own`
+    (int32 0/1 [U], a key-range shard's owned mask) the maximum is NEG_INF
+    where own is 0, as the sharded reference masks it (fused.py:357).
     Kernel: ds_history (both tiers' searches and range-max fused)."""
     if not _k.use_kernel(bk, impl):
         pos_b, hi_b = searchsorted_interval(bk, u_b, u_e)
         max_base = range_max(table, pos_b - 1, hi_b)
         pos_d, hi_d = searchsorted_interval(dk, u_b, u_e)
         max_delta = range_max(dtable, pos_d - 1, hi_d)
-        return torch.maximum(max_base, max_delta)
+        vmax = torch.maximum(max_base, max_delta)
+        if own is not None:
+            vmax = torch.where(own != 0, vmax, NEG_INF)
+        return vmax
     out = torch.empty((u_b.shape[0],), dtype=torch.int32, device=bk.device)
     _k.launch("history_probe", "ds_history", bk, bk.shape[0], table, dk,
-              dk.shape[0], dtable, u_b, u_e, u_b.shape[0], out)
+              dk.shape[0], dtable, u_b, u_e, u_b.shape[0], own, out)
     return out
 
 

@@ -194,7 +194,7 @@ def test_point_insert_chain_matches_reference(n_keys, n_batches):
     insert overflows, keeps the old delta and sets the flag."""
     rng = np.random.default_rng(n_keys)
     u_pad, w_pad, d_cap = 128, 96, 256
-    fresh = tf.make_delta_state(d_cap)
+    fresh = tf.make_delta_state(d_cap, "cpu")
     dk, dv, ds = fresh.bk.clone(), fresh.bv.clone(), fresh.size.clone()
     flag = torch.zeros((1,), dtype=torch.int32)
     jk, jv, js = (jnp.asarray(rows_to_planar(dk)), jnp.asarray(dv.numpy()),

@@ -21,7 +21,9 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.ops.digest", "foundationdb_tpu_torch.ops.scan",
     "foundationdb_tpu_torch.ops.rangemax",
     "foundationdb_tpu_torch.ops.segtree", "foundationdb_tpu_torch.ops.sort",
-    "chip_smoke"]
+    "foundationdb_tpu_torch.ops.shard", "foundationdb_tpu_torch.parallel",
+    "foundationdb_tpu_torch.parallel.sharded_window",
+    "foundationdb_tpu_torch.parallel.sharded_resolver", "chip_smoke"]
 
 
 def test_port_imports_no_jax():
@@ -43,14 +45,32 @@ def test_port_imports_no_jax():
 
 
 def test_no_device_raises_without_cuda(monkeypatch):
+    import numpy as np
+    from foundationdb_tpu_torch.conflict import fused, window
     from foundationdb_tpu_torch.conflict.api import new_conflict_set
     from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.parallel import make_conflict_mesh
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchConflictSet()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         new_conflict_set("torch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        new_conflict_set("sharded")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_conflict_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        window.make_window_state(256)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fused.make_delta_state(256)
+    st = window.make_window_state(256, 0, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        window.window_state_from_numpy(*window.window_state_to_numpy(st))
+    assert fused.make_delta_state(256, "cpu").bk.device.type == "cpu"
+    assert window.window_state_from_numpy(
+        np.zeros((8, 4), np.uint32), np.zeros(4, np.int32), 1,
+        device="cpu").bv.device.type == "cpu"
     assert TorchConflictSet(device="cpu").device.type == "cpu"
     assert isinstance(new_conflict_set("cpu"), OracleConflictSet)
     with pytest.raises(ValueError):

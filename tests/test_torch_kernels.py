@@ -492,3 +492,172 @@ def test_backend_range_stream_kernels_equal_plain_and_oracle(dev):
     assert kern.profile["merges"] >= 2
     assert kern.profile["general_batches"] == 9
     assert int(kern.jacobi_rounds[0]) == int(plain.jacobi_rounds[0]) >= 9
+
+
+# ---------------------------------------------------------------------------
+# key-range sharding: the shard kernels and the sharded programs
+# ---------------------------------------------------------------------------
+
+def quarter_bounds(dev, d: int):
+    """Shard d of 4's [lo, hi) rows under even lane-0 splits."""
+    from foundationdb_tpu_torch.parallel.sharded_window import (digest_splits,
+                                                                split_rows)
+    rows = split_rows(digest_splits(4)).to(dev)
+    return rows[d], rows[d + 1]
+
+
+@pytest.mark.parametrize("edge", [False, True])
+def test_shard_kernels(dev, edge):
+    """clip_rows (with and without `valid`), shard_combine (max and
+    wrapping sum) and shard_commit (overflow set and clear), kernel against
+    plain."""
+    from foundationdb_tpu_torch.ops import shard
+    rng = np.random.default_rng(21)
+    b, _ = sorted_rows(rng, 3000, 4096, edge=edge)
+    e, _ = sorted_rows(rng, 3000, 4096, edge=edge)
+    b, e = b.to(dev), e.to(dev)
+    valid = torch.from_numpy((rng.random(4096) < 0.7).astype(np.int32)).to(
+        dev)
+    for d in range(4):
+        lo, hi = quarter_bounds(dev, d)
+        for v in (None, valid):
+            same(shard.clip_rows(b, e, lo, hi, valid=v),
+                 shard.clip_rows(b, e, lo, hi, valid=v, impl="plain"))
+    parts = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31,
+                                          size=(4, 65536 + 3),
+                                          dtype=np.int64).astype(np.int32))
+    parts[:, 0] = 0x7FFFFFFF
+    parts = parts.to(dev)
+    for n_max in (None, 2, 65536):
+        same(shard.shard_combine(parts, n_max),
+             shard.shard_combine(parts, n_max, impl="plain"))
+    st = make_state(dev)
+    for ovf in (0, 1):
+        flag = torch.tensor([ovf], dtype=torch.int32, device=dev)
+        saved = (st["bk"], st["bv"], st["size"])
+        outs = []
+        for impl in (None, "plain"):
+            s = copy(make_state(dev, seed=2))
+            shard.shard_commit(flag, saved, (s["bk"], s["bv"], s["size"]),
+                               impl=impl)
+            outs.append((s["bk"], s["bv"], s["size"]))
+        same(outs[0], outs[1])
+        same(outs[0], saved if ovf else tuple(
+            make_state(dev, seed=2)[k] for k in ("bk", "bv", "size")))
+
+
+def test_masked_point_insert_and_first_row_merge(dev):
+    """The point insert with a shard's u_own mask (pi_mark) and the merge
+    whose reset delta starts at a shard's lower split (mg_reset), kernel
+    against plain."""
+    st = make_state(dev)
+    x = step_inputs(dev, packed_batch(6))
+    t_cap, r_pad, w_pad, u_pad, lw = x["shapes"]
+    u_b, u_e = digest.widen_unique(x["ub"], x["scal"], lw, u_pad, "plain")
+    rng = np.random.default_rng(3)
+    u_own = torch.from_numpy((rng.random(u_pad) < 0.5).astype(np.int32)).to(
+        dev)
+    w_ins = torch.from_numpy((rng.random(w_pad) < 0.6).astype(np.int32)).to(
+        dev)
+    outs = []
+    for impl in (None, "plain"):
+        s = copy(st)
+        tail = torch.zeros((3,), dtype=torch.int32, device=dev)
+        fused._point_insert(s["dk"], s["dv"], s["dsize"], u_b, u_e,
+                            x["w_uid"], w_ins, x["scal"][4:5], s["flag"],
+                            bsize=s["size"], tail=tail, impl=impl,
+                            u_own=u_own)
+        outs.append((s["dk"], s["dv"], s["dsize"], s["flag"], tail))
+    same(outs[0], outs[1])
+    lo, _ = quarter_bounds(dev, 2)
+    outs = []
+    for impl in (None, "plain"):
+        s = copy(st)
+        m = fused.make_merge_step(1 << 12, 1 << 10, impl=impl)
+        outs.append(m(s["bk"], s["bv"], s["table"], s["size"], s["dk"],
+                      s["dv"], s["dsize"], s["flag"], (100, 0), lo))
+    same(outs[0], outs[1])
+    assert torch.equal(outs[0][4][0], lo)
+
+
+def test_sharded_backend_kernels_equal_plain_and_oracle(dev):
+    """ShardedTorchConflictSet with four shards on one card: kernels
+    against impl="plain" at state level and the verdicts against the
+    one-device backend and the oracle, over point and range batches,
+    merges and a delta growth."""
+    from foundationdb_tpu_torch.parallel import (ShardedTorchConflictSet,
+                                                 make_conflict_mesh,
+                                                 sharded_state_to_numpy,
+                                                 splits_from_sample)
+    rng = np.random.default_rng(31)
+    mesh = make_conflict_mesh([dev] * 4)
+    splits = splits_from_sample(key_digests(np.arange(0, 3000, 7)), 4)
+    kw = dict(capacity=1 << 12, delta_capacity=1 << 9, gc_interval_batches=3,
+              splits=splits)
+    kern = ShardedTorchConflictSet(mesh, 0, **kw)
+    plain = ShardedTorchConflictSet(mesh, 0, impl="plain", **kw)
+    single = TorchConflictSet(0, capacity=1 << 14, device=dev)
+    oracle = OracleConflictSet(0)
+    version = 1000
+    for i, n in enumerate([200, 150, 300, 200, 200]):
+        prev, version = version, version + 1000
+        keys = [b"k%014d" % int(k) for k in rng.integers(0, 3000, size=2 * n)]
+        snaps = np.maximum(prev - rng.integers(0, 2000, size=n), 0)
+        span = 1 + (i % 2) * 40
+        txns = [CommitTransactionRef(
+            read_conflict_ranges=[KeyRange(keys[t], keys[t] + (
+                b"\x00" if span == 1 else b"\xff"))],
+            write_conflict_ranges=[KeyRange(keys[n + t],
+                                            keys[n + t] + b"\x00")],
+            read_snapshot=int(snaps[t])) for t in range(n)]
+        floor = max(version - 5000, 0)
+        verdicts = [[int(v) for v in cs.resolve(txns, version, floor)]
+                    for cs in (kern, plain, single, oracle)]
+        assert all(v == verdicts[0] for v in verdicts), i
+        sa, sb = sharded_state_to_numpy(kern), sharded_state_to_numpy(plain)
+        for k in sa:
+            assert np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])), k
+    assert kern.profile["merges"] >= 1
+    assert kern.profile["general_batches"] >= 1
+    assert min(kern.shard_sizes()) > 1
+
+
+def test_sharded_window_kernels_equal_plain(dev):
+    """ShardedWindow at kr=4 on one card: bits, overflow and state of the
+    kernels against impl="plain", through an overflow of one shard (all
+    shards keep their state) and a gc."""
+    from foundationdb_tpu_torch.parallel import (ShardedWindow,
+                                                 make_conflict_mesh)
+    rng = np.random.default_rng(41)
+    mesh = make_conflict_mesh([dev] * 4)
+    wins = [ShardedWindow(mesh, capacity=1 << 9, impl=i)
+            for i in (None, "plain")]
+
+    def rand_rows(n, lead=None):
+        d = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(
+            np.uint32)
+        if lead is not None:
+            d[0] = lead
+        e = d.copy()
+        e[7] += 1
+        return (torch.from_numpy(digest.planar_to_rows(d)).to(dev),
+                torch.from_numpy(digest.planar_to_rows(e)).to(dev))
+
+    ovfs = []
+    for i in range(8):
+        qb, qe = rand_rows(512)
+        snap = torch.from_numpy(rng.integers(0, 1000 * (i + 1), size=512,
+                                             dtype=np.int32)).to(dev)
+        ones = torch.ones(512, dtype=torch.int32, device=dev)
+        wb, we = rand_rows(128, lead=5 if i >= 4 else None)
+        outs = [w.resolve_step(qb, qe, snap, ones, wb, we, ones[:128],
+                               1000 * (i + 1)) for w in wins]
+        same(outs[0], outs[1])
+        for a, b in zip(wins[0].state_to_numpy(), wins[1].state_to_numpy()):
+            assert np.array_equal(a, b)
+        ovfs.append(int(outs[0][1][0]))
+    assert 1 in ovfs
+    for w in wins:
+        w.gc(4000, 1000)
+    for a, b in zip(wins[0].state_to_numpy(), wins[1].state_to_numpy()):
+        assert np.array_equal(a, b)

@@ -52,7 +52,7 @@ def rows(planar) -> torch.Tensor:
 
 
 def port_state(st) -> tw.WindowState:
-    return tw.window_state_from_numpy(*st)
+    return tw.window_state_from_numpy(*st, device="cpu")
 
 
 def assert_state(got: tw.WindowState, want, name=""):
@@ -86,7 +86,7 @@ def insert_chain(seed: int, cap: int, n_batches: int):
     (batch, jax state, port state, jax overflow, port overflow)."""
     rng = np.random.default_rng(seed)
     j = jw.make_window_state(cap, 0)
-    p = tw.make_window_state(cap, 0)
+    p = tw.make_window_state(cap, 0, "cpu")
     for i in range(n_batches):
         b, e, valid = write_ranges(rng)
         now = 1000 * (i + 1)
@@ -114,7 +114,7 @@ def test_window_insert_flag_and_tail():
     """With a flag the overflow is OR'd into it, and the tail gets flag,
     new size and bsize (the general step's verdict tail)."""
     b, e, valid = write_ranges(np.random.default_rng(5))
-    st = tw.make_window_state(CAP, 0)
+    st = tw.make_window_state(CAP, 0, "cpu")
     flag = torch.tensor([1], dtype=torch.int32)
     tail = torch.zeros(3, dtype=torch.int32)
     _, ovf = tw.window_insert(st, rows(b), rows(e),
