@@ -38,6 +38,9 @@ exits non-zero):
      through its plain-torch version on the card on identical inputs:
      outputs must be bit-equal (all integer data; tolerance 0); times by
      CUDA events (a wrapper's row: the device time of its own launches);
+     inclusive_scan also at the point path's own sizes beside
+     torch.cumsum, one launch a call; intra_batch_fixpoint also on a
+     300-deep chain at config-2 width (rounds equal to the depth);
   3. the point path: 3 warmup batches, 10 at pipeline depth 8, 8 at depth
      1; oracle parity in both contention regimes; kernel-vs-plain state
      equality across a merge;
@@ -618,8 +621,10 @@ def compare_kernels(cs, packed, buf):
                                             u_pad, i),
             nbytes(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap, vmax,
                    *rw.values()), None),
+        # Conf and the round count; the bound is one pass over the
+        # inputs and conf, whatever the rounds (see the row's "rounds").
         "intra_batch_fixpoint": (
-            lambda i: fused.intra_batch_fixpoint(*rw_in, u_pad, i)[0],
+            lambda i: fused.intra_batch_fixpoint(*rw_in, u_pad, i),
             nbytes(*rw_in, conf), None),
         "batch_codes": (
             lambda i: _codes(fused, scal, too_old, conf, rw["w_txn"], i),
@@ -673,6 +678,13 @@ def compare_kernels(cs, packed, buf):
                      "library_ms": lib})
         log(f"{name}: bit-equal; own kernels {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bound_ms(n_bytes):.4f} ms")
+    by_name = {r["name"]: r for r in rows}
+    by_name["inclusive_scan"]["at_sizes"] = scan_sizes(
+        scan, {"w_pad": w_pad, "r_pad": r_pad, "d_cap": cs.d_cap,
+               "merge": CAPACITY + DELTA_CAPACITY})
+    fix = by_name["intra_batch_fixpoint"]
+    fix["rounds"] = int(rounds.item())
+    fix["deep_chain"] = deep_chain(fused, t_cap, r_pad, w_pad, u_pad)
 
     # The three device programs, kernel against plain, on state copies.
     programs = {}
@@ -715,6 +727,85 @@ def compare_kernels(cs, packed, buf):
         log(f"program {prog}: bit-equal; kernel {ms:.3f} ms "
             f"({dev_ms:.3f} ms without host gaps), plain {plain:.3f} ms")
     return rows, programs
+
+
+def scan_sizes(scan, sizes: dict) -> list:
+    """inclusive_scan at the point path's own sizes (and the merge's):
+    one launch a call, bit-equal to the plain version, its own time
+    beside torch.cumsum's on the same 0/1 mask."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    out = []
+    for what, n in sizes.items():
+        x = (torch.arange(n, device=DEVICE) % 3 != 0).to(torch.int32)
+        K.reset_counts()
+        got = scan.inclusive_scan(x)
+        if K.LAUNCHES["inclusive_scan"] != 1:
+            raise AssertionError(f"inclusive_scan at n={n}: "
+                                 f"{K.LAUNCHES['inclusive_scan']} launches")
+        err = require_equal(f"inclusive_scan n={n}", got,
+                            scan.inclusive_scan(x, "plain"))
+        row = {"size": what, "n": n, "launches_per_call": 1,
+               "max_abs_err": err,
+               "ms": device_ms(lambda: scan.inclusive_scan(x), reps=20,
+                               counter="inclusive_scan"),
+               # The whole call: the scratch's zero fill and the kernel.
+               "call_ms": device_ms(lambda: scan.inclusive_scan(x), reps=20),
+               "library_ms": device_ms(
+                   lambda: torch.cumsum(x, 0, dtype=torch.int32), reps=20),
+               "bound_ms": bound_ms(2 * nbytes(x))}
+        out.append(row)
+        log(f"inclusive_scan n={n} ({what}): one launch, bit-equal; "
+            f"{row['ms']:.4f} ms ({row['call_ms']:.4f} ms with the scratch's "
+            f"zero fill), torch.cumsum {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms")
+    return out
+
+
+DEEP_CHAIN = 300
+
+
+def chain_inputs(t_cap: int, r_pad: int, w_pad: int, u_pad: int,
+                 depth: int = DEEP_CHAIN):
+    """Fixpoint inputs at the config-2 batch's shapes whose first `depth`
+    txns form a chain (txn i reads the key txn i - 1 writes); every other
+    read is of a key no txn writes, every other write of a key no txn
+    reads, so the Jacobi rounds equal the depth."""
+    import torch
+    never = u_pad - 1                      # a key no txn writes
+    r = np.arange(r_pad)
+    r_txn = np.where(r < depth, r, depth + (r - depth) * (t_cap - depth)
+                     // max(r_pad - depth, 1))
+    r_slot = np.where((r < depth) & (r > 0), r - 1, never)
+    w = np.arange(w_pad)
+    w_txn = np.minimum(w, t_cap - 1)
+    w_slot = np.where(w < depth, w, depth + (w - depth) % (never - depth))
+    cols = (np.zeros(t_cap), r_txn, np.ones(r_pad), r_slot, w_txn,
+            np.ones(w_pad), w_slot)
+    return [torch.from_numpy(np.asarray(c, np.int32)).to(DEVICE)
+            for c in cols]
+
+
+def deep_chain(fused, t_cap, r_pad, w_pad, u_pad) -> dict:
+    """intra_batch_fixpoint on a DEEP_CHAIN-deep chain at config-2 width:
+    conf and rounds equal to the plain version's, rounds == the depth."""
+    args = chain_inputs(t_cap, r_pad, w_pad, u_pad)
+    conf, rounds = fused.intra_batch_fixpoint(*args, u_pad)
+    conf_p, rounds_p = fused.intra_batch_fixpoint(*args, u_pad, "plain")
+    err = require_equal("intra_batch_fixpoint deep chain", conf, conf_p)
+    if not int(rounds.item()) == int(rounds_p.item()) == DEEP_CHAIN:
+        raise AssertionError(f"deep chain: {int(rounds.item())} rounds, "
+                             f"plain {int(rounds_p.item())}, depth "
+                             f"{DEEP_CHAIN}")
+    row = {"depth": DEEP_CHAIN, "rounds": int(rounds.item()),
+           "max_abs_err": err,
+           "ms": device_ms(lambda: fused.intra_batch_fixpoint(*args, u_pad),
+                           counter="intra_batch_fixpoint"),
+           "plain_ms": cuda_ms(lambda: fused.intra_batch_fixpoint(
+               *args, u_pad, "plain"), reps=1)}
+    log(f"intra_batch_fixpoint deep chain: {row['rounds']} rounds, "
+        f"bit-equal; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms")
+    return row
 
 
 def _codes(fused, scal, too_old, conf, w_txn, impl):

@@ -215,7 +215,9 @@ def intra_batch_fixpoint(hist, r_txn, r_live, r_slot, w_txn, w_ok, w_slot,
     iff an EARLIER SURVIVING txn of the batch wrote its key.  Jacobi
     rounds recompute from the history-only baseline until nothing
     changes.  Returns (conflicted int32[t_cap], rounds int32[1]).
-    Kernel: ib_fixpoint, one persistent CTA looping on the device."""
+    Kernel: ib_fixpoint, one cooperative persistent launch over every SM
+    whose rounds loop on the device; its cover, next-conflict and changed
+    scratch is double-buffered by round parity (csrc/intra_batch.cu)."""
     t_cap = hist.shape[0]
     dev = hist.device
     if _k.use_kernel(hist, impl):
@@ -225,7 +227,8 @@ def intra_batch_fixpoint(hist, r_txn, r_live, r_slot, w_txn, w_ok, w_slot,
         _k.launch("intra_batch_fixpoint", "ib_fixpoint", t_cap,
                   r_txn.shape[0], w_txn.shape[0], u_pad, hist, r_txn, r_live,
                   r_slot, w_txn, w_ok, w_slot,
-                  torch.empty((u_pad + 1,), **e), torch.empty((t_cap,), **e),
+                  torch.empty((2 * (u_pad + 1),), **e),
+                  torch.empty((2 * t_cap,), **e), torch.empty((2,), **e),
                   conf, rounds)
         return conf, rounds
     w_txn_c = torch.clamp(w_txn, 0, t_cap - 1).long()

@@ -17,17 +17,37 @@
 //   ig_codes       -- :550-566 survivors, the insert mask and the codes.
 //
 // Bound on the card: bytes for the prep and code passes (each array read
-// and written once).  The fixpoint is latency-bound: one persistent CTA
-// repeats a pass over writes, reads and txns per round, for as many rounds
-// as the batch's chain depth.
+// and written once).  The fixpoint's least work is one pass over writes,
+// reads and txns per round, for as many rounds as the batch's chain depth;
+// at config 2 that is ~3 MB a round, so its time is the rounds' grid-wide
+// barriers and dependent loads, not bandwidth.
 //
-// Design: the fixpoint is one block of 1024 threads that loops with
-// __syncthreads() and ends when __syncthreads_or() sees no txn change, so
-// the host never synchronises per round.  Its global scratch (cover,
-// next-conflict) is private to the launch; a barrier orders every phase.
+// Design: the fixpoint is one cooperative persistent launch over every SM
+// (cudaLaunchCooperativeKernel; the grid is the blocks the occupancy query
+// lets co-reside, at most FIX_BLOCKS_PER_SM an SM, and no more than the
+// work needs), looping on the device with cooperative_groups grid.sync()
+// between phases, so the host never synchronises per round.  A round is
+// three phases and three barriers: atomicMin each active write's txn into
+// the cover | scatter each live read's hit into the next conflicts |
+// compare and copy into conf, raising the round's changed flag.  Cover and
+// next-conflict scratch are double-buffered by round parity: the compare
+// phase of round r refills round r+1's buffers (cover to INF, the next
+// conflicts to the history baseline), which no phase of round r touches,
+// so no fourth barrier is spent on the reset.  The changed flags are
+// double-buffered the same way: round r clears its flag in its first
+// phase; every thread last read it at the end of round r-2, behind round
+// r-1's barriers.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
-#define FIX_THREADS 1024
+namespace cg = cooperative_groups;
+
+#define FIX_THREADS 256
+// Blocks an SM: measured on the H100 at 1, 2, 3, 4, 6 and 8, two gave the
+// fastest config-2 batch and 300-deep chain; more blocks make every grid
+// barrier slower, fewer leave the phases' loads short of parallelism.
+#define FIX_BLOCKS_PER_SM 2
 
 __global__ void k_txn_prep(int t_cap, int r_pad, int w_pad,
                            const int* __restrict__ r_start,
@@ -93,54 +113,82 @@ __global__ void k_write_prep(int w_pad, int t_cap, int u_pad,
   }
 }
 
+struct IbFixArgs {
+  int t_cap, r_pad, w_pad, u_pad;
+  const int* hist;
+  const int* r_txn;
+  const int* r_live;
+  const int* r_slot;
+  const int* w_txn;
+  const int* w_ok;
+  const int* w_slot;
+  int* cover;    // int32[2 * (u_pad + 1)], one half per round parity
+  int* nconf;    // int32[2 * t_cap], the same
+  int* changed;  // int32[2], one flag per round parity
+  int* conf;     // out: int32[t_cap]
+  int* rounds;   // out: int32[1]
+};
+
 __global__ void __launch_bounds__(FIX_THREADS)
-    k_fixpoint(int t_cap, int r_pad, int w_pad, int u_pad,
-               const int* __restrict__ hist, const int* __restrict__ r_txn,
-               const int* __restrict__ r_live, const int* __restrict__ r_slot,
-               const int* __restrict__ w_txn, const int* __restrict__ w_ok,
-               const int* __restrict__ w_slot, int* cover, int* nconf,
-               int* conf, int* rounds_out) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int t = tid; t < t_cap; t += nt) conf[t] = hist[t];
-  __syncthreads();
+    k_ib_fixpoint(IbFixArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const long gtid = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  const long gstride = (long)gridDim.x * blockDim.x;
+  const long cov_n = a.u_pad + 1L;
+  const long t_cap = a.t_cap;
+  // Round r works on the buffers of parity r & 1; round 1's are filled
+  // here.  Each round recomputes from the history-only baseline (a
+  // conflict inferred from a writer that later turns out conflicted must
+  // be retractable).
+  for (long t = gtid; t < t_cap; t += gstride) {
+    const int h = __ldg(a.hist + t);
+    a.conf[t] = h;
+    a.nconf[t_cap + t] = h;
+  }
+  for (long u = gtid; u < cov_n; u += gstride) a.cover[cov_n + u] = INF_I32;
+  grid.sync();
   // Jacobi on the lower-triangular system settles one more txn of the
   // batch order per round at the least, so t_cap + 1 rounds always
   // suffice; the cap only keeps a fault from spinning the card forever.
   int rounds = 0;
-  while (rounds <= t_cap) {
+  while (rounds <= a.t_cap) {
     ++rounds;
-    // Each round recomputes from the history-only baseline (a conflict
-    // inferred from a writer that later turns out conflicted must be
-    // retractable).
-    for (int u = tid; u <= u_pad; u += nt) cover[u] = INF_I32;
-    for (int t = tid; t < t_cap; t += nt) nconf[t] = hist[t];
-    __syncthreads();
-    for (int w = tid; w < w_pad; w += nt) {
-      int wt = w_txn[w];
-      if (w_ok[w] && !conf[clampi(wt, 0, t_cap - 1)])
-        atomicMin(&cover[w_slot[w]], wt);
+    const int cur = rounds & 1;
+    int* cover = a.cover + cur * cov_n;
+    int* nconf = a.nconf + cur * t_cap;
+    if (gtid == 0) a.changed[cur] = 0;
+    for (long w = gtid; w < a.w_pad; w += gstride) {
+      const int wt = __ldg(a.w_txn + w);
+      if (__ldg(a.w_ok + w) && !a.conf[clampi(wt, 0, a.t_cap - 1)])
+        atomicMin(&cover[__ldg(a.w_slot + w)], wt);
     }
-    __syncthreads();
-    for (int r = tid; r < r_pad; r += nt) {
-      int rt = r_txn[r];
-      if (r_live[r] && cover[r_slot[r]] < rt) {
-        long d = scatter_index(rt, t_cap);
+    grid.sync();
+    for (long r = gtid; r < a.r_pad; r += gstride) {
+      const int rt = __ldg(a.r_txn + r);
+      if (__ldg(a.r_live + r) && cover[__ldg(a.r_slot + r)] < rt) {
+        const long d = scatter_index(rt, t_cap);
         if (d >= 0) nconf[d] = 1;
       }
     }
-    __syncthreads();
-    int changed = 0;
-    for (int t = tid; t < t_cap; t += nt) {
-      int v = nconf[t];
-      if (v != conf[t]) {
-        changed = 1;
-        conf[t] = v;
+    grid.sync();
+    int* next_cover = a.cover + (1 - cur) * cov_n;
+    int* next_nconf = a.nconf + (1 - cur) * t_cap;
+    bool ch = false;
+    for (long t = gtid; t < t_cap; t += gstride) {
+      const int v = nconf[t];
+      if (v != a.conf[t]) {
+        a.conf[t] = v;
+        ch = true;
       }
+      next_nconf[t] = __ldg(a.hist + t);
     }
-    if (!__syncthreads_or(changed)) break;
+    for (long u = gtid; u < cov_n; u += gstride) next_cover[u] = INF_I32;
+    if (__any_sync(0xffffffffu, ch) && (threadIdx.x & 31) == 0)
+      a.changed[cur] = 1;
+    grid.sync();
+    if (*(volatile int*)&a.changed[cur] == 0) break;
   }
-  if (tid == 0 && rounds_out != nullptr) rounds_out[0] = rounds;
+  if (gtid == 0 && a.rounds != nullptr) a.rounds[0] = rounds;
 }
 
 __global__ void k_codes(int t_cap, int w_pad, const int* __restrict__ scal,
@@ -272,13 +320,48 @@ extern "C" int ib_fixpoint(int t_cap, int r_pad, int w_pad, int u_pad,
                            const void* r_live, const void* r_slot,
                            const void* w_txn, const void* w_ok,
                            const void* w_slot, void* cover, void* nconf,
-                           void* conf, void* rounds_out, void* stream) {
-  k_fixpoint<<<1, FIX_THREADS, 0, S(stream)>>>(
-      t_cap, r_pad, w_pad, u_pad, (const int*)hist, (const int*)r_txn,
-      (const int*)r_live, (const int*)r_slot, (const int*)w_txn,
-      (const int*)w_ok, (const int*)w_slot, (int*)cover, (int*)nconf,
-      (int*)conf, (int*)rounds_out);
-  RET;
+                           void* changed, void* conf, void* rounds_out,
+                           void* stream) {
+  IbFixArgs a;
+  a.t_cap = t_cap;
+  a.r_pad = r_pad;
+  a.w_pad = w_pad;
+  a.u_pad = u_pad;
+  a.hist = (const int*)hist;
+  a.r_txn = (const int*)r_txn;
+  a.r_live = (const int*)r_live;
+  a.r_slot = (const int*)r_slot;
+  a.w_txn = (const int*)w_txn;
+  a.w_ok = (const int*)w_ok;
+  a.w_slot = (const int*)w_slot;
+  a.cover = (int*)cover;
+  a.nconf = (int*)nconf;
+  a.changed = (int*)changed;
+  a.conf = (int*)conf;
+  a.rounds = (int*)rounds_out;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, k_ib_fixpoint, FIX_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm > FIX_BLOCKS_PER_SM) per_sm = FIX_BLOCKS_PER_SM;
+  long work = u_pad + 1L;
+  if (r_pad > work) work = r_pad;
+  if (w_pad > work) work = w_pad;
+  if (t_cap > work) work = t_cap;
+  long want = (work + FIX_THREADS - 1) / FIX_THREADS;
+  long most = (long)sms * (per_sm > 0 ? per_sm : 1);
+  int grid = (int)(want < most ? want : most);
+  if (grid < 1) grid = 1;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel((void*)k_ib_fixpoint, dim3(grid),
+                                    dim3(FIX_THREADS), args, 0,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 extern "C" int ib_codes(int t_cap, int w_pad, const void* scal,

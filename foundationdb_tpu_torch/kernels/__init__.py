@@ -76,8 +76,7 @@ _SIGS = {
     "sparse_table": {"st_level": "ppii" "p"},
     "rank_scan": {
         "rs_hist": "plip" "p",
-        "rs_scan_tiles": "pplp" "p",
-        "rs_scan_add": "plp" "p",
+        "rs_scan": "pplp" "p",
         "rs_compact": "lppppppl" "ii" "p",
         "pi_mark": "lppi" "pp" "p",
         "pi_probe": "pipppppl" "pppp" "p",
@@ -99,7 +98,7 @@ _SIGS = {
         "ib_txn_prep": "iii" "ppppp" "ppp" "p",
         "ib_read_prep": "iii" "pppppp" "pppp" "p",
         "ib_write_prep": "iii" "pppp" "ppp" "p",
-        "ib_fixpoint": "iiii" "ppppppp" "pppp" "p",
+        "ib_fixpoint": "iiii" "ppppppp" "ppppp" "p",
         "ib_codes": "ii" "pppppp" "p",
         "ig_txn": "i" "ppppp" "p",
         "ig_rw": "iii" "pppppppppp" "p",
@@ -239,8 +238,9 @@ def _arg(a):
 def launch(counter: str, fn_name: str, *args) -> None:
     """Launch one kernel on the current CUDA stream of the first tensor
     argument's device; count it under `counter`; raise on a launch error.
-    Every tensor handed to a kernel must be a contiguous int32 / int8 /
-    uint8 tensor on that one CUDA device: the kernels index raw pointers."""
+    Every tensor handed to a kernel must be a contiguous int32 / int64 /
+    int8 / uint8 tensor on that one CUDA device: the kernels index raw
+    pointers."""
     import torch
     if not _fns:
         build()
@@ -248,10 +248,11 @@ def launch(counter: str, fn_name: str, *args) -> None:
     dev = tensors[0].device
     for t in tensors:
         if (t.device != dev or dev.type != "cuda" or not t.is_contiguous()
-                or t.dtype not in (torch.int32, torch.int8, torch.uint8)):
+                or t.dtype not in (torch.int32, torch.int64, torch.int8,
+                                   torch.uint8)):
             raise ValueError(
-                f"{fn_name}: kernel arguments must be contiguous int32/int8/"
-                f"uint8 tensors on one CUDA device, got {t.dtype} "
+                f"{fn_name}: kernel arguments must be contiguous int32/int64/"
+                f"int8/uint8 tensors on one CUDA device, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
     stream = torch.cuda.current_stream(dev)
     timed = _timed

@@ -3,8 +3,8 @@
 The reference leans on jnp.cumsum and on order-preserving rank scatters
 (`.at[where(keep, rank, n)].set(rows, mode="drop")`) throughout
 conflict/fused.py.  Here each is a wrapper with a plain-torch version and a
-CUDA kernel (csrc/rank_scan.cu): a two-level block scan, and a guarded row
-store that follows JAX's drop semantics.
+CUDA kernel (csrc/rank_scan.cu): a single-pass scan with decoupled
+look-back, and a guarded row store that follows JAX's drop semantics.
 """
 
 from __future__ import annotations
@@ -16,28 +16,27 @@ import torch
 from .. import kernels as _k
 from .rangemax import NEG_INF
 
-SCAN_TILE = 4096  # elements per block of the first scan level
+SCAN_TILE = 8192  # elements per tile of rs_scan (csrc/rank_scan.cu SCAN_TILE)
+_MAX_TILES = (1 << 31) - 1  # the grid's x dimension, and the tile ticket
 
 
 def inclusive_scan(x: torch.Tensor, impl=None) -> torch.Tensor:
-    """Inclusive prefix sum of int32[n] -> new int32[n].  Kernel: one
-    launch for a single tile; else tile scans, a scan of the tile sums,
-    and a pass adding them back (rs_scan_tiles / rs_scan_add)."""
+    """Inclusive prefix sum of int32[n] -> new int32[n], wrapping in int32.
+    Kernel: rs_scan, one single-pass launch for any n (decoupled
+    look-back over per-tile descriptors in a zeroed per-call scratch)."""
     if not _k.use_kernel(x, impl):
         return torch.cumsum(x, 0, dtype=torch.int32)
+    if x.dtype != torch.int32:
+        raise ValueError(f"inclusive_scan: the kernel scans int32, got "
+                         f"{x.dtype}")
     n = x.numel()
+    tiles = max(1, (n + SCAN_TILE - 1) // SCAN_TILE)
+    if tiles > _MAX_TILES:
+        raise ValueError(f"inclusive_scan: {n} elements exceed one grid of "
+                         f"{_MAX_TILES} tiles")
     out = torch.empty((n,), dtype=torch.int32, device=x.device)
-    nb = (n + SCAN_TILE - 1) // SCAN_TILE
-    if nb <= 1:
-        _k.launch("inclusive_scan", "rs_scan_tiles", x, out, n, None)
-        return out
-    if nb > SCAN_TILE:
-        raise ValueError(f"inclusive_scan: {n} elements exceed one "
-                         "two-level scan")
-    sums = torch.empty((nb,), dtype=torch.int32, device=x.device)
-    _k.launch("inclusive_scan", "rs_scan_tiles", x, out, n, sums)
-    _k.launch("inclusive_scan", "rs_scan_tiles", sums, sums, nb, None)
-    _k.launch("inclusive_scan", "rs_scan_add", out, n, sums)
+    scratch = torch.zeros((1 + tiles,), dtype=torch.int64, device=x.device)
+    _k.launch("inclusive_scan", "rs_scan", x, out, n, scratch)
     return out
 
 

@@ -145,6 +145,40 @@ def test_inclusive_scan(dev, n):
     same(scan.inclusive_scan(x), scan.inclusive_scan(x, impl="plain"))
 
 
+SCAN_TILE = scan.SCAN_TILE
+
+
+@pytest.mark.parametrize("values", ["ones", "mask", "wrap"])
+@pytest.mark.parametrize("n", [0, 1, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1,
+                               3 << 20, (1 << 24) + SCAN_TILE + 1])
+def test_inclusive_scan_single_pass(dev, n, values):
+    """The single-pass scan at tile edges, at the merge's 3 * 2^20 and
+    above the two-level scan's old 2^24 limit: bit-equal to the plain
+    version, one launch per call.  "wrap" sums past 2^31 and wraps in
+    int32 as torch.cumsum does."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    if values == "ones":
+        x = torch.ones((n,), dtype=torch.int32, device=dev)
+    elif values == "mask":
+        x = (torch.rand((n,), generator=g, device=dev) < 0.5).to(torch.int32)
+    else:
+        x = torch.randint(1 << 28, 1 << 30, (n,), generator=g,
+                          dtype=torch.int32, device=dev)
+    K.reset_counts()
+    got = scan.inclusive_scan(x)
+    assert K.LAUNCHES["inclusive_scan"] == 1
+    same(got, scan.inclusive_scan(x, impl="plain"))
+    if values == "wrap" and n > 8:
+        assert int(got.min()) < 0
+
+
+def test_inclusive_scan_unaligned(dev):
+    """A view that starts off a 16-byte boundary takes the scalar loads."""
+    x = torch.randint(-5, 6, (3 * SCAN_TILE + 7,), dtype=torch.int32,
+                      device=dev)[3:]
+    same(scan.inclusive_scan(x), scan.inclusive_scan(x, impl="plain"))
+
+
 def test_rank_count(dev):
     pos = torch.randint(-5, 70000, (200000,), dtype=torch.int32, device=dev)
     for out_len in (1, 1000, 65536):
@@ -238,6 +272,72 @@ def test_step_blocks(dev):
          w_ins)
     same(codes[1], codes[0])
     assert {0, 1, 2} <= set(codes[0][:3000].tolist())
+
+
+def chain_fixpoint_inputs(dev, depth: int, t_cap: int, seed: int = 0):
+    """Fixpoint inputs of a batch whose first `depth` txns form a chain
+    (txn i reads the key txn i - 1 writes), the rest of its t_cap txns
+    reading and writing keys of their own: the Jacobi rounds equal the
+    depth.  One read and one write a txn, then padding."""
+    rng = np.random.default_rng(seed)
+    u_pad = 2 * t_cap
+    t = np.arange(t_cap, dtype=np.int32)
+    r_slot = np.where(t < depth, t - 1, t_cap + t).astype(np.int32)
+    r_slot[0] = u_pad - 1
+    w_slot = t.copy()
+    w_slot[depth:] = rng.permutation(t_cap - depth) + depth
+    pad = 256
+    cols = {"hist": np.zeros(t_cap, np.int32),
+            "r_txn": np.concatenate([t, np.full(pad, t_cap, np.int32)]),
+            "r_live": np.concatenate([np.ones(t_cap, np.int32),
+                                      np.zeros(pad, np.int32)]),
+            "r_slot": np.concatenate([r_slot, np.zeros(pad, np.int32)]),
+            "w_txn": t, "w_ok": np.ones(t_cap, np.int32), "w_slot": w_slot}
+    return [torch.from_numpy(cols[k]).to(dev) for k in
+            ("hist", "r_txn", "r_live", "r_slot", "w_txn", "w_ok",
+             "w_slot")], u_pad
+
+
+@pytest.mark.parametrize("depth,t_cap", [(300, 512), (300, 1 << 17),
+                                         (1, 1 << 17)])
+def test_intra_batch_fixpoint_deep_chain(dev, depth, t_cap):
+    """Hundreds of Jacobi rounds, each three grid-wide barriers, at a
+    small width and at config 2's t_cap (every SM busy): conf and rounds
+    equal the plain version's, and the rounds equal the chain's depth."""
+    args, u_pad = chain_fixpoint_inputs(dev, depth, t_cap)
+    K.reset_counts()
+    got, got_rounds = fused.intra_batch_fixpoint(*args, u_pad)
+    assert K.LAUNCHES["intra_batch_fixpoint"] == 1
+    conf, rounds = fused.intra_batch_fixpoint(*args, u_pad, impl="plain")
+    same(got, conf)
+    assert int(got_rounds[0]) == int(rounds[0]) == max(depth, 1)
+    want = np.zeros(t_cap, np.int32)
+    want[1:depth:2] = 1            # the chain alternates from txn 0
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_intra_batch_fixpoint_high_contention(dev, seed):
+    """Random reads and writes of a few hundred keys by 2^14 txns, some
+    history conflicts, some dead reads and writes: conf and rounds equal
+    the plain version's."""
+    rng = np.random.default_rng(seed)
+    t_cap, r_pad, w_pad, u_pad = 1 << 14, 1 << 15, 1 << 14, 512
+    n_r, n_w = 30000, 16000
+    r_txn = np.full(r_pad, t_cap, np.int32)
+    r_txn[:n_r] = np.sort(rng.integers(0, t_cap, size=n_r))
+    w_txn = np.full(w_pad, t_cap, np.int32)
+    w_txn[:n_w] = np.sort(rng.integers(0, t_cap, size=n_w))
+    cols = [(rng.random(t_cap) < 0.05).astype(np.int32), r_txn,
+            (np.arange(r_pad) < n_r) & (rng.random(r_pad) < 0.95),
+            rng.integers(0, 300, size=r_pad), w_txn,
+            (np.arange(w_pad) < n_w) & (rng.random(w_pad) < 0.95),
+            rng.integers(0, 300, size=w_pad)]
+    args = [torch.from_numpy(np.asarray(c, np.int32)).to(dev) for c in cols]
+    got, got_rounds = fused.intra_batch_fixpoint(*args, u_pad)
+    conf, rounds = fused.intra_batch_fixpoint(*args, u_pad, impl="plain")
+    same(got, conf)
+    assert int(got_rounds[0]) == int(rounds[0]) >= 2
 
 
 @pytest.mark.parametrize("d_cap,live_d,flag", [(1 << 10, 300, 0),
