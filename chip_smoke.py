@@ -41,11 +41,18 @@ exits non-zero):
      inclusive_scan also at the point path's own sizes beside
      torch.cumsum, one launch a call; intra_batch_fixpoint also on a
      300-deep chain at config-2 width (rounds equal to the depth);
+     build_sparse_table also at 2^18, 2^20 and 2^21 (a shard's delta, the
+     delta, the base), at most two launches a call;
   3. the point path: 3 warmup batches, 10 at pipeline depth 8, 8 at depth
      1; oracle parity in both contention regimes; kernel-vs-plain state
      equality across a merge;
   4. every new wrapper and the programs #4-#7 (general step, window_query,
      window_insert, window_gc), kernel against plain at config-3 shapes;
+     sort_rows also on (a) the config-3 universe, (b) random 32-byte
+     digests, (c) rows sharing an 8-byte prefix, all 1,179,648 rows, and
+     the window path's 2w endpoints with tie and payload: 1 + 2 *
+     sort_rounds(n) launches a call, and the spread of its times over
+     (a)-(c);
   5. the general path on config 3 (3 + 10 at depth 8 + 8 at depth 1): the
      path_general line, commit rate in 0.05-0.95;
   6. oracle parity on 6 batches of 1,000 config-3 txns over 1M records,
@@ -682,6 +689,11 @@ def compare_kernels(cs, packed, buf):
     by_name["inclusive_scan"]["at_sizes"] = scan_sizes(
         scan, {"w_pad": w_pad, "r_pad": r_pad, "d_cap": cs.d_cap,
                "merge": CAPACITY + DELTA_CAPACITY})
+    table = by_name["build_sparse_table"]
+    table["at_sizes"] = table_sizes()
+    if any(r["launches_per_call"] > 2 for r in table["at_sizes"]):
+        raise AssertionError("build_sparse_table: more than two launches a "
+                             "call")
     fix = by_name["intra_batch_fixpoint"]
     fix["rounds"] = int(rounds.item())
     fix["deep_chain"] = deep_chain(fused, t_cap, r_pad, w_pad, u_pad)
@@ -758,6 +770,107 @@ def scan_sizes(scan, sizes: dict) -> list:
         log(f"inclusive_scan n={n} ({what}): one launch, bit-equal; "
             f"{row['ms']:.4f} ms ({row['call_ms']:.4f} ms with the scratch's "
             f"zero fill), torch.cumsum {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms")
+    return out
+
+
+# build_sparse_table's sizes on the paths: a config-5 shard's delta, the
+# delta, the base (and the window).
+TABLE_SIZES = {"shard_delta": 18, "delta": 20, "base": 21}
+
+
+def table_sizes(reps: int = 20) -> list:
+    """build_sparse_table on random int32 values at each TABLE_SIZES size:
+    its launches a call, equality with the plain version, its own time
+    beside the plain version's and the bound (v read once, every row
+    written once)."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.ops.rangemax import build_sparse_table
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    out = []
+    for what, log_cap in TABLE_SIZES.items():
+        cap = 1 << log_cap
+        v = torch.randint(-(1 << 31), (1 << 31) - 1, (cap,),
+                          dtype=torch.int32, device=DEVICE, generator=g)
+        K.reset_counts()
+        got = build_sparse_table(v)
+        launches = K.LAUNCHES["build_sparse_table"]
+        err = require_equal(f"build_sparse_table cap={cap}", got,
+                            build_sparse_table(v, impl="plain"))
+        row = {"size": what, "cap": cap, "launches_per_call": launches,
+               "max_abs_err": err,
+               "ms": device_ms(lambda: build_sparse_table(v), reps=reps,
+                               counter="build_sparse_table"),
+               "plain_ms": cuda_ms(lambda: build_sparse_table(v,
+                                                              impl="plain")),
+               "bound_ms": bound_ms(nbytes(v, got))}
+        out.append(row)
+        log(f"build_sparse_table cap=2^{log_cap} ({what}): {launches} "
+            f"launches, bit-equal; {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+    return out
+
+
+def sort_cases(universe, r_cap: int, w_cap: int, n_writes: int) -> dict:
+    """sort_rows' inputs, name -> (rows, tie, payload):
+      universe  (a) the general step's endpoint universe of one config-3
+                batch (8-byte ids then constant fill; MAX padding);
+      digests   (b) as many rows of random 32-byte digests (hashed keys);
+      prefix    (c) as many rows sharing their first 8 bytes (keys under
+                one tuple-layer directory prefix), the rest random;
+      window    the window path's endpoint sort (conflict/window.py
+                _union_ranges): the batch's 2w write endpoints, invalid
+                ones MAX, the begins-first tie and the +1 / -1 payload."""
+    import torch
+    from foundationdb_tpu_torch.ops.digest import planar_to_rows
+    n = universe.shape[0]
+    rng = np.random.default_rng(29)
+    planar = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(
+        np.uint32)
+    digests = torch.from_numpy(planar_to_rows(planar)).to(DEVICE)
+    planar[:2] = np.array([[0x15000000], [0x2A2A0102]], np.uint32)
+    prefix = torch.from_numpy(planar_to_rows(planar)).to(DEVICE)
+    w_b = universe[2 * r_cap:2 * r_cap + w_cap]
+    w_e = universe[2 * r_cap + w_cap:2 * r_cap + 2 * w_cap]
+    valid = (torch.arange(w_cap, device=DEVICE) < n_writes).to(torch.int32)
+    keep = valid.bool()[:, None]
+    ends = torch.cat([torch.where(keep, w_b, -1), torch.where(keep, w_e, -1)])
+    tie = torch.cat([torch.zeros_like(valid), torch.ones_like(valid)])
+    return {"universe": (universe, None, None),
+            "digests": (digests, None, None), "prefix": (prefix, None, None),
+            "window": (ends, tie, torch.cat([valid, -valid]))}
+
+
+def sort_inputs(universe, r_cap: int, w_cap: int, n_writes: int,
+                reps: int = 20) -> list:
+    """sort_rows on each of sort_cases: launches a call, equality with the
+    plain version, own time, plain time, bound (rows, tie and payload read
+    once; rows and payload written once)."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.ops.sort import sort_rows
+    out = []
+    for what, (rows, tie, pay) in sort_cases(universe, r_cap, w_cap,
+                                              n_writes).items():
+        def run(impl, rows=rows, tie=tie, pay=pay):
+            got = sort_rows(rows, tie=tie, payload=pay, impl=impl)
+            return got if pay is not None else got[0]
+        K.reset_counts()
+        got = run(None)
+        launches = K.LAUNCHES["sort_rows"]
+        err = require_equal(f"sort_rows {what}", got, run("plain"))
+        n_bytes = 2 * nbytes(rows) + (0 if pay is None else 2 * nbytes(pay))
+        row = {"input": what, "n": rows.shape[0], "tie": tie is not None,
+               "payload": pay is not None, "launches_per_call": launches,
+               "max_abs_err": err,
+               "ms": device_ms(lambda: run(None), reps=reps,
+                               counter="sort_rows"),
+               "plain_ms": cuda_ms(lambda: run("plain"), reps=2),
+               "bound_ms": bound_ms(n_bytes + (0 if tie is None
+                                               else nbytes(tie)))}
+        out.append(row)
+        log(f"sort_rows {what} (n={row['n']}): {launches} launches, "
+            f"bit-equal; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms")
     return out
 
@@ -1161,6 +1274,19 @@ def compare_general(cs, packed, win, stream):
                      "library_ms": None})
         log(f"{name}: bit-equal; own kernels {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bound_ms(n_bytes):.4f} ms")
+
+    from foundationdb_tpu_torch.ops.sort import sort_rounds
+    srt = next(r for r in rows if r["name"] == "sort_rows")
+    srt["at_inputs"] = sort_inputs(digests, r_cap, w_cap,
+                                   int(m["w_valid"].sum()))
+    for r in srt["at_inputs"]:
+        if r["launches_per_call"] != 1 + 2 * sort_rounds(r["n"]):
+            raise AssertionError(f"sort_rows {r['input']}: "
+                                 f"{r['launches_per_call']} launches")
+    abc = [r["ms"] for r in srt["at_inputs"] if r["input"] != "window"]
+    srt["spread_abc"] = max(abc) / min(abc)
+    log(f"sort_rows: slowest of (a), (b), (c) {srt['spread_abc']:.3f}x "
+        f"the fastest")
 
     probe_bytes = (nbytes(r_b, r_e, vmax) + search_bytes(cs.bk, 2 * r_cap)
                    + search_bytes(cs.dk, 2 * r_cap) + 4 * 4 * r_cap)

@@ -73,7 +73,7 @@ _SIGS = {
         "ds_search": "pipiip" "p",
         "ds_history": "pippipppi" "pp" "p",
     },
-    "sparse_table": {"st_level": "ppii" "p"},
+    "sparse_table": {"st_tile": "ppii" "p", "st_high": "pii" "p"},
     "rank_scan": {
         "rs_hist": "plip" "p",
         "rs_scan": "pplp" "p",
@@ -104,7 +104,7 @@ _SIGS = {
         "ig_rw": "iii" "pppppppppp" "p",
         "ig_codes": "ii" "ppppppp" "p",
     },
-    "sort": {"so_sort": "l" "pppppp" "p"},
+    "sort": {"so_sort": "li" "pppppp" "p"},
     "segtree": {"sg_fixpoint": "iiii" "ppppppppp" "pppppp" "p" "p"},
     "window": {
         "wq_query": "pipppp" "plp" "p",
@@ -235,9 +235,11 @@ def _arg(a):
     return a
 
 
-def launch(counter: str, fn_name: str, *args) -> None:
-    """Launch one kernel on the current CUDA stream of the first tensor
-    argument's device; count it under `counter`; raise on a launch error.
+def launch(counter: str, fn_name: str, *args, count: int = 1) -> None:
+    """Call one launcher on the current CUDA stream of the first tensor
+    argument's device; count its `count` kernel launches under `counter`
+    (a launcher that enqueues several kernels is given how many by its
+    wrapper); raise on a launch error.
     Every tensor handed to a kernel must be a contiguous int32 / int64 /
     int8 / uint8 tensor on that one CUDA device: the kernels index raw
     pointers."""
@@ -267,4 +269,4 @@ def launch(counter: str, fn_name: str, *args) -> None:
         end = torch.cuda.Event(enable_timing=True)
         end.record(stream)
         timed.setdefault(counter, []).append((start, end))
-    LAUNCHES[counter] += 1
+    LAUNCHES[counter] += count

@@ -25,22 +25,36 @@ def table_levels(cap: int) -> int:
     return max((cap - 1).bit_length(), 1) + 1
 
 
+def tile_log(cap: int) -> int:
+    """log2 of the outputs one block of the kernel's first launch owns
+    (csrc/sparse_table.cu st_tile): 2,048 up to 2^19 (more blocks for a
+    small table), 4,096 above, 16,384 past 2^27, where the second launch's
+    strided sequences would outgrow shared memory."""
+    if cap <= 1 << 19:
+        return 11
+    return 12 if cap <= 1 << 27 else 14
+
+
 def build_sparse_table(values: torch.Tensor,
                        out: Optional[torch.Tensor] = None,
                        impl=None) -> torch.Tensor:
-    """values: int32[CAP] -> M: int32[LOG+1, CAP]; CAP a power of two.
+    """values: int32[CAP] -> M: int32[LOG+1, CAP], for any CAP >= 1 (the
+    callers' are powers of two).
 
     `out` (int32[LOG+1, CAP]) is written in place when given, the way the
-    reference's donated buffers are reused.  Kernel: st_level, one launch
-    per level."""
+    reference's donated buffers are reused.  Kernels: st_tile (the rows up
+    to log2 of its tile), then st_high (the rest) when CAP exceeds a tile:
+    at most two launches a call."""
     cap = values.shape[0]
     levels = table_levels(cap)
     if out is None:
         out = torch.empty((levels, cap), dtype=torch.int32,
                           device=values.device)
     if _k.use_kernel(values, impl):
-        for j in range(levels):
-            _k.launch("build_sparse_table", "st_level", values, out, cap, j)
+        tl = tile_log(cap)
+        _k.launch("build_sparse_table", "st_tile", values, out, cap, tl)
+        if cap > 1 << tl:
+            _k.launch("build_sparse_table", "st_high", out, cap, tl)
         return out
     rows = [values]
     cur = values

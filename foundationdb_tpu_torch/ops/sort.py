@@ -17,8 +17,8 @@ payloads, which holds in every use above:
     EncodedBatch drops empty ranges), and invalid rows are MAX / NEG_INF.
 
 The wrapper runs the plain-torch version for a CPU tensor and the CUDA
-kernel csrc/sort.cu (an LSD radix sort over the key bytes) for a CUDA
-tensor.
+kernel csrc/sort.cu (a merge sort of whole rows: a shared-memory tile
+sort, then merge-path rounds) for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -30,15 +30,27 @@ import torch
 from .. import kernels as _k
 from .digest import KEY_LANES, ROW_PAD
 
-SORT_TILE = 4096   # rows per block of a radix pass (csrc/sort.cu)
-_KEY_WORDS = KEY_LANES + 1
+# csrc/sort.cu's TILE_NV (rows a tile-sort block sorts) and MERGE_NV
+# (outputs a merge block writes).
+SORT_TILE = 4096
+SORT_MERGE_ROWS = 1024
+
+
+def sort_rounds(n: int) -> int:
+    """Merge rounds after the tile sort: the fewest doublings of SORT_TILE
+    that reach n.  The kernel makes 1 + 2 * sort_rounds(n) launches a call
+    (the tile sort, then a partition and a merge a round)."""
+    rounds = 0
+    while SORT_TILE << rounds < n:
+        rounds += 1
+    return rounds
 
 
 def sort_scratch_ints(n: int) -> int:
-    """int32 scratch the kernel needs for n rows: two permutations, the
-    per-block digit histogram and the key masks."""
-    nblocks = max((n + SORT_TILE - 1) // SORT_TILE, 1)
-    return 2 * n + 256 * nblocks + 2 * _KEY_WORDS
+    """int32 scratch the kernel needs for n rows: a second rows buffer,
+    two tie buffers and a second payload buffer (passes ping-pong), and
+    one merge-path split per merge block."""
+    return 11 * n + -(-n // SORT_MERGE_ROWS)
 
 
 def _u32_key(lane: torch.Tensor) -> torch.Tensor:
@@ -56,7 +68,8 @@ def sort_rows(rows: torch.Tensor, tie: Optional[torch.Tensor] = None,
     payload or None).  `out` (int32[N, 8], contiguous) receives the rows
     when given, e.g. the head of a larger MAX-filled buffer.
 
-    Kernel: so_sort (csrc/sort.cu), one call that runs every radix pass."""
+    Kernels: so_sort (csrc/sort.cu) enqueues a tile sort and
+    sort_rounds(n) merge rounds, 1 + 2 * sort_rounds(n) launches."""
     n = rows.shape[0]
     if out is None:
         out = torch.empty((n, ROW_PAD), dtype=torch.int32,
@@ -67,8 +80,9 @@ def sort_rows(rows: torch.Tensor, tie: Optional[torch.Tensor] = None,
     if _k.use_kernel(rows, impl):
         scratch = torch.empty((sort_scratch_ints(n),), dtype=torch.int32,
                               device=rows.device)
-        _k.launch("sort_rows", "so_sort", n, rows, tie, payload, out,
-                  pay_out, scratch)
+        rounds = sort_rounds(n)
+        _k.launch("sort_rows", "so_sort", n, rounds, rows, tie, payload, out,
+                  pay_out, scratch, count=1 + 2 * rounds)
         return out, pay_out
     # Plain: stable LSD sorts, least significant key first (the tie, then
     # lane pairs 7-6, 5-4, 3-2, 1-0 as one unsigned 64-bit key each).

@@ -23,7 +23,8 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.ops.segtree", "foundationdb_tpu_torch.ops.sort",
     "foundationdb_tpu_torch.ops.shard", "foundationdb_tpu_torch.parallel",
     "foundationdb_tpu_torch.parallel.sharded_window",
-    "foundationdb_tpu_torch.parallel.sharded_resolver", "chip_smoke"]
+    "foundationdb_tpu_torch.parallel.sharded_resolver", "chip_smoke",
+    "scripts.torch_kernel_ab"]
 
 
 def test_port_imports_no_jax():

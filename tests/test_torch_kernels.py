@@ -20,6 +20,7 @@ from foundationdb_tpu_torch.conflict.torch_backend import (TorchConflictSet,
                                                            state_to_numpy)
 from foundationdb_tpu_torch.ops import digest, rangemax, scan
 from foundationdb_tpu_torch.ops.rangemax import NEG_INF
+from foundationdb_tpu_torch.ops.sort import SORT_TILE
 from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
 
 pytestmark = pytest.mark.cuda
@@ -206,10 +207,43 @@ def test_compact_rows(dev, rebase):
     same(outs[0], outs[1])
 
 
-@pytest.mark.parametrize("cap", [1, 2, 1024, 1 << 20])
+def table_values(dev, cap: int, seed: int) -> torch.Tensor:
+    """Random int32 values with NEG_INF, -2^31 (below NEG_INF: a max with
+    the fill past the end must raise it), 2^31 - 1 and, at the last
+    position, -2^31 again."""
+    g = torch.Generator().manual_seed(seed)
+    v = torch.randint(-(1 << 31), (1 << 31) - 1, (cap,), dtype=torch.int32,
+                      generator=g)
+    pick = torch.randint(0, 4, (cap,), generator=g)
+    v[pick == 0] = NEG_INF
+    v[pick == 1] = -(1 << 31)
+    v[(pick == 2) & (torch.rand(cap, generator=g) < 0.1)] = (1 << 31) - 1
+    v[-1] = -(1 << 31)
+    return v.to(dev)
+
+
+@pytest.mark.parametrize("cap", [1 << k for k in range(22)])
 def test_build_sparse_table(dev, cap):
-    v = torch.randint(-(1 << 31) + 1, (1 << 31) - 1, (cap,),
-                      dtype=torch.int32, device=dev)
+    """Every power of two to 2^21: equal to the plain version, written in
+    place into an existing table when `out` is given, in at most two
+    launches (one up to the tile)."""
+    v = table_values(dev, cap, cap)
+    want = rangemax.build_sparse_table(v, impl="plain")
+    K.reset_counts()
+    same(rangemax.build_sparse_table(v), want)
+    assert K.LAUNCHES["build_sparse_table"] == (
+        1 if cap <= 1 << rangemax.tile_log(cap) else 2)
+    out = torch.full_like(want, 7)
+    assert rangemax.build_sparse_table(v, out=out) is out
+    same(out, want)
+
+
+@pytest.mark.parametrize("cap", [3, 5, 6, 7, 100, 4095, 4097, 12_289,
+                                 (1 << 20) + 3, (1 << 21) - 4])
+def test_build_sparse_table_any_cap(dev, cap):
+    """CAPs that are not powers of two (single-int loads and stores where
+    CAP % 4 != 0, a ragged last tile and residue class)."""
+    v = table_values(dev, cap, cap)
     same(rangemax.build_sparse_table(v),
          rangemax.build_sparse_table(v, impl="plain"))
 
@@ -448,6 +482,108 @@ def test_sort_rows(dev, n, with_tie, edge):
     pay = torch.arange(n, dtype=torch.int32, device=dev)
     same(sort_rows(rows, tie=tie, payload=pay),
          sort_rows(rows, tie=tie, payload=pay, impl="plain"))
+
+
+def test_build_sparse_table_past_2_27(dev):
+    """A CAP past 2^27 takes the 16,384-output tile (rangemax.tile_log)
+    and residue sequences too long for 16 residues a block.  Each level is
+    held against the level below it, the plain version's recurrence one
+    level at a time (the plain version itself would hold two copies of
+    this 15 GB table)."""
+    cap = (1 << 27) + 12_345
+    assert rangemax.tile_log(cap) == 14
+    v = table_values(dev, cap, 27)
+    K.reset_counts()
+    table = rangemax.build_sparse_table(v)
+    assert K.LAUNCHES["build_sparse_table"] == 2
+    assert table.shape[0] == rangemax.table_levels(cap)
+    assert torch.equal(table[0], v)
+    for j in range(1, table.shape[0]):
+        s, prev = 1 << (j - 1), table[j - 1]
+        assert torch.equal(table[j][:cap - s],
+                           torch.maximum(prev[:cap - s], prev[s:])), j
+        assert torch.equal(table[j][cap - s:],
+                           torch.clamp(prev[cap - s:], min=NEG_INF)), j
+    del table
+
+
+def sort_case(dev, kind: str, n: int, seed: int = 0):
+    """Rows of one input shape: "digests", all 8 lanes random (hashed
+    keys); "prefix", the first two lanes (8 bytes) shared by every row
+    (keys under one tuple-layer directory); "equal", every row the same;
+    "max_mixed", random rows with every third row MAX."""
+    rng = np.random.default_rng(seed)
+    planar = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(
+        np.uint32)
+    if kind == "prefix":
+        planar[:2] = np.array([[0x15000000], [0x2A2A0102]], np.uint32)
+    elif kind == "equal":
+        planar[:] = planar[:, :1]
+    elif kind == "max_mixed":
+        planar[:, ::3] = 0xFFFFFFFF
+    return torch.from_numpy(digest.planar_to_rows(planar)).to(dev)
+
+
+def check_sort(dev, rows, tie=None, pay=None):
+    from foundationdb_tpu_torch.ops.sort import sort_rounds, sort_rows
+    K.reset_counts()
+    got = sort_rows(rows, tie=tie, payload=pay)
+    assert K.LAUNCHES["sort_rows"] == 1 + 2 * sort_rounds(rows.shape[0])
+    want = sort_rows(rows, tie=tie, payload=pay, impl="plain")
+    same(got[0], want[0])
+    if pay is not None:
+        same(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("n", [1, SORT_TILE - 1, SORT_TILE, SORT_TILE + 1,
+                               2 * SORT_TILE + 1, (1 << 20) + 12_345,
+                               1 << 21])
+@pytest.mark.parametrize("kind", ["digests", "prefix"])
+def test_sort_rows_sizes(dev, n, kind):
+    """Tile edges and run pairs without a partner, on hashed keys and on
+    keys sharing an 8-byte prefix, with the index as payload."""
+    rows = sort_case(dev, kind, n, seed=n)
+    check_sort(dev, rows, pay=torch.arange(n, dtype=torch.int32,
+                                           device=dev))
+
+
+@pytest.mark.parametrize("n", [SORT_TILE + 1, 100_000])
+def test_sort_rows_stable_on_equal_keys(dev, n):
+    """All keys equal: the index payload comes out in input order."""
+    pay = torch.arange(n, dtype=torch.int32, device=dev)
+    _, got = check_sort(dev, sort_case(dev, "equal", n), pay=pay)
+    same(got, pay)
+
+
+@pytest.mark.parametrize("with_tie", [False, True])
+def test_sort_rows_max_rows_interleaved(dev, with_tie):
+    n = 50_001
+    rows = sort_case(dev, "max_mixed", n, seed=3)
+    tie = (torch.randint(-2, 2, (n,), dtype=torch.int32, device=dev)
+           if with_tie else None)
+    check_sort(dev, rows, tie=tie,
+               pay=torch.arange(n, dtype=torch.int32, device=dev))
+
+
+def test_sort_rows_union_ranges_shape(dev):
+    """The endpoint sort of _union_ranges: 2w rows, begins (tie 0, +1)
+    then ends (tie 1, -1), invalid rows MAX with delta 0; overlapping and
+    touching ranges put begins and ends on one key."""
+    from foundationdb_tpu_torch.conflict import window
+    w = 40_000
+    rng = np.random.default_rng(5)
+    wb, we = range_rows(rng, w, span=4, keyspace=3000)
+    valid = torch.from_numpy((rng.random(w) < 0.9).astype(np.int32))
+    v = valid.bool()[:, None]
+    rows = torch.cat([torch.where(v, wb, -1), torch.where(v, we, -1)])
+    tie = torch.cat([torch.zeros(w, dtype=torch.int32),
+                     torch.ones(w, dtype=torch.int32)])
+    delta = torch.cat([valid, -valid])
+    check_sort(dev, rows.to(dev), tie=tie.to(dev), pay=delta.to(dev))
+    same(window._union_ranges(wb.to(dev), we.to(dev), valid.to(dev)),
+         window._union_ranges(wb.to(dev), we.to(dev), valid.to(dev),
+                              impl="plain"))
 
 
 def window_after_inserts(dev, cap=1 << 12, batches=4, w=256, impl=None):

@@ -1,7 +1,9 @@
 """The port's ops/rangemax.py against foundationdb_tpu/ops/rangemax.py:
-the doubling table and the range-max queries, exactly, including empty and
-inverted ranges (NEG_INF) and values at the int32 extremes."""
+the doubling table (every CAP from 1 to 2^12) and the range-max queries,
+exactly, including empty and inverted ranges (NEG_INF) and values at the
+int32 extremes."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,10 +17,11 @@ def values(rng, cap: int) -> np.ndarray:
     v = rng.integers(-(1 << 31), 1 << 31, size=cap, dtype=np.int64)
     v[rng.random(cap) < 0.2] = int(jr.NEG_INF)
     v[rng.random(cap) < 0.05] = (1 << 31) - 1
+    v[rng.random(cap) < 0.05] = -(1 << 31)
     return v.astype(np.int32)
 
 
-@pytest.mark.parametrize("cap", [1, 2, 8, 1024])
+@pytest.mark.parametrize("cap", [1 << k for k in range(13)])
 def test_build_sparse_table_matches_reference(cap):
     v = values(np.random.default_rng(cap), cap)
     want = np.asarray(jr.build_sparse_table(jnp.asarray(v)))
@@ -29,6 +32,27 @@ def test_build_sparse_table_matches_reference(cap):
     out = torch.full(want.shape, 7, dtype=torch.int32)
     assert tr.build_sparse_table(torch.from_numpy(v), out=out) is out
     assert (out.numpy() == want).all()
+
+
+def test_build_sparse_table_every_cap_to_4096():
+    """Every CAP from 1 to 2^12.  The reference's table of v with NEG_INF
+    from position c on, cut to c columns and table_levels(c) rows, is its
+    table of v[:c]: a window running past c meets NEG_INF either way (the
+    shifted concatenate's fill).  So one vmapped reference call at 2^12
+    covers a chunk of CAPs; the power-of-two cases above call it at their
+    own CAP."""
+    full, chunk = 1 << 12, 256
+    ref = jax.jit(jax.vmap(jr.build_sparse_table))
+    rng = np.random.default_rng(12)
+    for first in range(1, full + 1, chunk):
+        caps = np.arange(first, min(first + chunk, full + 1))
+        v = values(rng, caps.size * full).reshape(caps.size, full)
+        v[np.arange(full)[None, :] >= caps[:, None]] = int(jr.NEG_INF)
+        want = np.asarray(ref(jnp.asarray(v)))
+        for k, cap in enumerate(caps.tolist()):
+            got = tr.build_sparse_table(torch.from_numpy(v[k, :cap].copy()))
+            assert (got.numpy()
+                    == want[k, :tr.table_levels(cap), :cap]).all(), cap
 
 
 @pytest.mark.parametrize("cap", [2, 64, 1024])

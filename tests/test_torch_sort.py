@@ -82,3 +82,53 @@ def test_sort_rows_is_stable_and_writes_out():
     assert got.data_ptr() == buf.data_ptr()
     assert pay.tolist() == [3, 4, 0, 1, 2]
     assert (buf[5:] == -1).all()
+
+
+@pytest.mark.parametrize("prefix_lanes", [0, 2])
+@pytest.mark.parametrize("with_tie,with_payload", [
+    (False, False), (False, True), (True, False), (True, True)])
+def test_sort_rows_random_lanes_match_lax_sort(prefix_lanes, with_tie,
+                                               with_payload):
+    """Every lane random (hashed keys: all 32 digest bytes live), or the
+    first two lanes shared by every row (an 8-byte tuple-layer prefix),
+    with a few rows repeated and a few MAX rows."""
+    n = 3000
+    rng = np.random.default_rng(17 + prefix_lanes)
+    planar = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(
+        np.uint32)
+    planar[:prefix_lanes] = rng.integers(0, 1 << 32, size=(prefix_lanes, 1),
+                                         dtype=np.uint64).astype(np.uint32)
+    planar[:, rng.integers(0, n, size=n // 10)] = planar[
+        :, rng.integers(0, n, size=n // 10)]
+    planar[:, rng.choice(n, size=n // 20, replace=False)] = 0xFFFFFFFF
+    tie = rng.integers(-2, 2, size=n).astype(np.int32) if with_tie else None
+    pay = payload_of(planar, tie) if with_payload else None
+    ops = [jnp.asarray(planar[lane]) for lane in range(8)]
+    if with_tie:
+        ops.append(jnp.asarray(tie))
+    if with_payload:
+        ops.append(jnp.asarray(pay))
+    want = jax.lax.sort(ops, num_keys=8 + int(with_tie))
+    got_rows, got_pay = sort_rows(
+        torch.from_numpy(planar_to_rows(planar)),
+        tie=None if tie is None else torch.from_numpy(tie),
+        payload=None if pay is None else torch.from_numpy(pay))
+    np.testing.assert_array_equal(rows_to_planar(got_rows),
+                                  np.stack([np.asarray(x) for x in want[:8]]))
+    if with_payload:
+        np.testing.assert_array_equal(got_pay.numpy(), np.asarray(want[-1]))
+    else:
+        assert got_pay is None
+
+
+def test_sort_rounds_and_scratch():
+    """The kernel's launches a call depend on n alone: one tile sort, then
+    a partition and a merge per doubling of the tile that n needs."""
+    from foundationdb_tpu_torch.ops.sort import (SORT_TILE, sort_rounds,
+                                                 sort_scratch_ints)
+    assert [sort_rounds(n) for n in (1, SORT_TILE - 1, SORT_TILE,
+                                     SORT_TILE + 1, 2 * SORT_TILE + 1,
+                                     1_179_648, 1 << 21)
+            ] == [0, 0, 0, 1, 2, 9, 9]
+    assert sort_scratch_ints(1000) == 11 * 1000 + 1
+    assert sort_scratch_ints(4097) == 11 * 4097 + 5
