@@ -42,7 +42,8 @@ exits non-zero):
      torch.cumsum, one launch a call; intra_batch_fixpoint also on a
      300-deep chain at config-2 width (rounds equal to the depth);
      build_sparse_table also at 2^18, 2^20 and 2^21 (a shard's delta, the
-     delta, the base), at most two launches a call;
+     delta, the base), at most two launches a call; the merge's launches
+     a call (3, and 5 with the base table);
   3. the point path: 3 warmup batches, 10 at pipeline depth 8, 8 at depth
      1; oracle parity in both contention regimes; kernel-vs-plain state
      equality across a merge;
@@ -52,7 +53,9 @@ exits non-zero):
      digests, (c) rows sharing an 8-byte prefix, all 1,179,648 rows, and
      the window path's 2w endpoints with tie and payload: 1 + 2 *
      sort_rounds(n) launches a call, and the spread of its times over
-     (a)-(c);
+     (a)-(c); interval_fixpoint's rounds (equal to the plain version's),
+     one launch a call, and a 200-deep chain of ranges at config-3 width
+     (rounds equal to the depth);
   5. the general path on config 3 (3 + 10 at depth 8 + 8 at depth 1): the
      path_general line, commit rate in 0.05-0.95;
   6. oracle parity on 6 batches of 1,000 config-3 txns over 1M records,
@@ -64,7 +67,7 @@ exits non-zero):
   9. the shard wrappers (clip_rows, shard_combine, shard_commit) and the
      programs #8 (sharded compact step and merge at config 5, sharded
      general step at config 3) and #9 (sharded window step and gc), kernel
-     against plain;
+     against plain; one shard's merge alone at its shape;
  10. the sharded path on config 5: fill, p50 at depth 1, shard balance,
      the at-capacity probe (2,048 committed writes re-read at snapshot 0
      must all conflict);
@@ -641,9 +644,10 @@ def compare_kernels(cs, packed, buf):
         "point_insert": ("insert", nbytes(cs.dk, cs.dv, u_b, u_e, w_uid,
                                           w_ins) + nbytes(cs.dk, cs.dv),
                          None),
-        # The mg_* kernels: base and delta in, the merged base and the reset
-        # delta out (the base table is build_sparse_table's row).
-        "merge": ("merge", 2 * nbytes(cs.bk, cs.bv, cs.dk, cs.dv), None),
+        # mg_merge: the live rows of base and delta in, the merged base and
+        # the reset delta out (the base table is build_sparse_table's row).
+        "merge": ("merge", merge_bytes(int(cs.size[0]), int(cs.dsize[0]),
+                                       CAPACITY, cs.d_cap), None),
     }
     stateful = {"insert": insert_run, "merge": merge_run}
     from foundationdb_tpu_torch import kernels as K
@@ -697,6 +701,12 @@ def compare_kernels(cs, packed, buf):
     fix = by_name["intra_batch_fixpoint"]
     fix["rounds"] = int(rounds.item())
     fix["deep_chain"] = deep_chain(fused, t_cap, r_pad, w_pad, u_pad)
+    # The merge's launches a call at config 2; the config-5 shard's shape
+    # joins in phase 9.
+    by_name["merge"]["at_shapes"] = [merge_at(
+        "config2", state_copy(), CAPACITY, cs.d_cap,
+        (cs._rel(cs.oldest_version),
+         max(cs.oldest_version - cs.version_base, 0)))]
 
     # The three device programs, kernel against plain, on state copies.
     programs = {}
@@ -918,6 +928,190 @@ def deep_chain(fused, t_cap, r_pad, w_pad, u_pad) -> dict:
                *args, u_pad, "plain"), reps=1)}
     log(f"intra_batch_fixpoint deep chain: {row['rounds']} rounds, "
         f"bit-equal; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms")
+    return row
+
+
+GENERAL_CHAIN = 200
+
+
+def general_fixpoint_inputs(digests, m, vmax):
+    """interval_fixpoint's inputs for one config-3 batch (digests and the
+    unpacked metadata m), built by the plain versions: the history bits
+    (general_prep over vmax, each read's history maximum), the sorted
+    endpoint universe and each range as a span of its gaps.  Returns
+    (general_prep's outputs, the fixpoint's inputs, log_u)."""
+    from foundationdb_tpu_torch.conflict import fused
+    from foundationdb_tpu_torch.ops import digest
+    from foundationdb_tpu_torch.ops.sort import sort_rows
+    P = "plain"
+    r_cap, w_cap = m["r_txn"].shape[0], m["w_txn"].shape[0]
+    n_rows = digests.shape[0]
+    g = fused.general_prep(m, vmax, P)
+    u_cap = fused._next_pow2(n_rows)
+    universe = digest.max_rows(u_cap, DEVICE)
+    sort_rows(digests, out=universe[:n_rows], impl=P)
+    r_pos = digest.searchsorted(universe, digests[:2 * r_cap], True, P)
+    w_pos = digest.searchsorted(universe, digests[2 * r_cap:], True, P)
+    fix_in = (g["hist"], m["r_txn"], g["r_live"], r_pos[:r_cap],
+              r_pos[r_cap:], m["w_txn"], g["w_ok"], w_pos[:w_cap],
+              w_pos[w_cap:])
+    return g, fix_in, u_cap.bit_length() - 1
+
+
+def general_chain_inputs(t_cap: int, r_cap: int, w_cap: int, log_u: int,
+                         depth: int = GENERAL_CHAIN):
+    """interval_fixpoint's inputs at config 3's widths whose first `depth`
+    txns form a chain of ranges: txn i reads gap 4i + 1, which the span
+    [4i - 4, 4i + 2) written by txn i - 1 covers and no other write does.
+    Every other txn reads an even gap and writes an odd gap of its own
+    past the chain, so the Jacobi rounds equal the depth."""
+    import torch
+    base = 4 * depth + 8
+    if base + 2 * t_cap + 2 > 1 << log_u:
+        raise ValueError("the chain does not fit the universe")
+
+    def txn_of(i, n):
+        return np.where(i < depth, i, depth + (i - depth) * (t_cap - depth)
+                        // max(n - depth, 1))
+
+    r = np.arange(r_cap)
+    r_txn = txn_of(r, r_cap)
+    r_pb = np.where(r < depth, 4 * r + 1, base + 2 * r_txn)
+    w = np.arange(w_cap)
+    w_txn = txn_of(w, w_cap)
+    w_pb = np.where(w < depth, 4 * w, base + 2 * w_txn + 1)
+    w_pe = np.where(w < depth, 4 * w + 6, w_pb + 1)
+    cols = (np.zeros(t_cap), r_txn, np.ones(r_cap), r_pb, r_pb + 1, w_txn,
+            np.ones(w_cap), w_pb, w_pe)
+    return [torch.from_numpy(np.asarray(c, np.int32)).to(DEVICE)
+            for c in cols]
+
+
+def general_deep_chain(fused, t_cap, r_cap, w_cap, log_u,
+                       depth: int = GENERAL_CHAIN) -> dict:
+    """interval_fixpoint on a `depth`-deep chain of ranges at config-3
+    width: conf and rounds equal to the plain version's, rounds == the
+    depth, one launch a call."""
+    from foundationdb_tpu_torch import kernels as K
+    args = general_chain_inputs(t_cap, r_cap, w_cap, log_u, depth)
+    K.reset_counts()
+    conf, rounds = fused.interval_fixpoint(*args, log_u)
+    launches = K.LAUNCHES["interval_fixpoint"]
+    conf_p, rounds_p = fused.interval_fixpoint(*args, log_u, impl="plain")
+    err = require_equal("interval_fixpoint deep chain", conf, conf_p)
+    if not int(rounds.item()) == int(rounds_p.item()) == depth:
+        raise AssertionError(f"general deep chain: {int(rounds.item())} "
+                             f"rounds, plain {int(rounds_p.item())}, depth "
+                             f"{depth}")
+    row = {"depth": depth, "rounds": int(rounds.item()),
+           "launches_per_call": launches, "max_abs_err": err,
+           "ms": device_ms(lambda: fused.interval_fixpoint(*args, log_u),
+                           counter="interval_fixpoint"),
+           "plain_ms": cuda_ms(lambda: fused.interval_fixpoint(
+               *args, log_u, impl="plain"), reps=1)}
+    log(f"interval_fixpoint deep chain: {row['rounds']} rounds, bit-equal; "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms")
+    return row
+
+
+def merge_bytes(size: int, dsize: int, cap: int, d_cap: int) -> int:
+    """Least bytes of one merge: the live rows of both tiers read once (a
+    32-byte row and its version), the whole base and delta written once,
+    the three scalars."""
+    return 36 * (size + dsize + cap + d_cap) + 12
+
+
+def merge_state(cap: int, d_cap: int, n_b: int, n_d: int, seed: int = 5,
+                shared: float = 0.3) -> dict:
+    """A synthetic merge input on the card: a base of n_b + 1 live rows
+    and a delta of n_d + 1 (each from the zero row, then distinct sorted
+    digests, MAX rows past them), a `shared` fraction of the delta's rows
+    equal to base rows; base versions in [0, 4000), delta in [3000,
+    6000), NEG_INF past the live rows; the base table built."""
+    import torch
+    from foundationdb_tpu_torch.ops.rangemax import (NEG_INF,
+                                                     build_sparse_table)
+    rng = np.random.default_rng(seed)
+
+    def rows(n, prefix):
+        keys = np.unique(rng.integers(0, 1 << 62, size=n + n // 8 + 8,
+                                      dtype=np.int64))
+        keys = np.sort(rng.permutation(keys)[:n]).astype(np.uint64) * 2 + 1
+        out = np.full((n, 8), prefix, np.uint32)
+        out[:, 6] = (keys >> np.uint64(32)).astype(np.uint32)
+        out[:, 7] = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        return out
+
+    def tier(live, cap_, lo, hi):
+        k = np.full((cap_, 8), 0xFFFFFFFF, np.uint32)
+        k[0] = 0
+        k[1:1 + live.shape[0]] = live
+        v = np.full(cap_, NEG_INF, np.int32)
+        v[:1 + live.shape[0]] = rng.integers(lo, hi, 1 + live.shape[0])
+        return (torch.from_numpy(k.view(np.int32)).to(DEVICE),
+                torch.from_numpy(v).to(DEVICE), 1 + live.shape[0])
+
+    b_rows = rows(n_b, 0x6B303030)
+    n_sh = min(int(shared * n_d), n_b)
+    pool = np.concatenate([b_rows[rng.choice(n_b, n_sh, replace=False)],
+                           rows(n_d - n_sh, 0x6B303031)])
+    d_rows = pool[np.lexsort(pool.T[::-1])]
+    bk, bv, size = tier(b_rows, cap, 0, 4000)
+    dk, dv, dsize = tier(d_rows, d_cap, 3000, 6000)
+
+    def scalar(x):
+        return torch.tensor([x], dtype=torch.int32, device=DEVICE)
+
+    return {"bk": bk, "bv": bv, "table": build_sparse_table(bv),
+            "size": scalar(size), "dk": dk, "dv": dv, "dsize": scalar(dsize),
+            "flag": scalar(0)}
+
+
+def merge_at(what: str, state: dict, cap: int, d_cap: int, scalars,
+             first=None, expect_launches=3, reps: int = REPS) -> dict:
+    """The merge on copies of `state` (bk, bv, table, size, dk, dv, dsize,
+    flag), kernel against plain: its launches a call (with
+    expect_launches, exactly that many of its own and at most 4 + 2 with
+    the base table's), its own kernels' device ms, the plain version's
+    ms and the byte bound."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict import fused
+
+    def run(impl, st):
+        m = fused.make_merge_step(cap, d_cap, impl=impl)
+        return m(st["bk"], st["bv"], st["table"], st["size"], st["dk"],
+                 st["dv"], st["dsize"], st["flag"], scalars, first)
+
+    def copy():
+        return {k: v.clone() for k, v in state.items()}
+
+    K.reset_counts()
+    got = run("kernel", copy())
+    own, table = K.LAUNCHES["merge"], K.LAUNCHES["build_sparse_table"]
+    total = sum(K.LAUNCHES.values())
+    if expect_launches is not None and (
+            own != expect_launches or own + table > 4 + 2 or total != own
+            + table):
+        raise AssertionError(f"merge {what}: {own} launches of its own, "
+                             f"{table} of the table, {total} in all")
+    err = require_equal(f"merge {what}", got, run("plain", copy()))
+    holder = {}
+
+    def setup():
+        holder["st"] = copy()
+
+    size, dsize = int(state["size"][0]), int(state["dsize"][0])
+    row = {"shape": what, "cap": cap, "d_cap": d_cap, "size": size,
+           "dsize": dsize, "launches_per_call": own,
+           "launches_with_table": total, "max_abs_err": err,
+           "ms": device_ms(lambda: run("kernel", holder["st"]), reps=reps,
+                           setup=setup, counter="merge"),
+           "plain_ms": cuda_ms(lambda: run("plain", holder["st"]), reps=1,
+                               setup=setup),
+           "bound_ms": bound_ms(merge_bytes(size, dsize, cap, d_cap))}
+    log(f"merge at {what} ({size} + {dsize} rows into {cap}): bit-equal, "
+        f"{own} launches ({total} with the table); own {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
     return row
 
 
@@ -1143,20 +1337,11 @@ def compare_general(cs, packed, win, stream):
     r_b, r_e = digests[:r_cap], digests[r_cap:2 * r_cap]
     w_b = digests[2 * r_cap:2 * r_cap + w_cap]
     w_e = digests[2 * r_cap + w_cap:]
-    u_cap = fused._next_pow2(n_rows)
-    log_u = u_cap.bit_length() - 1
 
     # Intermediates of the general step, from the plain versions.
     vmax = digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable, r_b, r_e,
                                 P)
-    g = fused.general_prep(m, vmax, P)
-    universe = digest.max_rows(u_cap, DEVICE)
-    sort_rows(digests, out=universe[:n_rows], impl=P)
-    r_pos = digest.searchsorted(universe, digests[:2 * r_cap], True, P)
-    w_pos = digest.searchsorted(universe, digests[2 * r_cap:], True, P)
-    fix_in = (g["hist"], m["r_txn"], g["r_live"], r_pos[:r_cap],
-              r_pos[r_cap:], m["w_txn"], g["w_ok"], w_pos[:w_cap],
-              w_pos[w_cap:])
+    g, fix_in, log_u = general_fixpoint_inputs(digests, m, vmax)
     conf, rounds = fused.interval_fixpoint(*fix_in, log_u, impl=P)
     codes = torch.empty((t_cap,), dtype=torch.int8, device=DEVICE)
     w_ins = fused.general_codes(m["t_valid"], g["too_old"], conf, m["w_txn"],
@@ -1219,8 +1404,10 @@ def compare_general(cs, packed, win, stream):
                       2 * nbytes(digests)),
         "general_prep": (lambda i: fused.general_prep(m, vmax, i),
                          nbytes(*meta_in, vmax, *g.values())),
+        # Conf and the round count; the bound is one pass over the inputs
+        # and conf, whatever the rounds (see the row's "rounds").
         "interval_fixpoint": (
-            lambda i: fused.interval_fixpoint(*fix_in, log_u, impl=i)[0],
+            lambda i: fused.interval_fixpoint(*fix_in, log_u, impl=i),
             nbytes(*fix_in, conf)),
         "general_codes": (
             lambda i: _gen_codes(fused, m, g, conf, i),
@@ -1274,6 +1461,16 @@ def compare_general(cs, packed, win, stream):
                      "library_ms": None})
         log(f"{name}: bit-equal; own kernels {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bound_ms(n_bytes):.4f} ms")
+
+    fix = next(r for r in rows if r["name"] == "interval_fixpoint")
+    fix["rounds"] = int(rounds[0])
+    K.reset_counts()
+    fused.interval_fixpoint(*fix_in, log_u)
+    fix["launches_per_call"] = K.LAUNCHES["interval_fixpoint"]
+    if fix["launches_per_call"] != 1:
+        raise AssertionError(f"interval_fixpoint: {fix['launches_per_call']}"
+                             " launches a call")
+    fix["deep_chain"] = general_deep_chain(fused, t_cap, r_cap, w_cap, log_u)
 
     from foundationdb_tpu_torch.ops.sort import sort_rounds
     srt = next(r for r in rows if r["name"] == "sort_rows")
@@ -1757,10 +1954,23 @@ def compare_sharded(splits5, stream5, stream3):
         c._refresh_dtable()
         return shard_tensors(c)
 
-    merge_bytes = sum(2 * nbytes(sh.bk, sh.bv, sh.dk, sh.dv)
-                      + nbytes(sh.table, sh.dtable) for sh in cs.shards)
+    # Per shard the least bytes of its merge (merge_bytes), its base table
+    # and its delta table written.
+    sharded_merge_bytes = sum(
+        merge_bytes(int(sh.size[0]), int(sh.dsize[0]), cs.capacity, cs.d_cap)
+        + nbytes(sh.table, sh.dtable) for sh in cs.shards)
     time_program(programs, "sharded_merge", lambda: run_merge(cs),
-                 lambda: run_merge(plain), load_k, load_p, merge_bytes)
+                 lambda: run_merge(plain), load_k, load_p,
+                 sharded_merge_bytes)
+    # One shard's merge alone, at the shard's shape (the merge row's
+    # config5_shard entry).
+    load_k()
+    sh0 = cs.shards[0]
+    programs["sharded_merge"]["one_shard"] = merge_at(
+        "config5_shard", {k: getattr(sh0, k).clone() for k in
+                          ("bk", "bv", "table", "size", "dk", "dv", "dsize",
+                           "flag")},
+        cs.capacity, cs.d_cap, scalars, first=sh0.lo)
     del cs, plain, saved, hists, h, buf
     torch.cuda.empty_cache()
 
@@ -2225,6 +2435,8 @@ def main() -> int:
     log("generating the config-5 stream")
     batches5 = make_stream5(rng5, CONFIG5_BATCHES)
     rows9, programs9 = compare_sharded(splits5, batches5, batches3)
+    next(r for r in rows if r["name"] == "merge")["at_shapes"].append(
+        programs9["sharded_merge"].pop("one_shard"))
     rows += rows9
     programs.update(programs9)
     torch.cuda.empty_cache()

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+from ..core.knobs import server_knobs
 from ..txn.types import CommitResult, CommitTransactionRef, Version
 
 
@@ -40,6 +41,12 @@ class ConflictSet:
 
     def __init__(self, oldest_version: Version = 0) -> None:
         self.oldest_version: Version = oldest_version
+        # Heat-telemetry attribution of the LAST resolve_with_conflicts
+        # batch: {txn index: [(begin, end), ...]} for CONFLICT verdicts,
+        # and per-index True where the ranges are the EXACT culprits
+        # rather than the conservative whole-read-set fallback.
+        self.last_attribution: dict = {}
+        self.last_attribution_exact: dict = {}
 
     def resolve(self, transactions: Sequence[CommitTransactionRef],
                 now: Version,
@@ -58,11 +65,34 @@ class ConflictSet:
         every read range of a conflicted reporter (a superset of the true
         culprits); OracleConflictSet reports the exact ranges."""
         verdicts = self.resolve(transactions, now, new_oldest_version)
+        # Heat-telemetry attribution: conservative, the whole read set is
+        # blamed; backends with exact knowledge (the oracle) overwrite it
+        # with the true culprits.  Gated on the master knob: with
+        # telemetry off no per-batch dict of read sets is built.
+        if server_knobs().HEAT_TELEMETRY_ENABLED:
+            self.last_attribution = full_conservative_attribution(
+                verdicts, transactions)
+            self.last_attribution_exact = {
+                t: False for t in self.last_attribution}
+        else:
+            self.last_attribution = {}
+            self.last_attribution_exact = {}
         return verdicts, conservative_conflict_ranges(verdicts, transactions)
 
     def clear(self, version: Version) -> None:
         """Reset all history (reference clearConflictSet)."""
         raise NotImplementedError
+
+
+def full_conservative_attribution(verdicts, transactions) -> dict:
+    """{txn_index: [(begin, end), ...]}: the WHOLE read set of every
+    CONFLICT-verdict transaction (reporter or not) -- the conservative
+    heat-attribution fallback when no exact culprit is known."""
+    out: dict = {}
+    for i, (v, tr) in enumerate(zip(verdicts, transactions)):
+        if v == CommitResult.CONFLICT and tr.read_conflict_ranges:
+            out[i] = [(r.begin, r.end) for r in tr.read_conflict_ranges]
+    return out
 
 
 def conservative_conflict_ranges(verdicts, transactions) -> dict:

@@ -558,31 +558,47 @@ def general_prep(meta: dict, vmax: torch.Tensor, impl=None) -> dict:
             "w_ok": w_ok.to(torch.int32)}
 
 
+# csrc/segtree.cu's tile and run sizes (FIX_TILE_LOG, FIX_BLOCK_LOG).
+FIX_TILE_LOG = 12
+FIX_BLOCK_LOG = 5
+
+
+def fixpoint_scratch_len(t_cap: int, log_u: int) -> int:
+    """int32 slots of sg_fixpoint's scratch (csrc/segtree.cu fix_layout):
+    the tree (2U), the cover (U), the in-tile tables of the run minima,
+    the tile minima, the two conflict buffers and four counts."""
+    u = 1 << log_u
+    tl = min(log_u, FIX_TILE_LOG)
+    lb = min(tl, FIX_BLOCK_LOG)
+    return 3 * u + (u >> lb) * (tl - lb + 1) + (u >> tl) + 2 * t_cap + 4
+
+
 def interval_fixpoint(hist, r_txn, r_live, r_pb, r_pe, w_txn, w_ok, w_pb,
                       w_pe, log_u: int, rounds_acc=None, impl=None):
     """The general intra-batch fixpoint (checkIntraBatchConflicts,
     SkipList.cpp:874-906; reference fused.py:531-547): a reader conflicts
     iff an EARLIER SURVIVING txn of the batch wrote a range overlapping
     its own.  Reads and writes arrive as spans [pb, pe) of gaps of the
-    sorted endpoint universe (U = 1 << log_u gaps); each Jacobi round
-    builds the min-writer cover (ops/segtree.py), answers every read's
-    range min, and recomputes from the history-only baseline, until
-    nothing changes.  Returns (conflicted int32[t_cap], rounds int32[1]);
-    with rounds_acc (int32[1]) the round count is also added there.
-    Kernel: sg_fixpoint, one cooperative persistent launch whose rounds
-    loop on the device."""
+    sorted endpoint universe (U = 1 << log_u gaps, 0 <= pb, pe <= U);
+    each Jacobi round builds the min-writer cover (ops/segtree.py),
+    answers every read's range min, and recomputes from the history-only
+    baseline, until nothing changes.  Returns (conflicted int32[t_cap],
+    rounds int32[1]); with rounds_acc (int32[1]) the round count is also
+    added there.  Kernel: sg_fixpoint, one cooperative persistent launch
+    whose rounds loop on the device, three grid barriers a round: the
+    cover pushed down by tiles in shared memory, the reads answered from
+    the cover, in-tile tables of run minima and a table of tile minima
+    (csrc/segtree.cu)."""
     t_cap = hist.shape[0]
     dev = hist.device
     e = dict(dtype=torch.int32, device=dev)
     if _k.use_kernel(hist, impl):
-        u = 1 << log_u
+        n = fixpoint_scratch_len(t_cap, log_u)
         conf = torch.empty((t_cap,), **e)
         rounds = torch.empty((1,), **e)
         _k.launch("interval_fixpoint", "sg_fixpoint", t_cap, r_txn.shape[0],
                   w_txn.shape[0], log_u, hist, r_txn, r_live, r_pb, r_pe,
-                  w_txn, w_ok, w_pb, w_pe, torch.empty((2 * u,), **e),
-                  torch.empty((log_u + 1, u), **e),
-                  torch.empty((t_cap,), **e), torch.zeros((2,), **e), conf,
+                  w_txn, w_ok, w_pb, w_pe, torch.empty((n,), **e), n, conf,
                   rounds, rounds_acc)
         return conf, rounds
     p_ = "plain"
@@ -744,6 +760,10 @@ def make_resolve_step(cap: int, d_cap: int, t_cap: int, r_cap: int,
     return GeneralStep(cap, d_cap, t_cap, r_cap, w_cap, impl)
 
 
+# Merged elements a block of mg_merge owns (csrc/rank_scan.cu MG_TILE).
+MERGE_TILE = 1016
+
+
 def make_merge_step(cap: int, d_cap: int, impl=None):
     """The merge: overlay delta onto base + removeBefore GC + rebase +
     base table + delta reset (reference fused.py:593).
@@ -753,9 +773,11 @@ def make_merge_step(cap: int, d_cap: int, impl=None):
     scalars = (new_oldest_rel, rebase_delta), host ints.  The reset
     delta's covering boundary is the zero digest, or `first` (a row
     int32[8]): a key-range shard's lower split, the sharded reference's
-    dk0_first (fused.py:679-683).  The merged sequence is placed in an
-    s_cap = CAP + DCAP scratch before the base is rewritten, since the
-    placement reads bk."""
+    dk0_first (fused.py:679-683).  The plain version places the merged
+    sequence in an s_cap = CAP + DCAP scratch before the base is
+    rewritten, since the placement reads bk; the kernel merges the two
+    tiers' live rows by a merge path into a CAP-row scratch base (rows
+    past size / dsize are MAX rows, the window's invariant)."""
     s_cap = cap + d_cap
 
     def merge(bk, bv, table, size, dk, dv, dsize, flag, scalars, first=None):
@@ -843,36 +865,13 @@ def _merge_plain(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
 
 def _merge_kernel(bk, bv, size, dk, dv, dsize, flag, new_oldest_rel,
                   rebase_delta, s_cap, first) -> None:
+    """mg_merge: partition, merge and finish, three launches (csrc/
+    rank_scan.cu); its scratch needs no fill."""
     cap, d_cap = bk.shape[0], dk.shape[0]
     dev = bk.device
-    e = dict(dtype=torch.int32, device=dev)
-    hist_l = torch.zeros((cap + 1,), **e)
-    hist_r = torch.zeros((cap + 1,), **e)
-    v_d = torch.empty((d_cap,), **e)
-    bbr = torch.empty((d_cap,), **e)
-    _k.launch("merge", "mg_probe_delta", d_cap, dk, bk, cap, bv, dv, size,
-              hist_l, hist_r, v_d, bbr)
-    cnt_l = inclusive_scan(hist_l[:cap])
-    p = inclusive_scan(hist_r[:cap])
-    keep_b = torch.empty((cap,), **e)
-    dup_b = torch.empty((cap,), **e)
-    v_b = torch.empty((cap,), **e)
-    _k.launch("merge", "mg_base", cap, bk, bv, dk, dv, d_cap, size, dsize,
-              cnt_l, p, keep_b, dup_b, v_b)
-    kb_incl = inclusive_scan(keep_b)
-    drop_prefix = inclusive_scan(dup_b)
-    s_rows = max_rows(s_cap, dev)
-    sv = torch.full((s_cap,), NEG_INF, **e)
-    _k.launch("merge", "mg_place_base", cap, keep_b, kb_incl, p, dsize, bk,
-              v_b, s_cap, s_rows, sv)
-    _k.launch("merge", "mg_place_delta", d_cap, dsize, bbr, drop_prefix, cap,
-              dk, v_d, s_cap, s_rows, sv)
-    keep_s = torch.empty((s_cap,), **e)
-    _k.launch("merge", "mg_gc_mask", s_cap, kb_incl, cap, dsize, d_cap, sv,
-              new_oldest_rel, keep_s)
-    ks_incl = inclusive_scan(keep_s)
-    # Everything that reads the old base and delta has been enqueued:
-    # refill both and compact the merged sequence into the base.
-    _k.launch("merge", "mg_reset", cap, bk, bv, d_cap, dk, dv, first)
-    compact_rows(keep_s, ks_incl, s_rows, sv, bk, bv, rebase=rebase_delta)
-    _k.launch("merge", "mg_finish", ks_incl, s_cap, cap, size, dsize, flag)
+    n = 2 * (-(-s_cap // MERGE_TILE) + 1) + 1
+    _k.launch("merge", "mg_merge", bk, bv, cap, size, dk, dv, d_cap, dsize,
+              flag, first, new_oldest_rel, rebase_delta,
+              torch.empty((n,), dtype=torch.int64, device=dev), n,
+              torch.empty((cap * 9,), dtype=torch.int32, device=dev),
+              count=3)

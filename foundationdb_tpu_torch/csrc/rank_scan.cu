@@ -9,7 +9,8 @@
 //   rs_compact         -- the order-preserving rank scatters of fused.py
 //                         (:198-204, :665-672, the latter with the rebase);
 //   pi_*               -- conflict/fused.py:157-247 _point_insert;
-//   mg_*               -- conflict/fused.py:607-686 make_merge_step.merge.
+//   mg_merge           -- conflict/fused.py:607-686 make_merge_step.merge
+//                         (a merge path; three launches, below).
 //
 // Bound on the card: bytes.  A scan reads n and writes n int32; a
 // compaction reads the mask, the ranks and the kept rows once and writes
@@ -22,9 +23,10 @@
 // never reads, are skipped); every scatter of the reference becomes a
 // guarded row store with JAX's drop semantics (common.cuh).  Insert and
 // merge write into scratch or freshly filled buffers, never into the
-// arrays they are still reading: the merge places into the s_cap scratch
-// before it refills the base, and the insert commits its result into the
-// delta only when it did not overflow (the reference's keep-old-state).
+// arrays they are still reading: the merge writes the merged base into a
+// scratch base before its last launch copies it into bk, and the insert
+// commits its result into the delta only when it did not overflow (the
+// reference's keep-old-state).
 #include "common.cuh"
 
 // ---------------------------------------------------------------- rank
@@ -392,138 +394,318 @@ __global__ void k_pi_commit(int dcap, const int* __restrict__ kincl,
 }
 
 // --------------------------------------------------------------- merge
-__global__ void k_mg_probe_delta(int dcap, const uint32_t* __restrict__ dk,
-                                 const uint32_t* __restrict__ bk, int cap,
-                                 int nb, const int* __restrict__ bv,
-                                 const int* __restrict__ dv,
-                                 const int* __restrict__ size,
-                                 int* __restrict__ hist_l,
-                                 int* __restrict__ hist_r,
-                                 int* __restrict__ v_d,
-                                 int* __restrict__ bbr) {
-  const int sz = size[0];
-  GRID_STRIDE(j, dcap) {
-    Row q = load_row(dk, j);
-    int pl = search_rows(bk, cap, nb, q, true);
-    int pr = search_rows(bk, cap, nb, q, false);
-    if (pl < cap) count_at(hist_l, pl);
-    if (pr < cap) count_at(hist_r, pr);
-    int b = bv[clampi(pr - 1, 0, cap - 1)];
-    int d = dv[j];
-    v_d[j] = d > b ? d : b;
-    bbr[j] = pl < sz ? pl : sz;
-  }
+// The merge (conflict/fused.py:593-686 there): overlay the delta onto the
+// base, removeBefore GC, the rebase, the delta reset; three launches.
+//
+// Both tiers are sorted and unique, and their rows past size / dsize are
+// MAX rows (the window's invariant; every real digest is below MAX).  The
+// merged sequence is their sorted union, a base row dropped where an equal
+// live delta row exists.  It is computed by a merge path (Green, Odeh &
+// Birk, "Merge Path -- A Visually Intuitive Approach to Parallel
+// Merging"), ties base first, so a dropped base row is the merged element
+// just before its equal delta row:
+//   k_mg_partition  one warp a split, a 32-ary search (as sort.cu's
+//                   k_partition) of where each tile's first output lies in
+//                   the live base [0, size) and the live delta [0, dsize);
+//                   it also zeroes the look-back descriptors and the
+//                   ticket of the next launch, which therefore need no fill
+//                   of their own;
+//   k_mg_merge      a block a tile of MG_TILE merged elements: it stages its
+//                   slices of both tiers in shared memory (rows as 16-byte
+//                   halves at XOR-swizzled slots), with a halo of the two
+//                   rows of each tier before its split and the delta row
+//                   after its end, and merges them (MG_VT elements a
+//                   thread).  The overlay: an element's version is the max
+//                   of its own and the covering boundary of the other tier,
+//                   the last row of that tier merged before it (the row
+//                   just before the tier's slice seeds it; none: row 0, as
+//                   the reference's clamped gathers give).  A base row is
+//                   dropped when the next delta row equals it.  GC
+//                   (SkipList.cpp:576 wasAbove) keeps an element when its
+//                   version or its predecessor's (the merged element before
+//                   it that is not dropped, in the halo for the tile's
+//                   first) reaches the floor, and always the first.  The
+//                   tile's kept count goes through a decoupled look-back
+//                   (rs_scan's 64-bit status+value descriptors, tiles
+//                   numbered by a ticket); kept rows are rebased as
+//                   k_compact does and written in order to a scratch base,
+//                   coalesced through an output-to-element map;
+//   k_mg_finish     the scratch into bk/bv, MAX rows and NEG_INF past the
+//                   new size, the delta reset (the zero digest, or the
+//                   shard's `first` row, then MAX rows), size clamped to
+//                   cap, dsize 1 and the sticky overflow flag.
+// Bound on the card: bytes -- the live rows of both tiers read once, the
+// kept rows written twice (scratch, then bk), the rest of bk and the delta
+// written once.
+#define MG_THREADS 256
+#define MG_VT 4
+#define MG_SLOTS (MG_THREADS * MG_VT)  // local rows of a tile
+#define MG_TILE (MG_SLOTS - 8)  // merged elements a tile, halo left over
+
+__device__ __forceinline__ int mg_slot(int p) { return p ^ ((p >> 3) & 7); }
+
+__device__ __forceinline__ int cmp4(uint4 a, uint4 b) {
+  if (a.x != b.x) return a.x < b.x ? -1 : 1;
+  if (a.y != b.y) return a.y < b.y ? -1 : 1;
+  if (a.z != b.z) return a.z < b.z ? -1 : 1;
+  if (a.w != b.w) return a.w < b.w ? -1 : 1;
+  return 0;
 }
 
-__global__ void k_mg_base(int cap, const uint32_t* __restrict__ bk,
-                          const int* __restrict__ bv,
-                          const uint32_t* __restrict__ dk,
-                          const int* __restrict__ dv, int dcap,
-                          const int* __restrict__ size,
-                          const int* __restrict__ dsize,
-                          const int* __restrict__ cnt_l,
-                          const int* __restrict__ p, int* __restrict__ keep_b,
-                          int* __restrict__ dup_b, int* __restrict__ v_b) {
-  const int sz = size[0];
-  const int ds = dsize[0];
-  GRID_STRIDE(i, cap) {
-    int b = bv[i];
-    int d = dv[clampi(cnt_l[i] - 1, 0, dcap - 1)];
-    v_b[i] = b > d ? b : d;
-    int pi = p[i];
-    bool dup = pi < ds &&
-               row_eq(load_row(dk, pi < dcap - 1 ? pi : dcap - 1),
-                      load_row(bk, i));
-    dup_b[i] = dup ? 1 : 0;
-    keep_b[i] = (i < sz && !dup) ? 1 : 0;
-  }
+// Three-way compare of two staged rows (local slots x, y).
+__device__ __forceinline__ int mg_cmp(const uint4* h0, const uint4* h1,
+                                      int x, int y) {
+  const int c = cmp4(h0[mg_slot(x)], h0[mg_slot(y)]);
+  return c != 0 ? c : cmp4(h1[mg_slot(x)], h1[mg_slot(y)]);
 }
 
-__global__ void k_mg_place_base(int cap, const int* __restrict__ keep_b,
-                                const int* __restrict__ kb_incl,
-                                const int* __restrict__ p,
-                                const int* __restrict__ dsize,
-                                const uint32_t* __restrict__ bk,
-                                const int* __restrict__ v_b, long s_cap,
-                                uint32_t* __restrict__ s_rows,
-                                int* __restrict__ sv) {
-  const int ds = dsize[0];
-  GRID_STRIDE(i, cap) {
-    if (!keep_b[i]) continue;
-    int before = p[i] < ds ? p[i] : ds;
-    long d = scatter_index((long)kb_incl[i] - 1 + before, s_cap);
-    if (d < 0) continue;
-    store_row(s_rows, d, load_row(bk, i));
-    sv[d] = v_b[i];
-  }
-}
-
-__global__ void k_mg_place_delta(int dcap, const int* __restrict__ dsize,
-                                 const int* __restrict__ bbr,
-                                 const int* __restrict__ drop_prefix, int cap,
-                                 const uint32_t* __restrict__ dk,
-                                 const int* __restrict__ v_d, long s_cap,
-                                 uint32_t* __restrict__ s_rows,
-                                 int* __restrict__ sv) {
-  const int ds = dsize[0];
-  GRID_STRIDE(j, dcap) {
-    if (j >= ds) continue;
-    int b = bbr[j];
-    int drops = b > 0 ? drop_prefix[clampi(b - 1, 0, cap - 1)] : 0;
-    long d = scatter_index(j + (long)b - drops, s_cap);
-    if (d < 0) continue;
-    store_row(s_rows, d, load_row(dk, j));
-    sv[d] = v_d[j];
-  }
-}
-
-__global__ void k_mg_gc_mask(long s_cap, const int* __restrict__ kb_incl,
-                             int cap, const int* __restrict__ dsize, int dcap,
-                             const int* __restrict__ sv, int new_oldest,
-                             int* __restrict__ keep_s) {
-  const long m_size = (long)kb_incl[cap - 1] + clampi(dsize[0], 0, dcap);
-  GRID_STRIDE(s, s_cap) {
-    bool live = s < m_size;
-    bool above = sv[s] >= new_oldest;
-    bool prev = s == 0 ? true : sv[s - 1] >= new_oldest;
-    keep_s[s] = (live && (s == 0 || above || prev)) ? 1 : 0;
-  }
-}
-
-// The reset delta's covering boundary is the zero digest, or a key-range
-// shard's lower split `first` (fused.py:679-683, dk0_first).
-__global__ void k_mg_reset(int cap, uint32_t* __restrict__ bk,
-                           int* __restrict__ bv, int dcap,
-                           uint32_t* __restrict__ dk, int* __restrict__ dv,
-                           const uint32_t* __restrict__ first) {
-  long n = cap > dcap ? cap : dcap;
-  GRID_STRIDE(i, n) {
-    if (i < cap) {
-      store_row(bk, i, max_row());
-      bv[i] = NEG_INF_I32;
+// Split `s`: the merged elements before diagonal d = min(s * MG_TILE, M)
+// that come from the base; ties base first.
+__global__ void k_mg_partition(const uint32_t* __restrict__ bk, int cap,
+                               const int* __restrict__ size,
+                               const uint32_t* __restrict__ dk, int dcap,
+                               const int* __restrict__ dsize, int nsplit,
+                               int* __restrict__ splits,
+                               unsigned long long* __restrict__ desc) {
+  const int s = (int)((blockIdx.x * (long)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (s >= nsplit) return;  // whole warps leave together
+  const int na = clampi(size[0], 0, cap);
+  const int nb = clampi(dsize[0], 0, dcap);
+  const long dl = (long)s * MG_TILE;
+  const int d = (int)(dl < (long)na + nb ? dl : (long)na + nb);
+  int lo = d > nb ? d - nb : 0;
+  int hi = d < na ? d : na;
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int mid = lo + lane * step;
+    const bool p = mid < hi && row_cmp(load_row(bk, mid),
+                                       load_row(dk, d - 1 - mid)) <= 0;
+    const int c = __popc(__ballot_sync(0xffffffffu, p));
+    if (c == 0) {
+      hi = lo;
+    } else {
+      const int top = lo + c * step;
+      lo += (c - 1) * step + 1;
+      hi = hi < top ? hi : top;
     }
-    if (i < dcap) {
-      Row r = max_row();
-      if (i == 0) {
-        if (first != nullptr) {
-          r = load_row(first, 0);
-        } else {
+  }
+  if (lane == 0) {
+    splits[2 * s] = lo;
+    splits[2 * s + 1] = d - lo;
+    desc[s] = 0ull;  // the ticket, then tile s - 1's descriptor
+  }
+}
+
+__global__ void __launch_bounds__(MG_THREADS)
+    k_mg_merge(const uint32_t* __restrict__ bk, const int* __restrict__ bv,
+               int cap, const int* __restrict__ size,
+               const uint32_t* __restrict__ dk, const int* __restrict__ dv,
+               int dcap, const int* __restrict__ dsize,
+               const int* __restrict__ splits,
+               unsigned long long* __restrict__ desc, int new_oldest,
+               int rebase, uint32_t* __restrict__ out_rows,
+               int* __restrict__ out_v, int* __restrict__ total) {
+  __shared__ uint4 s_h0[MG_SLOTS];  // lanes 0-3: base rows, then delta rows
+  __shared__ uint4 s_h1[MG_SLOTS];  // lanes 4-7
+  // Versions: the base's seed, its rows', the delta's seed, its rows'.
+  __shared__ int s_v[MG_SLOTS + 2];
+  __shared__ int s_pv[MG_SLOTS];             // merged element's version
+  __shared__ short s_src[MG_SLOTS];          // its staged row
+  __shared__ unsigned char s_drop[MG_SLOTS];  // a base row with a delta twin
+  __shared__ short s_map[MG_SLOTS];          // kept output -> element
+  __shared__ unsigned s_tile;
+  __shared__ unsigned s_warp[MG_THREADS / 32];
+  __shared__ unsigned s_prefix;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nb_all = clampi(dsize[0], 0, dcap);
+  const long m = (long)clampi(size[0], 0, cap) + nb_all;
+  const long ntiles = m > 0 ? (m + MG_TILE - 1) / MG_TILE : 1;
+  if (tid == 0) s_tile = atomicAdd(reinterpret_cast<unsigned*>(desc), 1u);
+  __syncthreads();
+  const long tile = s_tile;
+  if (tile >= ntiles) return;
+  const int as = splits[2 * tile], bs = splits[2 * tile + 1];
+  const int ae = splits[2 * tile + 2], be = splits[2 * tile + 3];
+  const int alo = as > 2 ? as - 2 : 0;
+  const int blo = bs > 2 ? bs - 2 : 0;
+  const int bhi = be < nb_all ? be + 1 : be;
+  const int na = ae - alo, nb = bhi - blo;  // staged rows of each tier
+  const int pre = (as - alo) + (bs - blo);  // halo elements before the tile
+  const int cnt = (ae - as) + (be - bs);    // the tile's elements
+  const uint4* b4 = reinterpret_cast<const uint4*>(bk);
+  const uint4* d4 = reinterpret_cast<const uint4*>(dk);
+  {  // a thread's MG_VT rows: every load issued before the first store
+    uint4 h0[MG_VT], h1[MG_VT];
+    int v[MG_VT];
 #pragma unroll
-          for (int l = 0; l < 8; ++l) r.l[l] = 0u;
-        }
-      }
-      store_row(dk, i, r);
-      dv[i] = NEG_INF_I32;
+    for (int j = 0; j < MG_VT; ++j) {
+      const int x = tid + j * MG_THREADS;
+      if (x >= na + nb) continue;
+      const uint4* src =
+          x < na ? b4 + 2L * (alo + x) : d4 + 2L * (blo + x - na);
+      h0[j] = src[0];
+      h1[j] = src[1];
+      v[j] = x < na ? bv[alo + x] : dv[blo + x - na];
+    }
+#pragma unroll
+    for (int j = 0; j < MG_VT; ++j) {
+      const int x = tid + j * MG_THREADS;
+      if (x >= na + nb) continue;
+      s_h0[mg_slot(x)] = h0[j];
+      s_h1[mg_slot(x)] = h1[j];
+      s_v[x < na ? 1 + x : 2 + x] = v[j];
     }
   }
+  if (tid == 0) {
+    s_v[0] = bv[alo > 0 ? alo - 1 : 0];
+    s_v[na + 1] = dv[blo > 0 ? blo - 1 : 0];
+  }
+  __syncthreads();
+  // Merge: each thread its MG_VT consecutive elements of the staged merge.
+  const int n_loc = na + nb;
+  const int p0 = tid * MG_VT;
+  if (p0 < n_loc) {
+    int lo = p0 > nb ? p0 - nb : 0;
+    int hi = p0 < na ? p0 : na;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (mg_cmp(s_h0, s_h1, mid, na + p0 - 1 - mid) <= 0)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    int ia = lo, ib = p0 - lo;
+#pragma unroll
+    for (int k = 0; k < MG_VT; ++k) {
+      const int p = p0 + k;
+      if (p >= n_loc) break;
+      const int c = ia < na && ib < nb ? mg_cmp(s_h0, s_h1, ia, na + ib)
+                                       : (ia < na ? -1 : 1);
+      int own, other;
+      if (c <= 0) {  // the base row; the delta's covering row came before
+        own = s_v[1 + ia];
+        other = s_v[na + 1 + ib];
+        s_src[p] = (short)ia;
+        s_drop[p] = c == 0;
+        ++ia;
+      } else {  // the delta row; the base's covering row came before
+        own = s_v[na + 2 + ib];
+        other = s_v[ia];
+        s_src[p] = (short)(na + ib);
+        s_drop[p] = 0;
+        ++ib;
+      }
+      s_pv[p] = own > other ? own : other;
+    }
+  }
+  __syncthreads();
+  // GC over the tile's elements [pre, pre + cnt): a dropped base row's
+  // twin follows it, so an element's predecessor is the one before it, or
+  // the one before that when that one was dropped; none: the first.
+  unsigned keep = 0u;
+#pragma unroll
+  for (int k = 0; k < MG_VT; ++k) {
+    const int p = p0 + k;
+    if (p < pre || p >= pre + cnt || s_drop[p]) continue;
+    int q = p - 1;
+    if (q >= 0 && s_drop[q]) --q;
+    if (q < 0 || s_pv[p] >= new_oldest || s_pv[q] >= new_oldest)
+      keep |= 1u << k;
+  }
+  // The tile's kept count and each thread's offset (warp scans, then the
+  // warps' sums), then the tile's place through the look-back.
+  const unsigned own_n = __popc(keep);
+  const unsigned incl = warp_inclusive_scan(own_n, lane);
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  unsigned offset = incl - own_n, aggregate = 0u;
+#pragma unroll
+  for (int w = 0; w < MG_THREADS / 32; ++w) {
+    if (w < warp) offset += s_warp[w];
+    aggregate += s_warp[w];
+  }
+  unsigned long long* tdesc = desc + 1;
+  unsigned prefix = 0u;
+  if (tile == 0) {
+    if (tid == 0) store_relaxed(tdesc, (SCAN_PREFIX << 32) | aggregate);
+  } else {
+    if (tid == 0)
+      store_relaxed(tdesc + tile, (SCAN_AGGREGATE << 32) | aggregate);
+    prefix = scan_look_back(tdesc, tile, aggregate, &s_prefix);
+  }
+#pragma unroll
+  for (int k = 0; k < MG_VT; ++k)
+    if (keep & (1u << k)) s_map[offset++] = (short)(p0 + k);
+  __syncthreads();
+  for (int o = tid; o < (int)aggregate; o += MG_THREADS) {
+    const long dst = (long)prefix + o;
+    if (dst >= cap) break;  // past cap: dropped (the state is poisoned)
+    const int p = s_map[o];
+    const int x = s_src[p];
+    uint4* row = reinterpret_cast<uint4*>(out_rows) + 2 * dst;
+    row[0] = s_h0[mg_slot(x)];
+    row[1] = s_h1[mg_slot(x)];
+    int v = (int)((uint32_t)s_pv[p] - (uint32_t)rebase);
+    out_v[dst] = v > NEG_INF_I32 + 1 ? v : NEG_INF_I32 + 1;
+  }
+  if (tile == ntiles - 1 && tid == 0) total[0] = (int)(prefix + aggregate);
 }
 
-__global__ void k_mg_finish(const int* __restrict__ ks_incl, long s_cap,
-                            int cap, int* size, int* dsize, int* flag) {
-  int final_size = ks_incl[s_cap - 1];
-  flag[0] = flag[0] | (final_size > cap ? 1 : 0);
-  size[0] = final_size < cap ? final_size : cap;
-  dsize[0] = 1;
+// Every store coalesced: rows move as 16-byte halves, consecutive threads
+// on consecutive halves; VEC: the version arrays are 16-byte aligned and
+// their lengths multiples of 4, so versions move four at a time.
+template <bool VEC>
+__global__ void k_mg_finish(int cap, uint32_t* __restrict__ bk,
+                            int* __restrict__ bv, int dcap,
+                            uint32_t* __restrict__ dk, int* __restrict__ dv,
+                            const uint32_t* __restrict__ first,
+                            const uint32_t* __restrict__ out_rows,
+                            const int* __restrict__ out_v,
+                            const int* __restrict__ total, int* size,
+                            int* dsize, int* flag) {
+  const int tot = total[0];
+  const int new_size = tot < cap ? tot : cap;
+  const uint4 max4 = make_uint4(~0u, ~0u, ~0u, ~0u);
+  const uint4* src4 = reinterpret_cast<const uint4*>(out_rows);
+  uint4* bk4 = reinterpret_cast<uint4*>(bk);
+  uint4* dk4 = reinterpret_cast<uint4*>(dk);
+  GRID_STRIDE(j, 2L * cap) bk4[j] = (j >> 1) < new_size ? src4[j] : max4;
+  GRID_STRIDE(j, 2L * dcap) {  // the reset delta: `first` or zero, MAX
+    uint4 h = max4;
+    if (j < 2) {
+      h = first != nullptr ? reinterpret_cast<const uint4*>(first)[j]
+                           : make_uint4(0u, 0u, 0u, 0u);
+    }
+    dk4[j] = h;
+  }
+  if (VEC) {
+    const int4 neg = make_int4(NEG_INF_I32, NEG_INF_I32, NEG_INF_I32,
+                               NEG_INF_I32);
+    GRID_STRIDE(q, cap / 4) {
+      const long i = 4 * q;
+      int4 v = neg;
+      if (i + 3 < new_size) {
+        v = reinterpret_cast<const int4*>(out_v)[q];
+      } else if (i < new_size) {
+        v.x = out_v[i];
+        if (i + 1 < new_size) v.y = out_v[i + 1];
+        if (i + 2 < new_size) v.z = out_v[i + 2];
+      }
+      reinterpret_cast<int4*>(bv)[q] = v;
+    }
+    GRID_STRIDE(q, dcap / 4) reinterpret_cast<int4*>(dv)[q] = neg;
+  } else {
+    GRID_STRIDE(i, cap) bv[i] = i < new_size ? out_v[i] : NEG_INF_I32;
+    GRID_STRIDE(i, dcap) dv[i] = NEG_INF_I32;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    flag[0] = flag[0] | (tot > cap ? 1 : 0);
+    size[0] = new_size;
+    dsize[0] = 1;
+  }
 }
 
 // ------------------------------------------------------------ launchers
@@ -645,73 +827,47 @@ extern "C" int pi_commit(int dcap, const void* kincl, const void* nincl,
   RET;
 }
 
-extern "C" int mg_probe_delta(int dcap, const void* dk, const void* bk,
-                              int cap, const void* bv, const void* dv,
-                              const void* size, void* hist_l, void* hist_r,
-                              void* v_d, void* bbr, void* stream) {
-  k_mg_probe_delta<<<blocks_for(dcap, THREADS), THREADS, 0, S(stream)>>>(
-      dcap, (const uint32_t*)dk, (const uint32_t*)bk, cap, log2_pow2(cap),
-      (const int*)bv, (const int*)dv, (const int*)size, (int*)hist_l,
-      (int*)hist_r, (int*)v_d, (int*)bbr);
-  RET;
-}
-
-extern "C" int mg_base(int cap, const void* bk, const void* bv,
-                       const void* dk, const void* dv, int dcap,
-                       const void* size, const void* dsize, const void* cnt_l,
-                       const void* p, void* keep_b, void* dup_b, void* v_b,
-                       void* stream) {
-  k_mg_base<<<blocks_for(cap, THREADS), THREADS, 0, S(stream)>>>(
-      cap, (const uint32_t*)bk, (const int*)bv, (const uint32_t*)dk,
-      (const int*)dv, dcap, (const int*)size, (const int*)dsize,
-      (const int*)cnt_l, (const int*)p, (int*)keep_b, (int*)dup_b,
-      (int*)v_b);
-  RET;
-}
-
-extern "C" int mg_place_base(int cap, const void* keep_b, const void* kb_incl,
-                             const void* p, const void* dsize, const void* bk,
-                             const void* v_b, long s_cap, void* s_rows,
-                             void* sv, void* stream) {
-  k_mg_place_base<<<blocks_for(cap, THREADS), THREADS, 0, S(stream)>>>(
-      cap, (const int*)keep_b, (const int*)kb_incl, (const int*)p,
-      (const int*)dsize, (const uint32_t*)bk, (const int*)v_b, s_cap,
-      (uint32_t*)s_rows, (int*)sv);
-  RET;
-}
-
-extern "C" int mg_place_delta(int dcap, const void* dsize, const void* bbr,
-                              const void* drop_prefix, int cap,
-                              const void* dk, const void* v_d, long s_cap,
-                              void* s_rows, void* sv, void* stream) {
-  k_mg_place_delta<<<blocks_for(dcap, THREADS), THREADS, 0, S(stream)>>>(
-      dcap, (const int*)dsize, (const int*)bbr, (const int*)drop_prefix, cap,
-      (const uint32_t*)dk, (const int*)v_d, s_cap, (uint32_t*)s_rows,
-      (int*)sv);
-  RET;
-}
-
-extern "C" int mg_gc_mask(long s_cap, const void* kb_incl, int cap,
-                          const void* dsize, int dcap, const void* sv,
-                          int new_oldest, void* keep_s, void* stream) {
-  k_mg_gc_mask<<<blocks_for(s_cap, THREADS), THREADS, 0, S(stream)>>>(
-      s_cap, (const int*)kb_incl, cap, (const int*)dsize, dcap,
-      (const int*)sv, new_oldest, (int*)keep_s);
-  RET;
-}
-
-extern "C" int mg_reset(int cap, void* bk, void* bv, int dcap, void* dk,
-                        void* dv, const void* first, void* stream) {
-  long n = cap > dcap ? cap : dcap;
-  k_mg_reset<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
-      cap, (uint32_t*)bk, (int*)bv, dcap, (uint32_t*)dk, (int*)dv,
-      (const uint32_t*)first);
-  RET;
-}
-
-extern "C" int mg_finish(const void* ks_incl, long s_cap, int cap, void* size,
-                         void* dsize, void* flag, void* stream) {
-  k_mg_finish<<<1, 1, 0, S(stream)>>>((const int*)ks_incl, s_cap, cap,
-                                      (int*)size, (int*)dsize, (int*)flag);
+// The whole merge, three launches: partition, merge, finish.  scratch:
+// int64[2 * nsplit + 1] (the descriptors, the splits, the total), work:
+// int32[cap * 9] (the scratch base's rows, then its versions); both may be
+// uninitialised.  new_oldest and rebase are relative versions.
+extern "C" int mg_merge(void* bk, void* bv, int cap, void* size, void* dk,
+                        void* dv, int dcap, void* dsize, void* flag,
+                        const void* first, int new_oldest, int rebase,
+                        void* scratch, long scratch_len, void* work,
+                        void* stream) {
+  const long ntiles = ((long)cap + dcap + MG_TILE - 1) / MG_TILE;
+  const long nsplit = ntiles + 1;
+  if (scratch_len < 2 * nsplit + 1 || ntiles > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  unsigned long long* desc = (unsigned long long*)scratch;
+  int* splits = (int*)(desc + nsplit);
+  int* total = splits + 2 * nsplit;
+  uint32_t* out_rows = (uint32_t*)work;
+  int* out_v = (int*)work + 8L * cap;
+  k_mg_partition<<<blocks_for(nsplit * 32, THREADS), THREADS, 0,
+                   S(stream)>>>((const uint32_t*)bk, cap, (const int*)size,
+                                (const uint32_t*)dk, dcap,
+                                (const int*)dsize, (int)nsplit, splits, desc);
+  k_mg_merge<<<(unsigned)ntiles, MG_THREADS, 0, S(stream)>>>(
+      (const uint32_t*)bk, (const int*)bv, cap, (const int*)size,
+      (const uint32_t*)dk, (const int*)dv, dcap, (const int*)dsize, splits,
+      desc, new_oldest, rebase, out_rows, out_v, total);
+  const long halves = 2L * (cap > dcap ? cap : dcap);
+  const bool vec = (uintptr_t)bv % 16 == 0 && (uintptr_t)dv % 16 == 0 &&
+                   (uintptr_t)out_v % 16 == 0 && cap % 4 == 0 &&
+                   dcap % 4 == 0;
+  if (vec)
+    k_mg_finish<true><<<blocks_for(halves, THREADS), THREADS, 0,
+                        S(stream)>>>(
+        cap, (uint32_t*)bk, (int*)bv, dcap, (uint32_t*)dk, (int*)dv,
+        (const uint32_t*)first, out_rows, out_v, total, (int*)size,
+        (int*)dsize, (int*)flag);
+  else
+    k_mg_finish<false><<<blocks_for(halves, THREADS), THREADS, 0,
+                         S(stream)>>>(
+        cap, (uint32_t*)bk, (int*)bv, dcap, (uint32_t*)dk, (int*)dv,
+        (const uint32_t*)first, out_rows, out_v, total, (int*)size,
+        (int*)dsize, (int*)flag);
   RET;
 }

@@ -8,26 +8,51 @@
 // negated cover) and :71 range_min, followed by the scatter-max of the
 // intra-batch hits over the history-only baseline and the changed test.
 //
-// Bound on the card: bytes per round -- the tree (2U int32) cleared and
-// updated, the min table ((LOG+1) * U int32) written level by level and
-// read, the reads' and writes' columns read once; the round count is the
-// batch's chain depth (typically 2-3).
+// Bound on the card: bytes per round -- the tree (2U int32) read once,
+// the cover (U int32) written once, the reads' and writes' columns read
+// once; the round count is the batch's chain depth (typically 2-5).
 //
 // Design: one cooperative launch (cudaLaunchCooperativeKernel, grid no
-// larger than the blocks that fit on the card at once) whose blocks loop
-// over the rounds together, separated by grid-wide barriers
-// (cooperative_groups grid.sync()).  A round is: clear the tree and reset
-// the next conflicts to the history baseline | min-update the tree from
-// every active write (atomicMin, a thread per interval walking its levels)
-// | each leaf takes the min over its ancestors, the pushdown's result,
-// written negated as table level 0 | one barrier per table level | each
-// live read's range min over its gap span, scatter-maxed into the next
-// conflicts | compare and copy, raising a changed flag.  The host never
-// reads a flag per round; the loop is capped at t_cap + 1 rounds (Jacobi on
-// the lower-triangular system settles at least one more txn per round)
-// and the round count is written out.  Scratch (tree, table, the next
-// conflicts, two changed flags) is allocated once per step by the wrapper
-// and reused by every round.
+// larger than the blocks that fit on the card at once, at the kernel's
+// dynamic shared memory) whose blocks loop over the rounds together.  A
+// round is three phases separated by grid-wide barriers (grid.sync()):
+//
+//   update    every surviving write min-updates <= 2 nodes per level of
+//             the tree (atomicMin, a thread per interval); the conflict
+//             buffer of this round is reset to the history baseline;
+//   pushdown  a block owns a tile of 2^FIX_TILE_LOG leaves, the subtree
+//             under one node: it takes the min over that node's ancestors
+//             (one warp), reads the subtree with coalesced loads into
+//             shared memory (resetting each node it finds set to INF, so
+//             the tree is clean for the next round without a clear pass),
+//             pushes the minima down level by level in shared memory and
+//             writes the leaves' cover (U int32).  It also writes the
+//             minima of each run of 2^FIX_BLOCK_LOG leaves as a doubling
+//             table that stays inside the tile (the "in-tile table",
+//             U / 32 x 8 int32 at the defaults), and the tile's minimum;
+//   queries   each block builds the doubling table over the tile minima in
+//             its shared memory; each live read takes the min of the cover
+//             over its gap span: a span inside a run of 32 gaps reads the
+//             cover (one or two sectors), a longer one reads its partial
+//             runs from the cover, its whole runs from the in-tile tables
+//             and its whole tiles from the shared table -- O(1) loads.  A
+//             hit (an earlier surviving writer) is an atomicMax of 1 into
+//             the round's conflict buffer; the first hit on a txn counts
+//             whether the previous round held it too.
+//
+// No doubling table as large as the universe is built: a read spans a few
+// gaps, so its min comes from the cover itself, and a table over U would
+// cost LOG+1 passes over U and a barrier per level every round.  The
+// conflict buffers alternate by round parity, so "did anything change" is
+// decided from the two counts of first hits (a round changes iff it finds
+// a txn the previous round did not hold, or holds fewer than it) without
+// a compare pass.  The host never
+// reads a flag per round; the loop is capped at t_cap + 1 rounds (Jacobi
+// on the lower-triangular system settles at least one more txn per round)
+// and the round count is written out.  Span endpoints are the universe's
+// searchsorted positions, 0 <= pb, pe <= U.  All scratch is one int32
+// buffer the wrapper allocates uninitialised; the kernel initialises what
+// it reads.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -35,9 +60,14 @@
 namespace cg = cooperative_groups;
 
 #define FIXG_THREADS 256
+#define FIX_TILE_LOG 12   // leaves a pushdown tile owns: 4,096
+#define FIX_BLOCK_LOG 5   // leaves a run minimum covers: 32
+#define FIX_TOP_MAX 1024  // tiles the shared top table covers (U <= 2^22)
 
 struct FixArgs {
   int t_cap, r_cap, w_cap, log_u;
+  int tl;   // log2 of a tile's leaves
+  int lb;   // log2 of a run's leaves
   const int* hist;
   const int* r_txn;
   const int* r_live;
@@ -47,46 +77,126 @@ struct FixArgs {
   const int* w_ok;
   const int* w_pb;
   const int* w_pe;
-  int* tree;     // int32[2U]
-  int* table;    // int32[(LOG+1) * U]
-  int* nconf;    // int32[t_cap]
-  int* changed;  // int32[2], one flag per round parity
-  int* conf;     // out: int32[t_cap]
-  int* rounds;   // out: int32[1]
+  int* tree;    // int32[2U]
+  int* cover;   // int32[U]
+  int* intile;  // int32[nt][LV][BPT]
+  int* tmin;    // int32[nt]
+  int* cbuf;    // int32[2][t_cap]: the conflicts, by round parity
+  int* counts;  // int32[2][2]: first hits not held / held before, by parity
+  int* conf;    // out: int32[t_cap]
+  int* rounds;  // out: int32[1]
   int* rounds_acc;  // optional: += rounds
 };
 
+__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+
+__device__ __forceinline__ int flog2(int x) { return 31 - __clz(x); }
+
+// Scratch layout (int32 slots), shared by the launcher and the kernel.
+struct FixLayout {
+  long tree, cover, intile, tmin, cbuf, counts, total;
+};
+
+__host__ __device__ __forceinline__ FixLayout fix_layout(int t_cap,
+                                                         int log_u, int tl,
+                                                         int lb) {
+  const long u = 1L << log_u;
+  const long nt = u >> tl;
+  const long lv = tl - lb + 1;
+  FixLayout l;
+  l.tree = 0;
+  l.cover = l.tree + 2 * u;
+  l.intile = l.cover + u;
+  l.tmin = l.intile + (u >> lb) * lv;
+  l.cbuf = l.tmin + nt;
+  l.counts = l.cbuf + 2L * t_cap;
+  l.total = l.counts + 4;
+  return l;
+}
+
+// min(cover[l, r)) for 0 <= l, r <= U; INF_I32 when the span is empty.
+// `top` is the shared doubling table over the tile minima (nullptr when
+// there is one tile, or more than FIX_TOP_MAX).
+__device__ int cover_min(const FixArgs& a, const int* top, int nt, int l,
+                         int r) {
+  int m = INF_I32;
+  if (l >= r) return m;
+  const int bl = (l + (1 << a.lb) - 1) >> a.lb;  // the first whole run
+  const int br = r >> a.lb;                      // past the last one
+  if (bl >= br) {
+    for (int g = l; g < r; ++g) m = imin(m, a.cover[g]);
+    return m;
+  }
+  for (int g = l; g < (bl << a.lb); ++g) m = imin(m, a.cover[g]);
+  for (int g = br << a.lb; g < r; ++g) m = imin(m, a.cover[g]);
+  const int lbpt = a.tl - a.lb;
+  const int bpt = 1 << lbpt;
+  const int lv = lbpt + 1;
+  const int t0 = bl >> lbpt, t1 = (br - 1) >> lbpt;
+  // Whole runs [lo, hi) of tile t, 0 <= lo < hi <= bpt, from its table.
+  auto runs = [&](int t, int lo, int hi) {
+    const int j = flog2(hi - lo);
+    const int* row = a.intile + ((long)t * lv + j) * bpt;
+    return imin(row[lo], row[hi - (1 << j)]);
+  };
+  const int lo = bl & (bpt - 1), hi = ((br - 1) & (bpt - 1)) + 1;
+  if (t0 == t1) return imin(m, runs(t0, lo, hi));
+  m = imin(m, runs(t0, lo, bpt));
+  m = imin(m, runs(t1, 0, hi));
+  if (t0 + 1 < t1) {
+    if (top != nullptr) {
+      const int j = flog2(t1 - t0 - 1);
+      m = imin(m, imin(top[j * nt + t0 + 1], top[j * nt + t1 - (1 << j)]));
+    } else {
+      for (int t = t0 + 1; t < t1; ++t) m = imin(m, a.tmin[t]);
+    }
+  }
+  return m;
+}
+
 __global__ void __launch_bounds__(FIXG_THREADS) k_fixpoint(FixArgs a) {
   cg::grid_group grid = cg::this_grid();
+  extern __shared__ int smem[];
+  __shared__ int s_anc;
+  __shared__ int s_hits[2];
   const long gtid = blockIdx.x * (long)blockDim.x + threadIdx.x;
   const long gstride = (long)gridDim.x * blockDim.x;
-  const int u = 1 << a.log_u;
-  const int levels = a.log_u + 1;
-  for (long t = gtid; t < a.t_cap; t += gstride) a.conf[t] = a.hist[t];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const long u = 1L << a.log_u;
+  const int ts = 1 << a.tl;          // leaves a tile
+  const int lnt = a.log_u - a.tl;    // log2 tiles
+  const int nt = 1 << lnt;
+  const int lbpt = a.tl - a.lb;
+  const int bpt = 1 << lbpt;         // runs a tile
+  const int lv = lbpt + 1;           // in-tile table levels
+  const bool top_shared = nt > 1 && nt <= FIX_TOP_MAX;
+
+  for (long i = gtid; i < 2 * u; i += gstride) a.tree[i] = INF_I32;
+  for (long t = gtid; t < a.t_cap; t += gstride) a.cbuf[t] = a.hist[t];
+  if (gtid < 4) a.counts[gtid] = 0;
   grid.sync();
   int rounds = 0;
+  long held = 0;  // txns beyond the baseline the previous round held
   while (rounds <= a.t_cap) {
     ++rounds;
     const int cur = rounds & 1;
-    // Clear the tree; the next conflicts restart from the history-only
-    // baseline (a conflict inferred from a writer that later turns out
-    // conflicted must be retractable).
-    for (long i = gtid; i < 2L * u; i += gstride) a.tree[i] = INF_I32;
-    for (long t = gtid; t < a.t_cap; t += gstride) a.nconf[t] = a.hist[t];
-    // This round's flag was last read two rounds ago, behind barriers
-    // every thread has passed since; the previous round's flag may still
-    // be being read.
-    if (gtid == 0) a.changed[cur] = 0;
-    grid.sync();
-    // interval_min_cover, update half: writes of txns not conflicted.
+    const int* conf = a.cbuf + (long)(cur ^ 1) * a.t_cap;
+    int* nconf = a.cbuf + (long)cur * a.t_cap;
+    // --- update: writes of txns not conflicted; the round's conflicts
+    // restart from the history-only baseline (a conflict inferred from a
+    // writer that later turns out conflicted must be retractable).  The
+    // buffer was last read by the previous round's queries, behind a
+    // barrier.
+    for (long t = gtid; t < a.t_cap; t += gstride) nconf[t] = a.hist[t];
     for (long w = gtid; w < a.w_cap; w += gstride) {
-      int wt = a.w_txn[w];
-      int l = a.w_pb[w], r = a.w_pe[w];
-      if (!a.w_ok[w] || a.conf[clampi(wt, 0, a.t_cap - 1)] || !(l < r))
+      const int wt = a.w_txn[w];
+      const int l = a.w_pb[w], r = a.w_pe[w];
+      if (!a.w_ok[w] || conf[clampi(wt, 0, a.t_cap - 1)] || !(l < r))
         continue;
-      int li = clampi(l, 0, u) + u;
-      int ri = clampi(r, 0, u) + u;
-      for (int lvl = 0; lvl < levels && li < ri; ++lvl) {
+      long li = clampi(l, 0, (int)u) + u;
+      long ri = clampi(r, 0, (int)u) + u;
+      for (int lvl = 0; lvl <= a.log_u && li < ri; ++lvl) {
         if (li & 1) atomicMin(&a.tree[li], wt);
         if (ri & 1) atomicMin(&a.tree[ri - 1], wt);
         li = (li + (li & 1)) >> 1;
@@ -94,71 +204,142 @@ __global__ void __launch_bounds__(FIXG_THREADS) k_fixpoint(FixArgs a) {
       }
     }
     grid.sync();
-    // Pushdown: a leaf's cover is the min over it and its ancestors;
-    // table level 0 holds it negated (build_min_table).
-    for (long g = gtid; g < u; g += gstride) {
-      int m = INF_I32;
-      for (long node = g + u; node >= 1; node >>= 1) {
-        int v = a.tree[node];
-        m = v < m ? v : m;
+    // --- pushdown, a tile a block.  The next round's counts are reset
+    // here: their last reader passed the barrier above.
+    if (gtid < 2) a.counts[(cur ^ 1) * 2 + gtid] = 0;
+    int* heap = smem;               // local heap: heap[1] is the tile root
+    int* tbl = smem + 2 * ts;       // the in-tile table, [lv][bpt]
+    for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+      const long root = (long)nt + t;
+      if (tid < 32) {  // the min over the root's lnt ancestors
+        int m = INF_I32;
+        for (int k = lane; k < lnt; k += 32)
+          m = imin(m, a.tree[root >> (k + 1)]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          m = imin(m, __shfl_xor_sync(0xffffffffu, m, o));
+        if (lane == 0) s_anc = m;
       }
-      a.table[g] = -m;
+      for (int q = tid + 1; q < 2 * ts; q += blockDim.x) {
+        const int k = flog2(q);
+        const long node = (root << k) + (q - (1 << k));
+        const int v = a.tree[node];
+        heap[q] = v;
+        if (v != INF_I32) a.tree[node] = INF_I32;
+      }
+      __syncthreads();
+      if (tid == 0) heap[1] = imin(heap[1], s_anc);
+      __syncthreads();
+      for (int k = 1; k <= a.tl; ++k) {
+        for (int i = tid; i < (1 << k); i += blockDim.x) {
+          const int q = (1 << k) + i;
+          heap[q] = imin(heap[q], heap[q >> 1]);
+        }
+        __syncthreads();
+      }
+      const int* leaf = heap + ts;
+      int* cover = a.cover + (long)t * ts;
+      for (int i = tid; i < ts; i += blockDim.x) cover[i] = leaf[i];
+      for (int i = tid; i < bpt; i += blockDim.x) {
+        // A run's minimum; the rotation keeps a warp's lanes on distinct
+        // banks.
+        const int* run = leaf + (i << a.lb);
+        const int n = 1 << a.lb;
+        int m = INF_I32;
+        for (int k = 0; k < n; ++k) m = imin(m, run[(k + i) & (n - 1)]);
+        tbl[i] = m;
+      }
+      __syncthreads();
+      for (int j = 1; j < lv; ++j) {
+        const int h = 1 << (j - 1);
+        for (int i = tid; i < bpt; i += blockDim.x) {
+          const int x = tbl[(j - 1) * bpt + i];
+          const int y = i + h < bpt ? tbl[(j - 1) * bpt + i + h] : INF_I32;
+          tbl[j * bpt + i] = imin(x, y);
+        }
+        __syncthreads();
+      }
+      int* out = a.intile + (long)t * lv * bpt;
+      for (int i = tid; i < lv * bpt; i += blockDim.x) out[i] = tbl[i];
+      if (tid == 0) a.tmin[t] = tbl[(lv - 1) * bpt];
+      __syncthreads();  // the next tile reuses the shared memory
     }
     grid.sync();
-    for (int j = 1; j < levels; ++j) {
-      const int* prev = a.table + (long)(j - 1) * u;
-      int* row = a.table + (long)j * u;
-      const long shift = 1L << (j - 1);
-      for (long i = gtid; i < u; i += gstride) {
-        int x = prev[i];
-        int y = i + shift < u ? prev[i + shift] : NEG_INF_I32;
-        row[i] = x > y ? x : y;
+    // --- queries.  The ancestors above the tiles (nodes [1, nt)) were
+    // read in the pushdown; reset them for the next round here.
+    for (long i = gtid + 1; i < nt; i += gstride)
+      if (a.tree[i] != INF_I32) a.tree[i] = INF_I32;
+    const int* top = nullptr;
+    if (top_shared) {
+      int* tt = smem;
+      for (int i = tid; i < nt; i += blockDim.x) tt[i] = a.tmin[i];
+      __syncthreads();
+      for (int j = 1; j <= lnt; ++j) {
+        const int h = 1 << (j - 1);
+        for (int i = tid; i < nt; i += blockDim.x) {
+          const int x = tt[(j - 1) * nt + i];
+          const int y = i + h < nt ? tt[(j - 1) * nt + i + h] : INF_I32;
+          tt[j * nt + i] = imin(x, y);
+        }
+        __syncthreads();
       }
-      grid.sync();
+      top = tt;
     }
-    // range_min over each live read's gap span; a hit is an earlier
-    // surviving writer.
+    if (tid < 2) s_hits[tid] = 0;
+    __syncthreads();
     for (long r = gtid; r < a.r_cap; r += gstride) {
       if (!a.r_live[r]) continue;
-      int rt = a.r_txn[r];
-      int m = -range_max(a.table, u, a.r_pb[r], a.r_pe[r]);
-      if (m < rt) {
-        long d = scatter_index(rt, a.t_cap);
-        if (d >= 0) a.nconf[d] = 1;
+      const int rt = a.r_txn[r];
+      const int l = clampi(a.r_pb[r], 0, (int)u);
+      const int e = clampi(a.r_pe[r], 0, (int)u);
+      if (cover_min(a, top, nt, l, e) < rt) {
+        const long d = scatter_index(rt, a.t_cap);
+        if (d >= 0 && atomicMax(&nconf[d], 1) < 1)
+          atomicAdd(&s_hits[conf[d] == 1 ? 1 : 0], 1);
       }
     }
+    __syncthreads();
+    if (tid < 2 && s_hits[tid] != 0)
+      atomicAdd(&a.counts[cur * 2 + tid], s_hits[tid]);
     grid.sync();
-    bool ch = false;
-    for (long t = gtid; t < a.t_cap; t += gstride) {
-      int v = a.nconf[t];
-      if (v != a.conf[t]) {
-        a.conf[t] = v;
-        ch = true;
-      }
-    }
-    if (ch) a.changed[cur] = 1;
-    grid.sync();
-    if (*(volatile int*)&a.changed[cur] == 0) break;
+    // This round changed iff it holds a txn the previous round did not, or
+    // fewer of the previous round's (a txn beyond the baseline is held iff
+    // some read hit it, so counting first hits covers every change).
+    const long fresh = *(volatile int*)&a.counts[cur * 2];
+    const long kept = *(volatile int*)&a.counts[cur * 2 + 1];
+    const bool changed = fresh != 0 || kept != held;
+    held = fresh + kept;
+    if (!changed) break;
   }
+  const int* final_conf = a.cbuf + (long)(rounds & 1) * a.t_cap;
+  for (long t = gtid; t < a.t_cap; t += gstride) a.conf[t] = final_conf[t];
   if (gtid == 0) {
     a.rounds[0] = rounds;
     if (a.rounds_acc != nullptr) a.rounds_acc[0] += rounds;
   }
 }
 
+// scratch: int32[scratch_len] holding FixLayout's sections; a shorter one
+// is refused (cudaErrorInvalidValue) before anything is launched.
 extern "C" int sg_fixpoint(int t_cap, int r_cap, int w_cap, int log_u,
                            const void* hist, const void* r_txn,
                            const void* r_live, const void* r_pb,
                            const void* r_pe, const void* w_txn,
                            const void* w_ok, const void* w_pb,
-                           const void* w_pe, void* tree, void* table,
-                           void* nconf, void* changed, void* conf,
-                           void* rounds, void* rounds_acc, void* stream) {
+                           const void* w_pe, void* scratch, long scratch_len,
+                           void* conf, void* rounds, void* rounds_acc,
+                           void* stream) {
   FixArgs a;
   a.t_cap = t_cap;
   a.r_cap = r_cap;
   a.w_cap = w_cap;
   a.log_u = log_u;
+  a.tl = log_u < FIX_TILE_LOG ? log_u : FIX_TILE_LOG;
+  a.lb = a.tl < FIX_BLOCK_LOG ? a.tl : FIX_BLOCK_LOG;
+  const FixLayout lay = fix_layout(t_cap, log_u, a.tl, a.lb);
+  if (t_cap < 1 || log_u < 1 || log_u > 30 || scratch_len < lay.total)
+    return (int)cudaErrorInvalidValue;
+  int* s = (int*)scratch;
   a.hist = (const int*)hist;
   a.r_txn = (const int*)r_txn;
   a.r_live = (const int*)r_live;
@@ -168,20 +349,36 @@ extern "C" int sg_fixpoint(int t_cap, int r_cap, int w_cap, int log_u,
   a.w_ok = (const int*)w_ok;
   a.w_pb = (const int*)w_pb;
   a.w_pe = (const int*)w_pe;
-  a.tree = (int*)tree;
-  a.table = (int*)table;
-  a.nconf = (int*)nconf;
-  a.changed = (int*)changed;
+  a.tree = s + lay.tree;
+  a.cover = s + lay.cover;
+  a.intile = s + lay.intile;
+  a.tmin = s + lay.tmin;
+  a.cbuf = s + lay.cbuf;
+  a.counts = s + lay.counts;
   a.conf = (int*)conf;
   a.rounds = (int*)rounds;
   a.rounds_acc = (int*)rounds_acc;
+  const int ts = 1 << a.tl;
+  const int lnt = log_u - a.tl;
+  const int nt = 1 << lnt;
+  const int lv = a.tl - a.lb + 1;
+  size_t smem = (size_t)(2 * ts + lv * (ts >> a.lb)) * sizeof(int);
+  if (nt > 1 && nt <= FIX_TOP_MAX) {
+    const size_t top = (size_t)(lnt + 1) * nt * sizeof(int);
+    if (top > smem) smem = top;
+  }
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
+  // Set before the occupancy query, or a launch above 48 KB is refused.
+  err = cudaFuncSetAttribute(k_fixpoint,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_fixpoint,
-                                                      FIXG_THREADS, 0);
+                                                      FIXG_THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   long work = 2L << log_u;
   if (r_cap > work) work = r_cap;
@@ -193,7 +390,7 @@ extern "C" int sg_fixpoint(int t_cap, int r_cap, int w_cap, int log_u,
   if (grid < 1) grid = 1;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel((void*)k_fixpoint, dim3(grid),
-                                    dim3(FIXG_THREADS), args, 0,
+                                    dim3(FIXG_THREADS), args, smem,
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -86,13 +86,7 @@ _SIGS = {
         "pi_scatter_old": "ippl" "ppppp" "p",
         "pi_scatter_new": "ippl" "ppppp" "p",
         "pi_commit": "ippl" "pppppppp" "p",
-        "mg_probe_delta": "ippi" "ppppppp" "p",
-        "mg_base": "ipppp" "ipppp" "ppp" "p",
-        "mg_place_base": "ipppppp" "lpp" "p",
-        "mg_place_delta": "ipppi" "pplpp" "p",
-        "mg_gc_mask": "lpipipip" "p",
-        "mg_reset": "ippipp" "p" "p",
-        "mg_finish": "plippp" "p",
+        "mg_merge": "ppip" "ppip" "pp" "ii" "plp" "p",
     },
     "intra_batch": {
         "ib_txn_prep": "iii" "ppppp" "ppp" "p",
@@ -105,7 +99,7 @@ _SIGS = {
         "ig_codes": "ii" "ppppppp" "p",
     },
     "sort": {"so_sort": "li" "pppppp" "p"},
-    "segtree": {"sg_fixpoint": "iiii" "ppppppppp" "pppppp" "p" "p"},
+    "segtree": {"sg_fixpoint": "iiii" "ppppppppp" "pl" "ppp" "p"},
     "window": {
         "wq_query": "pipppp" "plp" "p",
         "wu_endpoints": "l" "pppppp" "p",

@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Time the port's build_sparse_table and sort_rows of one checkout on one
-NVIDIA GPU, at the shapes the conflict path hands them.
+"""Time the port's redesigned kernels of one checkout on one NVIDIA GPU, at
+the shapes the conflict path hands them.
 
-  python3 scripts/torch_kernel_ab.py [--root DIR] [--label NAME] [--profile]
+  python3 scripts/torch_kernel_ab.py [--root DIR] [--label NAME]
+      [--cases table,sort,fixpoint,merge] [--profile]
 
 DIR (default: the checkout holding this script) is the checkout whose
 foundationdb_tpu_torch package is timed; its kernels are built from its own
 csrc/ into its own build/.  The inputs, the checks and the timing are this
-checkout's chip_smoke.py: table_sizes (2^18, 2^20, 2^21) and sort_inputs
-((a) the config-3 universe of one batch, (b) random 32-byte digests, (c)
-rows sharing an 8-byte prefix, and the window path's endpoint sort).  So
-two commits are compared on one card by running this once per checkout in
-one session, in turns (parent, change, change, parent).  Prints one JSON
-line: each case's launches a call, own device time, plain time, bound and
-equality with the plain version (any difference fails the run).  With
+checkout's chip_smoke.py:
+  table     build_sparse_table at 2^18, 2^20, 2^21 (table_sizes);
+  sort      sort_rows on (a) the config-3 universe of one batch, (b)
+            random 32-byte digests, (c) rows sharing an 8-byte prefix, and
+            the window path's endpoint sort (sort_inputs);
+  fixpoint  interval_fixpoint on one config-3 batch against an empty
+            history (general_fixpoint_inputs: U = 2^21) and on a 200-deep
+            chain of ranges at config-3 width (general_deep_chain);
+  merge     the merge at config 2's tiers (2^21 / 2^20, 1,000,001 and
+            200,001 live rows) and at one config-5 shard's (2^20 / 2^18,
+            250,001 and 60,001), synthetic sorted digests (merge_state).
+So two commits are compared on one card by running this once per
+checkout on that card, in turns (parent, change, change, parent).  Prints
+one JSON line: each case's launches a call, own device time, plain time,
+bound and equality with the plain version (any difference fails the
+run).  With
 --profile it adds, under "profile", each kernel's mean device time and
-launches per call by torch.profiler, for the table at 2^21 and for each
-sort input, and the time of a copy_ of the universe's rows (the bytes of
-one sort pass: a floor for a pass).
+launches per call by torch.profiler, for the table at 2^21, each sort
+input, the config-3 fixpoint and the config-2 merge, and the time of a
+copy_ of the universe's rows (the bytes of one sort pass: a floor for a
+pass).
 """
 
 from __future__ import annotations
@@ -38,8 +49,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="")
+    ap.add_argument("--cases", default="table,sort,fixpoint,merge")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
+    cases = set(args.cases.split(","))
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -54,20 +67,41 @@ def main() -> int:
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
     assert K.CSRC.startswith(root), K.CSRC
     K.build()
-    tables = S.table_sizes()
+    from foundationdb_tpu_torch.conflict import fused
+    from foundationdb_tpu_torch.ops.rangemax import NEG_INF
     _, enc, _ = S.make_stream3(np.random.default_rng(17), 1)[0]
     packed = TorchConflictSet._pack(enc)
-    _, r_cap, w_cap = packed["caps"]
+    t_cap, r_cap, w_cap = packed["caps"]
     n_rows = 2 * (r_cap + w_cap)
-    universe = torch.from_numpy(
-        packed["buf"][:32 * n_rows].view(np.int32).reshape(n_rows, 8)
-        .copy()).to(S.DEVICE)
-    sorts = S.sort_inputs(universe, r_cap, w_cap, enc.w_txn.shape[0])
-    out = {"label": args.label, "root": os.path.relpath(root, HERE),
-           "build_sparse_table": tables, "sort_rows": sorts}
+    buf = torch.from_numpy(packed["buf"]).to(S.DEVICE)
+    universe = buf[:32 * n_rows].view(torch.int32).view(n_rows, 8).clone()
+    out = {"label": args.label, "root": os.path.relpath(root, HERE)}
+    if "table" in cases:
+        out["build_sparse_table"] = S.table_sizes()
+    if "sort" in cases:
+        out["sort_rows"] = S.sort_inputs(universe, r_cap, w_cap,
+                                         enc.w_txn.shape[0])
+    m = fused.unpack_meta(buf[32 * n_rows:].view(torch.int32), t_cap, r_cap,
+                          w_cap)
+    vmax = torch.full((r_cap,), NEG_INF, dtype=torch.int32, device=S.DEVICE)
+    _, fix_in, log_u = S.general_fixpoint_inputs(universe, m, vmax)
+    merges = {"config2": (1 << 21, 1 << 20, 1_000_000, 200_000),
+              "config5_shard": (1 << 20, 1 << 18, 250_000, 60_000)}
+    if "fixpoint" in cases:
+        out["interval_fixpoint"] = {
+            "config3": fixpoint_case(S, K, fused, fix_in, log_u),
+            "deep_chain": S.general_deep_chain(fused, t_cap, r_cap, w_cap,
+                                               log_u)}
+    if "merge" in cases:
+        out["merge"] = [
+            S.merge_at(what, S.merge_state(cap, d_cap, n_b, n_d), cap,
+                       d_cap, (2500, 1000), expect_launches=None, reps=20)
+            for what, (cap, d_cap, n_b, n_d) in merges.items()]
     if args.profile:
+        cap, d_cap, n_b, n_d = merges["config2"]
         out["profile"] = profile(S, universe, r_cap, w_cap,
-                                 enc.w_txn.shape[0])
+                                 enc.w_txn.shape[0], fix_in, log_u,
+                                 S.merge_state(cap, d_cap, n_b, n_d))
     out["gpu"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -76,12 +110,30 @@ def main() -> int:
     return 0
 
 
-def profile(S, universe, r_cap: int, w_cap: int, n_writes: int,
-            calls: int = 5) -> dict:
+def fixpoint_case(S, K, fused, fix_in, log_u: int, reps: int = 20) -> dict:
+    """interval_fixpoint on one batch's inputs: launches a call, rounds,
+    equality with the plain version, own device ms, plain ms, bound."""
+    K.reset_counts()
+    conf, rounds = fused.interval_fixpoint(*fix_in, log_u)
+    launches = sum(K.LAUNCHES.values())
+    want = fused.interval_fixpoint(*fix_in, log_u, impl="plain")
+    err = S.require_equal("interval_fixpoint", (conf, rounds), want)
+    return {"log_u": log_u, "rounds": int(rounds[0]),
+            "launches_per_call": launches, "max_abs_err": err,
+            "ms": S.device_ms(lambda: fused.interval_fixpoint(*fix_in, log_u),
+                              reps=reps, counter="interval_fixpoint"),
+            "plain_ms": S.cuda_ms(lambda: fused.interval_fixpoint(
+                *fix_in, log_u, impl="plain"), reps=2),
+            "bound_ms": S.bound_ms(S.nbytes(*fix_in, conf))}
+
+
+def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
+            log_u: int, merge_in: dict, calls: int = 5) -> dict:
     """Per-kernel device time (mean microseconds a launch) and launches a
     call, by torch.profiler over `calls` calls of each case."""
     import torch
     from torch.profiler import ProfilerActivity
+    from foundationdb_tpu_torch.conflict import fused
     from foundationdb_tpu_torch.ops.rangemax import build_sparse_table
     from foundationdb_tpu_torch.ops.sort import sort_rows
     g = torch.Generator(device=S.DEVICE).manual_seed(5)
@@ -92,6 +144,17 @@ def profile(S, universe, r_cap: int, w_cap: int, n_writes: int,
                                                 n_writes).items():
         cases[f"sort_{what}"] = (lambda rows=rows, tie=tie, pay=pay:
                                  sort_rows(rows, tie=tie, payload=pay))
+    cases["fixpoint_config3"] = lambda: fused.interval_fixpoint(*fix_in,
+                                                                log_u)
+    step = fused.make_merge_step(merge_in["bk"].shape[0],
+                                 merge_in["dk"].shape[0])
+
+    def merge():  # on a copy: the merge updates its state in place
+        st = {k: t.clone() for k, t in merge_in.items()}
+        step(st["bk"], st["bv"], st["table"], st["size"], st["dk"],
+             st["dv"], st["dsize"], st["flag"], (2500, 1000))
+
+    cases["merge_config2"] = merge
     result = {}
     for name, fn in cases.items():
         fn()

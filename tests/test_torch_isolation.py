@@ -13,6 +13,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "foundationdb_tpu_torch", "foundationdb_tpu_torch.kernels",
+    "foundationdb_tpu_torch.core.knobs", "foundationdb_tpu_torch.conflict.api",
     "foundationdb_tpu_torch.conflict.torch_backend",
     "foundationdb_tpu_torch.conflict.fused",
     "foundationdb_tpu_torch.conflict.window",

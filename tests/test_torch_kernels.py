@@ -897,3 +897,267 @@ def test_sharded_window_kernels_equal_plain(dev):
         w.gc(4000, 1000)
     for a, b in zip(wins[0].state_to_numpy(), wins[1].state_to_numpy()):
         assert np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# interval_fixpoint (csrc/segtree.cu): tiles, runs and the tile table
+# ---------------------------------------------------------------------------
+
+RUN = 1 << fused.FIX_BLOCK_LOG          # gaps a run minimum covers
+TILE = 1 << fused.FIX_TILE_LOG          # gaps a pushdown tile owns
+
+
+def span_columns(rng, n: int, u: int):
+    """n spans [pb, pe) over U gaps: lengths 0, 1, RUN, RUN + 1, TILE,
+    TILE + 1, 2 * TILE + 1, random and all of U, at random, run- and
+    tile-aligned starts; a few reversed (empty)."""
+    lengths = np.array([0, 1, 2, RUN - 1, RUN, RUN + 1, 2 * RUN + 1, TILE,
+                        TILE + 1, 2 * TILE + 1, u // 3, u])
+    ln = np.minimum(lengths[rng.integers(0, lengths.size, n)], u)
+    ln = np.minimum(np.where(rng.random(n) < 0.3, rng.integers(0, 8, n), ln),
+                    u)
+    start = rng.integers(0, u + 1, n)
+    aligned = rng.random(n)
+    start = np.where(aligned < 0.2, start // RUN * RUN, start)
+    start = np.where((aligned >= 0.2) & (aligned < 0.3), start // TILE * TILE,
+                     start)
+    start = np.minimum(start, u - ln)
+    pb, pe = start, start + ln
+    rev = rng.random(n) < 0.05
+    return (np.where(rev, pe, pb).astype(np.int32),
+            np.where(rev, pb, pe).astype(np.int32))
+
+
+def fixpoint_inputs(dev, log_u: int, t_cap: int, n_r: int, n_w: int,
+                    seed: int):
+    """interval_fixpoint's columns for a random batch over U = 2^log_u
+    gaps: reads and writes sorted by txn, ~5% history conflicts, ~10% dead
+    reads and writes, writes at both edges of the universe, padding past
+    the live columns."""
+    rng = np.random.default_rng(seed)
+    u = 1 << log_u
+    r_cap, w_cap = n_r + 64, n_w + 64
+    r_txn = np.full(r_cap, t_cap, np.int32)
+    r_txn[:n_r] = np.sort(rng.integers(0, t_cap, n_r))
+    w_txn = np.full(w_cap, t_cap, np.int32)
+    w_txn[:n_w] = np.sort(rng.integers(0, t_cap, n_w))
+    r_pb, r_pe = span_columns(rng, r_cap, u)
+    w_pb, w_pe = span_columns(rng, w_cap, u)
+    w_pb[:4], w_pe[:4] = [0, 0, u - 1, u - RUN], [1, RUN + 1, u, u]
+    cols = [(rng.random(t_cap) < 0.05).astype(np.int32), r_txn,
+            ((np.arange(r_cap) < n_r) & (rng.random(r_cap) < 0.9)),
+            r_pb, r_pe, w_txn,
+            ((np.arange(w_cap) < n_w) & (rng.random(w_cap) < 0.9)),
+            w_pb, w_pe]
+    return [torch.from_numpy(np.asarray(c, np.int32)).to(dev) for c in cols]
+
+
+def check_fixpoint(args, log_u: int, depth=None):
+    K.reset_counts()
+    acc = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+    got, got_rounds = fused.interval_fixpoint(*args, log_u, rounds_acc=acc)
+    assert K.LAUNCHES["interval_fixpoint"] == 1
+    assert sum(K.LAUNCHES.values()) == 1
+    want, rounds = fused.interval_fixpoint(*args, log_u, impl="plain")
+    same(got, want)
+    assert int(got_rounds[0]) == int(rounds[0]) == int(acc[0])
+    if depth is not None:
+        assert int(rounds[0]) == depth
+    return int(rounds[0])
+
+
+@pytest.mark.parametrize("log_u", list(range(12, 22)))
+def test_interval_fixpoint_universe_sizes(dev, log_u):
+    """U from 2^12 (one tile) to 2^21 (config 3's universe, 512 tiles):
+    reads spanning 0, 1, a run, a run + 1, tiles and all gaps, writes at
+    the universe's edges and empty spans; conflicts and rounds equal the
+    plain version's, one launch."""
+    t_cap = 1 << 12
+    n = min(1 << (log_u - 2), 1 << 17)
+    args = fixpoint_inputs(dev, log_u, t_cap, n, n // 4, seed=log_u)
+    assert check_fixpoint(args, log_u) >= 2
+
+
+@pytest.mark.parametrize("log_u", [1, 3, 5, 7, 23])
+def test_interval_fixpoint_small_and_huge_universe(dev, log_u):
+    """Universes below a run and a tile, and 2^23, whose 2,048 tiles
+    exceed the shared tile table (the reads loop over the tile minima)."""
+    t_cap = 256
+    n = max(min(1 << log_u, 1 << 16), 8)
+    args = fixpoint_inputs(dev, log_u, t_cap, n, max(n // 4, 4), seed=7)
+    check_fixpoint(args, log_u)
+
+
+@pytest.mark.parametrize("depth,log_u", [(60, 12), (200, 21), (1, 16)])
+def test_interval_fixpoint_deep_chain(dev, depth, log_u):
+    """txn i reads one gap of the span txn i - 1 writes: the Jacobi rounds
+    equal the depth (each three grid barriers), conflicts alternate."""
+    u = 1 << log_u
+    t = np.arange(depth, dtype=np.int32)
+    stride = u // (depth + 2)
+    ones = np.ones(depth, np.int32)
+    cols = [np.zeros(depth, np.int32), t, ones, t * stride + 1,
+            t * stride + 2, t, ones, t * stride, (t + 1) * stride + 2]
+    args = [torch.from_numpy(np.asarray(c, np.int32)).to(dev) for c in cols]
+    check_fixpoint(args, log_u, depth=depth)
+    got, _ = fused.interval_fixpoint(*args, log_u)
+    assert got.cpu().tolist() == [i % 2 for i in range(depth)]
+
+
+# ---------------------------------------------------------------------------
+# the merge (csrc/rank_scan.cu mg_merge): partition, merge, finish
+# ---------------------------------------------------------------------------
+
+def digest_rows(rng, n: int, prefix: int = 0x6B303030) -> np.ndarray:
+    """n distinct sorted rows: lanes 0-5 a shared prefix, lanes 6-7 a
+    random 64-bit key over the whole uint32 range of both lanes."""
+    keys = np.unique(rng.integers(0, 1 << 63, size=n + n // 8 + 8,
+                                  dtype=np.int64).astype(np.uint64) * 2 + 1)
+    keys = np.sort(rng.permutation(keys)[:n])
+    rows = np.full((n, 8), prefix, np.uint32)
+    rows[:, 6] = (keys >> np.uint64(32)).astype(np.uint32)
+    rows[:, 7] = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return rows
+
+
+def tier(rows: np.ndarray, cap: int, lo_v: int, hi_v: int, rng):
+    """A tier of capacity cap: the zero row, then `rows`, then MAX rows;
+    versions in [lo_v, hi_v), NEG_INF past the live rows."""
+    n = 1 + rows.shape[0]
+    k = np.full((cap, 8), 0xFFFFFFFF, np.uint32)
+    k[0] = 0
+    k[1:n] = rows
+    v = np.full(cap, NEG_INF, np.int32)
+    v[:n] = rng.integers(lo_v, hi_v, n)
+    return torch.from_numpy(k.view(np.int32)), torch.from_numpy(v), n
+
+
+def merge_state(dev, cap: int, d_cap: int, n_b: int, n_d: int, seed: int,
+                shared: float = 0.3, dup_all: bool = False,
+                empty_base: bool = False, empty_delta: bool = False,
+                flag: int = 0) -> dict:
+    """A base of n_b + 1 live rows and a delta of n_d + 1 (each starting
+    at the zero row), a `shared` fraction of the delta's rows equal to
+    base rows (all of them with dup_all); an empty tier has size 0."""
+    rng = np.random.default_rng(seed)
+    b_rows = digest_rows(rng, n_b)
+    if dup_all:
+        d_rows = b_rows[:n_d]
+    else:
+        n_sh = min(int(shared * n_d), n_b)
+        pool = np.concatenate([b_rows[rng.choice(n_b, n_sh, replace=False)],
+                               digest_rows(rng, n_d - n_sh, 0x6B303031)])
+        d_rows = pool[np.lexsort(pool.T[::-1])]
+    bk, bv, size = tier(b_rows, cap, 0, 4000, rng)
+    dk, dv, dsize = tier(d_rows, d_cap, 3000, 6000, rng)
+    if empty_base:
+        bk[:] = -1
+        bv[:] = NEG_INF
+        size = 0
+    if empty_delta:
+        dk[:] = -1
+        dv[:] = NEG_INF
+        dsize = 0
+    st = {"bk": bk, "bv": bv, "size": torch.tensor([size], dtype=torch.int32),
+          "dk": dk, "dv": dv,
+          "dsize": torch.tensor([dsize], dtype=torch.int32),
+          "flag": torch.tensor([flag], dtype=torch.int32)}
+    st["table"] = rangemax.build_sparse_table(bv)
+    return {k: v.to(dev) for k, v in st.items()}
+
+
+def check_merge(st, cap: int, d_cap: int, scalars, first=None):
+    outs = []
+    for impl in (None, "plain"):
+        s = copy(st)
+        m = fused.make_merge_step(cap, d_cap, impl=impl)
+        K.reset_counts()
+        outs.append(m(s["bk"], s["bv"], s["table"], s["size"], s["dk"],
+                      s["dv"], s["dsize"], s["flag"], scalars, first))
+        if impl is None:
+            launches = dict(K.LAUNCHES)
+    same(outs[0], outs[1])
+    assert launches["merge"] == 3
+    assert launches["merge"] + launches["build_sparse_table"] <= 4 + 2
+    assert sum(launches.values()) == (launches["merge"]
+                                      + launches["build_sparse_table"])
+    return outs[0]
+
+
+CAP_S, DCAP_S = 1 << 13, 1 << 11
+
+
+@pytest.mark.parametrize("case", [
+    "plain", "empty_base", "empty_delta", "both_empty", "reset_delta",
+    "full_base", "dup_all", "gc_keeps_row_0", "rebase_wrap", "overflow",
+    "overflow_by_delta", "first_row"])
+def test_merge_cases(dev, case):
+    """The merge against its plain version: empty tiers, a just-reset
+    delta (its zero row only), a full base (size == cap), a delta that
+    duplicates every base row, GC that keeps only row 0, a rebase at the
+    int32 wrap edge, size + dsize > cap (the flag set, the poisoned state
+    equal) and a shard's `first` row for the reset delta."""
+    kw, scalars, first = {}, (2500, 1500), None
+    n_b, n_d = 5000, 1500
+    if case == "empty_base":
+        kw["empty_base"] = True
+    elif case == "empty_delta":
+        kw["empty_delta"] = True
+    elif case == "both_empty":
+        kw.update(empty_base=True, empty_delta=True)
+    elif case == "reset_delta":
+        n_d = 0
+    elif case == "full_base":  # the delta's zero row twins the base's
+        n_b, n_d, scalars = CAP_S - 1, 0, (-(1 << 31) + 2, 0)
+    elif case == "dup_all":
+        n_b, n_d, kw["dup_all"] = 1800, 1800, True
+    elif case == "gc_keeps_row_0":
+        scalars = (1 << 30, 0)
+    elif case == "rebase_wrap":
+        scalars = (-(1 << 31) + 2, -(1 << 31) + 5)
+    elif case in ("overflow", "overflow_by_delta"):
+        n_b, scalars = (CAP_S - 100, (0, 0)) if case == "overflow" else (
+            CAP_S - 1, (0, 7))
+        kw["flag"] = 0
+    st = merge_state(dev, CAP_S, DCAP_S, n_b, n_d, seed=len(case), **kw)
+    if case == "first_row":
+        first = st["dk"][3].clone()
+        st["bv"][0] = NEG_INF + 5
+    out = check_merge(st, CAP_S, DCAP_S, scalars, first)
+    size, flag = int(out[3][0]), int(out[7][0])
+    assert int(out[6][0]) == 1
+    if case.startswith("overflow"):
+        assert flag == 1 and size == CAP_S
+    else:
+        assert flag == 0
+    if case == "full_base":
+        assert size == CAP_S
+    if case == "gc_keeps_row_0":
+        assert size == 1
+    if case == "both_empty":
+        assert size == 0
+
+
+@pytest.mark.parametrize("total", [1, 1015, 1016, 1017, 2031, 2032, 2033,
+                                   3 * 1016 + 1])
+def test_merge_tile_edges(dev, total):
+    """Merged lengths around multiples of the 1,016-element tile, with the
+    tier boundary and the dropped twins falling at tile edges."""
+    n_d = max(total // 3 - 1, 0)
+    n_b = max(total - n_d - 2, 0)
+    st = merge_state(dev, 4096, 2048, n_b, n_d, seed=total, shared=0.0)
+    assert int(st["size"][0]) + int(st["dsize"][0]) == max(total, 2)
+    check_merge(st, 4096, 2048, (0, 0))
+    st = merge_state(dev, 4096, 2048, n_b, n_d, seed=total, shared=0.5)
+    check_merge(st, 4096, 2048, (2000, 3))
+
+
+@pytest.mark.parametrize("shape", ["config2", "config5_shard"])
+def test_merge_full_shapes(dev, shape):
+    """Config 2's tiers (2^21 / 2^20, ~1.5M and ~200K live rows) and one
+    config-5 shard's (2^20 / 2^18), GC and rebase on."""
+    cap, d_cap, n_b, n_d = ((1 << 21, 1 << 20, 1_500_000, 200_000)
+                            if shape == "config2" else
+                            (1 << 20, 1 << 18, 300_000, 60_000))
+    st = merge_state(dev, cap, d_cap, n_b, n_d, seed=5)
+    check_merge(st, cap, d_cap, (2500, 1000))
