@@ -43,7 +43,11 @@ exits non-zero):
      300-deep chain at config-2 width (rounds equal to the depth);
      build_sparse_table also at 2^18, 2^20 and 2^21 (a shard's delta, the
      delta, the base), at most two launches a call; the merge's launches
-     a call (3, and 5 with the base table);
+     a call (3, and 5 with the base table); the point insert on the
+     warmed delta (insert_at: 4 launches a call and no scan, sort, search,
+     rank count or compaction; its own and whole device ms, bounds over
+     the live rows and over the full-capacity passes of a histogram-and-
+     scatter insert);
   3. the point path: 3 warmup batches, 10 at pipeline depth 8, 8 at depth
      1; oracle parity in both contention regimes; kernel-vs-plain state
      equality across a merge;
@@ -55,7 +59,9 @@ exits non-zero):
      sort_rounds(n) launches a call, and the spread of its times over
      (a)-(c); interval_fixpoint's rounds (equal to the plain version's),
      one launch a call, and a 200-deep chain of ranges at config-3 width
-     (rounds equal to the depth);
+     (rounds equal to the depth); window_insert on the general step's
+     delta and on path 3's window (insert_at: 3 launches a call beyond
+     _union_ranges', which it no longer adds to);
   5. the general path on config 3 (3 + 10 at depth 8 + 8 at depth 1): the
      path_general line, commit rate in 0.05-0.95;
   6. oracle parity on 6 batches of 1,000 config-3 txns over 1M records,
@@ -67,7 +73,8 @@ exits non-zero):
   9. the shard wrappers (clip_rows, shard_combine, shard_commit) and the
      programs #8 (sharded compact step and merge at config 5, sharded
      general step at config 3) and #9 (sharded window step and gc), kernel
-     against plain; one shard's merge alone at its shape;
+     against plain; one shard's merge and one shard's point insert alone
+     at its shape;
  10. the sharded path on config 5: fill, p50 at depth 1, shard balance,
      the at-capacity probe (2,048 committed writes re-read at snapshot 0
      must all conflict);
@@ -80,7 +87,8 @@ exits non-zero):
      window's), on spread random batches (bits and state equal the plain
      versions) and on an overflow of one shard (every shard unchanged);
  14. the JSON lines (programs and paths; kernels with launches per path,
-     each wrapper > 0 on the paths that use it), the card's name and power
+     each wrapper > 0 on the paths that use it),
+     the card's name and power
      limit, and the last line: {"ok": true, "device": {...}}.
 
 Run it from the repository root: python3 chip_smoke.py
@@ -132,24 +140,25 @@ def phase_done(name: str) -> None:
 
 # The wrappers each path must launch (counted with the counts set to 0
 # just before the path is driven and read just after).
-_SHARED = ["searchsorted", "rank_count", "inclusive_scan", "compact_rows",
-           "build_sparse_table"]
+# The inserts run no scan, search, rank count or compaction of ops/:
+# searchsorted runs on the general path only (the endpoint universe).
+_SHARED = ["inclusive_scan", "build_sparse_table"]
+_WINDOW = ["window_query", "sort_rows", "union_ranges", "window_insert",
+           "window_gc", "compact_rows", *_SHARED]
 PATH_KERNELS = {
     "point": ["widen_unique", "history_probe", "txn_prep", "read_write_prep",
               "intra_batch_fixpoint", "batch_codes", "point_insert", "merge",
               *_SHARED],
     "general": ["history_probe", "merge", "sort_rows", "general_prep",
                 "interval_fixpoint", "general_codes", "union_ranges",
-                "window_insert", *_SHARED],
-    "window": ["window_query", "sort_rows", "union_ranges", "window_insert",
-               "window_gc", *_SHARED],
+                "window_insert", "searchsorted", "compact_rows", *_SHARED],
+    "window": _WINDOW,
     "sharded": ["widen_unique", "history_probe", "txn_prep",
                 "read_write_prep", "intra_batch_fixpoint", "batch_codes",
                 "point_insert", "merge", "clip_rows", "shard_combine",
                 *_SHARED],
-    "sharded_window": ["window_query", "sort_rows", "union_ranges",
-                       "window_insert", "window_gc", "clip_rows",
-                       "shard_combine", "shard_commit", *_SHARED],
+    "sharded_window": [*_WINDOW, "clip_rows", "shard_combine",
+                       "shard_commit"],
 }
 
 
@@ -568,13 +577,6 @@ def compare_kernels(cs, packed, buf):
                 ("bk", "bv", "table", "size", "dk", "dv", "dtable", "dsize",
                  "flag")}
 
-    def insert_run(impl, st):
-        out = torch.zeros((3,), dtype=torch.int32, device=DEVICE)
-        fused._point_insert(st["dk"], st["dv"], st["dsize"], u_b, u_e, w_uid,
-                            w_ins, scal[4:5], st["flag"], bsize=st["size"],
-                            tail=out, impl=impl)
-        return (st["dk"], st["dv"], st["dsize"], st["flag"], out)
-
     def step_run(impl, st):
         step = fused.make_resolve_step_compact(
             CAPACITY, cs.d_cap, t_cap, r_pad, w_pad, u_pad, lw, impl=impl)
@@ -608,8 +610,6 @@ def compare_kernels(cs, packed, buf):
             lambda i: digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable,
                                            u_b, u_e, i),
             probe_bytes, None),
-        "rank_count": (lambda i: digest.rank_count(dpos, cs.d_cap, i),
-                       nbytes(dpos) + 4 * cs.d_cap, None),
         "inclusive_scan": (lambda i: scan.inclusive_scan(keep_s, i),
                            2 * nbytes(keep_s),
                            lambda: torch.cumsum(keep_s, 0,
@@ -639,17 +639,12 @@ def compare_kernels(cs, packed, buf):
         "batch_codes": (
             lambda i: _codes(fused, scal, too_old, conf, rw["w_txn"], i),
             nbytes(too_old, conf, rw["w_txn"], codes, w_ins), None),
-        # The pi_* kernels: the batch's keys and verdicts in, the delta
-        # read and rewritten (its scans and searches are rows of their own).
-        "point_insert": ("insert", nbytes(cs.dk, cs.dv, u_b, u_e, w_uid,
-                                          w_ins) + nbytes(cs.dk, cs.dv),
-                         None),
         # mg_merge: the live rows of base and delta in, the merged base and
         # the reset delta out (the base table is build_sparse_table's row).
         "merge": ("merge", merge_bytes(int(cs.size[0]), int(cs.dsize[0]),
                                        CAPACITY, cs.d_cap), None),
     }
-    stateful = {"insert": insert_run, "merge": merge_run}
+    stateful = {"merge": merge_run}
     from foundationdb_tpu_torch import kernels as K
     rows = []
     for name, (fn, n_bytes, library) in cases.items():
@@ -689,6 +684,12 @@ def compare_kernels(cs, packed, buf):
                      "library_ms": lib})
         log(f"{name}: bit-equal; own kernels {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bound_ms(n_bytes):.4f} ms")
+    # The point insert on the warmed delta (insert_at); the config-5
+    # shard's shape joins in phase 9.
+    rows.append(insert_row("point_insert", insert_at(
+        "config2", "point", {"k": cs.dk, "v": cs.dv, "size": cs.dsize,
+                             "flag": cs.flag, "bsize": cs.size},
+        (u_b, u_e, w_uid, w_ins, scal[4:5], None))))
     by_name = {r["name"]: r for r in rows}
     by_name["inclusive_scan"]["at_sizes"] = scan_sizes(
         scan, {"w_pad": w_pad, "r_pad": r_pad, "d_cap": cs.d_cap,
@@ -1115,6 +1116,177 @@ def merge_at(what: str, state: dict, cap: int, d_cap: int, scalars,
     return row
 
 
+# Counters of the wrappers the old inserts ran inside them; the range
+# insert moves none of them beyond _union_ranges' own.
+INSERT_SHARED = ("inclusive_scan", "sort_rows", "searchsorted",
+                 "compact_rows", "union_ranges")
+INSERT_LAUNCHES = {"point": 4, "window": 3}
+
+
+def insert_bytes(n_old: int, n_new: int, q_bytes: int) -> int:
+    """Least bytes of a range insert: its inputs besides the tier read once
+    (q_bytes), the live rows read once, the result written once and
+    [new, old) refilled (36 bytes a row: the key and its version).  The
+    rows the ranges' searches read are live rows, so a merge-style insert
+    that reads every live row once needs no search."""
+    return q_bytes + 36 * (n_old + n_new + max(n_old - n_new, 0))
+
+
+def insert_at(what: str, kind: str, state: dict, args: tuple,
+              expect_launches=True, reps: int = REPS) -> dict:
+    """The point insert (kind "point": args u_k, u_e, w_uid, w_ins, now,
+    u_own) or window_insert ("window": args w_b, w_e, w_valid, now) on
+    copies of `state` (k, v, size, flag, bsize), kernel against plain: its
+    launches a call (with expect_launches, INSERT_LAUNCHES[kind] of its
+    own and no launch of INSERT_SHARED beyond _union_ranges'), its own
+    kernels' device ms, the whole call's, the plain version's ms, the
+    bound over live rows and that of an insert by full-capacity passes
+    (the delta read and rewritten, as the reference's histograms, scans
+    and scatters do)."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict import fused, window
+    counter = f"{kind}_insert"
+
+    def run(impl, st):
+        tail = torch.zeros((3,), dtype=torch.int32, device=DEVICE)
+        if kind == "point":
+            u_k, u_e, w_uid, w_ins, now, u_own = args
+            fused._point_insert(st["k"], st["v"], st["size"], u_k, u_e,
+                                w_uid, w_ins, now, st["flag"],
+                                bsize=st["bsize"], tail=tail, impl=impl,
+                                u_own=u_own)
+        else:
+            w_b, w_e, w_valid, now = args
+            window.window_insert(window.WindowState(st["k"], st["v"],
+                                                    st["size"]),
+                                 w_b, w_e, w_valid, now, flag=st["flag"],
+                                 bsize=st["bsize"], tail=tail, impl=impl)
+        return st["k"], st["v"], st["size"], st["flag"], tail
+
+    def copy():
+        return {k: v.clone() for k, v in state.items()}
+
+    K.reset_counts()
+    got = run("kernel", copy())
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    own = counts[counter]
+    if expect_launches:
+        alone = {c: 0 for c in INSERT_SHARED}
+        if kind == "window":
+            K.reset_counts()
+            window._union_ranges(*args[:3])
+            alone = {c: K.LAUNCHES[c] for c in INSERT_SHARED}
+        moved = {c: counts[c] - alone[c] for c in INSERT_SHARED
+                 if counts[c] != alone[c]}
+        if own != INSERT_LAUNCHES[kind] or moved:
+            raise AssertionError(f"{counter} {what}: {own} launches of its "
+                                 f"own, other counters moved: {moved}")
+    err = require_equal(f"{counter} {what}", got, run("plain", copy()))
+    holder = {}
+
+    def setup():
+        holder["st"] = copy()
+
+    k, v = state["k"], state["v"]
+    n_old, n_new = int(state["size"][0]), int(got[2][0])
+    w = args[0].shape[0]
+    # The ranges in (the merged ones, as large as the writes), and for the
+    # point insert the unique keys, the writes and the owned mask.
+    q_bytes = (nbytes(*args[:2]) if kind == "window"
+               else nbytes(*[a for a in args if a is not None]))
+    n_in = 3 if kind == "window" else 4
+    row = {"shape": what, "cap": k.shape[0], "ranges": w, "size": n_old,
+           "new_size": n_new, "launches_per_call": own, "max_abs_err": err,
+           "ms": device_ms(lambda: run("kernel", holder["st"]), reps=reps,
+                           setup=setup, counter=counter),
+           "whole_ms": device_ms(lambda: run("kernel", holder["st"]),
+                                 reps=reps, setup=setup),
+           "plain_ms": cuda_ms(lambda: run("plain", holder["st"]), reps=2,
+                               setup=setup),
+           "bound_ms": bound_ms(insert_bytes(n_old, n_new, q_bytes)),
+           "full_cap_bound_ms": bound_ms(nbytes(*args[:n_in])
+                                         + 2 * nbytes(k, v))}
+    log(f"{counter} at {what} ({n_old} -> {n_new} rows of {k.shape[0]}, {w} "
+        f"ranges): bit-equal, {own} launches; own {row['ms']:.4f} ms, whole "
+        f"call {row['whole_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms (full-capacity passes "
+        f"{row['full_cap_bound_ms']:.4f})")
+    return row
+
+
+def insert_row(name: str, at: dict) -> dict:
+    """A kernels-line row from an insert_at entry (kept under at_shapes)."""
+    from foundationdb_tpu_torch import kernels as K
+    src, ref = K.KERNELS[name]
+    return {"name": name, "route": "cuda",
+            "source": f"foundationdb_tpu_torch/csrc/{src}.cu",
+            "replaces": ref, "launches": 0,
+            "max_abs_err": at["max_abs_err"], "ms": at["ms"],
+            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "at_shapes": [at]}
+
+
+def insert_state(kind: str, cap: int, n_live: int, n_ranges: int,
+                 n_valid: int, seed: int = 9, u_pad=None, w_pad=None,
+                 owned=None):
+    """Synthetic inputs of insert_at at a path's shape: a tier of n_live
+    sorted rows (the zero digest, then 15-byte keys) at random versions in
+    a cap-row tier, and for "point" n_valid unique keys sorted in u_pad
+    slots (MAX padded), their ends a zero byte on, w_pad writes over them
+    about 70% surviving (u_own: an `owned` share of the keys, when given);
+    for "window" n_ranges ranges of 1-100 records, the first n_valid
+    valid.  Returns (state, args)."""
+    import torch
+    from foundationdb_tpu_torch.ops.digest import (encode_fixed, max_rows,
+                                                   planar_to_rows)
+    from foundationdb_tpu_torch.ops.rangemax import NEG_INF
+    rng = np.random.default_rng(seed)
+
+    def key_rows(ids):
+        ids = np.asarray(ids, dtype=np.int64)
+        mat = np.empty((ids.size, 15), dtype=np.uint8)
+        mat[:, 0] = ord("k")
+        x = ids.copy()
+        for d in range(14):
+            mat[:, 14 - d] = 48 + x % 10
+            x //= 10
+        return torch.from_numpy(planar_to_rows(encode_fixed(mat)))
+
+    ids = np.sort(rng.choice(10 ** 9, size=n_live - 1, replace=False))
+    k = max_rows(cap, "cpu")
+    k[0] = 0
+    k[1:n_live] = key_rows(ids)
+    v = torch.full((cap,), NEG_INF, dtype=torch.int32)
+    v[:n_live] = torch.from_numpy(rng.integers(0, 5000, n_live,
+                                               dtype=np.int32))
+    dev = lambda t: t.to(DEVICE)
+    state = {"k": dev(k), "v": dev(v),
+             "size": dev(torch.tensor([n_live], dtype=torch.int32)),
+             "flag": dev(torch.zeros((1,), dtype=torch.int32)),
+             "bsize": dev(torch.tensor([1 << 20], dtype=torch.int32))}
+    now = dev(torch.tensor([6000], dtype=torch.int32))
+    if kind == "point":
+        u_k = max_rows(u_pad, "cpu")
+        u_k[:n_valid] = key_rows(np.sort(rng.choice(10 ** 9, size=n_valid,
+                                                    replace=False)))
+        u_e = u_k.clone()
+        u_e[:n_valid, 7] += 1
+        w_uid = torch.from_numpy(rng.integers(0, n_valid, w_pad,
+                                              dtype=np.int32))
+        w_ins = torch.from_numpy((rng.random(w_pad) < 0.7).astype(np.int32))
+        u_own = None if owned is None else dev(torch.from_numpy(
+            (rng.random(u_pad) < owned).astype(np.int32)))
+        return state, (dev(u_k), dev(u_e), dev(w_uid), dev(w_ins), now,
+                       u_own)
+    a = rng.integers(0, 10 ** 9 - 100, size=n_ranges)
+    s = rng.integers(1, 101, size=n_ranges)
+    valid = (np.arange(n_ranges) < n_valid).astype(np.int32)
+    return state, (dev(key_rows(a)), dev(key_rows(a + s)),
+                   dev(torch.from_numpy(valid)), now)
+
+
 def _codes(fused, scal, too_old, conf, w_txn, impl):
     import torch
     codes = torch.empty(too_old.shape, dtype=torch.int8, device=DEVICE)
@@ -1364,14 +1536,6 @@ def compare_general(cs, packed, win, stream):
         return {"bk": win.bk.clone(), "bv": win.bv.clone(),
                 "size": win.size.clone()}
 
-    def insert_run(impl, st):
-        tail = torch.zeros((3,), dtype=torch.int32, device=DEVICE)
-        window.window_insert(window.WindowState(st["dk"], st["dv"],
-                                                st["dsize"]),
-                             w_b, w_e, w_ins, m["now_rel"], flag=st["flag"],
-                             bsize=st["size"], tail=tail, impl=impl)
-        return st["dk"], st["dv"], st["dsize"], st["flag"], tail
-
     def gc_run(impl, st):
         return tuple(window.window_gc(window.WindowState(
             st["bk"], st["bv"], st["size"]), floor(v5), floor(v5), impl=impl))
@@ -1416,11 +1580,6 @@ def compare_general(cs, packed, win, stream):
         "union_ranges": (lambda i: window._union_ranges(w_b, w_e, w_ins, i),
                          nbytes(w_b, w_e, w_ins) + 2 * nbytes(w_b)
                          + 8 * w_cap),
-        # Its own kernels (wi_*, pi_*): the writes in, the delta read and
-        # rewritten (the union, sort, scans and searches are their rows).
-        "window_insert": ((insert_run, delta_copy),
-                          nbytes(cs.dk, cs.dv, w_b, w_e, w_ins)
-                          + nbytes(cs.dk, cs.dv)),
         # wq_query: the queries in, the bits out, the table rows a batch of
         # searches touches, two range-max gathers per query.
         "window_query": (query_run,
@@ -1462,6 +1621,18 @@ def compare_general(cs, packed, win, stream):
         log(f"{name}: bit-equal; own kernels {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bound_ms(n_bytes):.4f} ms")
 
+    # window_insert on the general step's warmed delta (its row), and on
+    # path 3's window with the next batch's writes (insert_at).
+    ins = insert_row("window_insert", insert_at(
+        "config3_delta", "window", {"k": cs.dk, "v": cs.dv, "size": cs.dsize,
+                                    "flag": cs.flag, "bsize": cs.size},
+        (w_b, w_e, w_ins, m["now_rel"])))
+    ins["at_shapes"].append(insert_at(
+        "window_2_21", "window", {"k": win.bk, "v": win.bv, "size": win.size,
+                                  "flag": torch.zeros_like(win.size),
+                                  "bsize": win.size.clone()},
+        (ww_b, ww_e, ww_valid, now5)))
+    rows.append(ins)
     fix = next(r for r in rows if r["name"] == "interval_fixpoint")
     fix["rounds"] = int(rounds[0])
     K.reset_counts()
@@ -1923,6 +2094,16 @@ def compare_sharded(splits5, stream5, stream3):
         "shard_combine", lambda i: shard.shard_combine(hists, impl=i),
         nbytes(hists) + 4 * t_cap,
         library=lambda: torch.amax(hists, dim=0)))
+    # The point insert of shard 1 at the shard's shape (the point_insert
+    # row's config5_shard entry): its owned keys, the combined verdicts.
+    w_ins = step.resolve(h, shard.shard_combine(hists, impl="plain"),
+                         torch.empty((t_cap + fused.OUT_EXTRA,),
+                                     dtype=torch.int8, device=DEVICE))
+    programs["point_insert_shard"] = insert_at(
+        "config5_shard", "point", {"k": sh1.dk, "v": sh1.dv,
+                                   "size": sh1.dsize, "flag": sh1.flag,
+                                   "bsize": sh1.size},
+        (u_b, u_e, h["w_uid"], w_ins, h["scal"][4:5], h["u_own"]))
 
     def load_k():
         load_shards(cs, saved)
@@ -2437,6 +2618,8 @@ def main() -> int:
     rows9, programs9 = compare_sharded(splits5, batches5, batches3)
     next(r for r in rows if r["name"] == "merge")["at_shapes"].append(
         programs9["sharded_merge"].pop("one_shard"))
+    next(r for r in rows if r["name"] == "point_insert")["at_shapes"].append(
+        programs9.pop("point_insert_shard"))
     rows += rows9
     programs.update(programs9)
     torch.cuda.empty_cache()
@@ -2468,7 +2651,8 @@ def main() -> int:
     missing = [f"{r['name']} ({p})" for r in rows for p, names in
                PATH_KERNELS.items()
                if r["name"] in names and r["launches_by_path"][p] <= 0]
-    missing += [r["name"] for r in rows if r["launches"] <= 0]
+    missing += [r["name"] for r in rows
+                if r["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on their paths: "
                              f"{missing}")

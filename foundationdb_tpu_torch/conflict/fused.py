@@ -57,7 +57,8 @@ from ..ops.segtree import build_min_table, interval_min_cover, range_min
 from ..ops.shard import clip_rows
 from ..ops.sort import sort_rows
 from ..txn.types import CommitResult
-from .window import WindowState, make_window_state, window_insert
+from .window import (WindowState, make_window_state, range_insert,
+                     window_insert)
 
 RES_CONFLICT = int(CommitResult.CONFLICT)
 RES_TOO_OLD = int(CommitResult.TOO_OLD)
@@ -292,8 +293,10 @@ def _point_insert(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel, flag,
     device.  With `tail` (int32[3]), flag / new delta size / bsize are
     written there (the verdict tail).  With `u_own` (int32 0/1 [U], a
     key-range shard's begin-in-bounds mask) only the owned unique keys are
-    inserted (reference fused.py:175-177).  Kernels: pi_* (point_insert)
-    on top of searchsorted, rank_count, inclusive_scan and compact_rows."""
+    inserted (reference fused.py:175-177).  Kernels: pi_mark and
+    range_insert's probe, move and commit (csrc/insert.cu), four launches
+    a call; the unique keys are the ranges, so no sort, scan or search of
+    ops/ runs."""
     if _k.use_kernel(dk, impl):
         _point_insert_kernel(dk, dv, dsize, u_k, u_e, w_uidx, w_ins,
                              now_rel, flag, bsize, tail, u_own)
@@ -365,49 +368,15 @@ def _point_insert(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel, flag,
 
 def _point_insert_kernel(dk, dv, dsize, u_k, u_e, w_uidx, w_ins, now_rel,
                          flag, bsize, tail, u_own) -> None:
-    d_cap, u_pad = dk.shape[0], u_k.shape[0]
-    n2 = 2 * u_pad
-    dev = dk.device
-    e = dict(dtype=torch.int32, device=dev)
-    m_valid = torch.zeros((u_pad,), **e)
+    """pi_mark (one cooperative launch: zero the mask, scatter the
+    survivors), then range_insert over the unique keys with the clamp
+    slot rule: four launches a call."""
+    u_pad = u_k.shape[0]
+    m_valid = torch.empty((u_pad,), dtype=torch.int32, device=dk.device)
     _k.launch("point_insert", "pi_mark", w_uidx.shape[0], w_uidx, w_ins,
               u_pad, u_own, m_valid)
-    cont_v = torch.empty((u_pad,), **e)
-    present_end = torch.empty((u_pad,), **e)
-    hist_b = torch.zeros((d_cap + 1,), **e)
-    hist_e = torch.zeros((d_cap + 1,), **e)
-    _k.launch("point_insert", "pi_probe", dk, d_cap, dv, dsize, u_k, u_e,
-              m_valid, u_pad, cont_v, present_end, hist_b, hist_e)
-    cnt_b = inclusive_scan(hist_b[:d_cap])
-    cnt_e = inclusive_scan(hist_e[:d_cap])
-    keep = torch.empty((d_cap,), **e)
-    _k.launch("point_insert", "pi_keep", d_cap, dsize, cnt_b, cnt_e, keep)
-    kincl = inclusive_scan(keep)
-    old_rows = max_rows(d_cap, dev)
-    old_v = torch.full((d_cap,), NEG_INF, **e)
-    compact_rows(keep, kincl, dk, dv, old_rows, old_v)
-
-    il_valid = torch.empty((n2,), **e)
-    _k.launch("point_insert", "pi_il_valid", u_pad, m_valid, present_end,
-              il_valid)
-    nincl = inclusive_scan(il_valid)
-    cnew_rows = max_rows(n2, dev)
-    cnew_v = torch.full((n2,), NEG_INF, **e)
-    _k.launch("point_insert", "pi_il_compact", n2, il_valid, nincl, u_k, u_e,
-              cont_v, now_rel, cnew_rows, cnew_v)
-
-    pos_l = searchsorted(old_rows, cnew_rows, True)
-    cnt_o = rank_count(searchsorted(old_rows, cnew_rows, False), d_cap)
-    out_rows = max_rows(d_cap, dev)
-    out_v = torch.full((d_cap,), NEG_INF, **e)
-    _k.launch("point_insert", "pi_scatter_old", d_cap, kincl, nincl, n2,
-              cnt_o, old_rows, old_v, out_rows, out_v)
-    _k.launch("point_insert", "pi_scatter_new", d_cap, kincl, nincl, n2,
-              pos_l, cnew_rows, cnew_v, out_rows, out_v)
-    if bsize is None:
-        bsize = torch.zeros((1,), **e)
-    _k.launch("point_insert", "pi_commit", d_cap, kincl, nincl, n2,
-              out_rows, out_v, dk, dv, dsize, flag, bsize, tail)
+    range_insert("point_insert", dk, dv, dsize, u_k, u_e, m_valid, None,
+                 False, now_rel, flag, True, bsize, tail)
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,9 @@ Versions are int32 offsets from a host-held base.  Three programs:
 Idiomatic PyTorch: window_insert and window_gc update the state's tensors
 IN PLACE and return them (the reference returns new arrays).  Each program
 is a wrapper with a plain-torch version, taken for CPU tensors and with
-impl="plain", and hand-written CUDA kernels (csrc/window.cu, with the sort,
-searches, scans and compactions of ops/) for CUDA tensors.  Booleans are
-int32 0/1.
+impl="plain", and hand-written CUDA kernels (csrc/window.cu and
+csrc/insert.cu, with the sort, searches, scans and compactions of ops/) for
+CUDA tensors.  Booleans are int32 0/1.
 """
 
 from __future__ import annotations
@@ -183,6 +183,42 @@ def _union_ranges(w_begin: torch.Tensor, w_end: torch.Tensor,
     return mb, me, m_incl
 
 
+# Ranges a probe block of csrc/insert.cu owns (RI_TILE).
+RANGE_TILE = 256
+
+
+def range_insert(counter: str, k, v, size, mb, me, m_valid, m_count,
+                 wrap: bool, now_rel, flag, flag_or: bool, bsize,
+                 tail) -> None:
+    """The insert core of window_insert and the point insert on the card,
+    IN PLACE on k/v/size: ri_insert's probe, move and commit, three
+    launches counted under `counter` (csrc/insert.cu).
+
+    mb / me: rows int32[W, 8], sorted and disjoint where valid; a range is
+    valid where m_valid (int32 0/1 [W]) is set and its index is below
+    m_count (int32[1]), each when given.  wrap: the slot rule of the
+    continuing version (True: slot -1 wraps to row cap - 1, as
+    window_insert's reference gathers; False: clamped to row 0, as the
+    point insert's).  now_rel: an int or an int32[1] tensor on the card.
+    flag (int32[1]) gets the overflow, OR'd into it when flag_or; tail
+    (int32[3]), when given, flag / new size / bsize.  On overflow the tier
+    keeps its old contents.  The tier's rows past size must be MAX rows at
+    NEG_INF and its live rows unique (the window's invariant)."""
+    cap, w = k.shape[0], mb.shape[0]
+    e = dict(dtype=torch.int32, device=k.device)
+    nt = max(1, -(-w // RANGE_TILE))
+    now_t, now_val = None, 0
+    if isinstance(now_rel, torch.Tensor):
+        now_t = now_rel.reshape(1).to(**e)
+    else:
+        now_val = int(now_rel)
+    n = 5 * w + nt + 2
+    _k.launch(counter, "ri_insert", k, v, cap, size, mb, me, w, m_valid,
+              m_count, int(wrap), now_t, now_val, flag, int(flag_or), bsize,
+              tail, torch.empty((n,), **e), n,
+              torch.empty((cap * 9,), **e), count=3)
+
+
 def window_insert(state: WindowState, w_begin: torch.Tensor,
                   w_end: torch.Tensor, w_valid: torch.Tensor,
                   now_rel: Union[int, torch.Tensor],
@@ -200,58 +236,28 @@ def window_insert(state: WindowState, w_begin: torch.Tensor,
     int or an int32[1] tensor.  With `flag` (int32[1]) the overflow is
     OR'd into it (the sticky flag of the general step); with `tail`
     (int32[3]) flag / new size / bsize are written there (the verdict
-    tail).  Kernels: wi_new, wi_valid and the point insert's
-    pi_probe / pi_keep / pi_scatter_* / pi_commit, over sort_rows,
-    searchsorted, rank_count, inclusive_scan and compact_rows."""
+    tail).  Kernel: _union_ranges' own, then range_insert's three
+    launches (csrc/insert.cu), which need no sort of the new rows: the
+    merged ranges are sorted and disjoint, touching ones merged, so each
+    range's begin and end follow it in order (an empty merged range gives
+    its begin first, as the plain version's stable sort does)."""
     bk, bv, size = state
     cap, w = bk.shape[0], w_begin.shape[0]
     dev = bk.device
     e = dict(dtype=torch.int32, device=dev)
     use = _k.use_kernel(bk, impl)
     p_ = None if use else "plain"
-    now = _device_int(now_rel, dev)
-    ovf_out = torch.zeros((1,), **e) if flag is None else flag
 
     mb, me, m_incl = _union_ranges(w_begin, w_end, w_valid, impl=p_)
-    n2 = 2 * w
     if use:
-        cont_v = torch.empty((w,), **e)
-        present_end = torch.empty((w,), **e)
-        hist_b = torch.zeros((cap + 1,), **e)
-        hist_e = torch.zeros((cap + 1,), **e)
-        # The merged rows are MAX past the merged count, so every row is
-        # probed as it stands (m_valid = 1), as the reference does.
-        _k.launch("window_insert", "pi_probe", bk, cap, bv, size, mb, me,
-                  torch.ones((w,), **e), w, cont_v, present_end, hist_b,
-                  hist_e)
-        cnt_b = inclusive_scan(hist_b[:cap])
-        cnt_e = inclusive_scan(hist_e[:cap])
-        keep = torch.empty((cap,), **e)
-        _k.launch("window_insert", "pi_keep", cap, size, cnt_b, cnt_e, keep)
-        kincl = inclusive_scan(keep)
-        old_rows = max_rows(cap, dev)
-        old_v = torch.full((cap,), NEG_INF, **e)
-        compact_rows(keep, kincl, bk, bv, old_rows, old_v)
-        new_rows = torch.empty((n2, ROW_PAD), **e)
-        new_v = torch.empty((n2,), **e)
-        _k.launch("window_insert", "wi_new", w, mb, me, m_incl, n2,
-                  present_end, cont_v, now, new_rows, new_v)
-        s_rows, s_v = sort_rows(new_rows, payload=new_v)
-        new_valid = torch.empty((n2,), **e)
-        _k.launch("window_insert", "wi_valid", n2, s_rows, new_valid)
-        nincl = inclusive_scan(new_valid)
-        pos_l = searchsorted(old_rows, s_rows, True)
-        cnt_o = rank_count(searchsorted(old_rows, s_rows, False), cap)
-        out_rows = max_rows(cap, dev)
-        out_v = torch.full((cap,), NEG_INF, **e)
-        _k.launch("window_insert", "pi_scatter_old", cap, kincl, nincl, n2,
-                  cnt_o, old_rows, old_v, out_rows, out_v)
-        _k.launch("window_insert", "pi_scatter_new", cap, kincl, nincl, n2,
-                  pos_l, s_rows, s_v, out_rows, out_v)
-        _k.launch("window_insert", "pi_commit", cap, kincl, nincl, n2,
-                  out_rows, out_v, bk, bv, size, ovf_out,
-                  size if bsize is None else bsize, tail)
+        ovf_out = torch.empty((1,), **e) if flag is None else flag
+        range_insert("window_insert", bk, bv, size, mb, me, None,
+                     m_incl[-1:], True, now_rel, ovf_out, flag is not None,
+                     size if bsize is None else bsize, tail)
         return state, ovf_out
+    now = _device_int(now_rel, dev)
+    ovf_out = torch.zeros((1,), **e) if flag is None else flag
+    n2 = 2 * w
     m_valid = _iota(w, dev) < m_incl[-1]
     idx_cap = _iota(cap, dev)
     live = idx_cap < size

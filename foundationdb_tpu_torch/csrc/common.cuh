@@ -61,6 +61,15 @@ __device__ __forceinline__ bool row_eq(const Row& a, const Row& b) {
   return row_cmp(a, b) == 0;
 }
 
+// Three-way compare of two 16-byte halves of rows (lanes 0-3 or 4-7).
+__device__ __forceinline__ int cmp4(uint4 a, uint4 b) {
+  if (a.x != b.x) return a.x < b.x ? -1 : 1;
+  if (a.y != b.y) return a.y < b.y ? -1 : 1;
+  if (a.z != b.z) return a.z < b.z ? -1 : 1;
+  if (a.w != b.w) return a.w < b.w ? -1 : 1;
+  return 0;
+}
+
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }

@@ -1,43 +1,25 @@
-// rank_scan: histogram ranks, inclusive scans and masked row compaction,
-// and the sort-free delta insert and the merge built from them.
+// rank_scan: inclusive scans, masked row compaction and the merge.
 //
 // Replaces (foundationdb_tpu):
-//   rs_hist            -- the histogram half of ops/digest.py:221 rank_count
-//                         (its cumsum is rs_scan);
-//   rs_scan            -- every jnp.cumsum of conflict/fused.py
-//                         (:196, :219, :634, :638, :662) and rank_count's;
-//   rs_compact         -- the order-preserving rank scatters of fused.py
-//                         (:198-204, :665-672, the latter with the rebase);
-//   pi_*               -- conflict/fused.py:157-247 _point_insert;
+//   rs_scan            -- the jnp.cumsums of conflict/window.py (:108, :117,
+//                         :233);
+//   rs_compact         -- the order-preserving rank scatters of window.py
+//                         (:116-119, :233-240, the latter with the rebase);
 //   mg_merge           -- conflict/fused.py:607-686 make_merge_step.merge
 //                         (a merge path; three launches, below).
 //
 // Bound on the card: bytes.  A scan reads n and writes n int32; a
 // compaction reads the mask, the ranks and the kept rows once and writes
-// them once; insert and merge are sums of such passes plus binary searches
-// whose probes read one 32-byte row each.
+// them once; the merge reads the live rows of both tiers once and writes
+// the base and the delta (below).
 //
 // Design: a single-pass scan with decoupled look-back (one launch for any
-// n, each element read once and written once; below); histograms by
-// warp-aggregated atomicAdd (positions at or past the end, which the scan
-// never reads, are skipped); every scatter of the reference becomes a
-// guarded row store with JAX's drop semantics (common.cuh).  Insert and
-// merge write into scratch or freshly filled buffers, never into the
-// arrays they are still reading: the merge writes the merged base into a
-// scratch base before its last launch copies it into bk, and the insert
-// commits its result into the delta only when it did not overflow (the
-// reference's keep-old-state).
+// n, each element read once and written once; below); every scatter of
+// the reference becomes a guarded row store with JAX's drop semantics
+// (common.cuh).  The merge writes the merged base into a scratch base,
+// never into the arrays it is still reading, before its last launch
+// copies it into bk.
 #include "common.cuh"
-
-// ---------------------------------------------------------------- rank
-__global__ void k_hist(const int* __restrict__ pos, long n, int out_len,
-                       int* __restrict__ hist) {
-  // Positions >= out_len are never counted (the scan reads hist[:out_len]).
-  GRID_STRIDE(i, n) {
-    int p = clampi(pos[i], 0, out_len);
-    if (p < out_len) count_at(hist, p);
-  }
-}
 
 // ---------------------------------------------------------------- scan
 // Single-pass inclusive scan with decoupled look-back (Merrill & Garland,
@@ -239,160 +221,6 @@ __global__ void k_compact(long n, const int* __restrict__ keep,
   }
 }
 
-// ------------------------------------------------------- point insert
-// m_valid[slot] = max over the writes at slot of w_ins, and with an owned
-// mask (a key-range shard's, fused.py:175-177) only where the slot's key
-// is owned.
-__global__ void k_pi_mark(long w_pad, const int* __restrict__ w_uid,
-                          const int* __restrict__ w_ins, int u_pad,
-                          const int* __restrict__ u_own,
-                          int* __restrict__ m_valid) {
-  GRID_STRIDE(w, w_pad) {
-    int slot = clampi(w_uid[w], 0, u_pad - 1);
-    if (w_ins[w] && (u_own == nullptr || u_own[slot])) m_valid[slot] = 1;
-  }
-}
-
-__global__ void k_pi_probe(const uint32_t* __restrict__ dk, int dcap, int nd,
-                           const int* __restrict__ dv,
-                           const int* __restrict__ dsize,
-                           const uint32_t* __restrict__ u_b,
-                           const uint32_t* __restrict__ u_e,
-                           const int* __restrict__ m_valid, long u_pad,
-                           int* __restrict__ cont_v,
-                           int* __restrict__ present_end,
-                           int* __restrict__ hist_b,
-                           int* __restrict__ hist_e) {
-  const int ds = dsize[0];
-  GRID_STRIDE(u, u_pad) {
-    bool m = m_valid[u] != 0;
-    Row mb = m ? load_row(u_b, u) : max_row();
-    Row me = m ? load_row(u_e, u) : max_row();
-    int slot = search_rows(dk, dcap, nd, me, false) - 1;
-    cont_v[u] = dv[clampi(slot, 0, dcap - 1)];
-    int p = search_rows(dk, dcap, nd, me, true);
-    Row g = load_row(dk, p < dcap - 1 ? p : dcap - 1);
-    present_end[u] = (row_eq(g, me) && p < ds) ? 1 : 0;
-    int pb = clampi(search_rows(dk, dcap, nd, mb, true), 0, dcap);
-    int pe = clampi(p, 0, dcap);
-    if (pb < dcap) count_at(hist_b, pb);
-    if (pe < dcap) count_at(hist_e, pe);
-  }
-}
-
-__global__ void k_pi_keep(int dcap, const int* __restrict__ dsize,
-                          const int* __restrict__ cnt_b,
-                          const int* __restrict__ cnt_e,
-                          int* __restrict__ keep) {
-  const int ds = dsize[0];
-  GRID_STRIDE(i, dcap) { keep[i] = (i < ds && !(cnt_b[i] > cnt_e[i])) ? 1 : 0; }
-}
-
-__global__ void k_pi_il_valid(long u_pad, const int* __restrict__ m_valid,
-                              const int* __restrict__ present_end,
-                              int* __restrict__ il_valid) {
-  GRID_STRIDE(u, u_pad) {
-    int m = m_valid[u] != 0;
-    il_valid[2 * u] = m;
-    il_valid[2 * u + 1] = (m && !present_end[u]) ? 1 : 0;
-  }
-}
-
-__global__ void k_pi_il_compact(long n2, const int* __restrict__ il_valid,
-                                const int* __restrict__ nincl,
-                                const uint32_t* __restrict__ u_b,
-                                const uint32_t* __restrict__ u_e,
-                                const int* __restrict__ cont_v,
-                                const int* __restrict__ now_rel,
-                                uint32_t* __restrict__ cnew_rows,
-                                int* __restrict__ cnew_v) {
-  const int now = now_rel[0];
-  GRID_STRIDE(k, n2) {
-    if (!il_valid[k]) continue;
-    long d = scatter_index((long)nincl[k] - 1, n2);
-    if (d < 0) continue;
-    long u = k >> 1;
-    bool is_end = (k & 1) != 0;
-    store_row(cnew_rows, d, load_row(is_end ? u_e : u_b, u));
-    cnew_v[d] = is_end ? cont_v[u] : now;
-  }
-}
-
-__device__ __forceinline__ bool pi_overflow(const int* kincl, int dcap,
-                                            const int* nincl, long n2,
-                                            int* kept, int* newc) {
-  *kept = kincl[dcap - 1];
-  *newc = nincl[n2 - 1];
-  return *kept + *newc > dcap;
-}
-
-__global__ void k_pi_scatter_old(int dcap, const int* __restrict__ kincl,
-                                 const int* __restrict__ nincl, long n2,
-                                 const int* __restrict__ cnt_o,
-                                 const uint32_t* __restrict__ old_rows,
-                                 const int* __restrict__ old_v,
-                                 uint32_t* __restrict__ out_rows,
-                                 int* __restrict__ out_v) {
-  int kept, newc;
-  bool ovf = pi_overflow(kincl, dcap, nincl, n2, &kept, &newc);
-  if (ovf) return;
-  GRID_STRIDE(i, dcap) {
-    if (i >= kept) continue;
-    long d = scatter_index(i + (long)cnt_o[i], dcap);
-    if (d < 0) continue;
-    store_row(out_rows, d, load_row(old_rows, i));
-    out_v[d] = old_v[i];
-  }
-}
-
-__global__ void k_pi_scatter_new(int dcap, const int* __restrict__ kincl,
-                                 const int* __restrict__ nincl, long n2,
-                                 const int* __restrict__ pos_l,
-                                 const uint32_t* __restrict__ cnew_rows,
-                                 const int* __restrict__ cnew_v,
-                                 uint32_t* __restrict__ out_rows,
-                                 int* __restrict__ out_v) {
-  int kept, newc;
-  bool ovf = pi_overflow(kincl, dcap, nincl, n2, &kept, &newc);
-  if (ovf) return;
-  GRID_STRIDE(k, n2) {
-    if (k >= newc) continue;
-    long d = scatter_index((long)pos_l[k] + k, dcap);
-    if (d < 0) continue;
-    store_row(out_rows, d, load_row(cnew_rows, k));
-    out_v[d] = cnew_v[k];
-  }
-}
-
-// Commits the insert into the delta in place, unless it overflowed, and
-// writes flag / delta size / base size into the 12-byte verdict tail.
-__global__ void k_pi_commit(int dcap, const int* __restrict__ kincl,
-                            const int* __restrict__ nincl, long n2,
-                            const uint32_t* __restrict__ out_rows,
-                            const int* __restrict__ out_v,
-                            uint32_t* __restrict__ dk, int* __restrict__ dv,
-                            int* dsize, int* flag,
-                            const int* __restrict__ bsize, int* tail) {
-  int kept, newc;
-  bool ovf = pi_overflow(kincl, dcap, nincl, n2, &kept, &newc);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    int ds2 = ovf ? dsize[0] : kept + newc;
-    int f2 = flag[0] | (ovf ? 1 : 0);
-    dsize[0] = ds2;
-    flag[0] = f2;
-    if (tail != nullptr) {
-      tail[0] = f2;
-      tail[1] = ds2;
-      tail[2] = bsize[0];
-    }
-  }
-  if (ovf) return;
-  GRID_STRIDE(i, dcap) {
-    store_row(dk, i, load_row(out_rows, i));
-    dv[i] = out_v[i];
-  }
-}
-
 // --------------------------------------------------------------- merge
 // The merge (conflict/fused.py:593-686 there): overlay the delta onto the
 // base, removeBefore GC, the rebase, the delta reset; three launches.
@@ -443,14 +271,6 @@ __global__ void k_pi_commit(int dcap, const int* __restrict__ kincl,
 #define MG_TILE (MG_SLOTS - 8)  // merged elements a tile, halo left over
 
 __device__ __forceinline__ int mg_slot(int p) { return p ^ ((p >> 3) & 7); }
-
-__device__ __forceinline__ int cmp4(uint4 a, uint4 b) {
-  if (a.x != b.x) return a.x < b.x ? -1 : 1;
-  if (a.y != b.y) return a.y < b.y ? -1 : 1;
-  if (a.z != b.z) return a.z < b.z ? -1 : 1;
-  if (a.w != b.w) return a.w < b.w ? -1 : 1;
-  return 0;
-}
 
 // Three-way compare of two staged rows (local slots x, y).
 __device__ __forceinline__ int mg_cmp(const uint4* h0, const uint4* h1,
@@ -712,13 +532,6 @@ __global__ void k_mg_finish(int cap, uint32_t* __restrict__ bk,
 #define S(stream) (cudaStream_t)(stream)
 #define RET return (int)cudaGetLastError()
 
-extern "C" int rs_hist(const void* pos, long n, int out_len, void* hist,
-                       void* stream) {
-  k_hist<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
-      (const int*)pos, n, out_len, (int*)hist);
-  RET;
-}
-
 // One launch for any n: ceil(n / SCAN_TILE) tiles (at least one, so an
 // empty scan is one launch too).
 extern "C" int rs_scan(const void* in, void* out, long n, void* scratch,
@@ -742,88 +555,6 @@ extern "C" int rs_compact(long n, const void* keep, const void* incl,
       n, (const int*)keep, (const int*)incl, (const uint32_t*)src_rows,
       (const int*)src_v, (uint32_t*)dst_rows, (int*)dst_v, n_dst, rebase,
       do_rebase);
-  RET;
-}
-
-extern "C" int pi_mark(long w_pad, const void* w_uid, const void* w_ins,
-                       int u_pad, const void* u_own, void* m_valid,
-                       void* stream) {
-  k_pi_mark<<<blocks_for(w_pad, THREADS), THREADS, 0, S(stream)>>>(
-      w_pad, (const int*)w_uid, (const int*)w_ins, u_pad, (const int*)u_own,
-      (int*)m_valid);
-  RET;
-}
-
-extern "C" int pi_probe(const void* dk, int dcap, const void* dv,
-                        const void* dsize, const void* u_b, const void* u_e,
-                        const void* m_valid, long u_pad, void* cont_v,
-                        void* present_end, void* hist_b, void* hist_e,
-                        void* stream) {
-  k_pi_probe<<<blocks_for(u_pad, THREADS), THREADS, 0, S(stream)>>>(
-      (const uint32_t*)dk, dcap, log2_pow2(dcap), (const int*)dv,
-      (const int*)dsize, (const uint32_t*)u_b, (const uint32_t*)u_e,
-      (const int*)m_valid, u_pad, (int*)cont_v, (int*)present_end,
-      (int*)hist_b, (int*)hist_e);
-  RET;
-}
-
-extern "C" int pi_keep(int dcap, const void* dsize, const void* cnt_b,
-                       const void* cnt_e, void* keep, void* stream) {
-  k_pi_keep<<<blocks_for(dcap, THREADS), THREADS, 0, S(stream)>>>(
-      dcap, (const int*)dsize, (const int*)cnt_b, (const int*)cnt_e,
-      (int*)keep);
-  RET;
-}
-
-extern "C" int pi_il_valid(long u_pad, const void* m_valid,
-                           const void* present_end, void* il_valid,
-                           void* stream) {
-  k_pi_il_valid<<<blocks_for(u_pad, THREADS), THREADS, 0, S(stream)>>>(
-      u_pad, (const int*)m_valid, (const int*)present_end, (int*)il_valid);
-  RET;
-}
-
-extern "C" int pi_il_compact(long n2, const void* il_valid, const void* nincl,
-                             const void* u_b, const void* u_e,
-                             const void* cont_v, const void* now_rel,
-                             void* cnew_rows, void* cnew_v, void* stream) {
-  k_pi_il_compact<<<blocks_for(n2, THREADS), THREADS, 0, S(stream)>>>(
-      n2, (const int*)il_valid, (const int*)nincl, (const uint32_t*)u_b,
-      (const uint32_t*)u_e, (const int*)cont_v, (const int*)now_rel,
-      (uint32_t*)cnew_rows, (int*)cnew_v);
-  RET;
-}
-
-extern "C" int pi_scatter_old(int dcap, const void* kincl, const void* nincl,
-                              long n2, const void* cnt_o,
-                              const void* old_rows, const void* old_v,
-                              void* out_rows, void* out_v, void* stream) {
-  k_pi_scatter_old<<<blocks_for(dcap, THREADS), THREADS, 0, S(stream)>>>(
-      dcap, (const int*)kincl, (const int*)nincl, n2, (const int*)cnt_o,
-      (const uint32_t*)old_rows, (const int*)old_v, (uint32_t*)out_rows,
-      (int*)out_v);
-  RET;
-}
-
-extern "C" int pi_scatter_new(int dcap, const void* kincl, const void* nincl,
-                              long n2, const void* pos_l,
-                              const void* cnew_rows, const void* cnew_v,
-                              void* out_rows, void* out_v, void* stream) {
-  k_pi_scatter_new<<<blocks_for(n2, THREADS), THREADS, 0, S(stream)>>>(
-      dcap, (const int*)kincl, (const int*)nincl, n2, (const int*)pos_l,
-      (const uint32_t*)cnew_rows, (const int*)cnew_v, (uint32_t*)out_rows,
-      (int*)out_v);
-  RET;
-}
-
-extern "C" int pi_commit(int dcap, const void* kincl, const void* nincl,
-                         long n2, const void* out_rows, const void* out_v,
-                         void* dk, void* dv, void* dsize, void* flag,
-                         const void* bsize, void* tail, void* stream) {
-  k_pi_commit<<<blocks_for(dcap, THREADS), THREADS, 0, S(stream)>>>(
-      dcap, (const int*)kincl, (const int*)nincl, n2,
-      (const uint32_t*)out_rows, (const int*)out_v, (uint32_t*)dk, (int*)dv,
-      (int*)dsize, (int*)flag, (const int*)bsize, (int*)tail);
   RET;
 }
 

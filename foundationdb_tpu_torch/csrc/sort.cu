@@ -87,14 +87,6 @@ static size_t merge_bytes(bool has_tie, bool has_pay) {
   return (size_t)MERGE_NV * (32 + 4 * ((int)has_tie + (int)has_pay + 1));
 }
 
-__device__ __forceinline__ int cmp4(uint4 a, uint4 b) {
-  if (a.x != b.x) return a.x < b.x ? -1 : 1;
-  if (a.y != b.y) return a.y < b.y ? -1 : 1;
-  if (a.z != b.z) return a.z < b.z ? -1 : 1;
-  if (a.w != b.w) return a.w < b.w ? -1 : 1;
-  return 0;
-}
-
 // Key of row a > key of row b, given their first halves (ka, kb): the
 // second halves and the ties are read only when the first halves tie.
 __device__ __forceinline__ bool gt_s(const Tile& s, int a, uint4 ka, int b,

@@ -9,14 +9,9 @@
 //   wu_marks     -- :110-112 the merged starts and ends of the coverage
 //                   sweep (the sort, cumsum and compactions are sort.cu's
 //                   and rank_scan.cu's);
-//   wi_new       -- :170-180 window_insert's new boundaries: merged begins
-//                   at `now`, merged ends not already present at their
-//                   continuing version, MAX / NEG_INF elsewhere;
-//   wi_valid     -- :186 the non-MAX mask of the sorted new boundaries;
 //   wg_keep      -- :226-231 window_gc's removeBefore keep mask.
-// window_insert's probe, keep mask, interleave scatters and overflow
-// commit are the point insert's pi_* kernels (rank_scan.cu), which compute
-// the same thing on any sorted, MAX-padded set of merged ranges.
+// window_insert's insert proper (:139-213) is insert.cu's ri_insert, which
+// it shares with the point insert.
 //
 // Bound on the card: bytes.  Every kernel here reads its inputs once and
 // writes its outputs once; wq_query adds the table rows its binary
@@ -68,31 +63,6 @@ __global__ void k_marks(long n2, const int* __restrict__ s_delta,
   }
 }
 
-__global__ void k_new(long w, const uint32_t* __restrict__ mb,
-                      const uint32_t* __restrict__ me,
-                      const int* __restrict__ m_incl, long n2,
-                      const int* __restrict__ present_end,
-                      const int* __restrict__ cont_v,
-                      const int* __restrict__ now_rel,
-                      uint32_t* __restrict__ new_rows,
-                      int* __restrict__ new_v) {
-  const int m_count = m_incl[n2 - 1];
-  const int now = now_rel[0];
-  GRID_STRIDE(k, w) {
-    bool mv = k < m_count;
-    bool ev = mv && !present_end[k];
-    store_row(new_rows, k, mv ? load_row(mb, k) : max_row());
-    new_v[k] = mv ? now : NEG_INF_I32;
-    store_row(new_rows, w + k, ev ? load_row(me, k) : max_row());
-    new_v[w + k] = ev ? cont_v[k] : NEG_INF_I32;
-  }
-}
-
-__global__ void k_valid(long n2, const uint32_t* __restrict__ rows,
-                        int* __restrict__ valid) {
-  GRID_STRIDE(i, n2) { valid[i] = row_eq(load_row(rows, i), max_row()) ? 0 : 1; }
-}
-
 __global__ void k_gc_keep(int cap, const int* __restrict__ size,
                           const int* __restrict__ bv, int oldest,
                           int* __restrict__ keep) {
@@ -131,24 +101,6 @@ extern "C" int wu_marks(long n2, const void* s_delta, const void* cov,
   k_marks<<<blocks_for(n2, THREADS), THREADS, 0, S(stream)>>>(
       n2, (const int*)s_delta, (const int*)cov, (int*)is_start,
       (int*)is_end);
-  RET;
-}
-
-extern "C" int wi_new(long w, const void* mb, const void* me,
-                      const void* m_incl, long n2, const void* present_end,
-                      const void* cont_v, const void* now_rel, void* new_rows,
-                      void* new_v, void* stream) {
-  k_new<<<blocks_for(w, THREADS), THREADS, 0, S(stream)>>>(
-      w, (const uint32_t*)mb, (const uint32_t*)me, (const int*)m_incl, n2,
-      (const int*)present_end, (const int*)cont_v, (const int*)now_rel,
-      (uint32_t*)new_rows, (int*)new_v);
-  RET;
-}
-
-extern "C" int wi_valid(long n2, const void* rows, void* valid,
-                        void* stream) {
-  k_valid<<<blocks_for(n2, THREADS), THREADS, 0, S(stream)>>>(
-      n2, (const uint32_t*)rows, (int*)valid);
   RET;
 }
 

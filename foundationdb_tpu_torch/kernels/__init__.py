@@ -30,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("digest_search", "sparse_table", "rank_scan", "intra_batch",
-           "sort", "segtree", "window", "shard")
+           "sort", "segtree", "window", "insert", "shard")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -41,15 +41,14 @@ KERNELS = {
     "widen_unique": ("digest_search", _REF + "conflict/fused.py:300"),
     "searchsorted": ("digest_search", _REF + "ops/digest.py:243"),
     "history_probe": ("digest_search", _REF + "conflict/fused.py:351"),
-    "rank_count": ("rank_scan", _REF + "ops/digest.py:221"),
-    "inclusive_scan": ("rank_scan", _REF + "conflict/fused.py:196"),
-    "compact_rows": ("rank_scan", _REF + "conflict/fused.py:198"),
+    "inclusive_scan": ("rank_scan", _REF + "conflict/window.py:108"),
+    "compact_rows": ("rank_scan", _REF + "conflict/window.py:119"),
     "build_sparse_table": ("sparse_table", _REF + "ops/rangemax.py:20"),
     "txn_prep": ("intra_batch", _REF + "conflict/fused.py:324"),
     "read_write_prep": ("intra_batch", _REF + "conflict/fused.py:332"),
     "intra_batch_fixpoint": ("intra_batch", _REF + "conflict/fused.py:373"),
     "batch_codes": ("intra_batch", _REF + "conflict/fused.py:388"),
-    "point_insert": ("rank_scan", _REF + "conflict/fused.py:157"),
+    "point_insert": ("insert", _REF + "conflict/fused.py:157"),
     "merge": ("rank_scan", _REF + "conflict/fused.py:607"),
     "sort_rows": ("sort", _REF + "conflict/fused.py:524"),
     "general_prep": ("intra_batch", _REF + "conflict/fused.py:479"),
@@ -57,7 +56,7 @@ KERNELS = {
     "general_codes": ("intra_batch", _REF + "conflict/fused.py:562"),
     "window_query": ("window", _REF + "conflict/window.py:66"),
     "union_ranges": ("window", _REF + "conflict/window.py:85"),
-    "window_insert": ("window", _REF + "conflict/window.py:127"),
+    "window_insert": ("insert", _REF + "conflict/window.py:127"),
     "window_gc": ("window", _REF + "conflict/window.py:219"),
     "clip_rows": ("shard", _REF + "parallel/sharded_window.py:166"),
     "shard_combine": ("shard", _REF + "conflict/fused.py:362"),
@@ -75,17 +74,8 @@ _SIGS = {
     },
     "sparse_table": {"st_tile": "ppii" "p", "st_high": "pii" "p"},
     "rank_scan": {
-        "rs_hist": "plip" "p",
         "rs_scan": "pplp" "p",
         "rs_compact": "lppppppl" "ii" "p",
-        "pi_mark": "lppi" "pp" "p",
-        "pi_probe": "pipppppl" "pppp" "p",
-        "pi_keep": "ipppp" "p",
-        "pi_il_valid": "lppp" "p",
-        "pi_il_compact": "lppppppp" "p" "p",
-        "pi_scatter_old": "ippl" "ppppp" "p",
-        "pi_scatter_new": "ippl" "ppppp" "p",
-        "pi_commit": "ippl" "pppppppp" "p",
         "mg_merge": "ppip" "ppip" "pp" "ii" "plp" "p",
     },
     "intra_batch": {
@@ -104,9 +94,11 @@ _SIGS = {
         "wq_query": "pipppp" "plp" "p",
         "wu_endpoints": "l" "pppppp" "p",
         "wu_marks": "l" "pppp" "p",
-        "wi_new": "lppp" "l" "ppppp" "p",
-        "wi_valid": "lpp" "p",
         "wg_keep": "ippip" "p",
+    },
+    "insert": {
+        "pi_mark": "lppi" "pp" "p",
+        "ri_insert": "ppip" "ppi" "ppi" "pi" "pi" "pp" "plp" "p",
     },
     "shard": {
         "sh_clip": "l" "ppppp" "pppp" "p",

@@ -300,17 +300,18 @@ def rank_count(positions: torch.Tensor, out_len: int,
                impl=None) -> torch.Tensor:
     """counts[i] = #{j : positions[j] <= i} for i in [0, out_len); entries
     with positions >= out_len are never counted (reference digest.py:221).
-    Kernel: rs_hist (atomicAdd histogram) + inclusive_scan."""
+    Plain torch only: it serves the plain versions of the inserts, the
+    merge and txn_prep, whose kernels count ranks their own way, so a call
+    that would take the kernel route raises."""
     from .scan import inclusive_scan
-    dev = positions.device
-    hist = torch.zeros((out_len + 1,), dtype=torch.int32, device=dev)
-    if not _k.use_kernel(positions, impl):
-        idx = torch.clamp(positions, 0, out_len).long()
-        hist.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
-        return inclusive_scan(hist[:out_len], impl="plain")
-    _k.launch("rank_count", "rs_hist", positions, positions.numel(),
-              out_len, hist)
-    return inclusive_scan(hist[:out_len], impl=impl)
+    if _k.use_kernel(positions, impl):
+        raise RuntimeError("rank_count has no kernel; call it with "
+                           "impl='plain'")
+    hist = torch.zeros((out_len + 1,), dtype=torch.int32,
+                       device=positions.device)
+    idx = torch.clamp(positions, 0, out_len).long()
+    hist.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return inclusive_scan(hist[:out_len], impl="plain")
 
 
 def widen_unique(ub: torch.Tensor, scal: torch.Tensor, lw: int, u_pad: int,

@@ -3,7 +3,7 @@
 the shapes the conflict path hands them.
 
   python3 scripts/torch_kernel_ab.py [--root DIR] [--label NAME]
-      [--cases table,sort,fixpoint,merge] [--profile]
+      [--cases table,sort,fixpoint,merge,insert] [--profile]
 
 DIR (default: the checkout holding this script) is the checkout whose
 foundationdb_tpu_torch package is timed; its kernels are built from its own
@@ -18,7 +18,18 @@ checkout's chip_smoke.py:
             chain of ranges at config-3 width (general_deep_chain);
   merge     the merge at config 2's tiers (2^21 / 2^20, 1,000,001 and
             200,001 live rows) and at one config-5 shard's (2^20 / 2^18,
-            250,001 and 60,001), synthetic sorted digests (merge_state).
+            250,001 and 60,001), synthetic sorted digests (merge_state);
+  insert    the point insert at config 2's delta (2^20, 3,401 live rows,
+            49,152 unique-key slots, 114,688 writes) and at a config-5
+            shard's (2^18, 32,655 live rows, 196,608 slots, a quarter
+            owned), window_insert at config 3's delta (2^20, 110,000 live
+            rows, 65,536 writes, 55,000 valid) and on a 2^21 window
+            (550,000 live rows), synthetic digests (insert_state,
+            insert_at: own and whole-call device ms);
+  general   (not in the default set) the config-3 general path through
+            TorchConflictSet (chip_smoke's general_path): ranges/s at
+            depth 8, p50 resolve and packing, to compare a host-bound
+            path's end-to-end figures between checkouts on one card.
 So two commits are compared on one card by running this once per
 checkout on that card, in turns (parent, change, change, parent).  Prints
 one JSON line: each case's launches a call, own device time, plain time,
@@ -34,6 +45,7 @@ pass).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -49,7 +61,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="")
-    ap.add_argument("--cases", default="table,sort,fixpoint,merge")
+    ap.add_argument("--cases", default="table,sort,fixpoint,merge,insert")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     cases = set(args.cases.split(","))
@@ -97,17 +109,40 @@ def main() -> int:
             S.merge_at(what, S.merge_state(cap, d_cap, n_b, n_d), cap,
                        d_cap, (2500, 1000), expect_launches=None, reps=20)
             for what, (cap, d_cap, n_b, n_d) in merges.items()]
+    if "insert" in cases:
+        out["insert"] = [
+            S.insert_at(what, kind, *S.insert_state(kind, *shape, **kw),
+                        expect_launches=False, reps=20)
+            for what, kind, shape, kw in INSERTS]
+    if "general" in cases:
+        with contextlib.redirect_stdout(sys.stderr):
+            _, path, _ = S.general_path("")
+        out["general_path"] = {k: path[k] for k in (
+            "ranges_per_s", "p50_resolve_ms", "p50_pack_ms", "commit_rate")}
     if args.profile:
         cap, d_cap, n_b, n_d = merges["config2"]
         out["profile"] = profile(S, universe, r_cap, w_cap,
                                  enc.w_txn.shape[0], fix_in, log_u,
-                                 S.merge_state(cap, d_cap, n_b, n_d))
+                                 S.merge_state(cap, d_cap, n_b, n_d),
+                                 "insert" in cases)
     out["gpu"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps(out), flush=True)
     return 0
+
+
+# insert_state's shapes: (what, kind, (cap, live rows, ranges, valid),
+# keyword arguments).
+INSERTS = [
+    ("config2", "point", (1 << 20, 3_401, 0, 45_000),
+     {"u_pad": 49_152, "w_pad": 114_688}),
+    ("config5_shard", "point", (1 << 18, 32_655, 0, 190_000),
+     {"u_pad": 196_608, "w_pad": 65_536, "owned": 0.25}),
+    ("config3_delta", "window", (1 << 20, 110_000, 65_536, 55_000), {}),
+    ("window_2_21", "window", (1 << 21, 550_000, 65_536, 55_000), {}),
+]
 
 
 def fixpoint_case(S, K, fused, fix_in, log_u: int, reps: int = 20) -> dict:
@@ -128,7 +163,8 @@ def fixpoint_case(S, K, fused, fix_in, log_u: int, reps: int = 20) -> dict:
 
 
 def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
-            log_u: int, merge_in: dict, calls: int = 5) -> dict:
+            log_u: int, merge_in: dict, inserts: bool,
+            calls: int = 5) -> dict:
     """Per-kernel device time (mean microseconds a launch) and launches a
     call, by torch.profiler over `calls` calls of each case."""
     import torch
@@ -155,6 +191,11 @@ def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
              st["dv"], st["dsize"], st["flag"], (2500, 1000))
 
     cases["merge_config2"] = merge
+    for what, kind, shape, kw in INSERTS if inserts else ():
+        state, ins_args = S.insert_state(kind, *shape, **kw)
+        cases[f"insert_{what}"] = (
+            lambda kind=kind, state=state, ins_args=ins_args:
+            insert_once(kind, state, ins_args))
     result = {}
     for name, fn in cases.items():
         fn()
@@ -177,6 +218,19 @@ def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
     result["copy_universe_ms"] = S.device_ms(lambda: dst.copy_(universe),
                                              reps=20)
     return result
+
+
+def insert_once(kind: str, state: dict, args: tuple) -> None:
+    """One insert on a copy of the state (the insert is in place)."""
+    from foundationdb_tpu_torch.conflict import fused, window
+    st = {k: t.clone() for k, t in state.items()}
+    if kind == "point":
+        u_k, u_e, w_uid, w_ins, now, u_own = args
+        fused._point_insert(st["k"], st["v"], st["size"], u_k, u_e, w_uid,
+                            w_ins, now, st["flag"], u_own=u_own)
+    else:
+        window.window_insert(window.WindowState(st["k"], st["v"],
+                                                st["size"]), *args)
 
 
 if __name__ == "__main__":

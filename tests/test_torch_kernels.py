@@ -23,6 +23,8 @@ from foundationdb_tpu_torch.ops.rangemax import NEG_INF
 from foundationdb_tpu_torch.ops.sort import SORT_TILE
 from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
 
+from test_torch_insert import CASES as INSERT_CASES, make_case, run_port
+
 pytestmark = pytest.mark.cuda
 
 KEYSPACE = 6000
@@ -181,10 +183,16 @@ def test_inclusive_scan_unaligned(dev):
 
 
 def test_rank_count(dev):
+    """rank_count has no kernel (only plain versions call it): its kernel
+    route raises on the card, and its plain version runs there."""
     pos = torch.randint(-5, 70000, (200000,), dtype=torch.int32, device=dev)
-    for out_len in (1, 1000, 65536):
-        same(digest.rank_count(pos, out_len),
-             digest.rank_count(pos, out_len, impl="plain"))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        digest.rank_count(pos, 1000)
+    got = digest.rank_count(pos, 1000, impl="plain")
+    want = torch.searchsorted(torch.sort(pos.cpu()).values,
+                              torch.arange(1000, dtype=torch.int32),
+                              right=True).to(torch.int32)
+    same(got, want)
 
 
 @pytest.mark.parametrize("rebase", [None, 0, 100, -(1 << 31) + 5])
@@ -1161,3 +1169,199 @@ def test_merge_full_shapes(dev, shape):
                             (1 << 20, 1 << 18, 300_000, 60_000))
     st = merge_state(dev, cap, d_cap, n_b, n_d, seed=5)
     check_merge(st, cap, d_cap, (2500, 1000))
+
+
+# ---------------------------------------------------------------------------
+# the range insert under the point insert and window_insert (csrc/insert.cu)
+# ---------------------------------------------------------------------------
+
+# Counters of the wrappers the old inserts ran inside them; the range
+# insert moves none of them beyond _union_ranges' own.
+INSERT_SHARED = ("inclusive_scan", "sort_rows", "searchsorted",
+                 "compact_rows", "union_ranges")
+
+
+def insert_launches(fn) -> dict:
+    K.reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    return dict(K.LAUNCHES)
+
+
+@pytest.mark.parametrize("kind,name", INSERT_CASES,
+                         ids=[f"{k}-{n}" for k, n in INSERT_CASES])
+def test_insert_cases_kernel_equals_plain(dev, kind, name):
+    """tests/test_torch_insert.py's cases (empty ranges, a present end, a
+    range over every row, an exact fit, an overflow by one, an end below
+    row 0, a masked shard insert), kernel against plain; launches a call:
+    the point insert 4, window_insert 3 beyond _union_ranges' own."""
+    case = make_case(kind, name)
+    got = run_port(case, dev)
+    want = run_port(case, dev, impl="plain")
+    for k in got:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]),
+                                      err_msg=f"{kind}-{name} {k}")
+    counts = insert_launches(lambda: run_port(case, dev))
+    counter = "point_insert" if kind == "point" else "window_insert"
+    assert counts[counter] == (4 if kind == "point" else 3)
+    if kind == "point":
+        assert all(counts[c] == 0 for c in INSERT_SHARED)
+    else:
+        from foundationdb_tpu_torch.conflict import window
+        rows = lambda p: torch.from_numpy(digest.planar_to_rows(p)).to(dev)
+        valid = torch.from_numpy(case["valid"].astype(np.int32)).to(dev)
+        union = insert_launches(lambda: window._union_ranges(
+            rows(case["wb"]), rows(case["we"]), valid))
+        assert all(counts[c] == union[c] for c in INSERT_SHARED)
+
+
+def point_insert_inputs(rng, u_pad: int, w_pad: int, n_keys: int,
+                        keyspace: int):
+    """A point batch's unique sorted begin keys (MAX padded), their ends and
+    w_pad writes over them, about 70% surviving."""
+    kid = np.sort(rng.choice(keyspace, size=n_keys, replace=False))
+    u_k = digest.max_digest_block(u_pad)
+    u_k[:, :n_keys] = key_digests(kid)
+    u_e = u_k.copy()
+    u_e[7, :n_keys] += 1
+    w_uid = rng.integers(0, max(n_keys, 1), size=w_pad).astype(np.int32)
+    w_ins = (rng.random(w_pad) < 0.7).astype(np.int32)
+    rows = lambda p: torch.from_numpy(digest.planar_to_rows(p))
+    return rows(u_k), rows(u_e), torch.from_numpy(w_uid), torch.from_numpy(
+        w_ins)
+
+
+@pytest.mark.parametrize("shape", ["config2", "config5_shard", "small"])
+def test_point_insert_stream(dev, shape):
+    """Seeded batches of point inserts into one delta, kernel against plain
+    after each: config 2's delta (2^20, 2^17 unique keys a batch), a
+    config-5 shard's (2^18, u_own, row 0 the shard's lower split), and a
+    small delta that overflows."""
+    d_cap, u_pad, n_keys, batches = {
+        "config2": (1 << 20, 1 << 17, 100_000, 4),
+        "config5_shard": (1 << 18, 1 << 16, 60_000, 3),
+        "small": (1 << 10, 256, 200, 6)}[shape]
+    rng = np.random.default_rng(d_cap)
+    keyspace = 10 ** 9
+    first = None
+    if shape == "config5_shard":
+        first = torch.from_numpy(digest.planar_to_rows(
+            key_digests([keyspace // 4])))[0]
+    states = [fused.make_delta_state(d_cap, dev, None if first is None else
+                                     first.to(dev)) for _ in range(2)]
+    flags = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2)]
+    for b in range(batches):
+        u_k, u_e, w_uid, w_ins = (x.to(dev) for x in point_insert_inputs(
+            rng, u_pad, u_pad + u_pad // 2, n_keys, keyspace))
+        u_own = None
+        if first is not None:
+            u_own = torch.from_numpy((rng.random(u_pad) < 0.3).astype(
+                np.int32)).to(dev)
+        outs = []
+        for st, flag, impl in zip(states, flags, (None, "plain")):
+            tail = torch.zeros(3, dtype=torch.int32, device=dev)
+            fused._point_insert(st.bk, st.bv, st.size, u_k, u_e, w_uid, w_ins,
+                                torch.tensor([1000 * (b + 1)],
+                                             dtype=torch.int32, device=dev),
+                                flag, bsize=st.size, tail=tail, impl=impl,
+                                u_own=u_own)
+            outs.append((st.bk, st.bv, st.size, flag, tail))
+        same(outs[0], outs[1])
+    if shape == "small":
+        assert int(flags[0][0]) == 1
+    else:
+        assert int(states[0].size[0]) > n_keys
+
+
+def window_ranges(rng, w: int, n_valid: int, keyspace: int, span: int):
+    """w write ranges [key(a), key(a + s)), s in [1, span), the first
+    n_valid of them valid."""
+    wb, we = range_rows(rng, w, span=span, keyspace=keyspace)
+    valid = (np.arange(w) < n_valid).astype(np.int32)
+    return wb, we, torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("shape", ["config3_delta", "window_2_21"])
+def test_window_insert_stream(dev, shape):
+    """Seeded batches of range inserts, kernel against plain after each:
+    the general step's delta at config-3 shapes (2^20, 2^16 writes a
+    batch), and a 2^21 window filled across several batches."""
+    from foundationdb_tpu_torch.conflict import window
+    cap, w, n_valid, batches = {
+        "config3_delta": (1 << 20, 1 << 16, 55_000, 4),
+        "window_2_21": (1 << 21, 1 << 16, 60_000, 8)}[shape]
+    rng = np.random.default_rng(cap + w)
+    states = [window.make_window_state(cap, 0, dev) for _ in range(2)]
+    for b in range(batches):
+        wb, we, valid = (x.to(dev) for x in window_ranges(
+            rng, w, n_valid, 10 ** 8, 100))
+        outs = [window.window_insert(st, wb, we, valid, 1000 * (b + 1),
+                                     impl=impl)
+                for st, impl in zip(states, (None, "plain"))]
+        same(outs[0], outs[1])
+    assert int(states[0].size[0]) > batches * n_valid
+
+
+def chunk_edge_ranges(live: int, mode: str):
+    """Ranges at the move's 256-row chunk edges c of a tier whose row j >= 1
+    is key(1000 j): "across" drops rows c-5..c+5, "from" begins at row c,
+    "to" ends at row c (a present end); edges up to just past the live
+    prefix."""
+    lo, hi = {"across": (-5500, 5500), "from": (0, 3000),
+              "to": (-2999, 0)}[mode]
+    edges = np.arange(256, live + 6, 256)
+    b, e = 1000 * edges + lo, 1000 * edges + hi
+    rows = lambda ids: torch.from_numpy(digest.planar_to_rows(key_digests(
+        ids)))
+    return rows(b), rows(e)
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 255, 256, 257, 511, 512, 513,
+                                     1024, 1025])
+def test_window_insert_tile_edges(dev, n_valid):
+    """Valid ranges around multiples of the 256-range probe tile (none and
+    one included), into tiers of live rows around multiples of the move's
+    256-row chunk, with no range at a chunk edge, or the first ones
+    replaced by ranges whose dropped span crosses an edge, begins at one or
+    ends at one."""
+    from foundationdb_tpu_torch.conflict import window
+    w, cap = 1536, 1 << 12
+    for live in (255, 256, 257, 511, 512, 513, 1000):
+        rng = np.random.default_rng(live * 2000 + n_valid)
+        bk = digest.max_digest_block(cap)
+        bk[:, 0] = 0
+        bk[:, 1:live] = key_digests(1000 * np.arange(1, live))
+        bv = np.full(cap, NEG_INF, dtype=np.int32)
+        bv[:live] = rng.integers(0, 500, size=live, dtype=np.int32)
+        for mode in (None, "across", "from", "to"):
+            wb, we, valid = window_ranges(rng, w, n_valid, 10 ** 6, 40)
+            if mode is not None:
+                eb, ee = chunk_edge_ranges(live, mode)
+                k = min(eb.shape[0], n_valid)
+                wb[:k], we[:k] = eb[:k], ee[:k]
+            wb, we, valid = wb.to(dev), we.to(dev), valid.to(dev)
+            outs = [window.window_insert(
+                window.window_state_from_numpy(bk, bv, live, dev), wb, we,
+                valid, 900, impl=impl) for impl in (None, "plain")]
+            same(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("n_keys", [0, 1, 255, 256, 257, 1024])
+def test_point_insert_tile_edges(dev, n_keys):
+    """Unique keys around multiples of the probe tile, none and one
+    included, every write surviving."""
+    rng = np.random.default_rng(n_keys)
+    u_pad = 2048
+    u_k, u_e, w_uid, _ = (x.to(dev) for x in point_insert_inputs(
+        rng, u_pad, u_pad, n_keys, 10 ** 6))
+    w_ins = torch.ones(u_pad, dtype=torch.int32, device=dev)
+    outs = []
+    for impl in (None, "plain"):
+        st = make_state(dev, seed=4)
+        tail = torch.zeros(3, dtype=torch.int32, device=dev)
+        fused._point_insert(st["dk"], st["dv"], st["dsize"], u_k, u_e, w_uid,
+                            w_ins, torch.tensor([7000], dtype=torch.int32,
+                                                device=dev), st["flag"],
+                            bsize=st["size"], tail=tail, impl=impl)
+        outs.append((st["dk"], st["dv"], st["dsize"], st["flag"], tail))
+    same(outs[0], outs[1])
