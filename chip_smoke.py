@@ -47,7 +47,8 @@ exits non-zero):
      warmed delta (insert_at: 4 launches a call and no scan, sort, search,
      rank count or compaction; its own and whole device ms, bounds over
      the live rows and over the full-capacity passes of a histogram-and-
-     scatter insert);
+     scatter insert); history_probe at config 2 (probe_at: launches a
+     call, own ms, the bound by search_bytes);
   3. the point path: 3 warmup batches, 10 at pipeline depth 8, 8 at depth
      1; oracle parity in both contention regimes; kernel-vs-plain state
      equality across a merge;
@@ -61,7 +62,9 @@ exits non-zero):
      one launch a call, and a 200-deep chain of ranges at config-3 width
      (rounds equal to the depth); window_insert on the general step's
      delta and on path 3's window (insert_at: 3 launches a call beyond
-     _union_ranges', which it no longer adds to);
+     _union_ranges', which it no longer adds to); history_probe at the
+     general step's shape (every read slot against the warmed tiers) and
+     window_query on path 3's window (probe_at);
   5. the general path on config 3 (3 + 10 at depth 8 + 8 at depth 1): the
      path_general line, commit rate in 0.05-0.95;
   6. oracle parity on 6 batches of 1,000 config-3 txns over 1M records,
@@ -73,8 +76,9 @@ exits non-zero):
   9. the shard wrappers (clip_rows, shard_combine, shard_commit) and the
      programs #8 (sharded compact step and merge at config 5, sharded
      general step at config 3) and #9 (sharded window step and gc), kernel
-     against plain; one shard's merge and one shard's point insert alone
-     at its shape;
+     against plain; one shard's merge, point insert and history probe
+     (its owned keys) alone at its shape, and window_query on one shard of
+     the sharded window;
  10. the sharded path on config 5: fill, p50 at depth 1, shard balance,
      the at-capacity probe (2,048 committed writes re-read at snapshot 0
      must all conflict);
@@ -691,6 +695,12 @@ def compare_kernels(cs, packed, buf):
                              "flag": cs.flag, "bsize": cs.size},
         (u_b, u_e, w_uid, w_ins, scal[4:5], None))))
     by_name = {r["name"]: r for r in rows}
+    # The history probe's shapes: config 2 here, config 3's general step
+    # and a config-5 shard in phases 4 and 9.
+    by_name["history_probe"]["at_shapes"] = [probe_at(
+        "config2", "history_probe", "point", cases["history_probe"][0],
+        probe_bytes, cap=CAPACITY, slots=u_pad, searched=u_pad,
+        size=int(cs.size[0]), dsize=int(cs.dsize[0]))]
     by_name["inclusive_scan"]["at_sizes"] = scan_sizes(
         scan, {"w_pad": w_pad, "r_pad": r_pad, "d_cap": cs.d_cap,
                "merge": CAPACITY + DELTA_CAPACITY})
@@ -1228,32 +1238,27 @@ def insert_row(name: str, at: dict) -> dict:
             "bound_by": "bytes", "library_ms": None, "at_shapes": [at]}
 
 
-def insert_state(kind: str, cap: int, n_live: int, n_ranges: int,
-                 n_valid: int, seed: int = 9, u_pad=None, w_pad=None,
-                 owned=None):
-    """Synthetic inputs of insert_at at a path's shape: a tier of n_live
-    sorted rows (the zero digest, then 15-byte keys) at random versions in
-    a cap-row tier, and for "point" n_valid unique keys sorted in u_pad
-    slots (MAX padded), their ends a zero byte on, w_pad writes over them
-    about 70% surviving (u_own: an `owned` share of the keys, when given);
-    for "window" n_ranges ranges of 1-100 records, the first n_valid
-    valid.  Returns (state, args)."""
+def key_rows(ids):
+    """Digest rows int32[n, 8] (CPU) of the 15-byte keys b"k%014d" % id."""
     import torch
-    from foundationdb_tpu_torch.ops.digest import (encode_fixed, max_rows,
-                                                   planar_to_rows)
+    from foundationdb_tpu_torch.ops.digest import encode_fixed, planar_to_rows
+    ids = np.asarray(ids, dtype=np.int64)
+    mat = np.empty((ids.size, 15), dtype=np.uint8)
+    mat[:, 0] = ord("k")
+    x = ids.copy()
+    for d in range(14):
+        mat[:, 14 - d] = 48 + x % 10
+        x //= 10
+    return torch.from_numpy(planar_to_rows(encode_fixed(mat)))
+
+
+def key_tier(rng, cap: int, n_live: int):
+    """A cap-row tier on the card: the zero digest, then n_live - 1 sorted
+    distinct keys of ids below 10^9 (key_rows), MAX rows past them; random
+    versions in [0, 5000), NEG_INF past the live rows.  (k, v)."""
+    import torch
+    from foundationdb_tpu_torch.ops.digest import max_rows
     from foundationdb_tpu_torch.ops.rangemax import NEG_INF
-    rng = np.random.default_rng(seed)
-
-    def key_rows(ids):
-        ids = np.asarray(ids, dtype=np.int64)
-        mat = np.empty((ids.size, 15), dtype=np.uint8)
-        mat[:, 0] = ord("k")
-        x = ids.copy()
-        for d in range(14):
-            mat[:, 14 - d] = 48 + x % 10
-            x //= 10
-        return torch.from_numpy(planar_to_rows(encode_fixed(mat)))
-
     ids = np.sort(rng.choice(10 ** 9, size=n_live - 1, replace=False))
     k = max_rows(cap, "cpu")
     k[0] = 0
@@ -1261,8 +1266,24 @@ def insert_state(kind: str, cap: int, n_live: int, n_ranges: int,
     v = torch.full((cap,), NEG_INF, dtype=torch.int32)
     v[:n_live] = torch.from_numpy(rng.integers(0, 5000, n_live,
                                                dtype=np.int32))
+    return k.to(DEVICE), v.to(DEVICE)
+
+
+def insert_state(kind: str, cap: int, n_live: int, n_ranges: int,
+                 n_valid: int, seed: int = 9, u_pad=None, w_pad=None,
+                 owned=None):
+    """Synthetic inputs of insert_at at a path's shape: a tier of n_live
+    sorted rows (key_tier) in a cap-row tier, and for "point" n_valid
+    unique keys sorted in u_pad slots (MAX padded), their ends a zero byte
+    on, w_pad writes over them about 70% surviving (u_own: an `owned`
+    share of the keys, when given); for "window" n_ranges ranges of 1-100
+    records, the first n_valid valid.  Returns (state, args)."""
+    import torch
+    from foundationdb_tpu_torch.ops.digest import max_rows
+    rng = np.random.default_rng(seed)
+    k, v = key_tier(rng, cap, n_live)
     dev = lambda t: t.to(DEVICE)
-    state = {"k": dev(k), "v": dev(v),
+    state = {"k": k, "v": v,
              "size": dev(torch.tensor([n_live], dtype=torch.int32)),
              "flag": dev(torch.zeros((1,), dtype=torch.int32)),
              "bsize": dev(torch.tensor([1 << 20], dtype=torch.int32))}
@@ -1285,6 +1306,146 @@ def insert_state(kind: str, cap: int, n_live: int, n_ranges: int,
     valid = (np.arange(n_ranges) < n_valid).astype(np.int32)
     return state, (dev(key_rows(a)), dev(key_rows(a + s)),
                    dev(torch.from_numpy(valid)), now)
+
+
+# The range probes' shapes on the paths, for probe_state: (what, wrapper,
+# path, capacity and live rows of the base (the window) and of the delta,
+# query slots, live queries, point or 1-100-record ranges, owned share).
+# Live rows are those of the warmed states chip_smoke.py builds (config 2:
+# 9,765 and 3,343; config 3: 213,442 and 63,553, the window 540,494), the
+# config-5 shard's as phase 9 finds shard 1 (97,495 and 32,305), and the
+# sharded window's: on config 3's keys one shard holds every row and every
+# valid query (the config3 row's shape) and three are empty, none of
+# their queries valid; spread traffic gives each ~110,000 rows and a
+# quarter of the queries.
+PROBE_SHAPES = [
+    ("config2", "history_probe", "point",
+     (1 << 21, 9_765), (1 << 20, 3_343), 49_152, 47_733, "point", None),
+    ("config3_general", "history_probe", "general",
+     (1 << 21, 213_442), (1 << 20, 63_553), 524_288, 400_000, "range", None),
+    ("config5_shard", "history_probe", "sharded",
+     (1 << 20, 97_495), (1 << 18, 32_305), 196_608, 190_000, "point", 0.25),
+    ("config3", "window_query", "window",
+     (1 << 21, 540_494), None, 400_000, 400_000, "range", None),
+    ("sharded_window_empty", "window_query", "sharded_window",
+     (1 << 21, 1), None, 400_000, 400_000, "range", 0.0),
+    ("sharded_window_spread", "window_query", "sharded_window",
+     (1 << 21, 110_000), None, 400_000, 400_000, "range", 0.25),
+]
+
+
+def probe_state(base, delta, slots: int, n_live: int, kind: str, owned,
+                seed: int = 11):
+    """Synthetic inputs of one PROBE_SHAPES row, built as insert_state
+    builds its tiers (key_tier): the tiers and their sparse tables, then
+    `slots` query slots whose first n_live hold queries (point keys sorted
+    and unique, their ends a zero byte on; or ranges of 1-100 records in
+    random order), MAX rows past them; the owned share (a random mask,
+    when given; all live otherwise), snapshots in [0, 5000).  A dict of
+    the probe's arguments."""
+    import torch
+    from foundationdb_tpu_torch.ops.digest import max_rows
+    from foundationdb_tpu_torch.ops.rangemax import build_sparse_table
+    rng = np.random.default_rng(seed)
+    st = {}
+    st["bk"], st["bv"] = key_tier(rng, *base)
+    st["table"] = build_sparse_table(st["bv"], impl="plain")
+    if delta is not None:
+        st["dk"], st["dv"] = key_tier(rng, *delta)
+        st["dtable"] = build_sparse_table(st["dv"], impl="plain")
+    q_b, q_e = max_rows(slots, "cpu"), max_rows(slots, "cpu")
+    if kind == "point":
+        q_b[:n_live] = key_rows(np.sort(rng.choice(10 ** 9, size=n_live,
+                                                   replace=False)))
+        q_e[:n_live] = q_b[:n_live]
+        q_e[:n_live, 7] += 1
+    else:
+        a = rng.integers(0, 10 ** 9 - 100, size=n_live)
+        q_b[:n_live] = key_rows(a)
+        q_e[:n_live] = key_rows(a + rng.integers(1, 101, size=n_live))
+    live = np.arange(slots) < n_live
+    if owned is not None:
+        live &= rng.random(slots) < owned
+    st["q_b"], st["q_e"] = q_b.to(DEVICE), q_e.to(DEVICE)
+    st["live"] = torch.from_numpy(live.astype(np.int32)).to(DEVICE)
+    st["snap"] = torch.from_numpy(rng.integers(0, 5000, slots,
+                                               dtype=np.int32)).to(DEVICE)
+    return st
+
+
+def probe_bytes_of(tiers, q_bytes: int, n_searches: int, n_ranges: int,
+                   n_out: int) -> int:
+    """Least bytes of a range probe: the query bytes it must read
+    (q_bytes), its output (4 bytes a slot), per tier the rows n_searches
+    binary searches touch (search_bytes) and two range-max gathers per
+    range searched.  A range's begin and end searches count once: they
+    walk the same rows but where a live boundary lies inside the range
+    (never, for a point range; rarely, for 1-100 records of 50M)."""
+    return (q_bytes + 4 * n_out + sum(search_bytes(t, n_searches)
+                                      for t in tiers)
+            + 8 * n_ranges * len(tiers))
+
+
+def probe_at(what: str, name: str, path: str, fn, n_bytes: int,
+             reps: int = REPS, **info) -> dict:
+    """history_probe or window_query (`name`) at one of its shapes: kernel
+    against plain (fn(impl)), its launches a call, its own kernels'
+    device ms, the plain version's ms and the byte bound; `path` is the
+    path that runs it at this shape."""
+    from foundationdb_tpu_torch import kernels as K
+    K.reset_counts()
+    got = fn("kernel")
+    launches = K.LAUNCHES[name]
+    err = require_equal(f"{name} {what}", got, fn("plain"))
+    row = {"shape": what, "path": path, **info,
+           "launches_per_call": launches, "max_abs_err": err,
+           "ms": device_ms(lambda: fn("kernel"), reps=reps, counter=name),
+           "plain_ms": cuda_ms(lambda: fn("plain"), reps=2),
+           "bound_ms": bound_ms(n_bytes)}
+    log(f"{name} at {what}: bit-equal, {launches} launch(es); own "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms")
+    return row
+
+
+def probe_inputs(what: str, slots=None):
+    """The synthetic inputs of PROBE_SHAPES' row `what` (with `slots`, only
+    that many query slots, as many live as fit): (wrapper name, path,
+    fn(impl), bound bytes, info).  A masked probe (an owned share, or
+    window_query's valid mask) needs the rows of its live queries only."""
+    from foundationdb_tpu_torch.conflict import window
+    from foundationdb_tpu_torch.ops import digest
+    _, name, path, base, delta, n_slots, n_live, kind, owned = next(
+        r for r in PROBE_SHAPES if r[0] == what)
+    slots = n_slots if slots is None else slots
+    st = probe_state(base, delta, slots, min(n_live, slots), kind, owned)
+    n_q = int(st["live"].sum())
+    if name == "history_probe":
+        own = None if owned is None else st["live"]
+
+        def fn(i):
+            return digest.history_probe(st["bk"], st["table"], st["dk"],
+                                        st["dtable"], st["q_b"], st["q_e"],
+                                        i, own=own)
+        n_q = slots if own is None else n_q
+        n_bytes = probe_bytes_of((st["bk"], st["dk"]), 64 * n_q + (
+            0 if own is None else 4 * slots), n_q, n_q, slots)
+    else:
+        def fn(i):
+            return window.window_query(st["bk"], st["bv"], st["q_b"],
+                                       st["q_e"], st["snap"], st["live"],
+                                       impl=i)
+        # The valid mask, and each valid query's ends and snapshot.
+        n_bytes = probe_bytes_of((st["bk"],), 68 * n_q + 4 * slots,
+                                 n_q, n_q, slots)
+    info = {"cap": st["bk"].shape[0], "slots": slots, "searched": n_q}
+    return name, path, fn, n_bytes, info
+
+
+def probe_case(what: str, reps: int = REPS) -> dict:
+    """probe_at on the synthetic inputs of PROBE_SHAPES' row `what`."""
+    name, path, fn, n_bytes, info = probe_inputs(what)
+    return probe_at(what, name, path, fn, n_bytes, reps=reps, **info)
 
 
 def _codes(fused, scal, too_old, conf, w_txn, impl):
@@ -1581,10 +1742,11 @@ def compare_general(cs, packed, win, stream):
                          nbytes(w_b, w_e, w_ins) + 2 * nbytes(w_b)
                          + 8 * w_cap),
         # wq_query: the queries in, the bits out, the table rows a batch of
-        # searches touches, two range-max gathers per query.
+        # searches touches (a range's two searches once, probe_bytes_of),
+        # two range-max gathers per query.
         "window_query": (query_run,
                          nbytes(q_b, q_e, q_snap, q_valid, bits)
-                         + search_bytes(win.bk, 2 * nq) + 8 * nq),
+                         + search_bytes(win.bk, nq) + 8 * nq),
         # wg_keep: the versions in, the keep mask out.
         "window_gc": ((gc_run, win_copy), nbytes(win.bv) + 4 * CAPACITY),
     }
@@ -1656,9 +1818,27 @@ def compare_general(cs, packed, win, stream):
     log(f"sort_rows: slowest of (a), (b), (c) {srt['spread_abc']:.3f}x "
         f"the fastest")
 
-    probe_bytes = (nbytes(r_b, r_e, vmax) + search_bytes(cs.bk, 2 * r_cap)
-                   + search_bytes(cs.dk, 2 * r_cap) + 4 * 4 * r_cap)
+    # A range's two searches count once (probe_bytes_of).
+    probe_bytes = (nbytes(r_b, r_e, vmax) + search_bytes(cs.bk, r_cap)
+                   + search_bytes(cs.dk, r_cap) + 4 * 4 * r_cap)
     programs = {}
+    # The history probe at the general step's shape (every read slot
+    # against the warmed tiers), and window_query's row at its shape.
+    programs["history_probe_general"] = probe_at(
+        "config3_general", "history_probe", "general",
+        lambda i: digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable,
+                                       r_b, r_e, i),
+        probe_bytes_of((cs.bk, cs.dk), nbytes(r_b, r_e), r_cap, r_cap,
+                       r_cap),
+        cap=CAPACITY, slots=r_cap, searched=r_cap, size=int(cs.size[0]),
+        dsize=int(cs.dsize[0]))
+    wq = next(r for r in rows if r["name"] == "window_query")
+    wq["at_shapes"] = [probe_at(
+        "config3", "window_query", "window", query_run,
+        probe_bytes_of((win.bk,), nbytes(q_b, q_e, q_snap, q_valid),
+                       nq, nq, nq),
+        cap=CAPACITY, slots=nq, searched=int(q_valid.sum()),
+        size=int(win.size[0]))]
     for prog, run, copy_fn, n_bytes in (
             # The batch in, the history probe, the delta read and
             # rewritten, the codes and tail out.
@@ -1669,7 +1849,7 @@ def compare_general(cs, packed, win, stream):
             # queries in, the bits out.
             ("window_query", None, None,
              nbytes(win.bv, q_b, q_e, q_snap, q_valid, bits)
-             + search_bytes(win.bk, 2 * nq)),
+             + search_bytes(win.bk, nq)),
             ("window_insert", win_insert_run, win_copy,
              2 * nbytes(win.bk, win.bv) + nbytes(ww_b, ww_e, ww_valid)),
             ("window_gc", gc_run, win_copy, 2 * nbytes(win.bk, win.bv))):
@@ -2066,7 +2246,7 @@ def compare_sharded(splits5, stream5, stream3):
     general steps, the sharded merge) and #9 (the sharded window step and
     gc), kernel against plain at the paths' shapes."""
     import torch
-    from foundationdb_tpu_torch.conflict import fused
+    from foundationdb_tpu_torch.conflict import fused, window
     from foundationdb_tpu_torch.ops import digest, shard
     from foundationdb_tpu_torch.parallel import ShardedWindow
     rows, programs = [], {}
@@ -2090,6 +2270,18 @@ def compare_sharded(splits5, stream5, stream3):
     rows.append(kernel_row(
         "clip_rows", lambda i: shard.clip_rows(u_b, u_e, *sh1.bounds, impl=i),
         nbytes(u_b, u_e, *clip_out)))
+    # The history probe of shard 1: its clipped keys, the owned ones
+    # searched (the owned mask read, their rows read, every slot written).
+    cu_b, cu_e, owned = clip_out[:3]
+    n_own = int(owned.sum())
+    programs["history_probe_shard"] = probe_at(
+        "config5_shard", "history_probe", "sharded",
+        lambda i: digest.history_probe(sh1.bk, sh1.table, sh1.dk, sh1.dtable,
+                                       cu_b, cu_e, i, own=owned),
+        probe_bytes_of((sh1.bk, sh1.dk), 64 * n_own + nbytes(owned), n_own,
+                       n_own, u_pad),
+        cap=cs.capacity, slots=u_pad, searched=n_own, size=int(sh1.size[0]),
+        dsize=int(sh1.dsize[0]))
     rows.append(kernel_row(
         "shard_combine", lambda i: shard.shard_combine(hists, impl=i),
         nbytes(hists) + 4 * t_cap,
@@ -2170,8 +2362,9 @@ def compare_sharded(splits5, stream5, stream3):
     def load_p():
         load_shards(plain, saved)
 
+    # A range's two searches count once (probe_bytes_of).
     gen_bytes = (nbytes(digests, meta) + t_cap + 12 + sum(
-        probe_bytes(sh, 2 * r_cap, 2 * nbytes(digests[:r_cap]))
+        probe_bytes(sh, r_cap, 2 * nbytes(digests[:r_cap]))
         + 2 * nbytes(sh.dk, sh.dv) for sh in cs.shards))
     time_program(programs, "sharded_general_step", lambda: run_step(cs),
                  lambda: run_step(plain), load_k, load_p, gen_bytes)
@@ -2190,6 +2383,23 @@ def compare_sharded(splits5, stream5, stream3):
     v5, enc5, _ = stream3[5]
     inputs = window_inputs(enc5, 0)
     nq, nw = inputs[0].shape[0], inputs[4].shape[0]
+    # window_query on shards 0 and 1 of the sharded window: the step's
+    # queries clipped to the shard, the valid ones searched.  On config
+    # 3's keys shard 0 holds every row and valid query, shard 1 none.
+    for d in (0, 1):
+        st_d = wins[0].shard_states()[d]
+        lo_d, hi_d = next(iter(wins[0].replicas[d].values()))[1]
+        cqb, cqe, qv, _ = shard.clip_rows(inputs[0], inputs[1], lo_d, hi_d,
+                                          valid=inputs[3], impl="plain")
+        n_valid = int(qv.sum())
+        programs[f"window_query_shard{d}"] = probe_at(
+            f"sharded_window_shard{d}", "window_query", "sharded_window",
+            lambda i, st_d=st_d, cqb=cqb, cqe=cqe, qv=qv: window.window_query(
+                st_d.bk, st_d.bv, cqb, cqe, inputs[2], qv, impl=i),
+            probe_bytes_of((st_d.bk,), 68 * n_valid + nbytes(qv),
+                           n_valid, n_valid, nq),
+            cap=CAPACITY, slots=nq, searched=n_valid,
+            size=int(st_d.size[0]))
 
     def wload(w):
         def load():
@@ -2210,7 +2420,7 @@ def compare_sharded(splits5, stream5, stream3):
     # Per shard: the queries in, the table rows the searches touch, the
     # state read and rewritten by the insert; the bits out.
     wstep_bytes = (nbytes(*inputs) + 4 * nq + N_SHARDS * (
-        search_bytes(st0.bk, 2 * nq) + 8 * nq
+        search_bytes(st0.bk, nq) + 8 * nq
         + 2 * nbytes(st0.bk, st0.bv)))
     time_program(programs, "sharded_window_step", lambda: wstep(wins[0]),
                  lambda: wstep(wins[1]), wload(wins[0]), wload(wins[1]),
@@ -2586,6 +2796,8 @@ def main() -> int:
     log("phase 4: the new kernels against their plain versions (config 3)")
     cs, packed, win, stream = warmed_general_state()
     rows3, programs3 = compare_general(cs, packed, win, stream)
+    next(r for r in rows if r["name"] == "history_probe")[
+        "at_shapes"].append(programs3.pop("history_probe_general"))
     rows += rows3
     programs.update(programs3)
     del cs, packed, win, stream
@@ -2620,6 +2832,11 @@ def main() -> int:
         programs9["sharded_merge"].pop("one_shard"))
     next(r for r in rows if r["name"] == "point_insert")["at_shapes"].append(
         programs9.pop("point_insert_shard"))
+    next(r for r in rows if r["name"] == "history_probe")[
+        "at_shapes"].append(programs9.pop("history_probe_shard"))
+    next(r for r in rows if r["name"] == "window_query")[
+        "at_shapes"].extend(programs9.pop(f"window_query_shard{d}")
+                            for d in (0, 1))
     rows += rows9
     programs.update(programs9)
     torch.cuda.empty_cache()
@@ -2648,6 +2865,9 @@ def main() -> int:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        for at in row.get("at_shapes", []):
+            if "path" in at:  # the probes' shapes: that path's calls
+                at["launches_on_path"] = by_path[at["path"]]
     missing = [f"{r['name']} ({p})" for r in rows for p, names in
                PATH_KERNELS.items()
                if r["name"] in names and r["launches_by_path"][p] <= 0]

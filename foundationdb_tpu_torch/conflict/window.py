@@ -115,8 +115,10 @@ def window_query(bk: torch.Tensor, bv: torch.Tensor, r_begin: torch.Tensor,
     """conflict[i] = valid[i] and max{V(k): k in [begin_i, end_i)} > snap_i
     (int32 0/1 [Q]).  The segment containing begin_i is included (its
     boundary key is <= begin), matching the skip list's start-side check.
-    Kernel: build_sparse_table's st_tile / st_high, then wq_query (search and
-    range max fused, one thread per query)."""
+    Kernel: build_sparse_table's st_tile / st_high, then wq_query (both
+    searches and the range max fused, the searches' first levels in
+    shared memory: csrc/common.cuh probe_max; invalid queries search
+    nothing)."""
     table = build_sparse_table(bv, impl=impl)
     if _k.use_kernel(bk, impl):
         out = torch.empty((r_begin.shape[0],), dtype=torch.int32,

@@ -15,6 +15,7 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 #define NEG_INF_I32 (-2147483647)  // ops/rangemax.py NEG_INF = -(1<<31)+1
@@ -119,6 +120,213 @@ __device__ __forceinline__ int range_max(const int* table, int cap, int lo,
   return len > 0 ? (a > b ? a : b) : NEG_INF_I32;
 }
 
+// ---------------------------------------------------------------------------
+// Range probes: the reference's two searches of a range [b, e) (the upper
+// bound of b, the lower bound of e: searchsorted_interval, ops/digest.py
+// :322) and the range max over [ub(b) - 1, lb(e)), with the searches' top
+// levels in shared memory, half-row compares and independent chains
+// interleaved.
+//
+// The staged top.  search_rows' midpoints over [0, cap) (cap = 2^nbits)
+// form a fixed binary tree: node 1 is the midpoint (lo + hi) >> 1 of
+// [0, cap), and node t's children 2t and 2t + 1 are the midpoints after
+// going left (hi = mid) and right (lo = mid + 1).  Every node of its first
+// nbits levels has a non-empty interval, so any search of any table,
+// sorted or not, reads exactly those of its first `levels` (<= nbits)
+// midpoints that lie on its path through this tree.  A block stages lanes
+// 0-3 of the tree's first min(PROBE_LEVELS, nbits) levels, breadth first
+// (top_mid; tests/test_torch_probe.py search_top mirrors it); a search
+// walks them there and goes on from its own (lo, hi) in global memory: the reference's midpoints in the reference's order,
+// so the result is the reference's on any table.
+//
+// Half rows.  A row is compared by its lanes 0-3 first; lanes 4-7 are
+// read only when those tie (a key's own row, MAX against MAX), so a level
+// costs one 16-byte load, not two: the searches of many queries are bound
+// by the load instructions of scattered rows, not by their bytes.
+//
+// The chains.  A range's two searches read the same midpoint while their
+// intervals agree (always, for a point range [k, k + \x00): no row lies
+// strictly between its ends); one load serves both there.  The searches
+// of NT tiers advance in lockstep, every load of a level issued before
+// the first compare.
+
+// Staged levels a tier (8: 255 rows, 4,080 bytes; 10 and 12 were slower
+// on the H100 at the paths' shapes, PERF.md).
+#define PROBE_LEVELS 8
+#define PROBE_NODES ((1 << PROBE_LEVELS) - 1)
+
+struct Key {
+  uint4 a, b;  // lanes 0-3, lanes 4-7
+};
+
+__device__ __forceinline__ Key load_key(const uint32_t* rows, long i) {
+  const uint4* p = reinterpret_cast<const uint4*>(rows + i * 8);
+  return Key{p[0], p[1]};
+}
+
+__device__ __forceinline__ uint4 load_half(const uint32_t* rows, long i,
+                                           int half) {
+  return reinterpret_cast<const uint4*>(rows + i * 8)[half];
+}
+
+// The row index of node t (1-based, breadth first) of the search tree
+// over [0, cap): the path to t is the bits of t below its leading one.
+__device__ __forceinline__ int top_mid(int cap, int t) {
+  int lo = 0, hi = cap;
+  for (int bit = 30 - __clz(t); bit >= 0; --bit) {
+    const int mid = (lo + hi) >> 1;
+    if ((t >> bit) & 1) lo = mid + 1; else hi = mid;
+  }
+  return (lo + hi) >> 1;
+}
+
+// A row table as a probe sees it: its rows and range-max table, and the
+// staged top (shared memory: lanes 0-3 of nodes 1 .. 2^levels - 1).
+struct ProbeTier {
+  const uint32_t* rows;  // [cap, 8]
+  const int* table;      // [LOG+1, cap]
+  int cap, levels;
+  const uint4* top;
+};
+
+// Sets up a tier whose top (PROBE_NODES entries) starts at `top` and
+// stages min(PROBE_LEVELS, log2 cap) levels of it (block-wide;
+// __syncthreads() before the first search).
+__device__ __forceinline__ void stage_tier(ProbeTier& t, const uint32_t* rows,
+                                           const int* table, int cap,
+                                           uint4* top) {
+  const int nbits = cap > 1 ? 31 - __clz(cap) : 0;
+  t.rows = rows;
+  t.table = table;
+  t.cap = cap;
+  t.levels = nbits < PROBE_LEVELS ? nbits : PROBE_LEVELS;
+  t.top = top;
+  for (int i = threadIdx.x; i < (1 << t.levels) - 1; i += blockDim.x)
+    top[i] = load_half(rows, top_mid(cap, i + 1), 0);
+}
+
+// Compare of row `mid` (its lanes 0-3 already in `lo4`) with q.
+__device__ __forceinline__ int half_cmp(const uint32_t* rows, int mid,
+                                        uint4 lo4, const Key& q) {
+  const int c = cmp4(lo4, q.a);
+  return c != 0 ? c : cmp4(load_half(rows, mid, 1), q.b);
+}
+
+// max over the NT tiers of range_max(table, ub(qb) - 1, lb(qe)): the
+// reference's searchsorted_interval and range_max per tier.
+template <int NT>
+__device__ __forceinline__ int probe_max(const ProbeTier* tiers,
+                                         const Key& qb, const Key& qe) {
+  int lob[NT], hib[NT], loe[NT], hie[NT], tb[NT], te[NT];
+  int depth = 0;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    lob[j] = loe[j] = 0;
+    hib[j] = hie[j] = tiers[j].cap;
+    tb[j] = te[j] = 1;
+    depth = tiers[j].levels > depth ? tiers[j].levels : depth;
+  }
+  // The staged levels: every interval there is non-empty.
+  for (int lvl = 0; lvl < depth; ++lvl) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (lvl >= tiers[j].levels) continue;
+      const int mb = (lob[j] + hib[j]) >> 1, me = (loe[j] + hie[j]) >> 1;
+      const uint4 rb = tiers[j].top[tb[j] - 1];
+      const uint4 re = te[j] == tb[j] ? rb : tiers[j].top[te[j] - 1];
+      const bool gb = half_cmp(tiers[j].rows, mb, rb, qb) <= 0;  // ub(b)
+      const bool ge = half_cmp(tiers[j].rows, me, re, qe) < 0;   // lb(e)
+      if (gb) lob[j] = mb + 1; else hib[j] = mb;
+      if (ge) loe[j] = me + 1; else hie[j] = me;
+      tb[j] = 2 * tb[j] + gb;
+      te[j] = 2 * te[j] + ge;
+    }
+  }
+  // The rest in global memory, until every interval is empty (the
+  // reference's remaining iterations are no-ops).
+  for (;;) {
+    uint4 rb[NT], re[NT];
+    bool ab[NT], ae[NT], oe[NT];
+    int mb[NT], me[NT];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      ab[j] = lob[j] < hib[j];
+      ae[j] = loe[j] < hie[j];
+      mb[j] = (lob[j] + hib[j]) >> 1;
+      me[j] = (loe[j] + hie[j]) >> 1;
+      oe[j] = ae[j] && !(ab[j] && me[j] == mb[j]);
+      if (ab[j]) rb[j] = load_half(tiers[j].rows, mb[j], 0);
+      if (oe[j]) re[j] = load_half(tiers[j].rows, me[j], 0);
+      any = any || ab[j] || ae[j];
+    }
+    if (!any) break;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (!oe[j]) re[j] = rb[j];  // by value: the rows stay in registers
+      if (ab[j]) {
+        if (half_cmp(tiers[j].rows, mb[j], rb[j], qb) <= 0) lob[j] = mb[j] + 1;
+        else hib[j] = mb[j];
+      }
+      if (ae[j]) {
+        if (half_cmp(tiers[j].rows, me[j], re[j], qe) < 0) loe[j] = me[j] + 1;
+        else hie[j] = me[j];
+      }
+    }
+  }
+  int m = NEG_INF_I32;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int v = range_max(tiers[j].table, tiers[j].cap, hib[j] - 1, hie[j]);
+    m = v > m ? v : m;
+  }
+  return m;
+}
+
+#define PROBE_THREADS 256
+#define PROBE_QUEUE (PROBE_THREADS / 32 * 64)  // for_live's, a block's
+
+// Runs work(i, part, active) for every i in [0, n) with live(i) and
+// skip(i) for the rest.  A warp walks chunks of B = 32 / PER indices
+// (grid-stride) and queues its live ones in `queue` (64 ints a warp,
+// shared memory), running them B at a time, PER lanes a query (part =
+// lane % PER): a mask that leaves most queries dead leaves no lane idle.
+// work is called by every lane of the warp (it may shuffle); lanes past
+// the last queued query get active = false and a duplicate index.
+template <int PER, class Live, class Work, class Skip>
+__device__ __forceinline__ void for_live(long n, int* queue, Live live,
+                                         Work work, Skip skip) {
+  constexpr int B = 32 / PER;
+  const int lane = threadIdx.x & 31;
+  int* q = queue + (threadIdx.x >> 5) * 64;
+  int count = 0;
+  const long chunks = (n + B - 1) / B;
+  const long warps = (long)gridDim.x * (blockDim.x >> 5);
+  for (long c = (long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       c < chunks; c += warps) {
+    const long i = c * B + lane;
+    const bool in = lane < B && i < n;
+    const bool lv = in && live(i);
+    if (in && !lv) skip(i);
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, lv);
+    if (lv) q[count + __popc(m & ((1u << lane) - 1u))] = (int)i;
+    count += __popc(m);  // < 2B <= 64
+    __syncwarp();
+    if (count >= B) {
+      work(q[lane / PER], lane % PER, true);
+      count -= B;
+      const int rest = lane < count ? q[B + lane] : 0;
+      __syncwarp();
+      if (lane < count) q[lane] = rest;
+      __syncwarp();
+    }
+  }
+  if (count > 0) {
+    const int slot = lane / PER;
+    work(q[slot < count ? slot : count - 1], lane % PER, slot < count);
+  }
+}
+
 // hist[idx] += 1 for every calling thread, with one atomic per distinct
 // index among the warp's active threads: many queries share a position
 // (every padding query lands on the same slot), and serialised atomics on
@@ -148,3 +356,39 @@ __host__ __forceinline__ int blocks_for(long n, int threads) {
        i += (long)gridDim.x * blockDim.x)
 
 #define THREADS 256
+
+// The persistent grid of a probe kernel: as many blocks as fit on the
+// card at once (the occupancy query, made once per kernel and device),
+// and no more than `lanes` working lanes need; *fits: whether they all
+// fit.
+__host__ inline int probe_grid(const void* kern, long lanes, int* grid,
+                               bool* fits = nullptr) {
+  struct Seen { const void* kern; int dev, most; };
+  static std::mutex lock;
+  static Seen seen[16];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  long most = 0;
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (int i = 0; i < n_seen; ++i)
+      if (seen[i].kern == kern && seen[i].dev == dev) most = seen[i].most;
+  }
+  if (most == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kern, PROBE_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    most = (long)sms * (per_sm > 0 ? per_sm : 1);
+    std::lock_guard<std::mutex> hold(lock);
+    if (n_seen < 16) seen[n_seen++] = Seen{kern, dev, (int)most};
+  }
+  const long want = (lanes + PROBE_THREADS - 1) / PROBE_THREADS;
+  *grid = (int)(want < most ? (want > 0 ? want : 1) : most);
+  if (fits != nullptr) *fits = want <= most;
+  return 0;
+}

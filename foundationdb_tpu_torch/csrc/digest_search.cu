@@ -13,11 +13,18 @@
 //
 // Bound on the card: bytes.  All of it is integer data movement; each probe
 // reads one 32-byte row (one sector) of the table, so the floor is the
-// queries and outputs once plus the table rows the probes touch.  The top
-// levels of every binary search hit the same few rows and stay in L2.
+// queries and outputs once plus the table rows the probes touch.
 //
 // Design: one thread per query, the branchless loop of the reference with
-// an early exit; rows are read as two 16-byte loads.
+// an early exit.  ds_history is far from that floor: at config 2 its keys
+// fill a fraction of the card and the chain of dependent row reads sets
+// its time; at the general step's 524,288 reads the load instructions of
+// scattered rows do.  So its four searches (begin and end over base and
+// delta) walk staged tops in shared memory, read half rows, share one
+// load where begin and end meet the same midpoint, run a lane a tier
+// when the keys fit on the card at once (else both tiers in lockstep in
+// one thread), and unowned keys leave no lane idle (probe_max, for_live
+// in common.cuh).
 #include "common.cuh"
 
 __global__ void k_widen(const uint8_t* __restrict__ ub, int u_pad, int lw,
@@ -60,29 +67,41 @@ __global__ void k_search(const uint32_t* __restrict__ table, int cap,
   }
 }
 
-__global__ void k_history(const uint32_t* __restrict__ bk, int cap, int nb,
-                          const int* __restrict__ table,
-                          const uint32_t* __restrict__ dk, int dcap, int nd,
-                          const int* __restrict__ dtable,
-                          const uint32_t* __restrict__ u_b,
-                          const uint32_t* __restrict__ u_e, int u_pad,
-                          const int* __restrict__ own,
-                          int* __restrict__ vmax) {
-  GRID_STRIDE(u, u_pad) {
-    if (own != nullptr && !own[u]) {
-      vmax[u] = NEG_INF_I32;
-      continue;
-    }
-    Row b = load_row(u_b, u);
-    Row e = load_row(u_e, u);
-    int pb = search_rows(bk, cap, nb, b, false);
-    int hb = search_rows(bk, cap, nb, e, true);
-    int mb = range_max(table, cap, pb - 1, hb);
-    int pd = search_rows(dk, dcap, nd, b, false);
-    int hd = search_rows(dk, dcap, nd, e, true);
-    int md = range_max(dtable, dcap, pd - 1, hd);
-    vmax[u] = mb > md ? mb : md;
-  }
+// One range probe a query over both tiers (PER = 1: the four searches in
+// lockstep in one thread) or a tier a lane (PER = 2: two lanes a query,
+// their maxima combined by a shuffle).  Unowned keys get NEG_INF without
+// a search; the owned ones are queued per warp (for_live).
+template <int PER>
+__global__ void __launch_bounds__(PROBE_THREADS)
+    k_history(const uint32_t* __restrict__ bk, int cap,
+              const int* __restrict__ table, const uint32_t* __restrict__ dk,
+              int dcap, const int* __restrict__ dtable,
+              const uint32_t* __restrict__ u_b,
+              const uint32_t* __restrict__ u_e, int u_pad,
+              const int* __restrict__ own, int* __restrict__ vmax) {
+  __shared__ uint4 top[2 * PROBE_NODES];
+  __shared__ int queue[PROBE_QUEUE];
+  ProbeTier tiers[2];
+  stage_tier(tiers[0], bk, table, cap, top);
+  stage_tier(tiers[1], dk, dtable, dcap, top + PROBE_NODES);
+  __syncthreads();
+  for_live<PER>(
+      u_pad, queue,
+      [&](long u) { return own == nullptr || own[u] != 0; },
+      [&](int u, int part, bool active) {
+        const Key b = load_key(u_b, u), e = load_key(u_e, u);
+        int m;
+        if constexpr (PER == 1) {
+          m = probe_max<2>(tiers, b, e);
+        } else {
+          const ProbeTier t = part ? tiers[1] : tiers[0];
+          m = probe_max<1>(&t, b, e);
+          const int o = __shfl_xor_sync(0xFFFFFFFFu, m, 1);
+          m = o > m ? o : m;
+        }
+        if (active && part == 0) vmax[u] = m;
+      },
+      [&](long u) { vmax[u] = NEG_INF_I32; });
 }
 
 extern "C" int ds_widen(const void* ub, int u_pad, int lw, const void* scal,
@@ -101,15 +120,26 @@ extern "C" int ds_search(const void* table, int cap, const void* q, int nq,
   return (int)cudaGetLastError();
 }
 
+// A lane a tier (PER = 2) when the keys' lanes all fit on the card at
+// once (the searches are then latency-bound, and twice the lanes halve
+// the chain), a thread a key (PER = 1) otherwise (they are bound by their
+// loads, which the lockstep thread issues as many of).  The grid is
+// persistent: at most as many blocks as fit on the card at once, and no
+// more than the keys need.
 extern "C" int ds_history(const void* bk, int cap, const void* table,
                           const void* dk, int dcap, const void* dtable,
                           const void* u_b, const void* u_e, int u_pad,
                           const void* own, void* vmax, void* stream) {
-  k_history<<<blocks_for(u_pad, THREADS), THREADS, 0,
-              (cudaStream_t)stream>>>(
-      (const uint32_t*)bk, cap, log2_pow2(cap), (const int*)table,
-      (const uint32_t*)dk, dcap, log2_pow2(dcap), (const int*)dtable,
-      (const uint32_t*)u_b, (const uint32_t*)u_e, u_pad, (const int*)own,
-      (int*)vmax);
+  int grid = 0;
+  bool fits = false;
+  int err = probe_grid((const void*)k_history<2>, 2L * u_pad, &grid, &fits);
+  if (err == 0 && !fits)
+    err = probe_grid((const void*)k_history<1>, u_pad, &grid);
+  if (err != 0) return err;
+  auto kern = fits ? k_history<2> : k_history<1>;
+  kern<<<grid, PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)bk, cap, (const int*)table, (const uint32_t*)dk, dcap,
+      (const int*)dtable, (const uint32_t*)u_b, (const uint32_t*)u_e, u_pad,
+      (const int*)own, (int*)vmax);
   return (int)cudaGetLastError();
 }

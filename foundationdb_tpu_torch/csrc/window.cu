@@ -18,22 +18,33 @@
 // searches touch and two range-max gathers per query.
 //
 // Design: one thread per element, grid-stride loops; digests move as
-// 32-byte rows (common.cuh).
+// 32-byte rows (common.cuh).  wq_query is bound by the load instructions
+// of its scattered rows, not by their bytes: its searches walk a staged
+// top in shared memory, read half rows, share each load where begin and
+// end meet the same midpoint, and only valid queries search (probe_max,
+// for_live).
 #include "common.cuh"
 
-__global__ void k_query(const uint32_t* __restrict__ bk, int cap, int nbits,
-                        const int* __restrict__ table,
-                        const uint32_t* __restrict__ qb,
-                        const uint32_t* __restrict__ qe,
-                        const int* __restrict__ snap,
-                        const int* __restrict__ valid, long nq,
-                        int* __restrict__ out) {
-  GRID_STRIDE(i, nq) {
-    int lo = search_rows(bk, cap, nbits, load_row(qb, i), false) - 1;
-    int hi = search_rows(bk, cap, nbits, load_row(qe, i), true);
-    int m = range_max(table, cap, lo, hi);
-    out[i] = (valid[i] != 0 && m > snap[i]) ? 1 : 0;
-  }
+// A range probe a valid query (probe_max over the one tier); invalid
+// queries answer 0 without a search, the valid ones queued per warp
+// (for_live).
+__global__ void __launch_bounds__(PROBE_THREADS)
+    k_query(const uint32_t* __restrict__ bk, int cap,
+            const int* __restrict__ table, const uint32_t* __restrict__ qb,
+            const uint32_t* __restrict__ qe, const int* __restrict__ snap,
+            const int* __restrict__ valid, long nq, int* __restrict__ out) {
+  __shared__ uint4 top[PROBE_NODES];
+  __shared__ int queue[PROBE_QUEUE];
+  ProbeTier tier;
+  stage_tier(tier, bk, table, cap, top);
+  __syncthreads();
+  for_live<1>(
+      nq, queue, [&](long i) { return valid[i] != 0; },
+      [&](int i, int, bool active) {
+        const int m = probe_max<1>(&tier, load_key(qb, i), load_key(qe, i));
+        if (active) out[i] = m > snap[i] ? 1 : 0;
+      },
+      [&](long i) { out[i] = 0; });
 }
 
 __global__ void k_endpoints(long w, const uint32_t* __restrict__ wb,
@@ -77,13 +88,17 @@ __global__ void k_gc_keep(int cap, const int* __restrict__ size,
 #define S(stream) (cudaStream_t)(stream)
 #define RET return (int)cudaGetLastError()
 
+// A persistent grid (probe_grid).
 extern "C" int wq_query(const void* bk, int cap, const void* table,
                         const void* qb, const void* qe, const void* snap,
                         const void* valid, long nq, void* out, void* stream) {
-  k_query<<<blocks_for(nq, THREADS), THREADS, 0, S(stream)>>>(
-      (const uint32_t*)bk, cap, log2_pow2(cap), (const int*)table,
-      (const uint32_t*)qb, (const uint32_t*)qe, (const int*)snap,
-      (const int*)valid, nq, (int*)out);
+  int grid = 0;
+  int err = probe_grid((const void*)k_query, nq, &grid);
+  if (err != 0) return err;
+  k_query<<<grid, PROBE_THREADS, 0, S(stream)>>>(
+      (const uint32_t*)bk, cap, (const int*)table, (const uint32_t*)qb,
+      (const uint32_t*)qe, (const int*)snap, (const int*)valid, nq,
+      (int*)out);
   RET;
 }
 

@@ -3,7 +3,8 @@
 the shapes the conflict path hands them.
 
   python3 scripts/torch_kernel_ab.py [--root DIR] [--label NAME]
-      [--cases table,sort,fixpoint,merge,insert] [--profile]
+      [--cases table,sort,fixpoint,merge,insert,probe] [--profile]
+      [--sweep]
 
 DIR (default: the checkout holding this script) is the checkout whose
 foundationdb_tpu_torch package is timed; its kernels are built from its own
@@ -26,6 +27,19 @@ checkout's chip_smoke.py:
             rows, 65,536 writes, 55,000 valid) and on a 2^21 window
             (550,000 live rows), synthetic digests (insert_state,
             insert_at: own and whole-call device ms);
+  probe     the range probes at their paths' shapes (PROBE_SHAPES,
+            probe_state: synthetic sorted tiers built as insert_state
+            builds them): history_probe at config 2 (2^21 / 2^20 tiers of
+            9,765 and 3,343 live rows, 49,152 key slots), at config 3's
+            general step (213,442 and 63,553 rows, 524,288 read slots,
+            400,000 ranges of 1-100 records) and at a config-5 shard (2^20
+            / 2^18, 97,495 and 32,305 rows, 196,608 slots, a quarter
+            owned); window_query on config 3's 2^21 window (540,494 rows,
+            400,000 ranges), on an empty shard of the sharded window (none
+            of the 400,000 valid) and on a shard under spread traffic
+            (110,000 rows, a quarter valid); with --sweep also
+            history_probe at config 2's tiers with 256, 4,096 and 16,384
+            key slots (its latency floor);
   general   (not in the default set) the config-3 general path through
             TorchConflictSet (chip_smoke's general_path): ranges/s at
             depth 8, p50 resolve and packing, to compare a host-bound
@@ -36,10 +50,10 @@ one JSON line: each case's launches a call, own device time, plain time,
 bound and equality with the plain version (any difference fails the
 run).  With
 --profile it adds, under "profile", each kernel's mean device time and
-launches per call by torch.profiler, for the table at 2^21, each sort
-input, the config-3 fixpoint and the config-2 merge, and the time of a
-copy_ of the universe's rows (the bytes of one sort pass: a floor for a
-pass).
+launches per call by torch.profiler, for the chosen cases (the table at
+2^21, each sort input, the config-3 fixpoint, the config-2 merge, each
+insert and probe shape), and the time of a copy_ of the universe's rows
+(the bytes of one sort pass: a floor for a pass).
 """
 
 from __future__ import annotations
@@ -63,6 +77,7 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--cases", default="table,sort,fixpoint,merge,insert")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     cases = set(args.cases.split(","))
     root = os.path.abspath(args.root)
@@ -114,6 +129,10 @@ def main() -> int:
             S.insert_at(what, kind, *S.insert_state(kind, *shape, **kw),
                         expect_launches=False, reps=20)
             for what, kind, shape, kw in INSERTS]
+    if "probe" in cases:
+        out["probe"] = [S.probe_case(r[0], reps=20) for r in S.PROBE_SHAPES]
+        if args.sweep:
+            out["probe_sweep"] = probe_sweep(S)
     if "general" in cases:
         with contextlib.redirect_stdout(sys.stderr):
             _, path, _ = S.general_path("")
@@ -123,8 +142,8 @@ def main() -> int:
         cap, d_cap, n_b, n_d = merges["config2"]
         out["profile"] = profile(S, universe, r_cap, w_cap,
                                  enc.w_txn.shape[0], fix_in, log_u,
-                                 S.merge_state(cap, d_cap, n_b, n_d),
-                                 "insert" in cases)
+                                 S.merge_state(cap, d_cap, n_b, n_d)
+                                 if "merge" in cases else None, cases)
     out["gpu"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -145,6 +164,23 @@ INSERTS = [
 ]
 
 
+# Key slots the sweep times config 2's history probe at (its latency
+# floor).
+PROBE_SLOTS = (256, 4_096, 16_384)
+
+
+def probe_sweep(S, reps: int = 20) -> list:
+    """history_probe at config 2's tiers with fewer key slots
+    (PROBE_SLOTS): own ms, equality checked each time."""
+    result = []
+    for slots in PROBE_SLOTS:
+        name, path, fn, n_bytes, info = S.probe_inputs("config2", slots)
+        row = S.probe_at(f"config2 slots={slots}", name, path, fn, n_bytes,
+                         reps=reps, **info)
+        result.append({"slots": slots, "ms": row["ms"]})
+    return result
+
+
 def fixpoint_case(S, K, fused, fix_in, log_u: int, reps: int = 20) -> dict:
     """interval_fixpoint on one batch's inputs: launches a call, rounds,
     equality with the plain version, own device ms, plain ms, bound."""
@@ -163,39 +199,48 @@ def fixpoint_case(S, K, fused, fix_in, log_u: int, reps: int = 20) -> dict:
 
 
 def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
-            log_u: int, merge_in: dict, inserts: bool,
+            log_u: int, merge_in: dict, chosen: set,
             calls: int = 5) -> dict:
     """Per-kernel device time (mean microseconds a launch) and launches a
-    call, by torch.profiler over `calls` calls of each case."""
+    call, by torch.profiler over `calls` calls of each case of the chosen
+    kinds (table, sort, fixpoint, merge, insert, probe)."""
     import torch
     from torch.profiler import ProfilerActivity
     from foundationdb_tpu_torch.conflict import fused
     from foundationdb_tpu_torch.ops.rangemax import build_sparse_table
     from foundationdb_tpu_torch.ops.sort import sort_rows
-    g = torch.Generator(device=S.DEVICE).manual_seed(5)
-    v = torch.randint(-(1 << 31), (1 << 31) - 1, (1 << 21,),
-                      dtype=torch.int32, device=S.DEVICE, generator=g)
-    cases = {"table_2^21": lambda: build_sparse_table(v)}
-    for what, (rows, tie, pay) in S.sort_cases(universe, r_cap, w_cap,
-                                                n_writes).items():
+    cases = {}
+    if "table" in chosen:
+        g = torch.Generator(device=S.DEVICE).manual_seed(5)
+        v = torch.randint(-(1 << 31), (1 << 31) - 1, (1 << 21,),
+                          dtype=torch.int32, device=S.DEVICE, generator=g)
+        cases["table_2^21"] = lambda: build_sparse_table(v)
+    for what, (rows, tie, pay) in (S.sort_cases(
+            universe, r_cap, w_cap, n_writes).items()
+            if "sort" in chosen else ()):
         cases[f"sort_{what}"] = (lambda rows=rows, tie=tie, pay=pay:
                                  sort_rows(rows, tie=tie, payload=pay))
-    cases["fixpoint_config3"] = lambda: fused.interval_fixpoint(*fix_in,
-                                                                log_u)
-    step = fused.make_merge_step(merge_in["bk"].shape[0],
-                                 merge_in["dk"].shape[0])
+    if "fixpoint" in chosen:
+        cases["fixpoint_config3"] = lambda: fused.interval_fixpoint(*fix_in,
+                                                                    log_u)
+    if "merge" in chosen:
+        step = fused.make_merge_step(merge_in["bk"].shape[0],
+                                     merge_in["dk"].shape[0])
 
-    def merge():  # on a copy: the merge updates its state in place
-        st = {k: t.clone() for k, t in merge_in.items()}
-        step(st["bk"], st["bv"], st["table"], st["size"], st["dk"],
-             st["dv"], st["dsize"], st["flag"], (2500, 1000))
+        def merge():  # on a copy: the merge updates its state in place
+            st = {k: t.clone() for k, t in merge_in.items()}
+            step(st["bk"], st["bv"], st["table"], st["size"], st["dk"],
+                 st["dv"], st["dsize"], st["flag"], (2500, 1000))
 
-    cases["merge_config2"] = merge
-    for what, kind, shape, kw in INSERTS if inserts else ():
+        cases["merge_config2"] = merge
+    for what, kind, shape, kw in INSERTS if "insert" in chosen else ():
         state, ins_args = S.insert_state(kind, *shape, **kw)
         cases[f"insert_{what}"] = (
             lambda kind=kind, state=state, ins_args=ins_args:
             insert_once(kind, state, ins_args))
+    for what, *_ in S.PROBE_SHAPES if "probe" in chosen else ():
+        fn = S.probe_inputs(what)[2]
+        cases[f"probe_{what}"] = lambda fn=fn: fn("kernel")
     result = {}
     for name, fn in cases.items():
         fn()

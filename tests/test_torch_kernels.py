@@ -24,6 +24,7 @@ from foundationdb_tpu_torch.ops.sort import SORT_TILE
 from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
 
 from test_torch_insert import CASES as INSERT_CASES, make_case, run_port
+from test_torch_probe import search_top
 
 pytestmark = pytest.mark.cuda
 
@@ -1365,3 +1366,140 @@ def test_point_insert_tile_edges(dev, n_keys):
                             bsize=st["size"], tail=tail, impl=impl)
         outs.append((st["dk"], st["dv"], st["dsize"], st["flag"], tail))
     same(outs[0], outs[1])
+
+
+# ------------------------------------------------------------ range probes
+# history_probe (ds_history) and window_query (wq_query) walk the first
+# levels of each search in shared memory (csrc/common.cuh probe_max), in
+# lockstep over the tiers, with the live queries queued per warp.
+
+STAGED = 8  # csrc/common.cuh PROBE_LEVELS
+
+
+def probe_tier(dev, rng, cap: int, live: int):
+    """(rows, versions, sparse table) of a cap-row tier: `live` sorted
+    distinct point keys from row 0 on, MAX rows and NEG_INF past them."""
+    ids = np.unique(rng.integers(0, 10 ** 13, size=live + live // 8 + 8))
+    ids = np.sort(rng.permutation(ids)[:live])
+    planar = digest.max_digest_block(cap)
+    planar[:, :live] = key_digests(ids)
+    bk = torch.from_numpy(digest.planar_to_rows(planar)).to(dev)
+    bv = torch.full((cap,), NEG_INF, dtype=torch.int32)
+    bv[:live] = torch.from_numpy(rng.integers(0, 5000, size=live,
+                                              dtype=np.int32))
+    bv = bv.to(dev)
+    return bk, bv, rangemax.build_sparse_table(bv)
+
+
+def probe_queries(rng, bk: torch.Tensor, live: int, n_rand: int):
+    """Rows (begins, ends) on bk's device: a point range at every staged
+    row of bk's tree; begin = end at live rows; a range over every live
+    row (the paths split at the first live node) and one to MAX; ranges
+    from a live row to the row after next (the paths split at that row's
+    node, mostly near the bottom); n_rand random point and short ranges;
+    MAX and edge-lane rows.  Their count is odd, no multiple of a block."""
+    cap = bk.shape[0]
+    levels = min(STAGED, cap.bit_length() - 1)
+    host = bk.cpu()
+    staged = host[torch.tensor(search_top(cap, levels) or [0])]
+    bump = lambda r: torch.cat([r[:, :7], r[:, 7:] + 1], dim=1)
+    idx = lambda n: torch.from_numpy(rng.integers(0, max(live, 1), n)).long()
+    pick = idx(64)
+    nxt = torch.clamp(pick + 2, max=max(live - 1, 0))
+    ids = rng.integers(0, 10 ** 13, size=n_rand)
+    span = np.where(rng.random(n_rand) < 0.5, 0, rng.integers(1, 10 ** 9,
+                                                               n_rand))
+    rb = torch.from_numpy(digest.planar_to_rows(key_digests(ids)))
+    re = torch.from_numpy(digest.planar_to_rows(key_digests(ids + span)))
+    re = torch.where(torch.from_numpy(span == 0)[:, None], bump(rb), re)
+    mx = torch.full((3, 8), -1, dtype=torch.int32)
+    lanes = torch.from_numpy(np.array(
+        [0, 1, 0x7FFFFFFF, -0x80000000, -2, -1], dtype=np.int32))
+    edge = lanes[torch.from_numpy(rng.integers(0, 6, (33, 8))).long()]
+    begins = [staged, host[pick], host[:1], host[:1], host[pick], rb, mx,
+              edge]
+    ends = [bump(staged), host[pick], host[max(live - 1, 0):][:1], mx[:1],
+            host[nxt], re, mx, edge.flip(0)]
+    qb, qe = torch.cat(begins), torch.cat(ends)
+    if qb.shape[0] % 2 == 0:
+        qb, qe = qb[1:], qe[1:]
+    return qb.contiguous().to(bk.device), qe.contiguous().to(bk.device)
+
+
+def check_probes(dev, rng, base, delta, qb, qe):
+    """history_probe with no mask, nothing owned, all owned and a quarter
+    owned; window_query on the base with all and a quarter valid: kernel
+    against plain."""
+    bk, bv, bt = base
+    dk, _, dt = delta
+    n = qb.shape[0]
+    quarter = torch.from_numpy((rng.random(n) < 0.25).astype(np.int32))
+    for own in (None, torch.zeros(n, dtype=torch.int32),
+                torch.ones(n, dtype=torch.int32), quarter):
+        own = None if own is None else own.to(dev)
+        same(digest.history_probe(bk, bt, dk, dt, qb, qe, own=own),
+             digest.history_probe(bk, bt, dk, dt, qb, qe, impl="plain",
+                                  own=own))
+    from foundationdb_tpu_torch.conflict import window
+    snap = torch.from_numpy(rng.integers(-10, 5010, n,
+                                         dtype=np.int32)).to(dev)
+    for valid in (torch.ones(n, dtype=torch.int32), quarter):
+        valid = valid.to(dev)
+        same(window.window_query(bk, bv, qb, qe, snap, valid),
+             window.window_query(bk, bv, qb, qe, snap, valid, impl="plain"))
+
+
+@pytest.mark.parametrize("log_cap", list(range(1, 22)))
+def test_probes_every_cap(dev, log_cap):
+    """Both probes at every capacity 2^1 .. 2^21 (the staged depth, 8,
+    exceeds log2(cap) below 2^8), with live sizes 0, 1 and cap in each
+    tier: queries at every staged row, begin = end, ranges whose paths
+    split at the top and near the bottom, masks of every share."""
+    cap = 1 << log_cap
+    rng = np.random.default_rng(log_cap)
+    for live in (0, 1, cap):
+        base = probe_tier(dev, rng, cap, live)
+        delta = probe_tier(dev, rng, max(cap // 2, 1), min(live, cap // 2))
+        qb, qe = probe_queries(rng, base[0], live, 1001)
+        check_probes(dev, rng, base, delta, qb, qe)
+
+
+@pytest.mark.parametrize("slots", [4_097, 524_289])
+def test_probes_both_layouts(dev, slots):
+    """ds_history's two layouts on the general step's tiers (2^21 and
+    2^20, half full): ~4,500 keys (4,097 random ones and the edge cases)
+    take a lane a tier (their lanes fit on the card at once), ~525,000
+    (the general step's 524,288 read slots and more) a thread a key (on an
+    H100, 132 SMs of 2,048 threads hold at most 270,336 lanes);
+    window_query at the same queries."""
+    rng = np.random.default_rng(slots)
+    base = probe_tier(dev, rng, 1 << 21, 1 << 20)
+    delta = probe_tier(dev, rng, 1 << 20, 1 << 18)
+    qb, qe = probe_queries(rng, base[0], 1 << 20, slots)
+    check_probes(dev, rng, base, delta, qb, qe)
+
+
+def test_probes_unsorted_tier(dev):
+    """The tier an empty range at a live boundary leaves (empty_at_row: a
+    MAX row at NEG_INF inside the live prefix, as the reference leaves
+    it; its whole tree staged), and a 2^12 tier with such rows planted at
+    the staged levels and below them, each as the base and as the delta;
+    the staged search is path-exact, so the kernels agree with the plain
+    versions there too."""
+    st = run_port(make_case("window", "empty_at_row"), dev)
+    bk = torch.from_numpy(digest.planar_to_rows(st["bk"])).to(dev)
+    bv = torch.from_numpy(st["bv"]).to(dev)
+    unsorted = (bk, bv, rangemax.build_sparse_table(bv))
+    rng = np.random.default_rng(77)
+    other = probe_tier(dev, rng, 16, 9)
+    qb, qe = probe_queries(rng, bk, st["size"], 2001)
+    check_probes(dev, rng, unsorted, other, qb, qe)
+    check_probes(dev, rng, other, unsorted, qb, qe)
+    bk, bv, _ = probe_tier(dev, rng, 1 << 12, 3_000)
+    at = torch.tensor(search_top(1 << 12, 10)[::37] + [5, 1_001, 2_998])
+    bk[at.to(dev)] = -1
+    bv[at.to(dev)] = NEG_INF
+    planted = (bk, bv, rangemax.build_sparse_table(bv))
+    qb, qe = probe_queries(rng, bk, 3_000, 4_001)
+    check_probes(dev, rng, planted, other, qb, qe)
+    check_probes(dev, rng, other, planted, qb, qe)
