@@ -48,7 +48,8 @@ exits non-zero):
      rank count or compaction; its own and whole device ms, bounds over
      the live rows and over the full-capacity passes of a histogram-and-
      scatter insert); history_probe at config 2 (probe_at: launches a
-     call, own ms, the bound by search_bytes);
+     call, own ms, the bound by search_bytes); read_write_prep's one
+     launch a call;
   3. the point path: 3 warmup batches, 10 at pipeline depth 8, 8 at depth
      1; oracle parity in both contention regimes; kernel-vs-plain state
      equality across a merge;
@@ -62,7 +63,10 @@ exits non-zero):
      one launch a call, and a 200-deep chain of ranges at config-3 width
      (rounds equal to the depth); window_insert on the general step's
      delta and on path 3's window (insert_at: 3 launches a call beyond
-     _union_ranges', which it no longer adds to); history_probe at the
+     _union_ranges', which it no longer adds to); _union_ranges on the
+     general step's and path 3's writes (union_at: wu_endpoints and
+     wu_sweep, the sort, no scan or compaction; its own ms, the whole
+     call's without the sort, its bound); history_probe at the
      general step's shape (every read slot against the warmed tiers) and
      window_query on path 3's window (probe_at);
   5. the general path on config 3 (3 + 10 at depth 8 + 8 at depth 1): the
@@ -144,8 +148,10 @@ def phase_done(name: str) -> None:
 
 # The wrappers each path must launch (counted with the counts set to 0
 # just before the path is driven and read just after).
-# The inserts run no scan, search, rank count or compaction of ops/:
-# searchsorted runs on the general path only (the endpoint universe).
+# The inserts run no scan, search, rank count or compaction of ops/, nor
+# does _union_ranges (its sweep is one kernel): searchsorted runs on the
+# general path only (the endpoint universe), inclusive_scan under txn_prep
+# and window_gc, compact_rows under window_gc.
 _SHARED = ["inclusive_scan", "build_sparse_table"]
 _WINDOW = ["window_query", "sort_rows", "union_ranges", "window_insert",
            "window_gc", "compact_rows", *_SHARED]
@@ -155,7 +161,7 @@ PATH_KERNELS = {
               *_SHARED],
     "general": ["history_probe", "merge", "sort_rows", "general_prep",
                 "interval_fixpoint", "general_codes", "union_ranges",
-                "window_insert", "searchsorted", "compact_rows", *_SHARED],
+                "window_insert", "searchsorted", "build_sparse_table"],
     "window": _WINDOW,
     "sharded": ["widen_unique", "history_probe", "txn_prep",
                 "read_write_prep", "intra_batch_fixpoint", "batch_codes",
@@ -651,6 +657,12 @@ def compare_kernels(cs, packed, buf):
     stateful = {"merge": merge_run}
     from foundationdb_tpu_torch import kernels as K
     rows = []
+    K.reset_counts()
+    cases["read_write_prep"][0]("kernel")
+    if K.LAUNCHES["read_write_prep"] != 1:
+        raise AssertionError(f"read_write_prep: "
+                             f"{K.LAUNCHES['read_write_prep']} launches a "
+                             f"call")
     for name, (fn, n_bytes, library) in cases.items():
         if isinstance(fn, str):
             run = stateful[fn]
@@ -1238,6 +1250,71 @@ def insert_row(name: str, at: dict) -> dict:
             "bound_by": "bytes", "library_ms": None, "at_shapes": [at]}
 
 
+def union_bytes(w_b, w_e, w_valid, union) -> int:
+    """Least bytes of _union_ranges without its sort: wu_endpoints reads
+    the ranges and the mask and writes the 2w endpoint rows, their tie and
+    delta, and mb and me as MAX rows; wu_sweep reads the sorted deltas,
+    reads each merged start's and end's row once (their writes into mb and
+    me are the MAX rows' bytes, counted once), and writes m_incl.  `union`
+    is the call's (mb, me, m_incl): the starts are m_incl[-1], the ends
+    the rows of me that are not MAX."""
+    mb, me, m_incl = union
+    w = w_b.shape[0]
+    marked = (int(m_incl[-1]) + int((me != -1).any(1).sum())) if w else 0
+    return (nbytes(w_b, w_e, w_valid) + 2 * w * (32 + 4 + 4) + 2 * w * 32
+            + 2 * w * 4 + 32 * marked + 2 * w * 4)
+
+
+def union_at(what: str, w_b, w_e, w_valid, expect_launches=True,
+             reps: int = REPS) -> dict:
+    """_union_ranges on one batch's writes, kernel against plain: its
+    launches a call by counter (with expect_launches: wu_endpoints and
+    wu_sweep, the sort's, nothing else), its own kernels' device ms (the
+    union_ranges counter), the whole call's, the sort's own, the call
+    without the sort (whole - sort: every other launch and fill of the
+    call and the gaps between them, as a commit's union pays it), every
+    counted launch's but the sort's, summed, the plain version's ms and
+    the bound (union_bytes).  Every time is taken behind the stream's
+    sleep (device_ms), each launch between a pair of events."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict import window
+
+    def run(impl=None):
+        return window._union_ranges(w_b, w_e, w_valid, impl)
+
+    K.reset_counts()
+    got = run()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in K.LAUNCHES.items() if v}
+    if expect_launches and (counts.get("union_ranges") != 2
+                            or set(counts) - {"union_ranges", "sort_rows"}):
+        raise AssertionError(f"union_ranges {what}: launches {counts}")
+    want = run("plain")
+    err = require_equal(f"union_ranges {what}", got, want)
+    whole = device_ms(run, reps=reps)
+    sort = device_ms(run, reps=reps, counter="sort_rows")
+    row = {"shape": what, "ranges": w_b.shape[0],
+           "valid": int(w_valid.sum()), "merged": int(got[2][-1]),
+           "launches_per_call": counts, "max_abs_err": err,
+           "ms": device_ms(run, reps=reps, counter="union_ranges"),
+           "whole_ms": whole, "sort_ms": sort,
+           "without_sort_ms": whole - sort,
+           # Every counted launch of the call but the sort's, each between
+           # its own events (torch's fills are not counted launches).
+           "launches_but_sort_ms": sum(
+               device_ms(run, reps=reps, counter=c) for c in counts
+               if c != "sort_rows"),
+           "plain_ms": cuda_ms(lambda: run("plain"), reps=2),
+           "bound_ms": bound_ms(union_bytes(w_b, w_e, w_valid, want))}
+    log(f"union_ranges at {what} ({row['valid']} of {row['ranges']} ranges "
+        f"-> {row['merged']}): bit-equal, launches {counts}; own "
+        f"{row['ms']:.4f} ms, whole call {whole:.4f} ms, its sort "
+        f"{sort:.4f} ms, without the sort {row['without_sort_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms")
+    return row
+
+
 def key_rows(ids):
     """Digest rows int32[n, 8] (CPU) of the 15-byte keys b"k%014d" % id."""
     import torch
@@ -1738,9 +1815,12 @@ def compare_general(cs, packed, win, stream):
             lambda i: _gen_codes(fused, m, g, conf, i),
             nbytes(m["t_valid"], g["too_old"], conf, m["w_txn"],
                    m["w_valid"], codes, w_ins)),
+        # wu_endpoints and wu_sweep (union_bytes: the sort's bytes are
+        # sort_rows' row).
         "union_ranges": (lambda i: window._union_ranges(w_b, w_e, w_ins, i),
-                         nbytes(w_b, w_e, w_ins) + 2 * nbytes(w_b)
-                         + 8 * w_cap),
+                         union_bytes(w_b, w_e, w_ins,
+                                     window._union_ranges(w_b, w_e, w_ins,
+                                                          P))),
         # wq_query: the queries in, the bits out, the table rows a batch of
         # searches touches (a range's two searches once, probe_bytes_of),
         # two range-max gathers per query.
@@ -1795,6 +1875,11 @@ def compare_general(cs, packed, win, stream):
                                   "bsize": win.size.clone()},
         (ww_b, ww_e, ww_valid, now5)))
     rows.append(ins)
+    # The whole union without its sort, on the general step's writes and
+    # on the window path's (union_at).
+    uni = next(r for r in rows if r["name"] == "union_ranges")
+    uni["at_shapes"] = [union_at("config3_general", w_b, w_e, w_ins),
+                        union_at("window_2_21", ww_b, ww_e, ww_valid)]
     fix = next(r for r in rows if r["name"] == "interval_fixpoint")
     fix["rounds"] = int(rounds[0])
     K.reset_counts()

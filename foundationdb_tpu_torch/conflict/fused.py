@@ -173,7 +173,9 @@ def read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap, scal,
     slot, and the history verdict scatter-maxed per txn; per write: its
     txn, base eligibility and slot (reference fused.py:332-371).  Returns
     int32 arrays r_txn, r_live, r_slot, hist, w_txn, w_ok, w_slot.
-    Kernels: ib_read_prep, ib_write_prep."""
+    Kernel: ib_rw_prep, one launch for the reads and the writes; hist is
+    a zero fill before it (the kernel sets only the hits, from any block,
+    so it cannot also clear them in the same launch)."""
     r_pad, w_pad, t_cap = r_uid.shape[0], w_uid.shape[0], t_snap.shape[0]
     dev = r_uid.device
     if _k.use_kernel(r_uid, impl):
@@ -183,12 +185,10 @@ def read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap, scal,
         o.update({name: torch.empty((w_pad,), **e)
                   for name in ("w_txn", "w_ok", "w_slot")})
         o["hist"] = torch.zeros((t_cap,), **e)
-        _k.launch("read_write_prep", "ib_read_prep", r_pad, t_cap, u_pad,
-                  r_uid, r_cnt, too_old, t_snap, scal, vmax_u, o["r_txn"],
-                  o["r_live"], o["r_slot"], o["hist"])
-        _k.launch("read_write_prep", "ib_write_prep", w_pad, t_cap, u_pad,
-                  w_uid, w_cnt, too_old, scal, o["w_txn"], o["w_ok"],
-                  o["w_slot"])
+        _k.launch("read_write_prep", "ib_rw_prep", r_pad, w_pad, t_cap,
+                  u_pad, r_uid, r_cnt, w_uid, w_cnt, too_old, t_snap, scal,
+                  vmax_u, o["r_txn"], o["r_live"], o["r_slot"], o["hist"],
+                  o["w_txn"], o["w_ok"], o["w_slot"])
         return o
     r_txn = r_cnt - 1
     r_valid = _iota(r_pad, dev) < scal[1]

@@ -136,6 +136,10 @@ def window_query(bk: torch.Tensor, bv: torch.Tensor, r_begin: torch.Tensor,
 # Insert (union of write ranges + parallel sorted merge)
 # ---------------------------------------------------------------------------
 
+# Endpoints a tile of _union_ranges' sweep takes (csrc/window.cu SW_TILE).
+UNION_TILE = 1024
+
+
 def _union_ranges(w_begin: torch.Tensor, w_end: torch.Tensor,
                   w_valid: torch.Tensor, impl=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -148,40 +152,43 @@ def _union_ranges(w_begin: torch.Tensor, w_end: torch.Tensor,
     endpoints (m_incl[-1] is the number of merged ranges; m_valid =
     iota(W) < m_incl[-1]).  Endpoint sweep: +1 at begins, -1 at ends,
     begins first on ties; a merged range starts where coverage reaches 1
-    and ends where it returns to 0.  Kernels: wu_endpoints, sort_rows,
-    inclusive_scan, wu_marks, compact_rows."""
+    and ends where it returns to 0.  Kernels: wu_endpoints (the endpoints,
+    mb and me as MAX rows, the sweep's descriptors zeroed), sort_rows, then
+    wu_sweep (the coverage, the marks, m_incl and both compactions in one
+    single-pass launch of two look-back chains, csrc/window.cu)."""
     w = w_begin.shape[0]
     dev = w_begin.device
     e = dict(dtype=torch.int32, device=dev)
-    use = _k.use_kernel(w_begin, impl)
-    p_ = None if use else "plain"
-    if use:
-        digests = torch.empty((2 * w, ROW_PAD), **e)
-        tie = torch.empty((2 * w,), **e)
-        delta = torch.empty((2 * w,), **e)
+    if _k.use_kernel(w_begin, impl):
+        n2 = 2 * w
+        scratch = torch.empty((1 + 2 * max(1, -(-n2 // UNION_TILE)),),
+                              dtype=torch.int64, device=dev)
+        digests = torch.empty((n2, ROW_PAD), **e)
+        tie = torch.empty((n2,), **e)
+        delta = torch.empty((n2,), **e)
+        mb = torch.empty((w, ROW_PAD), **e)
+        me = torch.empty((w, ROW_PAD), **e)
         _k.launch("union_ranges", "wu_endpoints", w, w_begin, w_end, w_valid,
-                  digests, tie, delta)
-    else:
-        valid = w_valid != 0
-        digests = torch.cat([torch.where(valid[:, None], w_begin, -1),
-                             torch.where(valid[:, None], w_end, -1)])
-        tie = torch.cat([torch.zeros((w,), **e), torch.ones((w,), **e)])
-        delta = torch.cat([valid.to(torch.int32), -valid.to(torch.int32)])
-    s_rows, s_delta = sort_rows(digests, tie=tie, payload=delta, impl=p_)
-    cov = inclusive_scan(s_delta, p_)
-    if use:
-        is_start = torch.empty((2 * w,), **e)
-        is_end = torch.empty((2 * w,), **e)
-        _k.launch("union_ranges", "wu_marks", 2 * w, s_delta, cov, is_start,
-                  is_end)
-    else:
-        is_start = ((s_delta > 0) & (cov == 1)).to(torch.int32)
-        is_end = ((s_delta < 0) & (cov == 0)).to(torch.int32)
-    m_incl = inclusive_scan(is_start, p_)
+                  digests, tie, delta, mb, me, scratch, scratch.numel())
+        s_rows, s_delta = sort_rows(digests, tie=tie, payload=delta)
+        m_incl = torch.empty((n2,), **e)
+        _k.launch("union_ranges", "wu_sweep", n2, s_rows, s_delta, scratch,
+                  scratch.numel(), mb, me, w, m_incl)
+        return mb, me, m_incl
+    valid = w_valid != 0
+    digests = torch.cat([torch.where(valid[:, None], w_begin, -1),
+                         torch.where(valid[:, None], w_end, -1)])
+    tie = torch.cat([torch.zeros((w,), **e), torch.ones((w,), **e)])
+    delta = torch.cat([valid.to(torch.int32), -valid.to(torch.int32)])
+    s_rows, s_delta = sort_rows(digests, tie=tie, payload=delta, impl="plain")
+    cov = inclusive_scan(s_delta, "plain")
+    is_start = ((s_delta > 0) & (cov == 1)).to(torch.int32)
+    is_end = ((s_delta < 0) & (cov == 0)).to(torch.int32)
+    m_incl = inclusive_scan(is_start, "plain")
     mb, me = max_rows(w, dev), max_rows(w, dev)
-    compact_rows(is_start, m_incl, s_rows, None, mb, None, impl=p_)
-    compact_rows(is_end, inclusive_scan(is_end, p_), s_rows, None, me, None,
-                 impl=p_)
+    compact_rows(is_start, m_incl, s_rows, None, mb, None, impl="plain")
+    compact_rows(is_end, inclusive_scan(is_end, "plain"), s_rows, None, me,
+                 None, impl="plain")
     return mb, me, m_incl
 
 

@@ -392,3 +392,90 @@ __host__ inline int probe_grid(const void* kern, long lanes, int* grid,
   if (fits != nullptr) *fits = want <= most;
   return 0;
 }
+
+// ---------------------------------------------------------------------------
+// Decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan
+// with Decoupled Look-back", NVR-2016-002), for the single-pass kernels
+// whose tiles take an atomicAdd ticket (rank_scan.cu rs_scan and the
+// merge's kept count, window.cu wu_sweep).  A tile publishes its aggregate,
+// then its inclusive prefix, in a 64-bit descriptor: the status in the bits
+// from SHIFT up, the value below them, one 64-bit store, so a reader never
+// sees a status beside a stale value.  SHIFT 32: one 32-bit value whose
+// sums wrap in two's complement; SHIFT 62: a pair of counts packed as
+// (hi << 31) | lo, each below 2^31 in every prefix, so adding the packed
+// words adds both counts.  The descriptor carries its own value and
+// nothing else is published through it, so its stores and loads are
+// relaxed (strong, gpu scope): a release store would fence every publish
+// for no reader.  Descriptors start zeroed (status 0: nothing published).
+#define SCAN_AGGREGATE 1ull  // descriptor status
+#define SCAN_PREFIX 2ull
+#define PAIR_SHIFT 31
+
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+template <class T>
+__device__ __forceinline__ T warp_inclusive_scan(T v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    T t = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+template <class T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Warp 0 of tile `tile` (> 0): sums its predecessors' published values
+// back to the nearest inclusive prefix and publishes the tile's own;
+// returns the tile's exclusive prefix to every thread.  V is `unsigned`
+// for SHIFT 32 and `unsigned long long` for SHIFT 62.
+template <class V, int SHIFT>
+__device__ __forceinline__ V look_back(unsigned long long* desc, long tile,
+                                       V aggregate, V* s_prefix) {
+  const unsigned long long mask = (1ull << SHIFT) - 1;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    V prefix = 0;
+    for (long last = tile - 1;; last -= 32) {
+      const long j = last - lane;  // lane 0: the nearest predecessor
+      unsigned long long d = SCAN_PREFIX << SHIFT;  // before tile 0: 0
+      if (j >= 0) {
+        do {
+          d = load_relaxed(desc + j);
+        } while ((d >> SHIFT) == 0);
+      }
+      const unsigned has_prefix = __ballot_sync(0xffffffffu,
+                                                (d >> SHIFT) == SCAN_PREFIX);
+      const int stop = has_prefix ? __ffs(has_prefix) - 1 : 31;
+      prefix += warp_sum<V>(lane <= stop ? (V)(d & mask) : (V)0);
+      if (has_prefix) break;
+    }
+    if (lane == 0) {
+      store_relaxed(desc + tile,
+                    (SCAN_PREFIX << SHIFT) |
+                        ((unsigned long long)(V)(prefix + aggregate) & mask));
+      *s_prefix = prefix;
+    }
+  }
+  __syncthreads();
+  return *s_prefix;
+}

@@ -1,10 +1,11 @@
 // rank_scan: inclusive scans, masked row compaction and the merge.
 //
 // Replaces (foundationdb_tpu):
-//   rs_scan            -- the jnp.cumsums of conflict/window.py (:108, :117,
-//                         :233);
-//   rs_compact         -- the order-preserving rank scatters of window.py
-//                         (:116-119, :233-240, the latter with the rebase);
+//   rs_scan            -- the jnp.cumsums of conflict/window.py :233
+//                         (window_gc) and ops/digest.py :240 (rank_count,
+//                         under the compact step's txn_prep);
+//   rs_compact         -- window_gc's order-preserving rank scatters
+//                         (window.py :233-240, with the rebase);
 //   mg_merge           -- conflict/fused.py:607-686 make_merge_step.merge
 //                         (a merge path; three launches, below).
 //
@@ -29,12 +30,9 @@
 // first shuffle, and scans them in registers.  Tiles are numbered by an
 // atomicAdd ticket, so a tile only ever waits on tiles that already hold
 // an SM.  Each tile publishes its aggregate, then its inclusive prefix, in
-// a 64-bit descriptor (status in the high word, value in the low word, one
-// 64-bit store, so a reader never sees a status beside a stale value); its
-// warp 0 sums its predecessors' values 32 descriptors at a time until it
-// meets a prefix.  The descriptor carries its own value and nothing else
-// is published through it, so its stores and loads are relaxed (strong,
-// gpu scope): a release store would fence every publish for no reader.
+// a 64-bit descriptor (common.cuh look_back: status in the high word,
+// value in the low word, relaxed stores and loads); its warp 0 sums its
+// predecessors' values 32 descriptors at a time until it meets a prefix.
 // Sums wrap in 32-bit two's complement, as torch.cumsum(dtype=int32)
 // does.  Timed on the H100 against tiles of 4,096 and 16,384 elements,
 // look-back windows of 128 and 256 descriptors (the latter block-wide),
@@ -46,74 +44,6 @@
 #define SCAN_VEC 4  // int32 per 128-bit load
 #define SCAN_WARP_ITEMS (32 * SCAN_VEC * SCAN_STEPS)
 #define SCAN_TILE (SCAN_WARPS * SCAN_WARP_ITEMS)  // 8192: ops/scan.py's
-
-#define SCAN_AGGREGATE 1ull  // descriptor status; 0 = nothing published
-#define SCAN_PREFIX 2ull
-
-__device__ __forceinline__ void store_relaxed(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_relaxed(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned warp_inclusive_scan(unsigned v,
-                                                        int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    unsigned t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
-  }
-  return v;
-}
-
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Warp 0 of tile `tile` (> 0): sums its predecessors' published values
-// back to the nearest inclusive prefix and publishes the tile's own;
-// returns the tile's exclusive prefix to every thread.
-__device__ __forceinline__ unsigned scan_look_back(unsigned long long* desc,
-                                                   long tile,
-                                                   unsigned aggregate,
-                                                   unsigned* s_prefix) {
-  const int lane = threadIdx.x & 31;
-  if (threadIdx.x < 32) {
-    unsigned prefix = 0u;
-    for (long last = tile - 1;; last -= 32) {
-      const long j = last - lane;  // lane 0: the nearest predecessor
-      unsigned long long d = SCAN_PREFIX << 32;  // before tile 0: prefix 0
-      if (j >= 0) {
-        do {
-          d = load_relaxed(desc + j);
-        } while ((d >> 32) == 0);
-      }
-      const unsigned has_prefix = __ballot_sync(0xffffffffu,
-                                                (d >> 32) == SCAN_PREFIX);
-      const int stop = has_prefix ? __ffs(has_prefix) - 1 : 31;
-      prefix += warp_sum(lane <= stop ? (unsigned)d : 0u);
-      if (has_prefix) break;
-    }
-    if (lane == 0) {
-      store_relaxed(desc + tile, (SCAN_PREFIX << 32) | (prefix + aggregate));
-      *s_prefix = prefix;
-    }
-  }
-  __syncthreads();
-  return *s_prefix;
-}
 
 // VEC: `in` and `out` are 16-byte aligned, so whole quads move as int4.
 // scratch: uint64[1 + tiles], zeroed: the ticket, then the descriptors.
@@ -175,7 +105,7 @@ __global__ void __launch_bounds__(SCAN_THREADS)
   } else {
     if (threadIdx.x == 0)
       store_relaxed(desc + tile, (SCAN_AGGREGATE << 32) | aggregate);
-    add += scan_look_back(desc, tile, aggregate, &s_prefix);
+    add += look_back<unsigned, 32>(desc, tile, aggregate, &s_prefix);
   }
   if (full) {
 #pragma unroll
@@ -454,7 +384,7 @@ __global__ void __launch_bounds__(MG_THREADS)
   } else {
     if (tid == 0)
       store_relaxed(tdesc + tile, (SCAN_AGGREGATE << 32) | aggregate);
-    prefix = scan_look_back(tdesc, tile, aggregate, &s_prefix);
+    prefix = look_back<unsigned, 32>(tdesc, tile, aggregate, &s_prefix);
   }
 #pragma unroll
   for (int k = 0; k < MG_VT; ++k)

@@ -5,10 +5,11 @@
 //                   searchsorted_left(end), the range max over the sparse
 //                   table, `valid & max > snap`, fused per query;
 //   wu_endpoints -- :95-104 _union_ranges' sweep input: begins then ends
-//                   (MAX where invalid), the begins-first tie, +1 / -1;
-//   wu_marks     -- :110-112 the merged starts and ends of the coverage
-//                   sweep (the sort, cumsum and compactions are sort.cu's
-//                   and rank_scan.cu's);
+//                   (MAX where invalid), the begins-first tie, +1 / -1, and
+//                   the MAX rows of its outputs (:115);
+//   wu_sweep     -- :107-123 the coverage cumsum, the merged starts and
+//                   ends, their ranks and the compactions, one single-pass
+//                   launch after the sort (sort.cu's sort_rows);
 //   wg_keep      -- :226-231 window_gc's removeBefore keep mask.
 // window_insert's insert proper (:139-213) is insert.cu's ri_insert, which
 // it shares with the point insert.
@@ -17,12 +18,14 @@
 // writes its outputs once; wq_query adds the table rows its binary
 // searches touch and two range-max gathers per query.
 //
-// Design: one thread per element, grid-stride loops; digests move as
-// 32-byte rows (common.cuh).  wq_query is bound by the load instructions
-// of its scattered rows, not by their bytes: its searches walk a staged
-// top in shared memory, read half rows, share each load where begin and
-// end meet the same midpoint, and only valid queries search (probe_max,
-// for_live).
+// Design: the elementwise kernels take one thread per element in
+// grid-stride loops; digests move as 32-byte rows (common.cuh).  The
+// union's sweep is one single-pass launch whose two look-back chains carry
+// the coverage and the starts' and ends' ranks (k_sweep).  wq_query is
+// bound by the load instructions of its scattered rows, not by their
+// bytes: its searches walk a staged top in shared memory, read half rows,
+// share each load where begin and end meet the same midpoint, and only
+// valid queries search (probe_max, for_live).
 #include "common.cuh"
 
 // A range probe a valid query (probe_max over the one tier); invalid
@@ -47,11 +50,19 @@ __global__ void __launch_bounds__(PROBE_THREADS)
       [&](long i) { out[i] = 0; });
 }
 
+// _union_ranges' first launch: the 2w endpoint rows (begins, then ends;
+// MAX where invalid), their tie and delta; mb and me as w MAX rows each;
+// the sweep's ticket and descriptors zeroed (so the sweep, two launches
+// later on the stream, needs no fill of its own).
 __global__ void k_endpoints(long w, const uint32_t* __restrict__ wb,
                             const uint32_t* __restrict__ we,
                             const int* __restrict__ wvalid,
                             uint32_t* __restrict__ digests,
-                            int* __restrict__ tie, int* __restrict__ delta) {
+                            int* __restrict__ tie, int* __restrict__ delta,
+                            uint32_t* __restrict__ mb,
+                            uint32_t* __restrict__ me,
+                            unsigned long long* __restrict__ scratch,
+                            long scratch_len) {
   GRID_STRIDE(i, w) {
     bool v = wvalid[i] != 0;
     store_row(digests, i, v ? load_row(wb, i) : max_row());
@@ -60,17 +71,142 @@ __global__ void k_endpoints(long w, const uint32_t* __restrict__ wb,
     tie[w + i] = 1;
     delta[i] = v ? 1 : 0;
     delta[w + i] = v ? -1 : 0;
+    store_row(mb, i, max_row());
+    store_row(me, i, max_row());
   }
+  GRID_STRIDE(j, scratch_len) scratch[j] = 0ull;
 }
 
-__global__ void k_marks(long n2, const int* __restrict__ s_delta,
-                        const int* __restrict__ cov,
-                        int* __restrict__ is_start, int* __restrict__ is_end) {
-  GRID_STRIDE(i, n2) {
-    int d = s_delta[i];
-    int c = cov[i];
-    is_start[i] = (d > 0 && c == 1) ? 1 : 0;
-    is_end[i] = (d < 0 && c == 0) ? 1 : 0;
+// _union_ranges' sweep over the sorted endpoints (s_rows, s_delta), one
+// single-pass launch: tiles of SW_TILE elements (SW_VT consecutive ones a
+// thread) taken by an atomicAdd ticket, with two look-back chains
+// (common.cuh look_back):
+//   1. coverage: a tile publishes the sum of its deltas at once and looks
+//      back for its exclusive prefix c0, which gives each element's
+//      coverage cov (the reference's cumsum) and its marks, exactly the
+//      reference's: a start where d > 0 and cov == 1, an end where d < 0
+//      and cov == 0;
+//   2. starts and ends: the tile's two counts, packed as a pair, published
+//      once chain 1 resolves, looked back on a second descriptor array for
+//      the exclusive (S0, E0).  The end count is counted, never derived
+//      from the starts (ends = starts - (cov > 0) fails once coverage goes
+//      below 0, as a valid range with begin > end makes it).
+// Then m_incl[i] = S0 + the tile's inclusive starts up to i, each start's
+// row to mb[S0 + its rank in the tile] and each end's to me[E0 + rank],
+// stores past w dropped (the reference's mode="drop").
+// scratch: uint64[1 + 2 * tiles], zeroed by k_endpoints: the ticket, the
+// coverage descriptors, the pair descriptors.
+// Timed on the H100 at 256 threads x 4, 8 and 16 elements, 128 x 4 and 8,
+// and 64 x 4: 256 x 4 was the fastest at config 3's 2w = 131,072.
+#define SW_THREADS 256
+#define SW_VT 4  // elements a thread: one int4 of deltas
+#define SW_WARPS (SW_THREADS / 32)
+#define SW_TILE (SW_THREADS * SW_VT)  // 1024: conflict/window.py's UNION_TILE
+
+// Exclusive block scan of one value a thread; *total gets the block's sum.
+// Ends with a barrier, so `warp_sums` may be reused at once.
+template <class T>
+__device__ __forceinline__ T block_exclusive(T v, T* warp_sums, T* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T incl = warp_inclusive_scan<T>(v, lane);
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  T off = incl - v, sum = 0;
+#pragma unroll
+  for (int k = 0; k < SW_WARPS; ++k) {
+    if (k < warp) off += warp_sums[k];
+    sum += warp_sums[k];
+  }
+  *total = sum;
+  __syncthreads();
+  return off;
+}
+
+// s_delta and m_incl are 16-byte aligned (wu_sweep checks), so a thread's
+// SW_VT (4) values move as one int4 (a thread's base is a multiple of 4).
+__global__ void __launch_bounds__(SW_THREADS)
+    k_sweep(long n2, const uint32_t* __restrict__ s_rows,
+            const int* __restrict__ s_delta,
+            unsigned long long* __restrict__ scratch, long tiles,
+            uint32_t* __restrict__ mb, uint32_t* __restrict__ me, long w,
+            int* __restrict__ m_incl) {
+  __shared__ unsigned s_tile;
+  __shared__ unsigned s_warp[SW_WARPS];
+  __shared__ unsigned long long s_warp2[SW_WARPS];
+  __shared__ unsigned s_prefix;
+  __shared__ unsigned long long s_prefix2;
+  if (threadIdx.x == 0)
+    s_tile = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u);
+  __syncthreads();
+  const long tile = s_tile;
+  unsigned long long* cov_desc = scratch + 1;
+  unsigned long long* pair_desc = scratch + 1 + tiles;
+  const long base = tile * SW_TILE + (long)threadIdx.x * SW_VT;
+  const bool full = base + SW_VT <= n2;
+  int d[SW_VT];
+  if (full) {
+    const int4 x = *reinterpret_cast<const int4*>(s_delta + base);
+    d[0] = x.x; d[1] = x.y; d[2] = x.z; d[3] = x.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < SW_VT; ++k)
+      d[k] = base + k < n2 ? s_delta[base + k] : 0;
+  }
+  // Chain 1: coverage (sums wrap in int32, as the reference's cumsum).
+  unsigned run = 0u;
+#pragma unroll
+  for (int k = 0; k < SW_VT; ++k) run += (unsigned)d[k];
+  unsigned agg;
+  unsigned cov = block_exclusive<unsigned>(run, s_warp, &agg);
+  if (tile == 0) {
+    if (threadIdx.x == 0) store_relaxed(cov_desc, (SCAN_PREFIX << 32) | agg);
+  } else {
+    if (threadIdx.x == 0)
+      store_relaxed(cov_desc + tile, (SCAN_AGGREGATE << 32) | agg);
+    cov += look_back<unsigned, 32>(cov_desc, tile, agg, &s_prefix);
+  }
+  unsigned start = 0u, end = 0u;  // bit k: element k is a start / an end
+#pragma unroll
+  for (int k = 0; k < SW_VT; ++k) {
+    cov += (unsigned)d[k];
+    if (d[k] > 0 && (int)cov == 1) start |= 1u << k;
+    if (d[k] < 0 && (int)cov == 0) end |= 1u << k;
+  }
+  // Chain 2: the starts and ends before this thread's elements.
+  const unsigned long long mine =
+      ((unsigned long long)__popc(start) << PAIR_SHIFT) | __popc(end);
+  unsigned long long agg2;
+  unsigned long long pre =
+      block_exclusive<unsigned long long>(mine, s_warp2, &agg2);
+  if (tile == 0) {
+    if (threadIdx.x == 0)
+      store_relaxed(pair_desc, (SCAN_PREFIX << 62) | agg2);
+  } else {
+    if (threadIdx.x == 0)
+      store_relaxed(pair_desc + tile, (SCAN_AGGREGATE << 62) | agg2);
+    pre += look_back<unsigned long long, 62>(pair_desc, tile, agg2,
+                                             &s_prefix2);
+  }
+  long s_at = (long)(pre >> PAIR_SHIFT);              // starts before
+  long e_at = (long)(pre & ((1ull << PAIR_SHIFT) - 1));  // ends before
+  int incl[SW_VT];
+#pragma unroll
+  for (int k = 0; k < SW_VT; ++k) {
+    if ((start | end) >> k & 1u) {
+      const long at = start >> k & 1u ? s_at++ : e_at++;
+      const long dst = scatter_index(at, w);
+      if (dst >= 0) store_row(start >> k & 1u ? mb : me, dst,
+                              load_row(s_rows, base + k));
+    }
+    incl[k] = (int)s_at;
+  }
+  if (full) {
+    *reinterpret_cast<int4*>(m_incl + base) =
+        make_int4(incl[0], incl[1], incl[2], incl[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < SW_VT; ++k)
+      if (base + k < n2) m_incl[base + k] = incl[k];
   }
 }
 
@@ -102,20 +238,38 @@ extern "C" int wq_query(const void* bk, int cap, const void* table,
   RET;
 }
 
+// The sweep's tiles for n2 endpoints (at least one), which sizes its
+// scratch: 1 + 2 * tiles.
+static long sweep_tiles(long n2) {
+  return n2 > 0 ? (n2 + SW_TILE - 1) / SW_TILE : 1;
+}
+
 extern "C" int wu_endpoints(long w, const void* wb, const void* we,
                             const void* wvalid, void* digests, void* tie,
-                            void* delta, void* stream) {
+                            void* delta, void* mb, void* me, void* scratch,
+                            long scratch_len, void* stream) {
+  if (scratch_len < 1 + 2 * sweep_tiles(2 * w))
+    return (int)cudaErrorInvalidValue;
   k_endpoints<<<blocks_for(w, THREADS), THREADS, 0, S(stream)>>>(
       w, (const uint32_t*)wb, (const uint32_t*)we, (const int*)wvalid,
-      (uint32_t*)digests, (int*)tie, (int*)delta);
+      (uint32_t*)digests, (int*)tie, (int*)delta, (uint32_t*)mb,
+      (uint32_t*)me, (unsigned long long*)scratch, scratch_len);
   RET;
 }
 
-extern "C" int wu_marks(long n2, const void* s_delta, const void* cov,
-                        void* is_start, void* is_end, void* stream) {
-  k_marks<<<blocks_for(n2, THREADS), THREADS, 0, S(stream)>>>(
-      n2, (const int*)s_delta, (const int*)cov, (int*)is_start,
-      (int*)is_end);
+// scratch: as zeroed by wu_endpoints for the same n2 = 2w.  s_delta and
+// m_incl must be 16-byte aligned, as _union_ranges' fresh allocations are.
+extern "C" int wu_sweep(long n2, const void* s_rows, const void* s_delta,
+                        void* scratch, long scratch_len, void* mb, void* me,
+                        long w, void* m_incl, void* stream) {
+  const long tiles = sweep_tiles(n2);
+  if (scratch_len < 1 + 2 * tiles || tiles > 0x7fffffffL ||
+      (uintptr_t)s_delta % 16 != 0 || (uintptr_t)m_incl % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  k_sweep<<<(unsigned)tiles, SW_THREADS, 0, S(stream)>>>(
+      n2, (const uint32_t*)s_rows, (const int*)s_delta,
+      (unsigned long long*)scratch, tiles, (uint32_t*)mb, (uint32_t*)me, w,
+      (int*)m_incl);
   RET;
 }
 

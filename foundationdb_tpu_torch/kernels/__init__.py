@@ -41,8 +41,8 @@ KERNELS = {
     "widen_unique": ("digest_search", _REF + "conflict/fused.py:300"),
     "searchsorted": ("digest_search", _REF + "ops/digest.py:243"),
     "history_probe": ("digest_search", _REF + "conflict/fused.py:351"),
-    "inclusive_scan": ("rank_scan", _REF + "conflict/window.py:108"),
-    "compact_rows": ("rank_scan", _REF + "conflict/window.py:119"),
+    "inclusive_scan": ("rank_scan", _REF + "conflict/window.py:233"),
+    "compact_rows": ("rank_scan", _REF + "conflict/window.py:235"),
     "build_sparse_table": ("sparse_table", _REF + "ops/rangemax.py:20"),
     "txn_prep": ("intra_batch", _REF + "conflict/fused.py:324"),
     "read_write_prep": ("intra_batch", _REF + "conflict/fused.py:332"),
@@ -80,8 +80,7 @@ _SIGS = {
     },
     "intra_batch": {
         "ib_txn_prep": "iii" "ppppp" "ppp" "p",
-        "ib_read_prep": "iii" "pppppp" "pppp" "p",
-        "ib_write_prep": "iii" "pppp" "ppp" "p",
+        "ib_rw_prep": "iiii" "pppppppp" "ppppppp" "p",
         "ib_fixpoint": "iiii" "ppppppp" "ppppp" "p",
         "ib_codes": "ii" "pppppp" "p",
         "ig_txn": "i" "ppppp" "p",
@@ -92,8 +91,8 @@ _SIGS = {
     "segtree": {"sg_fixpoint": "iiii" "ppppppppp" "pl" "ppp" "p"},
     "window": {
         "wq_query": "pipppp" "plp" "p",
-        "wu_endpoints": "l" "pppppp" "p",
-        "wu_marks": "l" "pppp" "p",
+        "wu_endpoints": "l" "pppppp" "ppp" "l" "p",
+        "wu_sweep": "l" "ppp" "l" "pp" "l" "p" "p",
         "wg_keep": "ippip" "p",
     },
     "insert": {

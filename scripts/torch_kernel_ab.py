@@ -3,8 +3,9 @@
 the shapes the conflict path hands them.
 
   python3 scripts/torch_kernel_ab.py [--root DIR] [--label NAME]
-      [--cases table,sort,fixpoint,merge,insert,probe] [--profile]
-      [--sweep]
+      [--cases table,sort,fixpoint,merge,insert,probe,rwprep,union,
+               sharded,swindow,general]
+      [--profile] [--sweep]
 
 DIR (default: the checkout holding this script) is the checkout whose
 foundationdb_tpu_torch package is timed; its kernels are built from its own
@@ -40,6 +41,23 @@ checkout's chip_smoke.py:
             (110,000 rows, a quarter valid); with --sweep also
             history_probe at config 2's tiers with 256, 4,096 and 16,384
             key slots (its latency floor);
+  rwprep    read_write_prep on config 2's warmed state and next batch
+            (chip_smoke's warmed_state; the plain versions give its
+            inputs): launches a call, own device ms, the whole call's
+            (with the hist fill), plain ms, bound;
+  union     _union_ranges on config 3's delta shape (65,536 ranges of
+            1-100 records, 55,000 valid; insert_state) and on one config-3
+            batch's writes (the general step's 65,536 slots): launches a
+            call by counter, own ms, the whole call's device ms, the sort's
+            own, the call without the sort, plain ms, bound (union_at);
+  sharded   (not in the default set) program #8's sharded compact step at
+            config 5 (four shards on the card, chip_smoke's warm_sharded
+            after 4 batches and a merge), bit-equal to its plain version,
+            then its device time by torch.profiler: each kernel's duration
+            summed a call (no host time), per kernel and in all, the
+            state's restore taken out (profiled_step);
+  swindow   (not in the default set) program #9's ShardedWindow step on
+            config 3's sixth batch after five, timed the same way;
   general   (not in the default set) the config-3 general path through
             TorchConflictSet (chip_smoke's general_path): ranges/s at
             depth 8, p50 resolve and packing, to compare a host-bound
@@ -48,11 +66,13 @@ So two commits are compared on one card by running this once per
 checkout on that card, in turns (parent, change, change, parent).  Prints
 one JSON line: each case's launches a call, own device time, plain time,
 bound and equality with the plain version (any difference fails the
-run).  With
+run), and the launch floor: the device time of a one-element fill_
+between CUDA events behind the stream's sleep, as every own time is
+taken (chip_smoke.py device_ms).  With
 --profile it adds, under "profile", each kernel's mean device time and
 launches per call by torch.profiler, for the chosen cases (the table at
 2^21, each sort input, the config-3 fixpoint, the config-2 merge, each
-insert and probe shape), and the time of a copy_ of the universe's rows
+insert and probe shape, the union at config 3's delta shape), and the time of a copy_ of the universe's rows
 (the bytes of one sort pass: a floor for a pass).
 """
 
@@ -133,6 +153,23 @@ def main() -> int:
         out["probe"] = [S.probe_case(r[0], reps=20) for r in S.PROBE_SHAPES]
         if args.sweep:
             out["probe_sweep"] = probe_sweep(S)
+    if "rwprep" in cases:
+        out["read_write_prep"] = rwprep_case(S, K, fused)
+    if "union" in cases:
+        w_b = universe[2 * r_cap:2 * r_cap + w_cap]
+        w_e = universe[2 * r_cap + w_cap:]
+        _, (d_b, d_e, d_valid, _) = S.insert_state("window", *INSERTS[2][2])
+        out["union_ranges"] = [
+            S.union_at(what, b, e, v, expect_launches=False, reps=20)
+            for what, b, e, v in (("config3_delta", d_b, d_e, d_valid),
+                                  ("config3_batch", w_b, w_e,
+                                   m["w_valid"]))]
+    if "sharded" in cases:
+        out["sharded_step"] = sharded_case(S)
+    if "swindow" in cases:
+        out["sharded_window_step"] = swindow_case(S)
+    one = torch.zeros((1,), dtype=torch.int32, device=S.DEVICE)
+    out["launch_floor_ms"] = S.device_ms(lambda: one.fill_(0), reps=50)
     if "general" in cases:
         with contextlib.redirect_stdout(sys.stderr):
             _, path, _ = S.general_path("")
@@ -181,6 +218,163 @@ def probe_sweep(S, reps: int = 20) -> list:
     return result
 
 
+def rwprep_case(S, K, fused, reps: int = 20) -> dict:
+    """read_write_prep at config 2: on chip_smoke's warmed state and its
+    next batch, the inputs from the plain versions of the blocks before it
+    (as compare_kernels builds them)."""
+    import torch
+    from foundationdb_tpu_torch.ops import digest
+    cs, packed, buf = S.warmed_state()
+    t_cap, r_pad, w_pad, u_pad, lw = packed["shapes"]
+    lay = fused.compact_layout(t_cap, r_pad, w_pad, u_pad, lw)
+    b32 = buf.view(torch.int32)
+
+    def i32(name, n):
+        return b32[lay[name] // 4:lay[name] // 4 + n]
+
+    ub = buf[lay["ubytes"]:lay["ubytes"] + u_pad * lw]
+    scal = i32("scalars", fused.COMPACT_SCALARS)
+    t_snap = i32("t_snap", t_cap)
+    P = "plain"
+    u_b, u_e = digest.widen_unique(ub, scal, lw, u_pad, P)
+    too_old, r_cnt, w_cnt = fused.txn_prep(
+        i32("r_start", t_cap), i32("w_start", t_cap), t_snap,
+        buf[lay["t_flags"]:lay["t_flags"] + t_cap], scal, r_pad, w_pad, P)
+    vmax = digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable, u_b, u_e,
+                                P)
+    args = (i32("r_uid", r_pad), i32("w_uid", w_pad), r_cnt, w_cnt, too_old,
+            t_snap, scal, vmax, u_pad)
+
+    def run(impl=None):
+        return fused.read_write_prep(*args, impl=impl)
+
+    K.reset_counts()
+    got = run()
+    launches = K.LAUNCHES["read_write_prep"]
+    want = run(P)
+    err = S.require_equal("read_write_prep", got, want)
+    return {"shapes": [t_cap, r_pad, w_pad, u_pad],
+            "launches_per_call": launches, "max_abs_err": err,
+            "ms": S.device_ms(run, reps=reps, counter="read_write_prep"),
+            "call_ms": S.device_ms(run, reps=reps),
+            "plain_ms": S.cuda_ms(lambda: run(P), reps=2),
+            "bound_ms": S.bound_ms(S.nbytes(*args[:6], vmax,
+                                            *want.values()))}
+
+
+def kernel_key(key: str) -> str:
+    """A profiler key as a short name: the port's kernels by their name
+    (k_...), others by their first 80 characters."""
+    name = key.split("(")[0].split()[-1] if "(" in key else key
+    return name if name.startswith("k_") else key[:80]
+
+
+def device_us(fn, calls: int) -> dict:
+    """Microseconds of device activity a call of fn() by torch.profiler,
+    per kernel (kernel_key) and copy, each one's durations summed."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in p.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            key = kernel_key(e.key)
+            out[key] = out.get(key, 0.0) + us / calls
+    return out
+
+
+def profiled_step(step, load, calls: int = 10) -> dict:
+    """A sharded program's device time a call, without host time: the
+    profiler's per-kernel durations of `calls` (load, step) pairs less
+    those of `calls` loads alone (load restores the state).  Returns the
+    total, the port's kernels' sum (k_...) and each entry in us."""
+    step()
+    both = device_us(lambda: (load(), step()), calls)
+    alone = device_us(load, calls)
+    per = {k: round(v - alone.get(k, 0.0), 3) for k, v in both.items()
+           if v - alone.get(k, 0.0) > 1e-3}
+    return {"device_us": round(sum(per.values()), 3),
+            "kernels_us": round(sum(v for k, v in per.items()
+                                    if k.startswith("k_")), 3),
+            "per_kernel_us": per}
+
+
+def sharded_case(S) -> dict:
+    """Program #8's sharded compact step at config 5 on chip_smoke's warmed
+    state: bit-equal to the plain version, then profiled_step, with
+    read_write_prep's kernels' share (k_rw_prep; k_read_prep + k_write_prep
+    before it)."""
+    import torch
+    rng5 = np.random.default_rng(5055)
+    splits5 = S.config5_splits(rng5)
+    stream5 = S.make_stream5(rng5, 5)
+    cs, plain, packed, saved = S.warm_sharded(
+        splits5, stream5, S.CONFIG5_CAPACITY // S.N_SHARDS,
+        S.CONFIG5_DELTA // S.N_SHARDS)
+    host_buf = torch.from_numpy(packed["buf"]).pin_memory()
+
+    def run(c):
+        out, _ = c._run_step(packed, host_buf)
+        return (out,) + S.shard_tensors(c)
+
+    S.load_shards(cs, saved)
+    S.load_shards(plain, saved)
+    err = S.require_equal("sharded_step", run(cs), run(plain))
+    row = profiled_step(lambda: run(cs), lambda: S.load_shards(cs, saved))
+    rw = sum(v for k, v in row["per_kernel_us"].items()
+             if k.split("<")[0] in ("k_rw_prep", "k_read_prep",
+                                    "k_write_prep"))
+    row.update(max_abs_err=err, read_write_prep_us=round(rw, 3),
+               read_write_prep_share=round(rw / row["device_us"], 4))
+    return row
+
+
+def swindow_case(S) -> dict:
+    """Program #9's ShardedWindow step (kr=4, 2^21 boundaries a shard) on
+    config 3's sixth batch after five, as chip_smoke's compare_sharded
+    times it: bit-equal to the plain version, then profiled_step, with
+    _union_ranges' kernels but the sort's (k_endpoints, k_sweep; k_marks,
+    k_scan, k_compact before) and their share."""
+    import torch
+    from foundationdb_tpu_torch.parallel import ShardedWindow
+    stream3 = S.make_stream3(np.random.default_rng(17), 6)
+    wins = [ShardedWindow(S.shard_mesh(), S.CAPACITY, impl=i)
+            for i in (None, "plain")]
+    for v, enc, _ in stream3[:5]:
+        wins[0].resolve_step(*S.window_inputs(enc, 0), v)
+    torch.cuda.synchronize()
+    saved = [tuple(t.clone() for t in st) for st in wins[0].shard_states()]
+    v5, enc5, _ = stream3[5]
+    inputs = S.window_inputs(enc5, 0)
+
+    def load(w):
+        for st, sv in zip(w.shard_states(), saved):
+            for t, x in zip(st, sv):
+                t.copy_(x)
+
+    def run(w):
+        bits, ovf = w.resolve_step(*inputs, v5)
+        return (bits, ovf) + tuple(t for st in w.shard_states() for t in st)
+
+    load(wins[0])
+    load(wins[1])
+    err = S.require_equal("sharded_window_step", run(wins[0]), run(wins[1]))
+    row = profiled_step(lambda: run(wins[0]), lambda: load(wins[0]))
+    union = sum(v for k, v in row["per_kernel_us"].items()
+                if k.split("<")[0] in ("k_endpoints", "k_sweep", "k_marks",
+                                       "k_scan", "k_compact"))
+    row.update(max_abs_err=err, union_but_sort_kernels_us=round(union, 3),
+               union_share=round(union / row["device_us"], 4))
+    return row
+
+
 def fixpoint_case(S, K, fused, fix_in, log_u: int, reps: int = 20) -> dict:
     """interval_fixpoint on one batch's inputs: launches a call, rounds,
     equality with the plain version, own device ms, plain ms, bound."""
@@ -203,7 +397,8 @@ def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
             calls: int = 5) -> dict:
     """Per-kernel device time (mean microseconds a launch) and launches a
     call, by torch.profiler over `calls` calls of each case of the chosen
-    kinds (table, sort, fixpoint, merge, insert, probe)."""
+    kinds (table, sort, fixpoint, merge, insert, probe, union; for the
+    union every device kernel of the call, torch's fills included)."""
     import torch
     from torch.profiler import ProfilerActivity
     from foundationdb_tpu_torch.conflict import fused
@@ -241,6 +436,11 @@ def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
     for what, *_ in S.PROBE_SHAPES if "probe" in chosen else ():
         fn = S.probe_inputs(what)[2]
         cases[f"probe_{what}"] = lambda fn=fn: fn("kernel")
+    if "union" in chosen:
+        from foundationdb_tpu_torch.conflict import window
+        _, (d_b, d_e, d_valid, _) = S.insert_state("window", *INSERTS[2][2])
+        cases["union_config3_delta"] = lambda: window._union_ranges(
+            d_b, d_e, d_valid)
     result = {}
     for name, fn in cases.items():
         fn()
@@ -254,10 +454,12 @@ def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
-            if us > 0 and e.key.split("(")[0].split()[-1].startswith("k_"):
-                kernels[e.key.split("(")[0].split()[-1]] = {
-                    "us_per_launch": us / e.count,
-                    "launches_per_call": e.count / calls}
+            key = e.key.split("(")[0].split()[-1]
+            if not key.startswith("k_") and name.startswith("union"):
+                key = e.key[:80]  # the union's fills too
+            if us > 0 and (key.startswith("k_") or name.startswith("union")):
+                kernels[key] = {"us_per_launch": us / e.count,
+                                "launches_per_call": e.count / calls}
         result[name] = kernels
     dst = torch.empty_like(universe)
     result["copy_universe_ms"] = S.device_ms(lambda: dst.copy_(universe),

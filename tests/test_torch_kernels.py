@@ -25,6 +25,8 @@ from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
 
 from test_torch_insert import CASES as INSERT_CASES, make_case, run_port
 from test_torch_probe import search_top
+from test_torch_union import (UNION_CASES, rw_case, rw_port,
+                              union_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -281,8 +283,8 @@ def test_searchsorted_and_history(dev, edge):
 
 
 def test_step_blocks(dev):
-    """widen_unique, txn_prep, read_write_prep, the fixpoint and the codes,
-    each on the plain version's inputs."""
+    """widen_unique, txn_prep, read_write_prep (one launch a call), the
+    fixpoint and the codes, each on the plain version's inputs."""
     st = make_state(dev)
     x = step_inputs(dev, packed_batch(4))
     t_cap, r_pad, w_pad, u_pad, lw = x["shapes"]
@@ -298,9 +300,11 @@ def test_step_blocks(dev):
                                 st["dtable"], *ub, P)
     rw = fused.read_write_prep(x["r_uid"], x["w_uid"], r_cnt, w_cnt, too_old,
                                x["t_snap"], x["scal"], vmax, u_pad, P)
+    K.reset_counts()
     same(fused.read_write_prep(x["r_uid"], x["w_uid"], r_cnt, w_cnt,
                                too_old, x["t_snap"], x["scal"], vmax, u_pad),
          rw)
+    assert K.LAUNCHES["read_write_prep"] == 1
     args = (rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"], rw["w_txn"],
             rw["w_ok"], rw["w_slot"], u_pad)
     conf, rounds = fused.intra_batch_fixpoint(*args, impl=P)
@@ -590,9 +594,88 @@ def test_sort_rows_union_ranges_shape(dev):
                      torch.ones(w, dtype=torch.int32)])
     delta = torch.cat([valid, -valid])
     check_sort(dev, rows.to(dev), tie=tie.to(dev), pay=delta.to(dev))
-    same(window._union_ranges(wb.to(dev), we.to(dev), valid.to(dev)),
-         window._union_ranges(wb.to(dev), we.to(dev), valid.to(dev),
-                              impl="plain"))
+    check_union(dev, wb.to(dev), we.to(dev), valid.to(dev))
+
+
+def check_union(dev, wb, we, valid):
+    """_union_ranges, kernel against plain, and its launches a call:
+    wu_endpoints and wu_sweep under union_ranges, the sort's own, and no
+    scan or compaction."""
+    from foundationdb_tpu_torch.conflict import window
+    from foundationdb_tpu_torch.ops.sort import sort_rounds
+    K.reset_counts()
+    got = window._union_ranges(wb, we, valid)
+    counts = dict(K.LAUNCHES)
+    same(got, window._union_ranges(wb, we, valid, impl="plain"))
+    n2 = 2 * wb.shape[0]
+    assert counts["union_ranges"] == 2
+    assert counts["sort_rows"] == (1 + 2 * sort_rounds(n2) if n2 else 0)
+    assert counts["inclusive_scan"] == counts["compact_rows"] == 0
+    assert sum(counts.values()) == counts["union_ranges"] + counts["sort_rows"]
+    return got
+
+
+@pytest.mark.parametrize("name", UNION_CASES)
+def test_union_ranges_cases(dev, name):
+    """tests/test_torch_union.py's cases (one range, none valid, only
+    empty ranges, begin > end, one range over every other, a touching
+    chain, coverage back to 0 at fixed strides), kernel against plain."""
+    b, e, valid = union_case(name)
+    rows = lambda p: torch.from_numpy(digest.planar_to_rows(p)).to(dev)
+    check_union(dev, rows(b), rows(e),
+                torch.from_numpy(valid.astype(np.int32)).to(dev))
+
+
+UNION_TILE = 1024  # conflict/window.py UNION_TILE: endpoints a sweep tile
+
+
+@pytest.mark.parametrize("kind", ["overlapping", "disjoint", "begin_gt_end"])
+@pytest.mark.parametrize("w", [UNION_TILE // 2 - 1, UNION_TILE // 2,
+                               UNION_TILE // 2 + 1, UNION_TILE - 1,
+                               UNION_TILE + 1, (3 * UNION_TILE + 6) // 2,
+                               1 << 20])
+def test_union_ranges_tile_edges(dev, w, kind):
+    """2w endpoints around the sweep's tile edges (2w is even: a tile -
+    2, a tile, a tile + 2, two tiles +- 2, three tiles + 6) and at 2^21:
+    heavily overlapping ranges (coverage carried across many tiles),
+    disjoint ones (coverage back to 0 after every pair, so at every tile
+    edge) and ranges with begin > end (coverage below 0), 10% invalid."""
+    from foundationdb_tpu_torch.conflict import window
+    assert window.UNION_TILE == UNION_TILE
+    rng = np.random.default_rng(w)
+    if kind == "disjoint":
+        a, s = 10 * rng.permutation(w), np.full(w, 5)
+    else:
+        a = rng.integers(0, 4 * w, size=w)
+        s = rng.integers(1, 60, size=w)
+        if kind == "begin_gt_end":
+            s[::3] = -s[::3]
+    rows = lambda ids: torch.from_numpy(
+        digest.planar_to_rows(key_digests(ids))).to(dev)
+    valid = torch.from_numpy((rng.random(w) < 0.9).astype(np.int32)).to(dev)
+    mb, _, m_incl = check_union(dev, rows(a), rows(a + s), valid)
+    if kind == "disjoint":
+        assert int(m_incl[-1]) == int(valid.sum())
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+@pytest.mark.parametrize("malformed", [False, True])
+@pytest.mark.parametrize("pads", [(203, 101), (1024, 1023), (4099, 5),
+                                  (1, 4096)])
+def test_read_write_prep_edges(dev, pads, malformed, layout):
+    """read_write_prep, kernel against plain, one launch a call: txn -1
+    reads, too-old and padding txns (tests/test_torch_union.py rw_case),
+    pads not a multiple of 4 (the scalar tail), arbitrary rank counts
+    (out of range, not monotone, int32's extremes), and inputs at a 4-byte
+    offset from a 16-byte boundary (no quad loads)."""
+    r_pad, w_pad = pads
+    c = rw_case(r_pad + w_pad, t_cap=max(8, r_pad // 3), r_pad=r_pad,
+                w_pad=w_pad, u_pad=97, malformed=malformed)
+    offset = 1 if layout == "unaligned" else 0
+    K.reset_counts()
+    got = rw_port(c, dev, offset=offset)
+    assert K.LAUNCHES["read_write_prep"] == 1
+    same(got, rw_port(c, dev, impl="plain"))
 
 
 def window_after_inserts(dev, cap=1 << 12, batches=4, w=256, impl=None):
