@@ -38,7 +38,7 @@ exits non-zero):
      through its plain-torch version on the card on identical inputs:
      outputs must be bit-equal (all integer data; tolerance 0); times by
      CUDA events (a wrapper's row: the device time of its own launches);
-     inclusive_scan also at the point path's own sizes beside
+     inclusive_scan also at config 2's pads, delta and merge beside
      torch.cumsum, one launch a call; intra_batch_fixpoint also on a
      300-deep chain at config-2 width (rounds equal to the depth);
      build_sparse_table also at 2^18, 2^20 and 2^21 (a shard's delta, the
@@ -49,7 +49,8 @@ exits non-zero):
      the live rows and over the full-capacity passes of a histogram-and-
      scatter insert); history_probe at config 2 (probe_at: launches a
      call, own ms, the bound by search_bytes); read_write_prep's one
-     launch a call;
+     launch a call; compact_prep's one launch a call and the compact
+     step's unpacking chain's device time (its whole call);
   3. the point path: 3 warmup batches, 10 at pipeline depth 8, 8 at depth
      1; oracle parity in both contention regimes; kernel-vs-plain state
      equality across a merge;
@@ -149,24 +150,24 @@ def phase_done(name: str) -> None:
 # The wrappers each path must launch (counted with the counts set to 0
 # just before the path is driven and read just after).
 # The inserts run no scan, search, rank count or compaction of ops/, nor
-# does _union_ranges (its sweep is one kernel): searchsorted runs on the
-# general path only (the endpoint universe), inclusive_scan under txn_prep
-# and window_gc, compact_rows under window_gc.
-_SHARED = ["inclusive_scan", "build_sparse_table"]
+# does _union_ranges (its sweep is one kernel), nor the compact step's
+# unpacking (compact_prep scans its rank counts itself): searchsorted runs
+# on the general path only (the endpoint universe), inclusive_scan and
+# compact_rows under window_gc only.
 _WINDOW = ["window_query", "sort_rows", "union_ranges", "window_insert",
-           "window_gc", "compact_rows", *_SHARED]
+           "window_gc", "compact_rows", "inclusive_scan",
+           "build_sparse_table"]
 PATH_KERNELS = {
-    "point": ["widen_unique", "history_probe", "txn_prep", "read_write_prep",
+    "point": ["compact_prep", "history_probe", "read_write_prep",
               "intra_batch_fixpoint", "batch_codes", "point_insert", "merge",
-              *_SHARED],
+              "build_sparse_table"],
     "general": ["history_probe", "merge", "sort_rows", "general_prep",
                 "interval_fixpoint", "general_codes", "union_ranges",
                 "window_insert", "searchsorted", "build_sparse_table"],
     "window": _WINDOW,
-    "sharded": ["widen_unique", "history_probe", "txn_prep",
-                "read_write_prep", "intra_batch_fixpoint", "batch_codes",
-                "point_insert", "merge", "clip_rows", "shard_combine",
-                *_SHARED],
+    "sharded": ["compact_prep", "history_probe", "read_write_prep",
+                "intra_batch_fixpoint", "batch_codes", "point_insert",
+                "merge", "clip_rows", "shard_combine", "build_sparse_table"],
     "sharded_window": [*_WINDOW, "clip_rows", "shard_combine",
                        "shard_commit"],
 }
@@ -398,7 +399,8 @@ def device_ms(fn, reps: int = REPS, setup=None, counter=None) -> float:
     time is the sum over the launches counted under that name, each
     bracketed by its own pair of events (kernels.timed_launches), so a
     wrapper's row holds its own kernels and not those of the wrappers it
-    calls; without, it is the whole call."""
+    calls (a tuple of names: their sum); without, it is the whole
+    call."""
     import torch
     from foundationdb_tpu_torch import kernels as K
     total, cycles = 0.0, BACKLOG_CYCLES
@@ -425,7 +427,8 @@ def device_ms(fn, reps: int = REPS, setup=None, counter=None) -> float:
         if counter is None:
             total += a.elapsed_time(b)
             continue
-        pairs = timed.get(counter, [])
+        names = (counter,) if isinstance(counter, str) else counter
+        pairs = [pair for n in names for pair in timed.get(n, [])]
         if not pairs:
             raise AssertionError(f"{counter}: no launch under its counter")
         total += sum(s.elapsed_time(e) for s, e in pairs)
@@ -466,6 +469,71 @@ def search_bytes(table, n_queries: int) -> int:
     levels = cap.bit_length()
     rows = sum(min(1 << lvl, n_queries, cap) for lvl in range(levels))
     return rows * table.shape[1] * table.element_size()
+
+
+def prep_bytes(prep_in, prep) -> int:
+    """Least bytes of compact_prep: the packed sections it reads (ub,
+    r_start, w_start, t_snap, t_flags, scal) once, its outputs (u_b, u_e,
+    too_old, r_cnt, w_cnt) and the zeroed hists written once."""
+    return nbytes(*prep_in[:6], *(prep[k] for k in ("u_b", "u_e", "too_old",
+                                                     "r_cnt", "w_cnt")),
+                  *prep["hists"])
+
+
+def device_ops(fn, calls: int = 3) -> tuple:
+    """The device operations a call of fn() enqueues, by torch.profiler:
+    (the port's kernels, every other kernel, fill, memset and copy), each
+    a call."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    own = other = 0
+    for e in p.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us <= 0:
+            continue
+        name = e.key.split("(")[0].split()[-1] if "(" in e.key else e.key
+        if name.startswith("k_"):
+            own += e.count
+        else:
+            other += e.count
+    return own / calls, other / calls
+
+
+def prep_chain(fused, prep_in) -> dict:
+    """The compact step's unpacking chain on the card: its launches a call
+    as the counters read them (1, and none of another wrapper), its
+    device operations a call as the profiler sees them (1 kernel, and no
+    fill or other operation), and compact_prep's whole call (n_hist 1)
+    behind the stream's sleep, read_write_prep's zeroed hist included.
+    Logs the histograms' round trip (zeroed, then read by the scan: 8
+    bytes a slot of r_pad + w_pad) at the card's memory rate, which the
+    least bytes leave out."""
+    from foundationdb_tpu_torch import kernels as K
+    K.reset_counts()
+    fused.compact_prep(*prep_in)
+    launches = K.LAUNCHES["compact_prep"]
+    if launches != 1 or sum(K.LAUNCHES.values()) != 1:
+        raise AssertionError(f"compact_prep: {dict(K.LAUNCHES)} launches a "
+                             "call, not 1 of its own")
+    kernels, others = device_ops(lambda: fused.compact_prep(*prep_in))
+    if kernels != 1 or others != 0:
+        raise AssertionError(f"compact_prep: the profiler saw {kernels} of "
+                             f"the port's kernels and {others} other device "
+                             "operations a call, not 1 and 0")
+    r_pad, w_pad = prep_in[8], prep_in[9]
+    log(f"compact_prep: the histograms' round trip at the memory rate "
+        f"{bound_ms(8 * (r_pad + w_pad)):.5f} ms")
+    return {"launches_per_call": launches, "kernels_per_call": kernels,
+            "other_ops_per_call": others,
+            "chain_ms": device_ms(lambda: fused.compact_prep(*prep_in),
+                                  reps=20)}
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -557,9 +625,11 @@ def compare_kernels(cs, packed, buf):
     P = "plain"
 
     # Intermediates of the step, from the plain versions.
-    u_b, u_e = digest.widen_unique(ub, scal, lw, u_pad, P)
-    too_old, r_cnt, w_cnt = fused.txn_prep(r_start, w_start, t_snap, t_flags,
-                                           scal, r_pad, w_pad, P)
+    prep_in = (ub, r_start, w_start, t_snap, t_flags, scal, lw, u_pad, r_pad,
+               w_pad)
+    prep = fused.compact_prep(*prep_in, impl=P)
+    u_b, u_e, too_old = prep["u_b"], prep["u_e"], prep["too_old"]
+    r_cnt, w_cnt = prep["r_cnt"], prep["w_cnt"]
     vmax = digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable, u_b, u_e,
                                 P)
     rw = fused.read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap,
@@ -611,8 +681,8 @@ def compare_kernels(cs, packed, buf):
     # name -> (fn(impl) -> outputs, bytes bound, library call or None);
     # stateful cases get a fresh copy of the state per call.
     cases = {
-        "widen_unique": (lambda i: digest.widen_unique(ub, scal, lw, u_pad, i),
-                         nbytes(ub, u_b, u_e), None),
+        "compact_prep": (lambda i: fused.compact_prep(*prep_in, impl=i),
+                         prep_bytes(prep_in, prep), None),
         "searchsorted": (lambda i: digest.searchsorted(cs.dk, u_e, True, i),
                          nbytes(u_e, dpos) + search_bytes(cs.dk, u_pad),
                          None),
@@ -631,10 +701,6 @@ def compare_kernels(cs, packed, buf):
         "build_sparse_table": (
             lambda i: rangemax.build_sparse_table(cs.bv, impl=i),
             nbytes(cs.bv, cs.table), None),
-        "txn_prep": (lambda i: fused.txn_prep(r_start, w_start, t_snap,
-                                              t_flags, scal, r_pad, w_pad, i),
-                     nbytes(r_start, w_start, t_snap, t_flags, too_old,
-                            r_cnt, w_cnt), None),
         "read_write_prep": (
             lambda i: fused.read_write_prep(r_uid, w_uid, r_cnt, w_cnt,
                                             too_old, t_snap, scal, vmax,
@@ -659,10 +725,10 @@ def compare_kernels(cs, packed, buf):
     rows = []
     K.reset_counts()
     cases["read_write_prep"][0]("kernel")
-    if K.LAUNCHES["read_write_prep"] != 1:
-        raise AssertionError(f"read_write_prep: "
-                             f"{K.LAUNCHES['read_write_prep']} launches a "
-                             f"call")
+    if (K.LAUNCHES["read_write_prep"] != 1
+            or sum(K.LAUNCHES.values()) != 1):
+        raise AssertionError(f"read_write_prep: {dict(K.LAUNCHES)} launches "
+                             "a call, not 1 of its own")
     for name, (fn, n_bytes, library) in cases.items():
         if isinstance(fn, str):
             run = stateful[fn]
@@ -707,6 +773,7 @@ def compare_kernels(cs, packed, buf):
                              "flag": cs.flag, "bsize": cs.size},
         (u_b, u_e, w_uid, w_ins, scal[4:5], None))))
     by_name = {r["name"]: r for r in rows}
+    by_name["compact_prep"].update(prep_chain(fused, prep_in))
     # The history probe's shapes: config 2 here, config 3's general step
     # and a config-5 shard in phases 4 and 9.
     by_name["history_probe"]["at_shapes"] = [probe_at(
@@ -775,7 +842,7 @@ def compare_kernels(cs, packed, buf):
 
 
 def scan_sizes(scan, sizes: dict) -> list:
-    """inclusive_scan at the point path's own sizes (and the merge's):
+    """inclusive_scan at config 2's pad sizes (and the merge's):
     one launch a call, bit-equal to the plain version, its own time
     beside torch.cumsum's on the same 0/1 mask."""
     import torch

@@ -44,6 +44,7 @@ scalars (size, dsize, flag) as int32[1] tensors, booleans as int32 0/1.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -148,17 +149,14 @@ def txn_prep(r_start, w_start, t_snap, t_flags, scal, r_pad: int,
     """Too-old per txn and the rank counts that rebuild each read's and
     write's txn from the per-txn start offsets (reference fused.py:324-330):
     (too_old int32[t_cap], r_cnt int32[r_pad], w_cnt int32[w_pad]), where
-    r_txn = r_cnt - 1.  Kernel: ib_txn_prep + inclusive_scan."""
+    r_txn = r_cnt - 1.  Plain torch only: on the card the compact step
+    computes them in compact_prep's kernels, so a call that would take the
+    kernel route raises."""
     t_cap = t_snap.shape[0]
     dev = t_snap.device
     if _k.use_kernel(t_snap, impl):
-        too_old = torch.empty((t_cap,), dtype=torch.int32, device=dev)
-        hist_r = torch.zeros((r_pad + 1,), dtype=torch.int32, device=dev)
-        hist_w = torch.zeros((w_pad + 1,), dtype=torch.int32, device=dev)
-        _k.launch("txn_prep", "ib_txn_prep", t_cap, r_pad, w_pad, r_start,
-                  w_start, t_snap, t_flags, scal, too_old, hist_r, hist_w)
-        return (too_old, inclusive_scan(hist_r[:r_pad], impl),
-                inclusive_scan(hist_w[:w_pad], impl))
+        raise RuntimeError("txn_prep has no kernel of its own (the card runs "
+                           "it in compact_prep); call it with impl='plain'")
     t_valid = _iota(t_cap, dev) < scal[3]
     t_has_reads = (t_flags & 1) != 0
     too_old = (t_valid & t_has_reads & (t_snap < scal[5])).to(torch.int32)
@@ -167,24 +165,93 @@ def txn_prep(r_start, w_start, t_snap, t_flags, scal, r_pad: int,
     return too_old, r_cnt, w_cnt
 
 
+@functools.lru_cache(maxsize=64)
+def unpack_layout(t_cap: int, r_pad: int, w_pad: int,
+                  n_hist: int) -> tuple:
+    """ib_unpack's scratch as its source lays it out: (int32 length,
+    offset of the first hist, the hists' stride, the scan's tile)."""
+    out = torch.empty((4,), dtype=torch.int64)
+    _k.query("ib_unpack_layout", t_cap, r_pad, w_pad, n_hist, out)
+    return tuple(int(v) for v in out)
+
+
+def compact_prep(ub, r_start, w_start, t_snap, t_flags, scal, lw: int,
+                 u_pad: int, r_pad: int, w_pad: int, n_hist: int = 1,
+                 impl=None) -> dict:
+    """The compact step's unpacking of one packed batch (reference
+    fused.py:300-330): the unique keys widened to rows (widen_unique),
+    too-old and the two rank counts (txn_prep), and `n_hist` zeroed
+    int32[t_cap] buffers for the read_write_prep calls that follow (one a
+    key-range shard on the device).  Returns {"u_b", "u_e" (int32[u_pad,
+    8]), "too_old" (int32[t_cap]), "r_cnt" (int32[r_pad]), "w_cnt"
+    (int32[w_pad]), "hists" (a list of n_hist)}.  No order of the starts
+    is assumed: the counts are a histogram and its scan.  Kernel:
+    ib_unpack, one cooperative launch a call and no fill: it zeroes its
+    scratch (the histograms of the starts, their per-tile totals and the
+    hists), widens and counts, then scans each tile from the totals of the
+    tiles before it."""
+    t_cap = t_snap.shape[0]
+    dev = t_snap.device
+    e = dict(dtype=torch.int32, device=dev)
+    if not _k.use_kernel(t_snap, impl):
+        u_b, u_e = widen_unique(ub, scal, lw, u_pad, "plain")
+        too_old, r_cnt, w_cnt = txn_prep(r_start, w_start, t_snap, t_flags,
+                                         scal, r_pad, w_pad, "plain")
+        return {"u_b": u_b, "u_e": u_e, "too_old": too_old, "r_cnt": r_cnt,
+                "w_cnt": w_cnt,
+                "hists": [torch.zeros((t_cap,), **e) for _ in range(n_hist)]}
+    if ub.numel() < u_pad * lw or ub.dtype != torch.uint8:
+        raise ValueError(f"compact_prep: ub must hold u_pad * lw = "
+                         f"{u_pad * lw} uint8, got {ub.numel()} {ub.dtype}")
+    if t_flags.dtype != torch.uint8 or scal.numel() < COMPACT_SCALARS:
+        raise ValueError("compact_prep: t_flags must be uint8 and scal hold "
+                         f"{COMPACT_SCALARS} int32")
+    for name, x in (("r_start", r_start), ("w_start", w_start),
+                    ("t_snap", t_snap), ("t_flags", t_flags)):
+        if x.shape != (t_cap,):
+            raise ValueError(f"compact_prep: {name} has shape "
+                             f"{tuple(x.shape)}, want ({t_cap},)")
+    total, at, stride, _ = unpack_layout(t_cap, r_pad, w_pad, n_hist)
+    scratch = torch.empty((total,), **e)
+    hists = [scratch[at + i * stride:at + i * stride + t_cap]
+             for i in range(n_hist)]
+    u_b = torch.empty((u_pad, ROW_PAD), **e)
+    u_e = torch.empty((u_pad, ROW_PAD), **e)
+    too_old = torch.empty((t_cap,), **e)
+    r_cnt = torch.empty((r_pad,), **e)
+    w_cnt = torch.empty((w_pad,), **e)
+    _k.launch("compact_prep", "ib_unpack", u_pad, lw, t_cap, r_pad, w_pad,
+              n_hist, ub, r_start, w_start, t_snap, t_flags, scal, u_b, u_e,
+              too_old, r_cnt, w_cnt, scratch, total)
+    return {"u_b": u_b, "u_e": u_e, "too_old": too_old, "r_cnt": r_cnt,
+            "w_cnt": w_cnt, "hists": hists}
+
+
 def read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap, scal,
-                    vmax_u, u_pad: int, impl=None) -> dict:
+                    vmax_u, u_pad: int, impl=None, hist=None) -> dict:
     """Per read: its txn, liveness (valid and not too-old) and unique-key
     slot, and the history verdict scatter-maxed per txn; per write: its
     txn, base eligibility and slot (reference fused.py:332-371).  Returns
     int32 arrays r_txn, r_live, r_slot, hist, w_txn, w_ok, w_slot.
-    Kernel: ib_rw_prep, one launch for the reads and the writes; hist is
-    a zero fill before it (the kernel sets only the hits, from any block,
-    so it cannot also clear them in the same launch)."""
+    hist, when given, is a zeroed int32[t_cap] buffer the verdicts are
+    written into (one of compact_prep's, zeroed in its launch); else a
+    zero fill makes it.  Kernel: ib_rw_prep, one launch for the reads and
+    the writes (it sets only the hits, from any block, so it cannot also
+    clear hist in the same launch)."""
     r_pad, w_pad, t_cap = r_uid.shape[0], w_uid.shape[0], t_snap.shape[0]
     dev = r_uid.device
+    e = dict(dtype=torch.int32, device=dev)
+    if hist is None:
+        hist = torch.zeros((t_cap,), **e)
+    elif hist.shape != (t_cap,) or hist.dtype != torch.int32:
+        raise ValueError(f"read_write_prep: hist must be int32[{t_cap}], got "
+                         f"{hist.dtype} {tuple(hist.shape)}")
     if _k.use_kernel(r_uid, impl):
-        e = dict(dtype=torch.int32, device=dev)
         o = {name: torch.empty((r_pad,), **e)
              for name in ("r_txn", "r_live", "r_slot")}
         o.update({name: torch.empty((w_pad,), **e)
                   for name in ("w_txn", "w_ok", "w_slot")})
-        o["hist"] = torch.zeros((t_cap,), **e)
+        o["hist"] = hist
         _k.launch("read_write_prep", "ib_rw_prep", r_pad, w_pad, t_cap,
                   u_pad, r_uid, r_cnt, w_uid, w_cnt, too_old, t_snap, scal,
                   vmax_u, o["r_txn"], o["r_live"], o["r_slot"], o["hist"],
@@ -197,8 +264,7 @@ def read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap, scal,
     snap_r = t_snap[r_txn_c]
     r_slot = torch.clamp(r_uid, 0, u_pad - 1)
     hist_bits = r_live & (vmax_u[r_slot.long()] > snap_r)
-    hist = scatter_max(torch.zeros((t_cap,), dtype=torch.int32, device=dev),
-                       torch.where(r_live, r_txn, t_cap), hist_bits)
+    hist = scatter_max(hist, torch.where(r_live, r_txn, t_cap), hist_bits)
     w_txn = w_cnt - 1
     w_valid = _iota(w_pad, dev) < scal[2]
     w_txn_c = torch.clamp(w_txn, 0, t_cap - 1).long()
@@ -398,9 +464,11 @@ class CompactStep:
     reference (axis_name) runs its collective; a key-range-sharded caller
     (parallel/sharded_resolver.py) runs them itself:
 
-      history(...)  per shard: unpack, too-old, the history probe (over
-                    keys clipped to the shard's bounds when given), the
-                    per-txn history bits (read_write_prep)
+      history(...)  unpack(...) once per device (the unique keys, too-old,
+                    the rank counts: compact_prep), then per shard
+                    probe(...): the history probe (over keys clipped to
+                    the shard's bounds when given) and the per-txn
+                    history bits (read_write_prep)
       resolve(...)  once, on the combined bits: the fixpoint and the codes
       insert(...)   per shard: the delta insert of the surviving writes
                     (of the keys the shard owns when bounds were given)"""
@@ -411,28 +479,38 @@ class CompactStep:
         self.u_pad, self.lw, self.impl = u_pad, lw, impl
         self.lay = compact_layout(t_cap, r_pad, w_pad, u_pad, lw)
 
-    def history(self, bk, table, dk, dtable, buf, bounds=None) -> dict:
-        """Everything up to the history bits `h["rw"]["hist"]`.  bounds,
-        when given, is the shard's (lo, hi) rows: each unique key's range
-        is clipped to it and its maximum is NEG_INF where nothing of it is
-        owned (reference fused.py:340-357)."""
-        lay, impl, u_pad = self.lay, self.impl, self.u_pad
+    def unpack(self, buf, n_hist: int = 1) -> dict:
+        """The batch's part of the history, the same for every shard on
+        the buffer's device: compact_prep's dict (n_hist zeroed hists, one
+        a probe(...) that follows) and the buffer's views r_uid, w_uid,
+        t_snap and scal."""
+        lay = self.lay
         buf32 = buf.view(torch.int32)
 
         def i32(name, n):
             o = lay[name] // 4
             return buf32[o:o + n]
 
-        ub = buf[lay["ubytes"]:lay["ubytes"] + u_pad * self.lw]
-        r_uid, w_uid = i32("r_uid", self.r_pad), i32("w_uid", self.w_pad)
-        t_snap = i32("t_snap", self.t_cap)
-        t_flags = buf[lay["t_flags"]:lay["t_flags"] + self.t_cap]
-        scal = i32("scalars", COMPACT_SCALARS)
+        t_cap = self.t_cap
+        t_snap, scal = i32("t_snap", t_cap), i32("scalars", COMPACT_SCALARS)
+        u = compact_prep(
+            buf[lay["ubytes"]:lay["ubytes"] + self.u_pad * self.lw],
+            i32("r_start", t_cap), i32("w_start", t_cap), t_snap,
+            buf[lay["t_flags"]:lay["t_flags"] + t_cap], scal, self.lw,
+            self.u_pad, self.r_pad, self.w_pad, n_hist, self.impl)
+        u.update(r_uid=i32("r_uid", self.r_pad),
+                 w_uid=i32("w_uid", self.w_pad), t_snap=t_snap, scal=scal)
+        return u
 
-        u_b, u_e = widen_unique(ub, scal, self.lw, u_pad, impl)
-        too_old, r_cnt, w_cnt = txn_prep(
-            i32("r_start", self.t_cap), i32("w_start", self.t_cap), t_snap,
-            t_flags, scal, self.r_pad, self.w_pad, impl)
+    def probe(self, u: dict, bk, table, dk, dtable, bounds,
+              hist) -> dict:
+        """A shard's history bits `h["rw"]["hist"]` from unpack(...)'s `u`,
+        written into `hist` (one of u["hists"], zeroed).  bounds, when
+        given, is the shard's (lo, hi) rows: each unique key's range is
+        clipped to it and its maximum is NEG_INF where nothing of it is
+        owned (reference fused.py:340-357).  Nothing here writes into `u`,
+        so shards may share it."""
+        impl, u_b, u_e = self.impl, u["u_b"], u["u_e"]
         u_own = None
         if bounds is None:
             vmax_u = history_probe(bk, table, dk, dtable, u_b, u_e, impl)
@@ -441,10 +519,17 @@ class CompactStep:
                                                  impl=impl)
             vmax_u = history_probe(bk, table, dk, dtable, cu_b, cu_e, impl,
                                    own=owned)
-        rw = read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap,
-                             scal, vmax_u, u_pad, impl)
-        return {"u_b": u_b, "u_e": u_e, "u_own": u_own, "w_uid": w_uid,
-                "scal": scal, "too_old": too_old, "rw": rw}
+        rw = read_write_prep(u["r_uid"], u["w_uid"], u["r_cnt"], u["w_cnt"],
+                             u["too_old"], u["t_snap"], u["scal"], vmax_u,
+                             self.u_pad, impl, hist=hist)
+        return {"u_b": u_b, "u_e": u_e, "u_own": u_own, "w_uid": u["w_uid"],
+                "scal": u["scal"], "too_old": u["too_old"], "rw": rw}
+
+    def history(self, bk, table, dk, dtable, buf, bounds=None) -> dict:
+        """unpack(buf) and probe(...) for one shard (or none): everything up
+        to the history bits `h["rw"]["hist"]`."""
+        u = self.unpack(buf)
+        return self.probe(u, bk, table, dk, dtable, bounds, u["hists"][0])
 
     def resolve(self, h: dict, hist: torch.Tensor,
                 out: torch.Tensor) -> torch.Tensor:

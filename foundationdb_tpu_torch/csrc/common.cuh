@@ -14,6 +14,7 @@
 //     same way and drop anything still outside [0, n) (scatter_index).
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <mutex>
 #include <cuda_runtime.h>
@@ -327,15 +328,39 @@ __device__ __forceinline__ void for_live(long n, int* queue, Live live,
   }
 }
 
-// hist[idx] += 1 for every calling thread, with one atomic per distinct
-// index among the warp's active threads: many queries share a position
-// (every padding query lands on the same slot), and serialised atomics on
-// one address would otherwise dominate the histograms.
-__device__ __forceinline__ void count_at(int* hist, int idx) {
-  const unsigned active = __activemask();
-  const unsigned peers = __match_any_sync(active, idx);
-  if ((int)(threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(&hist[idx], __popc(peers));
+// hist[idx[k]] += 1 for every k with idx[k] >= 0, called by every lane of
+// the warp: the warp's least and greatest index take one atomic each for
+// all their items (a warp's run of sorted indices spans one or two), any
+// other item its own, so serialised atomics on one address never pile up
+// for sorted input, and any input is counted exactly.
+template <int N>
+__device__ __forceinline__ void count_runs(int* hist, const int (&idx)[N]) {
+  int lo = INT_MAX, hi = -1;
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    if (idx[k] >= 0) {
+      lo = idx[k] < lo ? idx[k] : lo;
+      hi = idx[k] > hi ? idx[k] : hi;
+    }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (hi < 0) return;  // no lane has an item
+  unsigned n_lo = 0, n_hi = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    n_lo += idx[k] == lo;
+    n_hi += idx[k] == hi && hi != lo;
+  }
+  n_lo = __reduce_add_sync(0xffffffffu, n_lo);
+  n_hi = __reduce_add_sync(0xffffffffu, n_hi);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&hist[lo], (int)n_lo);
+    if (n_hi) atomicAdd(&hist[hi], (int)n_hi);
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+    if (idx[k] >= 0 && idx[k] != lo && idx[k] != hi)
+      atomicAdd(&hist[idx[k]], 1);
 }
 
 __host__ __forceinline__ int log2_pow2(int cap) {
@@ -357,40 +382,54 @@ __host__ __forceinline__ int blocks_for(long n, int threads) {
 
 #define THREADS 256
 
-// The persistent grid of a probe kernel: as many blocks as fit on the
-// card at once (the occupancy query, made once per kernel and device),
-// and no more than `lanes` working lanes need; *fits: whether they all
+// A persistent or cooperative grid: `want` blocks (at least one) of
+// `threads` threads, cut to as many as the card holds at once with at
+// most `per_sm_cap` an SM (0: no cap).  The occupancy query is made once
+// per kernel, block size and device, and kept; *fits: whether all `want`
 // fit.
-__host__ inline int probe_grid(const void* kern, long lanes, int* grid,
-                               bool* fits = nullptr) {
-  struct Seen { const void* kern; int dev, most; };
+__host__ inline int coop_grid(const void* kern, int threads, int per_sm_cap,
+                              long want, int* grid, bool* fits = nullptr) {
+  struct Seen { const void* kern; int threads, dev, per_sm, sms; };
   static std::mutex lock;
-  static Seen seen[16];
+  static Seen seen[64];
   static int n_seen = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  long most = 0;
+  int per_sm = 0, sms = 0;
   {
     std::lock_guard<std::mutex> hold(lock);
     for (int i = 0; i < n_seen; ++i)
-      if (seen[i].kern == kern && seen[i].dev == dev) most = seen[i].most;
+      if (seen[i].kern == kern && seen[i].threads == threads &&
+          seen[i].dev == dev) {
+        per_sm = seen[i].per_sm;
+        sms = seen[i].sms;
+      }
   }
-  if (most == 0) {
-    int sms = 0, per_sm = 0;
+  if (sms == 0) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kern, PROBE_THREADS, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                          threads, 0);
     if (err != cudaSuccess) return (int)err;
-    most = (long)sms * (per_sm > 0 ? per_sm : 1);
+    if (per_sm < 1) per_sm = 1;
     std::lock_guard<std::mutex> hold(lock);
-    if (n_seen < 16) seen[n_seen++] = Seen{kern, dev, (int)most};
+    if (n_seen < 64) seen[n_seen++] = Seen{kern, threads, dev, per_sm, sms};
   }
-  const long want = (lanes + PROBE_THREADS - 1) / PROBE_THREADS;
-  *grid = (int)(want < most ? (want > 0 ? want : 1) : most);
+  if (per_sm_cap > 0 && per_sm > per_sm_cap) per_sm = per_sm_cap;
+  const long most = (long)sms * per_sm;
+  if (want < 1) want = 1;
+  *grid = (int)(want < most ? want : most);
   if (fits != nullptr) *fits = want <= most;
   return 0;
+}
+
+// The persistent grid of a probe kernel: as many blocks as fit on the
+// card at once, and no more than `lanes` working lanes need.
+__host__ inline int probe_grid(const void* kern, long lanes, int* grid,
+                               bool* fits = nullptr) {
+  return coop_grid(kern, PROBE_THREADS, 0,
+                   (lanes + PROBE_THREADS - 1) / PROBE_THREADS, grid, fits);
 }
 
 // ---------------------------------------------------------------------------

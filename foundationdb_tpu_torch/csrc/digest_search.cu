@@ -1,9 +1,6 @@
 // digest_search: binary searches of 8-lane digests into a sorted row table.
 //
 // Replaces (foundationdb_tpu):
-//   ds_widen   -- conflict/fused.py:300-321, the unique-key byte rows of
-//                 the compact buffer widened to 8-lane digests (begin) and
-//                 begin-with-marker+1 (end);
 //   ds_search  -- ops/digest.py:243 _searchsorted (searchsorted_left/right);
 //   ds_history -- conflict/fused.py:351-355: searchsorted_interval
 //                 (ops/digest.py:322) over base and delta, each fused with
@@ -26,38 +23,6 @@
 // one thread), and unowned keys leave no lane idle (probe_max, for_live
 // in common.cuh).
 #include "common.cuh"
-
-__global__ void k_widen(const uint8_t* __restrict__ ub, int u_pad, int lw,
-                        const int* __restrict__ scal,
-                        uint32_t* __restrict__ u_b, uint32_t* __restrict__ u_e) {
-  const int L = lw - 1;
-  const int u_n = scal[0];
-  GRID_STRIDE(u, u_pad) {
-    Row r;
-    if (u >= u_n) {
-      r = max_row();
-      store_row(u_b, u, r);
-      store_row(u_e, u, r);
-      continue;
-    }
-    const uint8_t* src = ub + u * (long)lw;
-#pragma unroll
-    for (int lane = 0; lane < 8; ++lane) {
-      uint32_t acc = 0;
-#pragma unroll
-      for (int bi = 0; bi < 4; ++bi) {
-        int pos = 4 * lane + bi;
-        acc = acc * 256u;
-        if (pos < L) acc += src[pos];
-        else if (pos == 31) acc += src[L];  // the length-marker byte
-      }
-      r.l[lane] = acc;
-    }
-    store_row(u_b, u, r);
-    r.l[7] += 1u;
-    store_row(u_e, u, r);
-  }
-}
 
 __global__ void k_search(const uint32_t* __restrict__ table, int cap,
                          int nbits, const uint32_t* __restrict__ q, int nq,
@@ -102,14 +67,6 @@ __global__ void __launch_bounds__(PROBE_THREADS)
         if (active && part == 0) vmax[u] = m;
       },
       [&](long u) { vmax[u] = NEG_INF_I32; });
-}
-
-extern "C" int ds_widen(const void* ub, int u_pad, int lw, const void* scal,
-                        void* u_b, void* u_e, void* stream) {
-  k_widen<<<blocks_for(u_pad, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)ub, u_pad, lw, (const int*)scal, (uint32_t*)u_b,
-      (uint32_t*)u_e);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int ds_search(const void* table, int cap, const void* q, int nq,

@@ -1,9 +1,10 @@
 // rank_scan: inclusive scans, masked row compaction and the merge.
 //
 // Replaces (foundationdb_tpu):
-//   rs_scan            -- the jnp.cumsums of conflict/window.py :233
-//                         (window_gc) and ops/digest.py :240 (rank_count,
-//                         under the compact step's txn_prep);
+//   rs_scan            -- the jnp.cumsum of conflict/window.py :233
+//                         (window_gc; the compact step's rank_count scans,
+//                         ops/digest.py :240, are in intra_batch.cu's
+//                         ib_unpack);
 //   rs_compact         -- window_gc's order-preserving rank scatters
 //                         (window.py :233-240, with the rebase);
 //   mg_merge           -- conflict/fused.py:607-686 make_merge_step.merge

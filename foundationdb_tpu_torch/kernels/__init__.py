@@ -38,13 +38,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name -> (CUDA source, the JAX device code it replaces).
 _REF = "foundationdb_tpu/"
 KERNELS = {
-    "widen_unique": ("digest_search", _REF + "conflict/fused.py:300"),
     "searchsorted": ("digest_search", _REF + "ops/digest.py:243"),
     "history_probe": ("digest_search", _REF + "conflict/fused.py:351"),
     "inclusive_scan": ("rank_scan", _REF + "conflict/window.py:233"),
     "compact_rows": ("rank_scan", _REF + "conflict/window.py:235"),
     "build_sparse_table": ("sparse_table", _REF + "ops/rangemax.py:20"),
-    "txn_prep": ("intra_batch", _REF + "conflict/fused.py:324"),
+    "compact_prep": ("intra_batch", _REF + "conflict/fused.py:300"),
     "read_write_prep": ("intra_batch", _REF + "conflict/fused.py:332"),
     "intra_batch_fixpoint": ("intra_batch", _REF + "conflict/fused.py:373"),
     "batch_codes": ("intra_batch", _REF + "conflict/fused.py:388"),
@@ -65,10 +64,10 @@ KERNELS = {
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 # C signatures: "p" pointer or stream, "i" int, "l" 64-bit int.  The last
-# argument of every launcher is the stream.
+# argument of every launcher is the stream; ib_unpack_layout launches
+# nothing and takes none (see query).
 _SIGS = {
     "digest_search": {
-        "ds_widen": "pii" "ppp" "p",
         "ds_search": "pipiip" "p",
         "ds_history": "pippipppi" "pp" "p",
     },
@@ -79,7 +78,8 @@ _SIGS = {
         "mg_merge": "ppip" "ppip" "pp" "ii" "plp" "p",
     },
     "intra_batch": {
-        "ib_txn_prep": "iii" "ppppp" "ppp" "p",
+        "ib_unpack_layout": "iiii" "p",
+        "ib_unpack": "iiiiii" "pppppp" "ppppp" "pl" "p",
         "ib_rw_prep": "iiii" "pppppppp" "ppppppp" "p",
         "ib_fixpoint": "iiii" "ppppppp" "ppppp" "p",
         "ib_codes": "ii" "pppppp" "p",
@@ -212,6 +212,16 @@ def use_kernel(t, impl) -> bool:
     if impl == "kernel":
         raise ValueError("impl='kernel' needs tensors on a CUDA device")
     return False
+
+
+def query(fn_name: str, *args) -> None:
+    """Call a function of the libraries that launches nothing (a layout a
+    kernel owns, written into host memory); raise if it fails."""
+    if not _fns:
+        build()
+    rc = _fns[fn_name](*[_arg(a) for a in args])
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: cudaError {rc}")
 
 
 def _arg(a):

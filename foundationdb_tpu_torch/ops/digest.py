@@ -301,8 +301,8 @@ def rank_count(positions: torch.Tensor, out_len: int,
     """counts[i] = #{j : positions[j] <= i} for i in [0, out_len); entries
     with positions >= out_len are never counted (reference digest.py:221).
     Plain torch only: it serves the plain versions of the inserts, the
-    merge and txn_prep, whose kernels count ranks their own way, so a call
-    that would take the kernel route raises."""
+    merge and compact_prep, whose kernels count ranks their own way, so a
+    call that would take the kernel route raises."""
     from .scan import inclusive_scan
     if _k.use_kernel(positions, impl):
         raise RuntimeError("rank_count has no kernel; call it with "
@@ -319,13 +319,15 @@ def widen_unique(ub: torch.Tensor, scal: torch.Tensor, lw: int, u_pad: int,
     """Compact buffer -> (u_b, u_e) rows int32[u_pad, 8]: each unique key's
     L = lw-1 prefix bytes and its length marker widened big-endian into the
     8 lanes; end = begin with the marker byte + 1; rows at or past
-    u_n = scal[0] are MAX (reference fused.py:300-321).  Kernel: ds_widen."""
+    u_n = scal[0] are MAX (reference fused.py:300-321).  Plain torch only:
+    on the card the compact step widens the keys in compact_prep's
+    ib_unpack (conflict/fused.py), so a call that would take the kernel
+    route raises."""
     dev = ub.device
     if _k.use_kernel(ub, impl):
-        u_b = torch.empty((u_pad, ROW_PAD), dtype=torch.int32, device=dev)
-        u_e = torch.empty_like(u_b)
-        _k.launch("widen_unique", "ds_widen", ub, u_pad, lw, scal, u_b, u_e)
-        return u_b, u_e
+        raise RuntimeError("widen_unique has no kernel of its own (the card "
+                           "widens in compact_prep); call it with "
+                           "impl='plain'")
     L = lw - 1
     ub64 = ub[:u_pad * lw].reshape(u_pad, lw).to(torch.int64)
     lanes = []

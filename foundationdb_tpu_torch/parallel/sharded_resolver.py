@@ -19,9 +19,10 @@ leading shard axis):
 
 A batch runs as the three halves of conflict/fused.py's steps:
 
-  1. history, per shard: the batch is replicated; each shard clips the
-     reads (the unique keys on the compact path) to its bounds and probes
-     its own window, so V_d(k) == V(k) for every owned k;
+  1. history, per shard: the batch is replicated (on the compact path it
+     is unpacked once per device, and the device's shards share it); each
+     shard clips the reads (the unique keys on the compact path) to its
+     bounds and probes its own window, so V_d(k) == V(k) for every owned k;
   2. one combine (ops/shard.py shard_combine) of the history bits by max
      on the grid's first device, then the fixpoint and the codes ONCE
      there (the reference runs this replicated and batch-local part on
@@ -186,8 +187,9 @@ class ShardedTorchConflictSet(TorchConflictSet):
         return shard_combine(buf, n_max, out=out, impl=self.impl)
 
     def _run_step(self, enc, host_buf):
-        """history per shard -> combine -> fixpoint and codes once ->
-        insert per shard -> combine of the tails -> the delta tables."""
+        """history per shard (the compact step's unpacking once per device)
+        -> combine -> fixpoint and codes once -> insert per shard ->
+        combine of the tails -> the delta tables."""
         bufs = {dev: self._device_buf(host_buf, dev) for dev in self._devices}
         t_cap = enc["caps"][0]
         out = torch.empty((t_cap + fused.OUT_EXTRA,), dtype=torch.int8,
@@ -195,8 +197,17 @@ class ShardedTorchConflictSet(TorchConflictSet):
         if enc["compact"]:
             step = fused.make_resolve_step_compact(
                 self.capacity, self.d_cap, *enc["shapes"], impl=self.impl)
-            hs = [step.history(sh.bk, sh.table, sh.dk, sh.dtable,
-                               bufs[sh.device], sh.bounds)
+            # The unique keys, too-old and the rank counts are the batch's,
+            # not a shard's, so the shards of a device share one unpack;
+            # each takes its own zeroed hist.  Nothing after it writes them
+            # in place: clip_rows, history_probe, read_write_prep,
+            # batch_codes and the point insert only read them.
+            units = {dev: step.unpack(bufs[dev], sum(
+                sh.device == dev for sh in self.shards))
+                for dev in self._devices}
+            hists = {dev: iter(u["hists"]) for dev, u in units.items()}
+            hs = [step.probe(units[sh.device], sh.bk, sh.table, sh.dk,
+                             sh.dtable, sh.bounds, next(hists[sh.device]))
                   for sh in self.shards]
             hist = self._combine([h["rw"]["hist"] for h in hs])
             w_ins = step.resolve(hs[0], hist, out)

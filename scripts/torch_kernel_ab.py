@@ -3,7 +3,7 @@
 the shapes the conflict path hands them.
 
   python3 scripts/torch_kernel_ab.py [--root DIR] [--label NAME]
-      [--cases table,sort,fixpoint,merge,insert,probe,rwprep,union,
+      [--cases table,sort,fixpoint,merge,insert,probe,rwprep,prep,union,
                sharded,swindow,general]
       [--profile] [--sweep]
 
@@ -45,6 +45,13 @@ checkout's chip_smoke.py:
             (chip_smoke's warmed_state; the plain versions give its
             inputs): launches a call, own device ms, the whole call's
             (with the hist fill), plain ms, bound;
+  prep      the compact step's unpacking chain at config 2 on the same
+            batch: compact_prep (one cooperative launch, ib_unpack) where
+            the package has it, else widen_unique, txn_prep (its two scans
+            and three fills) and read_write_prep's t_cap hist fill;
+            equality with the plain versions, launches a call by counter,
+            own device ms (every counted launch), the whole chain's device
+            ms behind the sleep, each kernel's and fill's profiler us;
   union     _union_ranges on config 3's delta shape (65,536 ranges of
             1-100 records, 55,000 valid; insert_state) and on one config-3
             batch's writes (the general step's 65,536 slots): launches a
@@ -155,6 +162,8 @@ def main() -> int:
             out["probe_sweep"] = probe_sweep(S)
     if "rwprep" in cases:
         out["read_write_prep"] = rwprep_case(S, K, fused)
+    if "prep" in cases:
+        out["prep"] = prep_case(S, K, fused)
     if "union" in cases:
         w_b = universe[2 * r_cap:2 * r_cap + w_cap]
         w_e = universe[2 * r_cap + w_cap:]
@@ -262,6 +271,60 @@ def rwprep_case(S, K, fused, reps: int = 20) -> dict:
                                             *want.values()))}
 
 
+def prep_case(S, K, fused, reps: int = 20) -> dict:
+    """The compact step's unpacking chain at config 2 on chip_smoke's
+    warmed state's next batch, as this package runs it: compact_prep with
+    one hist, or (a package without it) widen_unique, txn_prep and
+    read_write_prep's hist fill.  Both are checked against the plain
+    versions of widen_unique and txn_prep."""
+    import torch
+    from foundationdb_tpu_torch.ops import digest
+    _, packed, buf = S.warmed_state()
+    t_cap, r_pad, w_pad, u_pad, lw = packed["shapes"]
+    lay = fused.compact_layout(t_cap, r_pad, w_pad, u_pad, lw)
+    b32 = buf.view(torch.int32)
+
+    def i32(name, n):
+        return b32[lay[name] // 4:lay[name] // 4 + n]
+
+    ub = buf[lay["ubytes"]:lay["ubytes"] + u_pad * lw]
+    scal = i32("scalars", fused.COMPACT_SCALARS)
+    txn_in = (i32("r_start", t_cap), i32("w_start", t_cap),
+              i32("t_snap", t_cap),
+              buf[lay["t_flags"]:lay["t_flags"] + t_cap], scal)
+    P = "plain"
+    want = (*digest.widen_unique(ub, scal, lw, u_pad, P),
+            *fused.txn_prep(*txn_in, r_pad, w_pad, P))
+    if hasattr(fused, "compact_prep"):
+        prep_in = (ub, *txn_in, lw, u_pad, r_pad, w_pad)
+
+        def chain():
+            p = fused.compact_prep(*prep_in)
+            return (p["u_b"], p["u_e"], p["too_old"], p["r_cnt"],
+                    p["w_cnt"], *p["hists"])
+
+        counters = ("compact_prep",)
+    else:
+        def chain():
+            return (*digest.widen_unique(ub, scal, lw, u_pad),
+                    *fused.txn_prep(*txn_in, r_pad, w_pad),
+                    torch.zeros((t_cap,), dtype=torch.int32,
+                                device=buf.device))
+
+        counters = ("widen_unique", "txn_prep", "inclusive_scan")
+    K.reset_counts()
+    got = chain()
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    err = S.require_equal("prep", got[:5], want)
+    if got[5].any():
+        raise AssertionError("prep: the hist is not zeroed")
+    return {"shapes": [t_cap, r_pad, w_pad, u_pad, lw],
+            "launches_per_call": launches, "max_abs_err": err,
+            "ms": S.device_ms(chain, reps=reps, counter=counters),
+            "chain_ms": S.device_ms(chain, reps=reps),
+            "profile_us": device_us(chain, 10)}
+
+
 def kernel_key(key: str) -> str:
     """A profiler key as a short name: the port's kernels by their name
     (k_...), others by their first 80 characters."""
@@ -310,7 +373,8 @@ def sharded_case(S) -> dict:
     """Program #8's sharded compact step at config 5 on chip_smoke's warmed
     state: bit-equal to the plain version, then profiled_step, with
     read_write_prep's kernels' share (k_rw_prep; k_read_prep + k_write_prep
-    before it)."""
+    before it) and the unpacking's (k_unpack; k_widen, k_txn_prep and
+    k_scan before it), torch's fills not counted."""
     import torch
     rng5 = np.random.default_rng(5055)
     splits5 = S.config5_splits(rng5)
@@ -328,11 +392,16 @@ def sharded_case(S) -> dict:
     S.load_shards(plain, saved)
     err = S.require_equal("sharded_step", run(cs), run(plain))
     row = profiled_step(lambda: run(cs), lambda: S.load_shards(cs, saved))
-    rw = sum(v for k, v in row["per_kernel_us"].items()
-             if k.split("<")[0] in ("k_rw_prep", "k_read_prep",
-                                    "k_write_prep"))
+    def share(names):
+        return sum(v for k, v in row["per_kernel_us"].items()
+                   if k.split("<")[0] in names)
+
+    rw = share(("k_rw_prep", "k_read_prep", "k_write_prep"))
+    unpack = share(("k_unpack", "k_widen", "k_txn_prep", "k_scan"))
     row.update(max_abs_err=err, read_write_prep_us=round(rw, 3),
-               read_write_prep_share=round(rw / row["device_us"], 4))
+               read_write_prep_share=round(rw / row["device_us"], 4),
+               unpack_kernels_us=round(unpack, 3),
+               unpack_share=round(unpack / row["device_us"], 4))
     return row
 
 

@@ -24,6 +24,7 @@ from foundationdb_tpu_torch.ops.sort import SORT_TILE
 from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
 
 from test_torch_insert import CASES as INSERT_CASES, make_case, run_port
+from test_torch_prep import PREP_CASES, prep_case, prep_port
 from test_torch_probe import search_top
 from test_torch_union import (UNION_CASES, rw_case, rw_port,
                               union_case)
@@ -283,28 +284,36 @@ def test_searchsorted_and_history(dev, edge):
 
 
 def test_step_blocks(dev):
-    """widen_unique, txn_prep, read_write_prep (one launch a call), the
-    fixpoint and the codes, each on the plain version's inputs."""
+    """compact_prep (one launch a call and no fill), read_write_prep (one
+    launch, into compact_prep's hist), the fixpoint and the codes, each on
+    the plain version's inputs."""
     st = make_state(dev)
     x = step_inputs(dev, packed_batch(4))
     t_cap, r_pad, w_pad, u_pad, lw = x["shapes"]
     P = "plain"
-    ub = digest.widen_unique(x["ub"], x["scal"], lw, u_pad, P)
-    same(digest.widen_unique(x["ub"], x["scal"], lw, u_pad), ub)
-    prep = fused.txn_prep(x["r_start"], x["w_start"], x["t_snap"],
-                          x["t_flags"], x["scal"], r_pad, w_pad, P)
-    same(fused.txn_prep(x["r_start"], x["w_start"], x["t_snap"],
-                        x["t_flags"], x["scal"], r_pad, w_pad), prep)
-    too_old, r_cnt, w_cnt = prep
+    args = (x["ub"], x["scal"], lw, u_pad)
+    prep_in = (x["ub"], x["r_start"], x["w_start"], x["t_snap"],
+               x["t_flags"], x["scal"], lw, u_pad, r_pad, w_pad)
+    prep = fused.compact_prep(*prep_in, impl=P)
+    same((prep["u_b"], prep["u_e"]), digest.widen_unique(*args, impl=P))
+    K.reset_counts()
+    got = fused.compact_prep(*prep_in)
+    assert K.LAUNCHES["compact_prep"] == 1
+    assert sum(K.LAUNCHES.values()) == 1
+    same(got, prep)
+    too_old, r_cnt, w_cnt = prep["too_old"], prep["r_cnt"], prep["w_cnt"]
     vmax = digest.history_probe(st["bk"], st["table"], st["dk"],
-                                st["dtable"], *ub, P)
+                                st["dtable"], prep["u_b"], prep["u_e"], P)
     rw = fused.read_write_prep(x["r_uid"], x["w_uid"], r_cnt, w_cnt, too_old,
                                x["t_snap"], x["scal"], vmax, u_pad, P)
     K.reset_counts()
+    hist = got["hists"][0]
     same(fused.read_write_prep(x["r_uid"], x["w_uid"], r_cnt, w_cnt,
-                               too_old, x["t_snap"], x["scal"], vmax, u_pad),
+                               too_old, x["t_snap"], x["scal"], vmax, u_pad,
+                               hist=hist),
          rw)
     assert K.LAUNCHES["read_write_prep"] == 1
+    same(hist, rw["hist"])
     args = (rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"], rw["w_txn"],
             rw["w_ok"], rw["w_slot"], u_pad)
     conf, rounds = fused.intra_batch_fixpoint(*args, impl=P)
@@ -676,6 +685,67 @@ def test_read_write_prep_edges(dev, pads, malformed, layout):
     got = rw_port(c, dev, offset=offset)
     assert K.LAUNCHES["read_write_prep"] == 1
     same(got, rw_port(c, dev, impl="plain"))
+
+
+def check_prep(dev, c, offset=0, n_hist=2):
+    """compact_prep kernel against plain on one case: one launch a call
+    (ib_unpack) and no other kernel; its hists zeroed."""
+    K.reset_counts()
+    got = prep_port(c, dev, n_hist=n_hist, offset=offset)
+    assert K.LAUNCHES["compact_prep"] == 1
+    assert sum(K.LAUNCHES.values()) == 1
+    assert K.LAUNCHES["inclusive_scan"] == 0
+    want = prep_port(c, dev, impl="plain", n_hist=n_hist)
+    same(got, want)
+    assert len(got["hists"]) == n_hist
+    assert not any(bool(h.any()) for h in got["hists"])
+    return got
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+@pytest.mark.parametrize("name", PREP_CASES)
+def test_compact_prep_cases(dev, name, layout):
+    """tests/test_torch_prep.py's cases (unsorted, negative and
+    past-the-pad starts, duplicates, n_t 0 and t_cap, u_n 0 and u_pad, lw
+    7 and 32), kernel against plain, with every input 16-byte aligned or
+    one element off (byte loads of the keys, no quad loads of the txns)."""
+    check_prep(dev, prep_case(name), offset=1 if layout == "unaligned"
+               else 0)
+
+
+RT = 2048  # ib_unpack's scan tile (csrc/intra_batch.cu RANK_TILE)
+
+
+@pytest.mark.parametrize("shape", [
+    (RT - 1, RT + 1, 257, 700), (RT, RT, 256, 2 * RT), (RT + 1, RT - 1, 1000,
+                                                        3 * RT + 5),
+    (3 * RT + 5, 1, 1, RT), (0, 0, 0, 5), (1, 0, 3, 0),
+    (212_992, 114_688, 49_152, 131_072)])
+@pytest.mark.parametrize("name", ["sorted", "unsorted"])
+def test_compact_prep_tile_edges(dev, shape, name):
+    """r_pad and w_pad a tile of ib_unpack's scan and one either side, 3 tiles
+    + 5, empty pads; u_pad not a multiple of the block; config 2's shape
+    (t_cap 131,072, r_pad 212,992, w_pad 114,688, u_pad 49,152)."""
+    r_pad, w_pad, u_pad, t_cap = shape
+    assert fused.unpack_layout(t_cap, r_pad, w_pad, 2)[3] == RT
+    check_prep(dev, prep_case(name, seed=r_pad + w_pad, t_cap=t_cap,
+                              r_pad=r_pad, w_pad=w_pad, u_pad=u_pad))
+
+
+def test_plain_only_unpack_blocks_raise_on_the_card(dev):
+    """widen_unique and txn_prep have no kernel of their own: on a CUDA
+    tensor without impl="plain" they raise."""
+    c = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v
+         for k, v in prep_case("sorted").items()}
+    t_cap, r_pad, w_pad, u_pad, lw = c["shape"]
+    with pytest.raises(RuntimeError):
+        digest.widen_unique(c["ub"], c["scal"], lw, u_pad)
+    with pytest.raises(RuntimeError):
+        fused.txn_prep(c["r_start"], c["w_start"], c["t_snap"], c["t_flags"],
+                       c["scal"], r_pad, w_pad)
+    digest.widen_unique(c["ub"], c["scal"], lw, u_pad, impl="plain")
+    fused.txn_prep(c["r_start"], c["w_start"], c["t_snap"], c["t_flags"],
+                   c["scal"], r_pad, w_pad, impl="plain")
 
 
 def window_after_inserts(dev, cap=1 << 12, batches=4, w=256, impl=None):
