@@ -67,7 +67,9 @@ exits non-zero):
      _union_ranges', which it no longer adds to); _union_ranges on the
      general step's and path 3's writes (union_at: wu_endpoints and
      wu_sweep, the sort, no scan or compaction; its own ms, the whole
-     call's without the sort, its bound); history_probe at the
+     call's without the sort, its bound); searchsorted where the general
+     step calls it (the batch's 2^21 universe, every one of its 1,179,648
+     rows a query; one launch a call); history_probe at the
      general step's shape (every read slot against the warmed tiers) and
      window_query on path 3's window (probe_at);
   5. the general path on config 3 (3 + 10 at depth 8 + 8 at depth 1): the
@@ -78,8 +80,11 @@ exits non-zero):
   8. the window path on 10 config-3 batches, bits and state against the
      plain versions, then bits against the oracle's history on small
      batches;
-  9. the shard wrappers (clip_rows, shard_combine, shard_commit) and the
-     programs #8 (sharded compact step and merge at config 5, sharded
+  9. the shard wrappers (clip_rows, shard_combine, shard_commit; the
+     combine over the four shards' hists in place in compact_prep's
+     scratch, through the sharded step's own call: one launch, one kernel
+     and no copy a call by torch.profiler, its time behind the sleep) and
+     the programs #8 (sharded compact step and merge at config 5, sharded
      general step at config 3) and #9 (sharded window step and gc), kernel
      against plain; one shard's merge, point insert and history probe
      (its owned keys) alone at its shape, and window_query on one shard of
@@ -96,7 +101,8 @@ exits non-zero):
      window's), on spread random batches (bits and state equal the plain
      versions) and on an overflow of one shard (every shard unchanged);
  14. the JSON lines (programs and paths; kernels with launches per path,
-     each wrapper > 0 on the paths that use it),
+     each wrapper > 0 on the paths that use it, searchsorted once a
+     general step),
      the card's name and power
      limit, and the last line: {"ok": true, "device": {...}}.
 
@@ -399,8 +405,9 @@ def device_ms(fn, reps: int = REPS, setup=None, counter=None) -> float:
     time is the sum over the launches counted under that name, each
     bracketed by its own pair of events (kernels.timed_launches), so a
     wrapper's row holds its own kernels and not those of the wrappers it
-    calls (a tuple of names: their sum); without, it is the whole
-    call."""
+    calls (a tuple of names: their sum); without, it is the whole call,
+    with no event between its operations."""
+    import contextlib
     import torch
     from foundationdb_tpu_torch import kernels as K
     total, cycles = 0.0, BACKLOG_CYCLES
@@ -412,7 +419,8 @@ def device_ms(fn, reps: int = REPS, setup=None, counter=None) -> float:
             held = torch.cuda.Event()
             held.record()
             a, b = torch.cuda.Event(True), torch.cuda.Event(True)
-            with K.timed_launches() as timed:
+            with (K.timed_launches() if counter is not None
+                  else contextlib.nullcontext({})) as timed:
                 a.record()
                 fn()
                 b.record()
@@ -463,11 +471,14 @@ def nbytes(*ts) -> int:
 
 
 def search_bytes(table, n_queries: int) -> int:
-    """Distinct table rows a batch of binary searches must read: level l
-    of the search touches at most min(2^l, Q) rows."""
+    """Distinct table rows a batch of binary searches must read.  The
+    midpoints over [0, cap) form a tree of cap nodes, level l holding
+    min(2^l, cap - (2^l - 1)) of them (a power-of-two table's last level
+    holds one), and Q searches touch at most Q of a level's."""
     cap = table.shape[0]
     levels = cap.bit_length()
-    rows = sum(min(1 << lvl, n_queries, cap) for lvl in range(levels))
+    rows = sum(min(1 << lvl, n_queries, cap - ((1 << lvl) - 1))
+               for lvl in range(levels))
     return rows * table.shape[1] * table.element_size()
 
 
@@ -480,29 +491,56 @@ def prep_bytes(prep_in, prep) -> int:
                   *prep["hists"])
 
 
-def device_ops(fn, calls: int = 3) -> tuple:
-    """The device operations a call of fn() enqueues, by torch.profiler:
-    (the port's kernels, every other kernel, fill, memset and copy), each
-    a call."""
+def profile_calls(fn, calls: int) -> dict:
+    """The device operations of `calls` calls of fn() by torch.profiler:
+    {the profiler's key: (operations, microseconds)}.  The profiler may
+    drop events at the edge of a session, so the calls are those of the
+    active step of a schedule behind a warmup step, and a session in
+    which some operation did not run a whole number of times a call is
+    taken again (three times at most, then the run fails)."""
     import torch
-    from torch.profiler import ProfilerActivity
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(calls):
-            fn()
+    from torch.profiler import ProfilerActivity, schedule
+    for _attempt in range(3):
         torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=1,
+                                  repeat=1)) as p:
+            for _step in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                p.step()
+        ops = {}
+        for e in p.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                ops[e.key] = (e.count, us)
+        if ops and all(n % calls == 0 for n, _ in ops.values()):
+            return ops
+        log(f"profile_calls: the profiler saw {sorted(ops.values())} over "
+            f"{calls} calls; taken again")
+    raise AssertionError("profile_calls: the profiler lost device events in "
+                         "three sessions")
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name (the port's are k_...)."""
+    return key.split("(")[0].split()[-1] if "(" in key else key
+
+
+def device_ops(fn, calls: int = 4) -> tuple:
+    """The device operations a call of fn() enqueues, by torch.profiler
+    (profile_calls): (the port's kernels, every other kernel, fill, memset
+    and copy), each a call."""
     own = other = 0
-    for e in p.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us <= 0:
-            continue
-        name = e.key.split("(")[0].split()[-1] if "(" in e.key else e.key
-        if name.startswith("k_"):
-            own += e.count
+    for key, (n, _) in profile_calls(fn, calls).items():
+        if kernel_name(key).startswith("k_"):
+            own += n
         else:
-            other += e.count
+            other += n
     return own / calls, other / calls
 
 
@@ -648,7 +686,6 @@ def compare_kernels(cs, packed, buf):
                        device=DEVICE)
     ks_incl = scan.inclusive_scan(keep_s, P)
     keep_bool = keep_s.bool()
-    dpos = digest.searchsorted(cs.dk, u_e, True, P)
     rw_in = (rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"],
              rw["w_txn"], rw["w_ok"], rw["w_slot"])
 
@@ -683,9 +720,6 @@ def compare_kernels(cs, packed, buf):
     cases = {
         "compact_prep": (lambda i: fused.compact_prep(*prep_in, impl=i),
                          prep_bytes(prep_in, prep), None),
-        "searchsorted": (lambda i: digest.searchsorted(cs.dk, u_e, True, i),
-                         nbytes(u_e, dpos) + search_bytes(cs.dk, u_pad),
-                         None),
         "history_probe": (
             lambda i: digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable,
                                            u_b, u_e, i),
@@ -1024,6 +1058,19 @@ def deep_chain(fused, t_cap, r_pad, w_pad, u_pad) -> dict:
 GENERAL_CHAIN = 200
 
 
+def endpoint_universe(digests):
+    """The general step's endpoint universe of one batch, by the plain
+    sort: every row of `digests` sorted, MAX padded to the next power of
+    two (fused.py GeneralStep.resolve)."""
+    from foundationdb_tpu_torch.conflict import fused
+    from foundationdb_tpu_torch.ops import digest
+    from foundationdb_tpu_torch.ops.sort import sort_rows
+    n_rows = digests.shape[0]
+    universe = digest.max_rows(fused._next_pow2(n_rows), digests.device)
+    sort_rows(digests, out=universe[:n_rows], impl="plain")
+    return universe
+
+
 def general_fixpoint_inputs(digests, m, vmax):
     """interval_fixpoint's inputs for one config-3 batch (digests and the
     unpacked metadata m), built by the plain versions: the history bits
@@ -1032,20 +1079,16 @@ def general_fixpoint_inputs(digests, m, vmax):
     (general_prep's outputs, the fixpoint's inputs, log_u)."""
     from foundationdb_tpu_torch.conflict import fused
     from foundationdb_tpu_torch.ops import digest
-    from foundationdb_tpu_torch.ops.sort import sort_rows
     P = "plain"
     r_cap, w_cap = m["r_txn"].shape[0], m["w_txn"].shape[0]
-    n_rows = digests.shape[0]
     g = fused.general_prep(m, vmax, P)
-    u_cap = fused._next_pow2(n_rows)
-    universe = digest.max_rows(u_cap, DEVICE)
-    sort_rows(digests, out=universe[:n_rows], impl=P)
-    r_pos = digest.searchsorted(universe, digests[:2 * r_cap], True, P)
-    w_pos = digest.searchsorted(universe, digests[2 * r_cap:], True, P)
+    universe = endpoint_universe(digests)
+    pos = digest.searchsorted(universe, digests, True, P)
+    r_pos, w_pos = pos[:2 * r_cap], pos[2 * r_cap:]
     fix_in = (g["hist"], m["r_txn"], g["r_live"], r_pos[:r_cap],
               r_pos[r_cap:], m["w_txn"], g["w_ok"], w_pos[:w_cap],
               w_pos[w_cap:])
-    return g, fix_in, u_cap.bit_length() - 1
+    return g, fix_in, universe.shape[0].bit_length() - 1
 
 
 def general_chain_inputs(t_cap: int, r_cap: int, w_cap: int, log_u: int,
@@ -1865,9 +1908,19 @@ def compare_general(cs, packed, win, stream):
     meta_in = [m[k] for k in ("r_txn", "r_valid", "w_txn", "w_valid",
                               "t_snap", "t_has_reads", "t_valid")]
     bits = query_run("kernel")
+    # The general step's endpoint placement: its universe (the batch's
+    # rows sorted, MAX padded), every row of the batch a query.
+    universe = endpoint_universe(digests)
+    placed = digest.searchsorted(universe, digests, True, P)
     # name -> (fn(impl) or (run, state copy), least bytes); no single
     # PyTorch call computes any of these functions (library_ms null).
     cases = {
+        # The table rows a batch of searches touches (search_bytes), the
+        # queries in and the positions out.
+        "searchsorted": (lambda i: digest.searchsorted(universe, digests,
+                                                       True, i),
+                         search_bytes(universe, n_rows)
+                         + nbytes(digests, placed)),
         # Rows in once and out once (the permutation is scratch).
         "sort_rows": (lambda i: sort_rows(digests, impl=i)[0],
                       2 * nbytes(digests)),
@@ -1947,6 +2000,15 @@ def compare_general(cs, packed, win, stream):
     uni = next(r for r in rows if r["name"] == "union_ranges")
     uni["at_shapes"] = [union_at("config3_general", w_b, w_e, w_ins),
                         union_at("window_2_21", ww_b, ww_e, ww_valid)]
+    srch = next(r for r in rows if r["name"] == "searchsorted")
+    K.reset_counts()
+    digest.searchsorted(universe, digests, True)
+    srch.update(launches_per_call=K.LAUNCHES["searchsorted"],
+                table_rows=universe.shape[0], queries=n_rows)
+    if srch["launches_per_call"] != 1:
+        raise AssertionError(f"searchsorted: {srch['launches_per_call']} "
+                             "launches a call")
+    del universe, placed
     fix = next(r for r in rows if r["name"] == "interval_fixpoint")
     fix["rounds"] = int(rounds[0])
     K.reset_counts()
@@ -2393,6 +2455,45 @@ def kernel_row(name, fn, n_bytes, library=None, setup=None):
             "bound_by": "bytes", "library_ms": lib}
 
 
+def combine_row(cs, fused, buf, packed, hists) -> dict:
+    """shard_combine's row at config 5, as the sharded compact step calls
+    it: the four shards' hists (their values from the plain versions) in
+    place in compact_prep's scratch, one view a shard (CompactStep.unpack
+    with four hists), combined by ShardedTorchConflictSet._combine.  Its
+    own launches, the whole call behind the stream's sleep (chain_ms) and
+    its device operations by torch.profiler: 1 launch, 1 kernel and no
+    copy or fill a call."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.ops import shard
+    step = fused.make_resolve_step_compact(cs.capacity, cs.d_cap,
+                                           *packed["shapes"])
+    views = step.unpack(buf, len(hists))["hists"]
+    for v, h in zip(views, hists):
+        v.copy_(h)
+    row = kernel_row("shard_combine",
+                     lambda i: shard.shard_combine(views, impl=i),
+                     nbytes(hists) + 4 * hists.shape[1],
+                     library=lambda: torch.amax(hists, dim=0))
+    K.reset_counts()
+    require_equal("shard_combine in place", cs._combine(views),
+                  shard.shard_combine(hists, impl="plain"))
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    kernels, others = device_ops(lambda: cs._combine(views))
+    if launches != {"shard_combine": 1} or kernels != 1 or others != 0:
+        raise AssertionError(f"shard_combine: {launches} launches, "
+                             f"{kernels} kernels and {others} other device "
+                             "operations a call, not 1, 1 and 0")
+    row.update(launches_per_call=launches["shard_combine"],
+               kernels_per_call=kernels,
+               other_ops_per_call=others,
+               chain_ms=device_ms(lambda: cs._combine(views), reps=20))
+    log(f"shard_combine: the sharded step's call {row['chain_ms']:.5f} ms "
+        f"behind the sleep, {kernels} kernel and {others} other device "
+        "operations a call")
+    return row
+
+
 def compare_sharded(splits5, stream5, stream3):
     """Phase 9: the shard kernels and programs #8 (the sharded compact and
     general steps, the sharded merge) and #9 (the sharded window step and
@@ -2434,10 +2535,7 @@ def compare_sharded(splits5, stream5, stream3):
                        n_own, u_pad),
         cap=cs.capacity, slots=u_pad, searched=n_own, size=int(sh1.size[0]),
         dsize=int(sh1.dsize[0]))
-    rows.append(kernel_row(
-        "shard_combine", lambda i: shard.shard_combine(hists, impl=i),
-        nbytes(hists) + 4 * t_cap,
-        library=lambda: torch.amax(hists, dim=0)))
+    rows.append(combine_row(cs, fused, buf, packed, hists))
     # The point insert of shard 1 at the shard's shape (the point_insert
     # row's config5_shard entry): its owned keys, the combined verdicts.
     w_ins = step.resolve(h, shard.shard_combine(hists, impl="plain"),
@@ -3028,6 +3126,11 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on their paths: "
                              f"{missing}")
+    general = launches["general"]
+    if general["searchsorted"] != general["interval_fixpoint"]:
+        raise AssertionError(f"searchsorted: {general['searchsorted']} "
+                             f"launches over {general['interval_fixpoint']} "
+                             "general steps, not one a step")
     print(json.dumps({"programs": programs, "path": path,
                       "path_general": path_general,
                       "path_window": path_window,

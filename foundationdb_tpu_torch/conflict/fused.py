@@ -769,10 +769,11 @@ class GeneralStep:
         digests, m, g = h["digests"], h["m"], h["g"]
         # The endpoint gap universe: every endpoint of the batch sorted
         # (MAX padded to u_cap), and each range as a span of its gaps.
+        # Every endpoint is placed by one search over the whole batch.
         universe = max_rows(self.u_cap, digests.device)
         sort_rows(digests, out=universe[:digests.shape[0]], impl=impl)
-        r_pos = searchsorted(universe, digests[:2 * r_cap], True, impl)
-        w_pos = searchsorted(universe, digests[2 * r_cap:], True, impl)
+        pos = searchsorted(universe, digests, True, impl)
+        r_pos, w_pos = pos[:2 * r_cap], pos[2 * r_cap:]
         conflicted, _ = interval_fixpoint(
             hist, m["r_txn"], g["r_live"], r_pos[:r_cap], r_pos[r_cap:],
             m["w_txn"], g["w_ok"], w_pos[:w_cap], w_pos[w_cap:], self.log_u,

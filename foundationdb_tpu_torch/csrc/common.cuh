@@ -87,26 +87,6 @@ __device__ __forceinline__ long scatter_index(long i, long n) {
   return (i >= 0 && i < n) ? i : -1;
 }
 
-// Branchless lower (left) / upper (right) bound of q in a sorted,
-// capacity-padded row table (cap a power of two, nbits = log2 cap):
-// the loop of ops/digest.py _searchsorted, ending early once the
-// interval is empty (the remaining iterations of the reference are
-// no-ops there).
-__device__ __forceinline__ int search_rows(const uint32_t* table, int cap,
-                                           int nbits, const Row& q,
-                                           bool left) {
-  int lo = 0, hi = cap;
-  for (int it = 0; it <= nbits; ++it) {
-    if (lo >= hi) break;
-    int mid = (lo + hi) >> 1;
-    int midc = mid < cap - 1 ? mid : cap - 1;
-    int c = row_cmp(load_row(table, midc), q);
-    bool right = left ? (c < 0) : (c <= 0);
-    if (right) lo = mid + 1; else hi = mid;
-  }
-  return hi;
-}
-
 // max(values[lo:hi)) from the doubling table int32[LOG+1, cap]
 // (ops/rangemax.py range_max); empty ranges give NEG_INF.
 __device__ __forceinline__ int range_max(const int* table, int cap, int lo,
@@ -128,17 +108,20 @@ __device__ __forceinline__ int range_max(const int* table, int cap, int lo,
 // levels in shared memory, half-row compares and independent chains
 // interleaved.
 //
-// The staged top.  search_rows' midpoints over [0, cap) (cap = 2^nbits)
-// form a fixed binary tree: node 1 is the midpoint (lo + hi) >> 1 of
+// The staged top.  The midpoints of the reference's branchless search
+// (ops/digest.py _searchsorted) over [0, cap) (cap = 2^nbits) form a
+// fixed binary tree: node 1 is the midpoint (lo + hi) >> 1 of
 // [0, cap), and node t's children 2t and 2t + 1 are the midpoints after
 // going left (hi = mid) and right (lo = mid + 1).  Every node of its first
 // nbits levels has a non-empty interval, so any search of any table,
 // sorted or not, reads exactly those of its first `levels` (<= nbits)
 // midpoints that lie on its path through this tree.  A block stages lanes
-// 0-3 of the tree's first min(PROBE_LEVELS, nbits) levels, breadth first
-// (top_mid; tests/test_torch_probe.py search_top mirrors it); a search
-// walks them there and goes on from its own (lo, hi) in global memory: the reference's midpoints in the reference's order,
-// so the result is the reference's on any table.
+// 0-3 of the tree's first min(PROBE_LEVELS, nbits) levels (digest_search.cu
+// ds_search: SEARCH_LEVELS), breadth first (top_mid;
+// tests/test_torch_probe.py search_top mirrors it); a search walks them
+// there and goes on from its own (lo, hi) in global memory: the
+// reference's midpoints in the reference's order, so the result is the
+// reference's on any table.
 //
 // Half rows.  A row is compared by its lanes 0-3 first; lanes 4-7 are
 // read only when those tie (a key's own row, MAX against MAX), so a level
@@ -190,9 +173,10 @@ struct ProbeTier {
   const uint4* top;
 };
 
-// Sets up a tier whose top (PROBE_NODES entries) starts at `top` and
-// stages min(PROBE_LEVELS, log2 cap) levels of it (block-wide;
-// __syncthreads() before the first search).
+// Sets up a tier whose top (2^LEVELS - 1 entries) starts at `top` and
+// stages min(LEVELS, log2 cap) levels of it (block-wide; __syncthreads()
+// before the first search).
+template <int LEVELS = PROBE_LEVELS>
 __device__ __forceinline__ void stage_tier(ProbeTier& t, const uint32_t* rows,
                                            const int* table, int cap,
                                            uint4* top) {
@@ -200,7 +184,7 @@ __device__ __forceinline__ void stage_tier(ProbeTier& t, const uint32_t* rows,
   t.rows = rows;
   t.table = table;
   t.cap = cap;
-  t.levels = nbits < PROBE_LEVELS ? nbits : PROBE_LEVELS;
+  t.levels = nbits < LEVELS ? nbits : LEVELS;
   t.top = top;
   for (int i = threadIdx.x; i < (1 << t.levels) - 1; i += blockDim.x)
     top[i] = load_half(rows, top_mid(cap, i + 1), 0);
@@ -361,12 +345,6 @@ __device__ __forceinline__ void count_runs(int* hist, const int (&idx)[N]) {
   for (int k = 0; k < N; ++k)
     if (idx[k] >= 0 && idx[k] != lo && idx[k] != hi)
       atomicAdd(&hist[idx[k]], 1);
-}
-
-__host__ __forceinline__ int log2_pow2(int cap) {
-  int n = 0;
-  while ((1 << n) < cap) ++n;
-  return n;
 }
 
 __host__ __forceinline__ int blocks_for(long n, int threads) {

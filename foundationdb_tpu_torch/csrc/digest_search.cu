@@ -1,7 +1,9 @@
 // digest_search: binary searches of 8-lane digests into a sorted row table.
 //
 // Replaces (foundationdb_tpu):
-//   ds_search  -- ops/digest.py:243 _searchsorted (searchsorted_left/right);
+//   ds_search  -- ops/digest.py:243 _searchsorted (searchsorted_left/right),
+//                 whose one caller on the card is the general step's
+//                 endpoint placement (conflict/fused.py:526-529);
 //   ds_history -- conflict/fused.py:351-355: searchsorted_interval
 //                 (ops/digest.py:322) over base and delta, each fused with
 //                 range_max (ops/rangemax.py:35), max of the two tiers;
@@ -12,8 +14,24 @@
 // reads one 32-byte row (one sector) of the table, so the floor is the
 // queries and outputs once plus the table rows the probes touch.
 //
-// Design: one thread per query, the branchless loop of the reference with
-// an early exit.  ds_history is far from that floor: at config 2 its keys
+// Design.  ds_search places every endpoint of a general batch in the
+// batch's sorted universe (conflict/fused.py GeneralStep.resolve): 1.18M
+// queries into a 2^21-row table at config 3, in one launch.  What bounds
+// it is the rate at which a warp's scattered row loads are served: each
+// level below the first ~12 loads 32 distinct rows a warp, and a 2^16
+// table that sits in L2 costs nearly as much as the 2^21 one (PERF.md).
+// So it walks the probes' path-exact staged top: the reference's first
+// SEARCH_LEVELS midpoints (lanes 0-3) in shared memory, the rest as half
+// rows with lanes 4-7 read only on a tie (half_cmp), SEARCH_CHAINS
+// queries a thread in lockstep, over a persistent grid; the result is
+// the reference's on any table, sorted or not.  Deeper tops, more
+// chains, L2 eviction hints, a lanes 0-3 copy of the table and a
+// bucket-sorted search were measured and were not faster.  Against a
+// thread a query walking full rows from L1/L2 it gains ~3% on the step's
+// unsorted queries and loses ~50% on sorted ones, whose paths L1 already
+// shares (PERF.md): a caller that sorts its queries wants that loop.
+//
+// ds_history is far from its floor: at config 2 its keys
 // fill a fraction of the card and the chain of dependent row reads sets
 // its time; at the general step's 524,288 reads the load instructions of
 // scattered rows do.  So its four searches (begin and end over base and
@@ -24,11 +42,75 @@
 // in common.cuh).
 #include "common.cuh"
 
-__global__ void k_search(const uint32_t* __restrict__ table, int cap,
-                         int nbits, const uint32_t* __restrict__ q, int nq,
-                         int left, int* __restrict__ out) {
-  GRID_STRIDE(i, nq) {
-    out[i] = search_rows(table, cap, nbits, load_row(q, i), left != 0);
+// Staged levels (2^10 - 1 nodes: 16,368 bytes of shared memory a block)
+// and independent queries a thread of ds_search.
+#define SEARCH_LEVELS 10
+#define SEARCH_CHAINS 2
+
+// The lower (left) or upper bound of each query: thread t of T takes
+// queries t, t + T, t + 2T, ..., SEARCH_CHAINS of them at a time, their
+// searches in lockstep.
+__global__ void __launch_bounds__(PROBE_THREADS)
+    k_search(const uint32_t* __restrict__ table, int cap,
+             const uint32_t* __restrict__ q, int nq, int left,
+             int* __restrict__ out) {
+  constexpr int C = SEARCH_CHAINS;
+  __shared__ uint4 top[(1 << SEARCH_LEVELS) - 1];
+  ProbeTier t;
+  stage_tier<SEARCH_LEVELS>(t, table, nullptr, cap, top);
+  __syncthreads();
+  const long threads = (long)gridDim.x * blockDim.x;
+  for (long first = blockIdx.x * (long)blockDim.x + threadIdx.x; first < nq;
+       first += C * threads) {
+    Key k[C];
+    int lo[C], hi[C], node[C];
+    bool on[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const long i = first + j * threads;
+      on[j] = i < nq;
+      if (on[j]) k[j] = load_key(q, i);
+      lo[j] = 0;
+      hi[j] = cap;
+      node[j] = 1;
+    }
+    // The staged levels: every interval there is non-empty.
+    for (int lvl = 0; lvl < t.levels; ++lvl) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (!on[j]) continue;
+        const int mid = (lo[j] + hi[j]) >> 1;
+        const int c = half_cmp(table, mid, t.top[node[j] - 1], k[j]);
+        const bool right = left ? c < 0 : c <= 0;
+        if (right) lo[j] = mid + 1; else hi[j] = mid;
+        node[j] = 2 * node[j] + right;
+      }
+    }
+    // The rest in global memory, until every interval is empty (the
+    // reference's remaining iterations are no-ops).
+    for (;;) {
+      uint4 r[C];
+      int mid[C];
+      bool a[C];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        a[j] = on[j] && lo[j] < hi[j];
+        mid[j] = (lo[j] + hi[j]) >> 1;
+        if (a[j]) r[j] = load_half(table, mid[j], 0);
+        any = any || a[j];
+      }
+      if (!any) break;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (!a[j]) continue;
+        const int c = half_cmp(table, mid[j], r[j], k[j]);
+        if (left ? c < 0 : c <= 0) lo[j] = mid[j] + 1; else hi[j] = mid[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j)
+      if (on[j]) out[first + j * threads] = hi[j];
   }
 }
 
@@ -69,11 +151,18 @@ __global__ void __launch_bounds__(PROBE_THREADS)
       [&](long u) { vmax[u] = NEG_INF_I32; });
 }
 
+// The persistent grid: as many blocks as fit on the card at once, and no
+// more than SEARCH_CHAINS queries a thread need.
 extern "C" int ds_search(const void* table, int cap, const void* q, int nq,
                          int left, void* out, void* stream) {
-  k_search<<<blocks_for(nq, THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)table, cap, log2_pow2(cap), (const uint32_t*)q, nq,
-      left, (int*)out);
+  if (nq <= 0) return 0;
+  int grid = 0;
+  const int err = probe_grid((const void*)k_search,
+                             ((long)nq + SEARCH_CHAINS - 1) / SEARCH_CHAINS,
+                             &grid);
+  if (err != 0) return err;
+  k_search<<<grid, PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)table, cap, (const uint32_t*)q, nq, left, (int*)out);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,7 @@
 //                 and writes), parallel/sharded_window.py:166-175 (the
 //                 window's queries and writes); and the begin-in-[lo, hi)
 //                 mask of fused.py:391-393, which is a separate output;
-//   sh_combine -- the collectives over mesh axis "kr": [D, n] per-shard
+//   sh_combine -- the collectives over mesh axis "kr": D per-shard int32[n]
 //                 partials to [n], by max on the columns below n_max and
 //                 by sum on the rest.  It serves the pmax of history bits
 //                 (fused.py:362-364, :506-508), the psum(...) > 0 of the
@@ -26,10 +26,14 @@
 // reads the one flag and, only on overflow, copies the saved state back.
 //
 // Design: one thread per row or column, grid-stride loops.  The shard's
-// bounds are two rows every thread reads (L1-resident).  sh_combine loops
-// over D <= 8 rows per column; sums wrap as int32 (computed in uint32).
-// sh_commit reads the combined flag on the device, so the host never
-// synchronises to decide.
+// bounds are two rows every thread reads (L1-resident).  sh_combine is
+// a launch of well under a microsecond of work, so what it costs is the
+// operations queued around it: it takes the D <= COMBINE_MAX partials as
+// pointers by value and reads each where it lies (a shard's hist in
+// compact_prep's scratch, a window_query's bits, a tail), at any offset,
+// so no staging buffer is filled first; sums wrap as int32 (computed in
+// uint32).  sh_commit reads the combined flag on the device, so the host
+// never synchronises to decide.
 #include "common.cuh"
 
 __global__ void k_clip(long n, const uint32_t* __restrict__ b,
@@ -55,13 +59,21 @@ __global__ void k_clip(long n, const uint32_t* __restrict__ b,
   }
 }
 
-__global__ void k_combine(const int* __restrict__ parts, int d, long n,
-                          long n_max, int* __restrict__ out) {
+#define COMBINE_MAX 8  // ops/shard.py COMBINE_MAX
+
+struct CombineParts {
+  const int* p[COMBINE_MAX];  // the first d are the partials, int32[n] each
+};
+
+__global__ void k_combine(CombineParts parts, int d, long n, long n_max,
+                          int* __restrict__ out) {
   GRID_STRIDE(j, n) {
     const bool by_max = j < n_max;
-    int acc = parts[j];
-    for (int s = 1; s < d; ++s) {
-      int v = parts[(long)s * n + j];
+    int acc = parts.p[0][j];
+#pragma unroll
+    for (int s = 1; s < COMBINE_MAX; ++s) {
+      if (s >= d) break;
+      const int v = parts.p[s][j];
       acc = by_max ? (v > acc ? v : acc)
                    : (int)((uint32_t)acc + (uint32_t)v);
     }
@@ -96,10 +108,19 @@ extern "C" int sh_clip(long n, const void* b, const void* e, const void* lo,
   RET;
 }
 
-extern "C" int sh_combine(const void* parts, int d, long n, long n_max,
-                          void* out, void* stream) {
+// p0 .. p7: the d partials' pointers (the rest null).
+extern "C" int sh_combine(const void* p0, const void* p1, const void* p2,
+                          const void* p3, const void* p4, const void* p5,
+                          const void* p6, const void* p7, int d, long n,
+                          long n_max, void* out, void* stream) {
+  if (d < 1 || d > COMBINE_MAX) return (int)cudaErrorInvalidValue;
+  const CombineParts parts{{(const int*)p0, (const int*)p1, (const int*)p2,
+                            (const int*)p3, (const int*)p4, (const int*)p5,
+                            (const int*)p6, (const int*)p7}};
+  for (int s = 0; s < d; ++s)
+    if (parts.p[s] == nullptr) return (int)cudaErrorInvalidValue;
   k_combine<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
-      (const int*)parts, d, n, n_max, (int*)out);
+      parts, d, n, n_max, (int*)out);
   RET;
 }
 

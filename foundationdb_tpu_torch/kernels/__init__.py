@@ -101,7 +101,7 @@ _SIGS = {
     },
     "shard": {
         "sh_clip": "l" "ppppp" "pppp" "p",
-        "sh_combine": "pill" "p" "p",
+        "sh_combine": "pppppppp" "ill" "p" "p",
         "sh_commit": "pi" "ppp" "ppp" "p",
     },
 }

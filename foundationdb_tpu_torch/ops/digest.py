@@ -241,7 +241,9 @@ def _searchsorted_plain(table: torch.Tensor, queries: torch.Tensor,
 def searchsorted(table: torch.Tensor, queries: torch.Tensor,
                  side_left: bool, impl=None) -> torch.Tensor:
     """Lower (left) / upper (right) bound of each query row in a sorted,
-    MAX-padded, power-of-two row table: int32[Q].  Kernel: ds_search."""
+    MAX-padded, power-of-two row table: int32[Q].  Kernel: ds_search,
+    one launch; the reference's search path, its first levels staged in
+    shared memory."""
     if not _k.use_kernel(table, impl):
         return _searchsorted_plain(table, queries, bool(side_left))
     out = torch.empty((queries.shape[0],), dtype=torch.int32,

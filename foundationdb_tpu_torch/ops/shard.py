@@ -7,14 +7,16 @@ parallel/sharded_window.py):
   clip_rows      clip digest ranges to a shard's [lo, hi) bounds, with the
                  owned mask (clipped begin < clipped end) and the separate
                  begin-in-[lo, hi) mask
-  shard_combine  the collectives over mesh axis "kr" (pmax / psum): [D, n]
-                 per-shard partials to [n], by max or by sum per column
+  shard_combine  the collectives over mesh axis "kr" (pmax / psum): D
+                 per-shard partials of n to [n], by max or by sum per
+                 column, each read where it lies
   shard_commit   the window insert's mesh-wide all-or-nothing: with the
                  combined overflow set, put a shard's pre-insert state back
 
 The reference runs these inside shard_map on every device of the mesh; the
 port runs one process that holds every shard (parallel/), so a collective
-becomes one kernel over a [D, n] buffer on the mesh's first device.  Each
+becomes one kernel on the mesh's first device over the shards' partials
+(a partial on another device is copied there first).  Each
 function is a wrapper with a plain-torch version, taken for CPU tensors and
 with impl="plain", and a hand-written CUDA kernel (csrc/shard.cu) for CUDA
 tensors.  Digests are rows int32[N, 8] (ops/digest.py); masks int32 0/1.
@@ -22,7 +24,7 @@ tensors.  Digests are rows int32[N, 8] (ops/digest.py); masks int32 0/1.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -61,22 +63,42 @@ def clip_rows(b: torch.Tensor, e: torch.Tensor, lo: torch.Tensor,
     return cb, ce, owned.to(torch.int32), b_in.to(torch.int32)
 
 
-def shard_combine(parts: torch.Tensor, n_max: Optional[int] = None,
+# Partials one sh_combine launch takes (csrc/shard.cu COMBINE_MAX).
+COMBINE_MAX = 8
+
+
+def shard_combine(parts: Union[torch.Tensor, Sequence[torch.Tensor]],
+                  n_max: Optional[int] = None,
                   out: Optional[torch.Tensor] = None,
                   impl=None) -> torch.Tensor:
-    """[D, n] int32 per-shard partials -> [n]: columns below n_max (all of
+    """D int32 per-shard partials of n -> [n]: columns below n_max (all of
     them by default) by max, the rest by sum, wrapping as int32 (the
-    reference's pmax / psum over "kr").  Written into `out` when given.
-    Kernel: sh_combine."""
-    d, n = parts.shape
+    reference's pmax / psum over "kr").  parts is an int32[D, n] tensor or
+    a list of D int32[n] tensors (views at any offset).  The result lies
+    on out's device when `out` is given (and is written there), else on
+    the first partial's.  Kernel: sh_combine, one launch that reads each
+    partial in place (D <= COMBINE_MAX, each contiguous); a partial on
+    another device is copied to the result's once, non-blocking."""
+    parts = list(parts)
+    n = parts[0].shape[0]
     n_max = n if n_max is None else int(n_max)
+    dev = parts[0].device if out is None else out.device
     if out is None:
-        out = torch.empty((n,), dtype=torch.int32, device=parts.device)
-    if _k.use_kernel(parts, impl):
-        _k.launch("shard_combine", "sh_combine", parts, d, n, n_max, out)
+        out = torch.empty((n,), dtype=torch.int32, device=dev)
+    if not _k.use_kernel(out, impl):
+        stack = torch.stack([p.to(dev) for p in parts])
+        out[:n_max] = stack[:, :n_max].amax(dim=0)
+        out[n_max:] = stack[:, n_max:].sum(dim=0, dtype=torch.int32)
         return out
-    out[:n_max] = parts[:, :n_max].amax(dim=0)
-    out[n_max:] = parts[:, n_max:].sum(dim=0, dtype=torch.int32)
+    if len(parts) > COMBINE_MAX or any(p.shape != (n,) for p in parts):
+        raise ValueError(f"shard_combine: at most {COMBINE_MAX} partials of "
+                         f"shape ({n},) on the card, got "
+                         f"{[tuple(p.shape) for p in parts]}")
+    ptrs = [p if p.device == dev else p.to(dev, non_blocking=True)
+            for p in parts]
+    ptrs += [None] * (COMBINE_MAX - len(ptrs))
+    _k.launch("shard_combine", "sh_combine", *ptrs, len(parts), n, n_max,
+              out)
     return out
 
 

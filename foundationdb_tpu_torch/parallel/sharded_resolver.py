@@ -178,13 +178,13 @@ class ShardedTorchConflictSet(TorchConflictSet):
     def _combine(self, parts: List[torch.Tensor],
                  n_max: Optional[int] = None,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Each shard's partial into row d of a [D, n] buffer on the grid's
-        first device, reduced by one shard_combine there."""
-        buf = torch.empty((len(parts), parts[0].shape[0]), dtype=torch.int32,
-                          device=self.device)
-        for d, p in enumerate(parts):
-            buf[d].copy_(p, non_blocking=True)
-        return shard_combine(buf, n_max, out=out, impl=self.impl)
+        """The shards' partials reduced by one shard_combine on the grid's
+        first device, each read where it lies (one on another device is
+        copied there first)."""
+        if out is None:
+            out = torch.empty((parts[0].shape[0],), dtype=torch.int32,
+                              device=self.device)
+        return shard_combine(parts, n_max, out=out, impl=self.impl)
 
     def _run_step(self, enc, host_buf):
         """history per shard (the compact step's unpacking once per device)

@@ -19,10 +19,10 @@ How the mesh maps onto PyTorch.  The reference is single-controller: one
 process drives every device of a jax Mesh through shard_map.  The port is
 too.  A ConflictMesh is a (kr, q) grid of torch.devices; shard d's state
 lives on its grid device as its own tensors, and each collective becomes a
-combine on the grid's first device: every shard writes its partial into
-row d of a [D, n] int32 buffer there (a non-blocking copy when the shard
-sits on another card), one kernel reduces it (ops/shard.py shard_combine),
-and the result goes back to the shards that need it.  A grid may name one
+combine on the grid's first device: one kernel reads every shard's
+partial where it lies and reduces them (ops/shard.py shard_combine; a
+partial on another card is copied there first, non-blocking), and the
+result goes back to the shards that need it.  A grid may name one
 device several times: that is how four shards share one card, as the
 reference's tests lay eight virtual devices on one host CPU.  No process
 group is used: the reference has one controller, and NCCL refuses two
@@ -222,18 +222,22 @@ class ShardedWindow:
             "the query count must divide by the mesh's q axis"
         chunk = n_q // self.mesh.shape["q"]
         # Query: clip to each shard, answer locally, OR-combine over kr.
-        parts = torch.empty((self.n_shards, n_q), dtype=torch.int32,
-                            device=lead)
+        # A shard's partial is its spans' bits in query order: as they are
+        # when its queries run on one device, else joined on the lead.
+        parts = []
         for d in range(self.n_shards):
+            spans = []
             for dev, a, b in self._spans(d, chunk):
                 st, (lo, hi) = self.replicas[d][dev]
                 q_b, q_e, q_snap, q_valid = batch(dev)[:4]
                 cqb, cqe, qv, _ = clip_rows(q_b[a:b], q_e[a:b], lo, hi,
                                             valid=q_valid[a:b], impl=impl)
-                parts[d, a:b].copy_(window_query(st.bk, st.bv, cqb, cqe,
-                                                 q_snap[a:b], qv, impl=impl),
-                                    non_blocking=True)
-        bits = shard_combine(parts, impl=impl)
+                spans.append(window_query(st.bk, st.bv, cqb, cqe,
+                                          q_snap[a:b], qv, impl=impl))
+            parts.append(spans[0] if len(spans) == 1 else torch.cat(
+                [s.to(lead, non_blocking=True) for s in spans]))
+        bits = shard_combine(parts, out=torch.empty(
+            (n_q,), dtype=torch.int32, device=lead), impl=impl)
         # Insert: clip the writes to each shard, merge locally, keeping a
         # copy of the pre-insert state for the all-or-nothing commit.
         inserted = []
@@ -249,11 +253,9 @@ class ShardedWindow:
         # If ANY shard overflowed, every shard keeps its pre-insert state:
         # otherwise a skewed batch would commit its writes on the shards
         # that had room only, leaving V(k) wrong on part of the keyspace.
-        ovf_parts = torch.empty((len(inserted), 1), dtype=torch.int32,
-                                device=lead)
-        for i, (_, _, ovf) in enumerate(inserted):
-            ovf_parts[i].copy_(ovf, non_blocking=True)
-        ovf_any = shard_combine(ovf_parts, impl=impl)
+        ovf_any = shard_combine([ovf for _, _, ovf in inserted],
+                                out=torch.empty((1,), dtype=torch.int32,
+                                                device=lead), impl=impl)
         for st, saved, _ in inserted:
             shard_commit(ovf_any.to(st.bk.device, non_blocking=True), saved,
                          st, impl=impl)

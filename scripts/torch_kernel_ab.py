@@ -4,7 +4,7 @@ the shapes the conflict path hands them.
 
   python3 scripts/torch_kernel_ab.py [--root DIR] [--label NAME]
       [--cases table,sort,fixpoint,merge,insert,probe,rwprep,prep,union,
-               sharded,swindow,general]
+               search,combine,gstep,sharded,swindow,general]
       [--profile] [--sweep]
 
 DIR (default: the checkout holding this script) is the checkout whose
@@ -57,6 +57,30 @@ checkout's chip_smoke.py:
             batch's writes (the general step's 65,536 slots): launches a
             call by counter, own ms, the whole call's device ms, the sort's
             own, the call without the sort, plain ms, bound (union_at);
+  search    (not in the default set) searchsorted where the general step
+            calls it: the endpoint universe of one config-3 batch (its
+            1,179,648 rows sorted by the plain sort, MAX padded to 2^21:
+            endpoint_universe) and all of the batch's rows as queries,
+            left side: one call over every row (own ms by counter, the
+            whole call's device ms, plain ms, bound by search_bytes plus
+            the queries and the output once) and the two calls a step
+            made before it was one (the reads' endpoints, then the
+            writes'), each equal to the plain version; and its own ms on
+            the same queries sorted, on a 2^16 table and on one repeated
+            query (where the time goes);
+  combine   (not in the default set) shard_combine as the sharded compact
+            step calls it at config 5: ShardedTorchConflictSet._combine
+            of the four shards' hists (views into compact_prep's scratch,
+            CompactStep.unpack with four hists) and of the reply tails
+            (n_max 2): equality with the plain version, launches a call,
+            own ms, the whole chain's device ms behind the sleep (any
+            staging included) and its device operations a call by
+            torch.profiler (the port's kernels, others);
+  gstep     (not in the default set) program #4, the general step, on
+            chip_smoke's warmed config-3 state and its next batch
+            (warmed_general_state), bit-equal to its plain version: the
+            whole call behind the sleep, on the timeline, and on device
+            time alone by torch.profiler (profiled_step);
   sharded   (not in the default set) program #8's sharded compact step at
             config 5 (four shards on the card, chip_smoke's warm_sharded
             after 4 batches and a merge), bit-equal to its plain version,
@@ -96,6 +120,7 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = None  # this checkout's chip_smoke.py, loaded by main()
 
 
 def main() -> int:
@@ -117,6 +142,8 @@ def main() -> int:
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     S = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(S)
+    global SMOKE
+    SMOKE = S
     from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
     assert K.CSRC.startswith(root), K.CSRC
@@ -173,6 +200,12 @@ def main() -> int:
             for what, b, e, v in (("config3_delta", d_b, d_e, d_valid),
                                   ("config3_batch", w_b, w_e,
                                    m["w_valid"]))]
+    if "search" in cases:
+        out["searchsorted"] = search_case(S, K, universe, r_cap)
+    if "combine" in cases:
+        out["shard_combine"] = combine_case(S, K, fused)
+    if "gstep" in cases:
+        out["general_step"] = gstep_case(S, fused)
     if "sharded" in cases:
         out["sharded_step"] = sharded_case(S)
     if "swindow" in cases:
@@ -325,31 +358,154 @@ def prep_case(S, K, fused, reps: int = 20) -> dict:
             "profile_us": device_us(chain, 10)}
 
 
+def search_case(S, K, digests, r_cap: int, reps: int = 20) -> dict:
+    """searchsorted at the general step's shape (the `search` case), and
+    where its time goes: the same queries in the universe's own order (the
+    searches' paths coalesce), random rows of a 2^16 table built from the
+    universe's live rows (the table sits in L2) and one repeated query
+    (every load a broadcast), each own ms and equal to the plain
+    version."""
+    import torch
+    from foundationdb_tpu_torch.ops import digest
+    table = S.endpoint_universe(digests)
+    n = digests.shape[0]
+    live = int((table != -1).any(dim=1).sum())
+    g = torch.Generator(device=S.DEVICE).manual_seed(3)
+    small = table[torch.sort(torch.randint(
+        0, live, (1 << 16,), device=S.DEVICE, generator=g)).values]
+    shapes = {}
+    for what, (t, q) in {
+            "sorted_queries": (table, table[:n].contiguous()),
+            "table_2^16": (small, small[torch.randint(
+                0, 1 << 16, (n,), device=S.DEVICE, generator=g)]),
+            "one_query": (table, digests[5:6].expand(n, 8).contiguous())
+            }.items():
+        S.require_equal(f"searchsorted {what}",
+                        digest.searchsorted(t, q, True),
+                        digest.searchsorted(t, q, True, impl="plain"))
+        shapes[what] = S.device_ms(
+            lambda t=t, q=q: digest.searchsorted(t, q, True), reps=reps,
+            counter="searchsorted")
+
+    def one():
+        return digest.searchsorted(table, digests, True)
+
+    def two():
+        return torch.cat([digest.searchsorted(table, digests[:2 * r_cap],
+                                              True),
+                          digest.searchsorted(table, digests[2 * r_cap:],
+                                              True)])
+
+    want = digest.searchsorted(table, digests, True, impl="plain")
+    K.reset_counts()
+    got = one()
+    launches = K.LAUNCHES["searchsorted"]
+    err = max(S.require_equal("searchsorted", got, want),
+              S.require_equal("searchsorted in two calls", two(), want))
+    return {"table_rows": table.shape[0], "live_rows": live, "queries": n,
+            "at_shapes_ms": shapes,
+            "launches_per_call": launches, "max_abs_err": err,
+            "ms": S.device_ms(one, reps=reps, counter="searchsorted"),
+            "two_calls_ms": S.device_ms(two, reps=reps,
+                                        counter="searchsorted"),
+            "call_ms": S.device_ms(one, reps=reps),
+            "plain_ms": S.cuda_ms(lambda: digest.searchsorted(
+                table, digests, True, impl="plain"), reps=2),
+            "bound_ms": S.bound_ms(S.search_bytes(table, n)
+                                   + S.nbytes(digests, want)),
+            "profile_us": device_us(one, 10)}
+
+
+def combine_case(S, K, fused, reps: int = 20) -> dict:
+    """shard_combine as the sharded compact step calls it (the `combine`
+    case): the hists' combine and the tails'."""
+    import torch
+    rng5 = np.random.default_rng(5055)
+    splits5 = S.config5_splits(rng5)
+    _, enc, *_ = S.make_stream5(rng5, 1)[0]
+    cs = S.sharded_backend(splits5)
+    packed = cs._pack(enc)
+    buf = torch.from_numpy(packed["buf"]).to(S.DEVICE)
+    step = fused.make_resolve_step_compact(cs.capacity, cs.d_cap,
+                                           *packed["shapes"])
+    hists = step.unpack(buf, S.N_SHARDS)["hists"]
+    g = torch.Generator(device=S.DEVICE).manual_seed(11)
+    for h in hists:
+        h.copy_(torch.randint(0, 2, h.shape, generator=g, device=S.DEVICE,
+                              dtype=torch.int32))
+    tails = [torch.randint(0, 1 << 30, (3,), generator=g, device=S.DEVICE,
+                           dtype=torch.int32) for _ in hists]
+    tail_out = torch.empty((3,), dtype=torch.int32, device=S.DEVICE)
+    from foundationdb_tpu_torch.ops.shard import shard_combine
+    result = {"t_cap": hists[0].shape[0], "shards": len(hists)}
+    for what, fn, want in (
+            ("hists", lambda: cs._combine(hists),
+             shard_combine(torch.stack(hists), impl="plain")),
+            ("tails", lambda: cs._combine(tails, n_max=2, out=tail_out),
+             shard_combine(torch.stack(tails), 2, impl="plain"))):
+        K.reset_counts()
+        got = fn()
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        err = S.require_equal(f"shard_combine {what}", got, want)
+        kernels, others = S.device_ops(fn)
+        result[what] = {
+            "launches_per_call": launches, "max_abs_err": err,
+            "kernels_per_call": kernels, "other_ops_per_call": others,
+            "ms": S.device_ms(fn, reps=reps, counter="shard_combine"),
+            "chain_ms": S.device_ms(fn, reps=reps),
+            "profile_us": device_us(fn, 10)}
+    return result
+
+
+def gstep_case(S, fused, reps: int = 20) -> dict:
+    """Program #4 on a warmed config-3 state (the `gstep` case)."""
+    import torch
+    cs, packed, _, _ = S.warmed_general_state()
+    t_cap, r_cap, w_cap = packed["caps"]
+    n_rows = 2 * (r_cap + w_cap)
+    buf = torch.from_numpy(packed["buf"]).to(S.DEVICE)
+    digests = buf[:32 * n_rows].view(torch.int32).view(n_rows, 8)
+    meta = buf[32 * n_rows:].view(torch.int32)
+    keys = ("bk", "bv", "table", "size", "dk", "dv", "dtable", "dsize",
+            "flag")
+    saved = {k: getattr(cs, k).clone() for k in keys}
+    st = {k: v.clone() for k, v in saved.items()}
+
+    def load():
+        for k in keys:
+            st[k].copy_(saved[k])
+
+    def run(impl=None):
+        step = fused.make_resolve_step(S.CAPACITY, cs.d_cap, t_cap, r_cap,
+                                       w_cap, impl=impl)
+        return step(*(st[k] for k in keys), digests, meta)
+
+    load()
+    got = tuple(t.clone() for t in run())
+    load()
+    err = S.require_equal("general_step", got, run("plain"))
+    row = profiled_step(run, load)
+    row.update(max_abs_err=err,
+               device_ms=S.device_ms(run, reps=reps, setup=load),
+               timeline_ms=S.cuda_ms(run, reps=reps, setup=load))
+    return row
+
+
 def kernel_key(key: str) -> str:
     """A profiler key as a short name: the port's kernels by their name
     (k_...), others by their first 80 characters."""
-    name = key.split("(")[0].split()[-1] if "(" in key else key
+    name = SMOKE.kernel_name(key)
     return name if name.startswith("k_") else key[:80]
 
 
 def device_us(fn, calls: int) -> dict:
-    """Microseconds of device activity a call of fn() by torch.profiler,
-    per kernel (kernel_key) and copy, each one's durations summed."""
-    import torch
-    from torch.profiler import ProfilerActivity
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    """Microseconds of device activity a call of fn() by torch.profiler
+    (chip_smoke's profile_calls), per kernel (kernel_key) and copy, each
+    one's durations summed."""
     out = {}
-    for e in p.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            key = kernel_key(e.key)
-            out[key] = out.get(key, 0.0) + us / calls
+    for key, (_, us) in SMOKE.profile_calls(fn, calls).items():
+        k = kernel_key(key)
+        out[k] = out.get(k, 0.0) + us / calls
     return out
 
 
@@ -469,7 +625,6 @@ def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
     kinds (table, sort, fixpoint, merge, insert, probe, union; for the
     union every device kernel of the call, torch's fills included)."""
     import torch
-    from torch.profiler import ProfilerActivity
     from foundationdb_tpu_torch.conflict import fused
     from foundationdb_tpu_torch.ops.rangemax import build_sparse_table
     from foundationdb_tpu_torch.ops.sort import sort_rows
@@ -513,22 +668,12 @@ def profile(S, universe, r_cap: int, w_cap: int, n_writes: int, fix_in,
     result = {}
     for name, fn in cases.items():
         fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as p:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
         kernels = {}
-        for e in p.key_averages():
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            key = e.key.split("(")[0].split()[-1]
-            if not key.startswith("k_") and name.startswith("union"):
-                key = e.key[:80]  # the union's fills too
-            if us > 0 and (key.startswith("k_") or name.startswith("union")):
-                kernels[key] = {"us_per_launch": us / e.count,
-                                "launches_per_call": e.count / calls}
+        for key, (n, us) in S.profile_calls(fn, calls).items():
+            short = kernel_key(key)  # the union's fills too
+            if short.startswith("k_") or name.startswith("union"):
+                kernels[short] = {"us_per_launch": us / n,
+                                  "launches_per_call": n / calls}
         result[name] = kernels
     dst = torch.empty_like(universe)
     result["copy_universe_ms"] = S.device_ms(lambda: dst.copy_(universe),

@@ -142,6 +142,69 @@ def test_searches_match_reference(cap, live):
     assert (ge.numpy() == np.asarray(je)).all()
 
 
+def general_endpoints(rng, r_cap: int, w_cap: int) -> np.ndarray:
+    """A general batch's endpoint rows as the general step holds them:
+    planar r_b | r_e | w_b | w_e (r_cap reads, w_cap writes), the last
+    slots of each section MAX padding, and endpoints that repeat within
+    and across the sections (writes over read endpoints, a read's end
+    another's begin)."""
+    pool = np.concatenate([edge_digests(rng, 40), jd.max_digest_block(1),
+                           np.zeros((8, 1), np.uint32)], axis=1)
+
+    def section(n, pad):
+        d = pool[:, rng.integers(0, pool.shape[1], size=n)]
+        d[:, n - pad:] = 0xFFFFFFFF
+        return d
+
+    r_b, r_e = section(r_cap, r_cap // 4), section(r_cap, r_cap // 4)
+    w_b, w_e = section(w_cap, w_cap // 4), section(w_cap, w_cap // 4)
+    w_b[:, :w_cap // 4] = r_e[:, :w_cap // 4]
+    w_e[:, :w_cap // 4] = r_b[:, 1:1 + w_cap // 4]
+    return np.concatenate([r_b, r_e, w_b, w_e], axis=1)
+
+
+@pytest.mark.parametrize("r_cap,w_cap,seed", [(24, 8, 1), (96, 32, 2),
+                                              (200, 56, 3)])
+def test_universe_placement_in_one_call(r_cap, w_cap, seed):
+    """The general step's endpoint placement (reference fused.py:520-529:
+    the batch's endpoints sorted and MAX padded to a power of two, then
+    searchsorted_left of the reads' and the writes' endpoints): one
+    searchsorted over every row of the batch equals the reference's four
+    searches, the port's two calls and _searchsorted_plain."""
+    import jax
+    from foundationdb_tpu_torch.conflict.fused import _next_pow2
+    from foundationdb_tpu_torch.ops.sort import sort_rows
+    rng = np.random.default_rng(seed)
+    planar = general_endpoints(rng, r_cap, w_cap)
+    n = planar.shape[1]
+    u_cap = _next_pow2(n)
+    padded = np.concatenate([planar, jd.max_digest_block(u_cap - n)], axis=1)
+    j_universe = jnp.stack(jax.lax.sort([jnp.asarray(padded[lane])
+                                         for lane in range(8)],
+                                        num_keys=8))
+    digests = rows(planar)
+    universe = td.max_rows(u_cap, "cpu")
+    sort_rows(digests, out=universe[:n], impl="plain")
+    assert (td.rows_to_planar(universe) == np.asarray(j_universe)).all()
+    want = np.concatenate([np.asarray(jd.searchsorted_left(
+        j_universe, jnp.asarray(planar[:, a:b]))) for a, b in (
+        (0, r_cap), (r_cap, 2 * r_cap), (2 * r_cap, 2 * r_cap + w_cap),
+        (2 * r_cap + w_cap, n))])
+    got = td.searchsorted(universe, digests, True).numpy()
+    assert (got == want).all()
+    two = np.concatenate([
+        td.searchsorted(universe, digests[:2 * r_cap], True).numpy(),
+        td.searchsorted(universe, digests[2 * r_cap:], True).numpy()])
+    assert (two == want).all()
+    assert (td._searchsorted_plain(universe, digests, True).numpy()
+            == want).all()
+    # The batch really repeats endpoints across its sections and holds
+    # MAX rows.
+    s = jd.planar_to_s24(planar)
+    assert np.intersect1d(s[:2 * r_cap], s[2 * r_cap:]).size > 1
+    assert (planar == 0xFFFFFFFF).all(axis=0).sum() >= n // 4
+
+
 def test_rank_count_matches_reference():
     """Positions below 0, inside and past out_len (never counted)."""
     rng = np.random.default_rng(6)

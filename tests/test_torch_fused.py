@@ -1,6 +1,8 @@
 """The port's conflict/fused.py against foundationdb_tpu/conflict/fused.py,
 program by program, at state level: the compact point step, the sort-free
-delta insert (_point_insert), the delta table and the merge.
+delta insert (_point_insert), the delta table and the merge; and the
+general step's endpoint placement (one search over the batch) against the
+reference's four searches.
 
 States are made with numpy from a seed (sorted unique boundaries with the
 all-keys boundary first, versions, MAX / NEG_INF padding) and handed to
@@ -276,3 +278,53 @@ def test_compact_step_matches_reference(d_cap, flag, live_d):
     assert {0, 1, 2} <= set(codes.tolist())
     tail = got[4].numpy()[shapes[0]:].view(np.int32)
     assert tail[0] == int(got[3][0]) == (1 if flag or live_d > 500 else 0)
+
+
+# ---------------------------------------------------------------------------
+# the general step's endpoint placement
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [22, 23])
+def test_general_step_places_endpoints_in_one_search(seed, monkeypatch):
+    """GeneralStep places every endpoint of a range batch (reads' and
+    writes', repeating across the two, and the MAX padding) with one
+    searchsorted over the whole batch, and hands the fixpoint the spans
+    of the reference's four searchsorted_left (fused.py:520-529)."""
+    from test_torch_general import general_batch
+    st = to_torch(make_state(21))
+    packed = general_batch(seed, now=7000, oldest=2500)
+    _, r_cap, w_cap = packed["caps"]
+    planar = packed["digests"]
+    n = planar.shape[1]
+    calls, spans = [], {}
+    search, fixpoint = tf.searchsorted, tf.interval_fixpoint
+
+    def counted(table, queries, *args, **kw):
+        calls.append(queries.shape[0])
+        return search(table, queries, *args, **kw)
+
+    def seen(*args, **kw):
+        spans.update(zip(("r_pb", "r_pe", "w_pb", "w_pe"),
+                         (args[3], args[4], args[7], args[8])))
+        return fixpoint(*args, **kw)
+
+    monkeypatch.setattr(tf, "searchsorted", counted)
+    monkeypatch.setattr(tf, "interval_fixpoint", seen)
+    step = tf.make_resolve_step(CAP, DCAP, *packed["caps"])
+    step(st["bk"], st["bv"], st["table"], st["size"], st["dk"], st["dv"],
+         st["dtable"], st["dsize"], st["flag"],
+         torch.from_numpy(planar_to_rows(planar)),
+         torch.from_numpy(packed["meta"].copy()))
+    assert calls == [n]
+    padded = np.concatenate([planar, jd.max_digest_block(step.u_cap - n)],
+                            axis=1)
+    universe = jnp.stack(jax.lax.sort([jnp.asarray(padded[lane])
+                                       for lane in range(8)], num_keys=8))
+    o = 2 * r_cap
+    for name, (a, b) in (("r_pb", (0, r_cap)), ("r_pe", (r_cap, o)),
+                         ("w_pb", (o, o + w_cap)), ("w_pe", (o + w_cap, n))):
+        assert_equal(spans[name], jd.searchsorted_left(
+            universe, jnp.asarray(planar[:, a:b])), name)
+    s = jd.planar_to_s24(planar)
+    assert np.intersect1d(s[:o], s[o:]).size > 1
+    assert (planar == 0xFFFFFFFF).all(axis=0).any()

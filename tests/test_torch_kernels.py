@@ -283,6 +283,101 @@ def test_searchsorted_and_history(dev, edge):
          digest.history_probe(bk, bt, dk, dt, q, qe, impl="plain"))
 
 
+EDGE_LANES = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
+                       0xFFFFFFFF], np.uint32)
+
+
+def search_table(rng, cap: int, live: int, kind: str) -> torch.Tensor:
+    """A searchsorted table int32[cap, 8]: "sorted" (up to `live` unique
+    rows with lanes at the uint32 edges, then MAX padding) or "unsorted"
+    (random rows: the search is path-exact, so any table gives the plain
+    version's answer)."""
+    d = rng.integers(0, 1 << 32, size=(live, 8), dtype=np.uint64).astype(
+        np.uint32)
+    edge = rng.random((live, 8)) < 0.3
+    d[edge] = EDGE_LANES[rng.integers(0, EDGE_LANES.size, size=edge.sum())]
+    d[:, 0] = EDGE_LANES[rng.integers(0, 4, size=live)]  # shared lane 0
+    if kind == "unsorted":
+        return torch.from_numpy(d.view(np.int32))
+    s = np.unique(digest.planar_to_s24(np.ascontiguousarray(d.T)))[:cap]
+    planar = s.view(np.uint8).reshape(-1, 32).view(">u4").astype(np.uint32).T
+    out = digest.max_digest_block(cap)
+    out[:, :planar.shape[1]] = planar
+    return torch.from_numpy(digest.planar_to_rows(out))
+
+
+@pytest.mark.parametrize("cap,live,nq,kind", [
+    (1, 1, 3, "sorted"), (2, 1, 5, "sorted"), (256, 200, 9, "sorted"),
+    (1 << 10, 1 << 10, 1023, "sorted"), (1 << 12, 3000, 1, "sorted"),
+    (1 << 12, 3000, 4097, "sorted"), (1 << 12, 1 << 12, 4093, "unsorted"),
+    (1 << 21, 910_000, 1_179_651, "sorted")])
+def test_searchsorted_staged(dev, cap, live, nq, kind):
+    """ds_search against its plain version on both sides: tables below,
+    at and above the staged depth, the general step's 2^21 universe with
+    more queries than the card holds threads, query counts that are odd
+    and not a multiple of the chains a thread; queries that are rows of
+    the table (ties), rows with lanes at 0, 0x7FFFFFFF, 0x80000000 and
+    0xFFFFFFFF, MAX rows and zero rows; one launch a call."""
+    rng = np.random.default_rng(cap + nq)
+    table = search_table(rng, cap, live, kind)
+    q = table[rng.integers(0, cap, size=nq)].clone()
+    edge = torch.from_numpy(rng.random(nq) < 0.3)
+    q[edge] = torch.from_numpy(EDGE_LANES[rng.integers(
+        0, EDGE_LANES.size, size=(int(edge.sum()), 8))].view(np.int32))
+    q[rng.integers(0, nq, size=max(nq // 5, 1))] = -1
+    q[rng.integers(0, nq, size=max(nq // 50, 1))] = 0
+    table, q = table.to(dev), q.to(dev)
+    for left in (True, False):
+        K.reset_counts()
+        got = digest.searchsorted(table, q, left)
+        assert K.LAUNCHES["searchsorted"] == 1
+        same(got, digest.searchsorted(table, q, left, impl="plain"))
+
+
+def combine_views(rng, dev, d: int, n: int):
+    """d int32[n] partials as views at odd offsets of one buffer, and
+    their values stacked [d, n]."""
+    parts = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(d, n),
+                                          dtype=np.int64).astype(np.int32))
+    parts[:, 0] = 0x7FFFFFFF
+    flat = torch.zeros((d * (n + 9) + 3,), dtype=torch.int32, device=dev)
+    views = [flat[3 + k * (n + 9) + k:][:n] for k in range(d)]
+    for v, p in zip(views, parts):
+        v.copy_(p)
+    return views, parts.to(dev)
+
+
+@pytest.mark.parametrize("d", [1, 4, 8])
+def test_shard_combine_in_place(dev, d):
+    """sh_combine over partials read in place (views at odd offsets, none
+    16-byte aligned; compact_prep's hists in its scratch) against the
+    plain version and the [D, n] form: one launch a call, no partial
+    written; more than eight partials raise on the card."""
+    from foundationdb_tpu_torch.ops import shard
+    rng = np.random.default_rng(d)
+    n = 65_539
+    views, parts = combine_views(rng, dev, d, n)
+    for n_max in (None, 0, 2, n):
+        K.reset_counts()
+        got = shard.shard_combine(views, n_max)
+        assert K.LAUNCHES["shard_combine"] == 1
+        same(got, shard.shard_combine(views, n_max, impl="plain"))
+        same(got, shard.shard_combine(parts, n_max))
+    same(torch.stack(views), parts)
+    x = step_inputs(dev, packed_batch(4))
+    t_cap, r_pad, w_pad, u_pad, lw = x["shapes"]
+    hists = fused.compact_prep(x["ub"], x["r_start"], x["w_start"],
+                               x["t_snap"], x["t_flags"], x["scal"], lw,
+                               u_pad, r_pad, w_pad, n_hist=d)["hists"]
+    for h in hists:
+        h.copy_(torch.randint(0, 2, (t_cap,), dtype=torch.int32,
+                              device=dev))
+    same(shard.shard_combine(hists), shard.shard_combine(hists,
+                                                         impl="plain"))
+    with pytest.raises(ValueError):
+        shard.shard_combine(combine_views(rng, dev, 9, 5)[0])
+
+
 def test_step_blocks(dev):
     """compact_prep (one launch a call and no fill), read_write_prep (one
     launch, into compact_prep's hist), the fixpoint and the codes, each on

@@ -6,7 +6,8 @@ lex_less (ops/digest.py) and its begin-in-bounds mask against the one of
 conflict/fused.py:391-393, with digest lanes at the edges of the uint32
 order (0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, MAX) where a signed
 compare would go wrong.  shard_combine is held against the pmax / psum
-over the shard axis (a max or a wrapping int32 sum), shard_commit against
+over the shard axis (a max or a wrapping int32 sum), in its [D, n] form
+and over a list of views read in place, shard_commit against
 the reference's jnp.where(ovf_any, old, new).  Integer data: tolerance 0.
 """
 
@@ -93,6 +94,58 @@ def test_shard_combine_max_and_wrapping_sum(d, n_max):
     out = torch.full((n,), 7, dtype=torch.int32)
     assert shard_combine(torch.from_numpy(parts), n_max, out=out) is out
     np.testing.assert_array_equal(out.numpy(), got)
+
+
+def reference_combine(parts: np.ndarray, n_max: int) -> np.ndarray:
+    """The reference's collectives over a named shard axis: pmax on the
+    columns below n_max, psum (wrapping int32) on the rest."""
+    import jax
+
+    def collect(x):
+        return jnp.concatenate([jax.lax.pmax(x[:n_max], "kr"),
+                                jax.lax.psum(x[n_max:], "kr")])
+
+    return np.asarray(jax.vmap(collect, axis_name="kr")(
+        jnp.asarray(parts)))[0]
+
+
+@pytest.mark.parametrize("n_max", [None, 0, 2])
+@pytest.mark.parametrize("d", [1, 4, 8])
+def test_shard_combine_reads_views_in_place(d, n_max):
+    """A list of D partials that are views of larger buffers at odd
+    offsets, with odd gaps between them and one with an element stride,
+    combines as the [D, n] form does and as the reference's pmax / psum,
+    sums wrapping as int32."""
+    rng = np.random.default_rng(10 + d)
+    n = 41
+    parts = rng.integers(-(1 << 31), 1 << 31, size=(d, n),
+                         dtype=np.int64).astype(np.int32)
+    parts[:, :3] = [0x7FFFFFFF, -(1 << 31), 0x40000000]  # sums wrap
+    flat = torch.from_numpy(rng.integers(-9, 9, size=7 * d * n + 50,
+                                         dtype=np.int32))
+    views, at = [], 3
+    for k in range(d):
+        if k == 1:  # every third element of another buffer
+            view = torch.zeros((3 * n + 5,), dtype=torch.int32)[1::3][:n]
+        else:
+            view = flat[at:at + n]
+            at += n + 2 * k + 5
+        view.copy_(torch.from_numpy(parts[k]))
+        views.append(view)
+    stacked = torch.from_numpy(parts)
+    k = n if n_max is None else n_max
+    want = reference_combine(parts, k)
+    got = shard_combine(views, n_max)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(shard_combine(stacked, n_max).numpy(),
+                                  want)
+    np.testing.assert_array_equal(got.numpy()[k:], parts[:, k:].sum(
+        axis=0, dtype=np.int32))
+    out = torch.full((n,), 7, dtype=torch.int32)
+    assert shard_combine(views, n_max, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
+    for view, row_ in zip(views, parts):  # the partials are only read
+        np.testing.assert_array_equal(view.numpy(), row_)
 
 
 @pytest.mark.parametrize("ovf", [0, 1])

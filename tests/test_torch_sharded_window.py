@@ -79,10 +79,23 @@ def test_sharded_window_matches_reference():
     overflows that shard: both leave every shard unchanged and report the
     overflow; a gc with rebase frees the window and the same skewed step
     then commits, in both."""
+    run_against_reference(["cpu"] * 8)
+
+
+def test_sharded_window_split_rows_match_reference():
+    """The same with each mesh row over two distinct devices ("cpu" and
+    "cpu:0" compare unequal), so every shard's queries run in two spans
+    and its partial is joined on the lead before the combine."""
+    mesh = tsw.make_conflict_mesh(["cpu", "cpu:0"] * 4)
+    assert all(len(tsw.ShardedWindow(mesh, capacity=CAP)._spans(d, R // 2))
+               == 2 for d in range(4))
+    run_against_reference(["cpu", "cpu:0"] * 4)
+
+
+def run_against_reference(devices):
     rng = np.random.default_rng(7)
     ref = jsw.ShardedWindow(jsw.make_conflict_mesh(), capacity=CAP)
-    port = tsw.ShardedWindow(tsw.make_conflict_mesh(["cpu"] * 8),
-                             capacity=CAP)
+    port = tsw.ShardedWindow(tsw.make_conflict_mesh(devices), capacity=CAP)
     assert port.n_shards == 4 and port.mesh.shape["q"] == 2
     assert_same_state(ref, port)
     version, overflowed = 0, None
