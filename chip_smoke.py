@@ -49,8 +49,10 @@ exits non-zero):
      the live rows and over the full-capacity passes of a histogram-and-
      scatter insert); history_probe at config 2 (probe_at: launches a
      call, own ms, the bound by search_bytes); read_write_prep's one
-     launch a call; compact_prep's one launch a call and the compact
-     step's unpacking chain's device time (its whole call);
+     launch a call; compact_prep's and intra_batch_fixpoint's (with the
+     codes: the compact step's resolve) one launch, one kernel and no
+     other device operation a call by torch.profiler, and each whole
+     call's device time behind the sleep;
   3. the point path: 3 warmup batches, 10 at pipeline depth 8, 8 at depth
      1; oracle parity in both contention regimes; kernel-vs-plain state
      equality across a merge;
@@ -60,8 +62,10 @@ exits non-zero):
      digests, (c) rows sharing an 8-byte prefix, all 1,179,648 rows, and
      the window path's 2w endpoints with tie and payload: 1 + 2 *
      sort_rounds(n) launches a call, and the spread of its times over
-     (a)-(c); interval_fixpoint's rounds (equal to the plain version's),
-     one launch a call, and a 200-deep chain of ranges at config-3 width
+     (a)-(c); general_prep's one launch, one kernel and no other device
+     operation a call by torch.profiler, and its whole call's device time
+     behind the sleep; interval_fixpoint's rounds (equal to the plain
+     version's), one launch a call, and a 200-deep chain of ranges at config-3 width
      (rounds equal to the depth); window_insert on the general step's
      delta and on path 3's window (insert_at: 3 launches a call beyond
      _union_ranges', which it no longer adds to); _union_ranges on the
@@ -165,15 +169,15 @@ _WINDOW = ["window_query", "sort_rows", "union_ranges", "window_insert",
            "build_sparse_table"]
 PATH_KERNELS = {
     "point": ["compact_prep", "history_probe", "read_write_prep",
-              "intra_batch_fixpoint", "batch_codes", "point_insert", "merge",
+              "intra_batch_fixpoint", "point_insert", "merge",
               "build_sparse_table"],
     "general": ["history_probe", "merge", "sort_rows", "general_prep",
                 "interval_fixpoint", "general_codes", "union_ranges",
                 "window_insert", "searchsorted", "build_sparse_table"],
     "window": _WINDOW,
     "sharded": ["compact_prep", "history_probe", "read_write_prep",
-                "intra_batch_fixpoint", "batch_codes", "point_insert",
-                "merge", "clip_rows", "shard_combine", "build_sparse_table"],
+                "intra_batch_fixpoint", "point_insert", "merge", "clip_rows",
+                "shard_combine", "build_sparse_table"],
     "sharded_window": [*_WINDOW, "clip_rows", "shard_combine",
                        "shard_commit"],
 }
@@ -491,16 +495,23 @@ def prep_bytes(prep_in, prep) -> int:
                   *prep["hists"])
 
 
+# Sessions profile_calls takes before it gives up: on the H100 machine the
+# profiler has lost events in three sessions in a row (empty sessions, or
+# one kernel short), most often in a process's first sessions.
+PROFILE_ATTEMPTS = 8
+
+
 def profile_calls(fn, calls: int) -> dict:
     """The device operations of `calls` calls of fn() by torch.profiler:
     {the profiler's key: (operations, microseconds)}.  The profiler may
     drop events at the edge of a session, so the calls are those of the
     active step of a schedule behind a warmup step, and a session in
     which some operation did not run a whole number of times a call is
-    taken again (three times at most, then the run fails)."""
+    taken again (PROFILE_ATTEMPTS sessions at most, then the run
+    fails)."""
     import torch
     from torch.profiler import ProfilerActivity, schedule
-    for _attempt in range(3):
+    for _attempt in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[ProfilerActivity.CUDA],
@@ -523,7 +534,7 @@ def profile_calls(fn, calls: int) -> dict:
         log(f"profile_calls: the profiler saw {sorted(ops.values())} over "
             f"{calls} calls; taken again")
     raise AssertionError("profile_calls: the profiler lost device events in "
-                         "three sessions")
+                         f"{PROFILE_ATTEMPTS} sessions")
 
 
 def kernel_name(key: str) -> str:
@@ -544,34 +555,31 @@ def device_ops(fn, calls: int = 4) -> tuple:
     return own / calls, other / calls
 
 
-def prep_chain(fused, prep_in) -> dict:
-    """The compact step's unpacking chain on the card: its launches a call
-    as the counters read them (1, and none of another wrapper), its
-    device operations a call as the profiler sees them (1 kernel, and no
-    fill or other operation), and compact_prep's whole call (n_hist 1)
-    behind the stream's sleep, read_write_prep's zeroed hist included.
-    Logs the histograms' round trip (zeroed, then read by the scan: 8
-    bytes a slot of r_pad + w_pad) at the card's memory rate, which the
-    least bytes leave out."""
+def one_operation(name: str, fn) -> dict:
+    """A wrapper's call on the card as one device operation: its launches
+    a call as the counters read them (1, and none of another wrapper's),
+    its device operations a call as the profiler sees them (1 of the
+    port's kernels, and no fill or other operation), and the whole call
+    behind the stream's sleep (chain_ms)."""
     from foundationdb_tpu_torch import kernels as K
     K.reset_counts()
-    fused.compact_prep(*prep_in)
-    launches = K.LAUNCHES["compact_prep"]
+    fn()
+    launches = K.LAUNCHES[name]
     if launches != 1 or sum(K.LAUNCHES.values()) != 1:
-        raise AssertionError(f"compact_prep: {dict(K.LAUNCHES)} launches a "
-                             "call, not 1 of its own")
-    kernels, others = device_ops(lambda: fused.compact_prep(*prep_in))
+        raise AssertionError(f"{name}: {dict(K.LAUNCHES)} launches a call, "
+                             "not 1 of its own")
+    kernels, others = device_ops(fn)
     if kernels != 1 or others != 0:
-        raise AssertionError(f"compact_prep: the profiler saw {kernels} of "
-                             f"the port's kernels and {others} other device "
+        raise AssertionError(f"{name}: the profiler saw {kernels} of the "
+                             f"port's kernels and {others} other device "
                              "operations a call, not 1 and 0")
-    r_pad, w_pad = prep_in[8], prep_in[9]
-    log(f"compact_prep: the histograms' round trip at the memory rate "
-        f"{bound_ms(8 * (r_pad + w_pad)):.5f} ms")
-    return {"launches_per_call": launches, "kernels_per_call": kernels,
-            "other_ops_per_call": others,
-            "chain_ms": device_ms(lambda: fused.compact_prep(*prep_in),
-                                  reps=20)}
+    row = {"launches_per_call": launches, "kernels_per_call": kernels,
+           "other_ops_per_call": others,
+           "chain_ms": device_ms(fn, reps=20)}
+    log(f"{name}: one launch, {kernels} kernel and {others} other device "
+        f"operations a call; the call {row['chain_ms']:.5f} ms behind the "
+        "sleep")
+    return row
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -672,11 +680,10 @@ def compare_kernels(cs, packed, buf):
                                 P)
     rw = fused.read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap,
                                scal, vmax, u_pad, P)
-    conf, rounds = fused.intra_batch_fixpoint(
-        rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"], rw["w_txn"],
-        rw["w_ok"], rw["w_slot"], u_pad, P)
-    codes = torch.empty((t_cap,), dtype=torch.int8, device=DEVICE)
-    w_ins = fused.batch_codes(scal, too_old, conf, rw["w_txn"], codes, P)
+    rw_in = (rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"],
+             rw["w_txn"], rw["w_ok"], rw["w_slot"])
+    conf, rounds, w_ins, codes = _fix_codes(fused, rw_in, u_pad, scal,
+                                            too_old, P)
     log(f"fixpoint rounds on this batch: {int(rounds.item())}")
     keep_s = (torch.arange(CAPACITY + DELTA_CAPACITY, device=DEVICE) % 3
               != 0).to(torch.int32)
@@ -686,8 +693,6 @@ def compare_kernels(cs, packed, buf):
                        device=DEVICE)
     ks_incl = scan.inclusive_scan(keep_s, P)
     keep_bool = keep_s.bool()
-    rw_in = (rw["hist"], rw["r_txn"], rw["r_live"], rw["r_slot"],
-             rw["w_txn"], rw["w_ok"], rw["w_slot"])
 
     def state_copy():
         return {k: getattr(cs, k).clone() for k in
@@ -741,14 +746,13 @@ def compare_kernels(cs, packed, buf):
                                             u_pad, i),
             nbytes(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap, vmax,
                    *rw.values()), None),
-        # Conf and the round count; the bound is one pass over the
-        # inputs and conf, whatever the rounds (see the row's "rounds").
+        # Conf, the round count, the codes and the insert mask (the
+        # fixpoint's last phase, batch_codes); the bound is one pass over
+        # the inputs, too_old and the outputs, whatever the rounds (see
+        # the row's "rounds").
         "intra_batch_fixpoint": (
-            lambda i: fused.intra_batch_fixpoint(*rw_in, u_pad, i),
-            nbytes(*rw_in, conf), None),
-        "batch_codes": (
-            lambda i: _codes(fused, scal, too_old, conf, rw["w_txn"], i),
-            nbytes(too_old, conf, rw["w_txn"], codes, w_ins), None),
+            lambda i: _fix_codes(fused, rw_in, u_pad, scal, too_old, i),
+            nbytes(*rw_in, too_old, conf, codes, w_ins), None),
         # mg_merge: the live rows of base and delta in, the merged base and
         # the reset delta out (the base table is build_sparse_table's row).
         "merge": ("merge", merge_bytes(int(cs.size[0]), int(cs.dsize[0]),
@@ -807,7 +811,13 @@ def compare_kernels(cs, packed, buf):
                              "flag": cs.flag, "bsize": cs.size},
         (u_b, u_e, w_uid, w_ins, scal[4:5], None))))
     by_name = {r["name"]: r for r in rows}
-    by_name["compact_prep"].update(prep_chain(fused, prep_in))
+    by_name["compact_prep"].update(one_operation(
+        "compact_prep", lambda: fused.compact_prep(*prep_in)))
+    log(f"compact_prep: the histograms' round trip at the memory rate "
+        f"{bound_ms(8 * (r_pad + w_pad)):.5f} ms")
+    by_name["intra_batch_fixpoint"].update(one_operation(
+        "intra_batch_fixpoint",
+        lambda: _fix_codes(fused, rw_in, u_pad, scal, too_old, None)))
     # The history probe's shapes: config 2 here, config 3's general step
     # and a config-5 shard in phases 4 and 9.
     by_name["history_probe"]["at_shapes"] = [probe_at(
@@ -1635,10 +1645,13 @@ def probe_case(what: str, reps: int = REPS) -> dict:
     return probe_at(what, name, path, fn, n_bytes, reps=reps, **info)
 
 
-def _codes(fused, scal, too_old, conf, w_txn, impl):
+def _fix_codes(fused, rw_in, u_pad, scal, too_old, impl):
+    """The compact step's resolve: the fixpoint with the codes (conf,
+    rounds, the insert mask, the codes)."""
     import torch
     codes = torch.empty(too_old.shape, dtype=torch.int8, device=DEVICE)
-    return fused.batch_codes(scal, too_old, conf, w_txn, codes, impl), codes
+    return (*fused.intra_batch_fixpoint(*rw_in, u_pad, impl, codes_out=codes,
+                                        scal=scal, too_old=too_old), codes)
 
 
 def _compact(scan, keep, incl, rows, vals, impl):
@@ -2009,6 +2022,8 @@ def compare_general(cs, packed, win, stream):
         raise AssertionError(f"searchsorted: {srch['launches_per_call']} "
                              "launches a call")
     del universe, placed
+    next(r for r in rows if r["name"] == "general_prep").update(
+        one_operation("general_prep", lambda: fused.general_prep(m, vmax)))
     fix = next(r for r in rows if r["name"] == "interval_fixpoint")
     fix["rounds"] = int(rounds[0])
     K.reset_counts()

@@ -276,28 +276,49 @@ def read_write_prep(r_uid, w_uid, r_cnt, w_cnt, too_old, t_snap, scal,
 
 
 def intra_batch_fixpoint(hist, r_txn, r_live, r_slot, w_txn, w_ok, w_slot,
-                         u_pad: int, impl=None):
+                         u_pad: int, impl=None, codes_out=None, scal=None,
+                         too_old=None):
     """The intra-batch fixpoint (checkIntraBatchConflicts,
     SkipList.cpp:874-906; reference fused.py:373-385): a reader conflicts
     iff an EARLIER SURVIVING txn of the batch wrote its key.  Jacobi
     rounds recompute from the history-only baseline until nothing
     changes.  Returns (conflicted int32[t_cap], rounds int32[1]).
+    With codes_out (int8[t_cap]), scal (the compact scalars, on the
+    device) and too_old (int32[t_cap]) it also writes the verdict codes
+    into codes_out and returns the insert mask as a third element:
+    exactly batch_codes after the fixpoint (reference fused.py:388-405).
     Kernel: ib_fixpoint, one cooperative persistent launch over every SM
     whose rounds loop on the device; its cover, next-conflict and changed
-    scratch is double-buffered by round parity (csrc/intra_batch.cu)."""
-    t_cap = hist.shape[0]
+    scratch is double-buffered by round parity, and the codes are its last
+    phase, after the barrier the rounds leave on (csrc/intra_batch.cu)."""
+    t_cap, w_pad = hist.shape[0], w_txn.shape[0]
     dev = hist.device
+    codes = codes_out is not None
+    if codes and (scal is None or too_old is None):
+        raise ValueError("intra_batch_fixpoint: codes_out needs scal and "
+                         "too_old")
     if _k.use_kernel(hist, impl):
         e = dict(dtype=torch.int32, device=dev)
+        if codes and (codes_out.shape != (t_cap,)
+                      or codes_out.dtype != torch.int8
+                      or too_old.shape != (t_cap,)
+                      or scal.numel() < COMPACT_SCALARS):
+            raise ValueError(
+                f"intra_batch_fixpoint: codes_out must be int8[{t_cap}], "
+                f"too_old int32[{t_cap}] and scal hold {COMPACT_SCALARS} "
+                f"int32, got {codes_out.dtype} {tuple(codes_out.shape)}, "
+                f"{tuple(too_old.shape)}, {scal.numel()}")
         conf = torch.empty((t_cap,), **e)
         rounds = torch.empty((1,), **e)
+        w_ins = torch.empty((w_pad,), **e) if codes else None
         _k.launch("intra_batch_fixpoint", "ib_fixpoint", t_cap,
-                  r_txn.shape[0], w_txn.shape[0], u_pad, hist, r_txn, r_live,
+                  r_txn.shape[0], w_pad, u_pad, hist, r_txn, r_live,
                   r_slot, w_txn, w_ok, w_slot,
                   torch.empty((2 * (u_pad + 1),), **e),
                   torch.empty((2 * t_cap,), **e), torch.empty((2,), **e),
-                  conf, rounds)
-        return conf, rounds
+                  conf, rounds, scal if codes else None,
+                  too_old if codes else None, codes_out, w_ins)
+        return (conf, rounds, w_ins) if codes else (conf, rounds)
     w_txn_c = torch.clamp(w_txn, 0, t_cap - 1).long()
     live = r_live != 0
     r_scatter = torch.where(live, r_txn, t_cap)
@@ -317,20 +338,25 @@ def intra_batch_fixpoint(hist, r_txn, r_live, r_slot, w_txn, w_ok, w_slot,
         conf = new_conf
         if not changed:
             break
-    return conf, torch.tensor([rounds], dtype=torch.int32, device=dev)
+    rounds_t = torch.tensor([rounds], dtype=torch.int32, device=dev)
+    if not codes:
+        return conf, rounds_t
+    return conf, rounds_t, batch_codes(scal, too_old, conf, w_txn,
+                                       codes_out, "plain")
 
 
 def batch_codes(scal, too_old, conf, w_txn, codes_out, impl=None):
     """Verdict codes into codes_out (int8[t_cap]: INVALID / TOO_OLD /
     CONFLICT / COMMITTED) and the insert mask of surviving txns' writes
-    (int32[w_pad]) (reference fused.py:388-405).  Kernel: ib_codes."""
+    (int32[w_pad]) (reference fused.py:388-405).  Plain torch only: on
+    the card intra_batch_fixpoint writes them in the fixpoint's own
+    launch, so a call that would take the kernel route raises."""
     t_cap, w_pad = too_old.shape[0], w_txn.shape[0]
     dev = too_old.device
     if _k.use_kernel(too_old, impl):
-        w_ins = torch.empty((w_pad,), dtype=torch.int32, device=dev)
-        _k.launch("batch_codes", "ib_codes", t_cap, w_pad, scal, too_old,
-                  conf, w_txn, codes_out, w_ins)
-        return w_ins
+        raise RuntimeError("batch_codes has no kernel of its own (the card "
+                           "runs it in intra_batch_fixpoint's launch); "
+                           "call it with impl='plain'")
     t_valid = _iota(t_cap, dev) < scal[3]
     old = too_old != 0
     cf = conf != 0
@@ -533,14 +559,16 @@ class CompactStep:
 
     def resolve(self, h: dict, hist: torch.Tensor,
                 out: torch.Tensor) -> torch.Tensor:
-        """The intra-batch fixpoint from the (combined) history bits, the
-        codes into out[:t_cap]; returns the insert mask w_ins."""
+        """The intra-batch fixpoint from the (combined) history bits and
+        the codes into out[:t_cap], one call (one launch on the card);
+        returns the insert mask w_ins."""
         rw = h["rw"]
-        conflicted, _ = intra_batch_fixpoint(
+        _, _, w_ins = intra_batch_fixpoint(
             hist, rw["r_txn"], rw["r_live"], rw["r_slot"], rw["w_txn"],
-            rw["w_ok"], rw["w_slot"], self.u_pad, self.impl)
-        return batch_codes(h["scal"], h["too_old"], conflicted, rw["w_txn"],
-                           out[:self.t_cap], self.impl)
+            rw["w_ok"], rw["w_slot"], self.u_pad, self.impl,
+            codes_out=out[:self.t_cap], scal=h["scal"],
+            too_old=h["too_old"])
+        return w_ins
 
     def insert(self, h: dict, dk, dv, dsize, flag, size, w_ins,
                tail) -> None:
@@ -579,7 +607,9 @@ def general_prep(meta: dict, vmax: torch.Tensor, impl=None) -> dict:
     block (r_txn, r_valid, w_txn, w_valid, t_snap, t_has_reads, t_valid,
     oldest_rel as int32[1]); vmax is history_probe over each read.
     Returns int32 arrays too_old, r_live, hist, w_ok.
-    Kernels: ig_txn, ig_rw."""
+    Kernel: ig_prep, one cooperative launch a call and no fill: too-old
+    per txn and hist zeroed, a grid barrier, then the reads and the
+    writes."""
     t_cap = meta["t_snap"].shape[0]
     r_cap, w_cap = meta["r_txn"].shape[0], meta["w_txn"].shape[0]
     dev = vmax.device
@@ -587,15 +617,13 @@ def general_prep(meta: dict, vmax: torch.Tensor, impl=None) -> dict:
         e = dict(dtype=torch.int32, device=dev)
         o = {"too_old": torch.empty((t_cap,), **e),
              "r_live": torch.empty((r_cap,), **e),
-             "hist": torch.zeros((t_cap,), **e),
+             "hist": torch.empty((t_cap,), **e),
              "w_ok": torch.empty((w_cap,), **e)}
-        _k.launch("general_prep", "ig_txn", t_cap, meta["t_snap"],
-                  meta["t_has_reads"], meta["t_valid"], meta["oldest_rel"],
-                  o["too_old"])
-        _k.launch("general_prep", "ig_rw", r_cap, w_cap, t_cap, meta["r_txn"],
-                  meta["r_valid"], meta["w_txn"], meta["w_valid"],
-                  o["too_old"], meta["t_snap"], vmax, o["r_live"], o["hist"],
-                  o["w_ok"])
+        _k.launch("general_prep", "ig_prep", t_cap, r_cap, w_cap,
+                  meta["r_txn"], meta["r_valid"], meta["w_txn"],
+                  meta["w_valid"], meta["t_snap"], meta["t_has_reads"],
+                  meta["t_valid"], meta["oldest_rel"], vmax, o["too_old"],
+                  o["r_live"], o["hist"], o["w_ok"])
         return o
     too_old = ((meta["t_valid"] != 0) & (meta["t_has_reads"] != 0)
                & (meta["t_snap"] < meta["oldest_rel"]))

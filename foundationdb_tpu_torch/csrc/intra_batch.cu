@@ -10,13 +10,15 @@
 //                     the writers' txn, base eligibility and slot, in one
 //                     launch;
 //   ib_fixpoint    -- :373-385 the Jacobi intra-batch fixpoint
-//                     (lax.while_loop), iterated ON THE DEVICE;
-//   ib_codes       -- :388-405 survivors, the insert mask and verdict codes.
+//                     (lax.while_loop), iterated ON THE DEVICE, and, in a
+//                     last phase of the same launch, :388-405 survivors,
+//                     the insert mask and verdict codes;
 // and of the general interval step (make_resolve_step):
-//   ig_txn         -- :479 too-old per txn from the metadata block;
-//   ig_rw          -- :482-511 live reads, their history verdicts (from the
+//   ig_prep        -- :479-511 too-old per txn from the metadata block,
+//                     live reads, their history verdicts (from the
 //                     two-tier maxima of history_probe) scatter-maxed per
-//                     txn, and the writers' base eligibility;
+//                     txn, and the writers' base eligibility, one
+//                     cooperative launch;
 //   ig_codes       -- :550-566 survivors, the insert mask and the codes.
 //
 // Bound on the card: bytes for the prep and code passes (each array read
@@ -32,7 +34,11 @@
 // between phases, so the host never synchronises per round.  A round is
 // three phases and three barriers: atomicMin each active write's txn into
 // the cover | scatter each live read's hit into the next conflicts |
-// compare and copy into conf, raising the round's changed flag.  Cover and
+// compare and copy into conf, raising the round's changed flag.  Every
+// thread leaves the loop after the same barrier, so conf is final and
+// visible grid-wide there, and the codes and the insert mask (batch_codes)
+// are written by a last phase with no barrier of its own: the compact
+// step's resolve is one device operation.  Cover and
 // next-conflict scratch are double-buffered by round parity: the compare
 // phase of round r refills round r+1's buffers (cover to INF, the next
 // conflicts to the history baseline), which no phase of round r touches,
@@ -473,7 +479,81 @@ struct IbFixArgs {
   int* changed;  // int32[2], one flag per round parity
   int* conf;     // out: int32[t_cap]
   int* rounds;   // out: int32[1]
+  // The codes phase, run when codes is not null: scal (the compact
+  // scalars, n_w at 2 and n_t at 3, read on the device) and too_old in,
+  // codes (int8[t_cap]) and w_ins (int32[w_pad]) out; vec: too_old,
+  // conf, w_txn and w_ins 16-byte and codes 4-byte aligned.
+  const int* scal;
+  const int* too_old;
+  int8_t* codes;
+  int* w_ins;
+  int vec;
 };
+
+// A txn's verdict code (reference fused.py:400-404).
+__device__ __forceinline__ int code_of(long t, int n_t, int old, int cf) {
+  return t >= n_t ? -1 : old ? 1 : cf ? 0 : 2;
+}
+
+// The codes phase of k_ib_fixpoint, four txns or four writes a thread
+// (the txns' quads, then the writes'), every load of a quad before any
+// use: int4 loads of too_old and conf and one 32-bit store of four codes;
+// a write quad's txns by one int4 load, its eight gathers, one int4
+// store.  conf was last written before the rounds' last barrier, by other
+// blocks: it is read through L2.
+__device__ __forceinline__ void write_codes(const IbFixArgs& a, long gtid,
+                                            long gstride) {
+  const int n_w = __ldg(a.scal + 2);
+  const int n_t = __ldg(a.scal + 3);
+  const long t_cap = a.t_cap;
+  const long t_quads = (t_cap + 3) / 4;
+  const long quads = t_quads + (a.w_pad + 3L) / 4;
+  for (long q = gtid; q < quads; q += gstride) {
+    if (q < t_quads) {
+      const long t0 = 4 * q;
+      if (a.vec && t0 + 4 <= t_cap) {
+        const int4 o = __ldg(reinterpret_cast<const int4*>(a.too_old + t0));
+        const int4 c = __ldcg(reinterpret_cast<const int4*>(a.conf + t0));
+        const uint32_t packed =
+            (code_of(t0, n_t, o.x, c.x) & 0xFF) |
+            (code_of(t0 + 1, n_t, o.y, c.y) & 0xFF) << 8 |
+            (code_of(t0 + 2, n_t, o.z, c.z) & 0xFF) << 16 |
+            (uint32_t)(code_of(t0 + 3, n_t, o.w, c.w) & 0xFF) << 24;
+        *reinterpret_cast<uint32_t*>(a.codes + t0) = packed;
+      } else {
+        for (long t = t0; t < t0 + 4 && t < t_cap; ++t)
+          a.codes[t] = (int8_t)code_of(t, n_t, __ldg(a.too_old + t),
+                                       __ldcg(a.conf + t));
+      }
+      continue;
+    }
+    const long w0 = 4 * (q - t_quads);
+    int tc[4], old[4], cf[4], ins[4];
+    if (a.vec && w0 + 4 <= a.w_pad) {
+      const int4 x = __ldg(reinterpret_cast<const int4*>(a.w_txn + w0));
+      tc[0] = x.x; tc[1] = x.y; tc[2] = x.z; tc[3] = x.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        tc[k] = w0 + k < a.w_pad ? __ldg(a.w_txn + w0 + k) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // txn -1 reads txn 0's flags
+      tc[k] = clampi(tc[k], 0, a.t_cap - 1);
+      old[k] = __ldg(a.too_old + tc[k]);
+      cf[k] = __ldcg(a.conf + tc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      ins[k] = w0 + k < n_w && tc[k] < n_t && !old[k] && !cf[k] ? 1 : 0;
+    if (a.vec && w0 + 4 <= a.w_pad) {
+      *reinterpret_cast<int4*>(a.w_ins + w0) =
+          make_int4(ins[0], ins[1], ins[2], ins[3]);
+    } else {
+      for (int k = 0; k < 4 && w0 + k < a.w_pad; ++k) a.w_ins[w0 + k] = ins[k];
+    }
+  }
+}
 
 __global__ void __launch_bounds__(FIX_THREADS)
     k_ib_fixpoint(IbFixArgs a) {
@@ -535,67 +615,110 @@ __global__ void __launch_bounds__(FIX_THREADS)
     if (*(volatile int*)&a.changed[cur] == 0) break;
   }
   if (gtid == 0 && a.rounds != nullptr) a.rounds[0] = rounds;
-}
-
-__global__ void k_codes(int t_cap, int w_pad, const int* __restrict__ scal,
-                        const int* __restrict__ too_old,
-                        const int* __restrict__ conf,
-                        const int* __restrict__ w_txn,
-                        int8_t* __restrict__ codes, int* __restrict__ w_ins) {
-  const int n_t = scal[3];
-  const int n_w = scal[2];
-  long n = t_cap > w_pad ? t_cap : w_pad;
-  GRID_STRIDE(i, n) {
-    if (i < t_cap) {
-      int c = i >= n_t ? -1 : (too_old[i] ? 1 : (conf[i] ? 0 : 2));
-      codes[i] = (int8_t)c;
-    }
-    if (i < w_pad) {
-      int tc = clampi(w_txn[i], 0, t_cap - 1);
-      bool surv = tc < n_t && !too_old[tc] && !conf[tc];
-      w_ins[i] = (i < n_w && surv) ? 1 : 0;
-    }
-  }
+  // batch_codes (reference fused.py:388-405): INVALID past n_t, else
+  // TOO_OLD / CONFLICT / COMMITTED; a write is inserted when it is below
+  // n_w and its txn (clamped to [0, t_cap)) survives.
+  if (a.codes != nullptr) write_codes(a, gtid, gstride);
 }
 
 // ------------------------------------------------- general interval step
-__global__ void k_gen_txn(int t_cap, const int* __restrict__ t_snap,
-                          const int* __restrict__ t_has_reads,
-                          const int* __restrict__ t_valid,
-                          const int* __restrict__ oldest_rel,
-                          int* __restrict__ too_old) {
-  const int oldest = oldest_rel[0];
-  GRID_STRIDE(t, t_cap) {
-    too_old[t] = (t_valid[t] && t_has_reads[t] && t_snap[t] < oldest) ? 1 : 0;
-  }
-}
+// general_prep (conflict/fused.py): ig_prep, one cooperative launch over
+// a co-resident grid (coop_grid, at most GPREP_BLOCKS_PER_SM blocks an
+// SM) and no fill, in two phases:
+//   RW_VEC txns a thread: too_old, and hist zeroed | grid.sync |
+//   RW_VEC reads or writes a thread (the reads' runs first, then the
+//   writes', one index space): r_live and the history bit scattered into
+//   hist (txn -1 lands on t_cap - 1, as the reference's negative index
+//   normalises); w_ok.
+// Like compact_prep it is latency-bound: its least bytes (~10 MB at
+// config 3, ~3 us) are under the cost of the three operations it
+// replaces (a zero fill of hist, a txn launch and a read-write launch,
+// ~5 us each between events on the H100, PERF.md).  Only the zeroing of
+// hist has to precede the barrier, since a read's history bit must not
+// be cleared after it is set; too_old is written there too and read back
+// after it through L2, with t_snap, two gathers issued together.  Arrays
+// move as int4 when all of them are 16-byte aligned (VEC), as in
+// ib_rw_prep.  Timed at config 3 on the H100 (PERF.md): the kernel 5.81
+// us; 6.37 and 6.34 at 1 and 4 blocks an SM; 8.25 with each too-old
+// recomputed after the barrier from t_valid, t_has_reads and t_snap
+// (three gathers, one after another); 7.27-7.57 with all but the
+// scatter before the barrier (each too-old recomputed, the three
+// gathers together, the hits kept in registers and scattered after it).
+#define GPREP_THREADS 256
+#define GPREP_BLOCKS_PER_SM 2
 
-__global__ void k_gen_rw(int r_cap, int w_cap, int t_cap,
-                         const int* __restrict__ r_txn,
-                         const int* __restrict__ r_valid,
-                         const int* __restrict__ w_txn,
-                         const int* __restrict__ w_valid,
-                         const int* __restrict__ too_old,
-                         const int* __restrict__ t_snap,
-                         const int* __restrict__ vmax,
-                         int* __restrict__ r_live, int* __restrict__ hist,
-                         int* __restrict__ w_ok) {
-  long n = r_cap > w_cap ? r_cap : w_cap;
-  GRID_STRIDE(i, n) {
-    if (i < r_cap) {
-      int rt = r_txn[i];
-      int tc = clampi(rt, 0, t_cap - 1);
-      bool live = r_valid[i] && !too_old[tc];
-      r_live[i] = live ? 1 : 0;
-      if (live && vmax[i] > t_snap[tc]) {
-        long d = scatter_index(rt, t_cap);
-        if (d >= 0) hist[d] = 1;
+struct GprepArgs {
+  int t_cap, r_cap, w_cap;
+  const int* r_txn;
+  const int* r_valid;
+  const int* w_txn;
+  const int* w_valid;
+  const int* t_snap;
+  const int* t_has_reads;
+  const int* t_valid;
+  const int* oldest_rel;
+  const int* vmax;  // [r_cap]: each read's history maximum
+  int* too_old;
+  int* r_live;
+  int* hist;
+  int* w_ok;
+};
+
+template <bool VEC>
+__global__ void __launch_bounds__(GPREP_THREADS) k_gen_prep(GprepArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  const long gtid = blockIdx.x * (long)GPREP_THREADS + threadIdx.x;
+  const long gstride = (long)gridDim.x * GPREP_THREADS;
+  const int oldest = __ldg(a.oldest_rel);
+  const long t_cap = a.t_cap;
+  for (long t0 = RW_VEC * gtid; t0 < t_cap; t0 += RW_VEC * gstride) {
+    int valid[RW_VEC], has[RW_VEC], snap[RW_VEC], old[RW_VEC];
+    const int zero[RW_VEC] = {};
+    load_run<VEC>(a.t_valid, t0, t_cap, valid);
+    load_run<VEC>(a.t_has_reads, t0, t_cap, has);
+    load_run<VEC>(a.t_snap, t0, t_cap, snap);
+#pragma unroll
+    for (int k = 0; k < RW_VEC; ++k)
+      old[k] = valid[k] && has[k] && snap[k] < oldest ? 1 : 0;
+    store_run<VEC>(a.too_old, t0, t_cap, old);
+    store_run<VEC>(a.hist, t0, t_cap, zero);
+  }
+  grid.sync();
+  const long r_runs = ((long)a.r_cap + RW_VEC - 1) / RW_VEC;
+  const long w_runs = ((long)a.w_cap + RW_VEC - 1) / RW_VEC;
+  for (long c = gtid; c < r_runs + w_runs; c += gstride) {
+    const bool reads = c < r_runs;
+    const long i = (reads ? c : c - r_runs) * RW_VEC;
+    const long n = reads ? a.r_cap : a.w_cap;
+    int txn[RW_VEC], valid[RW_VEC], vmax[RW_VEC], old[RW_VEC],
+        snap[RW_VEC];
+    load_run<VEC>(reads ? a.r_txn : a.w_txn, i, n, txn);
+    load_run<VEC>(reads ? a.r_valid : a.w_valid, i, n, valid);
+    if (reads) load_run<VEC>(a.vmax, i, n, vmax);
+#pragma unroll
+    for (int k = 0; k < RW_VEC; ++k) {  // every gather before any use
+      const bool in = i + k < n && valid[k];
+      const int tc = clampi(txn[k], 0, a.t_cap - 1);
+      old[k] = in ? __ldcg(a.too_old + tc) : 1;  // through L2
+      snap[k] = in && reads ? __ldg(a.t_snap + tc) : 0;
+    }
+    if (!reads) {
+      int ok[RW_VEC];
+#pragma unroll
+      for (int k = 0; k < RW_VEC; ++k) ok[k] = old[k] ? 0 : 1;
+      store_run<VEC>(a.w_ok, i, n, ok);
+      continue;
+    }
+    int live[RW_VEC];
+#pragma unroll
+    for (int k = 0; k < RW_VEC; ++k) {
+      live[k] = old[k] ? 0 : 1;
+      if (live[k] && vmax[k] > snap[k]) {
+        const long d = scatter_index(txn[k], t_cap);
+        if (d >= 0) a.hist[d] = 1;
       }
     }
-    if (i < w_cap) {
-      int tc = clampi(w_txn[i], 0, t_cap - 1);
-      w_ok[i] = (w_valid[i] && !too_old[tc]) ? 1 : 0;
-    }
+    store_run<VEC>(a.r_live, i, n, live);
   }
 }
 
@@ -722,13 +845,18 @@ extern "C" int ib_rw_prep(int r_pad, int w_pad, int t_cap, int u_pad,
   RET;
 }
 
+// codes (with scal, too_old and w_ins) null: the fixpoint alone.
 extern "C" int ib_fixpoint(int t_cap, int r_pad, int w_pad, int u_pad,
                            const void* hist, const void* r_txn,
                            const void* r_live, const void* r_slot,
                            const void* w_txn, const void* w_ok,
                            const void* w_slot, void* cover, void* nconf,
                            void* changed, void* conf, void* rounds_out,
-                           void* stream) {
+                           const void* scal, const void* too_old,
+                           void* codes, void* w_ins, void* stream) {
+  if (codes != nullptr &&
+      (scal == nullptr || too_old == nullptr || w_ins == nullptr))
+    return (int)cudaErrorInvalidValue;
   IbFixArgs a;
   a.t_cap = t_cap;
   a.r_pad = r_pad;
@@ -746,6 +874,13 @@ extern "C" int ib_fixpoint(int t_cap, int r_pad, int w_pad, int u_pad,
   a.changed = (int*)changed;
   a.conf = (int*)conf;
   a.rounds = (int*)rounds_out;
+  a.scal = (const int*)scal;
+  a.too_old = (const int*)too_old;
+  a.codes = (int8_t*)codes;
+  a.w_ins = (int*)w_ins;
+  a.vec = (uintptr_t)too_old % 16 == 0 && (uintptr_t)conf % 16 == 0 &&
+          (uintptr_t)w_txn % 16 == 0 && (uintptr_t)w_ins % 16 == 0 &&
+          (uintptr_t)codes % 4 == 0;
   long work = u_pad + 1L;
   if (r_pad > work) work = r_pad;
   if (w_pad > work) work = w_pad;
@@ -763,37 +898,44 @@ extern "C" int ib_fixpoint(int t_cap, int r_pad, int w_pad, int u_pad,
   return (int)cudaGetLastError();
 }
 
-extern "C" int ib_codes(int t_cap, int w_pad, const void* scal,
-                        const void* too_old, const void* conf,
-                        const void* w_txn, void* codes, void* w_ins,
-                        void* stream) {
-  long n = t_cap > w_pad ? t_cap : w_pad;
-  k_codes<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
-      t_cap, w_pad, (const int*)scal, (const int*)too_old, (const int*)conf,
-      (const int*)w_txn, (int8_t*)codes, (int*)w_ins);
-  RET;
-}
-
-extern "C" int ig_txn(int t_cap, const void* t_snap, const void* t_has_reads,
-                      const void* t_valid, const void* oldest_rel,
-                      void* too_old, void* stream) {
-  k_gen_txn<<<blocks_for(t_cap, THREADS), THREADS, 0, S(stream)>>>(
-      t_cap, (const int*)t_snap, (const int*)t_has_reads,
-      (const int*)t_valid, (const int*)oldest_rel, (int*)too_old);
-  RET;
-}
-
-extern "C" int ig_rw(int r_cap, int w_cap, int t_cap, const void* r_txn,
-                     const void* r_valid, const void* w_txn,
-                     const void* w_valid, const void* too_old,
-                     const void* t_snap, const void* vmax, void* r_live,
-                     void* hist, void* w_ok, void* stream) {
-  long n = r_cap > w_cap ? r_cap : w_cap;
-  k_gen_rw<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
-      r_cap, w_cap, t_cap, (const int*)r_txn, (const int*)r_valid,
-      (const int*)w_txn, (const int*)w_valid, (const int*)too_old,
-      (const int*)t_snap, (const int*)vmax, (int*)r_live, (int*)hist,
-      (int*)w_ok);
+// One cooperative launch over min(what the work needs, the co-resident
+// blocks, GPREP_BLOCKS_PER_SM an SM) blocks.
+extern "C" int ig_prep(int t_cap, int r_cap, int w_cap, const void* r_txn,
+                       const void* r_valid, const void* w_txn,
+                       const void* w_valid, const void* t_snap,
+                       const void* t_has_reads, const void* t_valid,
+                       const void* oldest_rel, const void* vmax,
+                       void* too_old, void* r_live, void* hist, void* w_ok,
+                       void* stream) {
+  if (t_cap < 1 || r_cap < 0 || w_cap < 0) return (int)cudaErrorInvalidValue;
+  GprepArgs a{t_cap, r_cap, w_cap,
+              (const int*)r_txn, (const int*)r_valid, (const int*)w_txn,
+              (const int*)w_valid, (const int*)t_snap,
+              (const int*)t_has_reads, (const int*)t_valid,
+              (const int*)oldest_rel, (const int*)vmax, (int*)too_old,
+              (int*)r_live, (int*)hist, (int*)w_ok};
+  const void* quads[] = {r_txn, r_valid, w_txn, w_valid, t_snap,
+                         t_has_reads, t_valid, vmax, too_old, r_live, hist,
+                         w_ok};
+  bool vec = true;
+  for (const void* p : quads) vec = vec && (uintptr_t)p % 16 == 0;
+  const void* kern = vec ? (const void*)k_gen_prep<true>
+                         : (const void*)k_gen_prep<false>;
+  // The blocks the larger phase needs: RW_VEC txns, reads or writes a
+  // thread.
+  const long runs = ((long)r_cap + RW_VEC - 1) / RW_VEC +
+                    ((long)w_cap + RW_VEC - 1) / RW_VEC;
+  long want = ((long)t_cap + RW_VEC - 1) / RW_VEC;
+  if (runs > want) want = runs;
+  int grid = 0;
+  cudaError_t err = (cudaError_t)coop_grid(
+      kern, GPREP_THREADS, GPREP_BLOCKS_PER_SM,
+      (want + GPREP_THREADS - 1) / GPREP_THREADS, &grid);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(GPREP_THREADS),
+                                    args, 0, S(stream));
+  if (err != cudaSuccess) return (int)err;
   RET;
 }
 

@@ -45,8 +45,8 @@ KERNELS = {
     "build_sparse_table": ("sparse_table", _REF + "ops/rangemax.py:20"),
     "compact_prep": ("intra_batch", _REF + "conflict/fused.py:300"),
     "read_write_prep": ("intra_batch", _REF + "conflict/fused.py:332"),
+    # and, in the same launch, the codes (fused.py:388, batch_codes)
     "intra_batch_fixpoint": ("intra_batch", _REF + "conflict/fused.py:373"),
-    "batch_codes": ("intra_batch", _REF + "conflict/fused.py:388"),
     "point_insert": ("insert", _REF + "conflict/fused.py:157"),
     "merge": ("rank_scan", _REF + "conflict/fused.py:607"),
     "sort_rows": ("sort", _REF + "conflict/fused.py:524"),
@@ -81,10 +81,8 @@ _SIGS = {
         "ib_unpack_layout": "iiii" "p",
         "ib_unpack": "iiiiii" "pppppp" "ppppp" "pl" "p",
         "ib_rw_prep": "iiii" "pppppppp" "ppppppp" "p",
-        "ib_fixpoint": "iiii" "ppppppp" "ppppp" "p",
-        "ib_codes": "ii" "pppppp" "p",
-        "ig_txn": "i" "ppppp" "p",
-        "ig_rw": "iii" "pppppppppp" "p",
+        "ib_fixpoint": "iiii" "ppppppp" "ppppp" "pppp" "p",
+        "ig_prep": "iii" "ppppppppp" "pppp" "p",
         "ig_codes": "ii" "ppppppp" "p",
     },
     "sort": {"so_sort": "li" "pppppp" "p"},

@@ -200,8 +200,9 @@ class ShardedTorchConflictSet(TorchConflictSet):
             # The unique keys, too-old and the rank counts are the batch's,
             # not a shard's, so the shards of a device share one unpack;
             # each takes its own zeroed hist.  Nothing after it writes them
-            # in place: clip_rows, history_probe, read_write_prep,
-            # batch_codes and the point insert only read them.
+            # in place: clip_rows, history_probe, read_write_prep, the
+            # fixpoint's codes (resolve) and the point insert only read
+            # them.
             units = {dev: step.unpack(bufs[dev], sum(
                 sh.device == dev for sh in self.shards))
                 for dev in self._devices}

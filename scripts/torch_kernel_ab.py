@@ -4,7 +4,8 @@ the shapes the conflict path hands them.
 
   python3 scripts/torch_kernel_ab.py [--root DIR] [--label NAME]
       [--cases table,sort,fixpoint,merge,insert,probe,rwprep,prep,union,
-               search,combine,gstep,sharded,swindow,general]
+               search,combine,codes,gprep,cstep,gstep,sharded,swindow,
+               general]
       [--profile] [--sweep]
 
 DIR (default: the checkout holding this script) is the checkout whose
@@ -76,6 +77,23 @@ checkout's chip_smoke.py:
             own ms, the whole chain's device ms behind the sleep (any
             staging included) and its device operations a call by
             torch.profiler (the port's kernels, others);
+  codes     (not in the default set) the compact step's resolve
+            (CompactStep.resolve: the fixpoint and the verdict codes, as
+            this package runs them) on the history bits of config 2's
+            warmed state's next batch and on the combined bits of config
+            5's four shards (warm_sharded), the inputs from the plain
+            versions: equality of the codes and the insert mask with the
+            plain versions', launches a call by counter, own device ms
+            (the fixpoint's and any codes kernel's launches), the whole
+            call's device ms behind the sleep, its device operations a
+            call by torch.profiler (the port's kernels, others) and each
+            one's us;
+  gprep     (not in the default set) general_prep on config 3's warmed
+            state's next batch (warmed_general_state; each read's history
+            maximum from the plain probe), timed the same way, with its
+            least bytes;
+  cstep     (not in the default set) program #1, the compact step, on
+            config 2's warmed state and its next batch, timed as gstep;
   gstep     (not in the default set) program #4, the general step, on
             chip_smoke's warmed config-3 state and its next batch
             (warmed_general_state), bit-equal to its plain version: the
@@ -204,6 +222,12 @@ def main() -> int:
         out["searchsorted"] = search_case(S, K, universe, r_cap)
     if "combine" in cases:
         out["shard_combine"] = combine_case(S, K, fused)
+    if "codes" in cases:
+        out["resolve"] = codes_case(S, K, fused)
+    if "gprep" in cases:
+        out["general_prep"] = gprep_case(S, K, fused)
+    if "cstep" in cases:
+        out["compact_step"] = cstep_case(S, fused)
     if "gstep" in cases:
         out["general_step"] = gstep_case(S, fused)
     if "sharded" in cases:
@@ -457,38 +481,191 @@ def combine_case(S, K, fused, reps: int = 20) -> dict:
     return result
 
 
-def gstep_case(S, fused, reps: int = 20) -> dict:
-    """Program #4 on a warmed config-3 state (the `gstep` case)."""
+# chip_smoke's warmed states, each built once a run (the cases read them
+# or restore copies of them).
+_WARM = {}
+
+
+def warm(S, name: str):
+    if name not in _WARM:
+        _WARM[name] = {"config2": S.warmed_state,
+                       "config3": S.warmed_general_state}[name]()
+    return _WARM[name]
+
+
+def call_row(S, K, name: str, run, want, counters, n_bytes: int,
+             reps: int = 20) -> dict:
+    """One call of a chain of this package's kernels (run(impl)), against
+    its plain outputs `want`: launches a call by counter, own device ms
+    (the launches under `counters`, and under each alone), the whole call's device ms behind the
+    sleep, device operations a call by torch.profiler and each one's us,
+    plain ms, bound."""
+    K.reset_counts()
+    got = run()
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    err = S.require_equal(name, got, want)
+    kernels, others = S.device_ops(run)
+    names = (counters,) if isinstance(counters, str) else counters
+    return {"launches_per_call": launches, "max_abs_err": err,
+            "kernels_per_call": kernels, "other_ops_per_call": others,
+            "ms": S.device_ms(run, reps=reps, counter=counters),
+            "ms_by_counter": {n: S.device_ms(run, reps=reps, counter=n)
+                              for n in names if launches.get(n)},
+            "chain_ms": S.device_ms(run, reps=reps),
+            "profile_us": device_us(run, 10),
+            "plain_ms": S.cuda_ms(lambda: run("plain"), reps=2),
+            "bound_ms": S.bound_ms(n_bytes)}
+
+
+def resolve_row(S, K, fused, cap: int, d_cap: int, shapes, h: dict,
+                hist) -> dict:
+    """CompactStep.resolve on one batch's history bits `hist` and its
+    history dict `h` (from the plain versions)."""
     import torch
-    cs, packed, _, _ = S.warmed_general_state()
+    t_cap = shapes[0]
+    steps = {impl: fused.make_resolve_step_compact(cap, d_cap, *shapes,
+                                                   impl=impl)
+             for impl in (None, "plain")}
+
+    def run(impl=None):
+        out = torch.empty((t_cap + fused.OUT_EXTRA,), dtype=torch.int8,
+                          device=S.DEVICE)
+        w_ins = steps[impl].resolve(h, hist, out)
+        return w_ins, out[:t_cap]
+
+    rw = h["rw"]
+    want = run("plain")
+    n_bytes = S.nbytes(hist, *(rw[k] for k in (
+        "r_txn", "r_live", "r_slot", "w_txn", "w_ok", "w_slot")),
+        h["too_old"], *want) + 4 * t_cap  # + conf
+    row = call_row(S, K, "resolve", run, want,
+                   ("intra_batch_fixpoint", "batch_codes"), n_bytes)
+    row["shapes"] = list(shapes)
+    return row
+
+
+def codes_case(S, K, fused) -> dict:
+    """The compact step's resolve (the `codes` case) at config 2 and on
+    config 5's combined bits."""
+    import torch
+    from foundationdb_tpu_torch.ops.shard import shard_combine
+    P = "plain"
+    cs, packed, buf = warm(S, "config2")
+    shapes = packed["shapes"]
+    h = fused.make_resolve_step_compact(S.CAPACITY, cs.d_cap, *shapes,
+                                        impl=P).history(
+        cs.bk, cs.table, cs.dk, cs.dtable, buf)
+    result = {"config2": resolve_row(S, K, fused, S.CAPACITY, cs.d_cap,
+                                     shapes, h, h["rw"]["hist"])}
+    rng5 = np.random.default_rng(5055)
+    splits5 = S.config5_splits(rng5)
+    cs5, _, packed5, _ = S.warm_sharded(
+        splits5, S.make_stream5(rng5, 5), S.CONFIG5_CAPACITY // S.N_SHARDS,
+        S.CONFIG5_DELTA // S.N_SHARDS)
+    shapes5 = packed5["shapes"]
+    step = fused.make_resolve_step_compact(cs5.capacity, cs5.d_cap, *shapes5,
+                                           impl=P)
+    buf5 = torch.from_numpy(packed5["buf"]).to(S.DEVICE)
+    hs = [step.history(sh.bk, sh.table, sh.dk, sh.dtable, buf5, sh.bounds)
+          for sh in cs5.shards]
+    hist = shard_combine(torch.stack([x["rw"]["hist"] for x in hs]),
+                         impl=P)
+    result["config5"] = resolve_row(S, K, fused, cs5.capacity, cs5.d_cap,
+                                    shapes5, hs[0], hist)
+    return result
+
+
+def gprep_case(S, K, fused) -> dict:
+    """general_prep at config 3 (the `gprep` case)."""
+    import torch
+    from foundationdb_tpu_torch.ops import digest
+    cs, packed, _, _ = warm(S, "config3")
     t_cap, r_cap, w_cap = packed["caps"]
     n_rows = 2 * (r_cap + w_cap)
     buf = torch.from_numpy(packed["buf"]).to(S.DEVICE)
     digests = buf[:32 * n_rows].view(torch.int32).view(n_rows, 8)
-    meta = buf[32 * n_rows:].view(torch.int32)
-    keys = ("bk", "bv", "table", "size", "dk", "dv", "dtable", "dsize",
-            "flag")
-    saved = {k: getattr(cs, k).clone() for k in keys}
-    st = {k: v.clone() for k, v in saved.items()}
-
-    def load():
-        for k in keys:
-            st[k].copy_(saved[k])
+    m = fused.unpack_meta(buf[32 * n_rows:].view(torch.int32), t_cap, r_cap,
+                          w_cap)
+    vmax = digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable,
+                                digests[:r_cap], digests[r_cap:2 * r_cap],
+                                "plain")
 
     def run(impl=None):
-        step = fused.make_resolve_step(S.CAPACITY, cs.d_cap, t_cap, r_cap,
-                                       w_cap, impl=impl)
-        return step(*(st[k] for k in keys), digests, meta)
+        return fused.general_prep(m, vmax, impl)
 
+    want = run("plain")
+    n_bytes = S.nbytes(*(m[k] for k in (
+        "r_txn", "r_valid", "w_txn", "w_valid", "t_snap", "t_has_reads",
+        "t_valid")), vmax, *want.values())
+    row = call_row(S, K, "general_prep", run, want, "general_prep", n_bytes)
+    row.update(caps=[t_cap, r_cap, w_cap],
+               hist_bits=int(want["hist"].sum()),
+               too_old=int(want["too_old"].sum()))
+    return row
+
+
+def program_row(S, name: str, run, load, reps: int = 20) -> dict:
+    """A one-device program run(impl) on a warmed state that load()
+    restores, bit-equal to its plain version: its device time alone by
+    torch.profiler (profiled_step), behind the sleep and on the
+    timeline."""
     load()
     got = tuple(t.clone() for t in run())
     load()
-    err = S.require_equal("general_step", got, run("plain"))
+    err = S.require_equal(name, got, run("plain"))
     row = profiled_step(run, load)
     row.update(max_abs_err=err,
                device_ms=S.device_ms(run, reps=reps, setup=load),
                timeline_ms=S.cuda_ms(run, reps=reps, setup=load))
     return row
+
+
+STATE_KEYS = ("bk", "bv", "table", "size", "dk", "dv", "dtable", "dsize",
+              "flag")
+
+
+def saved_state(cs):
+    """A copy of a backend's state, a working copy and its restore."""
+    saved = {k: getattr(cs, k).clone() for k in STATE_KEYS}
+    st = {k: v.clone() for k, v in saved.items()}
+
+    def load():
+        for k in STATE_KEYS:
+            st[k].copy_(saved[k])
+
+    return st, load
+
+
+def cstep_case(S, fused) -> dict:
+    """Program #1 on the warmed config-2 state (the `cstep` case)."""
+    cs, packed, buf = warm(S, "config2")
+    st, load = saved_state(cs)
+
+    def run(impl=None):
+        step = fused.make_resolve_step_compact(S.CAPACITY, cs.d_cap,
+                                               *packed["shapes"], impl=impl)
+        return step(*(st[k] for k in STATE_KEYS), buf)
+
+    return program_row(S, "compact_step", run, load)
+
+
+def gstep_case(S, fused) -> dict:
+    """Program #4 on a warmed config-3 state (the `gstep` case)."""
+    import torch
+    cs, packed, _, _ = warm(S, "config3")
+    t_cap, r_cap, w_cap = packed["caps"]
+    n_rows = 2 * (r_cap + w_cap)
+    buf = torch.from_numpy(packed["buf"]).to(S.DEVICE)
+    digests = buf[:32 * n_rows].view(torch.int32).view(n_rows, 8)
+    meta = buf[32 * n_rows:].view(torch.int32)
+    st, load = saved_state(cs)
+
+    def run(impl=None):
+        step = fused.make_resolve_step(S.CAPACITY, cs.d_cap, t_cap, r_cap,
+                                       w_cap, impl=impl)
+        return step(*(st[k] for k in STATE_KEYS), digests, meta)
+
+    return program_row(S, "general_step", run, load)
 
 
 def kernel_key(key: str) -> str:

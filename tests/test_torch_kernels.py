@@ -23,6 +23,8 @@ from foundationdb_tpu_torch.ops.rangemax import NEG_INF
 from foundationdb_tpu_torch.ops.sort import SORT_TILE
 from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
 
+from test_torch_codes import (CODES_CASES, GPREP_CASES, codes_case,
+                              codes_port, gprep_case, gprep_port)
 from test_torch_insert import CASES as INSERT_CASES, make_case, run_port
 from test_torch_prep import PREP_CASES, prep_case, prep_port
 from test_torch_probe import search_top
@@ -380,8 +382,8 @@ def test_shard_combine_in_place(dev, d):
 
 def test_step_blocks(dev):
     """compact_prep (one launch a call and no fill), read_write_prep (one
-    launch, into compact_prep's hist), the fixpoint and the codes, each on
-    the plain version's inputs."""
+    launch, into compact_prep's hist), the fixpoint alone and the fixpoint
+    with the codes (one launch), each on the plain version's inputs."""
     st = make_state(dev)
     x = step_inputs(dev, packed_batch(4))
     t_cap, r_pad, w_pad, u_pad, lw = x["shapes"]
@@ -417,10 +419,16 @@ def test_step_blocks(dev):
     assert int(got_rounds[0]) == int(rounds[0]) >= 2
     codes = [torch.empty((t_cap,), dtype=torch.int8, device=dev)
              for _ in range(2)]
-    w_ins = fused.batch_codes(x["scal"], too_old, conf, rw["w_txn"], codes[0],
-                              P)
-    same(fused.batch_codes(x["scal"], too_old, conf, rw["w_txn"], codes[1]),
-         w_ins)
+    want = fused.intra_batch_fixpoint(*args, impl=P, codes_out=codes[0],
+                                      scal=x["scal"], too_old=too_old)
+    w_ins = fused.batch_codes(x["scal"], too_old, conf, rw["w_txn"],
+                              torch.empty_like(codes[0]), P)
+    same(want, (conf, rounds, w_ins))
+    K.reset_counts()
+    same(fused.intra_batch_fixpoint(*args, codes_out=codes[1], scal=x["scal"],
+                                    too_old=too_old), want)
+    assert K.LAUNCHES["intra_batch_fixpoint"] == 1
+    assert sum(K.LAUNCHES.values()) == 1
     same(codes[1], codes[0])
     assert {0, 1, 2} <= set(codes[0][:3000].tolist())
 
@@ -465,6 +473,117 @@ def test_intra_batch_fixpoint_deep_chain(dev, depth, t_cap):
     want = np.zeros(t_cap, np.int32)
     want[1:depth:2] = 1            # the chain alternates from txn 0
     assert np.array_equal(got.cpu().numpy(), want)
+
+
+def check_fixpoint_codes(dev, c):
+    """The fixpoint with the codes (tests/test_torch_codes.py codes_port),
+    kernel against plain: one launch a call and no other wrapper's."""
+    K.reset_counts()
+    got = codes_port(c, dev)
+    assert K.LAUNCHES["intra_batch_fixpoint"] == 1
+    assert sum(K.LAUNCHES.values()) == 1
+    same(got, codes_port(c, dev, impl="plain"))
+    return got
+
+
+@pytest.mark.parametrize("name", CODES_CASES)
+def test_fixpoint_codes_cases(dev, name):
+    """tests/test_torch_codes.py's cases (n_t and n_w at 0 and at the
+    pads, t_cap 1, txn -1 reads and writes, too-old writers, every txn
+    conflicted, t_cap above and below w_pad, a chain), kernel against
+    plain."""
+    check_fixpoint_codes(dev, codes_case(name))
+
+
+# (t_cap, r_pad, w_pad, u_pad) of the compact step's resolve.
+FIX_CODES_SHAPES = {
+    "config2": (131_072, 212_992, 114_688, 49_152),
+    "config5": (65_536, 131_072, 65_536, 196_608),
+    "t_cap_gt_w_pad": (5_003, 9_001, 1_003, 700),
+    "t_cap_lt_w_pad": (1_003, 9_001, 5_003, 700),
+}
+
+
+@pytest.mark.parametrize("shape", list(FIX_CODES_SHAPES))
+@pytest.mark.parametrize("name", ["mixed", "txn_minus_1", "all_conflicted"])
+def test_fixpoint_codes_shapes(dev, shape, name):
+    """The fused fixpoint and codes at config 2's and a config-5 batch's
+    shapes and with t_cap on either side of w_pad (the codes phase covers
+    both from the fixpoint's grid), kernel against plain."""
+    t_cap, r_pad, w_pad, u_pad = FIX_CODES_SHAPES[shape]
+    got = check_fixpoint_codes(dev, codes_case(name, t_cap=t_cap,
+                                               r_pad=r_pad, w_pad=w_pad,
+                                               u_pad=u_pad))
+    assert {-1, 1, 0 if name == "all_conflicted" else 2} <= set(
+        got["codes"].unique().tolist())
+
+
+def test_fixpoint_codes_deep_chain(dev):
+    """The 300-deep chain at config 2's t_cap with the codes: conf, rounds,
+    codes and the insert mask equal the plain version's, one launch."""
+    args, u_pad = chain_fixpoint_inputs(dev, 300, 1 << 17)
+    t_cap, r_pad, w_pad = args[0].shape[0], args[1].shape[0], args[4].shape[0]
+    rng = np.random.default_rng(3)
+    too_old = torch.from_numpy(
+        (rng.random(t_cap) < 0.1).astype(np.int32)).to(dev)
+    scal = torch.tensor([u_pad, r_pad, w_pad - 17, t_cap - 9, 0, 0],
+                        dtype=torch.int32, device=dev)
+    outs = []
+    for impl in (None, "plain"):
+        codes = torch.full((t_cap,), 77, dtype=torch.int8, device=dev)
+        K.reset_counts()
+        outs.append((*fused.intra_batch_fixpoint(
+            *args, u_pad, impl, codes_out=codes, scal=scal, too_old=too_old),
+            codes))
+        assert K.LAUNCHES["intra_batch_fixpoint"] == (1 if impl is None
+                                                     else 0)
+    same(outs[0], outs[1])
+    assert int(outs[0][1][0]) == 300
+
+
+def test_batch_codes_plain_only_raises_on_the_card(dev):
+    """batch_codes has no kernel of its own (the fixpoint's launch writes
+    the codes): on a CUDA tensor without impl="plain" it raises."""
+    c = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v
+         for k, v in codes_case("mixed").items()}
+    codes = torch.empty((c["shape"][0],), dtype=torch.int8, device=dev)
+    with pytest.raises(RuntimeError):
+        fused.batch_codes(c["scal"], c["too_old"], c["hist"], c["w_txn"],
+                          codes)
+    fused.batch_codes(c["scal"], c["too_old"], c["hist"], c["w_txn"], codes,
+                      impl="plain")
+
+
+def check_general_prep(dev, c, offset=0):
+    """general_prep kernel against plain: one launch a call (ig_prep) and
+    no other wrapper's."""
+    K.reset_counts()
+    got = gprep_port(c, dev, offset=offset)
+    assert K.LAUNCHES["general_prep"] == 1
+    assert sum(K.LAUNCHES.values()) == 1
+    same(got, gprep_port(c, dev, impl="plain"))
+    return got
+
+
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+@pytest.mark.parametrize("name", GPREP_CASES)
+def test_general_prep_cases(dev, name, layout):
+    """tests/test_torch_codes.py's general_prep cases (n_t, n_r and n_w at
+    0 and at the caps, t_cap 1, txn -1 reads and writes, too-old writers,
+    writes and no reads, snapshots at the floor, every read a hit), with
+    the metadata block 16-byte aligned or one int32 off (no quad loads)."""
+    check_general_prep(dev, gprep_case(name),
+                       offset=1 if layout == "unaligned" else 0)
+
+
+@pytest.mark.parametrize("name", ["mixed", "txn_minus_1", "too_old_writers",
+                                  "all_conflicted"])
+def test_general_prep_config3(dev, name):
+    """general_prep at config 3's caps (65,536 txns, 524,288 reads, 65,536
+    writes), kernel against plain, one launch."""
+    got = check_general_prep(dev, gprep_case(name, t_cap=1 << 16,
+                                             r_cap=1 << 19, w_cap=1 << 16))
+    assert got["hist"].any() and got["r_live"].any()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
