@@ -64,9 +64,15 @@ exits non-zero):
      sort_rounds(n) launches a call, and the spread of its times over
      (a)-(c); general_prep's one launch, one kernel and no other device
      operation a call by torch.profiler, and its whole call's device time
-     behind the sleep; interval_fixpoint's rounds (equal to the plain
-     version's), one launch a call, and a 200-deep chain of ranges at config-3 width
-     (rounds equal to the depth); window_insert on the general step's
+     behind the sleep; interval_fixpoint with its codes (as the general
+     step calls it): rounds equal to the plain version's, one launch, one
+     kernel and no other device operation a call, its own time beside the
+     fixpoint alone's, and a 200-deep chain of ranges at config-3 width
+     (rounds equal to the depth); window_gc on path 3's window the same
+     way (one in-place launch and nothing else a call), its bound the
+     in-place call's least bytes (gc_bytes) beside wg_keep's, and at a
+     floor that drops rows and on a synthetic 2^21 window (gc_at);
+     window_insert on the general step's
      delta and on path 3's window (insert_at: 3 launches a call beyond
      _union_ranges', which it no longer adds to); _union_ranges on the
      general step's and path 3's writes (union_at: wu_endpoints and
@@ -106,7 +112,9 @@ exits non-zero):
      versions) and on an overflow of one shard (every shard unchanged);
  14. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
-     general step),
+     general step; inclusive_scan and compact_rows, which no path runs
+     (window_gc scans and compacts inside its own launch), are held
+     against their plain versions in phase 2 and report 0),
      the card's name and power
      limit, and the last line: {"ok": true, "device": {...}}.
 
@@ -161,18 +169,19 @@ def phase_done(name: str) -> None:
 # just before the path is driven and read just after).
 # The inserts run no scan, search, rank count or compaction of ops/, nor
 # does _union_ranges (its sweep is one kernel), nor the compact step's
-# unpacking (compact_prep scans its rank counts itself): searchsorted runs
-# on the general path only (the endpoint universe), inclusive_scan and
-# compact_rows under window_gc only.
+# unpacking (compact_prep scans its rank counts itself), nor window_gc
+# (one in-place launch): searchsorted runs on the general path only (the
+# endpoint universe), and no path runs inclusive_scan or compact_rows
+# (OFF_PATH: phase 2 still holds them against their plain versions).
 _WINDOW = ["window_query", "sort_rows", "union_ranges", "window_insert",
-           "window_gc", "compact_rows", "inclusive_scan",
-           "build_sparse_table"]
+           "window_gc", "build_sparse_table"]
+OFF_PATH = ("inclusive_scan", "compact_rows")
 PATH_KERNELS = {
     "point": ["compact_prep", "history_probe", "read_write_prep",
               "intra_batch_fixpoint", "point_insert", "merge",
               "build_sparse_table"],
     "general": ["history_probe", "merge", "sort_rows", "general_prep",
-                "interval_fixpoint", "general_codes", "union_ranges",
+                "interval_fixpoint", "union_ranges",
                 "window_insert", "searchsorted", "build_sparse_table"],
     "window": _WINDOW,
     "sharded": ["compact_prep", "history_probe", "read_write_prep",
@@ -1875,10 +1884,7 @@ def compare_general(cs, packed, win, stream):
     vmax = digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable, r_b, r_e,
                                 P)
     g, fix_in, log_u = general_fixpoint_inputs(digests, m, vmax)
-    conf, rounds = fused.interval_fixpoint(*fix_in, log_u, impl=P)
-    codes = torch.empty((t_cap,), dtype=torch.int8, device=DEVICE)
-    w_ins = fused.general_codes(m["t_valid"], g["too_old"], conf, m["w_txn"],
-                                m["w_valid"], codes, P)
+    conf, rounds, w_ins, codes = _fix_codes3(fused, fix_in, log_u, m, g, P)
     log(f"config 3: {int(rounds[0])} Jacobi rounds on this batch, "
         f"{int(w_ins.sum())} surviving writes of {int(m['w_valid'].sum())}")
     # Path 3's inputs: the next batch's reads against the window of the
@@ -1900,6 +1906,14 @@ def compare_general(cs, packed, win, stream):
     def gc_run(impl, st):
         return tuple(window.window_gc(window.WindowState(
             st["bk"], st["bv"], st["size"]), floor(v5), floor(v5), impl=impl))
+
+    # window_gc's least bytes at this state (gc_bytes), beside the bound
+    # of wg_keep, the keep-mask kernel of the earlier multi-launch
+    # window_gc: the versions in and a keep mask out.
+    win_gc_bytes = gc_bytes(win, floor(v5), floor(v5))
+    log(f"window_gc: bound {bound_ms(win_gc_bytes):.5f} ms (the in-place "
+        f"call's least bytes, gc_bytes) against the old row's "
+        f"{bound_ms(nbytes(win.bv) + 4 * CAPACITY):.5f} (wg_keep's alone)")
 
     def win_insert_run(impl, st):
         st2, ovf = window.window_insert(window.WindowState(
@@ -1939,15 +1953,14 @@ def compare_general(cs, packed, win, stream):
                       2 * nbytes(digests)),
         "general_prep": (lambda i: fused.general_prep(m, vmax, i),
                          nbytes(*meta_in, vmax, *g.values())),
-        # Conf and the round count; the bound is one pass over the inputs
-        # and conf, whatever the rounds (see the row's "rounds").
+        # Conf, the round count, the codes and the insert mask (the
+        # fixpoint's last phase, general_codes); the bound is one pass over
+        # the inputs, the codes' inputs and the outputs, whatever the
+        # rounds (see the row's "rounds").
         "interval_fixpoint": (
-            lambda i: fused.interval_fixpoint(*fix_in, log_u, impl=i),
-            nbytes(*fix_in, conf)),
-        "general_codes": (
-            lambda i: _gen_codes(fused, m, g, conf, i),
-            nbytes(m["t_valid"], g["too_old"], conf, m["w_txn"],
-                   m["w_valid"], codes, w_ins)),
+            lambda i: _fix_codes3(fused, fix_in, log_u, m, g, i),
+            nbytes(*fix_in, conf, m["t_valid"], g["too_old"], m["w_valid"],
+                   codes, w_ins)),
         # wu_endpoints and wu_sweep (union_bytes: the sort's bytes are
         # sort_rows' row).
         "union_ranges": (lambda i: window._union_ranges(w_b, w_e, w_ins, i),
@@ -1960,8 +1973,9 @@ def compare_general(cs, packed, win, stream):
         "window_query": (query_run,
                          nbytes(q_b, q_e, q_snap, q_valid, bits)
                          + search_bytes(win.bk, nq) + 8 * nq),
-        # wg_keep: the versions in, the keep mask out.
-        "window_gc": ((gc_run, win_copy), nbytes(win.bv) + 4 * CAPACITY),
+        # wg_gc, in place: gc_bytes (the live versions in, the kept rows
+        # from the first dropped one on moved, the freed rows refilled).
+        "window_gc": ((gc_run, win_copy), win_gc_bytes),
     }
     rows = []
     for name, (fn, n_bytes) in cases.items():
@@ -2026,12 +2040,30 @@ def compare_general(cs, packed, win, stream):
         one_operation("general_prep", lambda: fused.general_prep(m, vmax)))
     fix = next(r for r in rows if r["name"] == "interval_fixpoint")
     fix["rounds"] = int(rounds[0])
-    K.reset_counts()
-    fused.interval_fixpoint(*fix_in, log_u)
-    fix["launches_per_call"] = K.LAUNCHES["interval_fixpoint"]
-    if fix["launches_per_call"] != 1:
-        raise AssertionError(f"interval_fixpoint: {fix['launches_per_call']}"
-                             " launches a call")
+    fix.update(one_operation("interval_fixpoint", lambda: _fix_codes3(
+        fused, fix_in, log_u, m, g, None)))
+    # The fixpoint alone (no codes), its own kernel's time.
+    fix["alone_ms"] = device_ms(lambda: fused.interval_fixpoint(
+        *fix_in, log_u), counter="interval_fixpoint")
+    log(f"interval_fixpoint: with the codes {fix['ms']:.5f} ms, alone "
+        f"{fix['alone_ms']:.5f} ms")
+    # window_gc on its own copy of the window, called again and again (a
+    # gc of a gc'd window drops nothing more and rebases again).
+    gc_state = win_copy()
+    gc_row = next(r for r in rows if r["name"] == "window_gc")
+    gc_row.update(one_operation("window_gc", lambda: gc_run(None, gc_state)))
+    gc_row["bound_ms_wg_keep"] = bound_ms(nbytes(win.bv) + 4 * CAPACITY)
+    del gc_state
+    # The gc at its floor moves no row (every version-0 boundary below it
+    # is a written range's end, after its begin); 3,000 versions higher it
+    # drops the first three batches' rows; on a synthetic 2^21 window it
+    # moves rows in every chunk of its grid.
+    gc_row["at_states"] = [
+        gc_at("config3_window", win, floor(v5), floor(v5)),
+        gc_at("config3_window_floor_plus_3000", win, floor(v5) + 3000,
+              floor(v5) + 3000),
+        gc_at("synthetic_2_21", gc_synthetic(CAPACITY, CAPACITY - 12_345,
+                                             5000), 5000, 1234)]
     fix["deep_chain"] = general_deep_chain(fused, t_cap, r_cap, w_cap, log_u)
 
     from foundationdb_tpu_torch.ops.sort import sort_rounds
@@ -2081,7 +2113,7 @@ def compare_general(cs, packed, win, stream):
              + search_bytes(win.bk, nq)),
             ("window_insert", win_insert_run, win_copy,
              2 * nbytes(win.bk, win.bv) + nbytes(ww_b, ww_e, ww_valid)),
-            ("window_gc", gc_run, win_copy, 2 * nbytes(win.bk, win.bv))):
+            ("window_gc", gc_run, win_copy, win_gc_bytes)):
         if run is None:
             def kern():
                 query_run("kernel")
@@ -2106,14 +2138,107 @@ def compare_general(cs, packed, win, stream):
                           "bound_ms": bound_ms(n_bytes)}
         log(f"program {prog}: bit-equal; kernel {ms:.3f} ms "
             f"({dev_ms:.3f} ms without host gaps), plain {plain:.3f} ms")
+    # Beside it, the whole state read and written once (the bound of the
+    # earlier out-of-place window_gc).
+    programs["window_gc"]["bound_ms_whole_state"] = bound_ms(
+        2 * nbytes(win.bk, win.bv))
     return rows, programs
 
 
-def _gen_codes(fused, m, g, conf, impl):
+def _fix_codes3(fused, fix_in, log_u, m, g, impl):
+    """interval_fixpoint with the codes (as GeneralStep.resolve calls it):
+    (conf, rounds, w_ins, codes)."""
     import torch
-    codes = torch.empty(conf.shape, dtype=torch.int8, device=DEVICE)
-    return fused.general_codes(m["t_valid"], g["too_old"], conf, m["w_txn"],
-                               m["w_valid"], codes, impl), codes
+    codes = torch.empty((m["t_valid"].shape[0],), dtype=torch.int8,
+                        device=DEVICE)
+    return (*fused.interval_fixpoint(
+        *fix_in, log_u, impl=impl, codes_out=codes, t_valid=m["t_valid"],
+        too_old=g["too_old"], w_valid=m["w_valid"]), codes)
+
+
+def gc_synthetic(cap: int, size: int, oldest: int, seed: int = 3):
+    """A window state of capacity cap with `size` live rows (sorted and
+    unique: lane 0 the row index, the other lanes random) whose versions
+    run alternately below and above `oldest` in runs of 1-4 rows, so
+    window_gc drops ~30% of the rows, spread over every chunk of its grid;
+    rows past size MAX at NEG_INF."""
+    import torch
+    from foundationdb_tpu_torch.conflict import window
+    from foundationdb_tpu_torch.ops.rangemax import NEG_INF
+    rng = np.random.default_rng(seed)
+    rows = np.full((cap, 8), 0xFFFFFFFF, np.uint32)
+    rows[:size, 0] = np.arange(size, dtype=np.uint32)
+    rows[:size, 1:] = rng.integers(0, 1 << 32, size=(size, 7),
+                                   dtype=np.uint64).astype(np.uint32)
+    lengths = rng.integers(1, 5, size=size)
+    run = np.repeat(np.arange(lengths.size) % 2 == 0, lengths)[:size]
+    bv = np.full(cap, NEG_INF, np.int32)
+    bv[:size] = np.where(run, rng.integers(oldest - 1000, oldest, size),
+                         rng.integers(oldest, oldest + 1000, size))
+    return window.WindowState(
+        torch.from_numpy(rows.view(np.int32)).to(DEVICE),
+        torch.from_numpy(bv).to(DEVICE),
+        torch.tensor([size], dtype=torch.int32, device=DEVICE))
+
+
+def gc_at(what: str, state, oldest_rel: int, rebase: int,
+          reps: int = REPS) -> dict:
+    """window_gc on copies of `state`, kernel against plain: live rows
+    before and after, launches a call, own ms (the
+    window_gc counter's launches), the whole call's device ms behind the
+    sleep (any fill or copy of the call included), plain ms, the bound by
+    gc_bytes."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict import window
+    holder = {}
+
+    def setup():
+        holder["st"] = window.WindowState(*(t.clone() for t in state))
+
+    def run(impl=None):
+        return tuple(window.window_gc(holder["st"], oldest_rel, rebase,
+                                      impl=impl))
+
+    setup()
+    want = tuple(t.clone() for t in run("plain"))
+    setup()
+    K.reset_counts()
+    got = run()
+    launches = K.LAUNCHES["window_gc"]
+    err = require_equal(f"window_gc at {what}", got, want)
+    sz, new = int(state.size[0]), int(want[2][0])
+    row = {"what": what, "size": sz, "new_size": new,
+           "launches_per_call": launches, "max_abs_err": err,
+           "ms": device_ms(run, reps=reps, setup=setup, counter="window_gc"),
+           "call_ms": device_ms(run, reps=reps, setup=setup),
+           "plain_ms": cuda_ms(lambda: run("plain"), reps=2, setup=setup),
+           "bound_ms": bound_ms(gc_bytes(state, oldest_rel, rebase))}
+    log(f"window_gc at {what} ({sz} -> {new} rows): bit-equal, "
+        f"{launches} launch(es); own {row['ms']:.5f} ms, call "
+        f"{row['call_ms']:.5f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms")
+    return row
+
+
+def gc_bytes(state, oldest_rel: int, rebase: int) -> int:
+    """Least bytes of window_gc in place on `state` (read from the plain
+    keep mask): the live versions read, the prefix's versions rewritten
+    when rebasing, each kept row from the first dropped one on read (32
+    bytes) and written with its version (36), and the freed rows [new
+    size, size) refilled (36 each)."""
+    import torch
+    sz = int(state.size[0])
+    bv = state.bv[:sz]
+    above = bv >= oldest_rel
+    prev = torch.cat([torch.ones_like(above[:1]), above[:-1]])
+    keep = above | prev
+    if sz:
+        keep[0] = True
+    dropped = (~keep).nonzero()
+    first = int(dropped[0]) if dropped.numel() else sz
+    total = int(keep.sum())
+    return (4 * sz + (4 * first if rebase else 0) + 68 * (total - first)
+            + 36 * (sz - total))
 
 
 def general_path(smi: str):
@@ -2690,9 +2815,16 @@ def compare_sharded(splits5, stream5, stream3):
     time_program(programs, "sharded_window_step", lambda: wstep(wins[0]),
                  lambda: wstep(wins[1]), wload(wins[0]), wload(wins[1]),
                  wstep_bytes)
+    # gc_bytes of each shard (one holds config 3's every row, the others
+    # one each), beside every shard's state read and written whole (the
+    # bound of the earlier out-of-place window_gc).
+    wload(wins[0])()
     time_program(programs, "sharded_gc", lambda: wgc(wins[0]),
                  lambda: wgc(wins[1]), wload(wins[0]), wload(wins[1]),
-                 N_SHARDS * 2 * nbytes(st0.bk, st0.bv))
+                 sum(gc_bytes(st, floor(v5), floor(v5))
+                     for st in wins[0].shard_states()))
+    programs["sharded_gc"]["bound_ms_whole_state"] = bound_ms(
+        N_SHARDS * 2 * nbytes(st0.bk, st0.bv))
     flag = torch.ones((1,), dtype=torch.int32, device=DEVICE)
     target = tuple(t.clone() for t in st0)
 
@@ -3137,7 +3269,7 @@ def main() -> int:
                PATH_KERNELS.items()
                if r["name"] in names and r["launches_by_path"][p] <= 0]
     missing += [r["name"] for r in rows
-                if r["launches"] <= 0]
+                if r["launches"] <= 0 and r["name"] not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels not launched on their paths: "
                              f"{missing}")

@@ -656,7 +656,9 @@ def fixpoint_scratch_len(t_cap: int, log_u: int) -> int:
 
 
 def interval_fixpoint(hist, r_txn, r_live, r_pb, r_pe, w_txn, w_ok, w_pb,
-                      w_pe, log_u: int, rounds_acc=None, impl=None):
+                      w_pe, log_u: int, rounds_acc=None, impl=None,
+                      codes_out=None, t_valid=None, too_old=None,
+                      w_valid=None):
     """The general intra-batch fixpoint (checkIntraBatchConflicts,
     SkipList.cpp:874-906; reference fused.py:531-547): a reader conflicts
     iff an EARLIER SURVIVING txn of the batch wrote a range overlapping
@@ -666,23 +668,46 @@ def interval_fixpoint(hist, r_txn, r_live, r_pb, r_pe, w_txn, w_ok, w_pb,
     answers every read's range min, and recomputes from the history-only
     baseline, until nothing changes.  Returns (conflicted int32[t_cap],
     rounds int32[1]); with rounds_acc (int32[1]) the round count is also
-    added there.  Kernel: sg_fixpoint, one cooperative persistent launch
-    whose rounds loop on the device, three grid barriers a round: the
-    cover pushed down by tiles in shared memory, the reads answered from
-    the cover, in-tile tables of run minima and a table of tile minima
+    added there.  With codes_out (int8[t_cap]), t_valid, too_old
+    (int32[t_cap]) and w_valid (int32[w_cap]) it also writes the verdict
+    codes into codes_out and returns the insert mask as a third element:
+    exactly general_codes after the fixpoint (reference fused.py:550-566).
+    Kernel: sg_fixpoint, one cooperative persistent launch whose rounds
+    loop on the device, three grid barriers a round: the cover pushed
+    down by tiles in shared memory, the reads answered from the cover,
+    in-tile tables of run minima and a table of tile minima; the codes
+    are its last phase, after the barrier the rounds leave on
     (csrc/segtree.cu)."""
-    t_cap = hist.shape[0]
+    t_cap, w_cap = hist.shape[0], w_txn.shape[0]
     dev = hist.device
     e = dict(dtype=torch.int32, device=dev)
+    codes = codes_out is not None
+    if codes and (t_valid is None or too_old is None or w_valid is None):
+        raise ValueError("interval_fixpoint: codes_out needs t_valid, "
+                         "too_old and w_valid")
     if _k.use_kernel(hist, impl):
+        if codes and (codes_out.shape != (t_cap,)
+                      or codes_out.dtype != torch.int8
+                      or t_valid.shape != (t_cap,)
+                      or too_old.shape != (t_cap,)
+                      or w_valid.shape != (w_cap,)):
+            raise ValueError(
+                f"interval_fixpoint: codes_out must be int8[{t_cap}], "
+                f"t_valid and too_old int32[{t_cap}], w_valid "
+                f"int32[{w_cap}], got {codes_out.dtype} "
+                f"{tuple(codes_out.shape)}, {tuple(t_valid.shape)}, "
+                f"{tuple(too_old.shape)}, {tuple(w_valid.shape)}")
         n = fixpoint_scratch_len(t_cap, log_u)
         conf = torch.empty((t_cap,), **e)
         rounds = torch.empty((1,), **e)
+        w_ins = torch.empty((w_cap,), **e) if codes else None
         _k.launch("interval_fixpoint", "sg_fixpoint", t_cap, r_txn.shape[0],
-                  w_txn.shape[0], log_u, hist, r_txn, r_live, r_pb, r_pe,
+                  w_cap, log_u, hist, r_txn, r_live, r_pb, r_pe,
                   w_txn, w_ok, w_pb, w_pe, torch.empty((n,), **e), n, conf,
-                  rounds, rounds_acc)
-        return conf, rounds
+                  rounds, rounds_acc, t_valid if codes else None,
+                  too_old if codes else None, w_valid if codes else None,
+                  codes_out, w_ins)
+        return (conf, rounds, w_ins) if codes else (conf, rounds)
     p_ = "plain"
     w_txn_c = torch.clamp(w_txn, 0, t_cap - 1).long()
     live = r_live != 0
@@ -703,21 +728,24 @@ def interval_fixpoint(hist, r_txn, r_live, r_pb, r_pe, w_txn, w_ok, w_pb,
     rounds_t = torch.tensor([rounds], **e)
     if rounds_acc is not None:
         rounds_acc.add_(rounds_t)
-    return conf, rounds_t
+    if not codes:
+        return conf, rounds_t
+    return conf, rounds_t, general_codes(t_valid, too_old, conf, w_txn,
+                                         w_valid, codes_out, p_)
 
 
 def general_codes(t_valid, too_old, conf, w_txn, w_valid, codes_out,
                   impl=None):
     """Verdict codes into codes_out (int8[t_cap]) and the insert mask of
     surviving txns' writes (int32[w_cap]) (reference fused.py:550-566).
-    Kernel: ig_codes."""
-    t_cap, w_cap = too_old.shape[0], w_txn.shape[0]
-    dev = too_old.device
+    Plain torch only: on the card interval_fixpoint writes them in the
+    fixpoint's own launch, so a call that would take the kernel route
+    raises."""
+    t_cap = too_old.shape[0]
     if _k.use_kernel(too_old, impl):
-        w_ins = torch.empty((w_cap,), dtype=torch.int32, device=dev)
-        _k.launch("general_codes", "ig_codes", t_cap, w_cap, t_valid,
-                  too_old, conf, w_txn, w_valid, codes_out, w_ins)
-        return w_ins
+        raise RuntimeError("general_codes has no kernel of its own (the card "
+                           "runs it in interval_fixpoint's launch); call it "
+                           "with impl='plain'")
     tv = t_valid != 0
     old = too_old != 0
     cf = conf != 0
@@ -792,7 +820,8 @@ class GeneralStep:
     def resolve(self, h: dict, hist: torch.Tensor, out: torch.Tensor,
                 rounds_acc=None) -> torch.Tensor:
         """The endpoint universe, the fixpoint from the (combined) history
-        bits, the codes into out[:t_cap]; returns the insert mask."""
+        bits with the codes into out[:t_cap] (one device operation after
+        the sort and the search); returns the insert mask."""
         impl, r_cap, w_cap = self.impl, self.r_cap, self.w_cap
         digests, m, g = h["digests"], h["m"], h["g"]
         # The endpoint gap universe: every endpoint of the batch sorted
@@ -802,13 +831,13 @@ class GeneralStep:
         sort_rows(digests, out=universe[:digests.shape[0]], impl=impl)
         pos = searchsorted(universe, digests, True, impl)
         r_pos, w_pos = pos[:2 * r_cap], pos[2 * r_cap:]
-        conflicted, _ = interval_fixpoint(
+        # The fixpoint and, in its launch, the codes and the insert mask.
+        _, _, w_ins = interval_fixpoint(
             hist, m["r_txn"], g["r_live"], r_pos[:r_cap], r_pos[r_cap:],
             m["w_txn"], g["w_ok"], w_pos[:w_cap], w_pos[w_cap:], self.log_u,
-            rounds_acc, impl)
-        return general_codes(m["t_valid"], g["too_old"], conflicted,
-                             m["w_txn"], m["w_valid"], out[:self.t_cap],
-                             impl)
+            rounds_acc, impl, codes_out=out[:self.t_cap],
+            t_valid=m["t_valid"], too_old=g["too_old"], w_valid=m["w_valid"])
+        return w_ins
 
     def insert(self, h: dict, dk, dv, dsize, flag, size, w_ins,
                tail) -> None:

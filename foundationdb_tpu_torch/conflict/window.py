@@ -22,8 +22,8 @@ Idiomatic PyTorch: window_insert and window_gc update the state's tensors
 IN PLACE and return them (the reference returns new arrays).  Each program
 is a wrapper with a plain-torch version, taken for CPU tensors and with
 impl="plain", and hand-written CUDA kernels (csrc/window.cu and
-csrc/insert.cu, with the sort, searches, scans and compactions of ops/) for
-CUDA tensors.  Booleans are int32 0/1.
+csrc/insert.cu, with the sort and the sparse table of ops/) for CUDA
+tensors.  Booleans are int32 0/1.
 """
 
 from __future__ import annotations
@@ -329,36 +329,46 @@ def window_insert(state: WindowState, w_begin: torch.Tensor,
 # GC / rebase
 # ---------------------------------------------------------------------------
 
+# Elements a tile of wg_gc owns (csrc/window.cu GC_TILE) and the int32
+# slots of its scratch a tile: its kept count and its 64 mask words.
+GC_TILE = 2048
+_GC_SLOTS = 1 + GC_TILE // 32
+
+
 def window_gc(state: WindowState, oldest_rel: int, rebase_delta: int,
               impl=None) -> WindowState:
     """removeBefore(oldest), IN PLACE: drop boundary i when both it and its
     original predecessor are below the floor (SkipList.cpp:576-607
     wasAbove logic); then shift every version down by rebase_delta, the
     subtraction wrapping in int32 before the clamp at NEG_INF + 1, bit for
-    bit as the reference (window.py:239).  Kernels: wg_keep,
-    inclusive_scan, compact_rows (with the rebase)."""
+    bit as the reference (window.py:239).  Rows past the new size become
+    MAX rows at NEG_INF.
+    Kernel: wg_gc, one cooperative launch a call and no other device
+    operation (csrc/window.cu k_gc): the keep bits, the kept rows moved
+    down in place chunk by chunk, the freed rows refilled and the size,
+    all sized by size[0] on the device.  It rewrites only rows below the
+    old size, so it relies on the window's invariant that rows past size
+    are MAX rows at NEG_INF (every state is built from a MAX fill and
+    every program keeps it); the plain version rewrites all of them."""
     bk, bv, size = state
     cap = bk.shape[0]
     dev = bk.device
-    e = dict(dtype=torch.int32, device=dev)
-    use = _k.use_kernel(bk, impl)
-    p_ = None if use else "plain"
-    if use:
-        keep = torch.empty((cap,), **e)
-        _k.launch("window_gc", "wg_keep", cap, size, bv, int(oldest_rel),
-                  keep)
-    else:
-        idx = _iota(cap, dev)
-        above = bv >= int(oldest_rel)
-        prev_above = torch.cat([torch.ones((1,), dtype=torch.bool,
-                                           device=dev), above[:-1]])
-        keep = ((idx < size) & ((idx == 0) | above | prev_above)).to(
-            torch.int32)
-    incl = inclusive_scan(keep, p_)
+    if _k.use_kernel(bk, impl):
+        n = -(-cap // GC_TILE) * _GC_SLOTS
+        _k.launch("window_gc", "wg_gc", bk, bv, size, cap, int(oldest_rel),
+                  int(rebase_delta),
+                  torch.empty((n,), dtype=torch.int32, device=dev), n)
+        return state
+    idx = _iota(cap, dev)
+    above = bv >= int(oldest_rel)
+    prev_above = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                            above[:-1]])
+    keep = ((idx < size) & ((idx == 0) | above | prev_above)).to(torch.int32)
+    incl = inclusive_scan(keep, "plain")
     out_rows = max_rows(cap, dev)
-    out_v = torch.full((cap,), NEG_INF, **e)
+    out_v = torch.full((cap,), NEG_INF, dtype=torch.int32, device=dev)
     compact_rows(keep, incl, bk, bv, out_rows, out_v,
-                 rebase=int(rebase_delta), impl=p_)
+                 rebase=int(rebase_delta), impl="plain")
     bk.copy_(out_rows)
     bv.copy_(out_v)
     size.copy_(incl[-1:])

@@ -18,8 +18,9 @@
 //                     live reads, their history verdicts (from the
 //                     two-tier maxima of history_probe) scatter-maxed per
 //                     txn, and the writers' base eligibility, one
-//                     cooperative launch;
-//   ig_codes       -- :550-566 survivors, the insert mask and the codes.
+//                     cooperative launch.
+// The general step's codes (:550-566) are the last phase of segtree.cu's
+// sg_fixpoint.
 //
 // Bound on the card: bytes for the prep and code passes (each array read
 // and written once).  The fixpoint's least work is one pass over writes,
@@ -722,28 +723,6 @@ __global__ void __launch_bounds__(GPREP_THREADS) k_gen_prep(GprepArgs a) {
   }
 }
 
-__global__ void k_gen_codes(int t_cap, int w_cap,
-                            const int* __restrict__ t_valid,
-                            const int* __restrict__ too_old,
-                            const int* __restrict__ conf,
-                            const int* __restrict__ w_txn,
-                            const int* __restrict__ w_valid,
-                            int8_t* __restrict__ codes,
-                            int* __restrict__ w_ins) {
-  long n = t_cap > w_cap ? t_cap : w_cap;
-  GRID_STRIDE(i, n) {
-    if (i < t_cap) {
-      int c = !t_valid[i] ? -1 : (too_old[i] ? 1 : (conf[i] ? 0 : 2));
-      codes[i] = (int8_t)c;
-    }
-    if (i < w_cap) {
-      int tc = clampi(w_txn[i], 0, t_cap - 1);
-      bool surv = t_valid[tc] && !too_old[tc] && !conf[tc];
-      w_ins[i] = (w_valid[i] && surv) ? 1 : 0;
-    }
-  }
-}
-
 #define S(stream) (cudaStream_t)(stream)
 #define RET return (int)cudaGetLastError()
 
@@ -936,17 +915,5 @@ extern "C" int ig_prep(int t_cap, int r_cap, int w_cap, const void* r_txn,
   err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(GPREP_THREADS),
                                     args, 0, S(stream));
   if (err != cudaSuccess) return (int)err;
-  RET;
-}
-
-extern "C" int ig_codes(int t_cap, int w_cap, const void* t_valid,
-                        const void* too_old, const void* conf,
-                        const void* w_txn, const void* w_valid, void* codes,
-                        void* w_ins, void* stream) {
-  long n = t_cap > w_cap ? t_cap : w_cap;
-  k_gen_codes<<<blocks_for(n, THREADS), THREADS, 0, S(stream)>>>(
-      t_cap, w_cap, (const int*)t_valid, (const int*)too_old,
-      (const int*)conf, (const int*)w_txn, (const int*)w_valid,
-      (int8_t*)codes, (int*)w_ins);
   RET;
 }

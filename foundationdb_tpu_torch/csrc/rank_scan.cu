@@ -7,6 +7,8 @@
 //                         ib_unpack);
 //   rs_compact         -- window_gc's order-preserving rank scatters
 //                         (window.py :233-240, with the rebase);
+//                         no path launches either: window_gc is window.cu's
+//                         wg_gc, one in-place launch;
 //   mg_merge           -- conflict/fused.py:607-686 make_merge_step.merge
 //                         (a merge path; three launches, below).
 //

@@ -6,7 +6,9 @@
 // (per-level min-updates of <= 2 nodes per interval, then the top-down
 // pushdown), :61 build_min_table (the doubling range-max table over the
 // negated cover) and :71 range_min, followed by the scatter-max of the
-// intra-batch hits over the history-only baseline and the changed test.
+// intra-batch hits over the history-only baseline and the changed test;
+// and, as the same launch's last phase, :550-566 the survivors, the
+// insert mask and the verdict codes (general_codes).
 //
 // Bound on the card: bytes per round -- the tree (2U int32) read once,
 // the cover (U int32) written once, the reads' and writes' columns read
@@ -46,7 +48,10 @@
 // conflict buffers alternate by round parity, so "did anything change" is
 // decided from the two counts of first hits (a round changes iff it finds
 // a txn the previous round did not hold, or holds fewer than it) without
-// a compare pass.  The host never
+// a compare pass.  The codes, when asked for, are written after the
+// barrier every thread leaves the rounds on, from the final round's
+// buffer, with no barrier of their own (write_gen_codes): the general
+// step's fixpoint and codes are one device operation.  The host never
 // reads a flag per round; the loop is capped at t_cap + 1 rounds (Jacobi
 // on the lower-triangular system settles at least one more txn per round)
 // and the round count is written out.  Span endpoints are the universe's
@@ -60,6 +65,11 @@
 namespace cg = cooperative_groups;
 
 #define FIXG_THREADS 256
+// Blocks an SM the registers must allow: 4, the 64 registers the rounds
+// take.  Without the bound, the codes phase made ptxas choose 48 registers
+// with spills, which let 5 blocks an SM into the grid, and the rounds ran
+// 10% slower on the H100 (PERF.md).
+#define FIXG_MIN_BLOCKS 4
 #define FIX_TILE_LOG 12   // leaves a pushdown tile owns: 4,096
 #define FIX_BLOCK_LOG 5   // leaves a run minimum covers: 32
 #define FIX_TOP_MAX 1024  // tiles the shared top table covers (U <= 2^22)
@@ -86,6 +96,16 @@ struct FixArgs {
   int* conf;    // out: int32[t_cap]
   int* rounds;  // out: int32[1]
   int* rounds_acc;  // optional: += rounds
+  // The codes phase, run when codes is not null: t_valid, too_old
+  // (int32[t_cap]) and w_valid (int32[w_cap]) in, codes (int8[t_cap]) and
+  // w_ins (int32[w_cap]) out; vec: t_valid, too_old, w_txn, w_valid and
+  // w_ins 16-byte and codes 4-byte aligned.
+  const int* t_valid;
+  const int* too_old;
+  const int* w_valid;
+  int8_t* codes;
+  int* w_ins;
+  int vec;
 };
 
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
@@ -154,7 +174,86 @@ __device__ int cover_min(const FixArgs& a, const int* top, int nt, int l,
   return m;
 }
 
-__global__ void __launch_bounds__(FIXG_THREADS) k_fixpoint(FixArgs a) {
+// A txn's verdict code (reference fused.py:561-565): INVALID, TOO_OLD,
+// CONFLICT or COMMITTED.
+__device__ __forceinline__ int gen_code(int valid, int old, int cf) {
+  return !valid ? -1 : old ? 1 : cf ? 0 : 2;
+}
+
+// general_codes (reference fused.py:550-566) as k_fixpoint's last phase,
+// four txns or four writes a thread (the txns' quads, then the writes'),
+// every load of a quad before any use: int4 loads of t_valid, too_old and
+// the final conflicts and one 32-bit store of four codes; a write quad's
+// txns and validity by int4 loads, its twelve gathers, one int4 store.  A
+// write's txn is clamped to [0, t_cap) (txn -1 reads txn 0's flags).
+// `conf` is the final round's buffer, last written by other blocks'
+// atomics before the rounds' last barrier: it is read through L2.
+__device__ __forceinline__ void write_gen_codes(const FixArgs& a,
+                                                const int* conf, long gtid,
+                                                long gstride) {
+  const long t_cap = a.t_cap;
+  const bool vec = a.vec && (uintptr_t)conf % 16 == 0;
+  const long t_quads = (t_cap + 3) / 4;
+  const long quads = t_quads + (a.w_cap + 3L) / 4;
+  for (long q = gtid; q < quads; q += gstride) {
+    if (q < t_quads) {
+      const long t0 = 4 * q;
+      if (vec && t0 + 4 <= t_cap) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(a.t_valid + t0));
+        const int4 o = __ldg(reinterpret_cast<const int4*>(a.too_old + t0));
+        const int4 c = __ldcg(reinterpret_cast<const int4*>(conf + t0));
+        const uint32_t packed =
+            (gen_code(v.x, o.x, c.x) & 0xFF) |
+            (gen_code(v.y, o.y, c.y) & 0xFF) << 8 |
+            (gen_code(v.z, o.z, c.z) & 0xFF) << 16 |
+            (uint32_t)(gen_code(v.w, o.w, c.w) & 0xFF) << 24;
+        *reinterpret_cast<uint32_t*>(a.codes + t0) = packed;
+      } else {
+        for (long t = t0; t < t0 + 4 && t < t_cap; ++t)
+          a.codes[t] = (int8_t)gen_code(__ldg(a.t_valid + t),
+                                        __ldg(a.too_old + t),
+                                        __ldcg(conf + t));
+      }
+      continue;
+    }
+    const long w0 = 4 * (q - t_quads);
+    const bool full = vec && w0 + 4 <= a.w_cap;
+    int tc[4], wv[4], tv[4], old[4], cf[4];
+    if (full) {
+      const int4 x = __ldg(reinterpret_cast<const int4*>(a.w_txn + w0));
+      const int4 y = __ldg(reinterpret_cast<const int4*>(a.w_valid + w0));
+      tc[0] = x.x; tc[1] = x.y; tc[2] = x.z; tc[3] = x.w;
+      wv[0] = y.x; wv[1] = y.y; wv[2] = y.z; wv[3] = y.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool in = w0 + k < a.w_cap;
+        tc[k] = in ? __ldg(a.w_txn + w0 + k) : 0;
+        wv[k] = in ? __ldg(a.w_valid + w0 + k) : 0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      tc[k] = clampi(tc[k], 0, a.t_cap - 1);
+      tv[k] = __ldg(a.t_valid + tc[k]);
+      old[k] = __ldg(a.too_old + tc[k]);
+      cf[k] = __ldcg(conf + tc[k]);
+    }
+    int ins[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      ins[k] = wv[k] && tv[k] && !old[k] && !cf[k] ? 1 : 0;
+    if (full) {
+      *reinterpret_cast<int4*>(a.w_ins + w0) =
+          make_int4(ins[0], ins[1], ins[2], ins[3]);
+    } else {
+      for (int k = 0; k < 4 && w0 + k < a.w_cap; ++k) a.w_ins[w0 + k] = ins[k];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FIXG_THREADS, FIXG_MIN_BLOCKS)
+    k_fixpoint(FixArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int smem[];
   __shared__ int s_anc;
@@ -311,16 +410,22 @@ __global__ void __launch_bounds__(FIXG_THREADS) k_fixpoint(FixArgs a) {
     held = fresh + kept;
     if (!changed) break;
   }
+  // Every thread left the rounds after the same barrier, so the final
+  // round's buffer is complete and visible here.
   const int* final_conf = a.cbuf + (long)(rounds & 1) * a.t_cap;
-  for (long t = gtid; t < a.t_cap; t += gstride) a.conf[t] = final_conf[t];
+  for (long t = gtid; t < a.t_cap; t += gstride)
+    a.conf[t] = __ldcg(final_conf + t);
   if (gtid == 0) {
     a.rounds[0] = rounds;
     if (a.rounds_acc != nullptr) a.rounds_acc[0] += rounds;
   }
+  if (a.codes != nullptr) write_gen_codes(a, final_conf, gtid, gstride);
 }
 
 // scratch: int32[scratch_len] holding FixLayout's sections; a shorter one
-// is refused (cudaErrorInvalidValue) before anything is launched.
+// is refused (cudaErrorInvalidValue) before anything is launched, as are
+// codes without t_valid, too_old, w_valid and w_ins.  codes null: the
+// fixpoint alone.
 extern "C" int sg_fixpoint(int t_cap, int r_cap, int w_cap, int log_u,
                            const void* hist, const void* r_txn,
                            const void* r_live, const void* r_pb,
@@ -328,6 +433,8 @@ extern "C" int sg_fixpoint(int t_cap, int r_cap, int w_cap, int log_u,
                            const void* w_ok, const void* w_pb,
                            const void* w_pe, void* scratch, long scratch_len,
                            void* conf, void* rounds, void* rounds_acc,
+                           const void* t_valid, const void* too_old,
+                           const void* w_valid, void* codes, void* w_ins,
                            void* stream) {
   FixArgs a;
   a.t_cap = t_cap;
@@ -337,7 +444,9 @@ extern "C" int sg_fixpoint(int t_cap, int r_cap, int w_cap, int log_u,
   a.tl = log_u < FIX_TILE_LOG ? log_u : FIX_TILE_LOG;
   a.lb = a.tl < FIX_BLOCK_LOG ? a.tl : FIX_BLOCK_LOG;
   const FixLayout lay = fix_layout(t_cap, log_u, a.tl, a.lb);
-  if (t_cap < 1 || log_u < 1 || log_u > 30 || scratch_len < lay.total)
+  if (t_cap < 1 || log_u < 1 || log_u > 30 || scratch_len < lay.total ||
+      (codes != nullptr && (t_valid == nullptr || too_old == nullptr ||
+                            w_valid == nullptr || w_ins == nullptr)))
     return (int)cudaErrorInvalidValue;
   int* s = (int*)scratch;
   a.hist = (const int*)hist;
@@ -358,6 +467,14 @@ extern "C" int sg_fixpoint(int t_cap, int r_cap, int w_cap, int log_u,
   a.conf = (int*)conf;
   a.rounds = (int*)rounds;
   a.rounds_acc = (int*)rounds_acc;
+  a.t_valid = (const int*)t_valid;
+  a.too_old = (const int*)too_old;
+  a.w_valid = (const int*)w_valid;
+  a.codes = (int8_t*)codes;
+  a.w_ins = (int*)w_ins;
+  a.vec = (uintptr_t)t_valid % 16 == 0 && (uintptr_t)too_old % 16 == 0 &&
+          (uintptr_t)w_txn % 16 == 0 && (uintptr_t)w_valid % 16 == 0 &&
+          (uintptr_t)w_ins % 16 == 0 && (uintptr_t)codes % 4 == 0;
   const int ts = 1 << a.tl;
   const int lnt = log_u - a.tl;
   const int nt = 1 << lnt;

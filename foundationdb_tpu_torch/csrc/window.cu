@@ -10,13 +10,17 @@
 //   wu_sweep     -- :107-123 the coverage cumsum, the merged starts and
 //                   ends, their ranks and the compactions, one single-pass
 //                   launch after the sort (sort.cu's sort_rows);
-//   wg_keep      -- :226-231 window_gc's removeBefore keep mask.
+//   wg_gc        -- :219-240 window_gc: removeBefore's keep mask, the
+//                   compaction of the kept rows, the rebase and the new
+//                   size, in place, one cooperative launch.
 // window_insert's insert proper (:139-213) is insert.cu's ri_insert, which
 // it shares with the point insert.
 //
 // Bound on the card: bytes.  Every kernel here reads its inputs once and
 // writes its outputs once; wq_query adds the table rows its binary
-// searches touch and two range-max gathers per query.
+// searches touch and two range-max gathers per query; wg_gc reads the
+// live versions, moves the kept rows from the first dropped one on and
+// refills the rows it frees (k_gc).
 //
 // Design: the elementwise kernels take one thread per element in
 // grid-stride loops; digests move as 32-byte rows (common.cuh).  The
@@ -25,8 +29,13 @@
 // bound by the load instructions of its scattered rows, not by their
 // bytes: its searches walk a staged top in shared memory, read half rows,
 // share each load where begin and end meet the same midpoint, and only
-// valid queries search (probe_max, for_live).
+// valid queries search (probe_max, for_live).  wg_gc works in place over
+// the live rows only, chunk by chunk behind grid barriers (k_gc).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 // A range probe a valid query (probe_max over the one tier); invalid
 // queries answer 0 without a search, the valid ones queued per warp
@@ -210,15 +219,198 @@ __global__ void __launch_bounds__(SW_THREADS)
   }
 }
 
-__global__ void k_gc_keep(int cap, const int* __restrict__ size,
-                          const int* __restrict__ bv, int oldest,
-                          int* __restrict__ keep) {
-  const int sz = size[0];
-  GRID_STRIDE(i, cap) {
-    bool above = bv[i] >= oldest;
-    bool prev = i == 0 ? true : bv[i - 1] >= oldest;
-    keep[i] = (i < sz && (i == 0 || above || prev)) ? 1 : 0;
+// ------------------------------------------------------------- window_gc
+// removeBefore and the rebase, IN PLACE on bk / bv / size, one cooperative
+// launch (coop_grid: at most GC_BLOCKS_PER_SM blocks an SM, as many as the
+// card holds at once), sized by size[0] read on the device.  The live rows
+// [0, sz) fall into tiles of GC_TILE elements (element k * GC_THREADS +
+// tid of a tile is thread tid's k-th, so a warp's 32 are consecutive);
+// block b owns tiles b, b + G, b + 2G, ... (G the grid), and chunk c is
+// tiles [c * G, (c + 1) * G).
+//   1. keep: every keep bit from the original bv (keep[i] = i < sz and
+//      (i == 0 or bv[i] >= oldest or bv[i - 1] >= oldest)), a warp's 32 as
+//      one mask word, and each tile's kept count (scratch).  grid.sync.
+//   2. Each block scans the tile counts itself (a few thousand int32
+//      through L2) for its own tiles' exclusive prefixes, the kept total
+//      and the first tile that drops a row; a kept element's destination
+//      is its tile's prefix plus its rank in the tile (the mask words).
+//   3. Move in index order, chunk by chunk: a chunk loads its kept rows
+//      that move (those past the first dropped row) and its versions,
+//      then, if any of its rows moves, grid.sync, then stores them.  A
+//      destination is at most its source, so chunk c writes only below
+//      the end of chunk c, into rows loaded before this chunk's barrier
+//      (its own) or an earlier one: one barrier a chunk that moves rows.
+//      A kept row before the first dropped one keeps its place, and only
+//      its version is rewritten, where the rebase changes it (no row is
+//      read, and no barrier taken, for a chunk of such rows).
+//   4. Rows [total, sz) become MAX rows at NEG_INF (every load is behind
+//      the last barrier by now: a row is freed only past a drop, and the
+//      chunks with drops come last); thread 0 writes size[0] = total
+//      (every block read it before the first barrier).
+// Rows past sz are left as they are: the window's invariant (insert.cu)
+// holds them MAX at NEG_INF already, which is what the reference writes
+// over all of [total, cap).  Versions are rebased as rs_compact does:
+// (v - rebase) wrapping as uint32, then the signed clamp at NEG_INF + 1.
+// Scratch (int32, uninitialised; the kernel writes all it reads): the
+// tile counts, then the mask words, for ceil(cap / GC_TILE) tiles.
+#define GC_THREADS SW_THREADS  // block_exclusive's warps
+#define GC_VT 8                // elements a thread a tile
+#define GC_TILE (GC_THREADS * GC_VT)  // 2,048: conflict/window.py GC_TILE
+#define GC_WORDS (GC_TILE / 32)       // mask words a tile
+#define GC_BLOCKS_PER_SM 2            // 8 rows a thread in registers
+#define GC_MAX_CHUNKS 64
+static_assert(GC_WORDS == 64, "k_gc scans a tile's words two a lane");
+
+struct GcArgs {
+  int cap, oldest, rebase;
+  uint32_t* bk;      // [cap, 8]
+  int* bv;           // [cap]
+  int* size;         // [1]
+  int* counts;       // [ceil(cap / GC_TILE)]
+  unsigned* mask;    // [ceil(cap / GC_TILE) * GC_WORDS]
+};
+
+// A row through L2 (ld.global.cg): rows this kernel may have written
+// elsewhere on the card are never read through L1.
+__device__ __forceinline__ Row load_row_cg(const uint32_t* rows, long i) {
+  const uint4* p = reinterpret_cast<const uint4*>(rows + i * 8);
+  const uint4 x = __ldcg(p), y = __ldcg(p + 1);
+  Row r;
+  r.l[0] = x.x; r.l[1] = x.y; r.l[2] = x.z; r.l[3] = x.w;
+  r.l[4] = y.x; r.l[5] = y.y; r.l[6] = y.z; r.l[7] = y.w;
+  return r;
+}
+
+__device__ __forceinline__ int gc_rebase(int v, int rebase) {
+  const int w = (int)((uint32_t)v - (uint32_t)rebase);
+  return w > NEG_INF_I32 + 1 ? w : NEG_INF_I32 + 1;
+}
+
+__global__ void __launch_bounds__(GC_THREADS, GC_BLOCKS_PER_SM)
+    k_gc(GcArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ unsigned s_word[GC_WORDS];
+  __shared__ int s_wpre[GC_WORDS];
+  __shared__ int s_tile_pre[GC_MAX_CHUNKS];
+  __shared__ int s_warp[SW_WARPS];
+  __shared__ int s_first_drop;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+  const long G = gridDim.x, b = blockIdx.x;
+  int sz = a.size[0];
+  sz = sz < 0 ? 0 : (sz > a.cap ? a.cap : sz);
+  const long tiles = (sz + GC_TILE - 1) / GC_TILE;
+  const long chunks = (tiles + G - 1) / G;
+
+  // 1. The keep bits and each tile's count.
+  for (long t = b; t < tiles; t += G) {
+    const long base = t * GC_TILE;
+    int n = 0;
+#pragma unroll
+    for (int k = 0; k < GC_VT; ++k) {
+      const long i = base + k * GC_THREADS + tid;
+      const bool in = i < sz;
+      const int v = in ? a.bv[i] : 0;
+      int prev = __shfl_up_sync(0xffffffffu, v, 1);
+      if (lane == 0 && in && i > 0) prev = a.bv[i - 1];
+      const bool keep =
+          in && (i == 0 || v >= a.oldest || prev >= a.oldest);
+      const unsigned word = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) a.mask[t * GC_WORDS + k * SW_WARPS + warp] = word;
+      n += __popc(word);
+    }
+    if (lane == 0) s_warp[warp] = n;
+    __syncthreads();
+    if (tid == 0) {
+      int total = 0;
+#pragma unroll
+      for (int w = 0; w < SW_WARPS; ++w) total += s_warp[w];
+      a.counts[t] = total;
+    }
+    __syncthreads();
   }
+  grid.sync();
+
+  // 2. Each own tile's exclusive prefix, the kept total, and the first
+  // tile holding a dropped row (tiles if none).
+  if (tid == 0) s_first_drop = (int)tiles;
+  __syncthreads();
+  int carry = 0;
+  for (long j0 = 0; j0 < tiles; j0 += GC_THREADS) {
+    const long j = j0 + tid;
+    const int x = j < tiles ? __ldcg(a.counts + j) : 0;
+    const long live = sz - j * GC_TILE < GC_TILE ? sz - j * GC_TILE
+                                                 : GC_TILE;
+    if (j < tiles && x < live) atomicMin(&s_first_drop, (int)j);
+    int sum;
+    const int ex = block_exclusive<int>(x, s_warp, &sum);
+    if (j < tiles && j % G == b) s_tile_pre[j / G] = carry + ex;
+    carry += sum;
+  }
+  const int total = carry;
+  __syncthreads();
+  const long first_drop = s_first_drop;
+
+  // 3. The moves, chunk by chunk.
+  for (long c = 0; c < chunks; ++c) {
+    const long t = c * G + b;
+    const long base = t * GC_TILE;
+    const long last = (c + 1) * G < tiles ? (c + 1) * G - 1 : tiles - 1;
+    const bool moves = last >= first_drop;  // the same in every block
+    Row row[GC_VT];
+    int val[GC_VT];
+    long dst[GC_VT];
+    unsigned kbits = 0;
+    if (t < tiles) {
+      if (tid < 32) {  // the words' exclusive prefix, two words a lane
+        const unsigned w0 = __ldcg(a.mask + t * GC_WORDS + 2 * lane);
+        const unsigned w1 = __ldcg(a.mask + t * GC_WORDS + 2 * lane + 1);
+        const int n0 = __popc(w0), n1 = __popc(w1);
+        const int incl = warp_inclusive_scan<int>(n0 + n1, lane);
+        s_word[2 * lane] = w0;
+        s_word[2 * lane + 1] = w1;
+        s_wpre[2 * lane] = incl - n0 - n1;
+        s_wpre[2 * lane + 1] = incl - n1;
+      }
+      __syncthreads();
+      const int pre = s_tile_pre[c];
+#pragma unroll
+      for (int k = 0; k < GC_VT; ++k) {
+        const long i = base + k * GC_THREADS + tid;
+        const unsigned w = s_word[k * SW_WARPS + warp];
+        dst[k] = pre + s_wpre[k * SW_WARPS + warp] + __popc(w & lt);
+        if (w >> lane & 1u) {
+          kbits |= 1u << k;
+          val[k] = __ldcg(a.bv + i);
+          if (dst[k] != i) row[k] = load_row_cg(a.bk, i);
+        }
+      }
+      __syncthreads();  // s_word / s_wpre are the next tile's
+    }
+    if (moves) grid.sync();
+    if (t < tiles) {
+#pragma unroll
+      for (int k = 0; k < GC_VT; ++k) {
+        if (!(kbits >> k & 1u)) continue;
+        const long i = base + k * GC_THREADS + tid;
+        const int nv = gc_rebase(val[k], a.rebase);
+        if (dst[k] != i) {
+          store_row(a.bk, dst[k], row[k]);
+          a.bv[dst[k]] = nv;
+        } else if (nv != val[k]) {
+          a.bv[i] = nv;
+        }
+      }
+    }
+  }
+
+  // 4. The freed rows and the size.
+  const long gtid = b * GC_THREADS + tid;
+  for (long i = total + gtid; i < sz; i += G * GC_THREADS) {
+    store_row(a.bk, i, max_row());
+    a.bv[i] = NEG_INF_I32;
+  }
+  if (gtid == 0) a.size[0] = total;
 }
 
 #define S(stream) (cudaStream_t)(stream)
@@ -273,9 +465,27 @@ extern "C" int wu_sweep(long n2, const void* s_rows, const void* s_delta,
   RET;
 }
 
-extern "C" int wg_keep(int cap, const void* size, const void* bv, int oldest,
-                       void* keep, void* stream) {
-  k_gc_keep<<<blocks_for(cap, THREADS), THREADS, 0, S(stream)>>>(
-      cap, (const int*)size, (const int*)bv, oldest, (int*)keep);
+// scratch: int32[scratch_len] of ceil(cap / GC_TILE) * (1 + GC_WORDS)
+// (the tile counts, then the mask words), uninitialised; a shorter one, or
+// a capacity past GC_MAX_CHUNKS chunks of the grid, is refused
+// (cudaErrorInvalidValue) before anything is launched.
+extern "C" int wg_gc(void* bk, void* bv, void* size, int cap, int oldest,
+                     int rebase, void* scratch, long scratch_len,
+                     void* stream) {
+  const long tiles_cap = ((long)cap + GC_TILE - 1) / GC_TILE;
+  if (cap < 1 || scratch_len < tiles_cap * (1 + GC_WORDS))
+    return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = (cudaError_t)coop_grid(
+      (const void*)k_gc, GC_THREADS, GC_BLOCKS_PER_SM, tiles_cap, &grid);
+  if (err != cudaSuccess) return (int)err;
+  if ((tiles_cap + grid - 1) / grid > GC_MAX_CHUNKS)
+    return (int)cudaErrorInvalidValue;
+  GcArgs a{cap, oldest, rebase, (uint32_t*)bk, (int*)bv, (int*)size,
+           (int*)scratch, (unsigned*)((int*)scratch + tiles_cap)};
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel((void*)k_gc, dim3(grid),
+                                    dim3(GC_THREADS), args, 0, S(stream));
+  if (err != cudaSuccess) return (int)err;
   RET;
 }

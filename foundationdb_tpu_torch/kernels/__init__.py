@@ -51,8 +51,9 @@ KERNELS = {
     "merge": ("rank_scan", _REF + "conflict/fused.py:607"),
     "sort_rows": ("sort", _REF + "conflict/fused.py:524"),
     "general_prep": ("intra_batch", _REF + "conflict/fused.py:479"),
+    # and, in the same launch when given codes_out, the codes
+    # (fused.py:550-566, general_codes)
     "interval_fixpoint": ("segtree", _REF + "conflict/fused.py:531"),
-    "general_codes": ("intra_batch", _REF + "conflict/fused.py:562"),
     "window_query": ("window", _REF + "conflict/window.py:66"),
     "union_ranges": ("window", _REF + "conflict/window.py:85"),
     "window_insert": ("insert", _REF + "conflict/window.py:127"),
@@ -83,15 +84,14 @@ _SIGS = {
         "ib_rw_prep": "iiii" "pppppppp" "ppppppp" "p",
         "ib_fixpoint": "iiii" "ppppppp" "ppppp" "pppp" "p",
         "ig_prep": "iii" "ppppppppp" "pppp" "p",
-        "ig_codes": "ii" "ppppppp" "p",
     },
     "sort": {"so_sort": "li" "pppppp" "p"},
-    "segtree": {"sg_fixpoint": "iiii" "ppppppppp" "pl" "ppp" "p"},
+    "segtree": {"sg_fixpoint": "iiii" "ppppppppp" "pl" "ppp" "ppppp" "p"},
     "window": {
         "wq_query": "pipppp" "plp" "p",
         "wu_endpoints": "l" "pppppp" "ppp" "l" "p",
         "wu_sweep": "l" "ppp" "l" "pp" "l" "p" "p",
-        "wg_keep": "ippip" "p",
+        "wg_gc": "ppp" "iii" "pl" "p",
     },
     "insert": {
         "pi_mark": "lppi" "pp" "p",

@@ -5,6 +5,9 @@ The reference leans on jnp.cumsum and on order-preserving rank scatters
 conflict/fused.py.  Here each is a wrapper with a plain-torch version and a
 CUDA kernel (csrc/rank_scan.cu): a single-pass scan with decoupled
 look-back, and a guarded row store that follows JAX's drop semantics.
+No path of the conflict code launches either kernel (the programs scan and
+compact inside their own kernels, window_gc among them); the plain
+versions serve the plain programs.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ the shapes the conflict path hands them.
   python3 scripts/torch_kernel_ab.py [--root DIR] [--label NAME]
       [--cases table,sort,fixpoint,merge,insert,probe,rwprep,prep,union,
                search,combine,codes,gprep,cstep,gstep,sharded,swindow,
-               general]
+               general,gc,gcodes]
       [--profile] [--sweep]
 
 DIR (default: the checkout holding this script) is the checkout whose
@@ -107,6 +107,24 @@ checkout's chip_smoke.py:
             state's restore taken out (profiled_step);
   swindow   (not in the default set) program #9's ShardedWindow step on
             config 3's sixth batch after five, timed the same way;
+  gc        (not in the default set) program #7, window_gc, on
+            chip_smoke's config-3 window (the five batches of
+            warmed_general_state) at the sixth batch's floor (no row
+            moves) and 3,000 versions above it, and on a synthetic 2^21
+            window with drops in every chunk (chip_smoke's gc_at: own ms,
+            the whole call's device ms behind the sleep, plain ms, bound
+            by gc_bytes), the state restored before every call; at the
+            first also the device operations a call by torch.profiler,
+            the timeline and the device time alone per kernel and copy
+            (profiled_step); and program #9's gc, ShardedWindow.gc over
+            the four shards of the sharded window on the same batches:
+            the sum of its own kernels' times (kernel_sum_ms),
+            profiled_step, the timeline, bound;
+  gcodes    (not in the default set) the general step's fixpoint and
+            codes on config 3's warmed state's next batch: the fixpoint
+            with its codes in one launch where the checkout has it, else
+            interval_fixpoint then general_codes' kernel; timed as codes,
+            with the fixpoint alone's own ms;
   general   (not in the default set) the config-3 general path through
             TorchConflictSet (chip_smoke's general_path): ranges/s at
             depth 8, p50 resolve and packing, to compare a host-bound
@@ -230,6 +248,10 @@ def main() -> int:
         out["compact_step"] = cstep_case(S, fused)
     if "gstep" in cases:
         out["general_step"] = gstep_case(S, fused)
+    if "gc" in cases:
+        out["window_gc"] = gc_case(S, K)
+    if "gcodes" in cases:
+        out["general_codes"] = gcodes_case(S, K, fused)
     if "sharded" in cases:
         out["sharded_step"] = sharded_case(S)
     if "swindow" in cases:
@@ -601,6 +623,125 @@ def gprep_case(S, K, fused) -> dict:
     row.update(caps=[t_cap, r_cap, w_cap],
                hist_bits=int(want["hist"].sum()),
                too_old=int(want["too_old"].sum()))
+    return row
+
+
+def gc_case(S, K) -> dict:
+    """window_gc (the `gc` case) on chip_smoke's config-3 window (the five
+    batches of warmed_general_state) at the sixth batch's floor (no row
+    moves) and 3,000 versions above it (the first three batches' rows
+    dropped), and on a synthetic 2^21 window with drops in every chunk
+    (chip_smoke's gc_at and gc_synthetic); at the first, the device
+    operations a call and the device time alone by torch.profiler per
+    kernel and copy; and ShardedWindow.gc over the four shards of the
+    sharded window on the same batches (kr=4, 2^21 a shard; shard 0 holds
+    every row), the state restored before every call."""
+    import torch
+    from foundationdb_tpu_torch.conflict import window
+    from foundationdb_tpu_torch.parallel import ShardedWindow
+    _, _, win, stream = warm(S, "config3")
+    fl = S.floor(stream[5][0])
+    rows = [S.gc_at("config3_window", win, fl, fl, reps=20),
+            S.gc_at("config3_window_floor_plus_3000", win, fl + 3000,
+                    fl + 3000, reps=20),
+            S.gc_at("synthetic_2_21", S.gc_synthetic(
+                S.CAPACITY, S.CAPACITY - 12_345, 5000), 5000, 1234, reps=20)]
+    saved = tuple(t.clone() for t in win)
+    st = tuple(t.clone() for t in win)
+
+    def load():
+        for t, x in zip(st, saved):
+            t.copy_(x)
+
+    def run(impl=None):
+        return tuple(window.window_gc(window.WindowState(*st), fl, fl,
+                                      impl=impl))
+
+    kernels, others = S.device_ops(run)
+    rows[0].update(kernels_per_call=kernels, other_ops_per_call=others,
+                   timeline_ms=S.cuda_ms(run, reps=20, setup=load),
+                   bound_ms_whole_state=S.bound_ms(2 * S.nbytes(*saved[:2])))
+    rows[0].update(profiled_step(run, load))
+    del st, saved
+    stream3 = S.make_stream3(np.random.default_rng(17), 6)
+    wins = [ShardedWindow(S.shard_mesh(), S.CAPACITY, impl=i)
+            for i in (None, "plain")]
+    for v, enc, _ in stream3[:5]:
+        wins[0].resolve_step(*S.window_inputs(enc, 0), v)
+    torch.cuda.synchronize()
+    wsaved = [tuple(t.clone() for t in x) for x in wins[0].shard_states()]
+    sizes = [int(x[2][0]) for x in wsaved]
+    bound = sum(S.gc_bytes(window.WindowState(*x), fl, fl) for x in wsaved)
+
+    def wload(w):
+        for x, sv in zip(w.shard_states(), wsaved):
+            for t, y in zip(x, sv):
+                t.copy_(y)
+
+    def wrun(w):
+        w.gc(fl, fl)
+        return tuple(t for x in w.shard_states() for t in x)
+
+    wload(wins[0])
+    wload(wins[1])
+    err = S.require_equal("sharded_gc", wrun(wins[0]), wrun(wins[1]))
+    sharded = {"max_abs_err": err, "sizes": sizes,
+               "kernel_sum_ms": S.kernel_sum_ms(lambda: wrun(wins[0]),
+                                                reps=20,
+                                                setup=lambda: wload(wins[0])),
+               "timeline_ms": S.cuda_ms(lambda: wrun(wins[0]), reps=20,
+                                        setup=lambda: wload(wins[0])),
+               "bound_ms": S.bound_ms(bound)}
+    sharded.update(profiled_step(lambda: wrun(wins[0]),
+                                 lambda: wload(wins[0])))
+    return {"window": rows, "sharded_window": sharded}
+
+
+def gcodes_case(S, K, fused) -> dict:
+    """The general step's fixpoint and codes (the `gcodes` case) on config
+    3's warmed state's next batch (the inputs from the plain versions):
+    interval_fixpoint with its codes where the package has them, else the
+    fixpoint and general_codes' kernel; and the fixpoint alone."""
+    import inspect
+    import torch
+    from foundationdb_tpu_torch.ops import digest
+    cs, packed, _, _ = warm(S, "config3")
+    t_cap, r_cap, w_cap = packed["caps"]
+    n_rows = 2 * (r_cap + w_cap)
+    buf = torch.from_numpy(packed["buf"]).to(S.DEVICE)
+    digests = buf[:32 * n_rows].view(torch.int32).view(n_rows, 8)
+    m = fused.unpack_meta(buf[32 * n_rows:].view(torch.int32), t_cap, r_cap,
+                          w_cap)
+    vmax = digest.history_probe(cs.bk, cs.table, cs.dk, cs.dtable,
+                                digests[:r_cap], digests[r_cap:2 * r_cap],
+                                "plain")
+    g, fix_in, log_u = S.general_fixpoint_inputs(digests, m, vmax)
+    fused_codes = "codes_out" in inspect.signature(
+        fused.interval_fixpoint).parameters
+
+    def run(impl=None):
+        codes = torch.empty((t_cap,), dtype=torch.int8, device=S.DEVICE)
+        if fused_codes:
+            conf, rounds, w_ins = fused.interval_fixpoint(
+                *fix_in, log_u, impl=impl, codes_out=codes,
+                t_valid=m["t_valid"], too_old=g["too_old"],
+                w_valid=m["w_valid"])
+        else:
+            conf, rounds = fused.interval_fixpoint(*fix_in, log_u, impl=impl)
+            w_ins = fused.general_codes(m["t_valid"], g["too_old"], conf,
+                                        m["w_txn"], m["w_valid"], codes,
+                                        impl)
+        return conf, rounds, w_ins, codes
+
+    want = run("plain")
+    n_bytes = S.nbytes(*fix_in, m["t_valid"], g["too_old"], m["w_valid"],
+                       *want)
+    row = call_row(S, K, "gcodes", run, want,
+                   ("interval_fixpoint", "general_codes"), n_bytes)
+    row.update(fused=fused_codes, rounds=int(want[1][0]),
+               alone_ms=S.device_ms(
+                   lambda: fused.interval_fixpoint(*fix_in, log_u), reps=20,
+                   counter="interval_fixpoint"))
     return row
 
 

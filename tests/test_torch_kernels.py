@@ -25,6 +25,8 @@ from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
 
 from test_torch_codes import (CODES_CASES, GPREP_CASES, codes_case,
                               codes_port, gprep_case, gprep_port)
+from test_torch_gc import (GC_CASES, GCODES_CASES, gc_case, gc_port,
+                           gc_state, gcodes_case, gcodes_port, runs_mask)
 from test_torch_insert import CASES as INSERT_CASES, make_case, run_port
 from test_torch_prep import PREP_CASES, prep_case, prep_port
 from test_torch_probe import search_top
@@ -1008,6 +1010,93 @@ def test_window_programs(dev):
              tuple(window.window_gc(plain, floor, rebase, impl="plain")))
 
 
+def check_gc(dev, c):
+    """window_gc kernel against plain on a copy of case c: in place (the
+    state returned, its tensors' storage unchanged), one launch a call and
+    no other wrapper's."""
+    from foundationdb_tpu_torch.conflict import window
+    st = window.WindowState(*(torch.from_numpy(c[k].copy()).to(dev)
+                              for k in ("bk", "bv", "size")))
+    ptrs = [t.data_ptr() for t in st]
+    K.reset_counts()
+    got = window.window_gc(st, c["oldest"], c["rebase"])
+    assert got is st and [t.data_ptr() for t in got] == ptrs
+    assert K.LAUNCHES["window_gc"] == 1 and sum(K.LAUNCHES.values()) == 1
+    same(tuple(got), tuple(gc_port(c, dev, impl="plain")))
+    return got
+
+
+@pytest.mark.parametrize("name", GC_CASES)
+def test_window_gc_cases(dev, name):
+    """tests/test_torch_gc.py's edges (size 0, 1 and cap, nothing dropped
+    with a live NEG_INF version, all but row 0 dropped, runs of drops,
+    the rebase's wrap), kernel against plain."""
+    check_gc(dev, gc_case(name))
+
+
+# Rows the kernel's grid holds in registers at once on the H100 (132 SMs
+# x 2 blocks x GC_TILE): chunk boundaries near its multiples.
+GC_CHUNK = 132 * 2 * 2048
+
+
+@pytest.mark.parametrize("size", [(1 << 21) - 12_345, 1 << 21])
+@pytest.mark.parametrize("where", ["spread", "ends_and_chunks", "late",
+                                   "none"])
+def test_window_gc_chunks(dev, size, where):
+    """A 2^21 window, several chunks of the grid: drops spread all over;
+    only in the first and last rows and around the chunk boundaries; only
+    in the last rows (every earlier row keeps its place and only its
+    version is rebased, across chunks); none (the rebase alone)."""
+    cap = 1 << 21
+    rng = np.random.default_rng(size % 97 + len(where))
+    if where == "spread":
+        below = runs_mask(rng, size)
+    else:
+        below = np.zeros(size, bool)
+        spans = {"ends_and_chunks": [(3, 40), (size - 60, size - 2)] + [
+                     (k * GC_CHUNK - 9, k * GC_CHUNK + 9)
+                     for k in range(1, size // GC_CHUNK + 1)],
+                 "late": [(size - 3000, size - 1)], "none": []}[where]
+        for a, b in spans:
+            below[a:b] = True
+    got = check_gc(dev, gc_state(cap, size, below, 5000, 1234, seed=size))
+    n = int(got.size[0])
+    assert (n == size) == (where == "none")
+
+
+def test_sharded_window_gc_near_empty_shards(dev):
+    """ShardedWindow at kr=4 on one card whose writes all land on shard 0:
+    its gc runs one launch a shard, three of them on a shard of one row,
+    and equals the plain version's state."""
+    from foundationdb_tpu_torch.parallel import (ShardedWindow,
+                                                 make_conflict_mesh)
+    mesh = make_conflict_mesh([dev] * 4)
+    wins = [ShardedWindow(mesh, capacity=1 << 14, impl=i)
+            for i in (None, "plain")]
+    rng = np.random.default_rng(43)
+    for i in range(6):
+        d = rng.integers(0, 1 << 32, size=(8, 1024), dtype=np.uint64).astype(
+            np.uint32)
+        d[0] = 5
+        e = d.copy()
+        e[7] += 1
+        wb, we = (torch.from_numpy(digest.planar_to_rows(x)).to(dev)
+                  for x in (d, e))
+        ones = torch.ones(1024, dtype=torch.int32, device=dev)
+        for w in wins:
+            w.resolve_step(wb, we, ones, ones, wb, we, ones, 1000 * (i + 1))
+    sizes = wins[0].shard_sizes()
+    assert sizes[0] > 1000 and sizes[1:] == [1, 1, 1], sizes
+    K.reset_counts()
+    wins[0].gc(3500, 1000)
+    assert K.LAUNCHES["window_gc"] == 4
+    assert sum(K.LAUNCHES.values()) == 4
+    wins[1].gc(3500, 1000)
+    for a, b in zip(wins[0].state_to_numpy(), wins[1].state_to_numpy()):
+        assert np.array_equal(a, b)
+    assert wins[0].shard_sizes()[0] < sizes[0]
+
+
 def general_batch(rng, n_txns: int, now: int, oldest: int):
     """A range batch (2 range reads, 1 range write per txn) packed and
     stamped, and its shapes."""
@@ -1378,6 +1467,93 @@ def test_interval_fixpoint_deep_chain(dev, depth, log_u):
     check_fixpoint(args, log_u, depth=depth)
     got, _ = fused.interval_fixpoint(*args, log_u)
     assert got.cpu().tolist() == [i % 2 for i in range(depth)]
+
+
+def check_general_codes(dev, cols: dict, log_u: int, offset: int = 0):
+    """interval_fixpoint with the codes, kernel against plain: conf,
+    rounds, codes and the insert mask; one launch a call and no other
+    wrapper's.  cols: gcodes_case's layout (numpy); with `offset`,
+    t_valid, w_txn and w_valid are views that many int32s into their
+    buffers (the metadata block's sections at any offset)."""
+    K.reset_counts()
+    got = gcodes_port(cols, dev, offset=offset)
+    assert K.LAUNCHES["interval_fixpoint"] == 1
+    assert sum(K.LAUNCHES.values()) == 1
+    same(got, gcodes_port(cols, dev, impl="plain"))
+    return got
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("name", GCODES_CASES)
+def test_interval_fixpoint_codes_cases(dev, name, offset):
+    """tests/test_torch_gc.py's cases (txn -1 writes, too-old writers, no
+    txn valid, every txn valid, t_cap 37, a chain), aligned and one int32
+    off, kernel against plain."""
+    check_general_codes(dev, gcodes_case(name), 9, offset)
+
+
+def codes_columns(dev, log_u: int, t_cap: int, n_r: int, n_w: int,
+                  seed: int, cols=None) -> dict:
+    """fixpoint_inputs' columns (or `cols`) with the codes' inputs: the
+    first t_cap - 7 txns valid, ~10% too old, ~95% of the writes valid."""
+    rng = np.random.default_rng(seed)
+    if cols is None:
+        cols = fixpoint_inputs(dev, log_u, t_cap, n_r, n_w, seed)
+    out = {k: c.cpu().numpy() for k, c in zip(
+        ("hist", "r_txn", "r_live", "r_pb", "r_pe", "w_txn", "w_ok", "w_pb",
+         "w_pe"), cols)}
+    w_cap = out["w_txn"].shape[0]
+    out["t_valid"] = (np.arange(t_cap) < t_cap - 7).astype(np.int32)
+    out["too_old"] = ((rng.random(t_cap) < 0.1)
+                      & (out["t_valid"] != 0)).astype(np.int32)
+    out["w_valid"] = (rng.random(w_cap) < 0.95).astype(np.int32)
+    out["shape"] = (t_cap, out["r_txn"].shape[0], w_cap, log_u)
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("shape", ["config3", "t_cap_5003"])
+def test_interval_fixpoint_codes_shapes(dev, shape, offset):
+    """The fixpoint with its codes at config 3's shape (U = 2^21, 65,536
+    txns, 400,000 reads, 55,000 writes) and at t_cap 5,003 (not a multiple
+    of 4), the metadata views aligned and three int32s off."""
+    log_u, t_cap, n_r, n_w = {"config3": (21, 1 << 16, 400_000, 55_000),
+                              "t_cap_5003": (16, 5_003, 20_000, 4_001)}[shape]
+    got = check_general_codes(
+        dev, codes_columns(dev, log_u, t_cap, n_r, n_w, seed=t_cap), log_u,
+        offset)
+    assert {-1, 0, 1, 2} <= set(got["codes"].unique().tolist())
+
+
+def test_interval_fixpoint_codes_deep_chain(dev):
+    """The 300-deep chain with the codes: rounds equal the depth, conf
+    alternates, codes and the insert mask equal the plain version's."""
+    depth, log_u = 300, 16
+    u = 1 << log_u
+    t = np.arange(depth, dtype=np.int32)
+    stride = u // (depth + 2)
+    ones = np.ones(depth, np.int32)
+    cols = [np.zeros(depth, np.int32), t, ones, t * stride + 1,
+            t * stride + 2, t, ones, t * stride, (t + 1) * stride + 2]
+    cols = [torch.from_numpy(np.asarray(c, np.int32)).to(dev) for c in cols]
+    c = codes_columns(dev, log_u, depth, 0, 0, seed=1, cols=cols)
+    c["too_old"][:] = 0
+    got = check_general_codes(dev, c, log_u, offset=1)
+    assert int(got["rounds"][0]) == depth
+    assert got["conf"].cpu().tolist() == [i % 2 for i in range(depth)]
+
+
+def test_general_codes_plain_only_raises_on_the_card(dev):
+    """general_codes has no kernel of its own (the fixpoint's launch
+    writes the codes): on a CUDA tensor without impl="plain" it raises."""
+    c = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v
+         for k, v in gcodes_case("mixed").items()}
+    codes = torch.empty((c["shape"][0],), dtype=torch.int8, device=dev)
+    with pytest.raises(RuntimeError):
+        fused.general_codes(c["t_valid"], c["too_old"], c["hist"],
+                            c["w_txn"], c["w_valid"], codes)
+    fused.general_codes(c["t_valid"], c["too_old"], c["hist"], c["w_txn"],
+                        c["w_valid"], codes, impl="plain")
 
 
 # ---------------------------------------------------------------------------
