@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch + CUDA conflict path on one NVIDIA GPU.
 
 Drives foundationdb_tpu_torch's five paths through the entry points a
-resolver calls, each at full size:
+resolver calls, each at full size, then the supervised set (the
+factory's default route) over them:
 
   point    TorchConflictSet.resolve_encoded_async -> _pack_compact -> the
            compact step, the delta table, the merge, at the bench's config
@@ -110,7 +111,30 @@ exits non-zero):
  13. the sharded window on the config-3 batches (bits equal the one-shard
      window's), on spread random batches (bits and state equal the plain
      versions) and on an overflow of one shard (every shard unchanged);
- 14. the JSON lines (programs and paths; kernels with launches per path,
+ 14. the supervised point path: new_conflict_set("torch") -- a
+     SupervisedConflictSet over TorchConflictSet -- at
+     CONFLICT_PIPELINE_DEPTH 8 over phase 3's stream (3 warmup batches,
+     10 at depth 8, 8 at depth 1), its codes equal to the bare set's on
+     the same stream batch for batch; the path_supervised line beside the
+     bare figures, the pipeline stalls and the mirror's fold-through ms a
+     batch; nothing rechecked (15-byte keys);
+ 15. long keys: phase 6's small config-3 batches and a stream whose keys
+     share 31-byte prefixes, through the supervised set (verdicts equal
+     the oracle's, batches rechecked) and the bare set (its aborts the
+     oracle does not make, counted);
+ 16. degrade and promotion: a timeout injected on one dispatch with 7
+     batches in flight at depth 8, a monitor whose re-probe is due at
+     once: one degrade, the in-flight batches replayed in order through
+     the mirror, one promotion rebuilding the device set on the card from
+     the mirror (compact and general steps), codes equal to the oracle's;
+ 17. ShardedTorchConflictSet.supervised on phase 10's mesh, splits,
+     capacity and delta, filled at depth 3 over 11 batches, then the
+     2,048 re-reads of committed writes (all must conflict);
+ 18. new_conflict_set("auto") is the supervised torch set on `cuda`.
+     Every supervised phase that injects no fault requires no degrade, no
+     fallback batch and no promotion, every batch on the card, the
+     expected device set on `cuda`, and the kernels of its path launched;
+ 19. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -190,6 +214,19 @@ PATH_KERNELS = {
     "sharded_window": [*_WINDOW, "clip_rows", "shard_combine",
                        "shard_commit"],
 }
+# The supervised phases (14-18): the same device programs under the
+# supervision layer.  Long keys take the general step; the promotion's
+# rebuild replays the mirror through it; one "auto" batch merges nothing.
+_GENERAL_STEP = ["history_probe", "sort_rows", "general_prep",
+                 "interval_fixpoint", "union_ranges", "window_insert",
+                 "searchsorted", "build_sparse_table"]
+PATH_KERNELS.update({
+    "supervised": PATH_KERNELS["point"],
+    "long_keys": _GENERAL_STEP,
+    "promotion": [*PATH_KERNELS["point"], *_GENERAL_STEP],
+    "supervised_sharded": PATH_KERNELS["sharded"],
+    "auto": [k for k in PATH_KERNELS["point"] if k != "merge"],
+})
 
 
 # ---------------------------------------------------------------- workload
@@ -1687,31 +1724,9 @@ def main_path(smi: str):
 
     K.reset_counts()
     cs = TorchConflictSet(0, capacity=CAPACITY, delta_capacity=DELTA_CAPACITY, device=DEVICE)
-    for v, enc, _, _ in batches[:N_WARMUP]:
-        cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
-    merges0 = cs.profile["merges"]
-    inflight, results = deque(), []
-    n_ranges = 0
-    t0 = time.perf_counter()
-    for v, enc, _, _ in batches[N_WARMUP:N_WARMUP + N_MEASURED]:
-        inflight.append((enc, cs.resolve_encoded_async(enc, v, floor(v))))
-        if len(inflight) > DEPTH:
-            e, h = inflight.popleft()
-            results.append(h.wait_codes().copy())
-            n_ranges += e.n_ranges
-    while inflight:
-        e, h = inflight.popleft()
-        results.append(h.wait_codes().copy())
-        n_ranges += e.n_ranges
-    dt = time.perf_counter() - t0
-    rate = n_ranges / dt
-    merges = cs.profile["merges"] - merges0
-    lats = []
-    for v, enc, _, _ in batches[N_WARMUP + N_MEASURED:]:
-        t1 = time.perf_counter()
-        cs.resolve_encoded_async(enc, v, floor(v)).wait_codes()
-        lats.append(time.perf_counter() - t1)
-    p50 = float(np.percentile(lats, 50) * 1e3)
+    drive = drive_point(cs, batches)
+    rate, p50, merges = drive["rate"], drive["p50_ms"], drive["merges"]
+    results = drive["codes"][N_WARMUP:N_WARMUP + N_MEASURED]
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     # The host's share of a resolve: packing alone, on the same batches.
@@ -1811,7 +1826,7 @@ def main_path(smi: str):
             "commit_rate": commit_rate, "commit_rate_low": commit_low,
             "merges_measured": merges, "batches_measured": N_MEASURED,
             "depth": DEPTH, "txns_per_batch": TXNS, "card": smi}
-    return launches, path
+    return launches, path, batches[:N_WARMUP + N_MEASURED + N_LATENCY]
 
 
 # ------------------------------------------------------- config 3 phases
@@ -3159,6 +3174,436 @@ def sharded_window_path(smi: str, batches):
     return launches, path
 
 
+# ------------------------------------------------------- supervised paths
+# The supervision layer (conflict/supervisor.py) over the paths above.  Its
+# fallback is the exact CPU mirror, which would still give right verdicts
+# if a kernel failed, so every phase that injects no fault requires every
+# batch on the card (check_supervised).  Phase 16's 500-txn batches keep
+# the mirror's replay (the oracle's quadratic intra-batch check) short;
+# phase 17 fills fewer batches than phase 10 (the mirror folds every
+# committed write on the host).
+TXNS_DEGRADE, N_DEGRADE, N_INFLIGHT = 500, 16, 7
+N_SHARED, SHARED_TXNS, SHARED_KEYS, SHARED_PREFIXES = 6, 1_000, 20_000, 4
+N_SUPERVISED5 = 10
+
+
+class pipeline_depth:
+    """The port's CONFLICT_PIPELINE_DEPTH knob set for a block."""
+
+    def __init__(self, depth: int) -> None:
+        self.depth = depth
+
+    def __enter__(self):
+        from foundationdb_tpu_torch.core.knobs import server_knobs
+        self.knobs = server_knobs()
+        self.saved = self.knobs.CONFLICT_PIPELINE_DEPTH
+        self.knobs.CONFLICT_PIPELINE_DEPTH = self.depth
+
+    def __exit__(self, *exc):
+        self.knobs.CONFLICT_PIPELINE_DEPTH = self.saved
+
+
+def check_supervised(sup, n_batches: int, device_cls: str) -> dict:
+    """A supervised run that injected no fault: never degraded, every
+    batch on the card, the device set the one expected, on `cuda`."""
+    st = sup.status()
+    bad = (st["degraded"] is not False or st["degrades"] != 0
+           or st["fallback_batches"] != 0 or st["promotions"] != 0
+           or st["device_batches"] != n_batches)
+    dev = sup.device
+    if bad or type(dev).__name__ != device_cls or \
+            dev.device.type != DEVICE:
+        raise AssertionError(f"supervised set left the card or missed a "
+                             f"batch ({n_batches} batches, "
+                             f"{type(dev).__name__}): {st}")
+    return st
+
+
+def drive_point(cs, batches, txns=None) -> dict:
+    """Phase 3's drive: N_WARMUP batches, N_MEASURED at depth DEPTH,
+    N_LATENCY at depth 1, through resolve_encoded_async (a supervised set
+    also gets each batch's object form, for its mirror).  Returns every
+    batch's codes, ranges/s at depth, the merges in those batches and the
+    p50 ms at depth 1."""
+    def submit(i):
+        v, enc, _, _ = batches[i]
+        if txns is None:
+            return cs.resolve_encoded_async(enc, v, floor(v))
+        return cs.resolve_encoded_async(enc, v, floor(v),
+                                        transactions=txns[i])
+
+    profile = cs.profile if hasattr(cs, "profile") else cs.device.profile
+    codes = [submit(i).wait_codes().copy() for i in range(N_WARMUP)]
+    merges0 = profile["merges"]
+    inflight, n_ranges = deque(), 0
+    t0 = time.perf_counter()
+    for i in range(N_WARMUP, N_WARMUP + N_MEASURED):
+        inflight.append((i, submit(i)))
+        while len(inflight) > DEPTH or (
+                i == N_WARMUP + N_MEASURED - 1 and inflight):
+            j, h = inflight.popleft()
+            codes.append(h.wait_codes().copy())
+            n_ranges += batches[j][1].n_ranges
+    rate = n_ranges / (time.perf_counter() - t0)
+    merges = profile["merges"] - merges0
+    lats = []
+    for i in range(N_WARMUP + N_MEASURED, len(batches)):
+        t1 = time.perf_counter()
+        codes.append(submit(i).wait_codes().copy())
+        lats.append(time.perf_counter() - t1)
+    return {"codes": codes, "rate": rate, "merges": merges,
+            "p50_ms": float(np.percentile(lats, 50) * 1e3)}
+
+
+def supervised_point_path(smi: str, batches):
+    """Phase 14: new_conflict_set("torch") -- the supervised set -- over
+    phase 3's config-2 stream at CONFLICT_PIPELINE_DEPTH 8, beside the
+    bare set on the same stream; codes equal batch for batch."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict.api import new_conflict_set
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    txns = [to_transactions(kids, snaps) for _, _, kids, snaps in batches]
+    bare = TorchConflictSet(0, capacity=CAPACITY,
+                            delta_capacity=DELTA_CAPACITY, device=DEVICE)
+    want = drive_point(bare, batches)
+    bare_rate, bare_p50 = want["rate"], want["p50_ms"]
+    del bare
+    torch.cuda.empty_cache()
+    with pipeline_depth(DEPTH):
+        K.reset_counts()
+        sup = new_conflict_set("torch", capacity=CAPACITY,
+                               delta_capacity=DELTA_CAPACITY, device=DEVICE)
+        # The mirror's fold-through of a device batch: the recheck flags,
+        # the sampled attribution and the insert of the surviving writes.
+        fold = []
+        for name in ("_needs_recheck", "_attribute_device_batch",
+                     "_mirror_apply"):
+            fn = getattr(sup, name)
+
+            def timed(*a, fn=fn, name=name, **kw):
+                t1 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    if name == "_needs_recheck":
+                        fold.append(0.0)
+                    fold[-1] += time.perf_counter() - t1
+
+            setattr(sup, name, timed)
+        got = drive_point(sup, batches, txns)
+        rate, p50 = got["rate"], got["p50_ms"]
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    for i, (a, b) in enumerate(zip(got["codes"], want["codes"])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"supervised codes differ from the bare "
+                                 f"set's on batch {i}")
+    st = check_supervised(sup, len(batches), "TorchConflictSet")
+    if st["rechecked_batches"] != 0:
+        raise AssertionError(f"15-byte keys rechecked: {st}")
+    fold_ms = float(np.percentile(fold, 50) * 1e3)
+    print(f"path_supervised: {rate:.1f} ranges/s at depth {DEPTH} (bare "
+          f"{bare_rate:.1f}), p50 resolve {p50:.3f} ms at depth 1 (bare "
+          f"{bare_p50:.3f}), pipeline_stalls {st['pipeline_stalls']}, "
+          f"mirror fold-through p50 {fold_ms:.3f} ms a batch, codes equal "
+          f"the bare set's on {len(batches)} batches, 0 rechecked -- {smi}",
+          flush=True)
+    path = {"ranges_per_s": rate, "bare_ranges_per_s": bare_rate,
+            "p50_resolve_ms": p50, "bare_p50_resolve_ms": bare_p50,
+            "pipeline_stalls": st["pipeline_stalls"],
+            "p50_mirror_fold_ms": fold_ms, "batches": len(batches),
+            "depth": DEPTH, "card": smi}
+    return launches, path
+
+
+def shared_prefix_stream(seed: int):
+    """Point txns (2 reads, 1 write) whose keys share one of
+    SHARED_PREFIXES 31-byte prefixes, an 8-digit id after: every key
+    digests to its prefix's digest (the keys tenants of one application
+    write).  zipf(1.2) ids over SHARED_KEYS."""
+    from foundationdb_tpu_torch.ops.digest import PREFIX_BYTES
+    from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
+    rng = np.random.default_rng(seed)
+    prefixes = [(b"tenant%02d/" % i).ljust(PREFIX_BYTES, b"p")
+                for i in range(SHARED_PREFIXES)]
+    out, version = [], 1_000 + WINDOW
+    for _ in range(N_SHARED):
+        prev, version = version, version + VERSIONS_PER_BATCH
+        ids = rng.zipf(1.2, size=(SHARED_TXNS, READS + 1)) % SHARED_KEYS
+        pick = rng.integers(0, SHARED_PREFIXES, size=ids.shape)
+        snaps = np.maximum(prev - rng.integers(0, 2 * VERSIONS_PER_BATCH,
+                                               size=SHARED_TXNS), 0)
+        txns = []
+        for t in range(SHARED_TXNS):
+            keys = [prefixes[p] + b"%08d" % k
+                    for p, k in zip(pick[t], ids[t])]
+            txns.append(CommitTransactionRef(
+                read_conflict_ranges=[KeyRange(k, k + b"\x00")
+                                      for k in keys[:READS]],
+                write_conflict_ranges=[KeyRange(keys[READS],
+                                                keys[READS] + b"\x00")],
+                read_snapshot=int(snaps[t])))
+        out.append((version, txns))
+    return out
+
+
+def supervised_long_keys(smi: str):
+    """Phase 15: keys past the digest prefix through the supervised set
+    (each flagged batch re-resolved exactly by the mirror) and the bare
+    set: phase 6's small config-3 batches and a shared-prefix stream.
+    The supervised verdicts must equal the oracle's; the bare set's extra
+    aborts against the oracle are counted, and the txns it commits that
+    the oracle aborts (a reader behind a writer the bare set aborted
+    wrongly, whose write then never blocks it)."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict.api import new_conflict_set
+    from foundationdb_tpu_torch.conflict.encoded import EncodedBatch
+    from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    streams = {
+        "config3": [(v, transactions3(draws))
+                    for v, _, draws in small_stream3(2028)],
+        "shared_prefix": shared_prefix_stream(2029)}
+    launches = dict.fromkeys(K.LAUNCHES, 0)
+    out = {}
+    for label, stream in streams.items():
+        # The bare set first, so the counters below count the supervised
+        # set's launches alone.
+        bare = TorchConflictSet(0, capacity=CAPACITY,
+                                delta_capacity=DELTA_CAPACITY, device=DEVICE)
+        bare_codes = [bare.resolve_encoded_async(
+            EncodedBatch.from_transactions(txns), v, floor(v))
+            .wait_codes().copy() for v, txns in stream]
+        del bare
+        sup = new_conflict_set("torch", capacity=CAPACITY,
+                               delta_capacity=DELTA_CAPACITY, device=DEVICE)
+        oracle = OracleConflictSet(0)
+        extra = flipped = commits = n = 0
+        K.reset_counts()
+        for i, (v, txns) in enumerate(stream):
+            want = np.asarray([int(x) for x in oracle.resolve(
+                txns, v, floor(v))], dtype=np.int8)
+            got = np.asarray([int(x) for x in sup.resolve(
+                txns, v, floor(v))], dtype=np.int8)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"long keys ({label}): {int(np.sum(got != want))} "
+                    f"supervised verdicts differ from the oracle on batch "
+                    f"{i}")
+            b = bare_codes[i]
+            extra += int(np.sum((b == 0) & (want == 2)))
+            flipped += int(np.sum((b == 2) & (want != 2)))
+            commits += int(np.sum(want == 2))
+            n += len(txns)
+        st = check_supervised(sup, len(stream), "TorchConflictSet")
+        if st["rechecked_batches"] <= 0:
+            raise AssertionError(f"long keys ({label}): nothing rechecked")
+        out[label] = {"batches": len(stream), "txns": n,
+                      "rechecked_batches": st["rechecked_batches"],
+                      "oracle_commits": commits, "bare_extra_aborts": extra,
+                      "bare_extra_abort_rate": extra / n,
+                      "bare_commits_oracle_aborts": flipped}
+        torch.cuda.synchronize()
+        for k, c in K.LAUNCHES.items():
+            launches[k] += c
+        del sup
+        torch.cuda.empty_cache()
+    c3, sp = out["config3"], out["shared_prefix"]
+    print(f"long_keys: supervised verdicts equal the oracle on "
+          f"{c3['batches']} config-3 batches ({c3['rechecked_batches']} "
+          f"rechecked) and {sp['batches']} shared-prefix batches "
+          f"({sp['rechecked_batches']} rechecked); the bare set's extra "
+          f"aborts: config 3 {c3['bare_extra_aborts']}/{c3['txns']} txns, "
+          f"shared 31-byte prefix {sp['bare_extra_aborts']}/{sp['txns']} "
+          f"txns ({100 * sp['bare_extra_abort_rate']:.2f}% of txns, of "
+          f"{sp['oracle_commits']} the oracle commits); txns the bare set "
+          f"commits and the oracle aborts (behind a writer it aborted "
+          f"wrongly): config 3 {c3['bare_commits_oracle_aborts']}, shared "
+          f"prefix {sp['bare_commits_oracle_aborts']} -- {smi}", flush=True)
+    out["card"] = smi
+    return launches, out
+
+
+def degrade_stream(seed: int):
+    """N_DEGRADE small config-2 batches of TXNS_DEGRADE txns; every other
+    one also carries a clear of 1-100 keys, so it takes the general step
+    and the mirror holds ranges that are not points (the promotion's
+    rebuild replays those through the general step too)."""
+    from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (v, _, kids, snaps) in enumerate(
+            make_stream(rng, N_DEGRADE, txns=TXNS_DEGRADE)):
+        txns = to_transactions(kids, snaps)
+        if i % 2:
+            a = int(rng.integers(0, KEYSPACE - SCAN_MAX))
+            b = a + int(rng.integers(1, SCAN_MAX + 1))
+            txns.append(CommitTransactionRef(write_conflict_ranges=[
+                KeyRange(b"k%014d" % a, b"k%014d" % b)]))
+        out.append((v, txns))
+    return out
+
+
+def supervised_degrade(smi: str):
+    """Phase 16: force_device_error = ["timeout"] on one dispatch with
+    N_INFLIGHT batches in flight at depth 8, a monitor whose re-probe is
+    due at once: one degrade (the in-flight batches replay in order
+    through the mirror), one promotion (a TorchConflictSet on the card
+    rebuilt from the mirror, through the compact and the general step),
+    then the device again; codes equal the oracle's over the whole
+    stream."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+    from foundationdb_tpu_torch.conflict.supervisor import (
+        BackendHealthMonitor, SupervisedConflictSet)
+    from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
+    from foundationdb_tpu_torch.core.trace import recent_events
+    stream = degrade_stream(2030)
+    with pipeline_depth(DEPTH):
+        K.reset_counts()
+        sup = SupervisedConflictSet(
+            lambda oldest_version=0: TorchConflictSet(
+                oldest_version, capacity=CAPACITY,
+                delta_capacity=DELTA_CAPACITY, device=DEVICE),
+            monitor=BackendHealthMonitor(reprobe_interval_s=0.0))
+        handles = []
+        for i, (v, txns) in enumerate(stream):
+            if i == N_INFLIGHT:
+                if len(sup._pending) != N_INFLIGHT or sup.degraded:
+                    raise AssertionError("degrade: batches not in flight")
+                sup.force_device_error = ["timeout"]
+            handles.append(sup.resolve_async(txns, v, floor(v)))
+            if i == N_INFLIGHT and not sup.degraded:
+                raise AssertionError("degrade: the injected timeout did "
+                                     "not degrade")
+        oracle = OracleConflictSet(0)
+        for i, (h, (v, txns)) in enumerate(zip(handles, stream)):
+            want = np.asarray([int(x) for x in oracle.resolve(
+                txns, v, floor(v))], dtype=np.int8)
+            if not np.array_equal(h.wait_codes(), want):
+                raise AssertionError(f"degrade: codes differ from the "
+                                     f"oracle on batch {i}")
+            if (i <= N_INFLIGHT) != h.via_fallback:
+                raise AssertionError(f"degrade: batch {i} took the wrong "
+                                     f"route (via_fallback {h.via_fallback})")
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    st = sup.status()
+    after = N_DEGRADE - N_INFLIGHT - 1
+    if (st["degrades"], st["promotions"], st["fallback_batches"],
+            st["device_batches"]) != (1, 1, N_INFLIGHT + 1, after) \
+            or st["degraded"] or type(sup.device).__name__ != \
+            "TorchConflictSet" or sup.device.device.type != DEVICE:
+        raise AssertionError(f"degrade and promotion: {st}")
+    prof = sup.device.profile
+    general_after = sum(i % 2 for i in range(N_INFLIGHT + 1, N_DEGRADE))
+    rebuilt = (prof["batches"] - after,
+               prof["general_batches"] - general_after)
+    if rebuilt[1] <= 0:
+        raise AssertionError(f"promotion replayed no range: {prof}")
+    segments = recent_events("ConflictBackendPromoted")[-1]["Segments"]
+    print(f"degrade: a timeout injected at dispatch {N_INFLIGHT} with "
+          f"{N_INFLIGHT} batches in flight at depth {DEPTH}: 1 degrade, "
+          f"{N_INFLIGHT + 1} batches replayed in order through the mirror, "
+          f"1 promotion (the device rebuilt from {segments} mirror "
+          f"segments in {rebuilt[0]} batches, {rebuilt[1]} of them general "
+          f"steps), then {after} device batches; codes equal the oracle's "
+          f"on all {N_DEGRADE} batches of {TXNS_DEGRADE} txns -- {smi}",
+          flush=True)
+    return launches, {"degrades": 1, "promotions": 1,
+                      "fallback_batches": N_INFLIGHT + 1,
+                      "device_batches_after": after,
+                      "rebuild_batches": rebuilt[0],
+                      "rebuild_general_steps": rebuilt[1],
+                      "mirror_segments": segments, "card": smi}
+
+
+def supervised_sharded(smi: str, splits, batches):
+    """Phase 17: ShardedTorchConflictSet.supervised on phase 10's mesh
+    with config 5's splits, capacity and delta, filled at depth 3 over
+    N_SUPERVISED5 batches, then the 2,048 at-capacity re-reads."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.parallel import ShardedTorchConflictSet
+    from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
+    txns = [to_transactions(kids, snaps)
+            for _, _, kids, snaps in batches[:N_SUPERVISED5 + 1]]
+    with pipeline_depth(CONFIG5_DEPTH):
+        K.reset_counts()
+        sup = ShardedTorchConflictSet.supervised(
+            shard_mesh(), 0, capacity=CONFIG5_CAPACITY // N_SHARDS,
+            delta_capacity=CONFIG5_DELTA // N_SHARDS, gc_interval_batches=8,
+            splits=splits)
+        v, enc, probe_kids, _ = batches[0]
+        codes = sup.resolve_encoded_async(enc, v, 0, transactions=txns[0]
+                                          ).wait_codes().copy()
+        inserted, n_ranges = int(np.sum(codes == 2)), 0
+        inflight = deque()
+        t0 = time.perf_counter()
+        for i in range(1, N_SUPERVISED5 + 1):
+            v, enc, _, _ = batches[i]
+            inflight.append((enc, sup.resolve_encoded_async(
+                enc, v, 0, transactions=txns[i])))
+            while len(inflight) >= CONFIG5_DEPTH or (
+                    i == N_SUPERVISED5 and inflight):
+                e, h = inflight.popleft()
+                inserted += int(np.sum(h.wait_codes() == 2))
+                n_ranges += e.n_ranges
+        rate = n_ranges / (time.perf_counter() - t0)
+        nr = CONFIG5_TXNS * READS
+        committed = np.asarray(probe_kids[nr:])[codes == 2][:N_PROBE5]
+        probe = [CommitTransactionRef(
+            read_snapshot=0, read_conflict_ranges=[KeyRange(k, k + b"\x00")])
+            for k in (b"k%014d" % int(x) for x in committed)]
+        verdicts = sup.resolve(probe, v + VERSIONS_PER_BATCH, 0)
+        conflicts = sum(1 for x in verdicts if int(x) == 0)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    st = check_supervised(sup, N_SUPERVISED5 + 2, "ShardedTorchConflictSet")
+    print(f"path_supervised_sharded: {inserted} committed in-flight writes "
+          f"after {N_SUPERVISED5 + 1} batches at depth {CONFIG5_DEPTH} "
+          f"({sup.device.profile['merges']} merges), fill {rate:.1f} "
+          f"ranges/s, probe {conflicts}/{len(probe)} conflicts, "
+          f"pipeline_stalls {st['pipeline_stalls']}, no degrade -- {smi}",
+          flush=True)
+    if len(probe) != N_PROBE5 or conflicts != len(probe):
+        raise AssertionError(f"supervised config 5 probe: "
+                             f"{conflicts}/{len(probe)}")
+    return launches, {"in_flight_writes": inserted,
+                      "fill_ranges_per_s": rate,
+                      "batches": N_SUPERVISED5 + 1,
+                      "probe_conflicts": conflicts,
+                      "probe_reads": len(probe), "depth": CONFIG5_DEPTH,
+                      "card": smi}
+
+
+def auto_backend(smi: str):
+    """Phase 18: new_conflict_set("auto") on the card is the supervised
+    torch set on `cuda`; one small config-2 batch through it."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict.api import new_conflict_set
+    K.reset_counts()
+    sup = new_conflict_set("auto")
+    if type(sup).__name__ != "SupervisedConflictSet":
+        raise AssertionError(f'"auto" gave {type(sup).__name__}')
+    v, enc, kids, snaps = make_stream(np.random.default_rng(2031), 1,
+                                      txns=N_LOWC_SMALL_TXNS)[0]
+    sup.resolve_encoded_async(enc, v, floor(v), transactions=to_transactions(
+        kids, snaps)).wait_codes()
+    torch.cuda.synchronize()
+    check_supervised(sup, 1, "TorchConflictSet")
+    if sup.device.device.type != "cuda":
+        raise AssertionError(f'"auto" runs on {sup.device.device}')
+    print(f'auto: new_conflict_set("auto") is SupervisedConflictSet over '
+          f'TorchConflictSet on {sup.device.device} (capacity '
+          f'{sup.device.capacity}) -- {smi}', flush=True)
+    return dict(K.LAUNCHES)
+
+
 def main() -> int:
     try:
         import torch
@@ -3187,7 +3632,7 @@ def main() -> int:
 
     log("phase 3: the point path (config 2)")
     launches = {}
-    launches["point"], path = main_path(smi)
+    launches["point"], path, batches2 = main_path(smi)
     phase_done("point path")
 
     log("phase 4: the new kernels against their plain versions (config 3)")
@@ -3245,7 +3690,6 @@ def main() -> int:
     log("phase 11: sharded parity and kernel-vs-plain state at config 5")
     sharded_parity(splits5)
     sharded_state_equality(splits5, batches5)
-    del batches5
     torch.cuda.empty_cache()
     phase_done("sharded parity and state")
     log("phase 12: the config-3 stream through four shards")
@@ -3257,6 +3701,29 @@ def main() -> int:
         smi, batches3)
     del batches3
     phase_done("sharded window path")
+
+    log("phase 14: the supervised point path (config 2)")
+    launches["supervised"], path_supervised = supervised_point_path(
+        smi, batches2)
+    del batches2
+    torch.cuda.empty_cache()
+    phase_done("supervised point path")
+    log("phase 15: long keys, supervised and bare")
+    launches["long_keys"], long_keys = supervised_long_keys(smi)
+    phase_done("long keys")
+    log("phase 16: degrade and promotion on the card")
+    launches["promotion"], degrade = supervised_degrade(smi)
+    torch.cuda.empty_cache()
+    phase_done("degrade and promotion")
+    log("phase 17: the supervised sharded set (config 5)")
+    launches["supervised_sharded"], path_supervised_sharded = \
+        supervised_sharded(smi, splits5, batches5)
+    del batches5
+    torch.cuda.empty_cache()
+    phase_done("supervised sharded path")
+    log('phase 18: new_conflict_set("auto")')
+    launches["auto"] = auto_backend(smi)
+    phase_done("auto")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -3284,6 +3751,9 @@ def main() -> int:
                       "path_sharded": path_sharded,
                       "path_sharded_general": path_sharded_general,
                       "path_sharded_window": path_sharded_window,
+                      "path_supervised": path_supervised,
+                      "long_keys": long_keys, "degrade": degrade,
+                      "path_supervised_sharded": path_supervised_sharded,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

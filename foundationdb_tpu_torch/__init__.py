@@ -5,13 +5,15 @@ NVIDIA Hopper GPU.  The layout mirrors the JAX package module for module,
 so each counterpart sits at the same relative path:
 
   txn/       -- Version, KeyRange, CommitTransactionRef, CommitResult
-  core/      -- FdbError / err()
+  core/      -- FdbError / err(), server knobs, BUGGIFY, trace events,
+                histograms, the hook for a caller's event loop
   ops/       -- digest encode (host) + search, rank, scan and range-max
                 (device: plain-torch versions beside CUDA kernel wrappers)
   conflict/  -- EncodedBatch, the ConflictSet contract, the CPU oracle, the
                 fused per-batch steps + merge (fused.py), the window
-                programs (window.py) and the backend that drives them
-                (torch_backend.py)
+                programs (window.py), the backend that drives them
+                (torch_backend.py) and the supervision layer over it
+                (supervisor.py)
   parallel/  -- the same sharded by key range over a grid of devices
                 (ConflictMesh, ShardedTorchConflictSet, ShardedWindow)
   kernels/   -- nvcc build of csrc/*.cu, ctypes bindings, launch counters

@@ -3,9 +3,10 @@
 Opaque-factory boundary mirroring the reference's ConflictSet.h:30-52
 (newConflictSet / ConflictBatch::addTransaction / detectConflicts), with a
 backend selector: "torch" (the PyTorch + CUDA backend, on `cuda` unless
-the caller passes device="cpu"), "sharded" (the same backend with its
-window key-range-sharded over a mesh of the visible cards) or "cpu" (the
-exact oracle).
+the caller passes device="cpu", under the supervision layer), "torch-raw"
+(the same, bare), "sharded" (the backend with its window
+key-range-sharded over a mesh of the visible cards, supervised), "auto"
+or "cpu" (the exact oracle).
 
 Abstract semantics (the parity contract, from fdbserver/SkipList.cpp):
 
@@ -37,7 +38,7 @@ from ..txn.types import CommitResult, CommitTransactionRef, Version
 
 class ConflictSet:
     """Abstract conflict set. Subclasses: OracleConflictSet,
-    TorchConflictSet, ShardedTorchConflictSet."""
+    TorchConflictSet, ShardedTorchConflictSet, SupervisedConflictSet."""
 
     def __init__(self, oldest_version: Version = 0) -> None:
         self.oldest_version: Version = oldest_version
@@ -107,25 +108,52 @@ def conservative_conflict_ranges(verdicts, transactions) -> dict:
     return ranges
 
 
-def new_conflict_set(backend: str = "torch", oldest_version: Version = 0,
-                     mesh=None, **kwargs) -> ConflictSet:
-    """"torch": TorchConflictSet (kwargs: capacity, delta_capacity,
-    gc_interval_batches, device -- `cuda` by default; construction raises
+def new_conflict_set(backend: Optional[str] = None,
+                     oldest_version: Version = 0, mesh=None,
+                     **kwargs) -> ConflictSet:
+    """Factory honoring the CONFLICT_SET_BACKEND knob (reference
+    conflict/api.py new_conflict_set).  backend None reads the knob.
+
+    "torch": TorchConflictSet (kwargs: capacity, delta_capacity,
+    gc_interval_batches, device -- `cuda` by default; the factory raises
     when no CUDA device is present and none was named).  "sharded":
     ShardedTorchConflictSet over `mesh`, by default a mesh of every
     visible card (raises when there is none; kwargs: capacity and
-    delta_capacity per shard, gc_interval_batches, splits).  Neither is
-    supervised yet.  "cpu": the oracle."""
+    delta_capacity per shard, gc_interval_batches, splits).  Both are
+    wrapped in the supervision layer (conflict/supervisor.py) unless the
+    CONFLICT_BACKEND_SUPERVISED knob is off: deadline-budgeted dispatch,
+    degrade to an exact CPU mirror, re-probe and promotion, and the
+    exact long-key recheck; the device set is built anew, with the same
+    kwargs, at every promotion.  The first is built here, so a set that
+    cannot be built (no card, a kernel build failure, no memory) raises
+    instead of the supervisor beginning degraded on its CPU mirror.
+    "torch-raw" is the bare TorchConflictSet
+    (the reference's "tpu-raw").  "auto" is "torch" when a CUDA device is
+    present and the oracle otherwise.  "cpu": the oracle."""
+    backend = backend or server_knobs().CONFLICT_SET_BACKEND
+    if backend == "auto":
+        import torch
+        backend = "torch" if torch.cuda.is_available() else "cpu"
     if backend == "cpu":
         from .oracle import OracleConflictSet
         return OracleConflictSet(oldest_version)
-    if backend == "torch":
-        from .torch_backend import TorchConflictSet
-        return TorchConflictSet(oldest_version, **kwargs)
+    if backend not in ("torch", "torch-raw", "sharded"):
+        raise ValueError(f"unknown conflict set backend {backend!r}")
     if backend == "sharded":
         from ..parallel.sharded_resolver import ShardedTorchConflictSet
         from ..parallel.sharded_window import make_conflict_mesh
-        return ShardedTorchConflictSet(
-            make_conflict_mesh() if mesh is None else mesh, oldest_version,
-            **kwargs)
-    raise ValueError(f"unknown conflict set backend {backend!r}")
+        mesh = make_conflict_mesh() if mesh is None else mesh
+
+        def make_device(oldest_version: Version = oldest_version):
+            return ShardedTorchConflictSet(mesh, oldest_version, **kwargs)
+    else:
+        from .torch_backend import TorchConflictSet
+
+        def make_device(oldest_version: Version = oldest_version):
+            return TorchConflictSet(oldest_version, **kwargs)
+
+    if backend != "torch-raw" and server_knobs().CONFLICT_BACKEND_SUPERVISED:
+        from .supervisor import SupervisedConflictSet
+        return SupervisedConflictSet(make_device, oldest_version,
+                                     device=make_device())
+    return make_device()

@@ -1,5 +1,6 @@
-"""Core helpers the conflict path needs: errors and the server knobs it
-reads."""
+"""Core helpers the conflict path and its supervisor need: errors, the
+server knobs, BUGGIFY sites and their random draws, the hook for a
+caller's event loop, trace events and latency histograms."""
 
 from .error import FdbError, err
 from .knobs import server_knobs

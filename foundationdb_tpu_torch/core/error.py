@@ -1,4 +1,4 @@
-"""Error codes (trimmed to what the conflict path raises).
+"""Error codes (trimmed to what the conflict path and its supervisor raise).
 
 Mirrors the reference's flow/error_definitions.h error-code contract."""
 
@@ -18,6 +18,10 @@ class FdbError(Exception):
 
 
 ERROR_CODES = {
+    "operation_failed": 1000,
+    "timed_out": 1004,
+    "connection_failed": 1026,
+    "request_maybe_delivered": 1034,
     "inverted_range": 2005,
     "internal_error": 4100,
 }

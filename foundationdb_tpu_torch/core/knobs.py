@@ -1,24 +1,62 @@
 """Server knobs the port reads (trimmed copy of foundationdb_tpu/core/knobs.py).
 
-Only what the port's conflict path consults: HEAT_TELEMETRY_ENABLED, the
-master switch of the heat-telemetry attribution that
-ConflictSet.resolve_with_conflicts fills (conflict/api.py).  Set it the way
-the reference's tests do: mutate the process-wide registry,
-`server_knobs().HEAT_TELEMETRY_ENABLED = False`, and restore it after.
-The supervisor's CONFLICT_* and HEAT_* knobs join when the supervisor is
-ported.
+What the port's conflict path and its supervision layer consult, with the
+reference's defaults: HEAT_TELEMETRY_ENABLED, the master switch of the
+heat-telemetry attribution that ConflictSet.resolve_with_conflicts fills
+(conflict/api.py); the CONFLICT_* knobs of the backend factory and of
+conflict/supervisor.py; and METRICS_EMIT_INTERVAL, the cadence of
+CounterCollection.emit_loop.  The heat-emission table's knobs
+(CONFLICT_HEAT_TOP_K, CONFLICT_HEAT_TABLE_MAX) come with a port of that
+table.  Set
+them the way the reference's tests do: mutate the process-wide registry,
+`server_knobs().CONFLICT_PIPELINE_DEPTH = 2`, and restore it after.
 """
 
 from __future__ import annotations
 
 
 class ServerKnobs:
-    """Server-side knobs, with the reference's defaults."""
+    """Server-side knobs, with the reference's defaults (but see
+    CONFLICT_SET_BACKEND)."""
 
     def __init__(self) -> None:
+        # Cadence of the periodic {group}Metrics / LatencyBand emission
+        # (core/histogram.CounterCollection.emit_loop).
+        self.METRICS_EMIT_INTERVAL = 5.0
+
+        # Conflict-set backend selector of conflict/api.new_conflict_set:
+        # "torch" (supervised, on `cuda`), "torch-raw" (bare), "sharded",
+        # "cpu" (the oracle) or "auto".  The reference defaults to its
+        # oracle; the port's entry points run on the card unless asked
+        # otherwise, so the port defaults to "torch".
+        self.CONFLICT_SET_BACKEND = "torch"
+
+        # Device-backend supervision (conflict/supervisor.py): deadline
+        # budget per device call, transient-retry policy, health-trip
+        # thresholds and the degraded-mode re-probe cadence.
+        self.CONFLICT_BACKEND_SUPERVISED = True
+        # Per-call deadline; 0 runs device calls inline, unguarded.
+        self.CONFLICT_DEVICE_TIMEOUT_S = 600.0
+        self.CONFLICT_DEVICE_MAX_RETRIES = 2      # transient-error retries
+        self.CONFLICT_DEVICE_RETRY_BACKOFF_S = 0.05   # doubles per retry
+        # Health-monitor failure-streak length (an unrecovered hard
+        # failure degrades at once whatever this is).
+        self.CONFLICT_BACKEND_FAILURE_THRESHOLD = 3
+        self.CONFLICT_DEVICE_LATENCY_SLO_S = 0.0  # 0 disables the SLO trip
+        self.CONFLICT_DEVICE_SLO_STRIKES = 8      # consecutive slow batches
+        self.CONFLICT_BACKEND_REPROBE_S = 5.0     # doubles per failed probe
+        # Depth-N dispatch pipeline: most batches in flight (dispatched,
+        # verdicts not yet folded) before a dispatch folds the oldest.
+        self.CONFLICT_PIPELINE_DEPTH = 8
+
         # Cluster heat telemetry (the reference's conflict/heat.py): gates
-        # the per-batch conflict attribution of resolve_with_conflicts.
+        # the per-batch conflict attribution of resolve_with_conflicts and
+        # the supervised device path's mirror attribution.
         self.HEAT_TELEMETRY_ENABLED = True
+        # Most aborted txns of a device-path batch attributed exactly
+        # through the supervisor's mirror; the rest keep conservative
+        # whole-read-set blame (the ConservativeAttribution counter).
+        self.CONFLICT_ATTRIBUTION_SAMPLE = 32
 
 
 _server = ServerKnobs()

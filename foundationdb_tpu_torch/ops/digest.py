@@ -207,34 +207,36 @@ def _searchsorted_plain(table: torch.Tensor, queries: torch.Tensor,
                         side_left) -> torch.Tensor:
     """The branchless loop of the reference's _searchsorted over rows:
     first index with table[i] >= q (left) or > q (right).  side_left is a
-    bool or a bool[Q] tensor (a tie side per query)."""
+    bool or a bool[Q] tensor (a tie side per query).  Each step compares
+    a query with its midpoint row at the first lane where they differ."""
     cap = table.shape[0]
     nbits = cap.bit_length() - 1
     assert cap == 1 << nbits, f"capacity {cap} not a power of two"
     nq = queries.shape[0]
     dev = table.device
-    q = _biased(queries)
+    qb = _biased(queries)
     lo = torch.zeros((nq,), dtype=torch.int32, device=dev)
     hi = torch.full((nq,), cap, dtype=torch.int32, device=dev)
     per_query = isinstance(side_left, torch.Tensor)
-    last = KEY_LANES - 1
-    for _ in range(nbits + 1):
-        active = lo < hi
+    for level in range(nbits + 1):
+        # Every interval of the first nbits levels is non-empty, so there
+        # each query is active and its midpoint a row; only the last level
+        # masks and clamps.
+        last = level == nbits
         mid = (lo + hi) >> 1
-        midc = torch.clamp(mid, max=cap - 1)
-        mk = _biased(table[midc.long()])
-        lt = mk[:, last] < q[:, last]
-        eq = mk[:, last] == q[:, last]
-        for lane in range(KEY_LANES - 2, -1, -1):
-            same = mk[:, lane] == q[:, lane]
-            lt = torch.where(same, lt, mk[:, lane] < q[:, lane])
-            eq = eq & same
+        mk = table[(torch.clamp(mid, max=cap - 1) if last else mid).long()]
+        ne = mk != queries
+        first = ne.to(torch.uint8).argmax(1, keepdim=True)
+        lt = (_biased(mk.gather(1, first)) < qb.gather(1, first))[:, 0]
         if per_query:
-            cmp = torch.where(side_left, lt, lt | eq)
+            cmp = torch.where(side_left, lt, lt | ~ne.any(1))
         else:
-            cmp = lt if side_left else (lt | eq)
-        lo = torch.where(active & cmp, mid + 1, lo)
-        hi = torch.where(active & ~cmp, mid, hi)
+            cmp = lt if side_left else (lt | ~ne.any(1))
+        if last:
+            hi = torch.where((lo < hi) & ~cmp, mid, hi)
+        else:
+            lo = torch.where(cmp, mid + 1, lo)
+            hi = torch.where(cmp, hi, mid)
     return hi
 
 

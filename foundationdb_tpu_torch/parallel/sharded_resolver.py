@@ -39,8 +39,8 @@ scheduling (merge cadence, delta bound, rebase) is TorchConflictSet's: a
 batch's writes may all land on one shard, so the per-shard delta budget
 is the global bound, as in the reference.
 
-The reference's `supervised` entry point (the supervision layer of
-conflict/supervisor.py) has no counterpart yet.
+`ShardedTorchConflictSet.supervised` puts the set under the supervision
+layer of conflict/supervisor.py, as the reference's does.
 """
 
 from __future__ import annotations
@@ -240,6 +240,24 @@ class ShardedTorchConflictSet(TorchConflictSet):
         """Live base-boundary count per shard (syncs the device)."""
         self.synchronize()
         return [int(sh.size[0]) for sh in self.shards]
+
+    @classmethod
+    def supervised(cls, mesh: ConflictMesh, oldest_version=0, monitor=None,
+                   **kwargs):
+        """The mesh-sharded backend under the supervision layer
+        (conflict/supervisor.py): deadline-budgeted dispatch, health
+        monitoring, degrade-to-CPU against the exact mirror, re-probe /
+        promotion (the promotion replay rebuilds the whole sharded window
+        from the mirror history), and the exact long-key recheck.  The
+        first sharded set is built here: one that cannot be built raises
+        instead of the supervisor beginning degraded."""
+        from ..conflict.supervisor import SupervisedConflictSet
+
+        def make_device(oldest_version=oldest_version):
+            return cls(mesh, oldest_version, **kwargs)
+
+        return SupervisedConflictSet(make_device, oldest_version,
+                                     monitor=monitor, device=make_device())
 
 
 # ---------------------------------------------------------------------------

@@ -10,26 +10,36 @@ seeded streams of small point and range batches that conflict, the port's
 TorchConflictSet(device="cpu") is held against TpuConflictSet (JAX on the
 CPU), ShardedTorchConflictSet on an 8-device CPU mesh against
 ShardedTpuConflictSet on the conftest's 8 virtual devices, and the port's
-oracle against the reference's: verdicts, reported ranges and both
+oracle against the reference's, and the port's SupervisedConflictSet
+against the reference's: verdicts, reported ranges and both
 attribution dicts must be equal, with the knob on and with it off (then
 both backends give {}; both oracles keep their exact attribution, which
 neither package gates).  Each side's knob is set the reference's way, on its
 own process-wide registry, and restored after the test.
+
+The factory's cases: new_conflict_set's "torch", "torch-raw", "sharded",
+"auto" and None against the reference's rules (conflict/api.py:113-170),
+and the supervised sharded set through a degrade and a promotion.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from foundationdb_tpu import txn as jt
 from foundationdb_tpu.conflict.oracle import OracleConflictSet as JaxOracle
+from foundationdb_tpu.conflict.supervisor import \
+    SupervisedConflictSet as RefSupervised
 from foundationdb_tpu.conflict.tpu_backend import TpuConflictSet
 from foundationdb_tpu.core.knobs import server_knobs as jax_knobs
 from foundationdb_tpu.parallel.sharded_resolver import ShardedTpuConflictSet
 from foundationdb_tpu.parallel.sharded_window import \
     make_conflict_mesh as jax_mesh
 from foundationdb_tpu_torch.conflict.api import (
-    ConflictSet, full_conservative_attribution)
+    ConflictSet, full_conservative_attribution, new_conflict_set)
 from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+from foundationdb_tpu_torch.conflict.supervisor import (
+    BackendHealthMonitor, SupervisedConflictSet)
 from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
 from foundationdb_tpu_torch.core.knobs import server_knobs
 from foundationdb_tpu_torch.parallel import (ShardedTorchConflictSet,
@@ -87,11 +97,13 @@ def txns(mod, shapes):
 PLAN = ["point", "range", "point", "range", "range", "point"]
 
 
-def drive(ref, port, seed: int, telemetry: bool, gated: bool = True) -> int:
+def drive(ref, port, seed: int, telemetry: bool, gated: bool = True,
+          sample: int = None) -> int:
     """Both sets over PLAN's batches, compared after each; returns the
     number of CONFLICT verdicts seen.  `gated`: the set's attribution
     follows the knob (the oracles' exact one does not, in both
-    packages)."""
+    packages).  `sample`: at most this many aborts a batch are
+    attributed (the supervised sets' device path)."""
     rng = np.random.default_rng(seed)
     now, conflicts = 0, 0
     for kind in PLAN:
@@ -109,7 +121,7 @@ def drive(ref, port, seed: int, telemetry: bool, gated: bool = True) -> int:
         n = sum(int(v) == int(pt.CommitResult.CONFLICT) for v in got)
         conflicts += n
         if telemetry or not gated:
-            assert len(port.last_attribution) == n, kind
+            assert len(port.last_attribution) == min(n, sample or n), kind
         else:
             assert port.last_attribution == {} == port.last_attribution_exact
     return conflicts
@@ -162,3 +174,128 @@ def test_full_conservative_attribution():
         0: [(b"a", b"b"), (b"c", b"d")]}
     cs = ConflictSet()
     assert cs.last_attribution == {} == cs.last_attribution_exact
+
+
+# ---------------------------------------------------------------------------
+# The factory (conflict/api.py new_conflict_set) and the supervised sets
+# ---------------------------------------------------------------------------
+
+SMALL = dict(device="cpu", capacity=1 << 10)
+
+
+def is_supervised_torch(cs, device_cls=TorchConflictSet):
+    return (type(cs) is SupervisedConflictSet
+            and type(cs.device) is device_cls
+            and cs.device.device.type == "cpu" and not cs.degraded)
+
+
+def test_factory_torch_is_supervised(monkeypatch):
+    """"torch" wraps TorchConflictSet built with the caller's kwargs, and
+    is bare with CONFLICT_BACKEND_SUPERVISED off."""
+    cs = new_conflict_set("torch", 7, **SMALL)
+    assert is_supervised_torch(cs)
+    assert cs.device.capacity == 1 << 10 and cs.oldest_version == 7
+    monkeypatch.setattr(server_knobs(), "CONFLICT_BACKEND_SUPERVISED", False)
+    assert type(new_conflict_set("torch", **SMALL)) is TorchConflictSet
+
+
+def test_factory_torch_raw_is_bare():
+    cs = new_conflict_set("torch-raw", **SMALL)
+    assert type(cs) is TorchConflictSet and cs.capacity == 1 << 10
+
+
+def test_factory_sharded_is_supervised():
+    """"sharded" and ShardedTorchConflictSet.supervised both wrap the
+    sharded set over the given mesh."""
+    mesh = make_conflict_mesh(["cpu"] * 2)
+    kw = dict(capacity=1 << 10, delta_capacity=1 << 8)
+    cs = new_conflict_set("sharded", mesh=mesh, **kw)
+    assert is_supervised_torch(cs, ShardedTorchConflictSet)
+    assert cs.device.n_shards == 2
+    sup = ShardedTorchConflictSet.supervised(mesh, 5, **kw)
+    assert is_supervised_torch(sup, ShardedTorchConflictSet)
+    assert sup.oldest_version == sup.device.oldest_version == 5
+
+
+def test_factory_auto(monkeypatch):
+    """"auto": the oracle with no card, the supervised torch set with one
+    (its device set asked for the CPU here)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert type(new_conflict_set("auto", **SMALL)) is OracleConflictSet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert is_supervised_torch(new_conflict_set("auto", **SMALL))
+
+
+@pytest.mark.parametrize("backend", ["torch", "sharded", "supervised"])
+def test_factory_build_failure_raises(monkeypatch, backend):
+    """A device set that cannot be built on a card (a kernel build
+    failure, no memory) raises from the factory and from
+    ShardedTorchConflictSet.supervised: the supervised set does not begin
+    degraded on its CPU mirror."""
+    def fail(*args, **kwargs):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(TorchConflictSet, "__init__", fail)
+    mesh = make_conflict_mesh(["cpu"] * 2)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        if backend == "torch":
+            new_conflict_set("torch", device="cuda")
+        elif backend == "sharded":
+            new_conflict_set("sharded", mesh=mesh, capacity=1 << 10)
+        else:
+            ShardedTorchConflictSet.supervised(mesh, capacity=1 << 10)
+
+
+def test_factory_none_reads_the_knob(monkeypatch):
+    knobs = server_knobs()
+    assert knobs.CONFLICT_SET_BACKEND == "torch"
+    assert is_supervised_torch(new_conflict_set(None, **SMALL))
+    monkeypatch.setattr(knobs, "CONFLICT_SET_BACKEND", "torch-raw")
+    assert type(new_conflict_set(**SMALL)) is TorchConflictSet
+    monkeypatch.setattr(knobs, "CONFLICT_SET_BACKEND", "cpu")
+    assert type(new_conflict_set()) is OracleConflictSet
+    monkeypatch.setattr(knobs, "CONFLICT_SET_BACKEND", "tpu")
+    with pytest.raises(ValueError):
+        new_conflict_set()
+
+
+def test_supervised_attribution_matches_reference(telemetry):
+    """The supervised sets of both packages: equal verdicts, reported
+    ranges and attribution (exact for a sampled prefix of each batch's
+    aborts, through the mirror), with the knob on and off."""
+    kw = dict(capacity=1 << 12, delta_capacity=1 << 10,
+              gc_interval_batches=3)
+    ref = RefSupervised(lambda oldest_version=0:
+                        TpuConflictSet(oldest_version, **kw))
+    port = SupervisedConflictSet(lambda oldest_version=0: TorchConflictSet(
+        oldest_version, device="cpu", **kw))
+    sample = server_knobs().CONFLICT_ATTRIBUTION_SAMPLE
+    assert drive(ref, port, 14, telemetry, sample=sample) > 0
+    assert port.stats == ref.stats
+    if telemetry:
+        assert port.stats["exact_attribution"] > 0
+
+
+def test_supervised_sharded_degrade_and_promotion():
+    """The supervised sharded set through a degrade and a promotion whose
+    replay rebuilds every shard from the mirror: verdicts the oracle's."""
+    mesh = make_conflict_mesh(["cpu"] * 2)
+    sup = ShardedTorchConflictSet.supervised(
+        mesh, monitor=BackendHealthMonitor(reprobe_interval_s=0.0),
+        capacity=1 << 10, delta_capacity=1 << 8, gc_interval_batches=3)
+    oracle = OracleConflictSet(0)
+    rng = np.random.default_rng(15)
+    now = 0
+    for i, kind in enumerate(PLAN + PLAN):
+        now += VERSIONS_PER_BATCH
+        if i == 4:
+            sup.force_device_error = ["timeout"]
+        batch = txns(pt, batch_shapes(rng, kind, now))
+        floor = max(now - 4 * VERSIONS_PER_BATCH, 0)
+        assert [int(v) for v in sup.resolve(batch, now, floor)] == \
+            [int(v) for v in oracle.resolve(batch, now, floor)], i
+    st = sup.status()
+    assert (st["degrades"], st["promotions"], st["fallback_batches"]) == \
+        (1, 1, 1)
+    assert st["device_batches"] == 2 * len(PLAN) - 1
+    assert is_supervised_torch(sup, ShardedTorchConflictSet)

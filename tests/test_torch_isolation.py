@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
-it never falls back to the CPU on its own.  Batches that leave the compact
+it never falls back to the CPU on its own (a supervised set asked for the
+card when there is none raises rather than beginning degraded).  Batches that leave the compact
 point layout take the general interval path."""
 
 import os
@@ -13,7 +14,13 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "foundationdb_tpu_torch", "foundationdb_tpu_torch.kernels",
-    "foundationdb_tpu_torch.core.knobs", "foundationdb_tpu_torch.conflict.api",
+    "foundationdb_tpu_torch.core.knobs", "foundationdb_tpu_torch.core.error",
+    "foundationdb_tpu_torch.core.rng", "foundationdb_tpu_torch.core.buggify",
+    "foundationdb_tpu_torch.core.scheduler",
+    "foundationdb_tpu_torch.core.trace",
+    "foundationdb_tpu_torch.core.histogram",
+    "foundationdb_tpu_torch.conflict.api",
+    "foundationdb_tpu_torch.conflict.supervisor",
     "foundationdb_tpu_torch.conflict.torch_backend",
     "foundationdb_tpu_torch.conflict.fused",
     "foundationdb_tpu_torch.conflict.window",
@@ -30,11 +37,39 @@ PORT_MODULES = [
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing every port module (and
-    chip_smoke) loads no jax and no foundationdb_tpu module."""
+    chip_smoke), then a supervised set on the CPU resolving and folding a
+    batch, degrading once and promoting once (so the lazy imports have
+    run), loads no jax and no foundationdb_tpu module."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
+        "from foundationdb_tpu_torch.conflict.api import new_conflict_set\n"
+        "from foundationdb_tpu_torch.conflict.supervisor import "
+        "BackendHealthMonitor, SupervisedConflictSet\n"
+        "from foundationdb_tpu_torch.conflict.torch_backend import "
+        "TorchConflictSet\n"
+        "from foundationdb_tpu_torch.txn.types import "
+        "CommitTransactionRef, KeyRange\n"
+        "sup = SupervisedConflictSet(lambda oldest_version=0: "
+        "TorchConflictSet(oldest_version, device='cpu', capacity=1 << 10),"
+        " monitor=BackendHealthMonitor(reprobe_interval_s=0.0))\n"
+        "w = CommitTransactionRef(write_conflict_ranges=[KeyRange(b'a', "
+        "b'b')])\n"
+        "r = CommitTransactionRef(read_snapshot=50, "
+        "read_conflict_ranges=[KeyRange(b'a', b'b')])\n"
+        "assert [int(v) for v in sup.resolve([w], 100)] == [2]\n"
+        "sup.force_device_error = ['timeout']\n"
+        "assert [int(v) for v in sup.resolve([r], 200)] == [0]\n"
+        "assert [int(v) for v in sup.resolve_with_conflicts([r], 300)[0]]"
+        " == [0]\n"
+        "st = sup.status()\n"
+        "assert (st['degrades'], st['promotions'], st['device_batches'])"
+        " == (1, 1, 2), st\n"
+        "from foundationdb_tpu_torch.core.histogram import emit_collection\n"
+        "emit_collection(sup.metrics, 1.0)\n"
+        "assert type(new_conflict_set('cpu')).__name__ == "
+        "'OracleConflictSet'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'foundationdb_tpu' or "
         "m.startswith('foundationdb_tpu.'))\n"
@@ -58,6 +93,8 @@ def test_no_device_raises_without_cuda(monkeypatch):
         TorchConflictSet()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         new_conflict_set("torch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        new_conflict_set("torch-raw")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         new_conflict_set("sharded")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -27,6 +27,7 @@ from foundationdb_tpu.parallel.sharded_window import \
     splits_from_sample as jax_splits_from_sample
 from foundationdb_tpu_torch.conflict.api import new_conflict_set
 from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+from foundationdb_tpu_torch.conflict.supervisor import SupervisedConflictSet
 from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
 from foundationdb_tpu_torch.core.error import FdbError
 from foundationdb_tpu_torch.ops.digest import encode_keys
@@ -261,7 +262,9 @@ def test_matches_one_device_backend_and_oracle(seed):
     sharded = new_conflict_set("sharded", mesh=mesh, capacity=CAP,
                                delta_capacity=DCAP, gc_interval_batches=2,
                                splits=equi_depth_splits())
-    assert isinstance(sharded, ShardedTorchConflictSet)
+    # The factory's "sharded" is supervised, as the reference's is.
+    assert isinstance(sharded, SupervisedConflictSet)
+    assert isinstance(sharded.device, ShardedTorchConflictSet)
     single = TorchConflictSet(0, capacity=4 * CAP, device="cpu")
     oracle = OracleConflictSet(0)
     now = 0
@@ -275,5 +278,8 @@ def test_matches_one_device_backend_and_oracle(seed):
                                                       floor)]
         assert got == [int(v) for v in oracle.resolve(txns(pt, shapes), now,
                                                       floor)]
-    assert sharded.segment_count() >= 4
-    assert min(sharded.shard_sizes()) > 1
+    assert sharded.device.segment_count() >= 4
+    assert min(sharded.device.shard_sizes()) > 1
+    st = sharded.status()
+    assert (st["device_batches"], st["fallback_batches"],
+            st["rechecked_batches"]) == (8, 0, 0)
