@@ -3,7 +3,8 @@
 
 Drives foundationdb_tpu_torch's five paths through the entry points a
 resolver calls, each at full size, then the supervised set (the
-factory's default route) over them:
+factory's default route) over them, then the Resolver role over that
+(the requests a commit proxy sends) and the entry points of entry.py:
 
   point    TorchConflictSet.resolve_encoded_async -> _pack_compact -> the
            compact step, the delta table, the merge, at the bench's config
@@ -134,7 +135,24 @@ exits non-zero):
      Every supervised phase that injects no fault requires no degrade, no
      fallback batch and no promotion, every batch on the card, the
      expected device set on `cuda`, and the kernels of its path launched;
- 19. the JSON lines (programs and paths; kernels with launches per path,
+ 19. (new in the fifteenth slice; the JSON phase was 19 before) the
+     Resolver role, server/resolver.py, over the supervised set on the
+     card (capacity 2^21, delta 2^20, MAX_WRITE_TRANSACTION_LIFE_VERSIONS
+     set to WINDOW so that its floor is floor(v)) on phase 14's stream in
+     object form, 3 warmup batches and 10 measured: the batches alternate
+     between proxies p0 and p1 on one chain, each measured pair is
+     delivered second-first (the second parks), the last batch is resent
+     once (answered from the cache, no resolve), 1% of the txns are state
+     transactions with one mutation; codes equal phase 14's batch for
+     batch, each reply's state broadcast as specified, no degrade, the
+     point path's kernels launched; the path_resolver line (ranges/s
+     chain-serialised, p50 a request, the set's call, the role's host ms
+     beyond it and _sample_batch's alone, QueueWait); then the role on
+     the card against a role over the oracle on a small contended stream
+     (replies, counters and heat tables equal), and the entry points
+     (entry()'s window_query against its plain version,
+     dryrun_multichip(4) over `cuda` four times);
+ 20. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -226,6 +244,13 @@ PATH_KERNELS.update({
     "promotion": [*PATH_KERNELS["point"], *_GENERAL_STEP],
     "supervised_sharded": PATH_KERNELS["sharded"],
     "auto": [k for k in PATH_KERNELS["point"] if k != "merge"],
+})
+# Phase 19: the Resolver role over the supervised set takes the point path
+# (13 batches cross a merge); the entry points' window_query, and the
+# sharded dry run's steps on tiny shapes.
+PATH_KERNELS.update({
+    "resolver": PATH_KERNELS["point"],
+    "entry": ["window_query", "build_sparse_table", "shard_combine"],
 })
 
 
@@ -3187,20 +3212,22 @@ N_SHARED, SHARED_TXNS, SHARED_KEYS, SHARED_PREFIXES = 6, 1_000, 20_000, 4
 N_SUPERVISED5 = 10
 
 
-class pipeline_depth:
-    """The port's CONFLICT_PIPELINE_DEPTH knob set for a block."""
+class port_knobs:
+    """The port's server knobs set for a block, restored after."""
 
-    def __init__(self, depth: int) -> None:
-        self.depth = depth
+    def __init__(self, **values) -> None:
+        self.values = values
 
     def __enter__(self):
         from foundationdb_tpu_torch.core.knobs import server_knobs
         self.knobs = server_knobs()
-        self.saved = self.knobs.CONFLICT_PIPELINE_DEPTH
-        self.knobs.CONFLICT_PIPELINE_DEPTH = self.depth
+        self.saved = {k: getattr(self.knobs, k) for k in self.values}
+        for k, v in self.values.items():
+            setattr(self.knobs, k, v)
 
     def __exit__(self, *exc):
-        self.knobs.CONFLICT_PIPELINE_DEPTH = self.saved
+        for k, v in self.saved.items():
+            setattr(self.knobs, k, v)
 
 
 def check_supervised(sup, n_batches: int, device_cls: str) -> dict:
@@ -3258,7 +3285,9 @@ def drive_point(cs, batches, txns=None) -> dict:
 def supervised_point_path(smi: str, batches):
     """Phase 14: new_conflict_set("torch") -- the supervised set -- over
     phase 3's config-2 stream at CONFLICT_PIPELINE_DEPTH 8, beside the
-    bare set on the same stream; codes equal batch for batch."""
+    bare set on the same stream; codes equal batch for batch.  Returns
+    the launches, the path line's figures, and the stream's object form
+    and supervised codes (phase 19 holds the Resolver role to them)."""
     import torch
     from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.conflict.api import new_conflict_set
@@ -3270,7 +3299,7 @@ def supervised_point_path(smi: str, batches):
     bare_rate, bare_p50 = want["rate"], want["p50_ms"]
     del bare
     torch.cuda.empty_cache()
-    with pipeline_depth(DEPTH):
+    with port_knobs(CONFLICT_PIPELINE_DEPTH=DEPTH):
         K.reset_counts()
         sup = new_conflict_set("torch", capacity=CAPACITY,
                                delta_capacity=DELTA_CAPACITY, device=DEVICE)
@@ -3314,7 +3343,7 @@ def supervised_point_path(smi: str, batches):
             "pipeline_stalls": st["pipeline_stalls"],
             "p50_mirror_fold_ms": fold_ms, "batches": len(batches),
             "depth": DEPTH, "card": smi}
-    return launches, path
+    return launches, path, txns, got["codes"]
 
 
 def shared_prefix_stream(seed: int):
@@ -3462,7 +3491,7 @@ def supervised_degrade(smi: str):
     from foundationdb_tpu_torch.conflict.torch_backend import TorchConflictSet
     from foundationdb_tpu_torch.core.trace import recent_events
     stream = degrade_stream(2030)
-    with pipeline_depth(DEPTH):
+    with port_knobs(CONFLICT_PIPELINE_DEPTH=DEPTH):
         K.reset_counts()
         sup = SupervisedConflictSet(
             lambda oldest_version=0: TorchConflictSet(
@@ -3531,7 +3560,7 @@ def supervised_sharded(smi: str, splits, batches):
     from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
     txns = [to_transactions(kids, snaps)
             for _, _, kids, snaps in batches[:N_SUPERVISED5 + 1]]
-    with pipeline_depth(CONFIG5_DEPTH):
+    with port_knobs(CONFLICT_PIPELINE_DEPTH=CONFIG5_DEPTH):
         K.reset_counts()
         sup = ShardedTorchConflictSet.supervised(
             shard_mesh(), 0, capacity=CONFIG5_CAPACITY // N_SHARDS,
@@ -3601,6 +3630,362 @@ def auto_backend(smi: str):
     print(f'auto: new_conflict_set("auto") is SupervisedConflictSet over '
           f'TorchConflictSet on {sup.device.device} (capacity '
           f'{sup.device.capacity}) -- {smi}', flush=True)
+    return dict(K.LAUNCHES)
+
+
+# ------------------------------------------------------ the Resolver role
+N_ROLE = N_WARMUP + N_MEASURED
+STATE_EVERY = 100               # 1% of a batch's txns are state txns
+PROXIES = ("p0", "p1")
+N_ROLE_SMALL, ROLE_SMALL_TXNS, ROLE_SMALL_KEYS = 6, 1_000, 2_000
+
+
+def role_requests(versions, txns) -> list:
+    """The role's requests over a stream: batches alternate between p0 and
+    p1 on one version chain (batch 0's predecessor is the recovery
+    version, 0); a proxy's last_received_version is the version of its
+    own previous batch; every STATE_EVERY-th txn is a state transaction
+    with one mutation."""
+    from dataclasses import replace
+    from foundationdb_tpu_torch.txn.types import Mutation
+    out, prev, last = [], 0, {}
+    for i, (v, tx) in enumerate(zip(versions, txns)):
+        proxy = PROXIES[i % 2]
+        state = list(range(0, len(tx), STATE_EVERY))
+        tx = list(tx)
+        for t in state:
+            tx[t] = replace(tx[t], mutations=[Mutation.set_value(
+                b"\xff/conf/%d/%d" % (i, t), b"v%d" % t)])
+        out.append({"prev": prev, "version": v, "lrv": last.get(proxy, 0),
+                    "proxy": proxy, "txns": tx, "state": state})
+        last[proxy] = v
+        prev = v
+    return out
+
+
+def role_order(n: int) -> list:
+    """Delivery order: the warmup batches in order, then every pair
+    second-first (the second is parked until the first has resolved)."""
+    order = list(range(min(N_WARMUP, n)))
+    for j in range(N_WARMUP, n, 2):
+        order += [j + 1, j] if j + 1 < n else [j]
+    return order
+
+
+class RoleReply:
+    """A reply promise that logs (request, time sent, value)."""
+
+    def __init__(self, log: list, key) -> None:
+        self.log, self.key = log, key
+
+    def send(self, value) -> None:
+        self.log.append((self.key, time.perf_counter(), value))
+
+
+def drive_role(role, reqs) -> dict:
+    """Deliver `reqs` to the role in role_order, then resend the chain's
+    last batch.  A pair's second request must park.  Returns the replies
+    by request (the resend under "resend"), their times, the delivery
+    times, and the resolves the resend added (must be 0)."""
+    from foundationdb_tpu_torch.server import ResolveTransactionBatchRequest
+
+    def request(r, key, log):
+        return ResolveTransactionBatchRequest(
+            r["prev"], r["version"], r["lrv"], r["txns"],
+            txn_state_transactions=r["state"], proxy_id=r["proxy"],
+            reply=RoleReply(log, key))
+
+    log, delivered, parked = [], {}, 0
+    for i in role_order(len(reqs)):
+        delivered[i] = time.perf_counter()
+        role.resolve_batch(request(reqs[i], i, log))
+        parked = max(parked, role.parked())
+    if parked != 1 or role.parked() != 0:
+        raise AssertionError(f"parking: at most {parked} parked, "
+                             f"{role.parked()} left")
+    resolved = role.resolved_batches
+    role.resolve_batch(request(reqs[-1], "resend", log))
+    replies = {k: v for k, _, v in log}
+    times = {k: t for k, t, _ in log}
+    if [k for k, _, _ in log] != list(range(len(reqs))) + ["resend"]:
+        raise AssertionError(f"replies out of chain order: "
+                             f"{[k for k, _, _ in log]}")
+    if replies["resend"] is not replies[len(reqs) - 1]:
+        raise AssertionError("the resend was not answered from the cache")
+    return {"replies": replies, "times": times, "delivered": delivered,
+            "resend_resolves": role.resolved_batches - resolved}
+
+
+def check_state_broadcast(role, reqs, replies) -> int:
+    """Each reply carries exactly the other proxy's state txns resolved
+    after its last_received_version and before its version, with their
+    local verdicts; total_state_bytes counts the entries the role still
+    holds.  Returns the entries broadcast."""
+    entries, sent = [], 0
+    for i, r in enumerate(reqs):
+        want = [e for e in entries
+                if r["lrv"] < e[0] < r["version"] and e[1] != r["proxy"]]
+        got = [(v, p, s, int(verdict)) for v, p, s, _, verdict in
+               replies[i].state_transactions]
+        if got != want:
+            raise AssertionError(f"state broadcast of batch {i}: {len(got)} "
+                                 f"entries, expected {len(want)}")
+        sent += len(got)
+        entries += [(r["version"], r["proxy"], seq,
+                     int(replies[i].committed[t]))
+                    for seq, t in enumerate(r["state"])]
+    held = sum(m.expected_size() for e in role.state_txns for m in e[3])
+    if held != role.total_state_bytes or not sent:
+        raise AssertionError(f"state bytes {role.total_state_bytes}, held "
+                             f"{held}, broadcast {sent}")
+    return sent
+
+
+def role_small_stream(seed: int):
+    """A small contended stream of 15-byte point keys: one read and one
+    write a txn, zipf(1.2) over ROLE_SMALL_KEYS keys, snapshots up to 7
+    batches behind (some below the floor), a third of the txns reporting
+    their conflicting keys, tenants and tags set.  One read a txn: a txn
+    whose reads conflict both with the history and within the batch is
+    blamed on the history's read by the oracle and on the batch's first
+    by the supervised set's mirror (both true culprits; the reference's
+    two do the same)."""
+    from foundationdb_tpu_torch.txn.types import CommitTransactionRef, KeyRange
+    rng = np.random.default_rng(seed)
+    versions, txns, version = [], [], 1_000
+    for _ in range(N_ROLE_SMALL):
+        prev, version = version, version + VERSIONS_PER_BATCH
+        batch = []
+        for t in range(ROLE_SMALL_TXNS):
+            r, w = [b"k%014d" % (int(k) % ROLE_SMALL_KEYS)
+                    for k in rng.zipf(1.2, size=2)]
+            batch.append(CommitTransactionRef(
+                read_conflict_ranges=[KeyRange(r, r + b"\x00")],
+                write_conflict_ranges=[KeyRange(w, w + b"\x00")],
+                read_snapshot=max(prev - int(rng.integers(
+                    0, 7 * VERSIONS_PER_BATCH)), 0),
+                report_conflicting_keys=bool(rng.random() < 1 / 3),
+                tenant_id=int(rng.integers(-1, 4)),
+                tag=("", "t/a", "t/b")[int(rng.integers(0, 3))]))
+        versions.append(version)
+        txns.append(batch)
+    return versions, txns
+
+
+def role_parity(smi: str) -> dict:
+    """The role on the card against a role over the port's oracle on a
+    small contended stream: every reply field for field, the counters and
+    the heat tables equal.  Every abort is attributed exactly
+    (CONFLICT_ATTRIBUTION_SAMPLE raised to the batch size), as the
+    oracle's are; txns read one key (role_small_stream says why), so the
+    supervised set's conflicting ranges are the oracle's too."""
+    from foundationdb_tpu_torch.server import Resolver
+    versions, txns = role_small_stream(2033)
+    reqs = role_requests(versions, txns)
+    with port_knobs(MAX_WRITE_TRANSACTION_LIFE_VERSIONS=WINDOW,
+                    CONFLICT_ATTRIBUTION_SAMPLE=ROLE_SMALL_TXNS):
+        card = Resolver("r1", 0, backend="torch", proxy_ids=list(PROXIES),
+                        capacity=CAPACITY, delta_capacity=DELTA_CAPACITY)
+        oracle = Resolver("r2", 0, backend="cpu", proxy_ids=list(PROXIES))
+        got, want = drive_role(card, reqs), drive_role(oracle, reqs)
+
+    def fields(reply):
+        return ([int(c) for c in reply.committed],
+                {i: list(r) for i, r in reply.conflicting_ranges.items()},
+                dict(reply.attribution_exact),
+                [(v, p, s, int(x)) for v, p, s, _, x in
+                 reply.state_transactions])
+
+    for i in range(len(reqs)):
+        if fields(got["replies"][i]) != fields(want["replies"][i]):
+            raise AssertionError(f"role on the card differs from the "
+                                 f"oracle role on small batch {i}")
+    for name in ("TxnResolved", "TxnConflicts", "HeatConflictRanges",
+                 "HeatConservativeTxns", "TxnResolvedDegraded"):
+        a = card.metrics.counter(name).value
+        b = oracle.metrics.counter(name).value
+        if a != b:
+            raise AssertionError(f"{name}: {a} on the card, {b} oracle")
+    for table in ("ranges", "tenants", "tags", "range_tags",
+                  "range_tenants"):
+        # Equal as tables: the oracle attributes a batch's history
+        # conflicts before its intra-batch ones, the mirror in txn order,
+        # so rows new to the table arrive in another order (which no
+        # query reads: top-K and splits sort).
+        if getattr(card.heat, table) != getattr(oracle.heat, table):
+            raise AssertionError(f"heat table {table} differs")
+    if card.heat_status() != oracle.heat_status():
+        raise AssertionError("heat_status differs")
+    check_supervised(card.conflict_set, len(reqs), "TorchConflictSet")
+    codes = np.concatenate([fields(got["replies"][i])[0]
+                            for i in range(len(reqs))])
+    counts = {c: int(np.sum(codes == c)) for c in (0, 1, 2)}
+    if min(counts.values()) == 0:
+        raise AssertionError(f"small stream degenerate: {counts}")
+    reported = sum(len(got["replies"][i].conflicting_ranges)
+                   for i in range(len(reqs)))
+    print(f"role_parity: the role on the card equals a role over the "
+          f"oracle on {len(reqs)} batches of {ROLE_SMALL_TXNS} txns "
+          f"(verdicts {counts}, {reported} reporters answered, "
+          f"{card.heat.total_conflicts} conflicts attributed, "
+          f"{len(card.heat.ranges)} heat rows): replies, counters and heat "
+          f"tables equal -- {smi}", flush=True)
+    return {"batches": len(reqs), "verdicts": counts, "reported": reported,
+            "conflicts_attributed": card.heat.total_conflicts}
+
+
+def resolver_path(smi: str, batches, txns, want_codes):
+    """Phase 19: the port's Resolver role on the card over phase 14's
+    config-2 stream (N_WARMUP + N_MEASURED batches, its object form), its
+    floor WINDOW behind each version as floor(v); replies, parking, the
+    resend, the state broadcast and the codes checked; the path_resolver
+    line.  Then the small contended stream against an oracle role."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict.encoded import EncodedBatch
+    from foundationdb_tpu_torch.server import Resolver
+    reqs = role_requests([b[0] for b in batches[:N_ROLE]], txns[:N_ROLE])
+    with port_knobs(MAX_WRITE_TRANSACTION_LIFE_VERSIONS=WINDOW):
+        role = Resolver("r0", 0, backend="torch", proxy_ids=list(PROXIES),
+                        capacity=CAPACITY, delta_capacity=DELTA_CAPACITY)
+        # Timers: the set's call, the object-form encode inside it, the
+        # role's whole run of a request, and its load sampling alone.
+        spans = {"set": [], "encode": [], "own": [], "sample": []}
+        encode = EncodedBatch.__dict__["from_transactions"]
+
+        def timed_encode(cls, transactions):
+            t1 = time.perf_counter()
+            try:
+                return encode.__func__(cls, transactions)
+            finally:
+                spans["encode"].append((t1, time.perf_counter()))
+
+        for owner, name, key in ((role.conflict_set,
+                                  "resolve_with_conflicts", "set"),
+                                 (role, "_resolve_one", "own"),
+                                 (role, "_sample_batch", "sample")):
+            fn = getattr(owner, name)
+
+            def timed(*a, fn=fn, key=key, **kw):
+                t1 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    spans[key].append((t1, time.perf_counter()))
+
+            setattr(owner, name, timed)
+        EncodedBatch.from_transactions = classmethod(timed_encode)
+        try:
+            K.reset_counts()
+            drive = drive_role(role, reqs)
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+        finally:
+            EncodedBatch.from_transactions = encode
+    replies = drive["replies"]
+    for i, r in enumerate(reqs):
+        got = np.asarray([int(c) for c in replies[i].committed], np.int8)
+        if not np.array_equal(got, want_codes[i]):
+            raise AssertionError(f"the role's codes differ from phase 14's "
+                                 f"on batch {i}")
+    if drive["resend_resolves"] != 0 or len(spans["set"]) != len(reqs) \
+            or len(spans["encode"]) != len(reqs):
+        raise AssertionError(f"the resend resolved: "
+                             f"{drive['resend_resolves']} batches, "
+                             f"{len(spans['set'])} set calls")
+    st = check_supervised(role.conflict_set, len(reqs), "TorchConflictSet")
+    if st["rechecked_batches"] != 0 or \
+            role.metrics.counter("TxnResolvedDegraded").value != 0:
+        raise AssertionError(f"rechecked or degraded: {st}")
+    if role.metrics.counter("TxnResolved").value != N_ROLE * TXNS:
+        raise AssertionError("TxnResolved miscounted")
+    broadcast = check_state_broadcast(role, reqs, replies)
+
+    # Figures over the measured batches (chain order N_WARMUP..N_ROLE-1).
+    measured = range(N_WARMUP, N_ROLE)
+    order = role_order(N_ROLE)
+    t0 = drive["delivered"][order[N_WARMUP]]
+    t1 = max(drive["times"][i] for i in measured)
+    n_ranges = sum(batches[i][1].n_ranges for i in measured)
+    rate = n_ranges / (t1 - t0)
+    lat = [drive["times"][i] - drive["delivered"][i] for i in measured]
+    own = [b - a for a, b in spans["own"]]
+    set_s = [b - a for a, b in spans["set"]]
+    encode_s = [b - a for a, b in spans["encode"]]
+    sample = [b - a for a, b in spans["sample"]]
+    # A request's run starts when the role takes it up: its queue wait is
+    # from delivery to there (a parked one waits for its predecessor).
+    starts = sorted(a for a, _ in spans["own"])
+    chain_start = {i: starts[n] for n, i in enumerate(range(N_ROLE))}
+    queue = [chain_start[i] - drive["delivered"][i] for i in measured]
+
+    def p50(xs, idx=measured):
+        return float(np.percentile([xs[i] for i in idx], 50) * 1e3)
+
+    host = [o - s for o, s in zip(own, set_s)]
+    hists = {h: role.metrics.histogram(h).snapshot().percentile(0.5) * 1e3
+             for h in ("Resolve", "QueueWait")}
+    path = {"ranges_per_s": rate, "p50_request_ms": float(
+                np.percentile(lat, 50) * 1e3),
+            "p50_set_call_ms": p50(set_s),
+            "p50_object_encode_ms": p50(encode_s), "p50_own_ms": p50(own),
+            "p50_host_beyond_set_ms": p50(host),
+            "p50_sample_batch_ms": p50(sample),
+            "p50_queue_wait_ms": float(np.percentile(queue, 50) * 1e3),
+            "resolve_hist_p50_ms": hists["Resolve"],
+            "queue_wait_hist_p50_ms": hists["QueueWait"],
+            "state_entries_broadcast": broadcast,
+            "total_state_bytes": role.total_state_bytes,
+            "heat_rows": len(role.heat.ranges), "batches": N_ROLE,
+            "measured": len(measured), "txns_per_batch": TXNS, "card": smi}
+    print(f"path_resolver: {rate:.1f} ranges/s over {len(measured)} "
+          f"chain-serialised requests, p50 {path['p50_request_ms']:.3f} ms "
+          f"a request (delivery to reply; every other parked behind its "
+          f"predecessor), the set's call p50 {path['p50_set_call_ms']:.3f} "
+          f"ms (its object-form encode {path['p50_object_encode_ms']:.3f} "
+          f"ms; Resolve histogram p50 bucket {hists['Resolve']:.3f} ms), "
+          f"the role's host work beyond it p50 "
+          f"{path['p50_host_beyond_set_ms']:.3f} ms of which _sample_batch "
+          f"{path['p50_sample_batch_ms']:.3f} ms, QueueWait p50 "
+          f"{path['p50_queue_wait_ms']:.3f} ms (histogram bucket "
+          f"{hists['QueueWait']:.3f} ms); {broadcast} state entries "
+          f"broadcast, the resend answered from the cache, codes equal "
+          f"phase 14's on {N_ROLE} batches -- {smi}", flush=True)
+    del role
+    torch.cuda.empty_cache()
+    path["parity"] = role_parity(smi)
+    torch.cuda.empty_cache()
+    return launches, path
+
+
+def entry_points(smi: str) -> dict:
+    """Phase 19's last part: the entry points of entry.py on the card.
+    entry()'s window_query against its plain version on the same
+    arguments, at snapshot 0 (no conflict) and -1 (every query
+    conflicts); dryrun_multichip(4) over a mesh naming `cuda` four times.
+    Returns the launches."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.entry import dryrun_multichip, entry
+    K.reset_counts()
+    fn, args = entry()
+    if args[0].device.type != DEVICE:
+        raise AssertionError(f"entry() runs on {args[0].device}")
+    for shift in (0, -1):
+        a = args[:4] + (args[4] + shift,) + args[5:]
+        got = fn(*a)
+        torch.cuda.synchronize()
+        want = fn(*a, impl="plain")
+        if not torch.equal(got, want) or \
+                int(got.sum()) != (0 if shift == 0 else got.numel()):
+            raise AssertionError(f"entry(): window_query at snapshot "
+                                 f"{shift} differs from its plain version")
+    dryrun_multichip(4)
+    torch.cuda.synchronize()
+    print(f"entry: window_query at the reference's shapes (2^12 window, "
+          f"256 queries) equals its plain version; dryrun_multichip(4) on "
+          f"{torch.cuda.get_device_name(0)} agrees with the oracle -- {smi}",
+          flush=True)
     return dict(K.LAUNCHES)
 
 
@@ -3703,9 +4088,9 @@ def main() -> int:
     phase_done("sharded window path")
 
     log("phase 14: the supervised point path (config 2)")
-    launches["supervised"], path_supervised = supervised_point_path(
-        smi, batches2)
-    del batches2
+    launches["supervised"], path_supervised, txns2, codes2 = \
+        supervised_point_path(smi, batches2)
+    del txns2[N_ROLE:], codes2[N_ROLE:]
     torch.cuda.empty_cache()
     phase_done("supervised point path")
     log("phase 15: long keys, supervised and bare")
@@ -3724,6 +4109,12 @@ def main() -> int:
     log('phase 18: new_conflict_set("auto")')
     launches["auto"] = auto_backend(smi)
     phase_done("auto")
+    log("phase 19: the Resolver role (config 2) and the entry points")
+    launches["resolver"], path_resolver = resolver_path(
+        smi, batches2, txns2, codes2)
+    del batches2, txns2, codes2
+    launches["entry"] = entry_points(smi)
+    phase_done("resolver role and entry points")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -3754,6 +4145,7 @@ def main() -> int:
                       "path_supervised": path_supervised,
                       "long_keys": long_keys, "degrade": degrade,
                       "path_supervised_sharded": path_supervised_sharded,
+                      "path_resolver": path_resolver,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

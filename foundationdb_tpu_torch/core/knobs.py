@@ -1,14 +1,15 @@
 """Server knobs the port reads (trimmed copy of foundationdb_tpu/core/knobs.py).
 
-What the port's conflict path and its supervision layer consult, with the
-reference's defaults: HEAT_TELEMETRY_ENABLED, the master switch of the
-heat-telemetry attribution that ConflictSet.resolve_with_conflicts fills
-(conflict/api.py); the CONFLICT_* knobs of the backend factory and of
-conflict/supervisor.py; and METRICS_EMIT_INTERVAL, the cadence of
-CounterCollection.emit_loop.  The heat-emission table's knobs
-(CONFLICT_HEAT_TOP_K, CONFLICT_HEAT_TABLE_MAX) come with a port of that
-table.  Set
-them the way the reference's tests do: mutate the process-wide registry,
+What the port's conflict path, its supervision layer and the Resolver
+role consult, with the reference's defaults: HEAT_TELEMETRY_ENABLED, the
+master switch of the heat-telemetry attribution that
+ConflictSet.resolve_with_conflicts fills (conflict/api.py) and of the
+role's conflict heat; the CONFLICT_* knobs of the backend factory, of
+conflict/supervisor.py and of the heat table (conflict/heat.py);
+MAX_WRITE_TRANSACTION_LIFE_VERSIONS, the span of the role's window floor
+(server/resolver.py); and METRICS_EMIT_INTERVAL, the cadence of
+CounterCollection.emit_loop.  Set them the way the reference's tests do:
+mutate the process-wide registry,
 `server_knobs().CONFLICT_PIPELINE_DEPTH = 2`, and restore it after.
 """
 
@@ -23,6 +24,12 @@ class ServerKnobs:
         # Cadence of the periodic {group}Metrics / LatencyBand emission
         # (core/histogram.CounterCollection.emit_loop).
         self.METRICS_EMIT_INTERVAL = 5.0
+
+        # The resolver keeps the write history of the last
+        # MAX_WRITE_TRANSACTION_LIFE_VERSIONS versions; its window floor
+        # trails each batch's version by that.  The reference's default,
+        # 5 x VERSIONS_PER_SECOND (foundationdb_tpu/core/knobs.py:98).
+        self.MAX_WRITE_TRANSACTION_LIFE_VERSIONS = 5_000_000
 
         # Conflict-set backend selector of conflict/api.new_conflict_set:
         # "torch" (supervised, on `cuda`), "torch-raw" (bare), "sharded",
@@ -57,6 +64,12 @@ class ServerKnobs:
         # through the supervisor's mirror; the rest keep conservative
         # whole-read-set blame (the ConservativeAttribution counter).
         self.CONFLICT_ATTRIBUTION_SAMPLE = 32
+        # Rows per table in HotConflictRange emission and the resolver's
+        # heat status.
+        self.CONFLICT_HEAT_TOP_K = 8
+        # The resolver's heat table bound (load + conflict columns,
+        # halved when full).
+        self.CONFLICT_HEAT_TABLE_MAX = 4096
 
 
 _server = ServerKnobs()

@@ -62,3 +62,12 @@ class TraceEvent:
 def recent_events(type_name: Optional[str] = None) -> List[Dict[str, Any]]:
     """The ring's events, oldest first, optionally of one type."""
     return [e for e in _ring if type_name is None or e["Type"] == type_name]
+
+
+def trace_batch_event(event_type: str, debug_id: str, location: str) -> None:
+    """Transaction debug correlation (reference g_traceBatch.addEvent:
+    "TransactionDebug"/"CommitDebug" point events at every hop, keyed by
+    the transaction's debug id).  No-op without a debug id."""
+    if debug_id:
+        TraceEvent(event_type).detail("DebugID", debug_id).detail(
+            "Location", location).log()

@@ -31,15 +31,21 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.ops.segtree", "foundationdb_tpu_torch.ops.sort",
     "foundationdb_tpu_torch.ops.shard", "foundationdb_tpu_torch.parallel",
     "foundationdb_tpu_torch.parallel.sharded_window",
-    "foundationdb_tpu_torch.parallel.sharded_resolver", "chip_smoke",
-    "scripts.torch_kernel_ab"]
+    "foundationdb_tpu_torch.parallel.sharded_resolver",
+    "foundationdb_tpu_torch.conflict.heat", "foundationdb_tpu_torch.server",
+    "foundationdb_tpu_torch.server.interfaces",
+    "foundationdb_tpu_torch.server.notified",
+    "foundationdb_tpu_torch.server.resolver", "foundationdb_tpu_torch.entry",
+    "chip_smoke", "scripts.torch_kernel_ab"]
 
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing every port module (and
     chip_smoke), then a supervised set on the CPU resolving and folding a
-    batch, degrading once and promoting once (so the lazy imports have
-    run), loads no jax and no foundationdb_tpu module."""
+    batch, degrading once and promoting once, the Resolver role answering
+    a resolve, a metrics, a split and a heat request, and both entry
+    points on the CPU (so the lazy imports have run), loads no jax and no
+    foundationdb_tpu module."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -70,6 +76,28 @@ def test_port_imports_no_jax():
         "emit_collection(sup.metrics, 1.0)\n"
         "assert type(new_conflict_set('cpu')).__name__ == "
         "'OracleConflictSet'\n"
+        "from foundationdb_tpu_torch.server import (Resolver, "
+        "ResolveTransactionBatchRequest, ResolutionMetricsRequest, "
+        "ResolutionSplitRequest, ResolverHeatRequest)\n"
+        "got = []\n"
+        "class Reply:\n"
+        "    def send(self, v):\n"
+        "        got.append(v)\n"
+        "role = Resolver('ri', 0, backend='torch', device='cpu', "
+        "capacity=1 << 10)\n"
+        "role.resolve_batch(ResolveTransactionBatchRequest(0, 100, 0, "
+        "[w, r], txn_state_transactions=[0], proxy_id='p0', "
+        "reply=Reply()))\n"
+        "assert [int(v) for v in got[0].committed] == [2, 0], got\n"
+        "role.serve_metrics(ResolutionMetricsRequest(reply=Reply()))\n"
+        "role.serve_split(ResolutionSplitRequest(reply=Reply()))\n"
+        "role.serve_heat(ResolverHeatRequest(reply=Reply()))\n"
+        "assert got[1:3] == [2, None] and len(got[3]) == 1, got\n"
+        "role.emit_heat_once()\n"
+        "from foundationdb_tpu_torch.entry import entry, dryrun_multichip\n"
+        "fn, args = entry('cpu')\n"
+        "assert int(fn(*args).sum()) == 0\n"
+        "dryrun_multichip(2, 'cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'foundationdb_tpu' or "
         "m.startswith('foundationdb_tpu.'))\n"
