@@ -4,7 +4,9 @@
 Drives foundationdb_tpu_torch's five paths through the entry points a
 resolver calls, each at full size, then the supervised set (the
 factory's default route) over them, then the Resolver role over that
-(the requests a commit proxy sends) and the entry points of entry.py:
+(the requests a commit proxy sends), the entry points of entry.py, and
+the resolution plane (N roles behind the commit proxies' clip and
+min-merge, with resolution balancing):
 
   point    TorchConflictSet.resolve_encoded_async -> _pack_compact -> the
            compact step, the delta table, the merge, at the bench's config
@@ -152,7 +154,29 @@ exits non-zero):
      (replies, counters and heat tables equal), and the entry points
      (entry()'s window_query against its plain version,
      dryrun_multichip(4) over `cuda` four times);
- 20. the JSON lines (programs and paths; kernels with launches per path,
+ 20. (new in the sixteenth slice; the JSON phase was 20 before) the
+     resolution plane, server/cluster.py ResolutionPlane: N roles over
+     supervised sets on the card (capacity 2^21, delta 2^20,
+     MAX_WRITE_TRANSACTION_LIFE_VERSIONS = WINDOW), boundaries from
+     seed_resolver_boundaries over a 16-shard map cutting the 1M ids
+     evenly.  Stream A (1 warmup + 4 measured config-2 batches, each
+     txn's three keys zipf inside one quarter of the ids) at N = 1, 2, 4
+     and N = 1 again, one proxy: merged verdicts of every reading equal
+     the first N = 1's batch for batch; the requests' build ms, each
+     resolver's share and ranges/s, bench.py's aggregate model, the
+     serial wall, the collector's time.
+     Stream B (config 2 as generated, 2 + 5 batches) at N = 4, two proxies
+     alternating on one chain, 1% state txns, a balancing step after
+     every batch: each resolver's codes equal a point oracle over its own
+     fragments, the merged verdicts their min, every other proxy's
+     committed state txn received once, a move adopted; the extra aborts
+     (and commits) over one resolver, the moves, the shares.  The small
+     exact case: the reference's aligned parity stream and a contended
+     straddling stream with a forced move and old-snapshot reads across
+     it, at N = 1, 2 and 4, the plane on the card against one over the
+     oracle (replies equal).  No degrade; every role launches the point
+     path's wrappers; the path_plane line;
+ 21. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -252,19 +276,41 @@ PATH_KERNELS.update({
     "resolver": PATH_KERNELS["point"],
     "entry": ["window_query", "build_sparse_table", "shard_combine"],
 })
+# Phase 20: every role of the resolution plane takes the point path (its
+# small straddling stream's range reads take the general step too, which
+# this list does not require); stream B's 12 batches cross a merge.
+PATH_KERNELS["plane"] = PATH_KERNELS["point"]
 
 
 # ---------------------------------------------------------------- workload
-def gen_batch(rng, prev: int, keyspace: int, zipf: bool, txns: int = TXNS):
-    """The bench's config-2 batch (bench.py gen_batch): columns + the key
-    ids and snapshots the oracle's object form is built from."""
-    from foundationdb_tpu_torch.conflict.encoded import EncodedBatch
-    from foundationdb_tpu_torch.ops.digest import encode_fixed
+def point_draws(rng, prev: int, keyspace: int, zipf: bool,
+                txns: int = TXNS, cells: int = 0):
+    """The bench's config-2 draws (bench.py gen_batch): the key ids, a
+    txn's READS reads first (txn-major) then one write a txn, and the
+    snapshots.  With `cells`, every txn's keys fall zipf inside one of
+    `cells` equal cells of the ids, its cell drawn uniformly."""
     n = txns * (READS + 1)
     if zipf:
         kids = (rng.zipf(1.2, size=n) % keyspace).astype(np.int64)
     else:
         kids = rng.integers(0, keyspace, size=n, dtype=np.int64)
+    if cells:
+        width = keyspace // cells
+        cell = rng.integers(0, cells, size=txns)
+        kids = kids % width + width * np.concatenate(
+            [np.repeat(cell, READS), cell])
+    snaps = np.maximum(prev - rng.integers(0, 2 * VERSIONS_PER_BATCH,
+                                           size=txns), 0)
+    return kids, snaps
+
+
+def gen_batch(rng, prev: int, keyspace: int, zipf: bool, txns: int = TXNS):
+    """The bench's config-2 batch (bench.py gen_batch): columns + the key
+    ids and snapshots the oracle's object form is built from."""
+    from foundationdb_tpu_torch.conflict.encoded import EncodedBatch
+    from foundationdb_tpu_torch.ops.digest import encode_fixed
+    kids, snaps = point_draws(rng, prev, keyspace, zipf, txns)
+    n = txns * (READS + 1)
     mat = np.empty((n, 16), dtype=np.uint8)
     mat[:, 0] = ord("k")
     mat[:, 15] = 0
@@ -272,8 +318,6 @@ def gen_batch(rng, prev: int, keyspace: int, zipf: bool, txns: int = TXNS):
     for d in range(14):
         mat[:, 14 - d] = 48 + x % 10
         x //= 10
-    snaps = np.maximum(prev - rng.integers(0, 2 * VERSIONS_PER_BATCH,
-                                           size=txns), 0)
     nr = txns * READS
     begin = encode_fixed(mat[:, :15])
     end = encode_fixed(mat)
@@ -300,8 +344,8 @@ def to_transactions(kids, snaps):
 
 
 class PointOracle:
-    """The oracle's semantics (SkipList.cpp, conflict/oracle.py) for the
-    stream's all-point batches, with the intra-batch check as a set lookup:
+    """The oracle's semantics (SkipList.cpp, conflict/oracle.py) for
+    all-point batches, with the intra-batch check as a set lookup:
     [r, r+\\x00) overlaps [w, w+\\x00) only when r == w, so the oracle's
     scan over every earlier surviving write (quadratic in a batch's
     survivors: hours for a 100K-txn batch that mostly commits) becomes one
@@ -315,27 +359,53 @@ class PointOracle:
         self._o = OracleConflictSet(0)
 
     def resolve(self, kids, snaps, now: int, new_floor: int) -> np.ndarray:
-        from foundationdb_tpu_torch.conflict.oracle import \
-            combine_write_ranges
-        o, hist = self._o, self._o.history
+        """A stream batch in draws (point_draws' layout): READS reads and
+        one write a txn."""
         keys = [b"k%014d" % int(k) for k in kids]
         txns = len(snaps)
         nr = txns * READS
-        codes = np.full((txns,), 2, dtype=np.int8)
+        return self.resolve_keys(
+            [keys[t * READS:(t + 1) * READS] for t in range(txns)],
+            keys[nr:], snaps, now, new_floor)
+
+    def resolve_txns(self, txns, now: int, new_floor: int) -> np.ndarray:
+        """Point txns in object form: 0-2 point reads and 0-1 point write
+        each (a resolver's fragments of a stream batch)."""
+        reads, writes = [], []
+        for t in txns:
+            rs = [r.begin for r in t.read_conflict_ranges]
+            ws = [w.begin for w in t.write_conflict_ranges]
+            if len(rs) > READS or len(ws) > 1 or any(
+                    r.end != r.begin + b"\x00" for r in
+                    t.read_conflict_ranges + t.write_conflict_ranges):
+                raise AssertionError(f"not a point txn: {t}")
+            reads.append(rs)
+            writes.append(ws[0] if ws else None)
+        return self.resolve_keys(reads, writes,
+                                 [t.read_snapshot for t in txns], now,
+                                 new_floor)
+
+    def resolve_keys(self, reads, writes, snaps, now: int,
+                     new_floor: int) -> np.ndarray:
+        """Txn t reads the keys reads[t] and writes writes[t] (or
+        nothing, None) at snapshot snaps[t]; too old only if it reads."""
+        from foundationdb_tpu_torch.conflict.oracle import \
+            combine_write_ranges
+        o, hist = self._o, self._o.history
+        codes = np.full((len(snaps),), 2, dtype=np.int8)
         written, survivors = set(), []
-        for t in range(txns):
+        for t, (rs, w) in enumerate(zip(reads, writes)):
             snap = int(snaps[t])
-            if snap < o.oldest_version:          # every txn reads
+            if rs and snap < o.oldest_version:
                 codes[t] = 1
                 continue
-            reads = keys[t * READS:(t + 1) * READS]
             if any(hist.query_max(k, k + b"\x00") > snap or k in written
-                   for k in reads):
+                   for k in rs):
                 codes[t] = 0
                 continue
-            w = keys[nr + t]
-            written.add(w)
-            survivors.append((w, w + b"\x00"))
+            if w is not None:
+                written.add(w)
+                survivors.append((w, w + b"\x00"))
         hist.insert_many(combine_write_ranges(survivors), now)
         if new_floor > o.oldest_version:
             o.oldest_version = new_floor
@@ -3230,16 +3300,17 @@ class port_knobs:
             setattr(self.knobs, k, v)
 
 
-def check_supervised(sup, n_batches: int, device_cls: str) -> dict:
+def check_supervised(sup, n_batches: int, device_cls: str,
+                     device: str = DEVICE) -> dict:
     """A supervised run that injected no fault: never degraded, every
-    batch on the card, the device set the one expected, on `cuda`."""
+    batch on the card, the device set the one expected, on `device`."""
     st = sup.status()
     bad = (st["degraded"] is not False or st["degrades"] != 0
            or st["fallback_batches"] != 0 or st["promotions"] != 0
            or st["device_batches"] != n_batches)
     dev = sup.device
     if bad or type(dev).__name__ != device_cls or \
-            dev.device.type != DEVICE:
+            dev.device.type != device:
         raise AssertionError(f"supervised set left the card or missed a "
                              f"batch ({n_batches} batches, "
                              f"{type(dev).__name__}): {st}")
@@ -3989,6 +4060,547 @@ def entry_points(smi: str) -> dict:
     return dict(K.LAUNCHES)
 
 
+# ---------------------------------------------------- the resolution plane
+# Phase 20: N Resolver roles behind the commit proxies' resolution stage
+# (server/commit_proxy.py, server/master.py, server/cluster.py).  Stream A
+# keeps each txn inside one quarter of the ids, on the N = 4 cuts, so
+# N = 2 and 4 must equal N = 1 bit for bit.  Stream B is config 2 as
+# generated: a txn that one resolver aborts still leaves its writes at the
+# resolvers that committed it locally (as in the reference), so there each
+# resolver is held against a point oracle over its own fragments, and the
+# aborts N resolvers make beyond one resolver's are counted.
+PLANE_NS = (1, 2, 4)
+# Stream A's readings: N = 1 is read again last, so that its builder's
+# time is seen twice in one run.
+PLANE_A_READINGS = (("1", 1), ("2", 2), ("4", 4), ("1 again", 1))
+PLANE_SHARDS, PLANE_CELLS = 16, 4
+# Cut to hold phase 20 near 150 s on the card (2 + 6 and 3 + 9 took
+# 237.8 s there): batch counts, never the 100K-txn width.
+N_PLANE_A = (1, 4)              # stream A: warmup, measured batches
+N_PLANE_B = (2, 5)              # stream B
+PLANE_SMALL_CAPACITY = 1 << 12
+# The small straddling stream: waves of txns, the wave after which one
+# balancing step must move a boundary, and the write window it runs under
+# (its snapshots lag up to 5 waves: some are too old, and the proxies'
+# ownership histories are trimmed).
+STRADDLE_WAVES, STRADDLE_TXNS, STRADDLE_MOVE_AFTER = 12, 24, 5
+STRADDLE_LIFE = 4 * VERSIONS_PER_BATCH
+STRADDLE_Z = (b"\x3f\xff", b"\x7f\xff")
+
+
+def plane_boundaries(n: int) -> list:
+    """seed_resolver_boundaries over a 16-shard key-servers map that cuts
+    the KEYSPACE ids evenly: what DD's even-volume shards give for equal
+    records (static byte splits would put every b"k..." key on one
+    resolver)."""
+    from foundationdb_tpu_torch.server import seed_resolver_boundaries
+    begins = [b""] + [b"k%014d" % (KEYSPACE * i // PLANE_SHARDS)
+                      for i in range(1, PLANE_SHARDS)]
+    ends = begins[1:] + [b"\xff"]
+    return seed_resolver_boundaries(
+        [(b, e, [i]) for i, (b, e) in enumerate(zip(begins, ends))], n)
+
+
+def plane_stream(rng, count: int, cells: int = 0) -> list:
+    """`count` config-2 batches in object form, [(version, txns)]; with
+    `cells`, stream A's (each txn inside one cell)."""
+    out, version = [], 1_000
+    for _ in range(count):
+        prev, version = version, version + VERSIONS_PER_BATCH
+        kids, snaps = point_draws(rng, prev, KEYSPACE, True, cells=cells)
+        out.append((version, to_transactions(kids, snaps)))
+    return out
+
+
+def request_ranges(req) -> int:
+    return sum(len(t.read_conflict_ranges) + len(t.write_conflict_ranges)
+               for t in req.transactions)
+
+
+def codes_of(committed) -> np.ndarray:
+    return np.fromiter(map(int, committed), np.int8, len(committed))
+
+
+class GcClock:
+    """The Python collector's time and full collections while installed
+    in gc.callbacks."""
+
+    def __init__(self) -> None:
+        self.s, self.full, self._t = 0.0, 0, None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.s += time.perf_counter() - self._t
+            self.full += info["generation"] == 2
+            self._t = None
+
+
+def instrument_plane(plane) -> dict:
+    """Timers on a plane: each proxy's request build (seconds a call,
+    and the index maps it returned last) and each role's resolve_batch
+    (seconds a call, launches by wrapper, the last request it answered)."""
+    from foundationdb_tpu_torch import kernels as K
+    n = len(plane.resolvers)
+    spans = {"build": [], "index_maps": None, "role_s": [[] for _ in
+                                                         range(n)],
+             "role_launches": [dict.fromkeys(K.LAUNCHES, 0)
+                               for _ in range(n)],
+             "request": [None] * n}
+    for proxy in plane.proxies.values():
+        def build(*a, fn=proxy._build_resolution_requests):
+            t1 = time.perf_counter()
+            requests, index_maps = fn(*a)
+            spans["build"].append(time.perf_counter() - t1)
+            spans["index_maps"] = index_maps
+            return requests, index_maps
+
+        proxy._build_resolution_requests = build
+    for k, role in enumerate(plane.resolvers):
+        def resolve(req, fn=role.resolve_batch, k=k):
+            before = dict(K.LAUNCHES)
+            t1 = time.perf_counter()
+            fn(req)
+            spans["role_s"][k].append(time.perf_counter() - t1)
+            for name, c in K.LAUNCHES.items():
+                spans["role_launches"][k][name] += c - before[name]
+            spans["request"][k] = req
+
+        role.resolve_batch = resolve
+    return spans
+
+
+def check_plane_roles(plane, n_batches: int, spans=None,
+                      device: str = DEVICE) -> None:
+    """Every role's set on `device`, never degraded, every batch there;
+    with `spans`, every role launched the point path's wrappers (the
+    merge only where one ran)."""
+    for k, role in enumerate(plane.resolvers):
+        check_supervised(role.conflict_set, n_batches, "TorchConflictSet",
+                         device)
+        if role.metrics.counter("TxnResolvedDegraded").value != 0:
+            raise AssertionError(f"resolver {k} resolved degraded")
+        if spans is None:
+            continue
+        launched = spans["role_launches"][k]
+        missing = [w for w in PATH_KERNELS["point"]
+                   if w != "merge" and launched[w] <= 0]
+        if missing:
+            raise AssertionError(f"resolver {k} did not launch {missing}")
+
+
+def plane_aligned(smi: str, stream) -> dict:
+    """Stream A at N = 1, 2, 4 and 1 again, one proxy: the merged
+    verdicts of every reading equal the first N = 1's batch for batch;
+    the requests' build ms, each resolver's share and ranges/s, bench.py's
+    aggregate model, the plane's serial wall and the collector's ms over
+    the measured batches."""
+    import gc
+    import torch
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    warm = N_PLANE_A[0]
+    out, base = {}, None
+    for label, n in PLANE_A_READINGS:
+        plane = ResolutionPlane(n, ["p0"], boundaries=plane_boundaries(n),
+                                device=DEVICE, capacity=CAPACITY,
+                                delta_capacity=DELTA_CAPACITY)
+        spans = instrument_plane(plane)
+        codes, walls, ranges, prev = [], [], [0] * n, 0
+        clock = GcClock()
+        for i, (v, txns) in enumerate(stream):
+            if i == warm:
+                gc.callbacks.append(clock)
+            t1 = time.perf_counter()
+            reply = plane.resolve("p0", txns, prev, v)
+            walls.append(time.perf_counter() - t1)
+            prev = v
+            codes.append(codes_of(reply.committed))
+            if i >= warm:
+                for k in range(n):
+                    ranges[k] += request_ranges(spans["request"][k])
+        gc.callbacks.remove(clock)
+        torch.cuda.synchronize()
+        check_plane_roles(plane, len(stream), spans)
+        if base is None:
+            base = codes
+        for i, (a, b) in enumerate(zip(codes, base)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"stream A: N = {label} differs from "
+                                     f"N = 1 on batch {i} "
+                                     f"({int(np.sum(a != b))} txns)")
+        elapsed = [sum(spans["role_s"][k][warm:]) for k in range(n)]
+        total = sum(ranges)
+        out[label] = {
+            "build_p50_ms": float(np.percentile(spans["build"][warm:], 50)
+                                  * 1e3),
+            "shares": [r / total for r in ranges],
+            "per_resolver_ranges_per_s": [r / s for r, s in
+                                          zip(ranges, elapsed)],
+            "aggregate_ranges_per_s_model": total / max(elapsed),
+            "serial_wall_p50_ms": float(np.percentile(walls[warm:], 50)
+                                        * 1e3),
+            "gc_ms_per_batch": clock.s * 1e3 / (len(stream) - warm),
+            "gc_full_collections": clock.full,
+            "ranges": total}
+        del plane, spans
+        torch.cuda.empty_cache()
+    flat = np.concatenate(base)
+    verdicts = {c: int(np.sum(flat == c)) for c in (0, 1, 2)}
+    if verdicts[0] == 0 or verdicts[2] == 0:
+        raise AssertionError(f"stream A degenerate: {verdicts}")
+    for n, f in out.items():
+        print(f"path_plane A N={n}: request build p50 "
+              f"{f['build_p50_ms']:.1f} ms "
+              f"a batch, shares "
+              f"{[round(s, 4) for s in f['shares']]}, per resolver "
+              f"{[round(r, 1) for r in f['per_resolver_ranges_per_s']]} "
+              f"ranges/s, aggregate (model: total ranges over the slowest "
+              f"resolver's time, one role a process) "
+              f"{f['aggregate_ranges_per_s_model']:.1f} ranges/s, serial "
+              f"wall p50 {f['serial_wall_p50_ms']:.1f} ms a batch, the "
+              f"collector {f['gc_ms_per_batch']:.1f} ms a batch "
+              f"({f['gc_full_collections']} full) -- {smi}",
+              flush=True)
+    return {"per_n": out, "verdicts": verdicts, "batches": len(stream),
+            "measured": len(stream) - warm}
+
+
+def plane_straddling(smi: str, stream) -> dict:
+    """Stream B at N = 4: two proxies alternating on one chain, 1% state
+    txns, a balancing step after every batch.  Each resolver's codes equal
+    a point oracle over its own fragments and the merged verdicts their
+    min; each proxy receives every other proxy's committed state txn
+    once; at least one move adopted by both proxies.  Against one resolver
+    (the point oracle over the whole txns) it counts the extra aborts and
+    the commits one resolver would abort (a txn aborted by a phantom write
+    no longer blocks a later one of its batch)."""
+    import torch
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    from foundationdb_tpu_torch.txn.types import CommitResult
+    n, warm = 4, N_PLANE_B[0]
+    reqs = role_requests([v for v, _ in stream], [t for _, t in stream])
+    plane = ResolutionPlane(n, list(PROXIES), boundaries=plane_boundaries(n),
+                            device=DEVICE, capacity=CAPACITY,
+                            delta_capacity=DELTA_CAPACITY)
+    spans = instrument_plane(plane)
+    oracles, whole = [PointOracle() for _ in range(n)], PointOracle()
+    moves, received, state = [], {p: [] for p in PROXIES}, []
+    extra = fewer = aborts = aborts_one = 0
+    shares, walls = [], []
+    for i, r in enumerate(reqs):
+        v = r["version"]
+        t1 = time.perf_counter()
+        reply = plane.resolve(r["proxy"], r["txns"], r["prev"], v)
+        walls.append(time.perf_counter() - t1)
+        got = codes_of(reply.committed)
+        want = np.full(len(got), 2, np.int8)
+        ranges = []
+        for k in range(n):
+            req = spans["request"][k]
+            local = codes_of(req.reply.value.committed)
+            oc = oracles[k].resolve_txns(req.transactions, v, floor(v))
+            if not np.array_equal(local, oc):
+                raise AssertionError(f"stream B batch {i}: resolver {k} "
+                                     f"differs from its point oracle")
+            np.minimum.at(want, np.asarray(spans["index_maps"][k],
+                                           np.int64), oc)
+            ranges.append(request_ranges(req))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"stream B batch {i}: merged verdicts are "
+                                 f"not the min of the resolvers' oracles")
+        one = whole.resolve_txns(r["txns"], v, floor(v))
+        if i >= warm:
+            extra += int(np.sum((got != 2) & (one == 2)))
+            fewer += int(np.sum((got == 2) & (one != 2)))
+            aborts += int(np.sum(got != 2))
+            aborts_one += int(np.sum(one != 2))
+        shares.append([x / sum(ranges) for x in ranges])
+        for e in reply.state_transactions:
+            if e[4] != CommitResult.COMMITTED:
+                raise AssertionError(f"an aborted state txn applied: {e}")
+            received[r["proxy"]].append(e[:3])
+        state += [(v, r["proxy"], seq, int(got[t]))
+                  for seq, t in enumerate(r["state"])]
+        move = plane.balance(v)
+        if move is not None:
+            moves.append({"after_batch": i,
+                          "begin": move[0].begin.decode("latin-1"),
+                          "end": move[0].end.decode("latin-1"),
+                          "to": move[1], "version": move[2]})
+    torch.cuda.synchronize()
+    check_plane_roles(plane, len(reqs), spans)
+    if not moves or any(p._resolver_changes_hwm <= 0
+                        for p in plane.proxies.values()):
+        raise AssertionError(f"stream B: no boundary move adopted ({moves})")
+    for p in PROXIES:
+        last = max(r["version"] for r in reqs if r["proxy"] == p)
+        want_state = [e[:3] for e in state
+                      if e[1] != p and e[3] == 2 and e[0] < last]
+        if received[p] != want_state:
+            raise AssertionError(f"stream B: proxy {p} received "
+                                 f"{len(received[p])} foreign state txns, "
+                                 f"expected {len(want_state)}")
+    measured = len(reqs) - warm
+    path = {"extra_aborts": extra, "extra_commits": fewer,
+            "aborts": aborts, "aborts_one_resolver": aborts_one,
+            "txns": measured * TXNS, "moves": moves,
+            "shares_first_batch": shares[0], "shares_last_batch": shares[-1],
+            "build_p50_ms": float(np.percentile(spans["build"][warm:], 50)
+                                  * 1e3),
+            "serial_wall_p50_ms": float(np.percentile(walls[warm:], 50)
+                                        * 1e3),
+            "state_received": {p: len(x) for p, x in received.items()},
+            "batches": len(reqs), "measured": measured}
+    print(f"path_plane B N=4: {extra} extra aborts and {fewer} extra "
+          f"commits over one resolver ({aborts} aborts against "
+          f"{aborts_one} in {measured} x {TXNS} txns), {len(moves)} "
+          f"moves, split at "
+          f"{[(m['begin'], m['to']) for m in moves]}, shares "
+          f"{[round(s, 4) for s in shares[0]]} first, "
+          f"{[round(s, 4) for s in shares[-1]]} last; request build p50 "
+          f"{path['build_p50_ms']:.1f} ms, serial wall p50 "
+          f"{path['serial_wall_p50_ms']:.1f} ms a batch; each resolver "
+          f"equals its "
+          f"point oracle -- {smi}", flush=True)
+    del plane, spans
+    torch.cuda.empty_cache()
+    return path
+
+
+def parity_stream(seed: int = 11, waves: int = 16, per_wave: int = 24):
+    """The reference's aligned parity stream
+    (tests/test_resolution_plane.py _parity_stream), in the port's types
+    and the small cases' shape [(proxy, prev, version, txns)]: waves
+    aligned to four cells on the N = 4 static split points (a txn never
+    straddles a boundary), snapshots 1-2 waves behind, a \\xff state txn
+    every 5th wave."""
+    import random
+    from foundationdb_tpu_torch.txn.types import (CommitTransactionRef,
+                                                  KeyRange, Mutation,
+                                                  MutationType)
+    rng = random.Random(seed)
+    cells, cell_keys = 4, 64
+    bounds = [bytes([(256 * i) // cells]) for i in range(cells)]
+
+    def txn(reads=(), writes=(), mutations=(), snapshot=0):
+        return CommitTransactionRef(
+            read_conflict_ranges=[KeyRange(b, e) for b, e in reads],
+            write_conflict_ranges=[KeyRange(b, e) for b, e in writes],
+            mutations=list(mutations), read_snapshot=snapshot)
+
+    stream = []
+    for w in range(waves):
+        version, prev = 1000 * (w + 1), 1000 * w
+        txns = []
+        for _ in range(per_wave):
+            cell = rng.randrange(cells)
+            snapshot = max(0, 1000 * (w - rng.randint(1, 2)))
+            ks = [bounds[cell] + b"/k%03d" % rng.randrange(cell_keys)
+                  for _ in range(3)]
+            txns.append(txn(reads=[(k, k + b"\x00") for k in ks[:2]],
+                            writes=[(ks[2], ks[2] + b"\x00")],
+                            snapshot=snapshot))
+        if w % 5 == 1:
+            sysk = b"\xff/parity/%02d" % rng.randrange(4)
+            txns.append(txn(
+                reads=[(sysk, sysk + b"\x00")],
+                writes=[(sysk, sysk + b"\x00")],
+                mutations=[Mutation(MutationType.SetValue, sysk, b"v")],
+                snapshot=max(0, 1000 * (w - 1))))
+        stream.append((0, prev, version, txns))
+    return stream
+
+
+def straddle_stream(seed: int = 2036):
+    """A small contended stream that straddles resolver boundaries, two
+    proxies alternating on one chain: [(proxy, prev, version, txns)].
+    Keys b"<c>/s<i>" over 16 first bytes c, 60% of draws on the four below
+    \\x40; a txn reads one key (a quarter of them a range between two
+    draws) and writes another (85%), at a snapshot 0-5 waves behind; a
+    third of the point readers report their conflicting keys (a range read
+    may reach one resolver as two fragments, which the device path blames
+    together and the oracle one by one), tenants and tags set; a \\xff
+    state txn every 3rd wave, a ClearRange across \\xff every 4th, a txn
+    with no ranges now and then.  At wave 4 the keys STRADDLE_Z are
+    written; at waves 7 and 8, after the forced move, they are read at a
+    snapshot older than that write and than the move: they must conflict
+    through the previous owner's history."""
+    import random
+    from foundationdb_tpu_torch.txn.types import (CommitTransactionRef,
+                                                  KeyRange, Mutation,
+                                                  MutationType)
+    rng = random.Random(seed)
+    hot = [0x05, 0x15, 0x25, 0x35]
+    cold = list(range(0x45, 0x100, 0x10))
+
+    def key():
+        c = rng.choice(hot) if rng.random() < 0.6 else rng.choice(cold)
+        return bytes([c]) + b"/s%d" % rng.randrange(3)
+
+    def point(k):
+        return KeyRange(k, k + b"\x00")
+
+    stream = []
+    for w in range(STRADDLE_WAVES):
+        version, prev = 1000 * (w + 1), 1000 * w
+        txns = []
+        for t in range(STRADDLE_TXNS):
+            snap = max(0, prev - 1000 * rng.randrange(6))
+            if rng.random() < 0.04:
+                txns.append(CommitTransactionRef(read_snapshot=snap))
+                continue
+            a, b = key(), key()
+            read = KeyRange(min(a, b), max(a, b)) \
+                if a != b and rng.random() < 0.25 else point(a)
+            writes, muts = [], []
+            if rng.random() < 0.85:
+                k = key()
+                writes.append(point(k))
+                muts.append(Mutation(MutationType.SetValue, k, b"v"))
+            txns.append(CommitTransactionRef(
+                read_conflict_ranges=[read], write_conflict_ranges=writes,
+                mutations=muts, read_snapshot=snap,
+                report_conflicting_keys=(read.end == a + b"\x00" and
+                                         rng.random() < 1 / 3),
+                tenant_id=rng.randrange(-1, 3),
+                tag=rng.choice(["", "t/a", "t/b"])))
+        if w == 4:
+            txns += [CommitTransactionRef(write_conflict_ranges=[point(z)],
+                                          read_snapshot=prev)
+                     for z in STRADDLE_Z]
+        if w in (7, 8):
+            txns += [CommitTransactionRef(
+                read_conflict_ranges=[point(z)],
+                write_conflict_ranges=[point(b"\x01/old%d" % w)],
+                read_snapshot=4500, report_conflicting_keys=True)
+                for z in STRADDLE_Z]
+        if w % 3 == 1:
+            sysk = b"\xff/plane/%d" % rng.randrange(3)
+            txns.append(CommitTransactionRef(
+                read_conflict_ranges=[point(sysk)],
+                write_conflict_ranges=[point(sysk)],
+                mutations=[Mutation(MutationType.SetValue, sysk, b"v")],
+                read_snapshot=prev))
+        if w % 4 == 2:
+            txns.append(CommitTransactionRef(
+                write_conflict_ranges=[KeyRange(b"\xfe/z", b"\xff\x01")],
+                mutations=[Mutation(MutationType.ClearRange, b"\xfe/z",
+                                    b"\xff\x01")],
+                read_snapshot=prev))
+        stream.append((w % 2, prev, version, txns))
+    return stream
+
+
+def old_snapshot_reads(stream) -> list:
+    """(wave, index) of the stream's reads of STRADDLE_Z."""
+    return [(w, i) for w, (_, _, _, txns) in enumerate(stream)
+            for i, t in enumerate(txns) if t.read_conflict_ranges and
+            t.read_conflict_ranges[0].begin in STRADDLE_Z]
+
+
+def reply_fields(reply) -> tuple:
+    """A merged reply as plain data: verdicts, the committed foreign state
+    txns (version, origin, seq, verdict), the reporters' ranges."""
+    return ([int(c) for c in reply.committed],
+            [(e[0], e[1], e[2], int(e[4])) for e in
+             reply.state_transactions],
+            {i: list(r) for i, r in reply.conflicting_ranges.items()})
+
+
+def drive_small_plane(plane, stream, proxies, move_after=None):
+    """The stream through `plane`; one balancing step after wave
+    `move_after`.  Returns each batch's reply_fields and the moves."""
+    out, moves = [], []
+    for w, (p, prev, version, txns) in enumerate(stream):
+        out.append(reply_fields(plane.resolve(proxies[p], txns, prev,
+                                              version)))
+        if w == move_after:
+            moves.append(plane.balance(version))
+    return out, moves
+
+
+def plane_small(smi: str, device: str = DEVICE) -> dict:
+    """The small exact case: the parity stream and the straddling stream
+    at N = 1, 2 and 4 through a plane whose roles' sets are on `device`
+    and through one over the port's oracle; replies equal batch for batch
+    (verdicts, foreign state txns, reporters' ranges), the moves equal, a
+    move at N > 1, the reads of STRADDLE_Z across it conflicting, no
+    degrade.  Every abort is attributed exactly, as the oracle's are
+    (CONFLICT_ATTRIBUTION_SAMPLE raised); a txn reads one range, so the
+    supervised set's culprit is the oracle's (role_small_stream)."""
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    cases = {"parity": (parity_stream(), None, ("p0",), None),
+             "straddle": (straddle_stream(), STRADDLE_MOVE_AFTER, PROXIES,
+                          STRADDLE_LIFE)}
+    summary = {}
+    for name, (stream, move_after, proxies, life) in cases.items():
+        knobs = {"CONFLICT_ATTRIBUTION_SAMPLE": 10 * STRADDLE_TXNS}
+        if life:
+            knobs["MAX_WRITE_TRANSACTION_LIFE_VERSIONS"] = life
+        for n in PLANE_NS:
+            with port_knobs(**knobs):
+                card = ResolutionPlane(n, list(proxies), device=device,
+                                       capacity=PLANE_SMALL_CAPACITY)
+                oracle = ResolutionPlane(n, list(proxies), backend="cpu")
+                got, got_moves = drive_small_plane(card, stream, proxies,
+                                                   move_after)
+                want, want_moves = drive_small_plane(oracle, stream, proxies,
+                                                     move_after)
+            check_plane_roles(card, len(stream), device=device)
+            for i, (a, b) in enumerate(zip(got, want)):
+                if a != b:
+                    raise AssertionError(f"small {name} N = {n}: the plane "
+                                         f"on {device} differs from the "
+                                         f"oracle plane on batch {i}")
+            if got_moves != want_moves or (move_after is not None and
+                                           (n > 1) != (got_moves[0]
+                                                       is not None)):
+                raise AssertionError(f"small {name} N = {n}: moves "
+                                     f"{got_moves}, oracle {want_moves}")
+            flat = [c for b in got for c in b[0]]
+            old_reads = [got[w][0][i] for w, i in old_snapshot_reads(stream)]
+            if any(c != 0 for c in old_reads):
+                raise AssertionError(f"small {name} N = {n}: an old "
+                                     f"snapshot read across the move did "
+                                     f"not conflict: {old_reads}")
+            summary[f"{name}_{n}"] = {
+                "verdicts": {c: flat.count(c) for c in (0, 1, 2)},
+                "state_received": sum(len(b[1]) for b in got),
+                "reported": sum(len(b[2]) for b in got),
+                "old_snapshot_reads": len(old_reads),
+                "moved": [(m[0].begin.decode("latin-1"), m[1])
+                          for m in got_moves if m]}
+    print(f"plane_small: the parity and straddling streams at N = "
+          f"{PLANE_NS} through the plane on {device} equal the oracle plane "
+          f"({summary}) -- {smi}", flush=True)
+    return summary
+
+
+def plane_path(smi: str) -> tuple:
+    """Phase 20: streams A and B and the small exact case, the launches
+    counted over the three (the oracle planes launch nothing)."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    rng = np.random.default_rng(2020)
+    stream_a = plane_stream(rng, sum(N_PLANE_A), cells=PLANE_CELLS)
+    stream_b = plane_stream(rng, sum(N_PLANE_B))
+    K.reset_counts()
+    with port_knobs(MAX_WRITE_TRANSACTION_LIFE_VERSIONS=WINDOW):
+        aligned = plane_aligned(smi, stream_a)
+        del stream_a
+        straddling = plane_straddling(smi, stream_b)
+        del stream_b
+    small = plane_small(smi)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    path = {"aligned": aligned, "straddling": straddling, "small": small,
+            "txns_per_batch": TXNS, "capacity": CAPACITY,
+            "delta_capacity": DELTA_CAPACITY, "card": smi}
+    print(f"path_plane: {json.dumps(path)}", flush=True)
+    return launches, path
+
+
 def main() -> int:
     try:
         import torch
@@ -4115,6 +4727,9 @@ def main() -> int:
     del batches2, txns2, codes2
     launches["entry"] = entry_points(smi)
     phase_done("resolver role and entry points")
+    log("phase 20: the resolution plane (config 2, N = 1, 2, 4)")
+    launches["plane"], path_plane = plane_path(smi)
+    phase_done("resolution plane")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -4146,6 +4761,7 @@ def main() -> int:
                       "long_keys": long_keys, "degrade": degrade,
                       "path_supervised_sharded": path_supervised_sharded,
                       "path_resolver": path_resolver,
+                      "path_plane": path_plane,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -7,7 +7,8 @@ ConflictSet.resolve_with_conflicts fills (conflict/api.py) and of the
 role's conflict heat; the CONFLICT_* knobs of the backend factory, of
 conflict/supervisor.py and of the heat table (conflict/heat.py);
 MAX_WRITE_TRANSACTION_LIFE_VERSIONS, the span of the role's window floor
-(server/resolver.py); and METRICS_EMIT_INTERVAL, the cadence of
+(server/resolver.py) and of the proxy's ownership history
+(server/commit_proxy.py); and METRICS_EMIT_INTERVAL, the cadence of
 CounterCollection.emit_loop.  Set them the way the reference's tests do:
 mutate the process-wide registry,
 `server_knobs().CONFLICT_PIPELINE_DEPTH = 2`, and restore it after.

@@ -1,0 +1,312 @@
+"""The commit proxy's resolution stage (trimmed copy of
+foundationdb_tpu/server/commit_proxy.py).
+
+Reference: fdbserver/CommitProxyServer.actor.cpp getResolution (:660,
+ResolutionRequestBuilder :88) and determineCommittedTransactions
+(:792-806).  A CommitProxy here holds phases 2-3 of the reference's
+_commit_batch_impl (:377-400): it adopts the master's resolver boundary
+moves into its per-key ownership history (keyResolvers, :154-181), clips
+each transaction's conflict ranges to every resolver that owned them
+within the MVCC window, hands each Resolver role its request, and merges
+the replies: a transaction commits iff every resolver that judged it
+committed it, another proxy's state transaction commits iff every
+resolver committed it, and a reporter's conflicting ranges are the union
+over the resolvers.
+
+Method for method the reference's, with three changes of form: a batch
+is the transactions themselves (the reference's CommitTransactionRequests
+carry each one as .transaction); resolve() is synchronous -- each role
+answers within the call, so a proxy hands its batches over in
+version-chain order; and of the reference's two request builders, which
+give the same requests, only the vectorised one is kept (it clips inline,
+so _clip_ranges has no copy here).
+
+Left out on purpose: tenant validation (_tenant_prefix_ok,
+_validate_tenants), mutation-to-tag routing and the TLog push
+(_assign_mutations_to_tags, LogSystemClient), the sched stages' reorder
+and repair (these requests are the reference's with both knobs off), the
+commit-debug spans, the batcher and the version request, and
+_apply_metadata's side effects (shard map, backup and lock flags, tenant
+cache): _apply_foreign_state returns the committed foreign entries and
+leaves applying them to the caller.
+"""
+
+from __future__ import annotations
+
+from bisect import bisect_right
+from typing import Any, Dict, List, Tuple
+
+from ..core.knobs import server_knobs
+from ..core.trace import TraceEvent
+from ..txn.types import (CommitResult, CommitTransactionRef, KeyRange,
+                         MutationType, Version)
+from .interfaces import (RESOLVER_ALL, Reply, ResolveTransactionBatchReply,
+                         ResolveTransactionBatchRequest)
+from .shardmap import RangeMap
+from .system_data import SYSTEM_KEYS_BEGIN
+
+
+class CommitProxy:
+    def __init__(self, proxy_id: str, resolvers: List[Any],
+                 key_resolvers, recovery_version: Version = 0) -> None:
+        """`resolvers`: the Resolver roles, by index.  `key_resolvers`:
+        a RangeMap, or a list of (begin, end, value) triples, whose
+        values are resolver indices (the recruitment shape) or ownership
+        histories, tuples of (version, resolver index) newest first."""
+        self.id = proxy_id
+        self.resolvers = resolvers
+        # key -> OWNERSHIP HISTORY: tuple of (version, resolver_idx),
+        # newest first (reference ProxyCommitData::keyResolvers: a range
+        # goes to every resolver that owned it within the MVCC window, so
+        # old-snapshot conflict checks reach the resolver holding that
+        # span's write history).
+        if isinstance(key_resolvers, RangeMap):
+            key_resolvers = key_resolvers.ranges()
+        hist_map: RangeMap = RangeMap(default=((recovery_version, 0),))
+        for b, e, v in key_resolvers:
+            if isinstance(v, int):
+                hist_map.set_range(b, e, ((recovery_version, v),))
+            else:
+                hist_map.set_range(b, e, tuple(v))
+        self.key_resolvers = hist_map
+        self._resolver_changes_hwm: Version = 0
+        self.last_resolved_version: Version = recovery_version
+        # Exactly-once cursor over foreign state transactions (version,
+        # origin proxy, seq); see _apply_foreign_state.
+        self._state_hwm: Tuple[Version, str, int] = (-1, "", -1)
+
+    # -- phases 2-3 of the batch pipeline ------------------------------------
+    def resolve(self, batch: List[CommitTransactionRef],
+                prev_version: Version, commit_version: Version,
+                resolver_changes=()) -> ResolveTransactionBatchReply:
+        """Resolve one batch across the resolvers: adopt the boundary
+        moves handed over with the batch's version, send every resolver
+        its request, and merge the replies.  Returns the merged reply:
+        the verdicts in batch order, the committed foreign state
+        transactions in (version, origin, seq) order, and the reporters'
+        conflicting ranges with their exactness, by batch index."""
+        if resolver_changes:
+            self._apply_resolver_changes(resolver_changes)
+        requests, index_maps = self._build_resolution_requests(
+            batch, prev_version, commit_version)
+        resolutions = []
+        for role, req in zip(self.resolvers, requests):
+            req.reply = Reply()
+            role.resolve_batch(req)
+            if not req.reply.sent:
+                raise RuntimeError(
+                    f"proxy {self.id}: resolver {role.id} holds batch "
+                    f"{commit_version} until it has resolved "
+                    f"{prev_version}: batches go in version-chain order")
+            resolutions.append(req.reply.value)
+        self.last_resolved_version = commit_version
+        state = self._apply_foreign_state(resolutions)
+        committed = self._determine_committed(batch, index_maps, resolutions)
+        ranges, exact = self._merge_conflicts(index_maps, resolutions)
+        return ResolveTransactionBatchReply(
+            committed=committed, state_transactions=state,
+            conflicting_ranges=ranges, attribution_exact=exact)
+
+    # -- resolution request building (reference :88-181) ---------------------
+    def _apply_resolver_changes(self, changes) -> None:
+        """Adopt master-piggybacked resolver boundary moves exactly once,
+        in change-version order (reference :1175-1182)."""
+        for kr, idx, v in sorted(changes, key=lambda c: c[2]):
+            if v <= self._resolver_changes_hwm:
+                continue
+            self._resolver_changes_hwm = v
+            floor = v - int(
+                server_knobs().MAX_WRITE_TRANSACTION_LIFE_VERSIONS)
+            for b, e, hist in list(self.key_resolvers.intersecting(
+                    kr.begin, kr.end)):
+                # Prepend the new owner; trim history below the MVCC
+                # window (the entry at/below the floor is the owner at
+                # window start and must be kept).
+                kept = [(v, idx)]
+                for hv, hidx in tuple(hist or ()):
+                    kept.append((hv, hidx))
+                    if hv <= floor:
+                        break
+                self.key_resolvers.set_range(b, e, tuple(kept))
+            TraceEvent("ProxyResolverChange").detail(
+                "Proxy", self.id).detail("Begin", kr.begin).detail(
+                "End", kr.end).detail("To", idx).detail("Version", v).log()
+
+    def _eligible(self, hist, floor: Version) -> List[int]:
+        """Resolvers owning any part of the MVCC window above `floor`:
+        walk newest-first; the first entry at/below the floor is the owner
+        at window start and terminates the walk.  A RESOLVER_ALL entry
+        (the \\xff system range) expands to every resolver: system-key
+        conflict ranges are checked by ALL resolvers against identical
+        broadcast history."""
+        out: List[int] = []
+        for v, idx in hist:
+            if idx == RESOLVER_ALL:
+                for j in range(len(self.resolvers)):
+                    if j not in out:
+                        out.append(j)
+            elif idx not in out:
+                out.append(idx)
+            if v <= floor:
+                break
+        return out
+
+    def _build_resolution_requests(
+            self, batch: List[CommitTransactionRef],
+            prev_version: Version, commit_version: Version):
+        """One request per resolver; each transaction's conflict ranges are
+        clipped to the ranges that resolver owns.  Every resolver receives
+        every batch (possibly with no transactions) to keep its version
+        chain contiguous.  Returns (requests, index_maps): index_maps[i]
+        lists the batch index of each transaction resolver i was sent.
+
+        The reference's vectorised builder (PROXY_VECTORIZED_ASSEMBLY,
+        :761-855), whose requests equal its plain one's (:689-759): the
+        boundary arrays are bound once, each conflict range is walked
+        exactly once with bisect, each history tuple's eligible resolvers
+        are computed once a batch (the floor is batch-constant), and the
+        fragments accrete straight into the request lists."""
+        n = len(self.resolvers)
+        requests = [ResolveTransactionBatchRequest(
+            prev_version=prev_version, version=commit_version,
+            last_received_version=self.last_resolved_version,
+            transactions=[], proxy_id=self.id) for _ in range(n)]
+        index_maps: List[List[int]] = [[] for _ in range(n)]
+        floor = commit_version - int(
+            server_knobs().MAX_WRITE_TRANSACTION_LIFE_VERSIONS)
+        km = self.key_resolvers
+        bounds = km._bounds
+        values = km._values
+        end_key = km.end_key
+        nbounds = len(bounds)
+        elig_cache: Dict[tuple, List[int]] = {}
+        all_resolvers = list(range(n))
+        sysb = SYSTEM_KEYS_BEGIN
+        clear = MutationType.ClearRange
+        for t_idx, txn in enumerate(batch):
+            # Metadata-bearing ("state") transactions go to EVERY resolver
+            # with their mutations attached: each resolver records them with
+            # its local verdict and streams them to the other proxies
+            # (reference Resolver.actor.cpp:220-249).
+            is_state = any(
+                m.param1 >= sysb or
+                (m.type == clear and m.param2 > sysb)
+                for m in txn.mutations)
+            clipped_r: Dict[int, List[KeyRange]] = {}
+            clipped_w: Dict[int, List[KeyRange]] = {}
+            for ranges, sink in ((txn.read_conflict_ranges, clipped_r),
+                                 (txn.write_conflict_ranges, clipped_w)):
+                for r in ranges:
+                    b, e = r.begin, r.end
+                    if b >= e:
+                        continue
+                    i = bisect_right(bounds, b) - 1
+                    while i < nbounds:
+                        rb = bounds[i]
+                        if rb >= e:
+                            break
+                        re_ = bounds[i + 1] if i + 1 < nbounds else end_key
+                        cb = rb if rb > b else b
+                        ce = re_ if re_ < e else e
+                        if cb < ce:
+                            hist = values[i]
+                            elig = elig_cache.get(hist)
+                            if elig is None:
+                                elig = elig_cache[hist] = \
+                                    self._eligible(hist, floor)
+                            kr = KeyRange(cb, ce)
+                            for idx in elig:
+                                lst = sink.get(idx)
+                                if lst is None:
+                                    lst = sink[idx] = []
+                                lst.append(kr)
+                        i += 1
+            if is_state:
+                touched: Any = all_resolvers
+            else:
+                touched = set(clipped_r)
+                touched.update(clipped_w)
+                # Read-only/no-range txns: resolver 0 decides.
+                touched = sorted(touched) if touched else (0,)
+            for idx in touched:
+                reqs_idx = requests[idx]
+                clipped = CommitTransactionRef(
+                    read_conflict_ranges=clipped_r.get(idx, []),
+                    write_conflict_ranges=clipped_w.get(idx, []),
+                    mutations=list(txn.mutations) if is_state else [],
+                    read_snapshot=txn.read_snapshot,
+                    report_conflicting_keys=txn.report_conflicting_keys,
+                    # Tenant/tag identity rides the clipped fragment for
+                    # the resolver's conflict-heat tracker.
+                    tenant_id=txn.tenant_id, tag=txn.tag)
+                if is_state:
+                    reqs_idx.txn_state_transactions.append(
+                        len(reqs_idx.transactions))
+                reqs_idx.transactions.append(clipped)
+                index_maps[idx].append(t_idx)
+        return requests, index_maps
+
+    # -- merging the replies (reference :954-980, :1058-1070, :430-450) ------
+    def _apply_foreign_state(self, resolutions) -> List[tuple]:
+        """Other proxies' state transactions as this proxy learns them:
+        every resolver reports each one with its LOCAL verdict; the global
+        verdict is the AND (min) across resolvers.  Entries are taken in
+        (version, origin, seq) order exactly once -- a high-water mark
+        guards against re-delivery from batches whose
+        last_received_version lagged.  Returns the committed ones,
+        (version, origin, seq, mutations, verdict), in that order."""
+        merged: Dict[Tuple[Version, str, int], List] = {}
+        for reply in resolutions:
+            for version, origin, seq, mutations, verdict in \
+                    reply.state_transactions:
+                key = (version, origin, seq)
+                cur = merged.get(key)
+                if cur is None:
+                    merged[key] = [mutations, verdict]
+                else:
+                    cur[1] = min(cur[1], verdict)
+        out = []
+        for key in sorted(merged):
+            if key <= self._state_hwm or key[1] == self.id:
+                continue
+            self._state_hwm = key
+            mutations, verdict = merged[key]
+            if verdict == CommitResult.COMMITTED:
+                out.append((*key, mutations, verdict))
+        return out
+
+    def _determine_committed(self, batch, index_maps, resolutions
+                             ) -> List[CommitResult]:
+        """Verdict = min over the resolvers that saw the transaction
+        (commit iff ALL resolvers said committed; CONFLICT=0 < TOO_OLD=1,
+        so under min() CONFLICT dominates TOO_OLD)."""
+        verdicts = [CommitResult.COMMITTED] * len(batch)
+        for r_idx, reply in enumerate(resolutions):
+            for local_i, verdict in enumerate(reply.committed):
+                t_idx = index_maps[r_idx][local_i]
+                verdicts[t_idx] = min(verdicts[t_idx], verdict)
+        return verdicts
+
+    @staticmethod
+    def _merge_conflicts(index_maps, resolutions
+                         ) -> Tuple[Dict[int, list], Dict[int, bool]]:
+        """Each reporter's conflicting read ranges, the union across the
+        resolvers that judged it, and its attribution exactness: exact
+        only if EVERY resolver that aborted it pinned true culprits (one
+        conservative vote over-blames the union).  By batch index."""
+        conflict_ranges: Dict[int, list] = {}
+        conflict_exact: Dict[int, bool] = {}
+        for r_idx, reply in enumerate(resolutions):
+            imap = index_maps[r_idx]
+            for local_i, ranges in reply.conflicting_ranges.items():
+                if local_i < len(imap):
+                    conflict_ranges.setdefault(imap[local_i],
+                                               []).extend(ranges)
+        for r_idx, reply in enumerate(resolutions):
+            imap = index_maps[r_idx]
+            for local_i, exact in reply.attribution_exact.items():
+                if local_i < len(imap):
+                    t_idx = imap[local_i]
+                    conflict_exact[t_idx] = \
+                        conflict_exact.get(t_idx, True) and bool(exact)
+        return conflict_ranges, conflict_exact

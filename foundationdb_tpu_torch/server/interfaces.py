@@ -2,10 +2,10 @@
 foundationdb_tpu/server/interfaces.py, reference
 fdbserver/ResolverInterface.h:33,81-123).
 
-Only the five dataclasses: transport (request streams, task priorities,
-the ResolverInterface that bundles them) belongs to whoever hosts the
-role.  `reply` is any object with send(value); the role answers each
-request through it.
+Only the five dataclasses, RESOLVER_ALL and a reply that keeps its value:
+transport (request streams, task priorities, the ResolverInterface that
+bundles them) belongs to whoever hosts the role.  `reply` is any object
+with send(value); the role answers each request through it.
 """
 
 from __future__ import annotations
@@ -14,6 +14,24 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
 from ..txn.types import CommitResult, CommitTransactionRef, Version
+
+# keyResolvers value of the \xff system range: owned by EVERY resolver of
+# the epoch (foundationdb_tpu/server/interfaces.py:53).
+RESOLVER_ALL: int = -1
+
+
+class Reply:
+    """A reply that keeps what it was sent, for a caller that hands a
+    request to a role and reads the answer after the call."""
+
+    __slots__ = ("value", "sent")
+
+    def __init__(self) -> None:
+        self.value: Any = None
+        self.sent = False
+
+    def send(self, value: Any = None) -> None:
+        self.value, self.sent = value, True
 
 
 @dataclass

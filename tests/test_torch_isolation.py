@@ -35,7 +35,12 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.conflict.heat", "foundationdb_tpu_torch.server",
     "foundationdb_tpu_torch.server.interfaces",
     "foundationdb_tpu_torch.server.notified",
-    "foundationdb_tpu_torch.server.resolver", "foundationdb_tpu_torch.entry",
+    "foundationdb_tpu_torch.server.resolver",
+    "foundationdb_tpu_torch.server.shardmap",
+    "foundationdb_tpu_torch.server.system_data",
+    "foundationdb_tpu_torch.server.commit_proxy",
+    "foundationdb_tpu_torch.server.master",
+    "foundationdb_tpu_torch.server.cluster", "foundationdb_tpu_torch.entry",
     "chip_smoke", "scripts.torch_kernel_ab"]
 
 
@@ -43,9 +48,10 @@ def test_port_imports_no_jax():
     """In a fresh interpreter, importing every port module (and
     chip_smoke), then a supervised set on the CPU resolving and folding a
     batch, degrading once and promoting once, the Resolver role answering
-    a resolve, a metrics, a split and a heat request, and both entry
-    points on the CPU (so the lazy imports have run), loads no jax and no
-    foundationdb_tpu module."""
+    a resolve, a metrics, a split and a heat request, a two-resolver
+    resolution plane resolving a straddling batch and taking a balancing
+    step, and both entry points on the CPU (so the lazy imports have
+    run), loads no jax and no foundationdb_tpu module."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -94,6 +100,15 @@ def test_port_imports_no_jax():
         "role.serve_heat(ResolverHeatRequest(reply=Reply()))\n"
         "assert got[1:3] == [2, None] and len(got[3]) == 1, got\n"
         "role.emit_heat_once()\n"
+        "from foundationdb_tpu_torch.server import ResolutionPlane\n"
+        "plane = ResolutionPlane(2, ['p0'], device='cpu', "
+        "capacity=1 << 10)\n"
+        "s = CommitTransactionRef(read_conflict_ranges=[KeyRange(b'a', "
+        "b'\\x90')], write_conflict_ranges=[KeyRange(b'\\x85', "
+        "b'\\x86')])\n"
+        "assert [int(v) for v in plane.resolve('p0', [s], 0, 100)"
+        ".committed] == [2]\n"
+        "assert plane.balance(100) is None\n"
         "from foundationdb_tpu_torch.entry import entry, dryrun_multichip\n"
         "fn, args = entry('cpu')\n"
         "assert int(fn(*args).sum()) == 0\n"
@@ -127,6 +142,9 @@ def test_no_device_raises_without_cuda(monkeypatch):
         new_conflict_set("sharded")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_conflict_mesh()
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResolutionPlane(2, ["p0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         window.make_window_state(256)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -2046,3 +2046,21 @@ def test_probes_unsorted_tier(dev):
     qb, qe = probe_queries(rng, bk, 3_000, 4_001)
     check_probes(dev, rng, planted, other, qb, qe)
     check_probes(dev, rng, other, planted, qb, qe)
+
+
+def test_resolution_plane_small_case(dev):
+    """chip_smoke.py's small exact case on the card: the reference's
+    aligned parity stream and a contended straddling stream (a boundary
+    move after wave 5, old-snapshot reads across it) at N = 1, 2 and 4
+    through a resolution plane whose roles' supervised sets are on the
+    card, against one over the port's oracle: replies equal batch for
+    batch, the moves equal, no degrade."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    out = chip_smoke.plane_small(torch.cuda.get_device_name(0),
+                                 device=dev.type)
+    assert out["straddle_2"]["moved"] and out["straddle_4"]["moved"]
+    assert out["straddle_4"]["old_snapshot_reads"] > 0
