@@ -6,7 +6,8 @@ resolver calls, each at full size, then the supervised set (the
 factory's default route) over them, then the Resolver role over that
 (the requests a commit proxy sends), the entry points of entry.py, and
 the resolution plane (N roles behind the commit proxies' clip and
-min-merge, with resolution balancing):
+min-merge, with resolution balancing) and the scheduling plane around it
+(predictor admission, reorder, repair):
 
   point    TorchConflictSet.resolve_encoded_async -> _pack_compact -> the
            compact step, the delta table, the merge, at the bench's config
@@ -176,7 +177,29 @@ exits non-zero):
      it, at N = 1, 2 and 4, the plane on the card against one over the
      oracle (replies equal).  No degrade; every role launches the point
      path's wrappers; the path_plane line;
- 21. the JSON lines (programs and paths; kernels with launches per path,
+ 21. the scheduling plane around the resolution plane: the GRV proxies'
+     predictor admission (server/grv_proxy.py), the commit proxy's
+     reorder, repair collection and replies (commit()), the ratekeeper's
+     heat poll (server/ratekeeper.py), driven as bench.py sched drives its
+     model (drive_sched) over supervised sets on the card (capacity 2^21,
+     delta 2^20, MAX_WRITE_TRANSACTION_LIFE_VERSIONS = WINDOW).  The small
+     exact case first: all+ladder at N = 2, two proxies, 256 txns a batch
+     over 4,096 ids, every abort attributed exactly: replies and counters
+     equal to the plane on the CPU (two reads a txn) and to the oracle
+     plane (one read a txn).  Then bench.py sched's stream (8,192 txns a
+     batch, 2 point reads + 1 point write each, zipf(1.2) over the 1M ids,
+     seed 4242, 3 warmup + 10 counted batches), every txn with its tag,
+     reporting its keys, opted into repair: the seven configurations (off,
+     predictor, reorder, repair, all, ladder, all+ladder) at N = 1,
+     all+ladder at N = 4 with two proxies, and all+ladder at N = 1 with
+     every abort attributed exactly.  Every txn answered exactly once,
+     none deferred more than SCHED_MAX_DEFERRALS times, reorder moves and
+     repairs non-zero where their knobs are on, the off configuration's
+     codes equal to the plain plane's (resolve()) batch for batch, no
+     degrade; a path_sched line a reading (commit rate, bench.py's stage
+     counters, role calls, repair batches and sizes, exact and
+     conservative attributions, ms a round by stage);
+ 22. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -280,16 +303,19 @@ PATH_KERNELS.update({
 # small straddling stream's range reads take the general step too, which
 # this list does not require); stream B's 12 batches cross a merge.
 PATH_KERNELS["plane"] = PATH_KERNELS["point"]
+# Phase 21: the scheduling plane adds no kernel; every role of its readings
+# takes the point path (each reading's 13 batches cross a merge).
+PATH_KERNELS["sched"] = PATH_KERNELS["point"]
 
 
 # ---------------------------------------------------------------- workload
 def point_draws(rng, prev: int, keyspace: int, zipf: bool,
-                txns: int = TXNS, cells: int = 0):
+                txns: int = TXNS, cells: int = 0, reads: int = READS):
     """The bench's config-2 draws (bench.py gen_batch): the key ids, a
-    txn's READS reads first (txn-major) then one write a txn, and the
+    txn's `reads` reads first (txn-major) then one write a txn, and the
     snapshots.  With `cells`, every txn's keys fall zipf inside one of
     `cells` equal cells of the ids, its cell drawn uniformly."""
-    n = txns * (READS + 1)
+    n = txns * (reads + 1)
     if zipf:
         kids = (rng.zipf(1.2, size=n) % keyspace).astype(np.int64)
     else:
@@ -298,7 +324,7 @@ def point_draws(rng, prev: int, keyspace: int, zipf: bool,
         width = keyspace // cells
         cell = rng.integers(0, cells, size=txns)
         kids = kids % width + width * np.concatenate(
-            [np.repeat(cell, READS), cell])
+            [np.repeat(cell, reads), cell])
     snaps = np.maximum(prev - rng.integers(0, 2 * VERSIONS_PER_BATCH,
                                            size=txns), 0)
     return kids, snaps
@@ -4601,6 +4627,414 @@ def plane_path(smi: str) -> tuple:
     return launches, path
 
 
+# ---------------------------------------------------- the scheduling plane
+# Phase 21: the scheduling plane around the resolution plane -- the GRV
+# proxies' predictor admission (server/grv_proxy.py), the commit proxy's
+# reorder, repair collection and replies (server/commit_proxy.py commit())
+# and the ratekeeper's heat poll (server/ratekeeper.py) -- in the regime of
+# bench.py sched (:735-760, :972-1012): SCHED_TXNS txns a batch, 2 point
+# reads + 1 point write each, zipf(1.2) over the 1M ids, snapshots 0-2
+# batches behind, seed 4242 (bench.py's draws; numpy's generators may
+# draw another stream under another numpy, so path_sched prints the
+# stream's md5 and numpy's version), 3 warmup +
+# 10 counted batches, 1,000 versions a batch, the floor 5 batches back.
+# Every txn declares its tag (the key-prefix bucket of its first read,
+# bench.py _sched_tag), reports its conflicting keys and opts into repair.
+SCHED_TXNS, SCHED_BATCHES, SCHED_WARMUP, SCHED_SEED = 8192, 13, 3, 4242
+SCHED_TAG_BUCKETS = 64
+_SCHED_ALL = {"SCHED_PREDICTOR_ENABLED": True, "SCHED_REORDER_ENABLED": True,
+              "SCHED_REPAIR_ENABLED": True}
+_SCHED_LADDER = {"SCHED_REPAIR_ENABLED": True, "TXN_REPAIR_MAX_ATTEMPTS": 3}
+# bench.py sched's seven configurations, by the knobs each sets.
+SCHED_CONFIGS = {
+    "off": {},
+    "predictor": {"SCHED_PREDICTOR_ENABLED": True},
+    "reorder": {"SCHED_REORDER_ENABLED": True},
+    "repair": {"SCHED_REPAIR_ENABLED": True},
+    "all": _SCHED_ALL,
+    "ladder": _SCHED_LADDER,
+    "all+ladder": {**_SCHED_ALL, **_SCHED_LADDER}}
+# The readings: (label, configuration, N, proxies, attribution sample);
+# a sample of None keeps the knob's default.
+SCHED_READINGS = [(name, name, 1, ("p0",), None) for name in SCHED_CONFIGS]
+SCHED_READINGS += [("all+ladder N=4", "all+ladder", 4, PROXIES, None),
+                   ("all+ladder exact", "all+ladder", 1, ("p0",),
+                    SCHED_TXNS)]
+# The small exact case: all+ladder at N = 2 (two proxies, the ids cut in
+# half) on a few hundred txns a batch over a small keyspace.
+SCHED_SMALL_TXNS, SCHED_SMALL_BATCHES, SCHED_SMALL_WARMUP = 256, 12, 2
+SCHED_SMALL_KEYS = 4096
+
+
+def sched_tag(key: bytes, keyspace: int) -> str:
+    """bench.py _sched_tag: the key-prefix bucket of a txn's first read,
+    the identity the GRV predictor dooms."""
+    return "b%02d" % (int(key[1:15]) * SCHED_TAG_BUCKETS // keyspace)
+
+
+def sched_stream(seed: int = SCHED_SEED, batches: int = SCHED_BATCHES,
+                 txns: int = SCHED_TXNS, keyspace: int = KEYSPACE,
+                 reads: int = READS) -> list:
+    """[(prev, version, txns)]: point_draws' batches (for reads = 2,
+    bench.py gen_batch's draws), each txn with `reads` point reads and one
+    point write, its tag, reporting its conflicting keys."""
+    from foundationdb_tpu_torch.txn.types import (CommitTransactionRef,
+                                                  KeyRange)
+    rng = np.random.default_rng(seed)
+    out, version = [], 1_000
+    for _ in range(batches):
+        prev, version = version, version + VERSIONS_PER_BATCH
+        kids, snaps = point_draws(rng, prev, keyspace, True, txns,
+                                  reads=reads)
+        keys = [b"k%014d" % int(k) for k in kids]
+        nr = txns * reads
+        batch = []
+        for t in range(txns):
+            rk, wk = keys[t * reads:(t + 1) * reads], keys[nr + t]
+            batch.append(CommitTransactionRef(
+                read_conflict_ranges=[KeyRange(k, k + b"\x00") for k in rk],
+                write_conflict_ranges=[KeyRange(wk, wk + b"\x00")],
+                read_snapshot=int(snaps[t]), report_conflicting_keys=True,
+                tag=sched_tag(rk[0], keyspace)))
+        out.append((prev, version, batch))
+    return out
+
+
+def stream_digest(stream) -> str:
+    """md5 of a stream's keys, snapshots and versions: numpy's generators
+    may draw other values under another numpy, and this names the
+    stream a reading ran on."""
+    import hashlib
+    h = hashlib.md5()
+    for prev, version, txns in stream:
+        h.update(b"%d %d" % (prev, version))
+        for t in txns:
+            for r in t.read_conflict_ranges + t.write_conflict_ranges:
+                h.update(r.begin)
+            h.update(b"%d" % t.read_snapshot)
+    return h.hexdigest()
+
+
+def drive_sched(plane, stream, proxies, warmup: int, spans=None) -> dict:
+    """The stream through the plane's scheduling stages as bench.py's
+    SchedBenchPipeline drives its model: round i is proxy
+    proxies[i % len(proxies)]'s; it admits that GRV proxy's deferred
+    requests and the batch's fresh ones (read version: the batch's prev),
+    commits the admitted on the chain at the batch's version, commits
+    each repair batch at version + rung * step (step = 1,000 /
+    (TXN_REPAIR_MAX_ATTEMPTS + 1): below the next batch's version), then
+    feeds the predictors.  After the stream, rounds with no fresh requests
+    until no GRV proxy holds one.  With `spans` (instrument_sched), each
+    round's seconds.  Returns the original requests, whether each is
+    counted (its batch past `warmup`), the repair batches' sizes and the
+    commits made."""
+    from foundationdb_tpu_torch.core.knobs import server_knobs
+    from foundationdb_tpu_torch.server import CommitTransactionRequest, Reply
+    from foundationdb_tpu_torch.server.grv_proxy import SCHED_MAX_DEFERRALS
+    max_attempts = int(server_knobs().TXN_REPAIR_MAX_ATTEMPTS)
+    step = VERSIONS_PER_BATCH // (max_attempts + 1)
+    drain = 2 * len(proxies) * SCHED_MAX_DEFERRALS
+    originals, counted, repair_sizes, commits = [], [], [], 0
+    chain, version, i = 0, stream[0][1], 0    # the roles recover at 0
+    while True:
+        if i < len(stream):
+            prev, version, txns = stream[i]
+        elif any(g.scheduler_status()["deferred_held"]
+                 for g in plane.grv_proxies.values()):
+            if i >= len(stream) + drain:
+                raise AssertionError("deferred requests never admitted")
+            prev, version, txns = version, version + VERSIONS_PER_BATCH, []
+        else:
+            break
+        pid = proxies[i % len(proxies)]
+        count = warmup <= i < len(stream)
+        if spans is not None:
+            spans["round"] = i
+            if count:
+                spans["counted"].add(i)
+        fresh = [CommitTransactionRequest(t, repair_eligible=True,
+                                          reply=Reply()) for t in txns]
+        originals += fresh
+        counted += [count] * len(fresh)
+        t0 = time.perf_counter()
+        batch = plane.admit(pid, fresh, prev)
+        t1 = time.perf_counter()
+        rung = 0
+        while batch:
+            if rung > max_attempts:
+                raise AssertionError(f"a repair batch past the attempt "
+                                     f"budget at version {version}")
+            v = version + rung * step
+            if rung:
+                repair_sizes.append(len(batch))
+            t_c = time.perf_counter()
+            batch = plane.commit(pid, batch, chain, v)
+            if spans is not None:
+                spans["repair_commit" if rung else "main_commit"].append(
+                    (i, time.perf_counter() - t_c))
+            chain, rung, commits = v, rung + 1, commits + 1
+        t2 = time.perf_counter()
+        plane.feed()
+        if spans is not None:
+            t3 = time.perf_counter()
+            spans["admission"].append((i, t1 - t0))
+            spans["poll"].append((i, t3 - t2))
+            spans["whole"].append((i, t3 - t0))
+        i += 1
+    return {"originals": originals, "counted": counted,
+            "repair_sizes": repair_sizes, "commits": commits, "rounds": i}
+
+
+def instrument_sched(plane) -> dict:
+    """Timers on a plane's scheduling stages: each commit proxy's reorder,
+    resolution (with the merged codes of each call) and repair
+    collection, each role's resolve_batch and its supervised set's exact
+    attribution: (round, seconds) a call.  drive_sched adds each round's
+    admission, poll and whole seconds and the rounds it counts."""
+    spans = {"round": 0, "counted": set(), "admission": [], "poll": [],
+             "whole": [], "reorder": [], "resolution": [], "roles": [],
+             "collect": [], "attribution": [], "main_commit": [],
+             "repair_commit": [], "codes": []}
+
+    def timed(name, fn, keep=None):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            spans[name].append((spans["round"], time.perf_counter() - t0))
+            if keep is not None:
+                keep(out)
+            return out
+        return call
+
+    for proxy in plane.proxies.values():
+        proxy._reorder = timed("reorder", proxy._reorder)
+        proxy._collect_repairs = timed("collect", proxy._collect_repairs)
+        proxy.resolve = timed(
+            "resolution", proxy.resolve,
+            lambda reply: spans["codes"].append(codes_of(reply.committed)))
+    for role in plane.resolvers:
+        role.resolve_batch = timed("roles", role.resolve_batch)
+        cs = role.conflict_set
+        if hasattr(cs, "_attribute_device_batch"):
+            cs._attribute_device_batch = timed("attribution",
+                                               cs._attribute_device_batch)
+    return spans
+
+
+def sched_ms(spans) -> dict:
+    """ms a counted round for each span; "rest" is the round's time
+    outside the named stages (the replies, the commits' bookkeeping);
+    main_commit_each and repair_commit_each, ms a commit() call."""
+    counted = spans["counted"]
+    n = max(len(counted), 1)
+    ms = {k: sum(s for r, s in spans[k] if r in counted) * 1e3 / n
+          for k in ("admission", "reorder", "resolution", "roles",
+                    "collect", "poll", "attribution", "whole")}
+    ms["rest"] = ms["whole"] - sum(ms[k] for k in (
+        "admission", "reorder", "resolution", "collect", "poll"))
+    # A repair batch's whole commit, and a main batch's, ms a call.
+    for k in ("main_commit", "repair_commit"):
+        calls = [s for r, s in spans[k] if r in counted]
+        ms[k + "_each"] = sum(calls) * 1e3 / max(len(calls), 1)
+    return ms
+
+
+def reply_of(req) -> tuple:
+    """A commit request's answer as plain data."""
+    r = req.reply
+    if r.error is None:
+        return ("ok", r.value.version, r.value.txn_batch_id,
+                r.value.txn_batch_index)
+    return ("err", r.error.name, [tuple(x) for x in
+                                  getattr(r.error, "details", None) or ()])
+
+
+def sched_outcome(plane, run) -> dict:
+    """A drive's outcome, checked: every original request answered
+    exactly once (a Reply refuses a second answer), none deferred more
+    than SCHED_MAX_DEFERRALS times; the commit rate over the counted
+    requests (each counted once, whatever was deferred or repaired) and
+    the stage counters (bench.py sched's names), the GRV and commit
+    proxies' status."""
+    from foundationdb_tpu_torch.server.grv_proxy import SCHED_MAX_DEFERRALS
+    reqs, counted = run["originals"], run["counted"]
+    unanswered = sum(1 for r in reqs if not r.reply.sent)
+    defers = max((getattr(r, "_sched_defers", 0) for r in reqs), default=0)
+    if unanswered or defers > SCHED_MAX_DEFERRALS:
+        raise AssertionError(f"{unanswered} requests unanswered, one "
+                             f"deferred {defers} times")
+    total = sum(counted)
+    committed = sum(1 for r, c in zip(reqs, counted)
+                    if c and r.reply.error is None)
+    proxy = [p.scheduler_status() for p in plane.proxies.values()]
+    stage = {k: sum(d[k] for d in proxy) for k in proxy[0]}
+    grv = [g.scheduler_status() for g in plane.grv_proxies.values()]
+    sizes = run["repair_sizes"]
+    return {"commit_rate": committed / max(total, 1),
+            "committed": committed, "total": total,
+            "deferrals": sum(g["deferrals"] for g in grv),
+            "repairs": stage["repairs_attempted"],
+            "repairs_ok": stage["repairs_succeeded"],
+            "repairs_exhausted": stage["repairs_exhausted"],
+            "backed_off": stage["repairs_backed_off"],
+            "reorder_moved": stage["reorder_swaps"],
+            "reorder_batches": stage["reorder_batches"],
+            "max_defers": defers, "commits": run["commits"],
+            "repair_batches": len(sizes), "repair_txns": sum(sizes),
+            "repair_batch_max": max(sizes, default=0),
+            "proxy_status": proxy, "grv_status": grv}
+
+
+def sched_small(smi: str, device: str = DEVICE) -> dict:
+    """The small exact case: drive_sched with every stage on (all+ladder)
+    at N = 2, two proxies, the ids cut in half, SCHED_SMALL_TXNS txns a
+    batch over SCHED_SMALL_KEYS ids, every abort attributed exactly
+    (CONFLICT_ATTRIBUTION_SAMPLE raised).  (a) Two reads a txn: the plane
+    over supervised sets on `device` against one on the CPU; (b) one read
+    a txn: the plane on `device` against one over the port's oracle (a
+    txn's culprit is then the same read on both).  Replies, the stage
+    counters and the GRV and commit proxies' status equal; no degrade;
+    reorder, repair and the predictor each acted."""
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    cut = [b"k%014d" % (SCHED_SMALL_KEYS // 2)]
+    knobs = {**SCHED_CONFIGS["all+ladder"],
+             "CONFLICT_ATTRIBUTION_SAMPLE": 10 * SCHED_SMALL_TXNS,
+             "MAX_WRITE_TRANSACTION_LIFE_VERSIONS": WINDOW}
+    summary = {}
+    for name, reads, other in (("two_reads", 2, {"device": "cpu"}),
+                               ("one_read", 1, {"backend": "cpu"})):
+        stream = sched_stream(SCHED_SEED + reads, SCHED_SMALL_BATCHES,
+                              SCHED_SMALL_TXNS, SCHED_SMALL_KEYS, reads)
+        got = []
+        with port_knobs(**knobs):
+            for kw in ({"device": device}, other):
+                plane = ResolutionPlane(2, list(PROXIES), boundaries=cut,
+                                        capacity=PLANE_SMALL_CAPACITY, **kw)
+                run = drive_sched(plane, stream, PROXIES, SCHED_SMALL_WARMUP)
+                out = sched_outcome(plane, run)
+                got.append(([reply_of(r) for r in run["originals"]], out))
+                if kw.get("device") == device:
+                    check_plane_roles(plane, run["commits"], device=device)
+        (a_replies, a), (b_replies, b) = got
+        if a_replies != b_replies or a != b:
+            diff = [k for k in a if a[k] != b[k]]
+            raise AssertionError(f"sched small {name}: the plane on {device} "
+                                 f"differs from {other} (fields {diff}, "
+                                 f"replies equal: {a_replies == b_replies})")
+        if min(a["reorder_moved"], a["repairs_ok"], a["deferrals"]) <= 0:
+            raise AssertionError(f"sched small {name}: a stage never acted: "
+                                 f"{a}")
+        summary[name] = {k: v for k, v in a.items()
+                         if k not in ("proxy_status", "grv_status")}
+    print(f"sched_small: all+ladder at N = 2 on {device} equals the CPU "
+          f"plane (two reads a txn) and the oracle plane (one read) "
+          f"({summary}) -- {smi}", flush=True)
+    return summary
+
+
+def sched_reading(stream, config: str, n: int, proxies, sample) -> tuple:
+    """One reading of phase 21: a plane of N roles over supervised sets on
+    the card (CAPACITY, DELTA_CAPACITY, boundaries as phase 20's),
+    `config`'s knobs (and CONFLICT_ATTRIBUTION_SAMPLE = `sample` unless
+    None), the stream through drive_sched.  No degrade, every commit on
+    the card.  Returns the outcome with the roles' calls, the exact and
+    conservative attributions and ms a counted round (sched_ms), and the
+    codes of every resolution."""
+    import torch
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    knobs = dict(SCHED_CONFIGS[config])
+    if sample is not None:
+        knobs["CONFLICT_ATTRIBUTION_SAMPLE"] = sample
+    with port_knobs(**knobs):
+        plane = ResolutionPlane(n, list(proxies),
+                                boundaries=plane_boundaries(n),
+                                device=DEVICE, capacity=CAPACITY,
+                                delta_capacity=DELTA_CAPACITY)
+        spans = instrument_sched(plane)
+        run = drive_sched(plane, stream, proxies, SCHED_WARMUP, spans)
+        torch.cuda.synchronize()
+        out = sched_outcome(plane, run)
+    check_plane_roles(plane, run["commits"], device=DEVICE)
+    stats = [r.conflict_set.stats for r in plane.resolvers]
+    out.update(
+        exact_attributions=sum(s["exact_attribution"] for s in stats),
+        conservative_attributions=sum(s["conservative_attribution"]
+                                      for s in stats),
+        role_calls=sum(r.resolved_batches for r in plane.resolvers),
+        ms=sched_ms(spans), n=n, proxies=len(proxies),
+        attribution_sample=sample)
+    codes = spans["codes"]
+    del plane, spans
+    torch.cuda.empty_cache()
+    return out, codes
+
+
+def sched_path(smi: str) -> tuple:
+    """Phase 21: the small exact case (the card against the CPU and the
+    oracle), then SCHED_READINGS on phase 21's stream, and the plain plane
+    (ResolutionPlane.resolve) on it: the off configuration's codes equal
+    the plain plane's batch for batch; reorder moves and repairs non-zero
+    where their knobs are on.  The launches returned are the readings'
+    own: counted from 0 just before the first reading and read just after
+    the last, so neither the small case (its launches are printed apart,
+    in path_sched's small_launches) nor the plain plane's pass counts."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    K.reset_counts()
+    small = sched_small(smi)
+    torch.cuda.synchronize()
+    small_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    stream = sched_stream()
+    readings = {}
+    with port_knobs(MAX_WRITE_TRANSACTION_LIFE_VERSIONS=WINDOW):
+        K.reset_counts()
+        for label, config, n, proxies, sample in SCHED_READINGS:
+            out, codes = sched_reading(stream, config, n, proxies, sample)
+            readings[label] = out
+            knobs = SCHED_CONFIGS[config]
+            if label == "off":
+                off_codes = codes
+            ms = {k: round(v, 3) for k, v in out["ms"].items()}
+            if (knobs.get("SCHED_REORDER_ENABLED") and
+                    out["reorder_moved"] <= 0) or (
+                    knobs.get("SCHED_REPAIR_ENABLED") and out["repairs"] <= 0):
+                raise AssertionError(f"{label}: a stage that is on never "
+                                     f"acted: {out}")
+            print(f"path_sched {label}: commit rate "
+                  f"{out['commit_rate']:.4f}, deferrals {out['deferrals']}, "
+                  f"reorder moved {out['reorder_moved']}, repairs "
+                  f"{out['repairs']} ({out['repairs_ok']} committed, "
+                  f"{out['backed_off']} backed off), {out['role_calls']} role "
+                  f"calls, {out['repair_batches']} repair batches of "
+                  f"{out['repair_txns']} txns (largest "
+                  f"{out['repair_batch_max']}), attributions "
+                  f"{out['exact_attributions']} exact / "
+                  f"{out['conservative_attributions']} conservative; ms a "
+                  f"round {json.dumps(ms)} -- {smi}", flush=True)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        plain = ResolutionPlane(1, ["p0"], boundaries=plane_boundaries(1),
+                                device=DEVICE, capacity=CAPACITY,
+                                delta_capacity=DELTA_CAPACITY)
+        prev = 0
+        for i, (_, v, txns) in enumerate(stream):
+            want = codes_of(plain.resolve("p0", txns, prev, v).committed)
+            prev = v
+            if i >= len(off_codes) or not np.array_equal(off_codes[i], want):
+                raise AssertionError(f"sched off: batch {i}'s codes differ "
+                                     f"from the plain plane's")
+        del plain
+    path = {"readings": readings, "small": small,
+            "small_launches": small_launches,
+            "stream_md5": stream_digest(stream), "numpy": np.__version__,
+            "txns_per_batch": SCHED_TXNS, "batches": SCHED_BATCHES,
+            "warmup": SCHED_WARMUP, "capacity": CAPACITY,
+            "delta_capacity": DELTA_CAPACITY, "card": smi}
+    print(f"path_sched: {json.dumps(path)}", flush=True)
+    return launches, path
+
+
 def main() -> int:
     try:
         import torch
@@ -4730,6 +5164,9 @@ def main() -> int:
     log("phase 20: the resolution plane (config 2, N = 1, 2, 4)")
     launches["plane"], path_plane = plane_path(smi)
     phase_done("resolution plane")
+    log("phase 21: the scheduling plane (bench.py sched's regime)")
+    launches["sched"], path_sched = sched_path(smi)
+    phase_done("scheduling plane")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -4762,6 +5199,7 @@ def main() -> int:
                       "path_supervised_sharded": path_supervised_sharded,
                       "path_resolver": path_resolver,
                       "path_plane": path_plane,
+                      "path_sched": path_sched,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

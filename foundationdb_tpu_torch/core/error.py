@@ -1,4 +1,5 @@
-"""Error codes (trimmed to what the conflict path and its supervisor raise).
+"""Error codes (trimmed to what the conflict path, its supervisor and the
+commit proxy's replies raise).
 
 Mirrors the reference's flow/error_definitions.h error-code contract."""
 
@@ -20,6 +21,8 @@ class FdbError(Exception):
 ERROR_CODES = {
     "operation_failed": 1000,
     "timed_out": 1004,
+    "transaction_too_old": 1007,
+    "not_committed": 1020,
     "connection_failed": 1026,
     "request_maybe_delivered": 1034,
     "inverted_range": 2005,

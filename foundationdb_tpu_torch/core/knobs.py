@@ -8,8 +8,15 @@ role's conflict heat; the CONFLICT_* knobs of the backend factory, of
 conflict/supervisor.py and of the heat table (conflict/heat.py);
 MAX_WRITE_TRANSACTION_LIFE_VERSIONS, the span of the role's window floor
 (server/resolver.py) and of the proxy's ownership history
-(server/commit_proxy.py); and METRICS_EMIT_INTERVAL, the cadence of
-CounterCollection.emit_loop.  Set them the way the reference's tests do:
+(server/commit_proxy.py); METRICS_EMIT_INTERVAL, the cadence of
+CounterCollection.emit_loop; and the scheduling plane's three stage
+switches and TXN_REPAIR_MAX_ATTEMPTS (server/grv_proxy.py,
+server/ratekeeper.py, the commit proxy's commit()).  The reference's
+other SCHED_* and TXN_REPAIR_* knobs are module constants at their
+defaults (sched/predictor.py, sched/repair.py, server/grv_proxy.py,
+server/commit_proxy.py), and SCHED_ADMISSION_DELAY_S has no counterpart:
+the port's GRV admission has no clock, and a deferred request waits one
+admission round instead.  Set them the way the reference's tests do:
 mutate the process-wide registry,
 `server_knobs().CONFLICT_PIPELINE_DEPTH = 2`, and restore it after.
 """
@@ -71,6 +78,21 @@ class ServerKnobs:
         # The resolver's heat table bound (load + conflict columns,
         # halved when full).
         self.CONFLICT_HEAT_TABLE_MAX = 4096
+
+        # Conflict-aware transaction scheduling (sched/), three stages,
+        # all off by default: every stage is bit-invisible when its knob
+        # is off.  (a) The GRV proxies' predictor admission (a request
+        # whose declared tag or tenant maps to a predicted-doomed range
+        # waits one admission round, at most server/grv_proxy.py
+        # SCHED_MAX_DEFERRALS times) and the ratekeeper's heat poll.
+        self.SCHED_PREDICTOR_ENABLED = False
+        # (b) The commit proxy's intra-batch reorder.
+        self.SCHED_REORDER_ENABLED = False
+        # (c) The commit proxy's repair of opted-in staleness-only aborts:
+        # at most MAX_ATTEMPTS re-resolutions a txn; past one, the ladder
+        # backs a culprit range off (sched/repair.py RepairLadder).
+        self.SCHED_REPAIR_ENABLED = False
+        self.TXN_REPAIR_MAX_ATTEMPTS = 1
 
 
 _server = ServerKnobs()

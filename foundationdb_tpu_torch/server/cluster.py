@@ -1,19 +1,35 @@
-"""The resolution plane: N Resolver roles behind the commit proxies
-(trimmed copy of the resolver wiring of foundationdb_tpu/server/cluster.py
-and of the master's resolution balancing).
+"""The resolution plane and the scheduling plane around it: N Resolver
+roles behind the commit proxies, one GRV admission a proxy and the
+ratekeeper's heat poll (trimmed copy of the resolver, GRV-proxy and
+ratekeeper wiring of foundationdb_tpu/server/cluster.py and of the
+master's resolution balancing).
 
 ResolutionPlane wires N port Resolver roles, each over its own conflict
-set on one device, one CommitProxy resolution stage a proxy id, the
-keyResolvers map as the reference's SimCluster builds it
-(cluster.py:62-74: the user keyspace cut at the boundaries, the \\xff
-system range owned by every resolver) and one ResolutionBalancer.  The
-caller supplies the versions, as the master would: resolve() hands a
-proxy the boundary moves it has not been handed with its batch, and
-balance() runs one balancing step.
+set on one device, one CommitProxy a proxy id, the keyResolvers map as
+the reference's SimCluster builds it (cluster.py:62-74: the user
+keyspace cut at the boundaries, the \\xff system range owned by every
+resolver), one ResolutionBalancer, one GrvProxy a proxy id and one
+Ratekeeper.  The caller supplies the versions, as the master would:
+
+  admit(proxy_id, requests, read_version)  one admission round of that
+      proxy's GRV predictor (server/grv_proxy.py);
+  commit(proxy_id, requests, prev_version, version)  the proxy commits a
+      batch of CommitTransactionRequests (reorder, resolution, repair
+      collection, the replies) and returns its repair requests, which the
+      caller commits next on the chain, at a version below the next
+      batch's;
+  feed()  the ratekeeper polls every role's heat and the fold goes into
+      every GRV proxy's predictor;
+  resolve(proxy_id, txns, prev_version, version)  the resolution stage
+      alone, the merged reply;
+  balance(version)  one balancing step.
+
+commit() and resolve() hand a proxy the boundary moves it has not been
+handed with its batch.
 
 Left out: every other role of SimCluster (master version allocation,
-TLogs, storage, GRV proxies, the client) and the RPC transport; the
-roles answer within the call, so batches go in version-chain order.
+TLogs, storage, the client) and the RPC transport; the roles answer
+within the call, so batches go in version-chain order.
 """
 
 from __future__ import annotations
@@ -22,9 +38,11 @@ from typing import List, Optional
 
 from ..txn.types import CommitTransactionRef, Version
 from .commit_proxy import CommitProxy
-from .interfaces import ResolveTransactionBatchReply
+from .grv_proxy import GrvProxy
+from .interfaces import CommitTransactionRequest, ResolveTransactionBatchReply
 from .master import (ResolutionBalancer, _key_resolver_ranges,
                      _valid_resolver_ranges)
+from .ratekeeper import Ratekeeper
 from .resolver import Resolver
 from .shardmap import RangeMap
 
@@ -57,6 +75,34 @@ class ResolutionPlane:
                         for pid in proxy_ids}
         self.balancer = ResolutionBalancer(ranges,
                                            expected_proxies=proxy_ids)
+        self.grv_proxies = {pid: GrvProxy(pid) for pid in proxy_ids}
+        self.ratekeeper = Ratekeeper()
+
+    def admit(self, proxy_id: str, requests: List[CommitTransactionRequest],
+              read_version: Version) -> List[CommitTransactionRequest]:
+        """One admission round at proxy `proxy_id`'s GRV predictor: the
+        admitted requests (those deferred last round first); a request
+        admitted after a deferral reads at `read_version`."""
+        return self.grv_proxies[proxy_id].admit(requests, read_version)
+
+    def commit(self, proxy_id: str, requests: List[CommitTransactionRequest],
+               prev_version: Version, version: Version
+               ) -> List[CommitTransactionRequest]:
+        """Proxy `proxy_id` commits `requests` at `version` (adopting every
+        boundary move it has not been handed) and answers each request's
+        reply; returns the repair requests."""
+        return self.proxies[proxy_id].commit(
+            requests, prev_version, version,
+            self.balancer.changes_for(proxy_id))
+
+    def feed(self) -> list:
+        """The ratekeeper's heat poll of every role, folded into every GRV
+        proxy's predictor; the folded rows (none while
+        SCHED_PREDICTOR_ENABLED is off)."""
+        rows = self.ratekeeper.poll_conflict_heat(self.resolvers)
+        for grv in self.grv_proxies.values():
+            grv.fold_conflict_heat(rows)
+        return rows
 
     def resolve(self, proxy_id: str, batch: List[CommitTransactionRef],
                 prev_version: Version, version: Version

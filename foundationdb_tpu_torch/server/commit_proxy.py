@@ -1,5 +1,5 @@
-"""The commit proxy's resolution stage (trimmed copy of
-foundationdb_tpu/server/commit_proxy.py).
+"""The commit proxy's resolution stage and its scheduling stages (trimmed
+copy of foundationdb_tpu/server/commit_proxy.py).
 
 Reference: fdbserver/CommitProxyServer.actor.cpp getResolution (:660,
 ResolutionRequestBuilder :88) and determineCommittedTransactions
@@ -11,39 +11,66 @@ within the MVCC window, hands each Resolver role its request, and merges
 the replies: a transaction commits iff every resolver that judged it
 committed it, another proxy's state transaction commits iff every
 resolver committed it, and a reporter's conflicting ranges are the union
-over the resolvers.
+over the resolvers.  That is resolve().
 
-Method for method the reference's, with three changes of form: a batch
-is the transactions themselves (the reference's CommitTransactionRequests
-carry each one as .transaction); resolve() is synchronous -- each role
-answers within the call, so a proxy hands its batches over in
-version-chain order; and of the reference's two request builders, which
-give the same requests, only the vectorised one is kept (it clips inline,
-so _clip_ranges has no copy here).
+commit() runs the reference's _commit_batch_impl steps around it
+(:328-343, :454-624): the sched stage (b) reorder of the batch
+(SCHED_REORDER_ENABLED; from there on the batch, its verdicts, ranges and
+repair indices are in the reordered index, as in the reference), the
+resolution, stage (c) _collect_repairs (SCHED_REPAIR_ENABLED, with its
+RepairLadder at the reference's defaults), and the reply fan-out with the reference's
+repair bookkeeping: each request not repaired is answered through its
+own reply, exactly once, so the caller never sees the reordered index;
+a repaired request carries its original reply into the repair batch
+commit() returns, which the caller commits next on this proxy's chain.
+With every SCHED_* knob off, commit()'s verdicts are resolve()'s.
+
+Method for method the reference's, with three changes of form: the
+requests the resolution stage takes are the transactions themselves (the
+reference's CommitTransactionRequests carry each one as .transaction);
+resolve() and commit() are synchronous -- each role answers within the
+call, so a proxy hands its batches over in version-chain order, and the
+repair batch is the caller's next call rather than a spawned actor; and
+of the reference's two request builders, which give the same requests,
+only the vectorised one is kept (it clips inline, so _clip_ranges has no
+copy here).
 
 Left out on purpose: tenant validation (_tenant_prefix_ok,
-_validate_tenants), mutation-to-tag routing and the TLog push
-(_assign_mutations_to_tags, LogSystemClient), the sched stages' reorder
-and repair (these requests are the reference's with both knobs off), the
-commit-debug spans, the batcher and the version request, and
-_apply_metadata's side effects (shard map, backup and lock flags, tenant
-cache): _apply_foreign_state returns the committed foreign entries and
-leaves applying them to the caller.
+_validate_tenants) and the lock fence (db_locked), for the port's proxy
+has neither tenants nor a lock; mutation-to-tag routing and the TLog push
+(_assign_mutations_to_tags, LogSystemClient); the commit-debug spans and
+the CommitConflictDetail trace of an aborted debug_id txn; the batcher
+and the version request; the proxy's commit counters other than the
+sched stages'; the core/coverage.py test_coverage calls, which belong to
+the simulator; the RPC; and _apply_metadata's side effects (shard map,
+backup and lock flags, tenant cache): _apply_foreign_state returns the
+committed foreign entries and leaves applying them to the caller
+(commit() keeps them in last_state_transactions).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from bisect import bisect_right
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+from ..core.error import err
+from ..core.histogram import CounterCollection
 from ..core.knobs import server_knobs
 from ..core.trace import TraceEvent
+from ..sched.reorder import moved_count, reorder_batch
+from ..sched.repair import RepairLadder, repair_eligible
 from ..txn.types import (CommitResult, CommitTransactionRef, KeyRange,
                          MutationType, Version)
-from .interfaces import (RESOLVER_ALL, Reply, ResolveTransactionBatchReply,
+from .interfaces import (RESOLVER_ALL, CommitID, CommitTransactionRequest,
+                         Reply, ResolveTransactionBatchReply,
                          ResolveTransactionBatchRequest)
 from .shardmap import RangeMap
 from .system_data import SYSTEM_KEYS_BEGIN
+
+# Past this many txns stage (b) takes the one-round in-degree sort
+# (the reference's SCHED_REORDER_EXACT_MAX default).
+REORDER_EXACT_MAX = 1024
 
 
 class CommitProxy:
@@ -74,6 +101,158 @@ class CommitProxy:
         # Exactly-once cursor over foreign state transactions (version,
         # origin proxy, seq); see _apply_foreign_state.
         self._state_hwm: Tuple[Version, str, int] = (-1, "", -1)
+        # The committed foreign state txns of the last commit() batch.
+        self.last_state_transactions: List[tuple] = []
+        self.local_batch_number = 0
+        # The sched stages' counters (scheduler_status).
+        self.metrics = CounterCollection("CommitProxy", proxy_id)
+        # Built at the first repair collection.
+        self._repair_ladder: Optional[RepairLadder] = None
+
+    # -- the commit batch (reference _commit_batch_impl, :328-624) -----------
+    def commit(self, batch: List[CommitTransactionRequest],
+               prev_version: Version, commit_version: Version,
+               resolver_changes=()) -> List[CommitTransactionRequest]:
+        """Commit one batch: stage (b) reorders it, resolve() resolves it
+        (adopting `resolver_changes` first), stage (c) collects its
+        repairs, and every request not repaired is answered through its
+        own reply: a CommitID, or not_committed (a reporter's conflicting
+        ranges as its details) or transaction_too_old.  Returns the repair
+        requests, each re-stamped at `commit_version` and carrying its
+        original reply, for the caller to commit as the next batch on this
+        proxy's chain (at a version below the next batch's)."""
+        self.local_batch_number += 1
+        batch_num = self.local_batch_number
+        knobs = server_knobs()
+        if knobs.SCHED_REORDER_ENABLED and len(batch) > 1:
+            batch = self._reorder(batch)
+        merged = self.resolve([req.transaction for req in batch],
+                              prev_version, commit_version, resolver_changes)
+        self.last_state_transactions = merged.state_transactions
+        verdicts = merged.committed
+        conflict_ranges = merged.conflicting_ranges
+        repaired: set = set()
+        repair_reqs: List[CommitTransactionRequest] = []
+        if knobs.SCHED_REPAIR_ENABLED:
+            repair_reqs = self._collect_repairs(
+                batch, verdicts, conflict_ranges, merged.attribution_exact,
+                commit_version, repaired)
+        self._send_replies(batch, verdicts, conflict_ranges, commit_version,
+                           batch_num, repaired)
+        return repair_reqs
+
+    def _reorder(self, batch: List[CommitTransactionRequest]
+                 ) -> List[CommitTransactionRequest]:
+        """Sched stage (b): intra-batch conflict-aware reorder, a host-side
+        pre-pass placing readers before the writers that would abort them
+        (sched/reorder.py).  Batch order is this proxy's choice; verdicts
+        and replies follow the REORDERED index from here on."""
+        order = reorder_batch([req.transaction for req in batch],
+                              exact_max=REORDER_EXACT_MAX)
+        moved = moved_count(order)
+        self.metrics.counter("ReorderBatches").add(1)
+        if moved:
+            batch = [batch[i] for i in order]
+            self.metrics.counter("ReorderSwaps").add(moved)
+        return batch
+
+    def _send_replies(self, batch, verdicts, conflict_ranges,
+                      commit_version: Version, batch_num: int,
+                      repaired: set) -> None:
+        """The reply fan-out (reference :510-580): every request not
+        repaired, answered through its own reply, with the repair
+        bookkeeping of requests that were themselves repairs."""
+        counter = self.metrics.counter
+        for t_idx, (req, verdict) in enumerate(zip(batch, verdicts)):
+            if t_idx in repaired:
+                continue   # reply comes from the repair batch
+            if verdict == CommitResult.COMMITTED:
+                if req.repair_attempt > 0:
+                    # A server-side repair landed: the abort the client
+                    # never saw became a commit one batch later.
+                    counter("RepairSucceeded").add(1)
+                    if self._repair_ladder is not None:
+                        # The range proved repairable again: drop its
+                        # backoff rungs so later repairs flow.
+                        self._repair_ladder.note_success(
+                            (r.begin, r.end) for r in
+                            req.transaction.read_conflict_ranges)
+                req.reply.send(CommitID(version=commit_version,
+                                        txn_batch_id=batch_num,
+                                        txn_batch_index=t_idx))
+            elif verdict == CommitResult.TOO_OLD:
+                req.reply.send_error(err("transaction_too_old"))
+            else:
+                if req.repair_attempt > 0:
+                    # Repair budget spent and the re-resolve STILL
+                    # conflicted: the abort goes back to the client like
+                    # any other.
+                    counter("RepairExhausted").add(1)
+                e = err("not_committed")
+                if t_idx in conflict_ranges:
+                    # Rides the error reply to the client (reference
+                    # SpecialKeySpace ConflictingKeysImpl).
+                    e.details = conflict_ranges[t_idx]
+                req.reply.send_error(e)
+
+    def _collect_repairs(self, batch, verdicts, conflict_ranges,
+                         conflict_exact, commit_version: Version,
+                         repaired: set) -> List[CommitTransactionRequest]:
+        """Repair candidates of one resolved batch (sched stage c):
+        CONFLICT verdicts that opted in, carry attempt budget, and whose
+        EXACT culprit attribution lies entirely inside the declared read
+        set (pure staleness, sched/repair.py).  Marks chosen indices in
+        `repaired` and returns the re-stamped requests (original replies
+        attached) for the follow-up batch."""
+        max_attempts = int(server_knobs().TXN_REPAIR_MAX_ATTEMPTS)
+        ladder = self._repair_ladder
+        if ladder is None:
+            ladder = self._repair_ladder = RepairLadder.default()
+        out: List[CommitTransactionRequest] = []
+        for t_idx, (req, verdict) in enumerate(zip(batch, verdicts)):
+            if verdict != CommitResult.CONFLICT or not req.repair_eligible:
+                continue
+            attempt = req.repair_attempt
+            culprits = conflict_ranges.get(t_idx) or []
+            if attempt >= max_attempts and culprits:
+                # The WHOLE attempt budget is spent and the re-resolve
+                # still conflicted: back the culprit RANGE off so later
+                # transactions blaming it skip their ladders.
+                # Intermediate rungs do NOT back off.
+                ladder.note_failure(culprits, commit_version)
+            if not repair_eligible(
+                    req.transaction, culprits,
+                    conflict_exact.get(t_idx, False) and
+                    t_idx in conflict_ranges, attempt, max_attempts):
+                continue
+            if attempt > 0 and \
+                    not ladder.should_attempt(culprits, commit_version):
+                # Ladder backoff gates CLIMBS only (rung 2+): the first
+                # repair of any abort stays unconditional.
+                self.metrics.counter("RepairBackedOff").add(1)
+                continue
+            self.metrics.counter("RepairAttempted").add(1)
+            repaired.add(t_idx)
+            out.append(CommitTransactionRequest(
+                transaction=dataclasses.replace(
+                    req.transaction, read_snapshot=commit_version),
+                debug_id=req.debug_id, repair_eligible=True,
+                repair_attempt=attempt + 1, reply=req.reply))
+        return out
+
+    def scheduler_status(self) -> Dict[str, int]:
+        """This proxy's slice of status cluster.scheduler (reorder and
+        repair counters; the GRV proxies contribute the predictor
+        side)."""
+        c = self.metrics.counter
+        return {
+            "reorder_batches": c("ReorderBatches").value,
+            "reorder_swaps": c("ReorderSwaps").value,
+            "repairs_attempted": c("RepairAttempted").value,
+            "repairs_succeeded": c("RepairSucceeded").value,
+            "repairs_exhausted": c("RepairExhausted").value,
+            "repairs_backed_off": c("RepairBackedOff").value,
+        }
 
     # -- phases 2-3 of the batch pipeline ------------------------------------
     def resolve(self, batch: List[CommitTransactionRef],

@@ -409,6 +409,29 @@ def test_chaos_double_run_with_port_roles(port_cluster):
     run_chaos_twice(port_cluster, roles=True)
 
 
+def test_sched_chaos_with_port_roles(port_cluster):
+    """SchedChaosTest.toml once with every resolver role on the port (two
+    resolvers, all three SCHED_* stages on, the swizzle nemesis and
+    resolver attrition): the JAX package's GRV predictors are fed from
+    the port roles' serve_heat through its ratekeeper.  Its workloads
+    pass (the SchedRepairLoad audit included), and the reorder, repair
+    and deferral counters of the run are non-zero; no role degrades."""
+    from foundationdb_tpu.core import coverage
+    marks = ("ProxyBatchReordered", "ProxyTxnRepaired",
+             "ProxyTxnRepairCommitted", "GrvSchedDeferral")
+    before = {m: coverage.hits(m) for m in marks}
+    warm("cpu")
+    roles = port_cluster("cpu", roles=True)
+    got = run_simulation(spec("SchedChaosTest.toml"), SEED)
+    assert got.nondeterminism == []
+    assert got.metrics["SchedRepairLoad"]["acked"] > 0
+    assert got.metrics["Cycle"]["swaps"] > 0
+    fired = {m: coverage.hits(m) - before[m] for m in marks}
+    assert all(n > 0 for n in fired.values()), fired
+    assert roles.check() > 0
+    assert sum(r.heat.feed_rows(8) != [] for r in roles.roles) > 0
+
+
 @pytest.mark.cuda
 def test_cycle_on_the_card(port_cluster):
     """CycleTest.toml once with every resolver's set on the port on the

@@ -40,7 +40,12 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.server.system_data",
     "foundationdb_tpu_torch.server.commit_proxy",
     "foundationdb_tpu_torch.server.master",
-    "foundationdb_tpu_torch.server.cluster", "foundationdb_tpu_torch.entry",
+    "foundationdb_tpu_torch.server.cluster",
+    "foundationdb_tpu_torch.server.grv_proxy",
+    "foundationdb_tpu_torch.server.ratekeeper",
+    "foundationdb_tpu_torch.sched", "foundationdb_tpu_torch.sched.predictor",
+    "foundationdb_tpu_torch.sched.reorder",
+    "foundationdb_tpu_torch.sched.repair", "foundationdb_tpu_torch.entry",
     "chip_smoke", "scripts.torch_kernel_ab"]
 
 
@@ -50,7 +55,9 @@ def test_port_imports_no_jax():
     batch, degrading once and promoting once, the Resolver role answering
     a resolve, a metrics, a split and a heat request, a two-resolver
     resolution plane resolving a straddling batch and taking a balancing
-    step, and both entry points on the CPU (so the lazy imports have
+    step, then admitting, reordering, repairing and committing a batch
+    with every scheduling stage on and feeding its predictors, and both
+    entry points on the CPU (so the lazy imports have
     run), loads no jax and no foundationdb_tpu module."""
     code = (
         "import importlib, sys\n"
@@ -109,6 +116,25 @@ def test_port_imports_no_jax():
         "assert [int(v) for v in plane.resolve('p0', [s], 0, 100)"
         ".committed] == [2]\n"
         "assert plane.balance(100) is None\n"
+        "from foundationdb_tpu_torch.core.knobs import server_knobs\n"
+        "from foundationdb_tpu_torch.server import "
+        "CommitTransactionRequest, Reply\n"
+        "k = server_knobs()\n"
+        "k.SCHED_PREDICTOR_ENABLED = k.SCHED_REORDER_ENABLED = "
+        "k.SCHED_REPAIR_ENABLED = True\n"
+        "t = CommitTransactionRef(read_snapshot=50, "
+        "read_conflict_ranges=[KeyRange(b'\\x85', b'\\x86')], "
+        "write_conflict_ranges=[KeyRange(b'c', b'd')], "
+        "report_conflicting_keys=True, tag='t')\n"
+        "reqs = [CommitTransactionRequest(t, repair_eligible=True, "
+        "reply=Reply()), CommitTransactionRequest(s, reply=Reply())]\n"
+        "reqs = plane.admit('p0', reqs, 100)\n"
+        "rep = plane.commit('p0', reqs, 100, 200)\n"
+        "assert [r.reply.sent for r in reqs] == [False, True], reqs\n"
+        "assert plane.commit('p0', rep, 200, 300) == []\n"
+        "assert reqs[0].reply.value.version == 300, reqs[0].reply.value\n"
+        "assert plane.feed() and plane.proxies['p0'].scheduler_status()"
+        "['repairs_succeeded'] == 1\n"
         "from foundationdb_tpu_torch.entry import entry, dryrun_multichip\n"
         "fn, args = entry('cpu')\n"
         "assert int(fn(*args).sum()) == 0\n"

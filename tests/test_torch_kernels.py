@@ -2064,3 +2064,21 @@ def test_resolution_plane_small_case(dev):
                                  device=dev.type)
     assert out["straddle_2"]["moved"] and out["straddle_4"]["moved"]
     assert out["straddle_4"]["old_snapshot_reads"] > 0
+
+
+def test_sched_small_case(dev):
+    """chip_smoke.py's small exact case of the scheduling plane on the
+    card: every stage on (all+ladder) at N = 2, two proxies, every abort
+    attributed exactly; with two reads a txn the plane whose roles' sets
+    are on the card against one on the CPU, with one read a txn against
+    one over the port's oracle: replies, stage counters and the GRV and
+    commit proxies' status equal, no degrade, every stage acting."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    out = chip_smoke.sched_small(torch.cuda.get_device_name(0),
+                                 device=dev.type)
+    assert out["two_reads"]["backed_off"] > 0
+    assert out["one_read"]["max_defers"] == 3
