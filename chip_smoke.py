@@ -199,7 +199,33 @@ exits non-zero):
      degrade; a path_sched line a reading (commit rate, bench.py's stage
      counters, role calls, repair batches and sizes, exact and
      conservative attributions, ms a round by stage);
- 22. the JSON lines (programs and paths; kernels with launches per path,
+ 22. (new in the eighteenth slice; the JSON phase was 22 before) the
+     write path behind the resolvers, server/cluster.py StaticCluster, in
+     FoundationDB's `double` redundancy mode: the master's versions, 2
+     Resolver roles on the card (supervised sets, capacity 2^21, delta
+     2^20), 2 commit proxies in turn routing mutations to tags with
+     versionstamps, 2 TLogs (replication 2) over disk queues in a
+     temporary directory, 4 storage servers in teams of 2 cut at the
+     quartiles of the ids, 1 GRV proxy; config 2's 1M keys loaded with
+     100-byte values on both replicas; 2 warmup + 6 timed config-2
+     batches at the batcher's cap (32,768 txns) of 100-byte SetValues
+     read at the GRV's version, 1% adding
+     to a counter, 1% writing a versionstamped key, every 4th batch 100
+     ClearRanges of 10 keys (the general step; the rest the compact
+     step), one txn splitting a shard.  Every request answered once, no
+     reply before its version is durable on every TLog and known to the
+     master, every written key read back equal to a dict model on both
+     replicas (get and get_range over every shard) at the last version
+     and at the one before, the counter equal to the committed adds,
+     every versionstamp its CommitID, the queue files recovered whole,
+     the resolution kernels of both steps launched, every batch's replies
+     equal to a CPU plane's verdicts on the same batches at the same
+     versions; a small replay (2,000 txns, a point and a general batch)
+     equal to a plane over the oracle at the same versions; the
+     path_commit line (committed txns/s,
+     p50 of commit() and its phases, pull, fsync, MB logged, mutations
+     applied/s, read-back, TOO_OLD and conflicts);
+ 23. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -306,6 +332,12 @@ PATH_KERNELS["plane"] = PATH_KERNELS["point"]
 # Phase 21: the scheduling plane adds no kernel; every role of its readings
 # takes the point path (each reading's 13 batches cross a merge).
 PATH_KERNELS["sched"] = PATH_KERNELS["point"]
+# Phase 22: the write path's roles take the compact step on point batches
+# and the general step on batches with clears; no role's delta fills in
+# its 8 batches, so no merge.
+PATH_KERNELS["commit"] = [
+    *[k for k in PATH_KERNELS["point"] if k != "merge"],
+    *[k for k in _GENERAL_STEP if k not in PATH_KERNELS["point"]]]
 
 
 # ---------------------------------------------------------------- workload
@@ -5035,6 +5067,509 @@ def sched_path(smi: str) -> tuple:
     return launches, path
 
 
+
+# --------------------------------------------------------- the write path
+# Phase 22: the write path behind the resolvers (server/cluster.py
+# StaticCluster): the master's versions, the commit proxies' tag routing
+# with versionstamps, two TLogs over disk queues in a temporary directory
+# and four MVCC storage servers, in FoundationDB's documented `double`
+# redundancy mode (apple.github.io/foundationdb/configuration.html,
+# "Choosing a redundancy mode": two replicas of the log and of the data):
+# 2 TLogs with replication 2, 4 storage servers in teams of 2 cut at the
+# quartiles of the ids, 2 Resolver roles on the card (supervised sets,
+# capacity 2^21, delta 2^20) cut by plane_boundaries(2), 2 commit proxies
+# taking batches in turn and 1 GRV proxy.  The 1M keys of config 2 are
+# loaded at the recovery version with 100-byte values (YCSB's default
+# fieldlength), on both replicas.  Traffic: config 2's draws (gen_batch),
+# COMMIT_TXNS txns a batch (the reference batcher's cap, so one commit()
+# a batch), 2 point reads and one 100-byte SetValue each, read at the
+# GRV's version just before the batch (a quarter at the one before); 1%
+# also add 1 to a counter (AddValue), 1% write a SetVersionstampedKey
+# index entry, every COMMIT_CLEAR_EVERY-th batch
+# carries COMMIT_CLEARS ClearRanges of 10 keys (those take the general
+# step, the rest the compact step), and one txn splits a storage shard
+# through a \xff/keyServers/ set, keeping its team.
+COMMIT_BATCHES = (2, 6)            # warmup, timed
+COMMIT_SEED = 2222
+COMMIT_VALUE_BYTES = 100
+COMMIT_CLEAR_EVERY, COMMIT_CLEARS, COMMIT_CLEAR_KEYS = 4, 100, 10
+COMMIT_SPLIT_BATCH = 4
+COMMIT_COUNTER = b"l/counter"
+COMMIT_TXNS = 1 << 15              # COMMIT_TRANSACTION_BATCH_COUNT_MAX
+COMMIT_PROXIES = ("p0", "p1")
+COMMIT_SMALL = (4096, 2000)        # the replay's ids and txns a batch
+
+
+def commit_key(i: int) -> bytes:
+    return b"k%014d" % i
+
+
+def commit_cluster(datadir: str, keyspace: int, device: str = DEVICE,
+                   **set_kwargs):
+    """The phase's StaticCluster, its data loaded."""
+    from foundationdb_tpu_torch.server import StaticCluster
+    cuts = [commit_key(keyspace * q // 4) for q in (1, 2, 3)]
+    return StaticCluster(
+        n_resolvers=2, proxy_ids=list(COMMIT_PROXIES), n_storage=4,
+        n_tlogs=2, replication=2, datadir=datadir, storage_boundaries=cuts,
+        resolver_boundaries=plane_boundaries(2), device=device, **set_kwargs)
+
+
+def commit_values(rng, n: int) -> list:
+    """n printable 100-byte values (no trailing NUL for numpy to drop)."""
+    buf = rng.integers(33, 127, size=n * COMMIT_VALUE_BYTES,
+                       dtype=np.uint8).tobytes()
+    return [buf[i * COMMIT_VALUE_BYTES:(i + 1) * COMMIT_VALUE_BYTES]
+            for i in range(n)]
+
+
+class DurableReply:
+    """A reply that records, when it is answered, whether every TLog's
+    durable version and the master's live committed version had reached
+    the commit version it carries."""
+
+    cluster = None
+    early = 0
+
+    def __init__(self) -> None:
+        from foundationdb_tpu_torch.server import Reply
+        self._r = Reply()
+
+    def send(self, value=None) -> None:
+        c = DurableReply.cluster
+        if min(t.durable_version for t in c.tlogs) < value.version or \
+                c.master.live_committed_version < value.version:
+            DurableReply.early += 1
+        self._r.send(value)
+
+    def send_error(self, error) -> None:
+        self._r.send_error(error)
+
+    @property
+    def sent(self):
+        return self._r.sent
+
+    @property
+    def value(self):
+        return self._r.value
+
+    @property
+    def error(self):
+        return self._r.error
+
+
+def commit_batch(rng, b: int, keyspace: int, txns: int, rv: int,
+                 rv_prev: int, split=None) -> list:
+    """Batch b's CommitTransactionRequests (see the section's comment);
+    `split`: (key, team) of the shard split this batch carries."""
+    from foundationdb_tpu_torch.server import (CommitTransactionRequest,
+                                               key_servers_key,
+                                               key_servers_value)
+    from foundationdb_tpu_torch.txn.types import (CommitTransactionRef,
+                                                  KeyRange, Mutation,
+                                                  MutationType)
+    kids, _snaps = point_draws(rng, rv, keyspace, True, txns)
+    lag = rng.random(txns) < 0.25
+    add = set(rng.choice(txns, txns // 100, replace=False).tolist())
+    stamp = set(rng.choice(txns, txns // 100, replace=False).tolist())
+    clears = {}
+    if b % COMMIT_CLEAR_EVERY == 0:
+        for t, i in zip(rng.choice(txns, COMMIT_CLEARS, replace=False),
+                        rng.integers(0, keyspace - COMMIT_CLEAR_KEYS,
+                                     COMMIT_CLEARS)):
+            clears[int(t)] = int(i)
+    keys = [commit_key(int(k)) for k in kids]
+    nr = txns * READS
+    pad = b"." * (COMMIT_VALUE_BYTES - 16)
+    one = (1).to_bytes(8, "little")
+    out = []
+    for t in range(txns):
+        w = keys[nr + t]
+        writes = [KeyRange(w, w + b"\x00")]
+        muts = [Mutation(MutationType.SetValue, w,
+                         b"b%05dt%09d" % (b, t) + pad)]
+        if t in add:
+            muts.append(Mutation(MutationType.AddValue, COMMIT_COUNTER, one))
+            writes.append(KeyRange(COMMIT_COUNTER, COMMIT_COUNTER + b"\x00"))
+        if t in stamp:
+            muts.append(Mutation(
+                MutationType.SetVersionstampedKey,
+                b"vs/" + bytes(10) + b"/%d/%d" % (b, t) +
+                (3).to_bytes(4, "little"), b"%d/%d" % (b, t)))
+        if t in clears:
+            lo, hi = commit_key(clears[t]), commit_key(
+                clears[t] + COMMIT_CLEAR_KEYS)
+            muts.append(Mutation(MutationType.ClearRange, lo, hi))
+            writes.append(KeyRange(lo, hi))
+        reads = keys[t * READS:(t + 1) * READS]
+        if split is not None and t == 0:
+            # A blind write (it reads nothing), so it commits.
+            sk = key_servers_key(split[0])
+            muts.append(Mutation(MutationType.SetValue, sk,
+                                 key_servers_value(split[1])))
+            writes.append(KeyRange(sk, sk + b"\x00"))
+            reads = []
+        out.append(CommitTransactionRequest(
+            CommitTransactionRef(
+                read_conflict_ranges=[KeyRange(k, k + b"\x00")
+                                      for k in reads],
+                write_conflict_ranges=writes, mutations=muts,
+                read_snapshot=rv_prev if lag[t] else rv),
+            reply=DurableReply()))
+    return out
+
+
+def apply_to_model(model: dict, reqs) -> tuple:
+    """Fold a batch's committed requests into `model` in commit order
+    (batch index); returns (committed, conflicts, too_old, adds,
+    stamps): stamps maps each versionstamped key written to its
+    CommitID."""
+    from foundationdb_tpu_torch.txn.types import MutationType
+    committed = conflicts = too_old = adds = 0
+    stamps = {}
+    for req in reqs:
+        r = req.reply
+        if not r.sent:
+            raise AssertionError("a request got no reply")
+        if r.error is not None:
+            if r.error.name == "transaction_too_old":
+                too_old += 1
+            elif r.error.name == "not_committed":
+                conflicts += 1
+            else:
+                raise AssertionError(f"reply error {r.error!r}")
+            continue
+        committed += 1
+        cid = r.value
+        for m in req.transaction.mutations:
+            if m.type == MutationType.SetValue:
+                model[m.param1] = m.param2
+            elif m.type == MutationType.AddValue:
+                adds += 1
+                cur = model.get(m.param1)
+                n = int.from_bytes(cur, "little") if cur else 0
+                model[m.param1] = (n + 1).to_bytes(8, "little")
+            elif m.type == MutationType.ClearRange:
+                lo, hi = int(m.param1[1:]), int(m.param2[1:])
+                for i in range(lo, hi):
+                    model[commit_key(i)] = None
+            elif m.type == MutationType.SetVersionstampedKey:
+                stamp = cid.version.to_bytes(8, "big") + \
+                    cid.txn_batch_index.to_bytes(2, "big")
+                k = m.param1[:3] + stamp + m.param1[13:-4]
+                model[k] = m.param2
+                stamps[k] = (cid.version, cid.txn_batch_index)
+            else:
+                raise AssertionError(f"unexpected mutation {m.type!r}")
+    return committed, conflicts, too_old, adds, stamps
+
+
+def reply_codes(reqs) -> np.ndarray:
+    """Each request's answer as a verdict code (codes_of's): 2 a
+    CommitID, 1 transaction_too_old, 0 not_committed."""
+    return np.array([2 if r.reply.error is None else
+                     1 if r.reply.error.name == "transaction_too_old" else 0
+                     for r in reqs], np.int8)
+
+
+def commit_replay(records, **set_kwargs) -> dict:
+    """Every batch of the main run, (proxy, previous version, version,
+    transactions, the codes of the replies the cluster sent), through a
+    ResolutionPlane on the CPU (the kernels' plain versions) built as the
+    cluster's plane, proxy for proxy at the batch's own versions: its
+    verdicts equal the replies."""
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    plane = ResolutionPlane(2, list(COMMIT_PROXIES),
+                            boundaries=plane_boundaries(2), device="cpu",
+                            **set_kwargs)
+    t0 = time.perf_counter()
+    for b, (pid, prev, v, txns, got) in enumerate(records):
+        want = codes_of(plane.resolve(pid, txns, prev, v).committed)
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"batch {b}: {int((got != want).sum())} of {len(got)} "
+                "replies differ from the CPU plane's verdicts")
+    return {"batches": len(records),
+            "txns": sum(len(r[3]) for r in records),
+            "s": time.perf_counter() - t0}
+
+
+def loaded_key(k: bytes) -> bool:
+    """One of the keys load() put in (commit_key(i) for an id)."""
+    return len(k) == 15 and k[:1] == b"k"
+
+
+def read_back(c, model: dict, base, keys, version: int, label: str) -> int:
+    """Every key of `model` read with get() on both replicas, and every
+    shard read whole with get_range() on both replicas, against the model
+    over the loaded data (`keys`, sorted, and their values `base`);
+    returns the rows read."""
+    from bisect import bisect_left
+    for k, want in model.items():
+        got = c.get(k, version)
+        if got != [want, want]:
+            raise AssertionError(f"{label}: get({k!r}) at {version} = "
+                                 f"{got}, the model has {want!r}")
+    n_rows = 0
+    proxy = c.plane.proxies[COMMIT_PROXIES[0]]
+    for b, e, tags in proxy.key_servers.ranges():
+        replicas = c.get_range(b, e, version)
+        if len(replicas) != len(tags):
+            raise AssertionError(f"{label}: {len(replicas)} replicas of "
+                                 f"[{b!r}, {e!r})")
+        for rows in replicas:
+            for k, v in rows:
+                want = model[k] if k in model else \
+                    base[int(k[1:])] if loaded_key(k) else None
+                if v != want:
+                    raise AssertionError(f"{label}: row {k!r} = {v!r}, the "
+                                         f"model has {want!r}")
+            n_rows += len(rows)
+        want_n = bisect_left(keys, e) - bisect_left(keys, b)
+        for k, v in model.items():
+            if b <= k < e and (v is None) == loaded_key(k):
+                want_n += -1 if v is None else 1
+        if any(len(rows) != want_n for rows in replicas):
+            raise AssertionError(f"{label}: [{b!r}, {e!r}) holds "
+                                 f"{[len(r) for r in replicas]} rows, the "
+                                 f"model {want_n}")
+    return n_rows
+
+
+def check_queue_files(c, acked: list) -> dict:
+    """Each TLog's queue file, recovered by a fresh DiskQueue, holds a
+    contiguous run of the acknowledged versions up to the last, chained
+    by their prev versions, and every record the TLog still keeps."""
+    import shutil
+    from foundationdb_tpu_torch.server.disk_queue import DiskQueue
+    from foundationdb_tpu_torch.server.real_fs import RealFile
+    from foundationdb_tpu_torch.server.tlog import _unpack_commit
+    out = {}
+    for t in c.tlogs:
+        f = t.disk_queue.file
+        copy = f._path + ".copy"
+        shutil.copyfile(f._path, copy)
+        q = DiskQueue(RealFile(copy, f.name + ".copy"))
+        records = q.recover()
+        q.file.close()
+        vs, prevs = [], []
+        for _seq, blob in records:
+            v, prev, _k, _p, _m = _unpack_commit(blob)
+            vs.append(v)
+            prevs.append(prev)
+        if not vs or vs[-1] != acked[-1] or vs != acked[len(acked) -
+                                                        len(vs):]:
+            raise AssertionError(f"{t.id}: the queue holds {vs}, the "
+                                 f"acknowledged versions are {acked}")
+        if prevs[1:] != vs[:-1]:
+            raise AssertionError(f"{t.id}: a broken chain in the queue")
+        kept = [v for v, _s, _t in t._record_seqs]
+        if not set(kept) <= set(vs):
+            raise AssertionError(f"{t.id}: kept records missing from disk")
+        out[t.id] = {"records": len(vs), "bytes": f.size()}
+    return out
+
+
+def commit_run(device: str = DEVICE, keyspace: int = KEYSPACE,
+               txns: int = COMMIT_TXNS, batches=COMMIT_BATCHES,
+               smi: str = "", **set_kwargs) -> tuple:
+    """The phase's main run: load, drive, read back, check, then replay
+    every batch through a CPU plane (commit_replay); returns (launches
+    over the driven batches, the figures)."""
+    import shutil
+    import tempfile
+    from foundationdb_tpu_torch import kernels as K
+    rng = np.random.default_rng(COMMIT_SEED)
+    datadir = tempfile.mkdtemp(prefix="chip_smoke_tlogs_")
+    try:
+        c = commit_cluster(datadir, keyspace, device, **set_kwargs)
+        DurableReply.cluster, DurableReply.early = c, 0
+        t0 = time.perf_counter()
+        base = commit_values(rng, keyspace)
+        keys = [commit_key(i) for i in range(keyspace)]
+        c.load(keys, base)
+        load_s = time.perf_counter() - t0
+        split = (commit_key(keyspace // 8),
+                 c.plane.proxies[COMMIT_PROXIES[0]].tags_for_key(
+                     commit_key(keyspace // 8)))
+        model, stamps = {}, {}
+        rvs, acked, per_batch, records = [], [], [], []
+        adds = 0
+        snapshots = {}
+        n_warm, n_timed = batches
+        if device == "cuda":
+            import torch
+            torch.cuda.synchronize()
+        K.reset_counts()
+        for b in range(n_warm + n_timed):
+            rv = c.read_version()
+            rvs.append(rv)
+            reqs = commit_batch(rng, b, keyspace, txns, rv,
+                                rvs[-2] if len(rvs) > 1 else rv,
+                                split if b == COMMIT_SPLIT_BATCH else None)
+            pid = COMMIT_PROXIES[b % 2]
+            mut0 = sum(ss.stats["mutations"] for ss in c.storage)
+            bytes0 = [t.bytes_input for t in c.tlogs]
+            t1 = time.perf_counter()
+            [(prev, v)] = c.commit(pid, reqs)
+            t2 = time.perf_counter()
+            c.pull()
+            t3 = time.perf_counter()
+            acked.append(v)
+            records.append((pid, prev, v, [r.transaction for r in reqs],
+                            reply_codes(reqs)))
+            got = apply_to_model(model, reqs)
+            adds += got[3]
+            stamps.update(got[4])
+            snapshots[v] = dict(model)
+            if len(snapshots) > 2:
+                del snapshots[min(snapshots)]
+            phases = c.plane.proxies[pid].phase_seconds
+            per_batch.append({
+                "batch": b, "version": v, "read_version": rv,
+                "general": b % COMMIT_CLEAR_EVERY == 0,
+                "committed": got[0], "conflicts": got[1],
+                "too_old": got[2], "commit_s": t2 - t1, "pull_s": t3 - t2,
+                "phases_s": dict(phases),
+                "fsync_s": [t.last_sync_s for t in c.tlogs],
+                "mb_logged": [(t.bytes_input - b0) / 1e6
+                              for t, b0 in zip(c.tlogs, bytes0)],
+                "mutations_applied": sum(ss.stats["mutations"]
+                                         for ss in c.storage) - mut0})
+            del reqs
+        if device == "cuda":
+            import torch
+            torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        if DurableReply.early:
+            raise AssertionError(f"{DurableReply.early} replies went out "
+                                 "before their version was durable on "
+                                 "every TLog and known to the master")
+        for role in c.plane.resolvers:
+            check_supervised(role.conflict_set, n_warm + n_timed,
+                             "TorchConflictSet", device)
+        from foundationdb_tpu_torch.server import (TXS_TAG, key_servers_key,
+                                                   key_servers_value)
+        if model.get(key_servers_key(split[0])) != \
+                key_servers_value(split[1]) or \
+                not all(t.tag_data.get(TXS_TAG) for t in c.tlogs):
+            raise AssertionError("the shard split did not commit to the "
+                                 "shard map's stream (TXS_TAG)")
+        top = acked[-1]
+        if c.read_version() != top:
+            raise AssertionError("the read version is not the last commit")
+        t4 = time.perf_counter()
+        rows = read_back(c, model, base, keys, top, "read-back")
+        readback_s = time.perf_counter() - t4
+        older = acked[-2]
+        read_back(c, snapshots[older], base, keys, older, "older read")
+        want_count = adds.to_bytes(8, "little")
+        if c.get(COMMIT_COUNTER, top) != [want_count, want_count]:
+            raise AssertionError(f"counter {c.get(COMMIT_COUNTER, top)}, "
+                                 f"{adds} committed adds")
+        vs_rows = c.get_range(b"vs/", b"vs0", top)
+        for replica in vs_rows:
+            keys = [k for k, _v in replica]
+            if sorted(keys) != sorted(stamps) or any(
+                    (int.from_bytes(k[3:11], "big"),
+                     int.from_bytes(k[11:13], "big")) != stamps[k]
+                    for k in keys):
+                raise AssertionError("versionstamped keys differ from "
+                                     "their CommitIDs")
+        queues = check_queue_files(c, acked)
+        c.close()
+    finally:
+        shutil.rmtree(datadir, ignore_errors=True)
+    timed = per_batch[n_warm:]
+
+    def p50(xs):
+        return float(np.median(xs)) * 1e3
+
+    committed = sum(x["committed"] for x in timed)
+    commit_s = sum(x["commit_s"] for x in timed)
+    pull_s = sum(x["pull_s"] for x in timed)
+    figures = {
+        "committed_txns_per_s": committed / commit_s,
+        "p50_commit_ms": p50([x["commit_s"] for x in timed]),
+        "p50_phase_ms": {k: p50([x["phases_s"][k] for x in timed])
+                         for k in timed[0]["phases_s"]},
+        "p50_pull_ms": p50([x["pull_s"] for x in timed]),
+        "p50_fsync_ms": p50([max(x["fsync_s"]) for x in timed]),
+        "mb_logged_per_batch": float(np.mean(
+            [sum(x["mb_logged"]) for x in timed])),
+        "mutations_applied_per_s": sum(
+            x["mutations_applied"] for x in timed) / pull_s,
+        "readback_ms": readback_s * 1e3, "readback_rows": rows,
+        "too_old": sum(x["too_old"] for x in per_batch),
+        "conflicts": sum(x["conflicts"] for x in per_batch),
+        "committed": sum(x["committed"] for x in per_batch),
+        "counter_adds": adds, "versionstamps": len(stamps),
+        "load_s": load_s, "queues": queues, "batches": per_batch,
+        "txns_per_batch": txns, "keyspace": keyspace, "card": smi}
+    figures["cpu_replay"] = commit_replay(records, **set_kwargs)
+    return launches, figures
+
+
+def commit_small(smi: str = "", device: str = DEVICE) -> dict:
+    """The verdict replay: two small batches (a point batch, then a
+    general one with clears), COMMIT_SMALL's txns over its ids, through
+    the cluster on `device`, then the same transactions at the same
+    versions through a ResolutionPlane over the port's oracle, proxy for
+    proxy: the verdicts equal.  (The oracle's intra-batch check is
+    quadratic in a batch's surviving writes: hours at TXNS.)"""
+    import shutil
+    import tempfile
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    keyspace, txns = COMMIT_SMALL
+    rng = np.random.default_rng(COMMIT_SEED + 1)
+    datadir = tempfile.mkdtemp(prefix="chip_smoke_small_")
+    try:
+        c = commit_cluster(datadir, keyspace, device,
+                           capacity=PLANE_SMALL_CAPACITY)
+        DurableReply.cluster = c
+        c.load([commit_key(i) for i in range(keyspace)],
+               commit_values(rng, keyspace))
+        runs = []
+        rv_prev = 0
+        for b in (1, COMMIT_CLEAR_EVERY):   # a point batch, a clear batch
+            rv = c.read_version()
+            reqs = commit_batch(rng, b, keyspace, txns, rv, rv_prev)
+            rv_prev = rv
+            pid = COMMIT_PROXIES[len(runs) % 2]
+            [(prev, v)] = c.commit(pid, reqs)
+            runs.append((pid, prev, v, reqs))
+        c.close()
+    finally:
+        shutil.rmtree(datadir, ignore_errors=True)
+    oracle = ResolutionPlane(2, list(COMMIT_PROXIES),
+                             boundaries=plane_boundaries(2), backend="cpu")
+    verdicts = {}
+    for i, (pid, prev, v, reqs) in enumerate(runs):
+        got = reply_codes(reqs).tolist()
+        want = codes_of(oracle.resolve(pid, [r.transaction for r in reqs],
+                                       prev, v).committed).tolist()
+        if got != want:
+            raise AssertionError(f"replay batch {i}: the cluster's verdicts "
+                                 f"differ from the oracle plane's")
+        verdicts[f"batch{i}"] = {k: got.count(k) for k in (0, 1, 2)}
+    print(f"commit_small: the cluster on {device} and the oracle plane "
+          f"replayed at its versions give the same verdicts ({verdicts}) "
+          f"-- {smi}", flush=True)
+    return verdicts
+
+
+def commit_path(smi: str) -> tuple:
+    """Phase 22: the main run (its launches are the column's) with its
+    CPU-plane replay, then the small oracle replay; the path_commit
+    line."""
+    launches, figures = commit_run(smi=smi, capacity=CAPACITY,
+                                   delta_capacity=DELTA_CAPACITY)
+    figures["replay"] = commit_small(smi)
+    shown = {k: v for k, v in figures.items() if k != "batches"}
+    print(f"path_commit: {json.dumps(shown)}", flush=True)
+    return launches, figures
+
+
 def main() -> int:
     try:
         import torch
@@ -5167,6 +5702,9 @@ def main() -> int:
     log("phase 21: the scheduling plane (bench.py sched's regime)")
     launches["sched"], path_sched = sched_path(smi)
     phase_done("scheduling plane")
+    log("phase 22: the write path (config 2, double redundancy)")
+    launches["commit"], path_commit = commit_path(smi)
+    phase_done("write path")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -5200,6 +5738,7 @@ def main() -> int:
                       "path_resolver": path_resolver,
                       "path_plane": path_plane,
                       "path_sched": path_sched,
+                      "path_commit": path_commit,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,5 @@
-"""Error codes (trimmed to what the conflict path, its supervisor and the
-commit proxy's replies raise).
+"""Error codes (trimmed to what the conflict path, its supervisor, the
+commit proxy's replies and the write path raise).
 
 Mirrors the reference's flow/error_definitions.h error-code contract."""
 
@@ -22,9 +22,12 @@ ERROR_CODES = {
     "operation_failed": 1000,
     "timed_out": 1004,
     "transaction_too_old": 1007,
+    "future_version": 1009,
     "not_committed": 1020,
     "connection_failed": 1026,
     "request_maybe_delivered": 1034,
+    "broken_promise": 1100,
+    "io_error": 1510,
     "inverted_range": 2005,
     "internal_error": 4100,
 }

@@ -1,7 +1,11 @@
 """Server knobs the port reads (trimmed copy of foundationdb_tpu/core/knobs.py).
 
-What the port's conflict path, its supervision layer and the Resolver
-role consult, with the reference's defaults: HEAT_TELEMETRY_ENABLED, the
+What the port's conflict path, its supervision layer, the Resolver
+role and the write path consult, with the reference's defaults: the
+master's version knobs VERSIONS_PER_SECOND and MAX_VERSIONS_IN_FLIGHT
+(server/master.py) and MAX_READ_TRANSACTION_LIFE_VERSIONS, which is also
+the storage servers' MVCC window (server/storage.py); the TLog's peek
+budget TLOG_PEEK_DESIRED_BYTES (server/tlog.py); HEAT_TELEMETRY_ENABLED, the
 master switch of the heat-telemetry attribution that
 ConflictSet.resolve_with_conflicts fills (conflict/api.py) and of the
 role's conflict heat; the CONFLICT_* knobs of the backend factory, of
@@ -33,11 +37,23 @@ class ServerKnobs:
         # (core/histogram.CounterCollection.emit_loop).
         self.METRICS_EMIT_INTERVAL = 5.0
 
+        # Versions (the reference's foundationdb_tpu/core/knobs.py:96-99):
+        # the master hands out VERSIONS_PER_SECOND versions a second of
+        # wall time, at most MAX_READ_TRANSACTION_LIFE_VERSIONS / 2 a
+        # request and at most MAX_VERSIONS_IN_FLIGHT past the live
+        # committed version; storage servers keep the last
+        # MAX_READ_TRANSACTION_LIFE_VERSIONS versions readable.
+        self.VERSIONS_PER_SECOND = 1_000_000
+        self.MAX_READ_TRANSACTION_LIFE_VERSIONS = 5 * self.VERSIONS_PER_SECOND
         # The resolver keeps the write history of the last
         # MAX_WRITE_TRANSACTION_LIFE_VERSIONS versions; its window floor
-        # trails each batch's version by that.  The reference's default,
-        # 5 x VERSIONS_PER_SECOND (foundationdb_tpu/core/knobs.py:98).
-        self.MAX_WRITE_TRANSACTION_LIFE_VERSIONS = 5_000_000
+        # trails each batch's version by that.
+        self.MAX_WRITE_TRANSACTION_LIFE_VERSIONS = 5 * self.VERSIONS_PER_SECOND
+        self.MAX_VERSIONS_IN_FLIGHT = 100 * self.VERSIONS_PER_SECOND
+
+        # Byte budget of one TLog peek reply (the reference's :410): at
+        # least one entry is always sent.
+        self.TLOG_PEEK_DESIRED_BYTES = 1e6
 
         # Conflict-set backend selector of conflict/api.new_conflict_set:
         # "torch" (supervised, on `cuda`), "torch-raw" (bare), "sharded",

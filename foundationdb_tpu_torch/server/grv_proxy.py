@@ -1,5 +1,9 @@
-"""The GRV proxy's predictor admission (trimmed copy of
-foundationdb_tpu/server/grv_proxy.py).
+"""The GRV proxy: read versions and the predictor admission (trimmed copy
+of foundationdb_tpu/server/grv_proxy.py).
+
+A read version is the master's live committed version, after every TLog
+of the log system has confirmed it is running (_reply_batch :307, the
+reference's getLiveCommittedVersion): get_read_version().
 
 What is kept of the reference's GrvProxy: the conflict predictor
 (sched/predictor.py, one table a proxy, :44-53), the deferral of a
@@ -19,23 +23,25 @@ request admitted after a deferral is re-stamped at the round's read
 version (bench.py's model of the stage, :875-905), and one admitted at
 once keeps the snapshot it came with.
 
-Left out on purpose: the priority queues, the ratekeeper's tps and
-batch-tps budgets and their token buckets, tag throttles, the master's
-live committed version and the TLog liveness confirm, the
-core/coverage.py test_coverage call, which belongs to the simulator, and
-the RPC.
+Left out on purpose: the request batching and the priority queues, the
+ratekeeper's tps and batch-tps budgets and their token buckets, tag
+throttles, the confirm's timeout (a TLog answers within the call or not
+at all), the core/coverage.py test_coverage call, which belongs to the
+simulator, and the RPC.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List
+from typing import Any, Iterable, List, Optional
 
 from ..core.histogram import CounterCollection
 from ..core.knobs import server_knobs
 from ..sched.predictor import ConflictPredictor
 from ..txn.types import Version
-from .interfaces import CommitTransactionRequest
+from .interfaces import (CommitTransactionRequest,
+                         GetRawCommittedVersionRequest, GetReadVersionReply,
+                         TLogConfirmRunningRequest, ask)
 
 # The starvation bound (the reference's SCHED_MAX_DEFERRALS default): a
 # request is deferred at most this many rounds, then admitted.
@@ -43,14 +49,30 @@ SCHED_MAX_DEFERRALS = 3
 
 
 class GrvProxy:
-    def __init__(self, proxy_id: str) -> None:
+    def __init__(self, proxy_id: str, master: Any = None,
+                 tlogs: Optional[List[Any]] = None) -> None:
+        """`master` (server/master.py Master) and `tlogs`: what a read
+        version is asked of (get_read_version)."""
         self.id = proxy_id
+        self.master = master
+        self.tlogs = list(tlogs or [])
         # Conflict predictor: per-proxy hot-range abort-probability table
         # fed from the ratekeeper's heat poll.  Inert while
         # SCHED_PREDICTOR_ENABLED is off: no deferrals.
         self.predictor = ConflictPredictor.default()
         self._sched_deferred: List[CommitTransactionRequest] = []
         self.metrics = CounterCollection("GrvProxy", proxy_id)
+
+    def get_read_version(self) -> GetReadVersionReply:
+        """A read version (reference _reply_batch :307): every TLog
+        confirms it is running -- a stopped one does not answer, and that
+        raises broken_promise -- then the master's live committed
+        version, which covers every commit a client has heard of."""
+        for tlog in self.tlogs:
+            ask(tlog.confirm_running, TLogConfirmRunningRequest())
+        vreply = ask(self.master.serve_live_committed,
+                     GetRawCommittedVersionRequest())
+        return GetReadVersionReply(version=vreply.version)
 
     def admit(self, requests: Iterable[CommitTransactionRequest],
               read_version: Version) -> List[CommitTransactionRequest]:

@@ -12,19 +12,35 @@ keeps the master's record of the moves (resolution_changes, handed to a
 proxy with its next version and dropped once every expected proxy has
 seen them, as _allocate_version does).
 
-Left out: the loop's interval delay (the caller steps the balancer),
-the DBCoreState persistence of the moved boundaries (coordination is not
-ported) and version allocation (the plane's caller supplies versions).
+Master (:57-170) hands out commit versions: VERSIONS_PER_SECOND a second
+of the clock's time (at least 1, at most
+MAX_READ_TRANSACTION_LIFE_VERSIONS / 2 a request, at most
+MAX_VERSIONS_IN_FLIGHT past the live committed version), each proxy's
+requests answered in request_num order with a resend answered from its
+cache, and the balancer's moves riding each reply (resolver_changes); it
+keeps the live committed version the proxies report and the GRV proxies
+read.  The clock is a constructor argument (time.monotonic by default),
+so a test can drive it.  The calls are synchronous, so a request that
+arrives ahead of its predecessor raises instead of parking.
+
+Left out: the balancing loop's interval delay (the caller steps the
+balancer), the DBCoreState persistence of the moved boundaries and the
+whole recovery state machine (coordination is not ported).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
+from ..core.knobs import server_knobs
 from ..core.trace import TraceEvent
 from ..txn.types import KeyRange, Version
-from .interfaces import (RESOLVER_ALL, Reply, ResolutionMetricsRequest,
-                         ResolutionSplitRequest)
+from .interfaces import (RESOLVER_ALL, GetCommitVersionReply,
+                         GetCommitVersionRequest, GetRawCommittedVersionReply,
+                         GetRawCommittedVersionRequest,
+                         ReportRawCommittedVersionRequest, Reply,
+                         ResolutionMetricsRequest, ResolutionSplitRequest)
 from .shardmap import RangeMap
 from .system_data import SYSTEM_KEYS_BEGIN
 
@@ -182,3 +198,98 @@ class ResolutionBalancer:
         self.last_change_seen[proxy_id] = max(
             self.last_change_seen[proxy_id], self.resolution_changes_version)
         return list(self.resolution_changes)
+
+
+class _ProxyVersionState:
+    """Per-proxy request ordering + resend dedup (reference
+    MasterData::lastCommitProxyVersionReplies)."""
+
+    __slots__ = ("last_request_num", "replies")
+
+    def __init__(self) -> None:
+        # Proxies number requests from 1; "0 already served" seeds the chain.
+        self.last_request_num = 0
+        self.replies: Dict[int, GetCommitVersionReply] = {}
+
+
+class Master:
+    """One master epoch's commit-version state."""
+
+    def __init__(self, recovery_version: Version = 0,
+                 clock: Callable[[], float] = time.monotonic,
+                 balancer: Optional[ResolutionBalancer] = None) -> None:
+        """`clock`: seconds, read once a version request.  `balancer`:
+        the resolution balancer whose moves ride the version replies (none:
+        no moves)."""
+        self.version: Version = recovery_version       # last allocated
+        self.live_committed_version: Version = recovery_version
+        self.last_version_time: float = 0.0
+        self.clock = clock
+        self.balancer = balancer
+        self.proxy_states: Dict[str, _ProxyVersionState] = {}
+
+    # -- version allocation (reference getVersion :1126) ---------------------
+    def _allocate_version(self, proxy_id: str) -> GetCommitVersionReply:
+        knobs = server_knobs()
+        t1 = self.clock()
+        if self.last_version_time == 0.0:
+            self.last_version_time = t1
+        to_add = max(1, min(int(knobs.MAX_READ_TRANSACTION_LIFE_VERSIONS / 2),
+                            int(knobs.VERSIONS_PER_SECOND *
+                                (t1 - self.last_version_time))))
+        self.last_version_time = t1
+        prev = self.version
+        new_version = self.version + to_add
+        # Gap cap: don't run more than MAX_VERSIONS_IN_FLIGHT ahead of the
+        # fully-committed frontier.
+        max_allowed = self.live_committed_version + int(
+            knobs.MAX_VERSIONS_IN_FLIGHT)
+        new_version = max(prev + 1, min(new_version, max_allowed))
+        self.version = new_version
+        changes, changes_version = [], 0
+        if self.balancer is not None:
+            # The balancer drops the changes every expected proxy has been
+            # handed, then hands this proxy the rest (the reference's
+            # resolver-change GC and last_change_seen).
+            changes = self.balancer.changes_for(proxy_id)
+            changes_version = self.balancer.resolution_changes_version
+        return GetCommitVersionReply(
+            version=new_version, prev_version=prev,
+            resolver_changes=changes,
+            resolver_changes_version=changes_version)
+
+    def serve_commit_version(self, req: GetCommitVersionRequest) -> None:
+        """A proxy's version request: a resend of an answered request is
+        answered from the cache (and dropped, unanswered, once evicted, as
+        the reference drops it); the next request gets a new version; one
+        ahead of its predecessor raises (the reference parks it, and the
+        calls here are synchronous)."""
+        st = self.proxy_states.setdefault(req.proxy_id, _ProxyVersionState())
+        if req.request_num <= st.last_request_num:
+            cached = st.replies.get(req.request_num)
+            if cached is not None:
+                req.reply.send(cached)
+            return
+        if req.request_num > st.last_request_num + 1:
+            raise RuntimeError(
+                f"master: request {req.request_num} of {req.proxy_id} "
+                f"arrived before {st.last_request_num + 1}")
+        reply = self._allocate_version(req.proxy_id)
+        st.last_request_num = req.request_num
+        st.replies[req.request_num] = reply
+        # Drop replies older than the one before this (proxy won't resend).
+        st.replies = {n: r for n, r in st.replies.items()
+                      if n >= req.request_num - 1}
+        req.reply.send(reply)
+
+    # -- live committed version (reference :1217) ----------------------------
+    def serve_live_committed(self, req: GetRawCommittedVersionRequest
+                             ) -> None:
+        req.reply.send(GetRawCommittedVersionReply(
+            version=self.live_committed_version))
+
+    def serve_report_committed(self, req: ReportRawCommittedVersionRequest
+                               ) -> None:
+        if req.version > self.live_committed_version:
+            self.live_committed_version = req.version
+        req.reply.send(None)

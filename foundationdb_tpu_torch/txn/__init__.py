@@ -1,7 +1,10 @@
-"""Transaction payload types used by the conflict path and the resolver."""
+"""Transaction payload types used by the conflict path, the resolver and
+the write path, and the atomic operators (atomic.py)."""
 
-from .types import (CommitResult, CommitTransactionRef, KeyRange, Mutation,
-                    MutationType, Version, key_after, single_key_range)
+from .types import (ATOMIC_OPS, CommitResult, CommitTransactionRef, KeyRange,
+                    Mutation, MutationType, Version, key_after,
+                    make_versionstamp, single_key_range, strinc)
 
-__all__ = ["CommitResult", "CommitTransactionRef", "KeyRange", "Mutation",
-           "MutationType", "Version", "key_after", "single_key_range"]
+__all__ = ["ATOMIC_OPS", "CommitResult", "CommitTransactionRef", "KeyRange",
+           "Mutation", "MutationType", "Version", "key_after",
+           "make_versionstamp", "single_key_range", "strinc"]

@@ -1,9 +1,10 @@
-"""Transaction payload types (trimmed to what the resolver uses).
+"""Transaction payload types (trimmed to what the resolver and the write
+path use).
 
 Equivalents of the reference's fdbclient/CommitTransaction.h
-(MutationRef :55-96, CommitTransactionRef :179) and fdbclient/FDBTypes.h
-(KeyRangeRef, Version).  Keys are raw bytes, ordered lexicographically;
-ranges are half-open [begin, end).
+(MutationRef :55-96, CommitTransactionRef :179, the versionstamp) and
+fdbclient/FDBTypes.h (KeyRangeRef, Version, strinc).  Keys are raw bytes,
+ordered lexicographically; ranges are half-open [begin, end).
 """
 
 from __future__ import annotations
@@ -13,6 +14,17 @@ from enum import IntEnum
 from typing import List, Optional
 
 Version = int
+
+
+def strinc(key: bytes) -> bytes:
+    """Smallest key strictly greater than every key with prefix `key`.
+
+    Reference: flow strinc() -- strips trailing 0xff bytes then increments the
+    last byte. Raises if key is empty or all 0xff (no such key exists)."""
+    key = key.rstrip(b"\xff")
+    if not key:
+        raise ValueError("strinc on empty/all-0xff key")
+    return key[:-1] + bytes([key[-1] + 1])
 
 
 def key_after(key: bytes) -> bytes:
@@ -50,6 +62,13 @@ class KeyRange:
         return KeyRange(b, e) if b < e else None
 
 
+def make_versionstamp(version: int, batch_index: int) -> bytes:
+    """The 10-byte versionstamp: 8B big-endian commit version + 2B
+    big-endian transaction batch index (reference CommitTransaction.h:55).
+    An index past 65,535 does not fit and raises OverflowError."""
+    return version.to_bytes(8, "big") + batch_index.to_bytes(2, "big")
+
+
 class MutationType(IntEnum):
     """Mutation op codes (reference fdbclient/CommitTransaction.h:55-96)."""
 
@@ -76,6 +95,18 @@ class MutationType(IntEnum):
     CompareAndClear = 20
 
 
+# The ops a storage server resolves against the key's current value when it
+# applies them (txn/atomic.py; the versionstamped ones become SetValue at
+# the commit proxy first).
+ATOMIC_OPS = {
+    MutationType.AddValue, MutationType.And, MutationType.Or, MutationType.Xor,
+    MutationType.AppendIfFits, MutationType.Max, MutationType.Min,
+    MutationType.SetVersionstampedKey, MutationType.SetVersionstampedValue,
+    MutationType.ByteMin, MutationType.ByteMax, MutationType.MinV2,
+    MutationType.AndV2, MutationType.CompareAndClear,
+}
+
+
 @dataclass
 class Mutation:
     """One mutation: (type, param1, param2).
@@ -93,6 +124,10 @@ class Mutation:
     @staticmethod
     def set_value(key: bytes, value: bytes) -> "Mutation":
         return Mutation(MutationType.SetValue, key, value)
+
+    @staticmethod
+    def clear_range(begin: bytes, end: bytes) -> "Mutation":
+        return Mutation(MutationType.ClearRange, begin, end)
 
 
 @dataclass

@@ -43,6 +43,11 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.server.cluster",
     "foundationdb_tpu_torch.server.grv_proxy",
     "foundationdb_tpu_torch.server.ratekeeper",
+    "foundationdb_tpu_torch.server.tlog",
+    "foundationdb_tpu_torch.server.storage",
+    "foundationdb_tpu_torch.server.disk_queue",
+    "foundationdb_tpu_torch.server.real_fs",
+    "foundationdb_tpu_torch.txn.atomic", "foundationdb_tpu_torch.core.wire",
     "foundationdb_tpu_torch.sched", "foundationdb_tpu_torch.sched.predictor",
     "foundationdb_tpu_torch.sched.reorder",
     "foundationdb_tpu_torch.sched.repair", "foundationdb_tpu_torch.entry",
@@ -56,9 +61,11 @@ def test_port_imports_no_jax():
     a resolve, a metrics, a split and a heat request, a two-resolver
     resolution plane resolving a straddling batch and taking a balancing
     step, then admitting, reordering, repairing and committing a batch
-    with every scheduling stage on and feeding its predictors, and both
-    entry points on the CPU (so the lazy imports have
-    run), loads no jax and no foundationdb_tpu module."""
+    with every scheduling stage on and feeding its predictors, a static
+    cluster committing a batch with an atomic, a versionstamp and a
+    shard split through its master, TLogs on disk and storage servers and
+    reading it back, and both entry points on the CPU (so the lazy
+    imports have run), loads no jax and no foundationdb_tpu module."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -135,6 +142,29 @@ def test_port_imports_no_jax():
         "assert reqs[0].reply.value.version == 300, reqs[0].reply.value\n"
         "assert plane.feed() and plane.proxies['p0'].scheduler_status()"
         "['repairs_succeeded'] == 1\n"
+        "k.SCHED_PREDICTOR_ENABLED = k.SCHED_REORDER_ENABLED = "
+        "k.SCHED_REPAIR_ENABLED = False\n"
+        "import tempfile\n"
+        "from foundationdb_tpu_torch.server import (StaticCluster, "
+        "key_servers_key, key_servers_value)\n"
+        "from foundationdb_tpu_torch.txn.types import Mutation, "
+        "MutationType\n"
+        "c = StaticCluster(2, ['p0', 'p1'], n_storage=2, n_tlogs=2, "
+        "replication=2, datadir=tempfile.mkdtemp(), device='cpu', "
+        "capacity=1 << 10)\n"
+        "c.load([b'a', b'b'], [b'1', b'2'])\n"
+        "ms = [Mutation(MutationType.AddValue, b'a', b'\\x01'), "
+        "Mutation(MutationType.SetVersionstampedKey, b'v' + bytes(10) + "
+        "b'\\x01\\x00\\x00\\x00', b'x'), Mutation.set_value("
+        "key_servers_key(b'b'), key_servers_value([1, 0]))]\n"
+        "q = CommitTransactionRequest(CommitTransactionRef("
+        "mutations=ms, read_snapshot=c.read_version()), reply=Reply())\n"
+        "[(_, v)] = c.commit('p1', [q])\n"
+        "assert q.reply.value.version == v == c.read_version(), q.reply\n"
+        "c.pull()\n"
+        "assert c.get(b'a', v) == [b'2', b'2'], c.get(b'a', v)\n"
+        "assert len(c.get_range(b'v', b'w', v)[1]) == 1\n"
+        "c.close()\n"
         "from foundationdb_tpu_torch.entry import entry, dryrun_multichip\n"
         "fn, args = entry('cpu')\n"
         "assert int(fn(*args).sum()) == 0\n"
@@ -150,7 +180,7 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-def test_no_device_raises_without_cuda(monkeypatch):
+def test_no_device_raises_without_cuda(monkeypatch, tmp_path):
     import numpy as np
     from foundationdb_tpu_torch.conflict import fused, window
     from foundationdb_tpu_torch.conflict.api import new_conflict_set
@@ -168,9 +198,11 @@ def test_no_device_raises_without_cuda(monkeypatch):
         new_conflict_set("sharded")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_conflict_mesh()
-    from foundationdb_tpu_torch.server import ResolutionPlane
+    from foundationdb_tpu_torch.server import ResolutionPlane, StaticCluster
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ResolutionPlane(2, ["p0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StaticCluster(2, ["p0"], datadir=str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         window.make_window_state(256)
     with pytest.raises(RuntimeError, match="no CUDA device"):

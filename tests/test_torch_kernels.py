@@ -2082,3 +2082,22 @@ def test_sched_small_case(dev):
                                  device=dev.type)
     assert out["two_reads"]["backed_off"] > 0
     assert out["one_read"]["max_defers"] == 3
+
+
+def test_write_path_small_case(dev):
+    """chip_smoke.py's phase 22 at a small size with the resolvers' sets
+    on the card (replies, durability, read-back on both replicas at two
+    versions, counter, versionstamps, queue files, the point and general
+    steps launched, every batch's replies equal to a CPU plane's
+    verdicts), and its verdict replay against the oracle plane."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    launches, figures = chip_smoke.commit_run(
+        device=dev.type, keyspace=20_000, txns=1_500, batches=(1, 4),
+        capacity=1 << 14, delta_capacity=1 << 13)
+    assert figures["committed"] > 0 and figures["versionstamps"] > 0
+    assert launches["compact_prep"] > 0 and launches["interval_fixpoint"] > 0
+    chip_smoke.commit_small(torch.cuda.get_device_name(0), device=dev.type)
