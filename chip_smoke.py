@@ -7,7 +7,8 @@ factory's default route) over them, then the Resolver role over that
 (the requests a commit proxy sends), the entry points of entry.py, and
 the resolution plane (N roles behind the commit proxies' clip and
 min-merge, with resolution balancing) and the scheduling plane around it
-(predictor admission, reorder, repair):
+(predictor admission, reorder, repair), the write path behind it and its
+restart from a data directory:
 
   point    TorchConflictSet.resolve_encoded_async -> _pack_compact -> the
            compact step, the delta table, the merge, at the bench's config
@@ -188,8 +189,8 @@ exits non-zero):
      equal to the plane on the CPU (two reads a txn) and to the oracle
      plane (one read a txn).  Then bench.py sched's stream (8,192 txns a
      batch, 2 point reads + 1 point write each, zipf(1.2) over the 1M ids,
-     seed 4242, 3 warmup + 10 counted batches), every txn with its tag,
-     reporting its keys, opted into repair: the seven configurations (off,
+     seed 4242, 2 warmup + 7 counted batches, cut from 3 + 10), every txn
+     with its tag, reporting its keys, opted into repair: the seven configurations (off,
      predictor, reorder, repair, all, ladder, all+ladder) at N = 1,
      all+ladder at N = 4 with two proxies, and all+ladder at N = 1 with
      every abort attributed exactly.  Every txn answered exactly once,
@@ -225,7 +226,29 @@ exits non-zero):
      path_commit line (committed txns/s,
      p50 of commit() and its phases, pull, fsync, MB logged, mutations
      applied/s, read-back, TOO_OLD and conflicts);
- 23. the JSON lines (programs and paths; kernels with launches per path,
+ 23. (new in the nineteenth slice; the JSON phase was 23 before) a
+     restart, `configure new double memory`: phase 22's cluster over the
+     memory storage engine (server/kvstore.py) on every storage server,
+     the 1M keys imaged into every engine, 2 + 4 of phase 22's batches
+     with the engines made durable every second batch, the TLogs' spill
+     threshold lowered to 64 KiB and storage server 0 (the zipf head's
+     shard) held back for the last 2 batches so its backlog spills and a
+     peek reads it back from the queue file; then the kill (descriptors
+     released, nothing synced) and StaticCluster.recover (the boot scan,
+     the epoch end, a new TLog generation carrying the un-popped data,
+     the engines' recovery, new roles at the recovery version on the
+     card): the recovery version at least the last acknowledged version,
+     every acknowledged key read back on both replicas equal to the dict
+     model (read_back), a read below the recovery version too old, 2 more
+     batches (a clear batch: the general step, then a point batch) whose
+     replies equal a CPU plane's built at the recovery version, the
+     compact and general steps' kernels launched in the new epoch; a
+     second kill and recovery reads everything back again.  The B-tree
+     engine (server/kvstore_btree.py) the same at a cut: 50,000 keys, 2 +
+     2 batches of 4,096 txns.  The path_restart line (the restart and its
+     parts, MB replayed, keys recovered/s, MB spilled, the spilled peek,
+     engine commit ms a batch, p50 commit() before and after);
+ 24. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -338,6 +361,9 @@ PATH_KERNELS["sched"] = PATH_KERNELS["point"]
 PATH_KERNELS["commit"] = [
     *[k for k in PATH_KERNELS["point"] if k != "merge"],
     *[k for k in _GENERAL_STEP if k not in PATH_KERNELS["point"]]]
+# Phase 23: the new epochs' batches after each first restart (a point
+# batch and a clear batch, each run) take the same two steps; no merge.
+PATH_KERNELS["restart"] = PATH_KERNELS["commit"]
 
 
 # ---------------------------------------------------------------- workload
@@ -4668,11 +4694,13 @@ def plane_path(smi: str) -> tuple:
 # reads + 1 point write each, zipf(1.2) over the 1M ids, snapshots 0-2
 # batches behind, seed 4242 (bench.py's draws; numpy's generators may
 # draw another stream under another numpy, so path_sched prints the
-# stream's md5 and numpy's version), 3 warmup +
-# 10 counted batches, 1,000 versions a batch, the floor 5 batches back.
+# stream's md5 and numpy's version), 2 warmup + 7 counted batches (cut
+# from bench.py's 3 + 10 to make room for phase 23: 9 batches still
+# cross a merge, every 8), 1,000 versions a batch, the floor 5 batches
+# back.
 # Every txn declares its tag (the key-prefix bucket of its first read,
 # bench.py _sched_tag), reports its conflicting keys and opts into repair.
-SCHED_TXNS, SCHED_BATCHES, SCHED_WARMUP, SCHED_SEED = 8192, 13, 3, 4242
+SCHED_TXNS, SCHED_BATCHES, SCHED_WARMUP, SCHED_SEED = 8192, 9, 2, 4242
 SCHED_TAG_BUCKETS = 64
 _SCHED_ALL = {"SCHED_PREDICTOR_ENABLED": True, "SCHED_REORDER_ENABLED": True,
               "SCHED_REPAIR_ENABLED": True}
@@ -5570,6 +5598,261 @@ def commit_path(smi: str) -> tuple:
     return launches, figures
 
 
+# ----------------------------------------------------- the restart
+# Phase 23: durability across a restart (server/cluster.py StaticCluster
+# over durable storage engines, StaticCluster.recover): phase 22's
+# cluster in FoundationDB's `double` redundancy with the `memory` storage
+# engine, `configure new double memory`
+# (apple.github.io/foundationdb/configuration.html, "Choosing a
+# redundancy mode" and "Storage engine"): 2 TLogs (replication 2), 4
+# storage servers in teams of 2 each over a KVStoreMemory, 2 Resolver
+# roles on the card, 2 commit proxies, 1 GRV proxy; config 2's 1M keys
+# with 100-byte values imaged into every engine; RESTART_BATCHES of
+# phase 22's batches (COMMIT_TXNS txns, 1% adds, 1% versionstamps, clears
+# every COMMIT_CLEAR_EVERY-th batch), the engines made durable every
+# RESTART_DURABLE_EVERY batches and at the last; TLOG_SPILL_THRESHOLD
+# lowered to RESTART_SPILL and storage server 0 held back for the last
+# RESTART_HELD batches, so its backlog spills and is read back from the
+# queue files.  Then the kill (every file descriptor released, nothing
+# synced), StaticCluster.recover, the read-back at the recovery version
+# on both replicas, a too-old read below it, RESTART_AFTER batches in the
+# new epoch (one with clears: the general step) equal to a CPU plane's
+# verdicts at the same versions, and a second kill and recovery that
+# reads everything back again.  The B-tree engine runs the same checks at
+# RESTART_BTREE's cut (50,000 keys, 2 + 2 batches of 4,096 txns): a
+# Python B-tree takes 1M single-key copy-on-write inserts in minutes.
+RESTART_BATCHES = (2, 4)           # before the first restart
+RESTART_AFTER = 2                  # in the new epoch
+RESTART_HELD = 2
+RESTART_DURABLE_EVERY = 2
+RESTART_SPILL = 64 << 10
+RESTART_SEED = 2323
+RESTART_BTREE = {"keyspace": 50_000, "txns": 4096, "batches": (2, 2)}
+
+
+def restart_cluster(datadir: str, keyspace: int, engine: str,
+                    device: str = DEVICE, **set_kwargs):
+    """Phase 22's cluster (commit_cluster) over `engine`."""
+    from foundationdb_tpu_torch.server import StaticCluster
+    cuts = [commit_key(keyspace * q // 4) for q in (1, 2, 3)]
+    return StaticCluster(
+        n_resolvers=2, proxy_ids=list(COMMIT_PROXIES), n_storage=4,
+        n_tlogs=2, replication=2, datadir=datadir, storage_boundaries=cuts,
+        resolver_boundaries=plane_boundaries(2), storage_engine=engine,
+        device=device, **set_kwargs)
+
+
+def kill_cluster(c, device: str) -> None:
+    """The kill: every descriptor released with nothing synced, every
+    role dropped, the old Resolver roles' device memory freed."""
+    import gc
+    c.kill()
+    DurableReply.cluster = None
+    gc.collect()
+    if device == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+
+
+def recover_and_check(datadir: str, device: str, model, base, keys,
+                      acked: list, label: str, set_kwargs: dict):
+    """StaticCluster.recover, then: the recovery version at least the
+    last acknowledged version, every acknowledged key on both replicas
+    equal to the model there (read_back), a read below it too old."""
+    from foundationdb_tpu_torch.core.error import FdbError
+    from foundationdb_tpu_torch.server import StaticCluster
+    t0 = time.perf_counter()
+    c = StaticCluster.recover(datadir, list(COMMIT_PROXIES), device=device,
+                              **set_kwargs)
+    recover_s = time.perf_counter() - t0
+    DurableReply.cluster = c
+    rv = c.recovery["recovery_version"]
+    if rv < acked[-1]:
+        raise AssertionError(f"{label}: recovery version {rv} below the "
+                             f"last acknowledged {acked[-1]}")
+    t1 = time.perf_counter()
+    rows = read_back(c, model, base, keys, rv, label)
+    readback_s = time.perf_counter() - t1
+    try:
+        c.get(keys[0], rv - 1)
+    except FdbError as e:
+        if e.name != "transaction_too_old":
+            raise
+    else:
+        raise AssertionError(f"{label}: a read below the recovery version "
+                             "was answered")
+    out = dict(c.recovery, recover_wall_s=recover_s,
+               readback_s=readback_s, keys_read_back=rows,
+               mb_replayed=(c.recovery["tlog_bytes"] +
+                            c.recovery["engine_bytes"]) / 1e6,
+               keys_recovered_per_s=c.recovery["keys"] /
+               max(c.recovery["engines_s"], 1e-9))
+    return c, out
+
+
+def restart_run(engine: str = "memory", device: str = DEVICE,
+                keyspace: int = KEYSPACE, txns: int = COMMIT_TXNS,
+                batches=RESTART_BATCHES, after: int = RESTART_AFTER,
+                spill_threshold: int = RESTART_SPILL, smi: str = "",
+                **set_kwargs) -> tuple:
+    """The phase's run over `engine` (see the section's comment); returns
+    (launches over the batches of the new epoch, the figures)."""
+    import shutil
+    import tempfile
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.server import ResolutionPlane, ask
+    from foundationdb_tpu_torch.server.interfaces import TLogPeekRequest
+    rng = np.random.default_rng(RESTART_SEED)
+    t_run = time.perf_counter()
+    datadir = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    n_warm, n_timed = batches
+    n = n_warm + n_timed
+    figures = {"engine": engine, "keyspace": keyspace,
+               "txns_per_batch": txns, "batches": list(batches),
+               "after": after, "spill_threshold": spill_threshold,
+               "card": smi}
+    try:
+        with port_knobs(TLOG_SPILL_THRESHOLD=spill_threshold):
+            c = restart_cluster(datadir, keyspace, engine, device,
+                                **set_kwargs)
+            DurableReply.cluster, DurableReply.early = c, 0
+            base = commit_values(rng, keyspace)
+            keys = [commit_key(i) for i in range(keyspace)]
+            t0 = time.perf_counter()
+            c.load(keys, base)
+            figures["load_and_image_s"] = time.perf_counter() - t0
+            # Storage server 0: its tag carries shard 0, the head of the
+            # zipf draws, so its held backlog is the heaviest resident.
+            held = c.storage[0]
+            model, acked, rvs = {}, [], []
+            engine_s, commit_s = [], []
+            for b in range(n):
+                rv = c.read_version()
+                rvs.append(rv)
+                reqs = commit_batch(rng, b, keyspace, txns, rv,
+                                    rvs[-2] if len(rvs) > 1 else rv)
+                t1 = time.perf_counter()
+                [(_prev, v)] = c.commit(COMMIT_PROXIES[b % 2], reqs)
+                commit_s.append(time.perf_counter() - t1)
+                acked.append(v)
+                apply_to_model(model, reqs)
+                del reqs
+                for ss in c.storage:
+                    if ss is not held or b < n - RESTART_HELD:
+                        ss.pull()
+                if b % RESTART_DURABLE_EVERY == RESTART_DURABLE_EVERY - 1 \
+                        or b == n - 1:
+                    t2 = time.perf_counter()
+                    c.update_storage()
+                    engine_s.append(time.perf_counter() - t2)
+            if DurableReply.early:
+                raise AssertionError(f"{DurableReply.early} replies before "
+                                     "their version was durable")
+            spilled = [t.spilled.get(held.tag) for t in c.tlogs]
+            if not all(spilled):
+                raise AssertionError("the held server's backlog did not "
+                                     "spill on every TLog")
+            figures["mb_spilled"] = sum(t.bytes_spilled
+                                        for t in c.tlogs) / 1e6
+            t3 = time.perf_counter()
+            reply = ask(c.tlogs[0].peek, TLogPeekRequest(
+                held.tag, held._fetch_from))
+            figures["spilled_peek_ms"] = (time.perf_counter() - t3) * 1e3
+            figures["spilled_peek_versions"] = len(reply.messages)
+            figures["engine_commit_ms_per_batch"] = \
+                float(np.sum(engine_s)) * 1e3 / n
+            figures["p50_commit_ms_before"] = \
+                float(np.median(commit_s[n_warm:])) * 1e3
+            figures["held_lag_versions"] = acked[-1] - held.durable_version
+            del reply
+            kill_cluster(c, device)
+            del c
+
+            recoveries = []
+            c, rec = recover_and_check(datadir, device, model, base, keys,
+                                       acked, "first restart", set_kwargs)
+            recoveries.append(rec)
+            rv = rec["recovery_version"]
+            plane = ResolutionPlane(2, list(COMMIT_PROXIES),
+                                    boundaries=plane_boundaries(2),
+                                    device="cpu", recovery_version=rv,
+                                    **set_kwargs)
+            first = COMMIT_CLEAR_EVERY * (n // COMMIT_CLEAR_EVERY + 1)
+            if device == "cuda":
+                import torch
+                torch.cuda.synchronize()
+            K.reset_counts()
+            rvs, commit_s, replay = [], [], []
+            for j in range(after):
+                b = first + j           # the first carries clears
+                rv_b = c.read_version()
+                rvs.append(rv_b)
+                reqs = commit_batch(rng, b, keyspace, txns, rv_b,
+                                    rvs[-2] if len(rvs) > 1 else rv_b)
+                pid = COMMIT_PROXIES[j % 2]
+                t1 = time.perf_counter()
+                [(prev, v)] = c.commit(pid, reqs)
+                commit_s.append(time.perf_counter() - t1)
+                acked.append(v)
+                replay.append((pid, prev, v, [r.transaction for r in reqs],
+                               reply_codes(reqs)))
+                apply_to_model(model, reqs)
+                del reqs
+            if device == "cuda":
+                import torch
+                torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            for role in c.plane.resolvers:
+                check_supervised(role.conflict_set, after,
+                                 "TorchConflictSet", device)
+            t4 = time.perf_counter()
+            for i, (pid, prev, v, txns_i, got) in enumerate(replay):
+                want = codes_of(plane.resolve(pid, txns_i, prev,
+                                              v).committed)
+                if not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"after batch {i}: {int((got != want).sum())} "
+                        "replies differ from the CPU plane's verdicts")
+            figures["cpu_replay_s"] = time.perf_counter() - t4
+            figures["after_committed"] = int(sum(
+                (r[4] == 2).sum() for r in replay))
+            del plane, replay
+            figures["p50_commit_ms_after"] = \
+                float(np.median(commit_s)) * 1e3
+            c.pull()
+            c.update_storage()
+            kill_cluster(c, device)
+            del c
+            c, rec = recover_and_check(datadir, device, model, base, keys,
+                                       acked, "second restart", set_kwargs)
+            recoveries.append(rec)
+            c.close()
+            kill_cluster(c, device)
+            del c
+        figures["recoveries"] = recoveries
+        figures["restarts"] = len(recoveries)
+        figures["run_s"] = time.perf_counter() - t_run
+    finally:
+        shutil.rmtree(datadir, ignore_errors=True)
+    return launches, figures
+
+
+def restart_path(smi: str) -> tuple:
+    """Phase 23: the memory engine at full width, then the B-tree at its
+    cut; the new epochs' launches (both runs), the path_restart line."""
+    launches, memory = restart_run(smi=smi, capacity=CAPACITY,
+                                   delta_capacity=DELTA_CAPACITY)
+    launches_b, btree = restart_run(engine="btree", smi=smi,
+                                    capacity=CAPACITY,
+                                    delta_capacity=DELTA_CAPACITY,
+                                    **RESTART_BTREE)
+    for k, v in launches_b.items():
+        launches[k] = launches.get(k, 0) + v
+    path = {"memory": memory, "btree": btree}
+    print(f"path_restart: {json.dumps(path)}", flush=True)
+    return launches, path
+
+
 def main() -> int:
     try:
         import torch
@@ -5705,6 +5988,9 @@ def main() -> int:
     log("phase 22: the write path (config 2, double redundancy)")
     launches["commit"], path_commit = commit_path(smi)
     phase_done("write path")
+    log("phase 23: a restart (double memory, and the B-tree at a cut)")
+    launches["restart"], path_restart = restart_path(smi)
+    phase_done("restart")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -5739,6 +6025,7 @@ def main() -> int:
                       "path_plane": path_plane,
                       "path_sched": path_sched,
                       "path_commit": path_commit,
+                      "path_restart": path_restart,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,5 @@
 """Error codes (trimmed to what the conflict path, its supervisor, the
-commit proxy's replies and the write path raise).
+commit proxy's replies, the write path and its recovery raise).
 
 Mirrors the reference's flow/error_definitions.h error-code contract."""
 
@@ -27,6 +27,7 @@ ERROR_CODES = {
     "connection_failed": 1026,
     "request_maybe_delivered": 1034,
     "broken_promise": 1100,
+    "master_recovery_failed": 1201,
     "io_error": 1510,
     "inverted_range": 2005,
     "internal_error": 4100,

@@ -5,7 +5,9 @@ role and the write path consult, with the reference's defaults: the
 master's version knobs VERSIONS_PER_SECOND and MAX_VERSIONS_IN_FLIGHT
 (server/master.py) and MAX_READ_TRANSACTION_LIFE_VERSIONS, which is also
 the storage servers' MVCC window (server/storage.py); the TLog's peek
-budget TLOG_PEEK_DESIRED_BYTES (server/tlog.py); HEAT_TELEMETRY_ENABLED, the
+budget TLOG_PEEK_DESIRED_BYTES and its spill threshold
+TLOG_SPILL_THRESHOLD (server/tlog.py); the B-tree engine's
+BTREE_PREFIX_COMPRESSION (server/kvstore_btree.py); HEAT_TELEMETRY_ENABLED, the
 master switch of the heat-telemetry attribution that
 ConflictSet.resolve_with_conflicts fills (conflict/api.py) and of the
 role's conflict heat; the CONFLICT_* knobs of the backend factory, of
@@ -54,6 +56,15 @@ class ServerKnobs:
         # Byte budget of one TLog peek reply (the reference's :410): at
         # least one entry is always sent.
         self.TLOG_PEEK_DESIRED_BYTES = 1e6
+        # Resident payload bytes above which a TLog moves its oldest
+        # durable entries to references into its queue file, served back
+        # by peek (the reference's :399).
+        self.TLOG_SPILL_THRESHOLD = 1500e6
+
+        # The B-tree engine writes prefix-compressed leaves (one shared
+        # prefix a page); both leaf forms always decode (the reference's
+        # :302).
+        self.BTREE_PREFIX_COMPRESSION = False
 
         # Conflict-set backend selector of conflict/api.new_conflict_set:
         # "torch" (supervised, on `cuda`), "torch-raw" (bare), "sharded",

@@ -6,9 +6,12 @@ resolvers, min-merge; the scheduling stages; mutation-to-tag routing with
 versionstamps and the push to the log system), the master's commit
 versions, resolver boundaries and resolution balancing, the GRV proxies'
 read versions and predictor admission, the ratekeeper's heat poll, the
-TLogs over their disk queues and the MVCC storage servers; the planes
-and the static cluster that wire them (cluster.py), and the messages a
-host hands a role."""
+TLogs over their disk queues (with spill, lock and recovery) and the MVCC
+storage servers over their storage engines (kvstore.py, kvstore_btree.py);
+the core state and the epoch end (master.py), the boot scan and
+recruitment over a data directory (worker.py); the planes and the static
+cluster that wire them and reopen it after a kill (cluster.py), and the
+messages a host hands a role."""
 
 from .cluster import ResolutionPlane, StaticCluster
 from .commit_proxy import CommitProxy, LogSystemClient
@@ -19,25 +22,32 @@ from .interfaces import (RESOLVER_ALL, TXS_TAG, CommitID,
                          ResolutionMetricsRequest, ResolutionSplitRequest,
                          ResolverHeatRequest, ResolveTransactionBatchReply,
                          ResolveTransactionBatchRequest, ask)
-from .master import Master, ResolutionBalancer, seed_resolver_boundaries
+from .kvstore import IKeyValueStore, KVStoreMemory, open_kv_store
+from .kvstore_btree import KVStoreBTree
+from .master import (DBCoreState, EpochEnd, Master, ResolutionBalancer,
+                     epoch_end, seed_resolver_boundaries)
 from .notified import NotifiedVersion
 from .ratekeeper import Ratekeeper
-from .real_fs import RealFile
+from .real_fs import RealFile, RealFileSystem
 from .resolver import Resolver
 from .shardmap import RangeMap
 from .storage import StorageServer, VersionedMap
 from .system_data import (KEY_SERVERS_PREFIX, SYSTEM_KEYS_BEGIN,
                           key_servers_key, key_servers_value)
 from .tlog import TLog
+from .worker import BootScan, boot_scan, init_storage, init_tlog
 
-__all__ = ["CommitID", "CommitProxy", "CommitTransactionRequest",
-           "DiskQueue", "GrvProxy", "KEY_SERVERS_PREFIX", "LogSystemClient",
+__all__ = ["BootScan", "CommitID", "CommitProxy",
+           "CommitTransactionRequest", "DBCoreState", "DiskQueue",
+           "EpochEnd", "GrvProxy", "IKeyValueStore", "KEY_SERVERS_PREFIX",
+           "KVStoreBTree", "KVStoreMemory", "LogSystemClient",
            "Master", "NotifiedVersion", "RESOLVER_ALL", "RangeMap",
-           "Ratekeeper", "RealFile", "Reply",
+           "Ratekeeper", "RealFile", "RealFileSystem", "Reply",
            "ResolutionBalancer", "ResolutionMetricsRequest",
            "ResolutionPlane", "ResolutionSplitRequest", "ResolverHeatRequest",
            "Resolver", "ResolveTransactionBatchReply",
            "ResolveTransactionBatchRequest", "SYSTEM_KEYS_BEGIN",
            "StaticCluster", "StorageServer", "TLog", "TXS_TAG",
-           "VersionedMap", "ask", "key_servers_key", "key_servers_value",
-           "seed_resolver_boundaries"]
+           "VersionedMap", "ask", "boot_scan", "epoch_end", "init_storage",
+           "init_tlog", "key_servers_key", "key_servers_value",
+           "open_kv_store", "seed_resolver_boundaries"]

@@ -133,6 +133,12 @@ class LogSystemClient:
                     messages=msgs))
                 for tlog, msgs in zip(self.tlogs, per_log)]
 
+    def durable_version(self) -> Version:
+        """The newest version durable on every TLog: no recovery of this
+        generation can end below it (its recovery version is the least
+        end version over the locked logs)."""
+        return min(t.durable_version for t in self.tlogs)
+
     def pop(self, tag: Tag, to: Version) -> None:
         for i in self.team_for_tag(tag):
             self.tlogs[i].pop(TLogPopRequest(tag=tag, to=to))

@@ -5,7 +5,7 @@ fdbserver/MasterInterface.h, fdbserver/TLogInterface.h and
 fdbclient/StorageServerInterface.h).
 
 The Resolver role's and the commit proxy's dataclasses, the master's
-version messages, the GRV reply, the TLog's commit, peek and pop, the
+version messages, the GRV reply, the TLog's commit, peek, pop and lock, the
 storage server's point and range reads, the tags (Tag, TXS_TAG),
 RESOLVER_ALL and a reply that keeps its value: transport (request
 streams, task priorities, the interfaces that bundle them) belongs to
@@ -248,6 +248,22 @@ class TLogPopRequest:
 @dataclass
 class TLogConfirmRunningRequest:
     reply: Any = None
+
+
+@dataclass
+class TLogLockRequest:
+    """Master -> old-generation TLog at epoch end: stop accepting commits
+    and report state (reference TLogInterface lock / epoch end)."""
+
+    epoch: int
+    reply: Any = None
+
+
+@dataclass
+class TLogLockReply:
+    end_version: Version            # highest appended version
+    known_committed_version: Version
+    tags: Dict[Tag, Version]        # tag -> popped-through version
 
 
 # -- storage server (reference fdbclient/StorageServerInterface.h) ----------

@@ -47,6 +47,9 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.server.storage",
     "foundationdb_tpu_torch.server.disk_queue",
     "foundationdb_tpu_torch.server.real_fs",
+    "foundationdb_tpu_torch.server.kvstore",
+    "foundationdb_tpu_torch.server.kvstore_btree",
+    "foundationdb_tpu_torch.server.worker",
     "foundationdb_tpu_torch.txn.atomic", "foundationdb_tpu_torch.core.wire",
     "foundationdb_tpu_torch.sched", "foundationdb_tpu_torch.sched.predictor",
     "foundationdb_tpu_torch.sched.reorder",

@@ -2101,3 +2101,24 @@ def test_write_path_small_case(dev):
     assert figures["committed"] > 0 and figures["versionstamps"] > 0
     assert launches["compact_prep"] > 0 and launches["interval_fixpoint"] > 0
     chip_smoke.commit_small(torch.cuda.get_device_name(0), device=dev.type)
+
+
+def test_restart_small_case(dev):
+    """chip_smoke.py's phase 23 at a small size with the resolvers' sets
+    on the card, over each engine: two kills and recoveries read back
+    every acknowledged key on both replicas, a held-back server's spilled
+    backlog included, and the new epoch's batches launch the compact and
+    general steps' kernels and equal a CPU plane's verdicts."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    for engine in ("memory", "btree"):
+        launches, figures = chip_smoke.restart_run(
+            engine=engine, device=dev.type, keyspace=3_000, txns=300,
+            batches=(2, 2), after=2, capacity=1 << 12,
+            delta_capacity=1 << 11, spill_threshold=4_000)
+        assert figures["restarts"] == 2 and figures["mb_spilled"] > 0
+        assert launches["compact_prep"] > 0
+        assert launches["interval_fixpoint"] > 0
