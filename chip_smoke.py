@@ -7,8 +7,8 @@ factory's default route) over them, then the Resolver role over that
 (the requests a commit proxy sends), the entry points of entry.py, and
 the resolution plane (N roles behind the commit proxies' clip and
 min-merge, with resolution balancing) and the scheduling plane around it
-(predictor admission, reorder, repair), the write path behind it and its
-restart from a data directory:
+(predictor admission, reorder, repair), the write path behind it, its
+restart from a data directory, and the client in front of it all:
 
   point    TorchConflictSet.resolve_encoded_async -> _pack_compact -> the
            compact step, the delta table, the merge, at the bench's config
@@ -248,7 +248,37 @@ exits non-zero):
      2 batches of 4,096 txns.  The path_restart line (the restart and its
      parts, MB replayed, keys recovered/s, MB spilled, the spilled peek,
      engine commit ms a batch, p50 commit() before and after);
- 24. the JSON lines (programs and paths; kernels with launches per path,
+ 24. (new in the twentieth slice; the JSON phase was 24 before) the
+     client: phase 22's cluster (double redundancy, 2 Resolver roles on
+     the card at capacity 2^21 and delta 2^20, 2 commit proxies behind
+     their batchers, 2 TLogs over disk queues, 4 storage servers in teams
+     of 2, 1 GRV proxy, the 1M keys with 100-byte values on both
+     replicas) on the port's EventLoop, every transaction through
+     StaticCluster.database() and TestWorkload.run_transaction's retry
+     loop: ReadWrite's shape (4 uniform point reads, 2 writes of fresh
+     100-byte values) from 8,192 concurrent actors, 8 transactions each
+     (2 warmup rounds), every 4th round's transactions also reading 10
+     consecutive keys with get_range (the general step; the rest the
+     compact step); then Cycle over 10,000 nodes from 2,048 actors, 4
+     swaps each.  Every acknowledged ReadWrite write read back on both
+     replicas at the last version against a dict model ordered by
+     (commit version, batch index, order within the transaction), the
+     Cycle ring intact on both replicas and by the workload's check, the
+     Cycle batches replayed through a plane over the oracle at the same
+     versions giving the same codes, the proxies' committed count equal
+     to the clients', both steps' kernels launched, no degrade; the
+     path_client line (committed txns/s, p50 and p99 of a transaction
+     from its first GRV request to its commit reply over every attempt
+     and backoff, GRV and read ms a transaction summed over its
+     attempts, retries a commit and the abort rate, batches and their
+     mean size, the wall split into client Python, the proxies' commit()
+     and the storage reads, and the share of transactions whose
+     committed attempt outlasted the 5 s MVCC window in wall time).  The
+     master's versions follow the loop's virtual clock and the cyclic
+     collector is off while the actors run, so no transaction grows too
+     old however slow the host is, and the rates and aborts are those of
+     that regime, not of a wall-clock cluster with the collector on;
+ 25. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -364,6 +394,11 @@ PATH_KERNELS["commit"] = [
 # Phase 23: the new epochs' batches after each first restart (a point
 # batch and a clear batch, each run) take the same two steps; no merge.
 PATH_KERNELS["restart"] = PATH_KERNELS["commit"]
+# Phase 24: the client's batches take the compact step (point
+# transactions) and the general step (the rounds with a get_range); a
+# merge (#3) runs where a role's delta comes due, which the drive does
+# not fix, so it is counted and not required.
+PATH_KERNELS["client"] = PATH_KERNELS["commit"]
 
 
 # ---------------------------------------------------------------- workload
@@ -4159,8 +4194,9 @@ PLANE_NS = (1, 2, 4)
 PLANE_A_READINGS = (("1", 1), ("2", 2), ("4", 4), ("1 again", 1))
 PLANE_SHARDS, PLANE_CELLS = 16, 4
 # Cut to hold phase 20 near 150 s on the card (2 + 6 and 3 + 9 took
-# 237.8 s there): batch counts, never the 100K-txn width.
-N_PLANE_A = (1, 4)              # stream A: warmup, measured batches
+# 237.8 s there): batch counts, never the 100K-txn width; stream A cut
+# again from 1 + 4 to 1 + 2 to make room for phase 24.
+N_PLANE_A = (1, 2)              # stream A: warmup, measured batches
 N_PLANE_B = (2, 5)              # stream B
 PLANE_SMALL_CAPACITY = 1 << 12
 # The small straddling stream: waves of txns, the wave after which one
@@ -5853,6 +5889,340 @@ def restart_path(smi: str) -> tuple:
     return launches, path
 
 
+# ------------------------------------------------------------ the client
+# Phase 24: the client (client/database.py Database and Transaction over
+# server/cluster.py StaticCluster on the port's EventLoop: start,
+# database, run_until) -- phase 22's cluster in FoundationDB's `double`
+# redundancy (2 TLogs over disk queues, 4 storage servers in teams of 2,
+# 2 Resolver roles on the card at CAPACITY and DELTA_CAPACITY, 2 commit
+# proxies behind their batchers, 1 GRV proxy), config 2's 1M keys with
+# 100-byte values on both replicas, the master's clock the loop's.  Two
+# of the reference's workloads (testing/workloads.py), every transaction
+# through Database and TestWorkload.run_transaction's retry loop:
+# ReadWrite's transaction shape (ReadWrite.actor.cpp: 4 uniform point
+# reads over the 1M keys, then 2 writes of fresh 100-byte values) from
+# CLIENT_RW[0] concurrent actors, CLIENT_RW[1] transactions each (the
+# first CLIENT_RW[2] rounds are warmup), every CLIENT_RANGE_EVERY-th
+# round's transaction also reading CLIENT_RANGE_KEYS consecutive keys with
+# get_range (those batches take the general step); then Cycle
+# (Cycle.actor.cpp: a ring of nodes, each transaction reading three links
+# and swapping them) over CLIENT_CYCLE[0] nodes from CLIENT_CYCLE[1]
+# actors, CLIENT_CYCLE[2] swaps each: real contention, whose retries the
+# card decides.  The master's clock is the loop's virtual time, so a
+# read version never ages past the MVCC window while the host works, and
+# the cyclic collector is off while the actors run: the aborts, retries
+# and rates are those of that regime.  over_window_wall_share counts the
+# transactions a wall-clock master could have refused as too old.
+CLIENT_RW = (8192, 8, 2)              # actors, transactions each, warmup
+CLIENT_RANGE_EVERY, CLIENT_RANGE_KEYS = 4, 10
+CLIENT_CYCLE = (10_000, 2_048, 4)     # nodes, actors, swaps each
+CLIENT_SEED = 2424
+CLIENT_PREFIX = b"cycle/"
+
+
+def record_batches(c) -> list:
+    """Wrap every commit proxy's commit() so each batch it commits is kept
+    as (proxy, previous version, version, transactions, reply codes)."""
+    records = []
+    for pid, proxy in c.plane.proxies.items():
+        def commit(batch, *args, _orig=proxy.commit, _pid=pid, **kw):
+            prev = c.master.version
+            out = _orig(batch, *args, **kw)
+            codes = []
+            for req in batch:
+                f = req.reply.get_future()
+                codes.append(2 if not f.is_error() else 1
+                             if f.error.name == "transaction_too_old" else 0)
+            records.append((_pid, prev, c.master.version,
+                            [req.transaction for req in batch],
+                            np.array(codes, np.int8)))
+            return out
+        proxy.commit = commit
+    return records
+
+
+def ring_of(rows, nodes: int) -> bool:
+    """Whether `rows` (key, next key) of the Cycle's prefix are one ring
+    through all `nodes` nodes."""
+    succ = dict(rows)
+    if len(succ) != nodes:
+        return False
+    k, seen = CLIENT_PREFIX + b"%06d" % 0, 0
+    for _ in range(nodes):
+        k = succ.get(k)
+        seen += 1
+        if k is None:
+            return False
+        if k == CLIENT_PREFIX + b"%06d" % 0:
+            break
+    return seen == nodes and k == CLIENT_PREFIX + b"%06d" % 0
+
+
+def client_run(device: str = DEVICE, keyspace: int = KEYSPACE,
+               rw_actors: int = CLIENT_RW[0], rw_txns: int = CLIENT_RW[1],
+               rw_warmup: int = CLIENT_RW[2],
+               cycle_nodes: int = CLIENT_CYCLE[0],
+               cycle_actors: int = CLIENT_CYCLE[1],
+               cycle_swaps: int = CLIENT_CYCLE[2], smi: str = "",
+               **set_kwargs) -> dict:
+    """The phase's run (see the section's comment): load, ReadWrite's
+    warmup and measured rounds, Cycle, then the checks: every
+    acknowledged ReadWrite write read back on both replicas at the last
+    version (model order: commit version, batch index, order within the
+    transaction), the ring intact on both replicas and by the workload's
+    own check, the Cycle batches replayed through a plane over the
+    oracle at the same versions giving the same codes, every commit
+    reply counted once (the proxies' TxnCommitted equal the clients'
+    commits), no supervised set degraded.  Returns the figures."""
+    import gc
+    import random
+    import shutil
+    import tempfile
+    from foundationdb_tpu_torch.core.futures import wait_all
+    from foundationdb_tpu_torch.core.knobs import server_knobs
+    from foundationdb_tpu_torch.core.scheduler import (EventLoop,
+                                                       set_event_loop)
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    from foundationdb_tpu_torch.testing.workload import TestWorkload
+    from foundationdb_tpu_torch.testing.workloads import CycleWorkload
+    rng = np.random.default_rng(CLIENT_SEED)
+    datadir = tempfile.mkdtemp(prefix="chip_smoke_client_")
+    loop = EventLoop()
+    try:
+        c = commit_cluster(datadir, keyspace, device, clock=loop.now,
+                           **set_kwargs)
+        t0 = time.perf_counter()
+        base = commit_values(rng, keyspace)
+        keys = [commit_key(i) for i in range(keyspace)]
+        c.load(keys, base)
+        load_s = time.perf_counter() - t0
+        c.start(loop)
+        db = c.database()
+        records = record_batches(c)
+        rw = TestWorkload(c, db, {})
+        # As the reference's simulator does for a run: no cyclic
+        # collection while actors run (a full one walks the 1M keys'
+        # chains, several a second at this allocation rate); the actors'
+        # cycles are collected after.
+        gc.collect()
+        gc.freeze()
+        gc.disable()
+        acked = []          # (version, batch index, order, key, value)
+        # (round, attempts, grv_s, read_s, total_s, last_s): GRV and read
+        # seconds summed over the attempts; total_s from the first
+        # attempt's GRV request to the commit reply (every attempt and
+        # on_error's backoff); last_s the committed attempt's alone.
+        txn_stats = []
+        pad = b"." * (COMMIT_VALUE_BYTES - 24)
+
+        async def rw_actor(a: int, rounds) -> None:
+            r = random.Random(CLIENT_SEED * 100_003 + a)
+            for rnd in rounds:
+                st = {"attempts": 0, "grv_s": 0.0, "read_s": 0.0}
+
+                async def fn(t, rnd=rnd, st=st):
+                    st["attempts"] += 1
+                    st["txn"] = t
+                    st["ta"] = time.perf_counter()
+                    await t.get_read_version()
+                    t1 = time.perf_counter()
+                    st["grv_s"] += t1 - st["ta"]
+                    for _ in range(4):
+                        await t.get(commit_key(r.randrange(keyspace)))
+                    if rnd % CLIENT_RANGE_EVERY == CLIENT_RANGE_EVERY - 1:
+                        lo = r.randrange(keyspace - CLIENT_RANGE_KEYS)
+                        await t.get_range(
+                            commit_key(lo),
+                            commit_key(lo + CLIENT_RANGE_KEYS))
+                    st["read_s"] += time.perf_counter() - t1
+                    st["writes"] = []
+                    for j in range(2):
+                        k = commit_key(r.randrange(keyspace))
+                        v = b"a%06dr%02dw%d" % (a, rnd, j) + pad
+                        st["writes"].append((k, v))
+                        t.set(k, v)
+                t0 = time.perf_counter()
+                await rw.run_transaction(fn)
+                t3 = time.perf_counter()
+                stamp = st["txn"]._committed_stamp
+                ver = int.from_bytes(stamp[:8], "big")
+                idx = int.from_bytes(stamp[8:], "big")
+                for j, (k, v) in enumerate(st["writes"]):
+                    acked.append((ver, idx, j, k, v))
+                txn_stats.append((rnd, st["attempts"], st["grv_s"],
+                                  st["read_s"], t3 - t0, t3 - st["ta"]))
+
+        def timings():
+            return (sum(p.batch_seconds for p in c.plane.proxies.values()),
+                    sum(ss.read_seconds for ss in c.storage),
+                    len(records))
+
+        def drive(rounds):
+            c.run_until(wait_all([loop.spawn(rw_actor(a, rounds))
+                                  for a in range(rw_actors)]))
+
+        if device == "cuda":
+            import torch
+            torch.cuda.synchronize()
+        drive(range(rw_warmup))
+        commit_s0, read_s0, batch0 = timings()
+        t1 = time.perf_counter()
+        drive(range(rw_warmup, rw_txns))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        rw_s = time.perf_counter() - t1
+        commit_s1, read_s1, batch1 = timings()
+        measured = [x for x in txn_stats if x[0] >= rw_warmup]
+        rw_batches = records[batch0:batch1]
+        range_txns = sum(1 for x in measured if x[0] %
+                             CLIENT_RANGE_EVERY == CLIENT_RANGE_EVERY - 1)
+
+        # Cycle: the reference's setup, rings of swaps, and check.
+        cyc = CycleWorkload(c, db, {"nodeCount": cycle_nodes,
+                                    "prefix": CLIENT_PREFIX.decode()})
+        c.run_until(loop.spawn(cyc.setup()))
+        first_cycle = len(records) - 1      # the setup's batch
+        swaps = [0, 0]                      # swaps, attempts
+
+        async def swapper(a: int) -> None:
+            r = random.Random(CLIENT_SEED * 7 + a)
+            for _ in range(cycle_swaps):
+                async def swap(t):
+                    swaps[1] += 1
+                    x = CLIENT_PREFIX + b"%06d" % r.randrange(cycle_nodes)
+                    b = await t.get(x)
+                    cv = await t.get(b)
+                    d = await t.get(cv)
+                    t.set(x, cv)
+                    t.set(b, d)
+                    t.set(cv, b)
+                await cyc.run_transaction(swap)
+                swaps[0] += 1
+        t2 = time.perf_counter()
+        c.run_until(wait_all([loop.spawn(swapper(a))
+                              for a in range(cycle_actors)]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t2
+        intact = c.run_until(loop.spawn(cyc.check()))
+        cycle_records = records[first_cycle:]
+
+        # Checks.
+        if not intact:
+            raise AssertionError("the Cycle ring is broken (its check)")
+        committed = sum(p.metrics.counter("TxnCommitted").value
+                        for p in c.plane.proxies.values())
+        client_commits = len(txn_stats) + swaps[0] + 1   # + the setup
+        if committed != client_commits or any(
+                p.broken for p in c.plane.proxies.values()):
+            raise AssertionError(f"the proxies committed {committed} "
+                                 f"transactions, the clients saw "
+                                 f"{client_commits}")
+        for role in c.plane.resolvers:
+            check_supervised(role.conflict_set, len(records),
+                             "TorchConflictSet", device)
+        top = c.read_version()
+        c.pull()
+        t4 = time.perf_counter()
+        model = {}
+        for _v, _i, _j, k, v in sorted(acked):
+            model[k] = v
+        ring_rows = c.get_range(CLIENT_PREFIX, CLIENT_PREFIX[:-1] + b"0",
+                                top)
+        if len(ring_rows) != 2 or not all(ring_of(rows, cycle_nodes)
+                                          for rows in ring_rows):
+            raise AssertionError("the Cycle ring is broken on a replica")
+        model.update(dict(ring_rows[0]))
+        rows = read_back(c, model, base, keys, top, "client read-back")
+        readback_s = time.perf_counter() - t4
+        oracle = ResolutionPlane(2, list(COMMIT_PROXIES),
+                                 boundaries=plane_boundaries(2),
+                                 backend="cpu",
+                                 recovery_version=cycle_records[0][1])
+        t5 = time.perf_counter()
+        for b, (pid, prev, v, txns, got) in enumerate(cycle_records):
+            want = codes_of(oracle.resolve(pid, txns, prev, v).committed)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"Cycle batch {b}: {int((got != want).sum())} of "
+                    f"{len(got)} replies differ from the oracle plane's")
+        replay_s = time.perf_counter() - t5
+        c.close()
+    finally:
+        gc.enable()
+        gc.unfreeze()
+        set_event_loop(None)
+        shutil.rmtree(datadir, ignore_errors=True)
+    gc.collect()
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) * 1e3 if len(xs) else 0.0
+
+    rw_commits = len(measured)
+    rw_attempts = sum(x[1] for x in measured)
+    sizes = [len(rec[3]) for rec in rw_batches]
+    conflicted = sum(int((rec[4] == 0).sum()) for rec in rw_batches)
+    cyc_sizes = [len(rec[3]) for rec in cycle_records]
+    cyc_conflicts = sum(int((rec[4] == 0).sum()) for rec in cycle_records)
+    commit_s = commit_s1 - commit_s0
+    read_s = read_s1 - read_s0
+    # The master runs on the loop's clock, so no read version ages past
+    # the MVCC window however long the host takes; this is the share of
+    # measured transactions whose committed attempt took longer than the
+    # window in wall time, from its GRV request to its commit reply.
+    window_s = (server_knobs().MAX_READ_TRANSACTION_LIFE_VERSIONS /
+                server_knobs().VERSIONS_PER_SECOND)
+    return {
+        "rw": {"committed": len(txn_stats),
+               "measured_committed": rw_commits,
+               "committed_txns_per_s": rw_commits / rw_s,
+               "wall_s": rw_s,
+               "p50_txn_ms": pct([x[4] for x in measured], 50),
+               "p99_txn_ms": pct([x[4] for x in measured], 99),
+               "grv_ms_per_txn": float(np.mean([x[2] for x in measured]))
+               * 1e3,
+               "read_ms_per_txn": float(np.mean([x[3] for x in measured]))
+               * 1e3,
+               "retries_per_commit": (rw_attempts - rw_commits) /
+               max(rw_commits, 1),
+               "abort_rate": conflicted / max(sum(sizes), 1),
+               "batches": len(sizes),
+               "mean_batch": float(np.mean(sizes)) if sizes else 0.0,
+               "range_read_txns": range_txns,
+               "window_s": window_s,
+               "over_window_wall_share": sum(
+                   1 for x in measured if x[5] > window_s) /
+               max(rw_commits, 1),
+               "split_s": {"commit": commit_s, "storage_reads": read_s,
+                           "client_python": rw_s - commit_s - read_s}},
+        "cycle": {"swaps": swaps[0], "attempts": swaps[1],
+                  "retries_per_commit": (swaps[1] - swaps[0]) /
+                  max(swaps[0], 1),
+                  "abort_rate": cyc_conflicts / max(sum(cyc_sizes), 1),
+                  "committed_txns_per_s": swaps[0] / cycle_s,
+                  "wall_s": cycle_s, "batches": len(cyc_sizes),
+                  "mean_batch": float(np.mean(cyc_sizes)),
+                  "replayed_batches": len(cycle_records),
+                  "oracle_replay_s": replay_s},
+        "load_s": load_s, "readback_s": readback_s, "readback_rows": rows,
+        "keyspace": keyspace, "card": smi}
+
+
+def client_path(smi: str) -> tuple:
+    """Phase 24: client_run on the card, the launches counted over the
+    whole drive (load and read-back launch nothing); the path_client
+    line."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    K.reset_counts()
+    figures = client_run(smi=smi, capacity=CAPACITY,
+                         delta_capacity=DELTA_CAPACITY)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"path_client: {json.dumps(figures)}", flush=True)
+    return launches, figures
+
+
 def main() -> int:
     try:
         import torch
@@ -5991,6 +6361,9 @@ def main() -> int:
     log("phase 23: a restart (double memory, and the B-tree at a cut)")
     launches["restart"], path_restart = restart_path(smi)
     phase_done("restart")
+    log("phase 24: the client (ReadWrite and Cycle through Database)")
+    launches["client"], path_client = client_path(smi)
+    phase_done("client")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -6026,6 +6399,7 @@ def main() -> int:
                       "path_sched": path_sched,
                       "path_commit": path_commit,
                       "path_restart": path_restart,
+                      "path_client": path_client,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

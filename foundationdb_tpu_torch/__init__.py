@@ -8,8 +8,13 @@ the same relative path:
 
   txn/       -- Version, KeyRange, Mutation, CommitTransactionRef,
                 CommitResult
-  core/      -- FdbError / err(), server knobs, BUGGIFY, trace events,
-                histograms, the hook for a caller's event loop
+  core/      -- FdbError / err(), server and client knobs, BUGGIFY, trace
+                events, histograms, futures and actors, the virtual-time
+                EventLoop and the hook for a caller's loop
+  rpc/       -- request streams delivered within the process
+  client/    -- Database and Transaction (read-your-writes, the retry
+                loop, GRV batching, replica failover)
+  testing/   -- the Cycle and ReadWrite workloads
   ops/       -- digest encode (host) + search, rank, scan and range-max
                 (device: plain-torch versions beside CUDA kernel wrappers)
   conflict/  -- EncodedBatch, the ConflictSet contract, the CPU oracle, the

@@ -1,4 +1,5 @@
-"""Server knobs the port reads (trimmed copy of foundationdb_tpu/core/knobs.py).
+"""Server and client knobs the port reads (trimmed copy of
+foundationdb_tpu/core/knobs.py).
 
 What the port's conflict path, its supervision layer, the Resolver
 role and the write path consult, with the reference's defaults: the
@@ -25,6 +26,15 @@ the port's GRV admission has no clock, and a deferred request waits one
 admission round instead.  Set them the way the reference's tests do:
 mutate the process-wide registry,
 `server_knobs().CONFLICT_PIPELINE_DEPTH = 2`, and restore it after.
+
+The event-loop roles read the commit batcher's window and byte cap
+(COMMIT_TRANSACTION_BATCH_*, server/commit_proxy.py), the GRV starter's
+interval (START_TRANSACTION_BATCH_INTERVAL_MIN, server/grv_proxy.py) and
+how long a storage server holds a read at a version its logs do not yet
+have (STORAGE_FUTURE_VERSION_TIMEOUT, server/storage.py).  ClientKnobs
+is the reference's (:448-522), for client/database.py, but for
+MAX_BATCH_SIZE and TSS_SAMPLE_RATE, which come with the code that reads
+them.
 """
 
 from __future__ import annotations
@@ -121,9 +131,58 @@ class ServerKnobs:
         self.SCHED_REPAIR_ENABLED = False
         self.TXN_REPAIR_MAX_ATTEMPTS = 1
 
+        # The commit proxy's batcher (the reference's :103, :106): a batch
+        # closes COMMIT_TRANSACTION_BATCH_INTERVAL_MIN after its first
+        # request, or at the byte cap or server/commit_proxy.py's
+        # COMMIT_TRANSACTION_BATCH_COUNT_MAX (the reference's knob
+        # default, a constant here: a versionstamp numbers a batch's
+        # transactions in 2 bytes).
+        self.COMMIT_TRANSACTION_BATCH_INTERVAL_MIN = 0.001
+        self.COMMIT_TRANSACTION_BATCH_BYTES_MAX = 8 << 20
+        # The GRV proxy's transaction starter (the reference's :355).
+        self.START_TRANSACTION_BATCH_INTERVAL_MIN = 1e-6
+        # How long a read at a version past the logs waits before
+        # future_version (the reference's :379).
+        self.STORAGE_FUTURE_VERSION_TIMEOUT = 1.0
+
+
+class ClientKnobs:
+    """Client-side knobs, with the reference's defaults."""
+
+    def __init__(self) -> None:
+        # Client-side GRV batching window (GRV_BATCH_ENABLED): must stay
+        # below the GRV round trip it amortizes.
+        self.GRV_BATCH_TIMEOUT = 0.001
+        self.DEFAULT_BACKOFF = 0.01
+        self.DEFAULT_MAX_BACKOFF = 1.0
+        self.BACKOFF_GROWTH_RATE = 2.0
+        self.TRANSACTION_SIZE_LIMIT = 1 << 24
+        self.KEY_SIZE_LIMIT = 10000
+        self.VALUE_SIZE_LIMIT = 100000
+        # Duplicate a storage read to the next replica when the preferred
+        # one hasn't answered within this delay (reference LoadBalance
+        # second-request hedging).
+        self.HEDGE_REQUEST_DELAY = 0.075
+        # Client-side GRV batching (reference readVersionBatcher in
+        # NativeAPI.actor.cpp): concurrent plain transactions of one
+        # Database share a single GetReadVersionRequest
+        # (transaction_count = N).  Off by default: one GRV per
+        # transaction.
+        self.GRV_BATCH_ENABLED = False
+        # Read-version lease (causal-read-risky, default off): a read
+        # version from a GRV reply is reused for up to this many seconds;
+        # a read-only transaction can miss writes committed inside the
+        # window (the reference's CAUSAL_READ_RISKY trade).  0 disables.
+        self.GRV_LEASE_S = 0.0
+
 
 _server = ServerKnobs()
+_client = ClientKnobs()
 
 
 def server_knobs() -> ServerKnobs:
     return _server
+
+
+def client_knobs() -> ClientKnobs:
+    return _client

@@ -1,28 +1,207 @@
-"""The event loop the port runs under, if any (no reactor of its own).
+"""The port's event loop, and the hook a caller's loop is installed by
+(the virtual-time half of foundationdb_tpu/core/scheduler.py).
 
-The reference's supervisor reads virtual time from its simulation reactor
-and its metrics actor sleeps on it (foundationdb_tpu/core/scheduler.py).
-The port has no reactor: a caller that runs the port inside one installs
-that loop here with set_event_loop.  Any object with `now()` and
-`delay(seconds)` will do; delay returns whatever the loop's actors await.
-With no loop installed, now() is monotonic wall time and delay raises.
+The reference runs all logic of a process on ONE network thread: a reactor
+with a priority-ordered ready queue plus timers (reference
+flow/Net2.actor.cpp Net2::run :1400, TaskPriority ordering), in simulation
+on virtual time (reference fdbrpc/sim2.actor.cpp).  EventLoop keeps the
+virtual-time half of it:
+
+  * single-threaded; all actors interleave only at awaits;
+  * timers in a heap keyed (time, -priority, seq) -- seq makes ordering
+    total and deterministic;
+  * time jumps to the next timer when the ready queue drains.
+
+Device work runs inline on this thread: a Resolver role's call returns
+once its batch is resolved on the card, and takes no virtual time.
+
+The hook: set_event_loop installs a loop, and now(), delay(), spawn() and
+yield_now() go to it.  Any object with `now()` and `delay(seconds)` will
+do for the supervisor's clock and its metrics actor (a caller may install
+the reference's loop); with no loop installed, now() is monotonic wall
+time and the others raise.
+
+Left out: the real-IO half (add_reader and the rest, wall-clock mode and
+run_forever), which comes with the transport; the run digest's fold of
+each dispatched task and the callback hook of the reference's slow-task
+profiler, which belong to its simulator; and PollBackoff.
 """
 
 from __future__ import annotations
 
+import heapq
+import itertools
 import time as _time
+from enum import IntEnum
+from typing import Callable, List, Optional
+
+from .error import err
+from .futures import ActorTask, Future, Promise
+
+
+class TaskPriority(IntEnum):
+    """The reference's flow/network.h TaskPriority values the port's
+    loop is handed (higher runs first)."""
+
+    DefaultDelay = 7010
+    DefaultYield = 7000
+    DefaultEndpoint = 5000
+    Low = 1
+
+
+class EventLoop:
+    """One logical process thread on virtual time; the only scheduler of
+    the port's actors."""
+
+    def __init__(self, start_time: float = 0.0) -> None:
+        self._time = start_time
+        self._heap: List = []  # (time, -priority, seq, fn)
+        # Tie-break sequence for heap entries: an itertools.count, whose
+        # __next__ is one C call (a __del__-driven broken promise may
+        # schedule from whatever thread the collector runs on).
+        self._seq_counter = itertools.count(1)
+        self._tasks: set = set()
+        self._stopped = False
+
+    # -- time ---------------------------------------------------------------
+    def now(self) -> float:
+        return self._time
+
+    # -- scheduling primitives ---------------------------------------------
+    def call_at(self, when: float, fn: Callable[[], None],
+                priority: TaskPriority = TaskPriority.DefaultDelay) -> None:
+        heapq.heappush(self._heap,
+                       (when, -int(priority), next(self._seq_counter), fn))
+
+    def call_soon(self, fn: Callable[[], None],
+                  priority: TaskPriority = TaskPriority.DefaultYield) -> None:
+        self.call_at(self.now(), fn, priority)
+
+    def delay(self, seconds: float,
+              priority: TaskPriority = TaskPriority.DefaultDelay) -> Future:
+        p: Promise = Promise()
+        self.call_at(self.now() + seconds, lambda: p.send(None), priority)
+        return p.get_future()
+
+    def yield_now(self, priority: TaskPriority = TaskPriority.DefaultYield
+                  ) -> Future:
+        return self.delay(0.0, priority)
+
+    # -- actors -------------------------------------------------------------
+    def spawn(self, coro, name: str = "") -> Future:
+        """Start an actor; returns its Future. Cancelling the Future
+        cancels it."""
+        task = ActorTask(coro, self, name)
+        self._tasks.add(task)
+        self.call_soon(task._initial_step)
+        return task.future
+
+    def _task_done(self, task: ActorTask) -> None:
+        self._tasks.discard(task)
+
+    # -- running ------------------------------------------------------------
+    def run_until(self, future: Future, timeout: Optional[float] = None
+                  ) -> object:
+        """Drive the loop until `future` resolves; returns its value or
+        raises its error.  timed_out past `timeout` seconds of virtual
+        time; internal_error when nothing is left to run and the future
+        is still pending."""
+        deadline = None if timeout is None else self.now() + timeout
+        while not future.is_ready():
+            if self._stopped:
+                break
+            if not self._step_once(deadline):
+                if future.is_ready():
+                    break
+                if deadline is not None and (
+                        not self._heap or self._heap[0][0] > deadline):
+                    raise err("timed_out",
+                              f"run_until timed out at t={self.now():.3f}")
+                # Queue drained with no timeout: a deadlock, not a timeout.
+                raise err("internal_error",
+                          f"event loop drained at t={self.now():.3f} with "
+                          "future still pending (deadlocked or orphaned "
+                          "future)")
+        self._stopped = False
+        return future.get()
+
+    def run_for(self, seconds: float) -> None:
+        """Advance virtual time by `seconds`, running what falls due."""
+        end = self.now() + seconds
+        while self._heap and self._heap[0][0] <= end:
+            self._step_once(None)
+        if self._time < end:
+            self._time = end
+
+    def _step_once(self, deadline: Optional[float]) -> bool:
+        """Run one scheduled callback; False if nothing is due before
+        `deadline`."""
+        if not self._heap:
+            return False
+        when, _negprio, _seq, fn = self._heap[0]
+        if deadline is not None and when > deadline:
+            self._time = deadline
+            return False
+        heapq.heappop(self._heap)
+        if when > self._time:
+            self._time = when
+        fn()
+        return True
+
+    def stop(self) -> None:
+        """Make the run_until in progress return at its next step (its
+        future then raises internal_error if still pending)."""
+        self._stopped = True
+
+    def drain(self, max_steps: int = 10_000_000) -> None:
+        """Run until no work remains."""
+        steps = 0
+        while self._step_once(None):
+            steps += 1
+            if steps >= max_steps:
+                raise err("internal_error",
+                          "EventLoop.drain exceeded max_steps")
+
+    def shutdown(self) -> None:
+        """Close actors that were spawned but never stepped: a discarded
+        loop can hold ActorTasks whose _initial_step never ran, and their
+        coroutine objects would warn "never awaited" at collection.
+        Started actors are left alone."""
+        for task in list(self._tasks):
+            if not task._started and not task._finished:
+                task._finished = True
+                try:
+                    task.coro.close()
+                except Exception:  # noqa: BLE001 -- teardown is best-effort
+                    pass
+        self._tasks.clear()
+
+
+# ---------------------------------------------------------------------------
+# The installed loop (the reference's g_network)
+# ---------------------------------------------------------------------------
 
 _current = None
 
 
 def set_event_loop(loop) -> None:
-    """Install `loop` (or None to remove it)."""
+    """Install `loop` (or None to remove it).  A different port EventLoop
+    being replaced is shut down (EventLoop.shutdown)."""
     global _current
-    _current = loop
+    old, _current = _current, loop
+    if isinstance(old, EventLoop) and old is not loop:
+        old.shutdown()
 
 
 def current_event_loop_or_none():
     """The installed loop, or None."""
+    return _current
+
+
+def get_event_loop():
+    if _current is None:
+        raise RuntimeError("no event loop installed (core.scheduler."
+                           "set_event_loop)")
     return _current
 
 
@@ -33,11 +212,18 @@ def now() -> float:
     return _time.monotonic()
 
 
-def delay(seconds: float):
+def delay(seconds: float, priority: TaskPriority = TaskPriority.DefaultDelay):
     """The installed loop's delay(seconds), for an actor of that loop to
-    await."""
-    if _current is None:
-        raise RuntimeError("no event loop installed (core.scheduler."
-                           "set_event_loop)")
-    return _current.delay(seconds)
+    await.  The priority goes to a port EventLoop only."""
+    loop = get_event_loop()
+    if isinstance(loop, EventLoop):
+        return loop.delay(seconds, priority)
+    return loop.delay(seconds)
 
+
+def yield_now(priority: TaskPriority = TaskPriority.DefaultYield) -> Future:
+    return get_event_loop().yield_now(priority)
+
+
+def spawn(coro, name: str = "") -> Future:
+    return get_event_loop().spawn(coro, name)

@@ -35,6 +35,25 @@ at the version its CommitID names:
       the un-popped data, the storage servers re-targeted, new roles at
       the recovery version): every acknowledged commit reads back.
 
+On the port's event loop (core/scheduler.py EventLoop), the same cluster
+serves clients (the reference's SimCluster.database() and run_until,
+:117-143):
+
+  start(loop)  install `loop` and spawn every commit proxy's batcher and
+      location service, the first GRV proxy's queue and starter (the
+      reference's SimCluster has one GRV proxy) and every storage
+      server's read servers;
+  database()  a client/database.py Database over the proxies'
+      interfaces;
+  run_until(future, timeout)  drive the loop until `future` resolves,
+      raising at once if a role's actor fails;
+  stop_role(role_id)  stop one commit proxy, the GRV proxy ("grv") or
+      one storage server (its actors cancelled, its streams answering
+      broken_promise), as a test breaks a replica.
+
+The synchronous methods above stay as they are; pass `clock=loop.now`
+so the master's versions follow the loop's time.
+
 ResolutionPlane wires N port Resolver roles, each over its own conflict
 set on one device, one CommitProxy a proxy id, the keyResolvers map as
 the reference's SimCluster builds it (cluster.py:62-74: the user
@@ -58,8 +77,7 @@ Ratekeeper.  The caller supplies the versions, as the master would:
 commit() and resolve() hand a proxy the boundary moves it has not been
 handed with its batch.
 
-Left out: the client (Database and its transactions), the location
-service, the ratekeeper's rate budgets, the coordinators (the core state
+Left out: the ratekeeper's rate budgets, the coordinators (the core state
 is a file of the data directory), region failover, backup, tenants, the
 database lock, configuration changes, log routers and the RPC transport;
 the roles answer within the call, so batches go in version-chain order.
@@ -73,6 +91,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 from ..conflict.window import resolve_device
 from ..core.error import err
+from ..core.futures import Promise, wait_any
+from ..core.scheduler import set_event_loop
 from ..txn.types import CommitTransactionRef, Version
 from .commit_proxy import (COMMIT_TRANSACTION_BATCH_COUNT_MAX, CommitProxy,
                            LogSystemClient)
@@ -370,6 +390,70 @@ class StaticCluster:
             "dropped": scan.dropped}
         return c
 
+    # -- the event loop (reference SimCluster.database, run_until) -----------
+    def start(self, loop) -> None:
+        """Install `loop` and spawn the roles' actors on it (see the
+        module's docstring); the commit proxies learn the storage
+        servers' interfaces for their location service."""
+        self.loop = loop
+        set_event_loop(loop)
+        ssis = {ss.tag: ss.interface for ss in self.storage}
+        self._roles = {}
+        for pid, proxy in self.plane.proxies.items():
+            proxy.storage_interfaces = ssis
+            self._roles[pid] = proxy
+        self._roles["grv"] = next(iter(self.plane.grv_proxies.values()))
+        for ss in self.storage:
+            self._roles[ss.id] = ss
+        self._actors = {rid: role.run(loop)
+                        for rid, role in self._roles.items()}
+        # Broken by the first role actor that ends other than by
+        # stop_role's cancellation.
+        self._failure = Promise()
+        for fs in self._actors.values():
+            for f in fs:
+                f.on_ready(self._role_ended)
+
+    def _role_ended(self, f) -> None:
+        if f.is_error() and getattr(f.error, "name", "") == \
+                "operation_cancelled":
+            return
+        if not self._failure.is_set():
+            self._failure.send_error(
+                f.error if f.is_error() else
+                err("internal_error", "a role's actor ended"))
+
+    # The proxy lists Database reads (the reference's cluster.py:131-143);
+    # a stopped proxy stays in them and answers broken_promise, as a
+    # killed process of the reference's static harness does.
+    @property
+    def grv_proxies(self):
+        return [next(iter(self.plane.grv_proxies.values())).interface]
+
+    @property
+    def commit_proxies(self):
+        return [p.interface for p in self.plane.proxies.values()]
+
+    def database(self):
+        """A Database over this cluster's proxies (start() first)."""
+        from ..client.database import Database
+        return Database(self)
+
+    def run_until(self, future, timeout: Optional[float] = None):
+        """Drive the loop until `future` resolves and return its value
+        (or raise its error); a role actor that fails first raises its
+        error.  timed_out past `timeout` seconds of the loop's time."""
+        _idx, value = self.loop.run_until(
+            wait_any([future, self._failure.get_future()]), timeout)
+        return value
+
+    def stop_role(self, role_id: str) -> None:
+        """Stop one role's actors and streams (`role_id`: a commit proxy's
+        id, "grv", or a storage server's id): requests to it answer
+        broken_promise from then on."""
+        self._actors.pop(role_id)
+        self._roles[role_id].stop()
+
     def update_storage(self) -> int:
         """Every storage server with an engine makes its pulled versions
         durable and pops the logs there (StorageServer.update_storage);
@@ -473,3 +557,4 @@ class StaticCluster:
         self.fs.close()
         self.plane = self.master = self.log_system = None
         self.tlogs = self.storage = []
+

@@ -57,13 +57,26 @@ than the shard map (backup, lock, configuration, server registry, cache
 ranges: the port's _apply_metadata is apply_key_servers_mutation on this
 proxy's map) and the disownment fence of a team that shrinks; the
 BACKUP, CACHE, TSS and region twin tags; the commit-debug spans and the
-CommitConflictDetail trace of an aborted debug_id txn; the batcher and
-the pipelining gates (of the batcher, a logged commit() keeps its count
-cap: it refuses a batch over COMMIT_TRANSACTION_BATCH_COUNT_MAX, and
-StaticCluster.commit cuts requests to it); the location
-service; the proxy's commit counters other than the sched stages'; the
+CommitConflictDetail trace of an aborted debug_id txn; the pipelining
+gates (a logged commit() runs its batch to the end within the call; it
+refuses a batch over COMMIT_TRANSACTION_BATCH_COUNT_MAX, and
+StaticCluster.commit cuts requests to it); the latency histograms; the
 core/coverage.py test_coverage calls, which belong to the simulator; and
-the RPC.
+the transport.  Its counters are the sched stages', the batcher's
+(CommitBatches, CommitBatchTxns) and the replies' (TxnCommitted,
+TxnConflicted, TxnTooOld, the reference's).
+
+On an event loop (run()), two actors serve the proxy's interface:
+_commit_batcher (the reference's :220-286 without the lock and tenant
+fences and the buggify of an early close) closes a batch
+COMMIT_TRANSACTION_BATCH_INTERVAL_MIN after its first request, or at the
+byte cap or COMMIT_TRANSACTION_BATCH_COUNT_MAX, and hands it to
+commit() and every repair batch after it, each at a version of its own
+from the master, within the actor's step; _serve_locations (:1305-1327 without the storage caches)
+answers a client's key-location request with whole shards and their
+storage interfaces.  A batch whose commit() raises marks the proxy
+broken: its unanswered requests and every later one answer
+commit_unknown_result, and the batcher's future carries the error.
 """
 
 from __future__ import annotations
@@ -76,13 +89,15 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..core.error import FdbError, err
 from ..core.histogram import CounterCollection
 from ..core.knobs import server_knobs
-from ..core.trace import TraceEvent
+from ..core.scheduler import delay, now
+from ..core.trace import Severity, TraceEvent
 from ..sched.reorder import moved_count, reorder_batch
 from ..sched.repair import RepairLadder, repair_eligible
 from ..txn.types import (CommitResult, CommitTransactionRef, KeyRange,
                          Mutation, MutationType, Version, make_versionstamp)
 from .interfaces import (RESOLVER_ALL, TXS_TAG, CommitID,
-                         CommitTransactionRequest, GetCommitVersionRequest,
+                         CommitProxyInterface, CommitTransactionRequest,
+                         GetCommitVersionRequest, GetKeyServerLocationsReply,
                          Reply, ReportRawCommittedVersionRequest,
                          ResolveTransactionBatchReply,
                          ResolveTransactionBatchRequest, Tag,
@@ -227,6 +242,15 @@ class CommitProxy:
         self.metrics = CounterCollection("CommitProxy", proxy_id)
         # Built at the first repair collection.
         self._repair_ladder: Optional[RepairLadder] = None
+        # The event-loop half (run()): the client-facing streams, the
+        # storage interfaces the location service names by tag, and the
+        # batcher's state.
+        self.interface = CommitProxyInterface(proxy_id)
+        self.storage_interfaces: Dict[Tag, Any] = {}
+        self.broken = False
+        self._actors: list = []
+        # Seconds spent in commit() by the batcher, and its batches.
+        self.batch_seconds = 0.0
 
     # -- the commit batch (reference _commit_batch_impl, :328-624) -----------
     def commit(self, batch: List[CommitTransactionRequest],
@@ -308,6 +332,95 @@ class CommitProxy:
         self.phase_seconds = phases
         return repair_reqs
 
+    # -- the batcher (reference commitBatcher :199, _commit_batcher
+    # :220-286) ---------------------------------------------------------------
+    async def _commit_batcher(self) -> None:
+        knobs = server_knobs()
+        queue = self.interface.commit.queue
+        while True:
+            first = await queue.pop()
+            if self.broken:
+                first.reply.send_error(err("commit_unknown_result"))
+                continue
+            batch = [first]
+            batch_bytes = first.transaction.expected_size()
+            deadline = now() + knobs.COMMIT_TRANSACTION_BATCH_INTERVAL_MIN
+            while (batch_bytes < knobs.COMMIT_TRANSACTION_BATCH_BYTES_MAX and
+                   len(batch) < COMMIT_TRANSACTION_BATCH_COUNT_MAX):
+                if not queue.empty():
+                    req = await queue.pop()
+                    batch.append(req)
+                    batch_bytes += req.transaction.expected_size()
+                    continue
+                remaining = deadline - now()
+                if remaining <= 0:
+                    break
+                await delay(remaining)
+            self._commit_batch(batch)
+
+    def _commit_batch(self, batch: List[CommitTransactionRequest]) -> None:
+        """One closed batch through commit(), then each repair batch it
+        returns, each at a version of its own from the master (the
+        reference spawns _commit_batch; here it runs within the
+        batcher's step).  A commit() that raises marks the proxy broken,
+        answers the unanswered requests commit_unknown_result (the
+        reference's _commit_batch) and raises on."""
+        t0 = perf_counter()
+        self.metrics.counter("CommitBatches").add(1)
+        self.metrics.counter("CommitBatchTxns").add(len(batch))
+        pending = batch
+        try:
+            while pending:
+                reqs = pending
+                pending = self.commit(reqs)
+        except BaseException as e:  # noqa: BLE001 -- must answer everyone
+            self.broken = True
+            TraceEvent("CommitProxyBatchFailed", Severity.Error).detail(
+                "Proxy", self.id).detail("Error", repr(e)).log()
+            for req in reqs:
+                if not req.reply.is_set():
+                    req.reply.send_error(err("commit_unknown_result"))
+            raise
+        finally:
+            self.batch_seconds += perf_counter() - t0
+
+    # -- key server locations (reference :1488 doKeyServerLocationRequest,
+    # _serve_locations :1305-1327) -------------------------------------------
+    async def _serve_locations(self) -> None:
+        async for req in self.interface.get_key_servers_locations.queue:
+            results = []
+            shards = list(self.key_servers.ranges())
+            if req.reverse:
+                shards.reverse()   # serve the LAST shards of the span first
+            for b, e, tags in shards:
+                # Full (unclipped) shard boundaries so the client's
+                # location cache covers whole shards, not just the span.
+                if e <= req.begin or b >= req.end:
+                    continue
+                ssis = [self.storage_interfaces[t] for t in (tags or [])
+                        if t in self.storage_interfaces]
+                results.append((KeyRange(b, e), ssis))
+                if len(results) >= req.limit:
+                    break
+            req.reply.send(GetKeyServerLocationsReply(results=results))
+
+    def run(self, loop) -> list:
+        """Spawn the batcher and the location service on `loop`; their
+        futures."""
+        self._actors = [
+            loop.spawn(self._commit_batcher(), f"{self.id}.batcher"),
+            loop.spawn(self._serve_locations(), f"{self.id}.locations")]
+        return self._actors
+
+    def stop(self) -> None:
+        """Cancel the actors (a batch being assembled is dropped: its
+        requests' replies break) and stop the streams."""
+        for a in self._actors:
+            a.cancel()
+        self._actors = []
+        for stream in self.interface.streams():
+            stream.stop()
+
     def _refuse_unloggable(self, batch: List[CommitTransactionRequest]
                            ) -> None:
         """Raise, before a version is asked for, on a batch the write
@@ -360,9 +473,11 @@ class CommitProxy:
         repaired, answered through its own reply, with the repair
         bookkeeping of requests that were themselves repairs."""
         counter = self.metrics.counter
+        answered = [0, 0, 0]    # by verdict code
         for t_idx, (req, verdict) in enumerate(zip(batch, verdicts)):
             if t_idx in repaired:
                 continue   # reply comes from the repair batch
+            answered[int(verdict)] += 1
             if verdict == CommitResult.COMMITTED:
                 if req.repair_attempt > 0:
                     # A server-side repair landed: the abort the client
@@ -391,6 +506,9 @@ class CommitProxy:
                     # SpecialKeySpace ConflictingKeysImpl).
                     e.details = conflict_ranges[t_idx]
                 req.reply.send_error(e)
+        for name, n in zip(("TxnConflicted", "TxnTooOld", "TxnCommitted"),
+                           answered):
+            counter(name).add(n)
 
     def _collect_repairs(self, batch, verdicts, conflict_ranges,
                          conflict_exact, commit_version: Version,

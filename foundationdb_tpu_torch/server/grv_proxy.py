@@ -23,11 +23,21 @@ request admitted after a deferral is re-stamped at the round's read
 version (bench.py's model of the stage, :875-905), and one admitted at
 once keeps the snapshot it came with.
 
-Left out on purpose: the request batching and the priority queues, the
-ratekeeper's tps and batch-tps budgets and their token buckets, tag
-throttles, the confirm's timeout (a TLog answers within the call or not
-at all), the core/coverage.py test_coverage call, which belongs to the
-simulator, and the RPC.
+On an event loop (run()), the request queue and the starter serve the
+proxy's interface: _queue_requests (:67) files each
+GetReadVersionRequest into its priority's queue, and
+_transaction_starter (:177) wakes on an arrival, waits
+START_TRANSACTION_BATCH_INTERVAL_MIN, releases every queued request,
+immediate first, then default, then batch, and answers them with one
+read version (_reply_batch :307), counting TxnStarted by each request's
+transaction_count.
+
+Left out on purpose: the ratekeeper's tps and batch-tps budgets and
+their token buckets (every queued request is released), tag throttles,
+the predictor's deferral at GRV (the port defers at admit()), the
+confirm's timeout (a TLog answers within the call or not at all), the
+latency histograms, the core/coverage.py test_coverage call, which
+belongs to the simulator, and the transport.
 """
 
 from __future__ import annotations
@@ -35,13 +45,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Iterable, List, Optional
 
+from ..core.futures import Promise
 from ..core.histogram import CounterCollection
 from ..core.knobs import server_knobs
+from ..core.scheduler import delay
 from ..sched.predictor import ConflictPredictor
 from ..txn.types import Version
 from .interfaces import (CommitTransactionRequest,
                          GetRawCommittedVersionRequest, GetReadVersionReply,
-                         TLogConfirmRunningRequest, ask)
+                         GetReadVersionRequest, GrvProxyInterface,
+                         TLogConfirmRunningRequest, TransactionPriority, ask)
 
 # The starvation bound (the reference's SCHED_MAX_DEFERRALS default): a
 # request is deferred at most this many rounds, then admitted.
@@ -62,6 +75,14 @@ class GrvProxy:
         self.predictor = ConflictPredictor.default()
         self._sched_deferred: List[CommitTransactionRequest] = []
         self.metrics = CounterCollection("GrvProxy", proxy_id)
+        # The event-loop half (run()): priority queues, immediate >
+        # default > batch (reference SystemTransactionQueue / DefaultQueue
+        # / BatchQueue), and the starter's wakeup.
+        self.interface = GrvProxyInterface(proxy_id)
+        self.queues: List[List[GetReadVersionRequest]] = [[], [], []]
+        self.stats = {"grvs": 0, "batches": 0}
+        self._wakeup: Optional[Promise] = None
+        self._actors: list = []
 
     def get_read_version(self) -> GetReadVersionReply:
         """A read version (reference _reply_batch :307): every TLog
@@ -73,6 +94,73 @@ class GrvProxy:
         vreply = ask(self.master.serve_live_committed,
                      GetRawCommittedVersionRequest())
         return GetReadVersionReply(version=vreply.version)
+
+    async def _queue_requests(self) -> None:
+        async for req in self.interface.get_consistent_read_version.queue:
+            pri = min(max(req.priority, TransactionPriority.BATCH),
+                      TransactionPriority.IMMEDIATE)
+            self.queues[pri].append(req)
+            if self._wakeup is not None:
+                w, self._wakeup = self._wakeup, None
+                w.send(None)
+
+    async def _transaction_starter(self) -> None:
+        interval = server_knobs().START_TRANSACTION_BATCH_INTERVAL_MIN
+        while True:
+            if not any(self.queues):
+                # Sleep until a request arrives (no virtual-time polling).
+                self._wakeup = Promise()
+                await self._wakeup.get_future()
+            await delay(interval)
+            batch = []
+            for pri in (TransactionPriority.IMMEDIATE,
+                        TransactionPriority.DEFAULT,
+                        TransactionPriority.BATCH):
+                batch += self.queues[pri]
+                self.queues[pri] = []
+            if batch:
+                self.stats["batches"] += 1
+                self._reply_batch(batch)
+
+    def _reply_batch(self, batch: List[GetReadVersionRequest]) -> None:
+        """One read version (get_read_version) for every request of the
+        batch, TxnStarted charged each request's transaction_count (a
+        client's batched request carries N)."""
+        reply = self.get_read_version()
+        n_txns = 0
+        n_batched = 0
+        for req in batch:
+            c = max(1, int(getattr(req, "transaction_count", 1) or 1))
+            n_txns += c
+            if c > 1:
+                n_batched += 1
+        self.stats["grvs"] += n_txns
+        self.metrics.counter("TxnStarted").add(n_txns)
+        if n_batched:
+            self.metrics.counter("ClientBatchedGrvRequests").add(n_batched)
+        for req in batch:
+            req.reply.send(GetReadVersionReply(version=reply.version))
+
+    def run(self, loop) -> list:
+        """Spawn the queue and the starter on `loop`; their futures."""
+        self._actors = [
+            loop.spawn(self._queue_requests(), f"{self.id}.queue"),
+            loop.spawn(self._transaction_starter(), f"{self.id}.starter")]
+        return self._actors
+
+    def stop(self) -> None:
+        """Cancel the actors, break the queued requests' replies and stop
+        the stream."""
+        for a in self._actors:
+            a.cancel()
+        self._actors = []
+        for q in self.queues:
+            for req in q:
+                if not req.reply.is_set():
+                    req.reply.break_promise()
+            q.clear()
+        for stream in self.interface.streams():
+            stream.stop()
 
     def admit(self, requests: Iterable[CommitTransactionRequest],
               read_version: Version) -> List[CommitTransactionRequest]:

@@ -5,13 +5,19 @@ fdbserver/MasterInterface.h, fdbserver/TLogInterface.h and
 fdbclient/StorageServerInterface.h).
 
 The Resolver role's and the commit proxy's dataclasses, the master's
-version messages, the GRV reply, the TLog's commit, peek, pop and lock, the
-storage server's point and range reads, the tags (Tag, TXS_TAG),
-RESOLVER_ALL and a reply that keeps its value: transport (request
-streams, task priorities, the interfaces that bundle them) belongs to
-whoever hosts the role.  `reply` is any object
-with send(value) (and, for a commit, send_error(error)); the role
+version messages, the GRV request and reply with the transaction
+priorities, the key-location request, the TLog's commit, peek, pop and
+lock, the storage server's point and range reads, the tags (Tag,
+TXS_TAG), RESOLVER_ALL and a reply that keeps its value.  `reply` is any
+object with send(value) (and, for a commit, send_error(error)); the role
 answers each request through it.
+
+The client-facing interfaces bundle a role's request streams
+(rpc/endpoint.py RequestStream): a commit proxy's `commit` and
+`get_key_servers_locations`, a GRV proxy's `get_consistent_read_version`
+and a storage server's `get_value` and `get_key_values`; the role's
+actors read them when it runs on an event loop.  The other roles are
+called within the call and have none.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..rpc.endpoint import RequestStream
 from ..txn.types import (CommitResult, CommitTransactionRef, KeyRange,
                          Mutation, Version)
 
@@ -207,9 +214,87 @@ class GetRawCommittedVersionReply:
     version: Version
 
 
+class TransactionPriority:
+    """GRV priorities (reference TransactionPriority, GrvProxyServer
+    queues)."""
+
+    BATCH = 0
+    DEFAULT = 1
+    IMMEDIATE = 2
+
+
+@dataclass
+class GetReadVersionRequest:
+    """A client's read-version request (foundationdb_tpu/server/
+    interfaces.py:382); `transaction_count` transactions share it."""
+
+    priority: int = TransactionPriority.DEFAULT
+    transaction_count: int = 1
+    debug_id: str = ""
+    # Throttling tags and tenant identity: carried, enforced by nothing
+    # in the port (no tag throttles, no predictor at GRV).
+    tags: tuple = ()
+    tenant_id: int = -1
+    reply: Any = None
+
+
 @dataclass
 class GetReadVersionReply:
     version: Version
+    locked: bool = False
+    # tag -> tps ceiling currently enforced (none in the port).
+    tag_throttles: Any = None
+
+
+@dataclass
+class GetKeyServerLocationsRequest:
+    """The shards over [begin, end) with their teams, at most `limit`,
+    the last ones first when `reverse` (foundationdb_tpu/server/
+    interfaces.py:349)."""
+
+    begin: bytes
+    end: bytes
+    limit: int = 100
+    reverse: bool = False
+    reply: Any = None
+
+
+@dataclass
+class GetKeyServerLocationsReply:
+    # [(range, [storage interfaces])]: shard boundaries with their teams.
+    results: List[Tuple[KeyRange, List[Any]]]
+
+
+class CommitProxyInterface:
+    def __init__(self, proxy_id: str = "") -> None:
+        self.id = proxy_id
+        self.commit = RequestStream("proxy.commit")
+        self.get_key_servers_locations = RequestStream(
+            "proxy.getKeyServersLocations")
+
+    def streams(self) -> List[RequestStream]:
+        return [self.commit, self.get_key_servers_locations]
+
+
+class GrvProxyInterface:
+    def __init__(self, proxy_id: str = "") -> None:
+        self.id = proxy_id
+        self.get_consistent_read_version = RequestStream(
+            "grvproxy.getConsistentReadVersion")
+
+    def streams(self) -> List[RequestStream]:
+        return [self.get_consistent_read_version]
+
+
+class StorageServerInterface:
+    def __init__(self, ss_id: str = "", tag: "Tag" = 0) -> None:
+        self.id = ss_id
+        self.tag = tag
+        self.get_value = RequestStream("storage.getValue")
+        self.get_key_values = RequestStream("storage.getKeyValues")
+
+    def streams(self) -> List[RequestStream]:
+        return [self.get_value, self.get_key_values]
 
 
 # -- TLog (reference fdbserver/TLogInterface.h) ------------------------------

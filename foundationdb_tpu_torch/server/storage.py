@@ -31,6 +31,14 @@ transaction_too_old below the window; the point and range reads; and
 load(), which fills the map at the recovery version and images the
 engine there.
 
+On an event loop (run()), one actor a stream serves the interface's
+get_value and get_key_values with the handlers above (the reference's
+serve loops), each read after a pull to the version durable on every
+log (the reference's update loop keeps pulling as the logs move); a read at a version past what the logs hold is tried again
+once after STORAGE_FUTURE_VERSION_TIMEOUT of the loop's time, then
+answers future_version (the reference waits on its version for at most
+that long).
+
 Left out: the update-storage loop's delay, buggify and engine
 migration, watches, fetch and disown of shards and the shard
 availability map, read heat and tag sampling, the shard metrics cache,
@@ -46,12 +54,14 @@ from typing import Dict, List, Optional, Tuple
 
 from ..core.error import FdbError, err
 from ..core.knobs import server_knobs
+from ..core.scheduler import delay
 from ..core.trace import Severity, TraceEvent
 from ..core.wire import Reader, Writer
 from ..txn.atomic import apply_atomic
 from ..txn.types import ATOMIC_OPS, Mutation, MutationType, Version
 from .interfaces import (GetKeyValuesReply, GetKeyValuesRequest,
-                         GetValueReply, GetValueRequest, Tag)
+                         GetValueReply, GetValueRequest,
+                         StorageServerInterface, Tag)
 
 
 class VersionedMap:
@@ -235,6 +245,11 @@ class StorageServer:
         self.log_epoch = 0
         # Seconds of the last update_storage()'s engine commit.
         self.last_engine_commit_s = 0.0
+        # The event-loop half (run()), and the seconds its reads took.
+        self.interface = StorageServerInterface(ss_id, tag)
+        self._actors: list = []
+        self._parked: set = set()     # reads waiting for their version
+        self.read_seconds = 0.0
 
     @classmethod
     def from_engine(cls, engine) -> Optional["StorageServer"]:
@@ -456,3 +471,54 @@ class StorageServer:
         req.reply.send(GetKeyValuesReply(data=data, more=more,
                                          version=req.version))
 
+    # -- the serve loops (event loop) ----------------------------------------
+    async def _serve(self, stream, handler) -> None:
+        async for req in stream.queue:
+            t0 = perf_counter()
+            # The reference's update loop pulls as the logs move; here a
+            # read first pulls to what every log holds, so the MVCC
+            # window (and its too-old floor) follows the log as there.
+            self._reaches(self.log_system.durable_version())
+            if req.version > self.version and not self._reaches(
+                    req.version):
+                self._park(req, handler)
+            else:
+                handler(req)
+            self.read_seconds += perf_counter() - t0
+
+    def _reaches(self, version: Version) -> bool:
+        """Pull until `version` is applied or the logs have nothing
+        newer; whether it was reached."""
+        while version > self.version and self.pull_step():
+            pass
+        return version <= self.version
+
+    def _park(self, req, handler) -> None:
+        async def later():
+            await delay(float(server_knobs().STORAGE_FUTURE_VERSION_TIMEOUT))
+            handler(req)
+        task = self._loop.spawn(later(), f"{self.id}.parked")
+        self._parked.add(task)
+        task.on_ready(lambda _f: self._parked.discard(task))
+
+    def run(self, loop) -> list:
+        """Spawn the get_value and get_key_values servers on `loop`;
+        their futures."""
+        self._loop = loop
+        self._actors = [
+            loop.spawn(self._serve(self.interface.get_value,
+                                   self.get_value), f"{self.id}.getValue"),
+            loop.spawn(self._serve(self.interface.get_key_values,
+                                   self.get_key_values),
+                       f"{self.id}.getKeyValues")]
+        return list(self._actors)
+
+    def stop(self) -> None:
+        """Cancel the actors and the parked reads (whose replies break)
+        and stop the streams."""
+        for a in self._actors + list(self._parked):
+            a.cancel()
+        self._actors = []
+        self._parked = set()
+        for stream in self.interface.streams():
+            stream.stop()

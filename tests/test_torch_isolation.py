@@ -17,6 +17,7 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.core.knobs", "foundationdb_tpu_torch.core.error",
     "foundationdb_tpu_torch.core.rng", "foundationdb_tpu_torch.core.buggify",
     "foundationdb_tpu_torch.core.scheduler",
+    "foundationdb_tpu_torch.core.futures",
     "foundationdb_tpu_torch.core.trace",
     "foundationdb_tpu_torch.core.histogram",
     "foundationdb_tpu_torch.conflict.api",
@@ -54,6 +55,12 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.sched", "foundationdb_tpu_torch.sched.predictor",
     "foundationdb_tpu_torch.sched.reorder",
     "foundationdb_tpu_torch.sched.repair", "foundationdb_tpu_torch.entry",
+    "foundationdb_tpu_torch.rpc", "foundationdb_tpu_torch.rpc.endpoint",
+    "foundationdb_tpu_torch.client", "foundationdb_tpu_torch.client.database",
+    "foundationdb_tpu_torch.client.writemap",
+    "foundationdb_tpu_torch.testing",
+    "foundationdb_tpu_torch.testing.workload",
+    "foundationdb_tpu_torch.testing.workloads",
     "chip_smoke", "scripts.torch_kernel_ab"]
 
 
@@ -67,8 +74,10 @@ def test_port_imports_no_jax():
     with every scheduling stage on and feeding its predictors, a static
     cluster committing a batch with an atomic, a versionstamp and a
     shard split through its master, TLogs on disk and storage servers and
-    reading it back, and both entry points on the CPU (so the lazy
-    imports have run), loads no jax and no foundationdb_tpu module."""
+    reading it back, then serving a client's transactions and a small
+    Cycle through database() on the port's event loop, and both entry
+    points on the CPU (so the lazy imports have run), loads no jax and
+    no foundationdb_tpu module."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}:\n"
@@ -167,6 +176,25 @@ def test_port_imports_no_jax():
         "c.pull()\n"
         "assert c.get(b'a', v) == [b'2', b'2'], c.get(b'a', v)\n"
         "assert len(c.get_range(b'v', b'w', v)[1]) == 1\n"
+        "from foundationdb_tpu_torch.core.scheduler import EventLoop\n"
+        "from foundationdb_tpu_torch.testing import CycleWorkload\n"
+        "loop = EventLoop()\n"
+        "c.start(loop)\n"
+        "db = c.database()\n"
+        "async def txn():\n"
+        "    t = db.create_transaction()\n"
+        "    t.set(b'c', await t.get(b'a'))\n"
+        "    t.set_versionstamped_value(b'd', bytes(10), 0)\n"
+        "    await t.commit()\n"
+        "    t2 = db.create_transaction()\n"
+        "    return await t2.get_range(b'a', b'd', reverse=True)\n"
+        "got = c.run_until(loop.spawn(txn()))\n"
+        "assert [k for k, _ in got] == [b'c', b'b', b'a'], got\n"
+        "w = CycleWorkload(c, db, {'nodeCount': 8, 'actorCount': 2, "
+        "'testDuration': 0.005})\n"
+        "c.run_until(loop.spawn(w.setup()))\n"
+        "c.run_until(loop.spawn(w.start()))\n"
+        "assert c.run_until(loop.spawn(w.check())) and w.metrics['swaps']\n"
         "c.close()\n"
         "from foundationdb_tpu_torch.entry import entry, dryrun_multichip\n"
         "fn, args = entry('cpu')\n"

@@ -2122,3 +2122,24 @@ def test_restart_small_case(dev):
         assert figures["restarts"] == 2 and figures["mb_spilled"] > 0
         assert launches["compact_prep"] > 0
         assert launches["interval_fixpoint"] > 0
+
+
+def test_client_small_case(dev):
+    """chip_smoke.py's phase 24 at a small size with the resolvers' sets
+    on the card: ReadWrite and Cycle through StaticCluster.database() on
+    the port's event loop, every acknowledged write read back on both
+    replicas, the ring intact, the Cycle batches equal to an oracle
+    plane's, the compact and general steps launched."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    K.reset_counts()
+    figures = chip_smoke.client_run(
+        device=dev.type, keyspace=20_000, rw_actors=256, rw_txns=4,
+        cycle_nodes=500, cycle_actors=64, cycle_swaps=2,
+        capacity=1 << 14, delta_capacity=1 << 13)
+    assert figures["cycle"]["swaps"] == 128
+    assert K.LAUNCHES["compact_prep"] > 0
+    assert K.LAUNCHES["interval_fixpoint"] > 0
