@@ -8,7 +8,9 @@ factory's default route) over them, then the Resolver role over that
 the resolution plane (N roles behind the commit proxies' clip and
 min-merge, with resolution balancing) and the scheduling plane around it
 (predictor admission, reorder, repair), the write path behind it, its
-restart from a data directory, and the client in front of it all:
+restart from a data directory, the client in front of it all with every
+role in a simulated process of its own on the port's SimNetwork, faults
+on that network, and the Resolver in another OS process over TCP:
 
   point    TorchConflictSet.resolve_encoded_async -> _pack_compact -> the
            compact step, the delta table, the merge, at the bench's config
@@ -256,11 +258,12 @@ exits non-zero):
      replicas) on the port's EventLoop, every transaction through
      StaticCluster.database() and TestWorkload.run_transaction's retry
      loop: ReadWrite's shape (4 uniform point reads, 2 writes of fresh
-     100-byte values) from 8,192 concurrent actors, 8 transactions each
-     (2 warmup rounds), every 4th round's transactions also reading 10
-     consecutive keys with get_range (the general step; the rest the
-     compact step); then Cycle over 10,000 nodes from 2,048 actors, 4
-     swaps each.  Every acknowledged ReadWrite write read back on both
+     100-byte values) from 8,192 concurrent actors, 4 transactions each
+     (1 warmup round; 8 and 2 before the twenty-second slice), every
+     4th round's transactions also reading 10 consecutive keys with
+     get_range (the general step; the rest the compact step); then
+     Cycle over 10,000 nodes from 2,048 actors, 3 swaps each (4
+     before).  Every acknowledged ReadWrite write read back on both
      replicas at the last version against a dict model ordered by
      (commit version, batch index, order within the transaction), the
      Cycle ring intact on both replicas and by the workload's check, the
@@ -277,8 +280,34 @@ exits non-zero):
      master's versions follow the loop's virtual clock and the cyclic
      collector is off while the actors run, so no transaction grows too
      old however slow the host is, and the rates and aborts are those of
-     that regime, not of a wall-clock cluster with the collector on;
- 25. the JSON lines (programs and paths; kernels with launches per path,
+     that regime, not of a wall-clock cluster with the collector on.
+     Since the twenty-second slice every role runs in a simulated
+     process of its own on the port's SimNetwork (StaticCluster.start):
+     the proxies' batches reach the master, the resolvers and the TLogs
+     as messages with the network's latency;
+ 25. (new in the twenty-second slice) faults on the simulated network:
+     phase 24's cluster, ReadWrite from 2,048 actors, 8 transactions
+     each (2 warmup rounds); while the measured rounds run, storage
+     server ss1's process is killed and resolver0's process clogged for
+     2 virtual seconds.  Every acknowledged write read back from every
+     surviving replica of its team, reads failed over, one reply a
+     commit (one stamp a commit, the proxies' count the clients'),
+     commits sent during the clog answered after it; the path_sim line
+     (committed/s, p50 and p99, failovers, broken_promise replies,
+     messages sent, commits held by the clog);
+ 26. (new in the twenty-second slice) the Resolver over TCP: a child
+     interpreter (this file, RESOLVER_CHILD_ARG) serves the port's
+     Resolver role on the card on a RealNetwork at 127.0.0.1 and writes
+     its interface, serde-encoded, to a file; this process, on a
+     real-mode EventLoop and a RealNetwork of its own, sends phase 19's
+     13 requests down the version chain as columnar frames and holds
+     every reply to phase 19's in-process role's bit for bit, reads the
+     child's launch counts over the network, then kills it: the next
+     request fails with a transport error within 10 s and the failure
+     monitor marks the role failed; the path_wire line (frame MB,
+     encode and decode ms, p50 and p99 round trip beside phase 19's
+     p50 delivery to reply);
+ 27. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -297,6 +326,8 @@ import subprocess
 import sys
 import time
 from collections import deque
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 
@@ -399,6 +430,13 @@ PATH_KERNELS["restart"] = PATH_KERNELS["commit"]
 # merge (#3) runs where a role's delta comes due, which the drive does
 # not fix, so it is counted and not required.
 PATH_KERNELS["client"] = PATH_KERNELS["commit"]
+# Phase 25: the client's drive with a storage process killed and a
+# resolver's process clogged takes the same two steps.
+PATH_KERNELS["sim"] = PATH_KERNELS["client"]
+# Phase 26: the Resolver role in another OS process, over TCP, on phase
+# 19's requests: the point path (13 batches cross a merge), counted in
+# that process and read back over the network.
+PATH_KERNELS["wire"] = PATH_KERNELS["point"]
 
 
 # ---------------------------------------------------------------- workload
@@ -4145,7 +4183,21 @@ def resolver_path(smi: str, batches, txns, want_codes):
     torch.cuda.empty_cache()
     path["parity"] = role_parity(smi)
     torch.cuda.empty_cache()
-    return launches, path
+    # Phase 26 sends the same requests over TCP and holds the remote
+    # role's replies to this in-process role's.
+    in_process = [reply_of_role(replies[i]) for i in range(len(reqs))]
+    return launches, path, (reqs, in_process)
+
+
+def reply_of_role(reply) -> tuple:
+    """A resolve reply as (codes, state broadcast, conflicting ranges,
+    exactness), every field plain, for bit-for-bit comparison."""
+    return (np.asarray([int(c) for c in reply.committed], np.int8),
+            [(v, p, s, [(int(m.type), m.param1, m.param2) for m in muts],
+              int(c)) for v, p, s, muts, c in reply.state_transactions],
+            {k: [tuple(r) for r in v]
+             for k, v in reply.conflicting_ranges.items()},
+            dict(reply.attribution_exact))
 
 
 def entry_points(smi: str) -> dict:
@@ -5913,32 +5965,52 @@ def restart_path(smi: str) -> tuple:
 # the cyclic collector is off while the actors run: the aborts, retries
 # and rates are those of that regime.  over_window_wall_share counts the
 # transactions a wall-clock master could have refused as too old.
-CLIENT_RW = (8192, 8, 2)              # actors, transactions each, warmup
+# Cut in the twenty-second slice from 8 transactions each (2 warmup) and
+# 4 swaps: on the network the batches are smaller and more (a batch
+# closes 1 ms after its first commit, and the commits now arrive spread
+# by the network's latency), and the phase took 203.7 s of a run whose
+# phases took 1,092.8 s of the 1,200 s limit.
+CLIENT_RW = (8192, 4, 1)              # actors, transactions each, warmup
 CLIENT_RANGE_EVERY, CLIENT_RANGE_KEYS = 4, 10
-CLIENT_CYCLE = (10_000, 2_048, 4)     # nodes, actors, swaps each
+CLIENT_CYCLE = (10_000, 2_048, 3)     # nodes, actors, swaps each
 CLIENT_SEED = 2424
 CLIENT_PREFIX = b"cycle/"
 
 
 def record_batches(c) -> list:
-    """Wrap every commit proxy's commit() so each batch it commits is kept
-    as (proxy, previous version, version, transactions, reply codes)."""
+    """Wrap every commit proxy's commit_async() (the batcher's path) so
+    each batch it commits is kept as (proxy, previous version, version,
+    transactions, verdict codes), in the order the batches finish."""
     records = []
     for pid, proxy in c.plane.proxies.items():
-        def commit(batch, *args, _orig=proxy.commit, _pid=pid, **kw):
-            prev = c.master.version
-            out = _orig(batch, *args, **kw)
-            codes = []
-            for req in batch:
-                f = req.reply.get_future()
-                codes.append(2 if not f.is_error() else 1
-                             if f.error.name == "transaction_too_old" else 0)
-            records.append((_pid, prev, c.master.version,
-                            [req.transaction for req in batch],
-                            np.array(codes, np.int8)))
+        async def commit_async(batch, _orig=proxy.commit_async, _pid=pid,
+                               _proxy=proxy):
+            txns = [req.transaction for req in batch]
+            out = await _orig(batch)
+            prev, v = _proxy.last_versions
+            records.append((_pid, prev, v, txns,
+                            np.array([int(x) for x in _proxy.last_verdicts],
+                                     np.int8)))
             return out
-        proxy.commit = commit
+        proxy.commit_async = commit_async
     return records
+
+
+def time_roles(c) -> list:
+    """Time every Resolver role's resolve_batch and every TLog's commit
+    (before start(), which hands them to the roles' actors); the seconds
+    summed in the one-element list returned."""
+    spent = [0.0]
+    for role, name in ([(r, "resolve_batch") for r in c.plane.resolvers] +
+                       [(t, "commit") for t in c.tlogs]):
+        def timed(*args, _fn=getattr(role, name), **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        setattr(role, name, timed)
+    return spent
 
 
 def ring_of(rows, nodes: int) -> bool:
@@ -5996,6 +6068,7 @@ def client_run(device: str = DEVICE, keyspace: int = KEYSPACE,
         keys = [commit_key(i) for i in range(keyspace)]
         c.load(keys, base)
         load_s = time.perf_counter() - t0
+        role_s = time_roles(c)
         c.start(loop)
         db = c.database()
         records = record_batches(c)
@@ -6053,7 +6126,11 @@ def client_run(device: str = DEVICE, keyspace: int = KEYSPACE,
                                   st["read_s"], t3 - t0, t3 - st["ta"]))
 
         def timings():
-            return (sum(p.batch_seconds for p in c.plane.proxies.values()),
+            # The commit pipeline's own host time: the proxies' batches
+            # less their waits on the other roles, the resolvers' and the
+            # TLogs' calls.
+            return (sum(p.batch_seconds - p.wait_seconds
+                        for p in c.plane.proxies.values()) + role_s[0],
                     sum(ss.read_seconds for ss in c.storage),
                     len(records))
 
@@ -6105,7 +6182,9 @@ def client_run(device: str = DEVICE, keyspace: int = KEYSPACE,
             torch.cuda.synchronize()
         cycle_s = time.perf_counter() - t2
         intact = c.run_until(loop.spawn(cyc.check()))
-        cycle_records = records[first_cycle:]
+        # In version-chain order: the proxies' batches cross on the
+        # network, so they are recorded as they finish.
+        cycle_records = sorted(records[first_cycle:], key=lambda r: r[2])
 
         # Checks.
         if not intact:
@@ -6222,6 +6301,486 @@ def client_path(smi: str) -> tuple:
     print(f"path_client: {json.dumps(figures)}", flush=True)
     return launches, figures
 
+
+# ------------------------------------------- faults on the simulated network
+# Phase 25: phase 24's cluster (FoundationDB's `double` redundancy, 2
+# Resolver roles on the card at CAPACITY and DELTA_CAPACITY, the 1M keys
+# with 100-byte values on both replicas), every role in a simulated
+# process of its own on the port's SimNetwork (StaticCluster.start), and
+# ReadWrite's transaction shape as in phase 24 (CLIENT_RW's, every
+# CLIENT_RANGE_EVERY-th round with a get_range) from SIM_RW[0] actors,
+# SIM_RW[1] transactions each (the first SIM_RW[2] rounds warmup).  While
+# the measured rounds run, the storage process SIM_KILLED is killed once
+# SIM_FAULTS_AT[0] of the measured transactions have committed, and the
+# process of the Resolver role SIM_CLOGGED is clogged for SIM_CLOG_S
+# virtual seconds once SIM_FAULTS_AT[1] have.  Reads of the dead replica
+# fail over to the other replica of its team; every commit waits for
+# the clogged resolver.  The checks: every acknowledged write read back
+# from every surviving replica of its team, reads failed over, every
+# commit answered once (one stamp a commit, the proxies' count equal to
+# the clients'), commits sent during the clog completed after it.
+SIM_RW = (2048, 8, 2)                 # actors, transactions each, warmup
+SIM_SEED = 2525
+SIM_KILLED = "ss1"
+SIM_CLOGGED = "resolver0"
+SIM_CLOG_S = 2.0
+SIM_FAULTS_AT = (0.25, 0.5)           # shares of the measured commits
+
+
+def live_read_back(c, model: dict, version: int, dead) -> int:
+    """Every key of `model` read from each replica of its team whose
+    process was not killed (`dead`: storage ids), against the model;
+    returns the reads.  Every key must keep a live replica."""
+    from foundationdb_tpu_torch.server.interfaces import (GetValueRequest,
+                                                          ask)
+    n = 0
+    for k, want in model.items():
+        live = [ss for ss in c.team(k) if ss.id not in dead]
+        if not live:
+            raise AssertionError(f"{k!r} has no live replica")
+        for ss in live:
+            got = ask(ss.get_value, GetValueRequest(k, version)).value
+            if got != want:
+                raise AssertionError(f"fault read-back: {ss.id} has {k!r} "
+                                     f"= {got!r} at {version}, the model "
+                                     f"{want!r}")
+            n += 1
+    return n
+
+
+def count_broken(net) -> dict:
+    """Wrap `net`'s send_request so every reply that is broken_promise is
+    counted, and those of storage reads (each one a read the client
+    moves to the next replica of the team) apart."""
+    counts = {"broken_promise": 0, "read_failovers": 0}
+    orig = net.send_request
+
+    def send_request(ep, request, *args, **kwargs):
+        f = orig(ep, request, *args, **kwargs)
+
+        def seen(f, stream=ep.token.split(":", 1)[0]):
+            if f.is_error() and getattr(f.error, "name", "") == \
+                    "broken_promise":
+                counts["broken_promise"] += 1
+                if stream.startswith("storage.get"):
+                    counts["read_failovers"] += 1
+        f.on_ready(seen)
+        return f
+    net.send_request = send_request
+    return counts
+
+
+def sim_run(device: str = DEVICE, keyspace: int = KEYSPACE,
+            rw_actors: int = SIM_RW[0], rw_txns: int = SIM_RW[1],
+            rw_warmup: int = SIM_RW[2], clog_s: float = SIM_CLOG_S,
+            smi: str = "", **set_kwargs) -> dict:
+    """The phase's run (see the section's comment); returns the figures."""
+    import gc
+    import random
+    import shutil
+    import tempfile
+    from foundationdb_tpu_torch.core.futures import wait_all
+    from foundationdb_tpu_torch.core.scheduler import (EventLoop, delay,
+                                                       set_event_loop)
+    from foundationdb_tpu_torch.testing.workload import TestWorkload
+    rng = np.random.default_rng(SIM_SEED)
+    datadir = tempfile.mkdtemp(prefix="chip_smoke_sim_")
+    loop = EventLoop()
+    try:
+        c = commit_cluster(datadir, keyspace, device, clock=loop.now,
+                           **set_kwargs)
+        base = commit_values(rng, keyspace)
+        c.load([commit_key(i) for i in range(keyspace)], base)
+        c.start(loop)
+        net = c.sim.network
+        broken = count_broken(net)
+        db = c.database()
+        records = record_batches(c)
+        rw = TestWorkload(c, db, {})
+        gc.collect()
+        gc.freeze()
+        gc.disable()
+        acked = []          # (version, batch index, order, key, value)
+        # (round, attempts, wall s, virtual time the committed attempt's
+        # commit was sent, virtual time its reply came)
+        stats = []
+        events = {}
+        pad = b"." * (COMMIT_VALUE_BYTES - 24)
+        n_measured = rw_actors * (rw_txns - rw_warmup)
+
+        async def rw_actor(a: int, rounds) -> None:
+            r = random.Random(SIM_SEED * 100_003 + a)
+            for rnd in rounds:
+                st = {"attempts": 0}
+
+                async def fn(t, rnd=rnd, st=st):
+                    st["attempts"] += 1
+                    st["txn"] = t
+                    await t.get_read_version()
+                    for _ in range(4):
+                        await t.get(commit_key(r.randrange(keyspace)))
+                    if rnd % CLIENT_RANGE_EVERY == CLIENT_RANGE_EVERY - 1:
+                        lo = r.randrange(keyspace - CLIENT_RANGE_KEYS)
+                        await t.get_range(
+                            commit_key(lo),
+                            commit_key(lo + CLIENT_RANGE_KEYS))
+                    st["writes"] = []
+                    for j in range(2):
+                        k = commit_key(r.randrange(keyspace))
+                        v = b"s%06dr%02dw%d" % (a, rnd, j) + pad
+                        st["writes"].append((k, v))
+                        t.set(k, v)
+                    st["sent"] = loop.now()
+                t0 = time.perf_counter()
+                await rw.run_transaction(fn)
+                wall = time.perf_counter() - t0
+                stamp = st["txn"]._committed_stamp
+                ver = int.from_bytes(stamp[:8], "big")
+                idx = int.from_bytes(stamp[8:], "big")
+                for j, (k, v) in enumerate(st["writes"]):
+                    acked.append((ver, idx, j, k, v))
+                stats.append((rnd, st["attempts"], wall, st["sent"],
+                              loop.now()))
+
+        def measured_done() -> int:
+            return sum(1 for x in stats if x[0] >= rw_warmup)
+
+        async def nemesis() -> None:
+            while measured_done() < SIM_FAULTS_AT[0] * n_measured:
+                await delay(0.001)
+            events["kill"] = loop.now()
+            c.kill_process(SIM_KILLED)
+            while measured_done() < SIM_FAULTS_AT[1] * n_measured:
+                await delay(0.001)
+            events["clog"] = loop.now()
+            c.clog_process(SIM_CLOGGED, clog_s)
+
+        if device == "cuda":
+            import torch
+            torch.cuda.synchronize()
+        c.run_until(wait_all([loop.spawn(rw_actor(a, range(rw_warmup)))
+                              for a in range(rw_actors)]))
+        sent0, batch0, v0 = net.messages_sent, len(records), loop.now()
+        t1 = time.perf_counter()
+        c.run_until(wait_all(
+            [loop.spawn(rw_actor(a, range(rw_warmup, rw_txns)))
+             for a in range(rw_actors)] + [loop.spawn(nemesis())]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        rw_s = time.perf_counter() - t1
+        virtual_s = loop.now() - v0
+        sent = net.messages_sent - sent0
+
+        # Checks.
+        committed = sum(p.metrics.counter("TxnCommitted").value
+                        for p in c.plane.proxies.values())
+        stamps = {(ver, idx) for ver, idx, _j, _k, _v in acked}
+        if committed != len(stats) or len(stamps) != len(stats) or any(
+                p.broken for p in c.plane.proxies.values()):
+            raise AssertionError(f"the proxies committed {committed} "
+                                 f"transactions under {len(stamps)} stamps, "
+                                 f"the clients saw {len(stats)}")
+        if broken["read_failovers"] <= 0:
+            raise AssertionError("no read failed over to a live replica")
+        clog_end = events["clog"] + clog_s
+        waited = [x for x in stats
+                  if events["clog"] <= x[3] < clog_end]
+        if not waited or any(x[4] < clog_end for x in waited):
+            raise AssertionError(f"{len(waited)} commits sent during the "
+                                 "clog, some answered before it ended")
+        for role in c.plane.resolvers:
+            check_supervised(role.conflict_set, len(records),
+                             "TorchConflictSet", device)
+        top = c.read_version()
+        c.pull()
+        model = {}
+        for _v, _i, _j, k, v in sorted(acked):
+            model[k] = v
+        t2 = time.perf_counter()
+        reads = live_read_back(c, model, top, {SIM_KILLED})
+        readback_s = time.perf_counter() - t2
+        c.close()
+    finally:
+        gc.enable()
+        gc.unfreeze()
+        set_event_loop(None)
+        shutil.rmtree(datadir, ignore_errors=True)
+    gc.collect()
+    measured = [x for x in stats if x[0] >= rw_warmup]
+    sizes = [len(rec[3]) for rec in records[batch0:]]
+    return {
+        "committed": len(stats), "measured_committed": len(measured),
+        "committed_txns_per_s": len(measured) / rw_s, "wall_s": rw_s,
+        "virtual_s": virtual_s,
+        "p50_txn_ms": float(np.percentile([x[2] for x in measured], 50))
+        * 1e3,
+        "p99_txn_ms": float(np.percentile([x[2] for x in measured], 99))
+        * 1e3,
+        "retries_per_commit": sum(x[1] - 1 for x in measured) /
+        max(len(measured), 1),
+        "read_failovers": broken["read_failovers"],
+        "broken_promise_replies": broken["broken_promise"],
+        "messages_sent": sent, "killed": SIM_KILLED,
+        "kill_at_virtual_s": events["kill"] - v0, "clogged": SIM_CLOGGED,
+        "clog_at_virtual_s": events["clog"] - v0, "clog_s": clog_s,
+        "commits_waiting_on_clog": len(waited),
+        "batches": len(sizes), "mean_batch": float(np.mean(sizes)),
+        "readback_reads": reads, "readback_s": readback_s, "card": smi}
+
+
+def sim_path(smi: str) -> tuple:
+    """Phase 25: sim_run on the card, the launches counted over the whole
+    drive; the path_sim line."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    K.reset_counts()
+    figures = sim_run(smi=smi, capacity=CAPACITY,
+                      delta_capacity=DELTA_CAPACITY)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"path_sim: {json.dumps(figures)}", flush=True)
+    return launches, figures
+
+
+# ------------------------------------------------- the Resolver over TCP
+# Phase 26: the port's Resolver role (backend "torch" on the card,
+# MAX_WRITE_TRANSACTION_LIFE_VERSIONS = WINDOW, as in phase 19) on a
+# RealProcess of a RealNetwork at 127.0.0.1 in another OS process (this
+# file behind RESOLVER_CHILD_ARG: harness code, not an entry point of
+# the port), its interface written serde-encoded to a file the parent
+# names.  The parent, on a real-mode EventLoop and a RealNetwork of its
+# own, sends phase 19's requests (role_requests, N_ROLE batches of
+# 100,000 txns) down the version chain, one at a time, as columnar wire
+# frames (RPC_COLUMNAR_ENABLED in both processes), and holds every reply
+# (codes, state broadcast, conflicting ranges, exactness) to phase 19's
+# in-process role's on the same requests, bit for bit.  The far side's
+# launch counts come back over the network.  Then the child is killed:
+# the next request must fail with a transport error within WIRE_FAIL_S
+# of wall time, and the failure monitor (a waitFailure request held on
+# the role) must mark its endpoint failed.
+RESOLVER_CHILD_ARG = "--resolver-child"
+WIRE_START_S = 300.0
+WIRE_FAIL_S = 10.0
+
+
+@dataclass
+class LaunchCountsRequest:
+    """The harness's request for the far side's kernel launch counts."""
+
+    reply: Any = None
+
+
+def wire_register() -> None:
+    from foundationdb_tpu_torch.rpc import serde
+    serde.bootstrap_registry()
+    if serde._REGISTRY.get("LaunchCountsRequest") is None:
+        serde.register(LaunchCountsRequest)
+
+
+def resolver_child(iface_file: str, device: str = DEVICE,
+                   capacity: int = CAPACITY,
+                   delta_capacity: int = DELTA_CAPACITY) -> int:
+    """Phase 26's far side: serve a Resolver role over TCP until killed
+    (or until the parent goes away).  Prints nothing."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.core.scheduler import (EventLoop, delay,
+                                                       set_event_loop)
+    from foundationdb_tpu_torch.rpc import serde
+    from foundationdb_tpu_torch.rpc.endpoint import RequestStream
+    from foundationdb_tpu_torch.rpc.network import set_network
+    from foundationdb_tpu_torch.rpc.real_network import (RealNetwork,
+                                                         RealProcess)
+    from foundationdb_tpu_torch.server import Resolver
+    parent = os.getppid()
+    loop = EventLoop(sim=False)
+    set_event_loop(loop)
+    net = RealNetwork(loop, "127.0.0.1", 0)
+    set_network(net)
+    wire_register()
+    proc = RealProcess(loop, net, name="resolver0")
+    port_knobs(MAX_WRITE_TRANSACTION_LIFE_VERSIONS=WINDOW,
+               RPC_COLUMNAR_ENABLED=True).__enter__()
+    role = Resolver("r0", 0, backend="torch", proxy_ids=list(PROXIES),
+                    capacity=capacity, delta_capacity=delta_capacity,
+                    device=device)
+    role.run(proc)
+    counts = RequestStream("harness.launchCounts")
+    proc.register(counts)
+
+    async def serve_counts() -> None:
+        async for req in counts.queue:
+            if device == "cuda":
+                import torch
+                torch.cuda.synchronize()
+            req.reply.send(dict(K.LAUNCHES))
+
+    async def watch_parent() -> None:
+        while os.getppid() == parent:
+            await delay(1.0)
+        os._exit(0)
+
+    proc.spawn(serve_counts())
+    proc.spawn(watch_parent())
+    with open(iface_file + ".part", "wb") as f:
+        f.write(serde.encode_message((role.interface, counts)))
+    os.replace(iface_file + ".part", iface_file)
+    K.reset_counts()
+    loop.run_forever()
+    return 0
+
+
+def wire_path(smi: str, reqs, in_process, phase19_p50_ms: float = 0.0,
+              device: str = DEVICE, capacity: int = CAPACITY,
+              delta_capacity: int = DELTA_CAPACITY) -> tuple:
+    """Phase 26 (see the section's comment): the launches counted on the
+    far side, and the figures; prints the path_wire line."""
+    import shutil
+    import tempfile
+    from foundationdb_tpu_torch.core.scheduler import (EventLoop,
+                                                       set_event_loop)
+    from foundationdb_tpu_torch.core.error import FdbError
+    from foundationdb_tpu_torch.rpc import serde
+    from foundationdb_tpu_torch.rpc.endpoint import (TRANSPORT_ERRORS,
+                                                     RequestStream)
+    from foundationdb_tpu_torch.rpc.failure_monitor import FailureMonitor
+    from foundationdb_tpu_torch.rpc.network import set_network
+    from foundationdb_tpu_torch.rpc.real_network import RealNetwork
+    from foundationdb_tpu_torch.server import ResolveTransactionBatchRequest
+    from foundationdb_tpu_torch.server.failure import wait_failure_of
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wire_")
+    iface_file = os.path.join(tmp, "resolver.iface")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), RESOLVER_CHILD_ARG,
+         iface_file, device, str(capacity), str(delta_capacity)],
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    loop = EventLoop(sim=False)
+    net = None
+    try:
+        set_event_loop(loop)
+        net = RealNetwork(loop, "127.0.0.1", 0)
+        set_network(net)
+        wire_register()
+        with port_knobs(RPC_COLUMNAR_ENABLED=True):
+            t0 = time.perf_counter()
+            while not os.path.exists(iface_file):
+                if child.poll() is not None:
+                    raise AssertionError(f"the resolver process exited "
+                                         f"with {child.returncode}")
+                if time.perf_counter() - t0 > WIRE_START_S:
+                    raise AssertionError("the resolver process did not "
+                                         "start")
+                time.sleep(0.1)
+            start_s = time.perf_counter() - t0
+            with open(iface_file, "rb") as f:
+                iface, counts_stream = serde.decode_message(f.read())
+            ep = iface.resolve.endpoint
+            peer = net.peer_metrics.peer(str(ep.address))
+            fm = FailureMonitor()
+
+            async def watch() -> None:
+                # A waitFailure request held open on the role breaks when
+                # its process dies (server/failure.py).
+                await wait_failure_of(iface)
+                fm.set_status(ep, True)
+            watcher = loop.spawn(watch())
+
+            def request(r):
+                return ResolveTransactionBatchRequest(
+                    r["prev"], r["version"], r["lrv"], r["txns"],
+                    txn_state_transactions=r["state"], proxy_id=r["proxy"])
+
+            send_s, rtt_s, req_mb, rep_mb, got = [], [], [], [], []
+            rep_enc, rep_dec = [], []
+            for i, r in enumerate(reqs):
+                b0, r0 = peer.bytes_sent, peer.bytes_received
+                t1 = time.perf_counter()
+                f = RequestStream.at(ep).get_reply(request(r))
+                t2 = time.perf_counter()
+                reply = loop.run_until(f, timeout=600.0)
+                t3 = time.perf_counter()
+                send_s.append(t2 - t1)
+                rtt_s.append(t3 - t1)
+                req_mb.append((peer.bytes_sent - b0) / 1e6)
+                rep_mb.append((peer.bytes_received - r0) / 1e6)
+                t4 = time.perf_counter()
+                frame = serde.encode_message(reply)
+                t5 = time.perf_counter()
+                serde.decode_message(frame)
+                rep_enc.append(t5 - t4)
+                rep_dec.append(time.perf_counter() - t5)
+                got.append(reply_of_role(reply))
+            for i, (a, b) in enumerate(zip(got, in_process)):
+                if not np.array_equal(a[0], b[0]) or a[1:] != b[1:]:
+                    raise AssertionError(f"request {i}: the reply over TCP "
+                                         f"differs from the in-process "
+                                         f"role's")
+            # One request's frame encoded and decoded alone, in this
+            # process (the send above encodes inside get_reply).
+            one = request(reqs[min(N_WARMUP, len(reqs) - 1)])
+            t4 = time.perf_counter()
+            frame = serde.encode_message(one)
+            t5 = time.perf_counter()
+            serde.decode_message(frame)
+            req_dec = time.perf_counter() - t5
+            req_enc = t5 - t4
+            launches = loop.run_until(
+                RequestStream.at(counts_stream.endpoint).get_reply(
+                    LaunchCountsRequest()), timeout=60.0)
+            # The kill: the next request fails with a transport error,
+            # and the failure monitor marks the role failed.
+            child.kill()
+            child.wait()
+            t6 = time.perf_counter()
+            last = reqs[-1]["version"]
+            f = RequestStream.at(ep).get_reply(
+                ResolveTransactionBatchRequest(last, last + 1, last, [],
+                                               proxy_id=PROXIES[0]))
+            try:
+                loop.run_until(f, timeout=WIRE_FAIL_S)
+                raise AssertionError("a request to the killed resolver "
+                                     "was answered")
+            except FdbError as e:
+                if e.name not in TRANSPORT_ERRORS:
+                    raise
+                fail_name, fail_s = e.name, time.perf_counter() - t6
+            loop.run_until(watcher, timeout=WIRE_FAIL_S)
+            marked_s = time.perf_counter() - t6
+            if not fm.is_failed(ep) or fail_s > WIRE_FAIL_S:
+                raise AssertionError("the failure monitor did not mark "
+                                     "the killed resolver failed")
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        if net is not None:
+            net.close()
+        set_network(None)
+        set_event_loop(None)
+        loop.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    measured = slice(N_WARMUP, None) if len(reqs) > N_WARMUP else slice(0, None)
+
+    def p(xs, q):
+        return float(np.percentile(xs[measured], q)) * 1e3
+
+    figures = {
+        "requests": len(reqs), "txns_per_request": len(reqs[0]["txns"]),
+        "format": "columnar", "child_start_s": start_s,
+        "request_frame_mb": float(np.median(req_mb)),
+        "reply_frame_mb": float(np.median(rep_mb)),
+        "request_encode_ms": req_enc * 1e3,
+        "request_decode_ms": req_dec * 1e3,
+        "send_call_p50_ms": p(send_s, 50),
+        "reply_encode_p50_ms": p(rep_enc, 50),
+        "reply_decode_p50_ms": p(rep_dec, 50),
+        "p50_round_trip_ms": p(rtt_s, 50), "p99_round_trip_ms": p(rtt_s, 99),
+        "phase19_p50_request_ms": phase19_p50_ms,
+        "killed_request_error": fail_name, "killed_request_fail_s": fail_s,
+        "failure_monitor_marked_s": marked_s, "card": smi}
+    print(f"path_wire: {json.dumps(figures)}", flush=True)
+    return launches, figures
 
 def main() -> int:
     try:
@@ -6344,7 +6903,7 @@ def main() -> int:
     launches["auto"] = auto_backend(smi)
     phase_done("auto")
     log("phase 19: the Resolver role (config 2) and the entry points")
-    launches["resolver"], path_resolver = resolver_path(
+    launches["resolver"], path_resolver, role_run = resolver_path(
         smi, batches2, txns2, codes2)
     del batches2, txns2, codes2
     launches["entry"] = entry_points(smi)
@@ -6364,6 +6923,15 @@ def main() -> int:
     log("phase 24: the client (ReadWrite and Cycle through Database)")
     launches["client"], path_client = client_path(smi)
     phase_done("client")
+    log("phase 25: faults on the simulated network (ReadWrite, a storage "
+        "process killed, a resolver's process clogged)")
+    launches["sim"], path_sim = sim_path(smi)
+    phase_done("simulated network faults")
+    log("phase 26: the Resolver over TCP in another OS process")
+    launches["wire"], path_wire = wire_path(
+        smi, *role_run, phase19_p50_ms=path_resolver["p50_request_ms"])
+    del role_run
+    phase_done("resolver over TCP")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -6400,6 +6968,7 @@ def main() -> int:
                       "path_commit": path_commit,
                       "path_restart": path_restart,
                       "path_client": path_client,
+                      "path_sim": path_sim, "path_wire": path_wire,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
@@ -6410,4 +6979,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == RESOLVER_CHILD_ARG:
+        sys.exit(resolver_child(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                                int(sys.argv[5])))
     sys.exit(main())

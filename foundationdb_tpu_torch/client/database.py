@@ -117,8 +117,10 @@ class Database:
 
     @staticmethod
     def _replica_key(ssi):
-        ep = getattr(getattr(ssi, "get_value", None), "endpoint", None)
-        return id(ep) if ep is not None else id(ssi)
+        # The replica's read stream (one object an interface, whether its
+        # endpoint is an address on the network or the stream itself).
+        stream = getattr(ssi, "get_value", None)
+        return id(stream) if stream is not None else id(ssi)
 
     def _order_replicas(self, ssis):
         self._rr += 1
@@ -308,7 +310,7 @@ class Database:
         exact), fan the reply out to every waiter."""
         from ..core.scheduler import delay
         await delay(float(client_knobs().GRV_BATCH_TIMEOUT))
-        waiters, self._grv_batch = self._grv_batch or [], None
+        waiters, self._grv_batch = self._grv_batch or [], None  # flowlint: state -- owns the drained batch (swap pattern)
         self.grv_stats["requests"] += 1
         try:
             proxy = self._grv_proxy()
@@ -827,7 +829,7 @@ class Transaction:
 
     # -- commit (reference tryCommit :5018) ----------------------------------
     async def commit(self) -> Version:
-        wcr = self.writes.write_conflict_ranges() + self._extra_write_ranges
+        wcr = self.writes.write_conflict_ranges() + self._extra_write_ranges  # flowlint: state -- commit resolves the entry-time write set
         if not self.writes.mutations and not wcr:
             # Read-only: nothing to resolve (reference returns immediately).
             self.committed_version = -1
@@ -841,7 +843,7 @@ class Transaction:
         read_snapshot = 0
         if self.read_conflict_ranges:
             read_snapshot = await self._ensure_read_version()
-        txn = CommitTransactionRef(
+        txn = CommitTransactionRef(  # flowlint: state -- one txn snapshot per commit attempt
             read_conflict_ranges=[KeyRange(b, e) for b, e in
                                   _coalesce(self.read_conflict_ranges)],
             write_conflict_ranges=[KeyRange(b, e) for b, e in
@@ -856,7 +858,7 @@ class Transaction:
         await self.db._await_ready()
         proxy = self.db._commit_proxy()
         from ..core.futures import wait_any
-        f = RequestStream.at(proxy.commit.endpoint).get_reply(
+        f = RequestStream.at(proxy.commit.endpoint).get_reply(  # flowlint: state -- the in-flight commit future
             CommitTransactionRequest(transaction=txn,
                                      debug_id=self.debug_id,
                                      repair_eligible=self.repairable))

@@ -1,6 +1,5 @@
 """Futures, promises, streams and actor coroutines (a copy of
-foundationdb_tpu/core/futures.py without the simulated process an actor
-runs on).
+foundationdb_tpu/core/futures.py).
 
 The reference builds everything on Flow's single-assignment Future/Promise
 pairs and an actor compiler turning `ACTOR` functions into state machines
@@ -16,9 +15,11 @@ in core/scheduler.py.  Semantics kept from the reference:
     (mirrors actor cancellation on Future destruction);
   * streams: PromiseStream/FutureStream with end_of_stream.
 
-Left out: the simulated process an ActorTask runs on (the reference's
-network reads it as a request's source address; the port delivers
-locally), and quorum and map_future, which nothing of the port calls.
+An ActorTask carries the simulated process it runs on (set by
+SimProcess.spawn, inherited by the actors it spawns): the SimNetwork
+reads it as the source address of the requests the actor sends.
+
+Left out: quorum and map_future, which nothing of the port calls.
 """
 
 from __future__ import annotations
@@ -317,7 +318,7 @@ class ActorTask:
     """Drives one actor coroutine on the event loop (our ACTOR equivalent)."""
 
     __slots__ = ("coro", "future", "_loop", "_cancelled", "_waiting_on",
-                 "_resume_cb", "name", "_finished", "_started")
+                 "_resume_cb", "name", "_finished", "_started", "process")
 
     def __init__(self, coro, loop, name: str = "") -> None:
         assert inspect.iscoroutine(coro), f"spawn() needs a coroutine, got {coro!r}"
@@ -331,6 +332,11 @@ class ActorTask:
         self._waiting_on: Optional[Future] = None
         self._resume_cb: Optional[Callable] = None
         self.name = name or getattr(coro, "__name__", "actor")
+        # The simulated process this actor runs on (set by
+        # SimProcess.spawn; inherited by the actors it spawns): the sim
+        # network's source address.  None for harness and client actors.
+        self.process = current_task().process \
+            if current_task() is not None else None
 
     def _initial_step(self) -> None:
         if self._cancelled or self._finished:
@@ -351,7 +357,9 @@ class ActorTask:
         if self._finished:
             return
         self._waiting_on = None
-        # Ambient actor context while the coroutine body runs.
+        # Ambient actor context while the coroutine body runs: spawned
+        # actors inherit this task's process, and the sim network reads it
+        # as the source address of outgoing requests.
         prev_task, _current_task = _current_task, self
         try:
             try:

@@ -31,7 +31,11 @@ The event-loop roles read the commit batcher's window and byte cap
 (COMMIT_TRANSACTION_BATCH_*, server/commit_proxy.py), the GRV starter's
 interval (START_TRANSACTION_BATCH_INTERVAL_MIN, server/grv_proxy.py) and
 how long a storage server holds a read at a version its logs do not yet
-have (STORAGE_FUTURE_VERSION_TIMEOUT, server/storage.py).  ClientKnobs
+have (STORAGE_FUTURE_VERSION_TIMEOUT, server/storage.py).  The transport
+reads PEER_HEALTH_ENABLED, the switch of its per-peer samples
+(rpc/network.py, rpc/real_network.py, rpc/transport.py), and
+RPC_COLUMNAR_ENABLED, whether the hot messages are encoded as columnar
+frames (rpc/serde.py).  ClientKnobs
 is the reference's (:448-522), for client/database.py, but for
 MAX_BATCH_SIZE and TSS_SAMPLE_RATE, which come with the code that reads
 them.
@@ -144,6 +148,12 @@ class ServerKnobs:
         # How long a read at a version past the logs waits before
         # future_version (the reference's :379).
         self.STORAGE_FUTURE_VERSION_TIMEOUT = 1.0
+
+        # The transport (the reference's :127 and :283): per-peer health
+        # samples on every send, and the columnar frames of the hot
+        # messages (decoding reads either format whatever this says).
+        self.PEER_HEALTH_ENABLED = True
+        self.RPC_COLUMNAR_ENABLED = False
 
 
 class ClientKnobs:

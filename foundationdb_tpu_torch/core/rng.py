@@ -1,8 +1,10 @@
 """Deterministic randomness (trimmed copy of foundationdb_tpu/core/rng.py).
 
-Only what core/buggify.py draws from: a seeded generator and the
-process-wide instance.  The port's generator is its own, so the port's
-buggify draws never touch another package's random state.
+What core/buggify.py and the simulated network draw from: a seeded
+generator (the same draws as the reference's for the same seed) and the
+process-wide instance, which a simulation seeds with
+set_deterministic_random.  The port's generator is its own, so the
+port's draws never touch another package's random state.
 """
 
 from __future__ import annotations
@@ -19,8 +21,20 @@ class DeterministicRandom:
     def random01(self) -> float:
         return self._r.random()
 
+    def random_int(self, lo: int, hi: int) -> int:
+        """Uniform integer in [lo, hi) (reference randomInt semantics)."""
+        return self._r.randrange(lo, hi)
+
+    def random_unique_id(self) -> str:
+        return f"{self._r.getrandbits(64):016x}{self._r.getrandbits(64):016x}"
+
 
 _det: Optional[DeterministicRandom] = None
+
+
+def set_deterministic_random(rng: DeterministicRandom) -> None:
+    global _det
+    _det = rng
 
 
 def deterministic_random() -> DeterministicRandom:

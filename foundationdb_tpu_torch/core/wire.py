@@ -7,9 +7,9 @@ byte strings, producing a byte-order-stable format shared by the transport
 and every durable file (DiskQueue payloads, coordinated state).  This module
 is the Python analog: an explicit Writer/Reader pair (no reflection, no
 pickling), which the port uses for the TLog's commit records
-(server/tlog.py) and the shard map's team values (server/system_data.py).
-The reference's longest_common_prefix_len serves its columnar RPC frames
-and B-tree pages, which the port does not have, and is left out.
+(server/tlog.py), the shard map's team values (server/system_data.py)
+and the RPC frames (rpc/serde.py), whose columnar key streams take
+longest_common_prefix_len.
 """
 
 from __future__ import annotations
@@ -90,3 +90,22 @@ class Reader:
 
     def at_end(self) -> bool:
         return self._o >= len(self._d)
+
+
+def longest_common_prefix_len(a: bytes, b: bytes) -> int:
+    """Length of the longest common prefix, by binary search over slice
+    compares (no per-byte Python loop); the columnar frames'
+    prefix-truncated key streams (rpc/serde.py)."""
+    n = min(len(a), len(b))
+    if n == 0 or a[:1] != b[:1]:
+        return 0
+    if a[:n] == b[:n]:
+        return n
+    lo, hi = 1, n - 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if a[:mid] == b[:mid]:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo

@@ -36,23 +36,29 @@ at the version its CommitID names:
       the recovery version): every acknowledged commit reads back.
 
 On the port's event loop (core/scheduler.py EventLoop), the same cluster
-serves clients (the reference's SimCluster.database() and run_until,
-:117-143):
+serves clients with every role in a simulated process of its own on the
+port's SimNetwork (rpc/sim.py, rpc/network.py: the reference's
+SimCluster, :100-143):
 
-  start(loop)  install `loop` and spawn every commit proxy's batcher and
-      location service, the first GRV proxy's queue and starter (the
-      reference's SimCluster has one GRV proxy) and every storage
-      server's read servers;
+  start(loop)  install `loop` and a Simulator and start each role on a
+      process of its own: the master, the TLogs, the Resolver roles,
+      the storage servers, the commit proxies (their batchers send the
+      master's, the resolvers' and the TLogs' requests over the
+      network) and the first GRV proxy (the reference's SimCluster has
+      one GRV proxy);
   database()  a client/database.py Database over the proxies'
       interfaces;
   run_until(future, timeout)  drive the loop until `future` resolves,
       raising at once if a role's actor fails;
-  stop_role(role_id)  stop one commit proxy, the GRV proxy ("grv") or
-      one storage server (its actors cancelled, its streams answering
-      broken_promise), as a test breaks a replica.
+  kill_process(role_id) (also stop_role)  kill one role's process: its
+      actors cancelled, its endpoints dropped, every request to it and
+      every reply it owed answering broken_promise;
+  clog_process(role_id, seconds)  hold its process's traffic.
 
-The synchronous methods above stay as they are; pass `clock=loop.now`
-so the master's versions follow the loop's time.
+The synchronous methods above stay as they are (every role answers
+within the call; a started cluster's storage servers still pull from
+the TLog roles within the call); pass `clock=loop.now` so the master's
+versions follow the loop's time.
 
 ResolutionPlane wires N port Resolver roles, each over its own conflict
 set on one device, one CommitProxy a proxy id, the keyResolvers map as
@@ -79,8 +85,9 @@ handed with its batch.
 
 Left out: the ratekeeper's rate budgets, the coordinators (the core state
 is a file of the data directory), region failover, backup, tenants, the
-database lock, configuration changes, log routers and the RPC transport;
-the roles answer within the call, so batches go in version-chain order.
+database lock, configuration changes and log routers; outside a started
+cluster the roles answer within the call, so batches go in
+version-chain order.
 """
 
 from __future__ import annotations
@@ -390,28 +397,42 @@ class StaticCluster:
             "dropped": scan.dropped}
         return c
 
-    # -- the event loop (reference SimCluster.database, run_until) -----------
+    # -- the simulated processes (reference SimCluster :100-143) ---------------
     def start(self, loop) -> None:
-        """Install `loop` and spawn the roles' actors on it (see the
-        module's docstring); the commit proxies learn the storage
-        servers' interfaces for their location service."""
+        """Install `loop` and a Simulator (rpc/sim.py, whose SimNetwork
+        becomes the installed network), and start every role in a
+        simulated process of its own, each a kill target (the reference's
+        SimCluster :100-111): the master ("master"), each TLog, Resolver
+        role and storage server (by id), each commit proxy (by proxy id)
+        and the first GRV proxy ("grv").  Each role registers its streams
+        on its process and spawns its actors there; the commit proxies
+        learn the storage servers' interfaces for their location
+        service."""
+        from ..rpc.sim import Simulator, set_simulator
         self.loop = loop
         set_event_loop(loop)
+        self.sim = Simulator()
+        set_simulator(self.sim)
         ssis = {ss.tag: ss.interface for ss in self.storage}
-        self._roles = {}
+        roles = {"master": self.master}
+        for t in self.tlogs:
+            roles[t.id] = t
+        for r in self.plane.resolvers:
+            roles[r.id] = r
+        for ss in self.storage:
+            roles[ss.id] = ss
         for pid, proxy in self.plane.proxies.items():
             proxy.storage_interfaces = ssis
-            self._roles[pid] = proxy
-        self._roles["grv"] = next(iter(self.plane.grv_proxies.values()))
-        for ss in self.storage:
-            self._roles[ss.id] = ss
-        self._actors = {rid: role.run(loop)
-                        for rid, role in self._roles.items()}
-        # Broken by the first role actor that ends other than by
-        # stop_role's cancellation.
+            roles[pid] = proxy
+        roles["grv"] = next(iter(self.plane.grv_proxies.values()))
+        self.processes = {}
+        # Broken by the first role actor that ends other than by a kill's
+        # cancellation.
         self._failure = Promise()
-        for fs in self._actors.values():
-            for f in fs:
+        for name, role in roles.items():
+            proc = self.sim.new_process(name=name)
+            self.processes[name] = proc
+            for f in role.run(proc):
                 f.on_ready(self._role_ended)
 
     def _role_ended(self, f) -> None:
@@ -424,7 +445,7 @@ class StaticCluster:
                 err("internal_error", "a role's actor ended"))
 
     # The proxy lists Database reads (the reference's cluster.py:131-143);
-    # a stopped proxy stays in them and answers broken_promise, as a
+    # a killed proxy stays in them and answers broken_promise, as a
     # killed process of the reference's static harness does.
     @property
     def grv_proxies(self):
@@ -447,12 +468,21 @@ class StaticCluster:
             wait_any([future, self._failure.get_future()]), timeout)
         return value
 
-    def stop_role(self, role_id: str) -> None:
-        """Stop one role's actors and streams (`role_id`: a commit proxy's
-        id, "grv", or a storage server's id): requests to it answer
-        broken_promise from then on."""
-        self._actors.pop(role_id)
-        self._roles[role_id].stop()
+    def kill_process(self, role_id: str) -> None:
+        """Kill the process of one role (`role_id`: "master", a TLog's,
+        Resolver role's or storage server's id, a commit proxy's id, or
+        "grv"; the reference's processes map): its actors are cancelled
+        and its endpoints dropped, so requests to it and every reply it
+        still owed answer broken_promise."""
+        self.sim.kill_process(self.processes[role_id])
+
+    stop_role = kill_process
+
+    def clog_process(self, role_id: str, seconds: float) -> None:
+        """Hold every message to and from one role's process for
+        `seconds` of the loop's time (the reference's clogInterface):
+        delivery resumes, in order, when the clog ends."""
+        self.sim.clog_process(self.processes[role_id], seconds)
 
     def update_storage(self) -> int:
         """Every storage server with an engine makes its pulled versions

@@ -42,9 +42,9 @@ With every SCHED_* knob off, commit()'s verdicts are resolve()'s.
 Method for method the reference's, with these changes of form: the
 requests the resolution stage takes are the transactions themselves (the
 reference's CommitTransactionRequests carry each one as .transaction);
-every role answers within the call, so a proxy hands its batches over in
-version-chain order and the repair batch is the caller's next call rather
-than a spawned actor; of the reference's two request builders and two
+in commit() every role answers within the call, so a proxy hands its
+batches over in version-chain order and the repair batch is the caller's
+next call rather than a spawned actor; of the reference's two request builders and two
 mutation assignments, which give the same requests and messages, only
 the vectorised ones are kept (the builder clips inline, so _clip_ranges
 has no copy here); and phase timings are kept in `phase_seconds` rather
@@ -58,25 +58,28 @@ ranges: the port's _apply_metadata is apply_key_servers_mutation on this
 proxy's map) and the disownment fence of a team that shrinks; the
 BACKUP, CACHE, TSS and region twin tags; the commit-debug spans and the
 CommitConflictDetail trace of an aborted debug_id txn; the pipelining
-gates (a logged commit() runs its batch to the end within the call; it
-refuses a batch over COMMIT_TRANSACTION_BATCH_COUNT_MAX, and
-StaticCluster.commit cuts requests to it); the latency histograms; the
-core/coverage.py test_coverage calls, which belong to the simulator; and
-the transport.  Its counters are the sched stages', the batcher's
+gates (a logged commit() runs its batch to the end within the call, the
+batcher waits for one batch before it closes the next; both refuse a
+batch over COMMIT_TRANSACTION_BATCH_COUNT_MAX, and StaticCluster.commit
+cuts requests to it); the latency histograms; and the core/coverage.py
+test_coverage calls, which belong to the simulator.  Its counters are the sched stages', the batcher's
 (CommitBatches, CommitBatchTxns) and the replies' (TxnCommitted,
 TxnConflicted, TxnTooOld, the reference's).
 
-On an event loop (run()), two actors serve the proxy's interface:
-_commit_batcher (the reference's :220-286 without the lock and tenant
-fences and the buggify of an early close) closes a batch
-COMMIT_TRANSACTION_BATCH_INTERVAL_MIN after its first request, or at the
-byte cap or COMMIT_TRANSACTION_BATCH_COUNT_MAX, and hands it to
-commit() and every repair batch after it, each at a version of its own
-from the master, within the actor's step; _serve_locations (:1305-1327 without the storage caches)
+On a simulated or real process (run(process)), two actors serve the
+proxy's interface, beside its waitFailure holder: _commit_batcher (the
+reference's :220-286 without the lock and tenant fences and the buggify
+of an early close) closes a batch COMMIT_TRANSACTION_BATCH_INTERVAL_MIN
+after its first request, or at the byte cap or
+COMMIT_TRANSACTION_BATCH_COUNT_MAX, and hands it to commit_async() and
+every repair batch after it, each at a version of its own from the
+master: commit()'s body (one coroutine, _commit) with the master's, the
+resolvers' and the TLogs' requests sent to their interfaces over the
+network; _serve_locations (:1305-1327 without the storage caches)
 answers a client's key-location request with whole shards and their
-storage interfaces.  A batch whose commit() raises marks the proxy
-broken: its unanswered requests and every later one answer
-commit_unknown_result, and the batcher's future carries the error.
+storage interfaces.  A batch that fails marks the proxy broken: its
+unanswered requests and every later one answer commit_unknown_result,
+and the batcher's future carries the error.
 """
 
 from __future__ import annotations
@@ -87,10 +90,12 @@ from time import perf_counter
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..core.error import FdbError, err
+from ..core.futures import Future, wait_all
 from ..core.histogram import CounterCollection
 from ..core.knobs import server_knobs
 from ..core.scheduler import delay, now
 from ..core.trace import Severity, TraceEvent
+from ..rpc.endpoint import RequestStream
 from ..sched.reorder import moved_count, reorder_batch
 from ..sched.repair import RepairLadder, repair_eligible
 from ..txn.types import (CommitResult, CommitTransactionRef, KeyRange,
@@ -102,7 +107,8 @@ from .interfaces import (RESOLVER_ALL, TXS_TAG, CommitID,
                          ResolveTransactionBatchReply,
                          ResolveTransactionBatchRequest, Tag,
                          TLogCommitRequest, TLogPeekRequest, TLogPopRequest,
-                         ask)
+                         ask, call, run_within_call)
+from .failure import hold_wait_failure
 from .shardmap import RangeMap
 from .system_data import SYSTEM_KEYS_BEGIN, apply_key_servers_mutation
 
@@ -130,6 +136,21 @@ class LogSystemClient:
         n = len(self.tlogs)
         return [(tag + j) % n for j in range(self.replication)]
 
+    def _requests(self, prev_version: Version, version: Version,
+                  known_committed_version: Version,
+                  messages: Dict[Tag, List[Mutation]]
+                  ) -> List[TLogCommitRequest]:
+        """Each TLog's request at `version`: its tags' messages."""
+        per_log: List[Dict[Tag, List[Mutation]]] = [
+            {} for _ in self.tlogs]
+        for tag, msgs in messages.items():
+            for i in self.team_for_tag(tag):
+                per_log[i][tag] = msgs
+        return [TLogCommitRequest(
+                    prev_version=prev_version, version=version,
+                    known_committed_version=known_committed_version,
+                    messages=msgs) for msgs in per_log]
+
     def push(self, prev_version: Version, version: Version,
              known_committed_version: Version,
              messages: Dict[Tag, List[Mutation]]) -> List[Version]:
@@ -137,16 +158,19 @@ class LogSystemClient:
         TLog's durable version, once all of them have answered.  A TLog
         that raises (its disk queue failed) or answers nothing (stopped)
         raises here."""
-        per_log: List[Dict[Tag, List[Mutation]]] = [
-            {} for _ in self.tlogs]
-        for tag, msgs in messages.items():
-            for i in self.team_for_tag(tag):
-                per_log[i][tag] = msgs
-        return [ask(tlog.commit, TLogCommitRequest(
-                    prev_version=prev_version, version=version,
-                    known_committed_version=known_committed_version,
-                    messages=msgs))
-                for tlog, msgs in zip(self.tlogs, per_log)]
+        return [ask(tlog.commit, req) for tlog, req in zip(
+            self.tlogs, self._requests(prev_version, version,
+                                       known_committed_version, messages))]
+
+    def push_over_network(self, prev_version: Version, version: Version,
+                          known_committed_version: Version,
+                          messages: Dict[Tag, List[Mutation]]) -> Future:
+        """push() with each request sent to its TLog's interface: the
+        Future of every TLog's durable version."""
+        return wait_all([
+            RequestStream.at(tlog.interface.commit.endpoint).get_reply(req)
+            for tlog, req in zip(self.tlogs, self._requests(
+                prev_version, version, known_committed_version, messages))])
 
     def durable_version(self) -> Version:
         """The newest version durable on every TLog: no recovery of this
@@ -248,30 +272,48 @@ class CommitProxy:
         self.interface = CommitProxyInterface(proxy_id)
         self.storage_interfaces: Dict[Tag, Any] = {}
         self.broken = False
-        self._actors: list = []
-        # Seconds spent in commit() by the batcher, and its batches.
+        # Seconds the batcher spent on its batches, and of them the
+        # seconds waiting on the other roles' replies.
         self.batch_seconds = 0.0
+        self.wait_seconds = 0.0
 
     # -- the commit batch (reference _commit_batch_impl, :328-624) -----------
     def commit(self, batch: List[CommitTransactionRequest],
                prev_version: Optional[Version] = None,
                commit_version: Optional[Version] = None,
                resolver_changes=()) -> List[CommitTransactionRequest]:
-        """Commit one batch.  With no versions given, phase 1 asks the
-        master for the batch's version (the boundary moves ride its
-        reply) and phases 3-5 log the committed mutations: routed to
-        their tags, pushed to every TLog and durable there, the version
-        reported to the master, all before any reply.  With versions
-        given (`prev_version`, `commit_version`, and the moves in
-        `resolver_changes`), the batch is resolved and answered at them
-        and nothing is logged.  Either way stage (b) reorders the batch,
-        resolve() resolves it, stage (c) collects its repairs, and every
-        request not repaired is answered through its own reply: a
-        CommitID, or not_committed (a reporter's conflicting ranges as
-        its details) or transaction_too_old.  Returns the repair
-        requests, each re-stamped at the commit version and carrying its
-        original reply, for the caller to commit as the next batch on
-        this proxy's chain."""
+        """Commit one batch, every role called within the call.  With no
+        versions given, phase 1 asks the master for the batch's version
+        (the boundary moves ride its reply) and phases 3-5 log the
+        committed mutations: routed to their tags, pushed to every TLog
+        and durable there, the version reported to the master, all
+        before any reply.  With versions given (`prev_version`,
+        `commit_version`, and the moves in `resolver_changes`), the batch
+        is resolved and answered at them and nothing is logged.  Either
+        way stage (b) reorders the batch, resolve() resolves it, stage
+        (c) collects its repairs, and every request not repaired is
+        answered through its own reply: a CommitID, or not_committed (a
+        reporter's conflicting ranges as its details) or
+        transaction_too_old.  Returns the repair requests, each
+        re-stamped at the commit version and carrying its original
+        reply, for the caller to commit as the next batch on this
+        proxy's chain."""
+        return run_within_call(self._commit(
+            batch, prev_version, commit_version, resolver_changes, False))
+
+    async def commit_async(self, batch: List[CommitTransactionRequest]
+                           ) -> List[CommitTransactionRequest]:
+        """commit() of a logged batch with the master, the resolvers and
+        the TLogs on processes of their own: each request to them crosses
+        the network (their interfaces), and the batch waits for their
+        replies (the batcher's path once the roles run on processes)."""
+        return await self._commit(batch, None, None, (), True)
+
+    async def _commit(self, batch, prev_version, commit_version,
+                      resolver_changes, net: bool):
+        """commit()'s body: `net` sends each role's request over the
+        network; without it every role answers within the call and the
+        coroutine never suspends."""
         t0 = perf_counter()
         self.local_batch_number += 1
         batch_num = self.local_batch_number
@@ -283,21 +325,28 @@ class CommitProxy:
                                    "system")
             self._refuse_unloggable(batch)
             self.version_request_num += 1
-            vreply = ask(self.master.serve_commit_version,
-                         GetCommitVersionRequest(
-                             request_num=self.version_request_num,
-                             proxy_id=self.id))
+            vreply = await self._wait(call(
+                self.master, "serve_commit_version", "get_commit_version",
+                GetCommitVersionRequest(request_num=self.version_request_num,
+                                        proxy_id=self.id), net))
             prev_version, commit_version = \
                 vreply.prev_version, vreply.version
             resolver_changes = vreply.resolver_changes
+        self.last_versions = (prev_version, commit_version)
         phases = {"version": perf_counter() - t0}
         knobs = server_knobs()
         if knobs.SCHED_REORDER_ENABLED and len(batch) > 1:
             batch = self._reorder(batch)
-        merged = self.resolve([req.transaction for req in batch],
-                              prev_version, commit_version, resolver_changes)
+        txns = [req.transaction for req in batch]
+        if net:
+            merged = await self._resolve_over_network(
+                txns, prev_version, commit_version, resolver_changes)
+        else:
+            merged = self.resolve(txns, prev_version, commit_version,
+                                  resolver_changes)
         self.last_state_transactions = merged.state_transactions
         verdicts = merged.committed
+        self.last_verdicts = verdicts
         conflict_ranges = merged.conflicting_ranges
         t = perf_counter()
         phases["resolution"] = t - t0 - phases["version"]
@@ -306,18 +355,27 @@ class CommitProxy:
                                                       commit_version)
             phases["assign"] = perf_counter() - t
             t = perf_counter()
-            # Phase 4: every TLog makes the version durable before push()
-            # returns; it raises, and nothing is answered, if one cannot.
-            self.log_system.push(prev_version, commit_version,
-                                 self.committed_version, messages)
+            # Phase 4: every TLog makes the version durable before the
+            # push returns; it raises, and nothing is answered, if one
+            # cannot.
+            if net:
+                await self._wait(self.log_system.push_over_network(
+                    prev_version, commit_version, self.committed_version,
+                    messages))
+            else:
+                self.log_system.push(prev_version, commit_version,
+                                     self.committed_version, messages)
             phases["push"] = perf_counter() - t
             t = perf_counter()
             if commit_version > self.committed_version:
                 self.committed_version = commit_version
             # Phase 5: the master learns the committed version BEFORE any
             # client does, so a later read version sees this commit.
-            ask(self.master.serve_report_committed,
-                ReportRawCommittedVersionRequest(version=commit_version))
+            await self._wait(call(
+                self.master, "serve_report_committed",
+                "report_live_committed_version",
+                ReportRawCommittedVersionRequest(version=commit_version),
+                net))
             phases["report"] = perf_counter() - t
             t = perf_counter()
         repaired: set = set()
@@ -331,6 +389,15 @@ class CommitProxy:
         phases["replies"] = perf_counter() - t
         self.phase_seconds = phases
         return repair_reqs
+
+    async def _wait(self, f):
+        """Await `f`, its seconds kept in `wait_seconds` (the batcher's
+        time waiting on the other roles, not working)."""
+        t = perf_counter()
+        try:
+            return await f
+        finally:
+            self.wait_seconds += perf_counter() - t
 
     # -- the batcher (reference commitBatcher :199, _commit_batcher
     # :220-286) ---------------------------------------------------------------
@@ -356,15 +423,17 @@ class CommitProxy:
                 if remaining <= 0:
                     break
                 await delay(remaining)
-            self._commit_batch(batch)
+            await self._commit_batch(batch)
 
-    def _commit_batch(self, batch: List[CommitTransactionRequest]) -> None:
-        """One closed batch through commit(), then each repair batch it
-        returns, each at a version of its own from the master (the
-        reference spawns _commit_batch; here it runs within the
-        batcher's step).  A commit() that raises marks the proxy broken,
-        answers the unanswered requests commit_unknown_result (the
-        reference's _commit_batch) and raises on."""
+    async def _commit_batch(self, batch: List[CommitTransactionRequest]
+                            ) -> None:
+        """One closed batch through commit_async(), then each repair
+        batch it returns, each at a version of its own from the master
+        (the reference spawns _commit_batch; here the batcher waits for
+        it, so one batch of a proxy is in flight at a time).  A batch
+        that fails marks the proxy broken, answers the unanswered
+        requests commit_unknown_result (the reference's _commit_batch)
+        and raises on."""
         t0 = perf_counter()
         self.metrics.counter("CommitBatches").add(1)
         self.metrics.counter("CommitBatchTxns").add(len(batch))
@@ -372,7 +441,7 @@ class CommitProxy:
         try:
             while pending:
                 reqs = pending
-                pending = self.commit(reqs)
+                pending = await self.commit_async(reqs)
         except BaseException as e:  # noqa: BLE001 -- must answer everyone
             self.broken = True
             TraceEvent("CommitProxyBatchFailed", Severity.Error).detail(
@@ -404,22 +473,18 @@ class CommitProxy:
                     break
             req.reply.send(GetKeyServerLocationsReply(results=results))
 
-    def run(self, loop) -> list:
-        """Spawn the batcher and the location service on `loop`; their
-        futures."""
-        self._actors = [
-            loop.spawn(self._commit_batcher(), f"{self.id}.batcher"),
-            loop.spawn(self._serve_locations(), f"{self.id}.locations")]
-        return self._actors
-
-    def stop(self) -> None:
-        """Cancel the actors (a batch being assembled is dropped: its
-        requests' replies break) and stop the streams."""
-        for a in self._actors:
-            a.cancel()
-        self._actors = []
+    def run(self, process) -> list:
+        """Register the interface's streams on `process` and spawn the
+        batcher, the location service and the waitFailure holder there;
+        their futures.  From here on the batcher's batches reach the
+        master, the resolvers and the TLogs through their interfaces."""
         for stream in self.interface.streams():
-            stream.stop()
+            process.register(stream)
+        return [
+            process.spawn(self._commit_batcher(), f"{self.id}.batcher"),
+            process.spawn(self._serve_locations(), f"{self.id}.locations"),
+            process.spawn(hold_wait_failure(self.interface.wait_failure),
+                          f"{self.id}.waitFailure")]
 
     def _refuse_unloggable(self, batch: List[CommitTransactionRequest]
                            ) -> None:
@@ -593,6 +658,28 @@ class CommitProxy:
                     f"{commit_version} until it has resolved "
                     f"{prev_version}: batches go in version-chain order")
             resolutions.append(req.reply.value)
+        return self._merge_resolutions(batch, commit_version, index_maps,
+                                       resolutions)
+
+    async def _resolve_over_network(self, batch, prev_version: Version,
+                                    commit_version: Version,
+                                    resolver_changes=()
+                                    ) -> ResolveTransactionBatchReply:
+        """resolve() with each resolver's request sent to its interface
+        (a request ahead of its predecessor waits at the role)."""
+        if resolver_changes:
+            self._apply_resolver_changes(resolver_changes)
+        requests, index_maps = self._build_resolution_requests(
+            batch, prev_version, commit_version)
+        resolutions = await self._wait(wait_all([
+            RequestStream.at(role.interface.resolve.endpoint).get_reply(req)
+            for role, req in zip(self.resolvers, requests)]))
+        return self._merge_resolutions(batch, commit_version, index_maps,
+                                       resolutions)
+
+    def _merge_resolutions(self, batch, commit_version: Version,
+                           index_maps, resolutions
+                           ) -> ResolveTransactionBatchReply:
         self.last_resolved_version = commit_version
         state = self._apply_foreign_state(resolutions)
         committed = self._determine_committed(batch, index_maps, resolutions)

@@ -23,21 +23,23 @@ request admitted after a deferral is re-stamped at the round's read
 version (bench.py's model of the stage, :875-905), and one admitted at
 once keeps the snapshot it came with.
 
-On an event loop (run()), the request queue and the starter serve the
-proxy's interface: _queue_requests (:67) files each
+On a simulated or real process (run(process)), the request queue and the
+starter serve the proxy's interface, beside its waitFailure holder:
+_queue_requests (:67) files each
 GetReadVersionRequest into its priority's queue, and
 _transaction_starter (:177) wakes on an arrival, waits
 START_TRANSACTION_BATCH_INTERVAL_MIN, releases every queued request,
 immediate first, then default, then batch, and answers them with one
-read version (_reply_batch :307), counting TxnStarted by each request's
-transaction_count.
+read version (_reply_batch :307: the TLogs' confirmations and the
+master's live committed version asked over the network), counting
+TxnStarted by each request's transaction_count.
 
 Left out on purpose: the ratekeeper's tps and batch-tps budgets and
 their token buckets (every queued request is released), tag throttles,
 the predictor's deferral at GRV (the port defers at admit()), the
-confirm's timeout (a TLog answers within the call or not at all), the
-latency histograms, the core/coverage.py test_coverage call, which
-belongs to the simulator, and the transport.
+confirm's timeout (a TLog that does not answer fails the batch's
+replies with its error), the latency histograms and the core/coverage.py
+test_coverage call, which belongs to the simulator.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Iterable, List, Optional
 
-from ..core.futures import Promise
+from ..core.error import FdbError, err
+from ..core.futures import Promise, wait_all
 from ..core.histogram import CounterCollection
 from ..core.knobs import server_knobs
 from ..core.scheduler import delay
@@ -54,7 +57,9 @@ from ..txn.types import Version
 from .interfaces import (CommitTransactionRequest,
                          GetRawCommittedVersionRequest, GetReadVersionReply,
                          GetReadVersionRequest, GrvProxyInterface,
-                         TLogConfirmRunningRequest, TransactionPriority, ask)
+                         TLogConfirmRunningRequest, TransactionPriority, call,
+                         run_within_call)
+from .failure import hold_wait_failure
 
 # The starvation bound (the reference's SCHED_MAX_DEFERRALS default): a
 # request is deferred at most this many rounds, then admitted.
@@ -82,27 +87,41 @@ class GrvProxy:
         self.queues: List[List[GetReadVersionRequest]] = [[], [], []]
         self.stats = {"grvs": 0, "batches": 0}
         self._wakeup: Optional[Promise] = None
-        self._actors: list = []
 
     def get_read_version(self) -> GetReadVersionReply:
         """A read version (reference _reply_batch :307): every TLog
         confirms it is running -- a stopped one does not answer, and that
         raises broken_promise -- then the master's live committed
         version, which covers every commit a client has heard of."""
-        for tlog in self.tlogs:
-            ask(tlog.confirm_running, TLogConfirmRunningRequest())
-        vreply = ask(self.master.serve_live_committed,
-                     GetRawCommittedVersionRequest())
+        return run_within_call(self._read_version(False))
+
+    async def _read_version(self, net: bool) -> GetReadVersionReply:
+        """get_read_version()'s body; `net` asks the TLogs and the master
+        through their interfaces."""
+        await wait_all([call(tlog, "confirm_running", "confirm_running",
+                             TLogConfirmRunningRequest(), net)
+                        for tlog in self.tlogs])
+        vreply = await call(self.master, "serve_live_committed",
+                            "get_live_committed_version",
+                            GetRawCommittedVersionRequest(), net)
         return GetReadVersionReply(version=vreply.version)
 
     async def _queue_requests(self) -> None:
-        async for req in self.interface.get_consistent_read_version.queue:
-            pri = min(max(req.priority, TransactionPriority.BATCH),
-                      TransactionPriority.IMMEDIATE)
-            self.queues[pri].append(req)
-            if self._wakeup is not None:
-                w, self._wakeup = self._wakeup, None
-                w.send(None)
+        try:
+            async for req in \
+                    self.interface.get_consistent_read_version.queue:
+                pri = min(max(req.priority, TransactionPriority.BATCH),
+                          TransactionPriority.IMMEDIATE)
+                self.queues[pri].append(req)
+                if self._wakeup is not None:
+                    w, self._wakeup = self._wakeup, None
+                    w.send(None)
+        finally:
+            # The process is gone: the queued requests' replies break.
+            for q in self.queues:
+                for req in q:
+                    req.reply.send_error(err("broken_promise"))
+                q.clear()
 
     async def _transaction_starter(self) -> None:
         interval = server_knobs().START_TRANSACTION_BATCH_INTERVAL_MIN
@@ -120,13 +139,19 @@ class GrvProxy:
                 self.queues[pri] = []
             if batch:
                 self.stats["batches"] += 1
-                self._reply_batch(batch)
+                await self._reply_batch(batch)
 
-    def _reply_batch(self, batch: List[GetReadVersionRequest]) -> None:
-        """One read version (get_read_version) for every request of the
-        batch, TxnStarted charged each request's transaction_count (a
-        client's batched request carries N)."""
-        reply = self.get_read_version()
+    async def _reply_batch(self, batch: List[GetReadVersionRequest]) -> None:
+        """One read version for every request of the batch, TxnStarted
+        charged each request's transaction_count (a client's batched
+        request carries N).  A read version that cannot be had (a TLog
+        or the master gone) answers every request with its error."""
+        try:
+            reply = await self._read_version(True)
+        except FdbError as e:
+            for req in batch:
+                req.reply.send_error(e)
+            return
         n_txns = 0
         n_batched = 0
         for req in batch:
@@ -141,26 +166,17 @@ class GrvProxy:
         for req in batch:
             req.reply.send(GetReadVersionReply(version=reply.version))
 
-    def run(self, loop) -> list:
-        """Spawn the queue and the starter on `loop`; their futures."""
-        self._actors = [
-            loop.spawn(self._queue_requests(), f"{self.id}.queue"),
-            loop.spawn(self._transaction_starter(), f"{self.id}.starter")]
-        return self._actors
-
-    def stop(self) -> None:
-        """Cancel the actors, break the queued requests' replies and stop
-        the stream."""
-        for a in self._actors:
-            a.cancel()
-        self._actors = []
-        for q in self.queues:
-            for req in q:
-                if not req.reply.is_set():
-                    req.reply.break_promise()
-            q.clear()
+    def run(self, process) -> list:
+        """Register the interface's streams on `process` and spawn the
+        queue, the starter and the waitFailure holder there; their
+        futures."""
         for stream in self.interface.streams():
-            stream.stop()
+            process.register(stream)
+        return [
+            process.spawn(self._queue_requests(), f"{self.id}.queue"),
+            process.spawn(self._transaction_starter(), f"{self.id}.starter"),
+            process.spawn(hold_wait_failure(self.interface.wait_failure),
+                          f"{self.id}.waitFailure")]
 
     def admit(self, requests: Iterable[CommitTransactionRequest],
               read_version: Version) -> List[CommitTransactionRequest]:

@@ -12,12 +12,15 @@ TXS_TAG), RESOLVER_ALL and a reply that keeps its value.  `reply` is any
 object with send(value) (and, for a commit, send_error(error)); the role
 answers each request through it.
 
-The client-facing interfaces bundle a role's request streams
-(rpc/endpoint.py RequestStream): a commit proxy's `commit` and
-`get_key_servers_locations`, a GRV proxy's `get_consistent_read_version`
-and a storage server's `get_value` and `get_key_values`; the role's
-actors read them when it runs on an event loop.  The other roles are
-called within the call and have none.
+Each role's interface bundles its request streams (rpc/endpoint.py
+RequestStream) with the reference's names and priorities: the master's,
+the Resolver's, a commit proxy's, a GRV proxy's, a TLog's and a storage
+server's (its reads and its waitFailure; the reference's other storage
+streams serve data distribution, watches and TSS, which the port does
+not have).  A role's actors read them when it runs on a process
+(`run(process)`); the network (rpc/network.py, rpc/real_network.py)
+carries the requests, and rpc/serde.py encodes each interface as the
+reference's frame does.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..core.scheduler import TaskPriority
 from ..rpc.endpoint import RequestStream
 from ..txn.types import (CommitResult, CommitTransactionRef, KeyRange,
                          Mutation, Version)
@@ -80,6 +84,34 @@ def ask(serve, req):
     if req.reply.error is not None:
         raise req.reply.error
     return req.reply.value
+
+
+def call(role, serve: str, stream: str, req, over_network: bool):
+    """The Future of `role`'s answer to `req`: over the network to the
+    interface's stream named `stream` when `over_network` (the role runs
+    on a process), else the role's method named `serve` within the call
+    (ask), its answer or the FdbError it answered with already set."""
+    from ..core.error import FdbError
+    from ..core.futures import error_future, ready_future
+    if over_network:
+        return RequestStream.at(
+            getattr(role.interface, stream).endpoint).get_reply(req)
+    try:
+        return ready_future(ask(getattr(role, serve), req))
+    except FdbError as e:
+        return error_future(e)
+
+
+def run_within_call(coro):
+    """Run a role's coroutine to its end within the call and return its
+    value (or raise its error): every Future it awaits must already be
+    set, as `call(..., over_network=False)` gives them."""
+    try:
+        coro.send(None)
+    except StopIteration as stop:
+        return stop.value
+    coro.close()
+    raise RuntimeError("a call within the call waited on the network")
 
 
 @dataclass
@@ -265,36 +297,104 @@ class GetKeyServerLocationsReply:
     results: List[Tuple[KeyRange, List[Any]]]
 
 
+class MasterInterface:
+    def __init__(self) -> None:
+        self.get_commit_version = RequestStream(
+            "master.getCommitVersion", TaskPriority.ProxyGetRawCommittedVersion)
+        self.report_live_committed_version = RequestStream(
+            "master.reportLiveCommittedVersion",
+            TaskPriority.ProxyGetRawCommittedVersion)
+        self.get_live_committed_version = RequestStream(
+            "master.getLiveCommittedVersion",
+            TaskPriority.ProxyGetRawCommittedVersion)
+        self.wait_failure = RequestStream(
+            "master.waitFailure", TaskPriority.FailureMonitor)
+
+    def streams(self) -> List[RequestStream]:
+        return [self.get_commit_version, self.report_live_committed_version,
+                self.get_live_committed_version, self.wait_failure]
+
+
+class ResolverInterface:
+    def __init__(self, resolver_id: str = "") -> None:
+        self.id = resolver_id
+        self.resolve = RequestStream(
+            "resolver.resolve", TaskPriority.ProxyResolverReply)
+        self.metrics = RequestStream("resolver.metrics",
+                                     TaskPriority.ResolutionMetrics)
+        self.split = RequestStream("resolver.split",
+                                   TaskPriority.ResolutionMetrics)
+        self.heat = RequestStream("resolver.heat",
+                                  TaskPriority.ResolutionMetrics)
+        self.wait_failure = RequestStream("resolver.waitFailure",
+                                          TaskPriority.FailureMonitor)
+
+    def streams(self) -> List[RequestStream]:
+        return [self.resolve, self.metrics, self.split, self.heat,
+                self.wait_failure]
+
+
 class CommitProxyInterface:
     def __init__(self, proxy_id: str = "") -> None:
         self.id = proxy_id
-        self.commit = RequestStream("proxy.commit")
+        self.commit = RequestStream("proxy.commit", TaskPriority.ProxyCommit)
         self.get_key_servers_locations = RequestStream(
-            "proxy.getKeyServersLocations")
+            "proxy.getKeyServersLocations",
+            TaskPriority.DefaultPromiseEndpoint)
+        self.wait_failure = RequestStream("proxy.waitFailure",
+                                          TaskPriority.FailureMonitor)
 
     def streams(self) -> List[RequestStream]:
-        return [self.commit, self.get_key_servers_locations]
+        return [self.commit, self.get_key_servers_locations,
+                self.wait_failure]
 
 
 class GrvProxyInterface:
     def __init__(self, proxy_id: str = "") -> None:
         self.id = proxy_id
         self.get_consistent_read_version = RequestStream(
-            "grvproxy.getConsistentReadVersion")
+            "grvproxy.getConsistentReadVersion",
+            TaskPriority.GetConsistentReadVersion)
+        self.wait_failure = RequestStream("grvproxy.waitFailure",
+                                          TaskPriority.FailureMonitor)
 
     def streams(self) -> List[RequestStream]:
-        return [self.get_consistent_read_version]
+        return [self.get_consistent_read_version, self.wait_failure]
+
+
+class TLogInterface:
+    """The reference's TLogInterface but its queuing-metrics stream
+    (the port's ratekeeper polls no TLog)."""
+
+    def __init__(self, tlog_id: str = "") -> None:
+        self.id = tlog_id
+        self.commit = RequestStream("tlog.commit", TaskPriority.TLogCommit)
+        self.peek = RequestStream("tlog.peek", TaskPriority.TLogPeek)
+        self.pop = RequestStream("tlog.pop", TaskPriority.TLogPop)
+        self.confirm_running = RequestStream(
+            "tlog.confirmRunning", TaskPriority.TLogConfirmRunning)
+        self.lock = RequestStream("tlog.lock", TaskPriority.TLogCommit)
+        self.wait_failure = RequestStream("tlog.waitFailure",
+                                          TaskPriority.FailureMonitor)
+
+    def streams(self) -> List[RequestStream]:
+        return [self.commit, self.peek, self.pop, self.confirm_running,
+                self.lock, self.wait_failure]
 
 
 class StorageServerInterface:
     def __init__(self, ss_id: str = "", tag: "Tag" = 0) -> None:
         self.id = ss_id
         self.tag = tag
-        self.get_value = RequestStream("storage.getValue")
-        self.get_key_values = RequestStream("storage.getKeyValues")
+        self.get_value = RequestStream(
+            "storage.getValue", TaskPriority.DefaultPromiseEndpoint)
+        self.get_key_values = RequestStream(
+            "storage.getKeyValues", TaskPriority.DefaultPromiseEndpoint)
+        self.wait_failure = RequestStream("storage.waitFailure",
+                                          TaskPriority.FailureMonitor)
 
     def streams(self) -> List[RequestStream]:
-        return [self.get_value, self.get_key_values]
+        return [self.get_value, self.get_key_values, self.wait_failure]
 
 
 # -- TLog (reference fdbserver/TLogInterface.h) ------------------------------

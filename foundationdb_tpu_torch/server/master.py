@@ -21,7 +21,9 @@ cache, and the balancer's moves riding each reply (resolver_changes); it
 keeps the live committed version the proxies report and the GRV proxies
 read.  The clock is a constructor argument (time.monotonic by default),
 so a test can drive it.  The calls are synchronous, so a request that
-arrives ahead of its predecessor raises instead of parking.
+arrives ahead of its predecessor raises instead of parking (a proxy's
+batcher waits for each version before it asks the next).  On a process
+(run(process)), actors serve the MasterInterface with the same calls.
 
 DBCoreState (:195-388, whole) is what survives between epochs: the
 generation's TLog ids, the storage tags and their ids, the shard map
@@ -52,9 +54,10 @@ from ..core.knobs import server_knobs
 from ..core.trace import TraceEvent
 from ..core.wire import Reader, Writer
 from ..txn.types import KeyRange, Version
+from .failure import hold_wait_failure
 from .interfaces import (RESOLVER_ALL, TXS_TAG, GetCommitVersionReply,
                          GetCommitVersionRequest, GetRawCommittedVersionReply,
-                         GetRawCommittedVersionRequest,
+                         GetRawCommittedVersionRequest, MasterInterface,
                          ReportRawCommittedVersionRequest, Reply,
                          ResolutionMetricsRequest, ResolutionSplitRequest,
                          Tag, TLogLockReply, TLogLockRequest, ask)
@@ -249,6 +252,7 @@ class Master:
         self.clock = clock
         self.balancer = balancer
         self.proxy_states: Dict[str, _ProxyVersionState] = {}
+        self.interface = MasterInterface()
 
     # -- version allocation (reference getVersion :1126) ---------------------
     def _allocate_version(self, proxy_id: str) -> GetCommitVersionReply:
@@ -315,6 +319,31 @@ class Master:
         if req.version > self.live_committed_version:
             self.live_committed_version = req.version
         req.reply.send(None)
+
+    # -- the serve loops (a process) -----------------------------------------
+    @staticmethod
+    async def _serve(stream, handler) -> None:
+        async for req in stream.queue:
+            handler(req)
+
+    def run(self, process) -> list:
+        """Register the interface's streams on `process` and spawn its
+        serve loops there; their futures."""
+        for stream in self.interface.streams():
+            process.register(stream)
+        i = self.interface
+        return [
+            process.spawn(self._serve(i.get_commit_version,
+                                      self.serve_commit_version),
+                          "master.getCommitVersion"),
+            process.spawn(self._serve(i.report_live_committed_version,
+                                      self.serve_report_committed),
+                          "master.reportLiveCommittedVersion"),
+            process.spawn(self._serve(i.get_live_committed_version,
+                                      self.serve_live_committed),
+                          "master.getLiveCommittedVersion"),
+            process.spawn(hold_wait_failure(i.wait_failure),
+                          "master.waitFailure")]
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,11 @@ outstandingBatches :175).  The set comes from the port's
 new_conflict_set: by default the supervised torch set on `cuda`; the
 caller names `device="cpu"` to run it on the CPU.
 
-The port has no reactor, so the role is driven by calls, not actors:
-resolve_batch(req) and the serve_* methods each take one request and
-answer it through `req.reply.send(...)`, as the reference's actor bodies
-do.  resolve_batch is the reference's _resolve_batch statement for
+The role is driven by calls: resolve_batch(req) and the serve_* methods
+each take one request and answer it through `req.reply.send(...)`, as
+the reference's actor bodies do; on a process (run(process), the
+reference's :331) actors hand them the requests that reach its
+ResolverInterface.  resolve_batch is the reference's _resolve_batch statement for
 statement, except for the chain wait: a request whose prev_version is
 ahead of the role's version is parked (a continuation in the version's
 (threshold, seq) heap); each version.set wakes the parked requests now
@@ -30,10 +31,12 @@ Two deliberate exceptions to the reference's body:
     request arrived as resolve_batch's `t_in`, so that QueueWait holds
     the sleep as the reference's does.
 
-Left out: run(process) and hold_wait_failure, the RPC wiring that
-registers the streams and spawns the serving loops; a host calls
-resolve_batch, serve_metrics, serve_split, serve_heat and emit_heat_once
-itself, and runs `metrics.emit_loop()` (and the set's) if it has a loop.
+run(process) registers the interface's streams on the process and
+spawns a serving loop a stream and the waitFailure holder; a serving
+loop that ends (the process killed) drops the parked requests, so their
+replies break.  Left out of it: the heat emitter and the metrics
+emitters (a host calls emit_heat_once and runs `metrics.emit_loop()`,
+and the set's, if it wants them).
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ from ..core.knobs import server_knobs
 from ..core.scheduler import now
 from ..core.trace import TraceEvent, trace_batch_event
 from ..txn.types import CommitResult, Version
-from .interfaces import (ResolveTransactionBatchReply,
+from .failure import hold_wait_failure
+from .interfaces import (ResolverInterface, ResolveTransactionBatchReply,
                          ResolveTransactionBatchRequest)
 from .notified import NotifiedVersion
 
@@ -105,6 +109,7 @@ class Resolver:
         self._ready: Deque[Tuple[ResolveTransactionBatchRequest, float]] = \
             deque()
         self._running = False
+        self.interface = ResolverInterface(resolver_id)
         ev = TraceEvent("ResolverStarted").detail("Id", self.id).detail(
             "Backend", type(self.conflict_set).__name__)
         inner = getattr(self.conflict_set, "device", None)
@@ -359,3 +364,29 @@ class Resolver:
         fallback counters); {} for unsupervised backends."""
         status = getattr(self.conflict_set, "status", None)
         return status() if callable(status) else {}
+
+    # -- the serve loops (a process; reference run :331) ---------------------
+    async def _serve(self, stream, handler) -> None:
+        try:
+            async for req in stream.queue:
+                handler(req)
+        finally:
+            self.drop_parked()
+
+    def run(self, process) -> list:
+        """Register the interface's streams on `process` and spawn its
+        serve loops there; their futures."""
+        for stream in self.interface.streams():
+            process.register(stream)
+        i = self.interface
+        return [
+            process.spawn(self._serve(i.resolve, self.resolve_batch),
+                          f"{self.id}.resolve"),
+            process.spawn(self._serve(i.metrics, self.serve_metrics),
+                          f"{self.id}.metrics"),
+            process.spawn(self._serve(i.split, self.serve_split),
+                          f"{self.id}.split"),
+            process.spawn(self._serve(i.heat, self.serve_heat),
+                          f"{self.id}.heat"),
+            process.spawn(hold_wait_failure(i.wait_failure),
+                          f"{self.id}.waitFailure")]

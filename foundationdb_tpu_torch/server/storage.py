@@ -31,13 +31,17 @@ transaction_too_old below the window; the point and range reads; and
 load(), which fills the map at the recovery version and images the
 engine there.
 
-On an event loop (run()), one actor a stream serves the interface's
-get_value and get_key_values with the handlers above (the reference's
-serve loops), each read after a pull to the version durable on every
-log (the reference's update loop keeps pulling as the logs move); a read at a version past what the logs hold is tried again
-once after STORAGE_FUTURE_VERSION_TIMEOUT of the loop's time, then
-answers future_version (the reference waits on its version for at most
-that long).
+On a simulated or real process (run(process)), one actor a stream
+serves the interface's get_value and get_key_values with the handlers
+above (the reference's serve loops), beside the waitFailure holder, each
+read after a pull to the version durable on every log (the reference's
+update loop keeps pulling as the logs move); a read at a version past
+what the logs hold is tried again once after
+STORAGE_FUTURE_VERSION_TIMEOUT of the loop's time, then answers
+future_version (the reference waits on its version for at most that
+long).  The pull reads the TLog roles within the call (their peek,
+not their interface): a storage server's traffic with its logs does
+not cross the network.
 
 Left out: the update-storage loop's delay, buggify and engine
 migration, watches, fetch and disown of shards and the shard
@@ -59,6 +63,7 @@ from ..core.trace import Severity, TraceEvent
 from ..core.wire import Reader, Writer
 from ..txn.atomic import apply_atomic
 from ..txn.types import ATOMIC_OPS, Mutation, MutationType, Version
+from .failure import hold_wait_failure
 from .interfaces import (GetKeyValuesReply, GetKeyValuesRequest,
                          GetValueReply, GetValueRequest,
                          StorageServerInterface, Tag)
@@ -247,7 +252,6 @@ class StorageServer:
         self.last_engine_commit_s = 0.0
         # The event-loop half (run()), and the seconds its reads took.
         self.interface = StorageServerInterface(ss_id, tag)
-        self._actors: list = []
         self._parked: set = set()     # reads waiting for their version
         self.read_seconds = 0.0
 
@@ -471,7 +475,7 @@ class StorageServer:
         req.reply.send(GetKeyValuesReply(data=data, more=more,
                                          version=req.version))
 
-    # -- the serve loops (event loop) ----------------------------------------
+    # -- the serve loops (a process) -----------------------------------------
     async def _serve(self, stream, handler) -> None:
         async for req in stream.queue:
             t0 = perf_counter()
@@ -497,28 +501,23 @@ class StorageServer:
         async def later():
             await delay(float(server_knobs().STORAGE_FUTURE_VERSION_TIMEOUT))
             handler(req)
-        task = self._loop.spawn(later(), f"{self.id}.parked")
+        task = self._process.spawn(later(), f"{self.id}.parked")
         self._parked.add(task)
         task.on_ready(lambda _f: self._parked.discard(task))
 
-    def run(self, loop) -> list:
-        """Spawn the get_value and get_key_values servers on `loop`;
-        their futures."""
-        self._loop = loop
-        self._actors = [
-            loop.spawn(self._serve(self.interface.get_value,
-                                   self.get_value), f"{self.id}.getValue"),
-            loop.spawn(self._serve(self.interface.get_key_values,
-                                   self.get_key_values),
-                       f"{self.id}.getKeyValues")]
-        return list(self._actors)
-
-    def stop(self) -> None:
-        """Cancel the actors and the parked reads (whose replies break)
-        and stop the streams."""
-        for a in self._actors + list(self._parked):
-            a.cancel()
-        self._actors = []
-        self._parked = set()
+    def run(self, process) -> list:
+        """Register the interface's streams on `process` and spawn the
+        get_value and get_key_values servers and the waitFailure holder
+        there; their futures."""
+        self._process = process
         for stream in self.interface.streams():
-            stream.stop()
+            process.register(stream)
+        return [
+            process.spawn(self._serve(self.interface.get_value,
+                                      self.get_value),
+                          f"{self.id}.getValue"),
+            process.spawn(self._serve(self.interface.get_key_values,
+                                      self.get_key_values),
+                          f"{self.id}.getKeyValues"),
+            process.spawn(hold_wait_failure(self.interface.wait_failure),
+                          f"{self.id}.waitFailure")]

@@ -29,6 +29,12 @@ peek's byte budget up to the recovery version, where the reference peeks
 once and keeps what the first reply holds), makes it durable in its own
 queue, and records its starting version (write_genesis).
 
+On a simulated or real process (run(process)), actors serve the TLog's
+interface (commit, peek, pop, confirm_running, lock, waitFailure) with
+the same calls; a commit that arrives ahead of its predecessor (two
+proxies' pushes cross on the network) is held until the predecessor is
+appended, as the reference's tLogCommit waits for its prev_version.
+
 Left out: the queuing metrics, the commit-debug spans and the latency
 bands.
 """
@@ -46,9 +52,10 @@ from ..txn.types import Mutation, MutationType, Version
 from .disk_queue import DiskQueue
 from ..core.error import err
 from ..core.trace import Severity, TraceEvent
+from .failure import hold_wait_failure
 from .interfaces import (Tag, TLogCommitRequest, TLogConfirmRunningRequest,
-                         TLogLockReply, TLogLockRequest, TLogPeekReply,
-                         TLogPeekRequest, TLogPopRequest, ask)
+                         TLogInterface, TLogLockReply, TLogLockRequest,
+                         TLogPeekReply, TLogPeekRequest, TLogPopRequest, ask)
 
 _PACK_HDR = struct.Struct("<II").pack
 _PACK_U8U32 = struct.Struct("<BI").pack
@@ -150,6 +157,8 @@ class TLog:
         self._seq_of_version: Dict[Version, int] = {}
         # Seconds of the last commit's write + fsync of the queue.
         self.last_sync_s = 0.0
+        # The interface its actors serve once it runs on a process.
+        self.interface = TLogInterface(tlog_id)
 
     @classmethod
     def from_disk(cls, tlog_id: str, disk_queue: DiskQueue,
@@ -472,3 +481,42 @@ class TLog:
         """The GRV proxy's liveness confirm: answered unless stopped."""
         if not self.stopped:
             req.reply.send(None)
+
+    # -- the serve loops (a process) -----------------------------------------
+    async def _serve(self, stream, handler) -> None:
+        async for req in stream.queue:
+            handler(req)
+
+    async def _serve_commits(self) -> None:
+        """commit() each request, holding one whose predecessor has not
+        been appended yet until it has (keyed by prev_version); a held
+        request's reply breaks when the actor ends."""
+        held: Dict[Version, TLogCommitRequest] = {}
+        try:
+            async for req in self.interface.commit.queue:
+                if req.prev_version > self.version and not self.stopped:
+                    held[req.prev_version] = req
+                    continue
+                self.commit(req)
+                while self.version in held:
+                    self.commit(held.pop(self.version))
+        finally:
+            for req in held.values():
+                req.reply.send_error(err("broken_promise"))
+
+    def run(self, process) -> list:
+        """Register the interface's streams on `process` and spawn its
+        serve loops there; their futures."""
+        for stream in self.interface.streams():
+            process.register(stream)
+        i = self.interface
+        return [
+            process.spawn(self._serve_commits(), f"{self.id}.commit"),
+            process.spawn(self._serve(i.peek, self.peek), f"{self.id}.peek"),
+            process.spawn(self._serve(i.pop, self.pop), f"{self.id}.pop"),
+            process.spawn(self._serve(i.confirm_running,
+                                      self.confirm_running),
+                          f"{self.id}.confirmRunning"),
+            process.spawn(self._serve(i.lock, self.lock), f"{self.id}.lock"),
+            process.spawn(hold_wait_failure(i.wait_failure),
+                          f"{self.id}.waitFailure")]

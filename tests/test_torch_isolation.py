@@ -56,6 +56,14 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.sched.reorder",
     "foundationdb_tpu_torch.sched.repair", "foundationdb_tpu_torch.entry",
     "foundationdb_tpu_torch.rpc", "foundationdb_tpu_torch.rpc.endpoint",
+    "foundationdb_tpu_torch.rpc.network", "foundationdb_tpu_torch.rpc.sim",
+    "foundationdb_tpu_torch.rpc.peer_metrics",
+    "foundationdb_tpu_torch.rpc.failure_monitor",
+    "foundationdb_tpu_torch.rpc.serde",
+    "foundationdb_tpu_torch.rpc.real_network",
+    "foundationdb_tpu_torch.rpc.transport",
+    "foundationdb_tpu_torch.core.threadpool",
+    "foundationdb_tpu_torch.server.failure",
     "foundationdb_tpu_torch.client", "foundationdb_tpu_torch.client.database",
     "foundationdb_tpu_torch.client.writemap",
     "foundationdb_tpu_torch.testing",
@@ -75,7 +83,9 @@ def test_port_imports_no_jax():
     cluster committing a batch with an atomic, a versionstamp and a
     shard split through its master, TLogs on disk and storage servers and
     reading it back, then serving a client's transactions and a small
-    Cycle through database() on the port's event loop, and both entry
+    Cycle through database() on the port's event loop (every role in a
+    simulated process on the port's SimNetwork), a Resolver role
+    answering over TCP on a real-mode loop (serde frames), and both entry
     points on the CPU (so the lazy imports have run), loads no jax and
     no foundationdb_tpu module."""
     code = (
@@ -196,6 +206,27 @@ def test_port_imports_no_jax():
         "c.run_until(loop.spawn(w.start()))\n"
         "assert c.run_until(loop.spawn(w.check())) and w.metrics['swaps']\n"
         "c.close()\n"
+        "from foundationdb_tpu_torch.rpc import serde\n"
+        "from foundationdb_tpu_torch.rpc.network import set_network\n"
+        "from foundationdb_tpu_torch.rpc.real_network import "
+        "RealNetwork, RealProcess\n"
+        "from foundationdb_tpu_torch.rpc.endpoint import RequestStream\n"
+        "rl = EventLoop(sim=False)\n"
+        "from foundationdb_tpu_torch.core.scheduler import set_event_loop\n"
+        "set_event_loop(rl)\n"
+        "srv, cli = RealNetwork(rl), RealNetwork(rl)\n"
+        "set_network(cli)\n"
+        "rr = Resolver('rt', 0, backend='torch', device='cpu', "
+        "capacity=1 << 10)\n"
+        "rr.run(RealProcess(rl, srv))\n"
+        "ri = serde.decode_message(serde.encode_message(rr.interface))\n"
+        "rep = rl.run_until(RequestStream.at(ri.resolve.endpoint)"
+        ".get_reply(ResolveTransactionBatchRequest(0, 100, 0, [CommitTransactionRef("
+        "write_conflict_ranges=[KeyRange(b'a', b'b')]), r], "
+        "proxy_id='p0')), timeout=30)\n"
+        "assert [int(v) for v in rep.committed] == [2, 0], rep\n"
+        "srv.close()\n"
+        "cli.close()\n"
         "from foundationdb_tpu_torch.entry import entry, dryrun_multichip\n"
         "fn, args = entry('cpu')\n"
         "assert int(fn(*args).sum()) == 0\n"
