@@ -210,8 +210,8 @@ exits non-zero):
      versionstamps, 2 TLogs (replication 2) over disk queues in a
      temporary directory, 4 storage servers in teams of 2 cut at the
      quartiles of the ids, 1 GRV proxy; config 2's 1M keys loaded with
-     100-byte values on both replicas; 2 warmup + 6 timed config-2
-     batches at the batcher's cap (32,768 txns) of 100-byte SetValues
+     100-byte values on both replicas; 2 warmup + 4 timed config-2
+     batches (2 + 6 before the twenty-third slice) at the batcher's cap (32,768 txns) of 100-byte SetValues
      read at the GRV's version, 1% adding
      to a counter, 1% writing a versionstamped key, every 4th batch 100
      ClearRanges of 10 keys (the general step; the rest the compact
@@ -231,8 +231,9 @@ exits non-zero):
  23. (new in the nineteenth slice; the JSON phase was 23 before) a
      restart, `configure new double memory`: phase 22's cluster over the
      memory storage engine (server/kvstore.py) on every storage server,
-     the 1M keys imaged into every engine, 2 + 4 of phase 22's batches
-     with the engines made durable every second batch, the TLogs' spill
+     the 1M keys imaged into every engine, 2 + 2 of phase 22's batches
+     (2 + 4 before the twenty-third slice) with the engines made durable
+     every second batch, the TLogs' spill
      threshold lowered to 64 KiB and storage server 0 (the zipf head's
      shard) held back for the last 2 batches so its backlog spills and a
      peek reads it back from the queue file; then the kill (descriptors
@@ -307,7 +308,25 @@ exits non-zero):
      monitor marks the role failed; the path_wire line (frame MB,
      encode and decode ms, p50 and p99 round trip beside phase 19's
      p50 delivery to reply);
- 27. the JSON lines (programs and paths; kernels with launches per path,
+ 27. (new in the twenty-third slice; the JSON lines were 27 before)
+     shard moves: phase 25's cluster, ReadWrite from 2,048 actors, 5
+     transactions each (1 warmup round, 1 before the data distributor
+     starts, 3 during its moves); the distributor moves shard 3 whole
+     from [3, 0] to [3, 2] by MoveKeys, splits every shard past the
+     reference's 1 MiB, and re-replicates every shard of storage server
+     ss1, whose process is killed after half of the commits during the
+     moves.  Every acknowledged write read back from every replica of
+     its key's final team, ConsistencyCheckWorkload clean, 2 healthy
+     replicas a shard and tag 1 in no team (the distributor's map and
+     both proxies'), each vacated replica answering wrong_shard_server
+     at and above its fence, failovers and wrong_shard_server answers
+     counted, one reply a commit, the batches replayed through a CPU
+     plane giving the same codes; the path_dd line (a move's seconds
+     from its phase-1 to its phase-2 commit, the fetch's MB, rows and
+     rows/s, the kill to full replication, splits, merges and the
+     sweep's seconds, committed/s and p50/p99 before and during the
+     moves, metadata transactions, launches per path);
+ 28. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -327,7 +346,7 @@ import sys
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -437,6 +456,10 @@ PATH_KERNELS["sim"] = PATH_KERNELS["client"]
 # 19's requests: the point path (13 batches cross a merge), counted in
 # that process and read back over the network.
 PATH_KERNELS["wire"] = PATH_KERNELS["point"]
+# Phase 27: the client's drive with the data distributor's moves, splits
+# and re-replication: its metadata transactions are state transactions,
+# sent to every role, and take the same two steps.
+PATH_KERNELS["dd"] = PATH_KERNELS["client"]
 
 
 # ---------------------------------------------------------------- workload
@@ -5205,7 +5228,9 @@ def sched_path(smi: str) -> tuple:
 # carries COMMIT_CLEARS ClearRanges of 10 keys (those take the general
 # step, the rest the compact step), and one txn splits a storage shard
 # through a \xff/keyServers/ set, keeping its team.
-COMMIT_BATCHES = (2, 6)            # warmup, timed
+# Cut from 2 + 6 (PR 23) to make room for phase 27: batch 3 still
+# clears, batch 4 still splits.
+COMMIT_BATCHES = (2, 4)            # warmup, timed
 COMMIT_SEED = 2222
 COMMIT_VALUE_BYTES = 100
 COMMIT_CLEAR_EVERY, COMMIT_CLEARS, COMMIT_CLEAR_KEYS = 4, 100, 10
@@ -5709,7 +5734,9 @@ def commit_path(smi: str) -> tuple:
 # reads everything back again.  The B-tree engine runs the same checks at
 # RESTART_BTREE's cut (50,000 keys, 2 + 2 batches of 4,096 txns): a
 # Python B-tree takes 1M single-key copy-on-write inserts in minutes.
-RESTART_BATCHES = (2, 4)           # before the first restart
+# Cut from 2 + 4 (PR 23) to make room for phase 27: the held server's
+# backlog still spans 2 batches, and the one clear batch is still there.
+RESTART_BATCHES = (2, 2)           # before the first restart
 RESTART_AFTER = 2                  # in the new epoch
 RESTART_HELD = 2
 RESTART_DURABLE_EVERY = 2
@@ -6782,6 +6809,445 @@ def wire_path(smi: str, reqs, in_process, phase19_p50_ms: float = 0.0,
     print(f"path_wire: {json.dumps(figures)}", flush=True)
     return launches, figures
 
+# ------------------------------------------------------------ shard moves
+# Phase 27: phase 25's cluster (FoundationDB's `double` redundancy: 2
+# TLogs, 4 storage servers in teams of 2, 2 Resolver roles on the card at
+# CAPACITY and DELTA_CAPACITY, 2 commit proxies and 1 GRV proxy, the 1M
+# keys with 100-byte values on both replicas, every role in a simulated
+# process on the SimNetwork) and ReadWrite's shape from DD_RW[0] actors,
+# DD_RW[1] transactions each: DD_RW[2] warmup rounds, DD_RW[3] rounds
+# before the data distributor starts, the rest during its moves.  Then
+# StaticCluster.start_data_distribution() starts the distributor, which
+# (a) moves shard DD_MOVE[0] (team [3, 0]) whole to DD_MOVE[1], a team
+# that shares one member with it, by MoveKeys (two `\xff/keyServers/`
+# transactions and a fetch of its 250,000 rows); (b) splits every shard
+# past DD_SHARD_SPLIT_BYTES (the reference's 1 MiB default) at its middle
+# byte, sweep after sweep; and (c), once DD_KILL_AT of the measured
+# commits during the moves are in, the process of storage server
+# DD_KILLED is killed and the distributor re-replicates every shard whose
+# team held its tag onto the survivors.  The drive then waits for the
+# distributor to settle (no move in flight, tag 1 in no team, every
+# shard polled under the split size), and a write through each proxy
+# hands both the final map.  Checks: every acknowledged write read back,
+# equal to the dict model over the loaded values, from every replica of
+# its key's final team; ConsistencyCheckWorkload clean; every shard with
+# 2 healthy replicas and tag 1 in no team, on the distributor's map and
+# both proxies'; every replica a move vacated answers wrong_shard_server
+# at and above the fence's version (the phase-2 commit) over the span it
+# left; reads failed over and wrong_shard_server answers counted and
+# nonzero; one commit reply a commit (the proxies' count equal to the
+# clients' plus the distributor's); every batch's codes equal a CPU
+# plane's replay at the same versions; no supervised set degraded.
+DD_RW = (2048, 5, 1, 1)    # actors, transactions each, warmup, before
+DD_SEED = 2727
+DD_KILLED = "ss1"
+DD_MOVE = (3, [3, 2])      # shard 3's [3, 0] to [3, 2]
+DD_KILL_AT = 0.5           # share of the measured commits during moves
+DD_SETTLE_S = 600.0        # virtual seconds the distributor may take
+
+
+def count_wrong_shard(net) -> dict:
+    """Wrap `net`'s send_request so every storage read answered
+    wrong_shard_server is counted (each a read the client locates
+    again)."""
+    counts = {"wrong_shard_server": 0}
+    orig = net.send_request
+
+    def send_request(ep, request, *args, **kwargs):
+        f = orig(ep, request, *args, **kwargs)
+
+        def seen(f, stream=ep.token.split(":", 1)[0]):
+            if f.is_error() and stream.startswith("storage.get") and \
+                    getattr(f.error, "name", "") == "wrong_shard_server":
+                counts["wrong_shard_server"] += 1
+        f.on_ready(seen)
+        return f
+    net.send_request = send_request
+    return counts
+
+
+def dd_read_back(c, teams, base, keys, model, version: int) -> int:
+    """Every user key's row (the loaded value, or the model's) from
+    every replica of each shard's final team in `teams` ((begin, end,
+    tags)), each shard read whole; returns the rows read."""
+    from bisect import bisect_left
+    from foundationdb_tpu_torch.server.interfaces import (
+        GetKeyValuesRequest, ask)
+    n = 0
+    for b, e, tags in teams:
+        if b >= b"\xff":
+            continue
+        e = min(e, b"\xff")
+        lo, hi = bisect_left(keys, b), bisect_left(keys, e)
+        want = [(k, model.get(k, base[lo + j]))
+                for j, k in enumerate(keys[lo:hi])]
+        for tag in tags:
+            rows = ask(c.storage[tag].get_key_values, GetKeyValuesRequest(
+                b, e, version, limit=1 << 62, limit_bytes=1 << 62)).data
+            if rows != want:
+                bad = next((x, y) for x, y in zip(rows + [None] * len(want),
+                                                  want) if x != y)
+                raise AssertionError(
+                    f"shard move read-back: ss{tag} holds {len(rows)} rows "
+                    f"of [{b!r}, {e!r}), the model {len(want)}; first "
+                    f"difference {bad}")
+            n += len(rows)
+    return n
+
+
+def same_teams(a, b) -> bool:
+    """Whether two shard maps ((begin, end, tags) triples, coalesced or
+    not) give every key the same team."""
+    from bisect import bisect_right
+
+    def at(triples, k):
+        begins = [x[0] for x in triples]
+        return list(triples[bisect_right(begins, k) - 1][2])
+    cuts = {x[0] for x in a} | {x[0] for x in b}
+    return all(at(a, k) == at(b, k) for k in cuts)
+
+
+def dd_run(device: str = DEVICE, keyspace: int = KEYSPACE,
+           rw_actors: int = DD_RW[0], rw_txns: int = DD_RW[1],
+           rw_warmup: int = DD_RW[2], rw_before: int = DD_RW[3],
+           split_bytes: Optional[int] = None, smi: str = "",
+           **set_kwargs) -> dict:
+    """The phase's run (see the section's comment); returns the figures.
+    `split_bytes`: DD_SHARD_SPLIT_BYTES for the run, and a quarter of it
+    DD_SHARD_MERGE_BYTES (the reference's defaults when None; a small
+    run sets it to its own scale)."""
+    import gc
+    import random
+    import shutil
+    import tempfile
+    from foundationdb_tpu_torch.core.futures import wait_all
+    from foundationdb_tpu_torch.core.knobs import server_knobs
+    from foundationdb_tpu_torch.core.scheduler import (EventLoop, delay,
+                                                       set_event_loop)
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    from foundationdb_tpu_torch.server.interfaces import (
+        GetKeyValuesRequest, ask)
+    from foundationdb_tpu_torch.core.error import FdbError
+    from foundationdb_tpu_torch.testing.workload import TestWorkload
+    from foundationdb_tpu_torch.testing.workloads import (
+        ConsistencyCheckWorkload)
+    knobs = server_knobs()
+    saved = (knobs.DD_SHARD_SPLIT_BYTES, knobs.DD_SHARD_MERGE_BYTES)
+    if split_bytes is not None:
+        # The reference's ratio: merge below a quarter of the split size.
+        knobs.DD_SHARD_SPLIT_BYTES = split_bytes
+        knobs.DD_SHARD_MERGE_BYTES = split_bytes // 4
+    split_limit = int(knobs.DD_SHARD_SPLIT_BYTES)
+    rng = np.random.default_rng(DD_SEED)
+    datadir = tempfile.mkdtemp(prefix="chip_smoke_dd_")
+    loop = EventLoop()
+    try:
+        c = commit_cluster(datadir, keyspace, device, clock=loop.now,
+                           **set_kwargs)
+        t0 = time.perf_counter()
+        base = commit_values(rng, keyspace)
+        keys = [commit_key(i) for i in range(keyspace)]
+        c.load(keys, base)
+        load_s = time.perf_counter() - t0
+        c.start(loop)
+        net = c.sim.network
+        broken = count_broken(net)
+        wrong = count_wrong_shard(net)
+        db = c.database()
+        records = record_batches(c)
+        rw = TestWorkload(c, db, {})
+        gc.collect()
+        gc.freeze()
+        gc.disable()
+        acked = []          # (version, batch index, order, key, value)
+        stats = []          # (round, attempts, wall s)
+        events = {}
+        pad = b"." * (COMMIT_VALUE_BYTES - 24)
+
+        async def rw_actor(a: int, rounds) -> None:
+            r = random.Random(DD_SEED * 100_003 + a)
+            for rnd in rounds:
+                st = {"attempts": 0}
+
+                async def fn(t, rnd=rnd, st=st):
+                    st["attempts"] += 1
+                    st["txn"] = t
+                    await t.get_read_version()
+                    for _ in range(4):
+                        await t.get(commit_key(r.randrange(keyspace)))
+                    if rnd % CLIENT_RANGE_EVERY == CLIENT_RANGE_EVERY - 1:
+                        lo = r.randrange(keyspace - CLIENT_RANGE_KEYS)
+                        await t.get_range(
+                            commit_key(lo),
+                            commit_key(lo + CLIENT_RANGE_KEYS))
+                    st["writes"] = []
+                    for j in range(2):
+                        k = commit_key(r.randrange(keyspace))
+                        v = b"d%06dr%02dw%d" % (a, rnd, j) + pad
+                        st["writes"].append((k, v))
+                        t.set(k, v)
+                t1 = time.perf_counter()
+                await rw.run_transaction(fn)
+                wall = time.perf_counter() - t1
+                stamp = st["txn"]._committed_stamp
+                ver = int.from_bytes(stamp[:8], "big")
+                idx = int.from_bytes(stamp[8:], "big")
+                for j, (k, v) in enumerate(st["writes"]):
+                    acked.append((ver, idx, j, k, v))
+                stats.append((rnd, st["attempts"], wall))
+
+        def drive(rounds, *more):
+            c.run_until(wait_all([loop.spawn(rw_actor(a, rounds))
+                                  for a in range(rw_actors)] +
+                                 [loop.spawn(m) for m in more]))
+
+        if device == "cuda":
+            import torch
+            torch.cuda.synchronize()
+        drive(range(rw_warmup))
+        t1 = time.perf_counter()
+        drive(range(rw_warmup, rw_warmup + rw_before))
+        before_s = time.perf_counter() - t1
+        first_during = rw_warmup + rw_before
+        n_during = rw_actors * (rw_txns - first_during)
+
+        # The distributor: the move (a), the split sweep (b) on its own,
+        # the kill (c) with re-replication behind it.
+        c.start_data_distribution()
+        dd = c.dd
+        dest = c.storage[DD_MOVE[1][-1]]
+        move_begin = commit_key(DD_MOVE[0] * keyspace // 4)
+        tag1 = int(DD_KILLED[2:])
+        t_dd = (loop.now(), time.perf_counter())
+        last_split = [t_dd[1], 0]
+
+        async def mover() -> None:
+            f0 = dict(dest.fetch_stats)
+            await dd.move_shard(move_begin, b"\xff\xff", list(DD_MOVE[1]))
+            events["move"] = dict(dd.move_log[-1])
+            events["fetch"] = {k: dest.fetch_stats[k] - f0[k]
+                               for k in ("rows", "bytes", "seconds")}
+
+        def during_done() -> int:
+            return sum(1 for x in stats if x[0] >= first_during)
+
+        async def nemesis() -> None:
+            while during_done() < DD_KILL_AT * n_during:
+                await delay(0.001)
+            events["kill"] = (loop.now(), time.perf_counter())
+            c.kill_process(DD_KILLED)
+            while dd.healthy and tag1 in dd.healthy:
+                await delay(0.001)
+            while dd.moves_in_flight or any(
+                    tag1 in (t or ()) for _b, _e, t in dd.map.ranges()):
+                await delay(0.01)
+            events["replicated"] = (loop.now(), time.perf_counter())
+
+        t2 = time.perf_counter()
+        drive(range(first_during, rw_txns), mover(), nemesis())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        during_s = time.perf_counter() - t2
+
+        async def settle() -> None:
+            """Until no move is in flight and every shard was last polled
+            under the split size (the sweep is done)."""
+            deadline = loop.now() + DD_SETTLE_S
+            while loop.now() < deadline:
+                if dd.stats["splits"] != last_split[1]:
+                    last_split[:] = [time.perf_counter(),
+                                     dd.stats["splits"]]
+                if not dd.moves_in_flight and all(
+                        dd._shard_sizes.get(b, split_limit + 1) <=
+                        split_limit for b, _e, t in dd.map.ranges() if t):
+                    return
+                await delay(0.05)
+            raise AssertionError(
+                f"the distributor did not settle in {DD_SETTLE_S} virtual "
+                f"s: {dd.stats}, {dd.moves_in_flight} moves in flight")
+        c.run_until(loop.spawn(settle()))
+        settle_s = time.perf_counter() - t2
+
+        # A write through each proxy: both learn the last move.
+        async def sync_write(i: int) -> None:
+            k = commit_key(i)
+            v = b"sync%02d" % i + pad
+            t = db.create_transaction()
+            while True:
+                try:
+                    t.set(k, v)
+                    await t.commit()
+                    break
+                except FdbError as e:
+                    await t.on_error(e)
+            stamp = t._committed_stamp
+            acked.append((int.from_bytes(stamp[:8], "big"),
+                          int.from_bytes(stamp[8:], "big"), 0, k, v))
+        for i in range(2 * len(c.plane.proxies)):
+            c.run_until(loop.spawn(sync_write(i)))
+        audit = ConsistencyCheckWorkload(c, db, {})
+        t3 = time.perf_counter()
+        if not c.run_until(loop.spawn(audit.check())):
+            raise AssertionError("the consistency check failed")
+        audit_s = time.perf_counter() - t3
+
+        # Checks.
+        final = list(dd.map.ranges())
+        for pid, proxy in c.plane.proxies.items():
+            if not same_teams(final, list(proxy.key_servers.ranges())):
+                raise AssertionError(f"proxy {pid}'s shard map is not the "
+                                     "distributor's")
+        short = [(b, t) for b, _e, t in final
+                 if len(set(t)) != 2 or tag1 in t or
+                 not set(t) <= dd.healthy]
+        if short:
+            raise AssertionError(f"shards without 2 healthy replicas: "
+                                 f"{short[:4]}")
+        committed = sum(p.metrics.counter("TxnCommitted").value
+                        for p in c.plane.proxies.values())
+        client_commits = len(stats) + 2 * len(c.plane.proxies)
+        if committed != client_commits + dd.stats["metadata_txns"] or any(
+                p.broken for p in c.plane.proxies.values()):
+            raise AssertionError(
+                f"the proxies committed {committed} transactions, the "
+                f"clients {client_commits} and the distributor "
+                f"{dd.stats['metadata_txns']}")
+        if broken["read_failovers"] <= 0 or wrong["wrong_shard_server"] <= 0:
+            raise AssertionError(f"failovers {broken['read_failovers']}, "
+                                 f"wrong_shard_server answers "
+                                 f"{wrong['wrong_shard_server']}: each "
+                                 "must be counted")
+        if dd.stats["splits"] <= 0 or dd.stats["rereplications"] <= 0:
+            raise AssertionError(f"no split or no re-replication: "
+                                 f"{dd.stats}")
+        for role in c.plane.resolvers:
+            check_supervised(role.conflict_set, len(records),
+                             "TorchConflictSet", device)
+        top = c.read_version()
+        live = [ss for ss in c.storage if ss.id != DD_KILLED]
+        for ss in live:
+            ss.pull()
+        # The fence: every live replica a move vacated closes the span it
+        # left at the move's phase-2 version and above.
+        fences = 0
+        for mv in dd.move_log:
+            for tag in mv["from"]:
+                if tag in mv["to"] or tag == tag1:
+                    continue
+                if any(tag in t and b < mv["end"] and mv["begin"] < e
+                       for b, e, t in final):
+                    continue          # the span came back to it later
+                # Its phase-2 version, or the oldest it still reads at.
+                for v in (max(mv["phase2_version"],
+                              c.storage[tag].oldest_version), top):
+                    try:
+                        rows = ask(c.storage[tag].get_key_values,
+                                   GetKeyValuesRequest(
+                                       mv["begin"], min(mv["end"], b"\xff"),
+                                       v, limit=1)).data
+                    except FdbError as e:
+                        if e.name != "wrong_shard_server":
+                            raise
+                        fences += 1
+                        continue
+                    raise AssertionError(
+                        f"ss{tag} answered {len(rows)} rows of "
+                        f"[{mv['begin']!r}, {mv['end']!r}) at {v}, at or "
+                        f"above the fence of {mv['phase2_version']}")
+        if fences <= 0:
+            raise AssertionError("no vacated replica was held to its fence")
+        model = {}
+        for _v, _i, _j, k, v in sorted(acked):
+            model[k] = v
+        t4 = time.perf_counter()
+        rows = dd_read_back(c, final, base, keys, model, top)
+        readback_s = time.perf_counter() - t4
+        # The phase's batches through a CPU plane at the same versions.
+        chain = sorted(records, key=lambda r: r[2])
+        oracle = ResolutionPlane(2, list(COMMIT_PROXIES),
+                                 boundaries=plane_boundaries(2),
+                                 backend="cpu",
+                                 recovery_version=chain[0][1])
+        t5 = time.perf_counter()
+        for b, (pid, prev, v, txns, got) in enumerate(chain):
+            want = codes_of(oracle.resolve(pid, txns, prev, v).committed)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"batch {b}: {int((got != want).sum())} of {len(got)} "
+                    "replies differ from the CPU plane's")
+        replay_s = time.perf_counter() - t5
+        tlogs = {t.id: {"mb_in_memory": t.bytes_in_memory / 1e6,
+                        "mb_spilled": t.bytes_spilled / 1e6}
+                 for t in c.tlogs}
+        for proc in list(c.processes.values()):
+            c.sim.kill_process(proc)
+        loop.run_until(delay(0.01))
+        c.close()
+    finally:
+        gc.enable()
+        gc.unfreeze()
+        set_event_loop(None)
+        knobs.DD_SHARD_SPLIT_BYTES, knobs.DD_SHARD_MERGE_BYTES = saved
+        shutil.rmtree(datadir, ignore_errors=True)
+    gc.collect()
+
+    def rate(rounds, wall_s):
+        xs = [x for x in stats if x[0] in rounds]
+        return {"committed": len(xs), "wall_s": wall_s,
+                "committed_txns_per_s": len(xs) / wall_s,
+                "p50_txn_ms": float(np.percentile([x[2] for x in xs], 50))
+                * 1e3,
+                "p99_txn_ms": float(np.percentile([x[2] for x in xs], 99))
+                * 1e3,
+                "retries_per_commit": sum(x[1] - 1 for x in xs) /
+                max(len(xs), 1)}
+    mv, fetch = events["move"], events["fetch"]
+    return {
+        "keyspace": keyspace, "load_s": load_s,
+        "before": rate(range(rw_warmup, first_during), before_s),
+        "during": rate(range(first_during, rw_txns), during_s),
+        "move": {"shard": [mv["begin"].decode(), mv["end"].hex()],
+                 "from": mv["from"], "to": mv["to"],
+                 "phase1_to_phase2_s": mv["wall_s"],
+                 "phase1_to_phase2_virtual_s": mv["virtual_s"],
+                 "fetch_mb": fetch["bytes"] / 1e6, "fetch_rows": fetch["rows"],
+                 "fetch_s": fetch["seconds"],
+                 "fetch_rows_per_s": fetch["rows"] / max(fetch["seconds"],
+                                                         1e-9)},
+        "kill_to_replicated_s": events["replicated"][1] - events["kill"][1],
+        "kill_to_replicated_virtual_s":
+            events["replicated"][0] - events["kill"][0],
+        "splits": dd.stats["splits"], "merges": dd.stats["merges"],
+        "split_sweep_s": last_split[0] - t_dd[1],
+        "moves": dd.stats["moves"],
+        "rereplications": dd.stats["rereplications"],
+        "metadata_txns": dd.stats["metadata_txns"],
+        "shards": len(final), "split_bytes": split_limit,
+        "settle_s": settle_s,
+        "read_failovers": broken["read_failovers"],
+        "wrong_shard_server_replies": wrong["wrong_shard_server"],
+        "fence_checks": fences,
+        "consistency": dict(audit.metrics), "consistency_s": audit_s,
+        "readback_rows": rows, "readback_s": readback_s,
+        "replayed_batches": len(chain), "replay_s": replay_s,
+        "tlogs": tlogs, "card": smi}
+
+
+def dd_path(smi: str) -> tuple:
+    """Phase 27: dd_run on the card, the launches counted over the whole
+    drive; the path_dd line."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    K.reset_counts()
+    figures = dd_run(smi=smi, capacity=CAPACITY,
+                     delta_capacity=DELTA_CAPACITY)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    figures["launches"] = {k: v for k, v in launches.items() if v}
+    print(f"path_dd: {json.dumps(figures)}", flush=True)
+    return launches, figures
+
+
 def main() -> int:
     try:
         import torch
@@ -6932,6 +7398,10 @@ def main() -> int:
         smi, *role_run, phase19_p50_ms=path_resolver["p50_request_ms"])
     del role_run
     phase_done("resolver over TCP")
+    log("phase 27: shard moves (a move, the split sweep, a storage process "
+        "killed and re-replication, under ReadWrite)")
+    launches["dd"], path_dd = dd_path(smi)
+    phase_done("shard moves")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -6969,6 +7439,7 @@ def main() -> int:
                       "path_restart": path_restart,
                       "path_client": path_client,
                       "path_sim": path_sim, "path_wire": path_wire,
+                      "path_dd": path_dd,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -26,7 +26,10 @@ Usage, on the port's event loop (server/cluster.py StaticCluster):
 
 Kept whole: the proxies taken round robin; the client-side GRV batcher
 and the read-version lease, gated by knobs and off by default; the
-location cache; read_replica with replica failover, hedging after
+location cache (a range read's chunk that answers wrong_shard_server or
+broken_promise drops its shard from it, as a point read drops its key:
+after a shard moves, the reference's range read would ask the vacated
+team again on every retry), get_shard_location; read_replica with replica failover, hedging after
 HEDGE_REQUEST_DELAY and the latency ordering; and Transaction's reads
 (get, get_range with its shard-by-shard chunks), the conflicting-keys
 rows, writes, versionstamps, conflict ranges, commit, on_error, run,
@@ -470,6 +473,12 @@ class Database:
     def invalidate_cache(self, key: bytes) -> None:
         self._location_cache.set_range(key, key_after(key), None)
 
+    async def get_shard_location(self, key: bytes):
+        """(shard_begin, shard_end, [StorageServerInterface]) of the shard
+        holding `key`: the consistency check's surface."""
+        await self.get_key_location(key)
+        return self._location_cache.range_containing(key)
+
     def create_transaction(self) -> "Transaction":
         return Transaction(self)
 
@@ -714,11 +723,10 @@ class Transaction:
         if not ssis:
             raise err("wrong_shard_server")
         kwargs = {"limit_bytes": limit_bytes} if limit_bytes > 0 else {}
-        reply = await self.db.read_replica(
-            ssis, lambda s: s.get_key_values,
-            lambda: GetKeyValuesRequest(begin=cursor, end=shard_end,
-                                        version=version, limit=limit,
-                                        **kwargs))
+        reply = await self._read_chunk(
+            cursor, ssis, lambda: GetKeyValuesRequest(
+                begin=cursor, end=shard_end, version=version, limit=limit,
+                **kwargs))
         if reply.more and reply.data:
             return reply.data, key_after(reply.data[-1][0])
         return reply.data, shard_end
@@ -734,14 +742,28 @@ class Transaction:
         if not ssis:
             raise err("wrong_shard_server")
         kwargs = {"limit_bytes": limit_bytes} if limit_bytes > 0 else {}
-        reply = await self.db.read_replica(
-            ssis, lambda s: s.get_key_values,
-            lambda: GetKeyValuesRequest(begin=shard_begin, end=cursor,
-                                        version=version, limit=limit,
-                                        reverse=True, **kwargs))
+        reply = await self._read_chunk(
+            shard_begin, ssis, lambda: GetKeyValuesRequest(
+                begin=shard_begin, end=cursor, version=version, limit=limit,
+                reverse=True, **kwargs))
         if reply.more and reply.data:
             return reply.data, reply.data[-1][0]   # inclusive smallest key
         return reply.data, shard_begin
+
+    async def _read_chunk(self, key: bytes, ssis, make_request):
+        """One chunk's read from the team cached for `key`'s shard; a
+        team that answers wrong_shard_server or broken_promise drops
+        that shard from the location cache, so the retry locates it
+        again (a chunk of a range read, as a point read does; the
+        reference's range read keeps the stale entry)."""
+        try:
+            return await self.db.read_replica(
+                ssis, lambda s: s.get_key_values, make_request)
+        except FdbError as e:
+            if e.name in ("broken_promise", "wrong_shard_server"):
+                b, e_, _t = self.db._location_cache.range_containing(key)
+                self.db._location_cache.set_range(b, e_, None)
+            raise
 
     def _merge_span(self, base: List[Tuple[bytes, bytes]], begin: bytes,
                     end: bytes) -> List[Tuple[bytes, bytes]]:

@@ -1,6 +1,6 @@
 """Error codes (trimmed to what the conflict path, its supervisor, the
-commit proxy's replies, the write path and its recovery, the event loop
-and the client raise or retry on).
+commit proxy's replies, the write path and its recovery, the event loop,
+the client and data distribution raise or retry on).
 
 Mirrors the reference's flow/error_definitions.h error-code contract."""
 
@@ -36,6 +36,7 @@ ERROR_CODES = {
     "broken_promise": 1100,
     "operation_cancelled": 1101,
     "master_recovery_failed": 1201,
+    "movekeys_conflict": 1208,
     "io_error": 1510,
     "client_invalid_operation": 2000,
     "key_outside_legal_range": 2003,

@@ -31,7 +31,10 @@ The event-loop roles read the commit batcher's window and byte cap
 (COMMIT_TRANSACTION_BATCH_*, server/commit_proxy.py), the GRV starter's
 interval (START_TRANSACTION_BATCH_INTERVAL_MIN, server/grv_proxy.py) and
 how long a storage server holds a read at a version its logs do not yet
-have (STORAGE_FUTURE_VERSION_TIMEOUT, server/storage.py).  The transport
+have (STORAGE_FUTURE_VERSION_TIMEOUT, server/storage.py).  Data
+distribution reads the storage servers' incremental shard metrics switch
+and the DD_* split, poll and merge knobs (server/storage.py,
+server/data_distribution.py).  The transport
 reads PEER_HEALTH_ENABLED, the switch of its per-peer samples
 (rpc/network.py, rpc/real_network.py, rpc/transport.py), and
 RPC_COLUMNAR_ENABLED, whether the hot messages are encoded as columnar
@@ -148,6 +151,17 @@ class ServerKnobs:
         # How long a read at a version past the logs waits before
         # future_version (the reference's :379).
         self.STORAGE_FUTURE_VERSION_TIMEOUT = 1.0
+        # A storage server keeps exact byte and key counts of the shards
+        # data distribution polls, moved by each write (the reference's
+        # :317; off: every poll scans its shard).
+        self.STORAGE_INCREMENTAL_SHARD_METRICS = True
+        # Data distribution (the reference's :336-342): a shard past
+        # DD_SHARD_SPLIT_BYTES splits at its middle byte, the sizes are
+        # polled every DD_METRICS_INTERVAL seconds, and two neighbours of
+        # one team under DD_SHARD_MERGE_BYTES together merge.
+        self.DD_SHARD_SPLIT_BYTES = 1 << 20
+        self.DD_METRICS_INTERVAL = 0.5
+        self.DD_SHARD_MERGE_BYTES = (1 << 20) // 4
 
         # The transport (the reference's :127 and :283): per-peer health
         # samples on every send, and the columnar frames of the hot

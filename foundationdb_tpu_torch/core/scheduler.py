@@ -62,6 +62,7 @@ class TaskPriority(IntEnum):
     DefaultDelay = 7010
     DefaultYield = 7000
     DefaultEndpoint = 5000
+    FetchKeys = 3910
     Low = 1
 
 

@@ -1114,7 +1114,8 @@ _bootstrapped = False
 def bootstrap_registry() -> None:
     """Register every module that defines types the port's network
     carries (the reference's bootstrap_registry over the port's modules:
-    its messages, interfaces and the waitFailure request; FdbError
+    its messages, interfaces, the waitFailure request and data
+    distribution's module, as the reference registers its; FdbError
     travels as T_ERROR and needs no registration).  Idempotent; called by
     the real transport at startup."""
     global _bootstrapped
@@ -1126,5 +1127,6 @@ def bootstrap_registry() -> None:
             "foundationdb_tpu_torch.txn.types",
             "foundationdb_tpu_torch.server.interfaces",
             "foundationdb_tpu_torch.server.failure",
+            "foundationdb_tpu_torch.server.data_distribution",
     ):
         register_module(importlib.import_module(modname))

@@ -44,15 +44,20 @@ SimCluster, :100-143):
       process of its own: the master, the TLogs, the Resolver roles,
       the storage servers, the commit proxies (their batchers send the
       master's, the resolvers' and the TLogs' requests over the
-      network) and the first GRV proxy (the reference's SimCluster has
-      one GRV proxy);
+      network), the first GRV proxy (the reference's SimCluster has
+      one GRV proxy) and, with `data_distribution`, the data
+      distributor ("dd", server/data_distribution.py: its metadata
+      transactions go through a Database over this cluster, and it
+      moves, splits, merges and re-replicates shards;
+      start_data_distribution() starts it later on a started cluster);
   database()  a client/database.py Database over the proxies'
       interfaces;
   run_until(future, timeout)  drive the loop until `future` resolves,
       raising at once if a role's actor fails;
   kill_process(role_id) (also stop_role)  kill one role's process: its
       actors cancelled, its endpoints dropped, every request to it and
-      every reply it owed answering broken_promise;
+      every reply it owed answering broken_promise (a storage server's
+      reaches the data distributor through its failure monitor);
   clog_process(role_id, seconds)  hold its process's traffic.
 
 The synchronous methods above stay as they are (every role answers
@@ -82,6 +87,11 @@ Ratekeeper.  The caller supplies the versions, as the master would:
 
 commit() and resolve() hand a proxy the boundary moves it has not been
 handed with its batch.
+
+Every storage server owns the spans of its teams in the shard map and
+no other (its reads elsewhere answer wrong_shard_server), at the start
+and after a recovery, whose shard map is the core state's with the
+TXS_TAG deltas of the moves replayed onto it.
 
 Left out: the ratekeeper's rate budgets, the coordinators (the core state
 is a file of the data directory), region failover, backup, tenants, the
@@ -236,7 +246,8 @@ class StaticCluster:
                  resolver_boundaries: Optional[List[bytes]] = None,
                  storage_engine: Optional[str] = None,
                  device=None, backend: str = "torch",
-                 clock=time.monotonic, **set_kwargs) -> None:
+                 clock=time.monotonic, data_distribution: bool = False,
+                 **set_kwargs) -> None:
         """`datadir`: the data directory (made if missing): the TLogs'
         queues, tlog-log<i>.e1.wal, the storage engines' files and the
         core state.  `storage_boundaries`: the interior cut keys of the
@@ -249,7 +260,8 @@ class StaticCluster:
         resolution plane's (ResolutionPlane); its roles run on `cuda`
         unless the caller names another device, and with none named and
         no card present this raises.  `clock`: the master's, in
-        seconds."""
+        seconds.  `data_distribution`: start() starts a data
+        distributor too."""
         if storage_engine not in (None, "memory", "btree"):
             raise ValueError(f"unknown storage engine {storage_engine!r}")
         self.fs = RealFileSystem(datadir)
@@ -269,6 +281,8 @@ class StaticCluster:
         ranges = [(bounds[i], bounds[i + 1],
                    [(i + j) % n_storage for j in range(replication)])
                   for i in range(len(bounds) - 1)]
+        self.replication = replication
+        self.data_distribution = data_distribution
         self._wire(Master(clock=clock), log_system, storage, ranges,
                    n_resolvers, proxy_ids, resolver_boundaries, 0, device,
                    backend, set_kwargs)
@@ -298,6 +312,12 @@ class StaticCluster:
         self.key_servers: RangeMap = RangeMap(default=None)
         for b, e, team in key_servers_ranges:
             self.key_servers.set_range(b, e, list(team))
+        for ss in storage:
+            ss.shards = RangeMap(default=("absent", 0))
+        for b, e, team in key_servers_ranges:
+            for tag in team:
+                storage[tag].shards.set_range(b, e, ("owned", 0))
+        self.dd = None
         self.plane = ResolutionPlane(
             n_resolvers, list(proxy_ids), device=device, backend=backend,
             master=master, log_system=log_system,
@@ -311,6 +331,7 @@ class StaticCluster:
     @classmethod
     def recover(cls, datadir: str, proxy_ids: Sequence[str] = ("p0",), *,
                 device=None, backend: str = "torch", clock=time.monotonic,
+                data_distribution: bool = False,
                 **set_kwargs) -> "StaticCluster":
         """Reopen a killed cluster from `datadir` in a new epoch: the boot
         scan (TLog.from_disk of every queue, StorageServer.from_engine of
@@ -322,8 +343,9 @@ class StaticCluster:
         (set_log_system rolls back a replica that ran past the recovery
         version), and new Resolver roles at the recovery version (a read
         below it is too old) with new commit and GRV proxies over the
-        recovered shard map.  `device`, `backend` and `set_kwargs` as
-        the constructor's; with no device named and no card present this
+        recovered shard map (the moves' TXS_TAG deltas replayed onto the
+        core state's).  `device`, `backend`, `data_distribution` and
+        `set_kwargs` as the constructor's; with no device named and no card present this
         raises before the directory is touched.  `recovery` holds the
         seconds and sizes of the parts."""
         if backend != "cpu":
@@ -379,6 +401,8 @@ class StaticCluster:
         c = cls.__new__(cls)
         c.fs = fs
         c.storage_engine = scan.engines[storage[0].tag]
+        c.replication = prev.log_replication
+        c.data_distribution = data_distribution
         c._wire(end.master, log_system, storage, end.key_servers_ranges,
                 prev.n_resolvers, proxy_ids, cut, end.recovery_version,
                 device, backend, set_kwargs)
@@ -403,8 +427,9 @@ class StaticCluster:
         becomes the installed network), and start every role in a
         simulated process of its own, each a kill target (the reference's
         SimCluster :100-111): the master ("master"), each TLog, Resolver
-        role and storage server (by id), each commit proxy (by proxy id)
-        and the first GRV proxy ("grv").  Each role registers its streams
+        role and storage server (by id), each commit proxy (by proxy id),
+        the first GRV proxy ("grv") and, with `data_distribution`, the
+        data distributor ("dd").  Each role registers its streams
         on its process and spawns its actors there; the commit proxies
         learn the storage servers' interfaces for their location
         service."""
@@ -432,8 +457,32 @@ class StaticCluster:
         for name, role in roles.items():
             proc = self.sim.new_process(name=name)
             self.processes[name] = proc
+            if name in (ss.id for ss in self.storage):
+                loc = proc.locality
+                role.interface.locality = (loc.dcid, loc.zoneid,
+                                           loc.machineid)
             for f in role.run(proc):
                 f.on_ready(self._role_ended)
+        if self.data_distribution:
+            self.start_data_distribution()
+
+    def start_data_distribution(self) -> None:
+        """Start the data distributor on a started cluster, in a process
+        of its own ("dd"; start() does so with `data_distribution`): a
+        Database over this cluster for its metadata transactions, every
+        storage server's interface, and the shard map as the first commit
+        proxy holds it."""
+        from .data_distribution import DataDistributor
+        proxy = next(iter(self.plane.proxies.values()))
+        self.dd = DataDistributor(
+            "dd", self.database(), proxy.storage_interfaces,
+            list(proxy.key_servers.ranges()), self.replication)
+        proc = self.sim.new_process(name="dd")
+        self.processes["dd"] = proc
+        for f in self.dd.run(proc):
+            # A failure monitor ends once it has handled its server's
+            # death: only an error is the distributor's failure.
+            f.on_ready(self._dd_actor_ended)
 
     def _role_ended(self, f) -> None:
         if f.is_error() and getattr(f.error, "name", "") == \
@@ -443,6 +492,10 @@ class StaticCluster:
             self._failure.send_error(
                 f.error if f.is_error() else
                 err("internal_error", "a role's actor ended"))
+
+    def _dd_actor_ended(self, f) -> None:
+        if f.is_error():
+            self._role_ended(f)
 
     # The proxy lists Database reads (the reference's cluster.py:131-143);
     # a killed proxy stays in them and answers broken_promise, as a

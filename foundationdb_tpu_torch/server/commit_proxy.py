@@ -25,7 +25,9 @@ reference); the resolution; and with the master's version, phases 3-5:
 the committed mutations routed to the tags of their storage teams
 (_assign_mutations_to_tags: versionstamps spliced at the reordered
 index, clears clipped per shard, \xff/keyServers/ mutations applied to
-the shard map first and also sent on TXS_TAG), the push to every TLog
+the shard map first and also sent on TXS_TAG, and before each the
+disownment fence sent to every tag the change drops from a team), the
+push to every TLog
 through the LogSystemClient, which returns once every TLog has made the
 version durable, and the committed version reported to the master.  Then
 stage (c) _collect_repairs (SCHED_REPAIR_ENABLED, with its RepairLadder
@@ -55,8 +57,7 @@ _validate_tenants) and the lock fence (db_locked), for the port's proxy
 has neither tenants nor a lock; _apply_metadata's side effects other
 than the shard map (backup, lock, configuration, server registry, cache
 ranges: the port's _apply_metadata is apply_key_servers_mutation on this
-proxy's map) and the disownment fence of a team that shrinks; the
-BACKUP, CACHE, TSS and region twin tags; the commit-debug spans and the
+proxy's map); the BACKUP, CACHE, TSS and region twin tags; the commit-debug spans and the
 CommitConflictDetail trace of an aborted debug_id txn; the pipelining
 gates (a logged commit() runs its batch to the end within the call, the
 batcher waits for one batch before it closes the next; both refuse a
@@ -110,7 +111,8 @@ from .interfaces import (RESOLVER_ALL, TXS_TAG, CommitID,
                          ask, call, run_within_call)
 from .failure import hold_wait_failure
 from .shardmap import RangeMap
-from .system_data import SYSTEM_KEYS_BEGIN, apply_key_servers_mutation
+from .system_data import (DISOWN_SHARD_PREFIX, SYSTEM_KEYS_BEGIN,
+                          apply_key_servers_mutation, disowned_spans)
 
 # Past this many txns stage (b) takes the one-round in-degree sort
 # (the reference's SCHED_REORDER_EXACT_MAX default).
@@ -194,13 +196,6 @@ class LogSystemClient:
             except FdbError as e:
                 last_err = e
         raise last_err
-
-
-def _same_servers(a: RangeMap, b: RangeMap) -> bool:
-    """Whether two shard maps give every key the same set of tags."""
-    cuts = {k for k, _e, _v in a.ranges()} | {k for k, _e, _v in b.ranges()}
-    return all(set(a.lookup(k) or ()) == set(b.lookup(k) or ())
-               for k in cuts)
 
 
 def _splice_stamp(data: bytes, stamp: bytes) -> bytes:
@@ -316,7 +311,7 @@ class CommitProxy:
         coroutine never suspends."""
         t0 = perf_counter()
         self.local_batch_number += 1
-        batch_num = self.local_batch_number
+        batch_num = self.local_batch_number  # flowlint: state -- this batch's number, kept across its awaits
         logged = commit_version is None
         if logged:
             if self.master is None or self.log_system is None:
@@ -490,31 +485,12 @@ class CommitProxy:
                            ) -> None:
         """Raise, before a version is asked for, on a batch the write
         path cannot log: more than COMMIT_TRANSACTION_BATCH_COUNT_MAX
-        transactions, or a \xff/keyServers/ mutation that would change
-        the storage servers of any key (fetch and disown of shards are
-        not ported, so a new member of a team would lack the shard's
-        rows).  A split or merge whose teams hold the same servers
-        passes."""
+        transactions (a versionstamp numbers its transaction in 2
+        bytes)."""
         if len(batch) > COMMIT_TRANSACTION_BATCH_COUNT_MAX:
             raise ValueError(
                 f"proxy {self.id}: a batch of {len(batch)} transactions; "
                 f"the most is {COMMIT_TRANSACTION_BATCH_COUNT_MAX}")
-        sysb = SYSTEM_KEYS_BEGIN
-        clear = MutationType.ClearRange
-        cur = None      # the map as the batch's mutations leave it
-        for req in batch:
-            for m in req.transaction.mutations:
-                if m.param1 < sysb and not (m.type is clear and
-                                            m.param2 > sysb):
-                    continue
-                if cur is None:
-                    cur = self.key_servers.copy()
-                before = cur.copy()
-                if apply_key_servers_mutation(cur, m) and \
-                        not _same_servers(before, cur):
-                    raise ValueError(
-                        f"proxy {self.id}: {m!r} changes a shard's "
-                        "storage servers; shard moves are not ported")
 
     def _reorder(self, batch: List[CommitTransactionRequest]
                  ) -> List[CommitTransactionRequest]:
@@ -914,7 +890,10 @@ class CommitProxy:
         resolved) spliced in; a clear is clipped to each shard it spans;
         a \xff/keyServers/ mutation moves this proxy's shard map before
         any later mutation is routed, and also rides TXS_TAG, and is then
-        routed to storage like any key."""
+        routed to storage like any key; before the map moves, each tag
+        the change drops from a span's team gets the disownment fence of
+        that span (system_data.DISOWN_SHARD_PREFIX), so the server closes
+        the span at this version even if no other message reaches it."""
         messages: Dict[Tag, List[Mutation]] = {}
         ks = self.key_servers
         bounds = ks._bounds
@@ -944,8 +923,13 @@ class CommitProxy:
                 p1 = m.param1
                 if p1 >= sysb or (mt is clear and m.param2 > sysb):
                     # Metadata side effects first (ApplyMetadataMutation
-                    # .cpp:52-61); the shard map may change under us, so
+                    # .cpp:52-61), the fences of the tags a team loses
+                    # before them; the shard map may change under us, so
                     # the boundary arrays are bound again.
+                    for dtag, db_, de_ in disowned_spans(
+                            self.key_servers, m):
+                        messages.setdefault(dtag, []).append(Mutation(
+                            set_val, DISOWN_SHARD_PREFIX + db_, de_))
                     if apply_key_servers_mutation(self.key_servers, m):
                         messages.setdefault(TXS_TAG, []).append(m)
                     ks = self.key_servers

@@ -15,9 +15,13 @@ answers each request through it.
 Each role's interface bundles its request streams (rpc/endpoint.py
 RequestStream) with the reference's names and priorities: the master's,
 the Resolver's, a commit proxy's, a GRV proxy's, a TLog's and a storage
-server's (its reads and its waitFailure; the reference's other storage
-streams serve data distribution, watches and TSS, which the port does
-not have).  A role's actors read them when it runs on a process
+server's (its reads, the four streams of data distribution and its
+waitFailure; the reference's other storage streams serve watches, the
+queuing metrics, the wiggle's engine migration and TSS, which the port
+does not have), and the data distributor's.  The data distribution
+messages are the reference's (:848-924): a destination's fetch of a
+shard, a source's snapshot for it, the poll of a shard's size and the
+removal of a shard a move vacated.  A role's actors read them when it runs on a process
 (`run(process)`); the network (rpc/network.py, rpc/real_network.py)
 carries the requests, and rpc/serde.py encodes each interface as the
 reference's frame does.
@@ -386,15 +390,30 @@ class StorageServerInterface:
     def __init__(self, ss_id: str = "", tag: "Tag" = 0) -> None:
         self.id = ss_id
         self.tag = tag
+        # (dcid, zoneid, machineid) of the hosting process, stamped when
+        # the server starts on one: data distribution ranks replacement
+        # replicas by zone (server/policy.py).
+        self.locality = ("", "", "")
         self.get_value = RequestStream(
             "storage.getValue", TaskPriority.DefaultPromiseEndpoint)
         self.get_key_values = RequestStream(
             "storage.getKeyValues", TaskPriority.DefaultPromiseEndpoint)
+        # Data distribution (reference fetchKeys and ShardMetrics).
+        self.fetch_keys = RequestStream(
+            "storage.fetchKeys", TaskPriority.FetchKeys)
+        self.fetch_shard = RequestStream(
+            "storage.fetchShard", TaskPriority.FetchKeys)
+        self.shard_metrics = RequestStream(
+            "storage.shardMetrics", TaskPriority.DefaultEndpoint)
+        self.remove_shard = RequestStream(
+            "storage.removeShard", TaskPriority.DefaultEndpoint)
         self.wait_failure = RequestStream("storage.waitFailure",
                                           TaskPriority.FailureMonitor)
 
     def streams(self) -> List[RequestStream]:
-        return [self.get_value, self.get_key_values, self.wait_failure]
+        return [self.get_value, self.get_key_values, self.fetch_keys,
+                self.fetch_shard, self.shard_metrics, self.remove_shard,
+                self.wait_failure]
 
 
 # -- TLog (reference fdbserver/TLogInterface.h) ------------------------------
@@ -481,3 +500,69 @@ class GetKeyValuesReply:
     data: List[Tuple[bytes, bytes]]
     more: bool = False
     version: Version = 0
+
+
+# -- data distribution (reference fetchKeys, storageserver.actor.cpp
+# :107-123, StorageMetrics and removeDataRange) ------------------------------
+@dataclass
+class FetchKeysRequest:
+    """Data distributor -> destination storage server: become a replica
+    of [begin, end), from a snapshot of one of `sources`
+    (StorageServerInterfaces), served at or above `min_version` (the
+    MoveKeys phase-1 commit: the mutations in (snapshot, phase 1] went
+    to the old team only)."""
+
+    begin: bytes = b""
+    end: bytes = b""
+    sources: List[Any] = field(default_factory=list)
+    min_version: Version = 0
+    reply: Any = None
+
+
+@dataclass
+class FetchShardRequest:
+    """Destination -> source storage server: the rows of [begin, end) at
+    the source's version, floored at min_version."""
+
+    begin: bytes = b""
+    end: bytes = b""
+    min_version: Version = 0
+    reply: Any = None    # -> FetchShardReply
+
+
+@dataclass
+class FetchShardReply:
+    data: List[Any] = field(default_factory=list)   # [(key, value)]
+    version: Version = 0
+
+
+@dataclass
+class GetShardMetricsRequest:
+    """Data distributor -> storage server: the bytes of [begin, end) and,
+    past split_threshold, a key that halves them (reference
+    StorageMetrics waitMetrics / getSplitPoints)."""
+
+    begin: bytes = b""
+    end: bytes = b""
+    split_threshold: int = 1 << 30
+    reply: Any = None    # -> (bytes, Optional[split key])
+
+
+@dataclass
+class RemoveShardRequest:
+    """Data distributor -> storage server after a move: stop owning
+    [begin, end) and drop its rows (reference removeDataRange)."""
+
+    begin: bytes = b""
+    end: bytes = b""
+    reply: Any = None
+
+
+class DataDistributorInterface:
+    def __init__(self, dd_id: str = "") -> None:
+        self.id = dd_id
+        self.wait_failure = RequestStream("dd.waitFailure",
+                                          TaskPriority.FailureMonitor)
+
+    def streams(self) -> List[RequestStream]:
+        return [self.wait_failure]

@@ -43,16 +43,38 @@ long).  The pull reads the TLog roles within the call (their peek,
 not their interface): a storage server's traffic with its logs does
 not cross the network.
 
+Data distribution (the reference's :36-107, :287-300, :420-479,
+:644-653, :711-828): the shard map of `owned`, `fetching` and `absent`
+spans, each owned span with the least version it answers reads at
+(_check_owned: a read outside an owned span, or below it, answers
+wrong_shard_server and the client locates the key again); _apply buffers
+what lands in a span being fetched and consumes the disownment fence
+in-stream (system_data.DISOWN_SHARD_PREFIX: the span closes at the
+move's version, or, while a fetch loads it, is judged when the fetch
+completes); _fetch_keys takes a snapshot from the first source that
+answers, at or above the move's phase-1 version and this server's own
+version, pulls this server's tag up to the snapshot, lays the snapshot
+and the buffered tail above it into the map, queues the span's image
+at its version for the engine, and opens the span there; _fetch_shard
+serves a snapshot floored at min_version, pulling the source forward
+first, and answers future_version when the logs cannot take it that far
+within STORAGE_FUTURE_VERSION_TIMEOUT; _shard_metrics answers a span's
+bytes from the incremental _ShardMetricsCache (exact deltas from every
+write) or a scan, and a key that halves it past the split threshold;
+_remove_shard drops a vacated span.  A StaticCluster gives each server
+the spans of its teams as owned and the rest as absent; a server built
+alone owns everything, as the reference's cold boot does.
+
 Left out: the update-storage loop's delay, buggify and engine
-migration, watches, fetch and disown of shards and the shard
-availability map, read heat and tag sampling, the shard metrics cache,
-TSS, and the commit-debug trace points.
+migration, watches, read heat and tag sampling, TSS, and the
+commit-debug trace points.
 """
 
 from __future__ import annotations
 
 import bisect
 import heapq
+import inspect
 from time import perf_counter
 from typing import Dict, List, Optional, Tuple
 
@@ -61,12 +83,80 @@ from ..core.knobs import server_knobs
 from ..core.scheduler import delay
 from ..core.trace import Severity, TraceEvent
 from ..core.wire import Reader, Writer
+from ..rpc.endpoint import RequestStream
 from ..txn.atomic import apply_atomic
 from ..txn.types import ATOMIC_OPS, Mutation, MutationType, Version
 from .failure import hold_wait_failure
-from .interfaces import (GetKeyValuesReply, GetKeyValuesRequest,
+from .interfaces import (FetchShardReply, FetchShardRequest,
+                         GetKeyValuesReply, GetKeyValuesRequest,
                          GetValueReply, GetValueRequest,
                          StorageServerInterface, Tag)
+from .shardmap import RangeMap
+from .system_data import DISOWN_SHARD_PREFIX
+
+
+class _ShardMetricsCache:
+    """Exact byte and key counts of the spans data distribution polls,
+    kept by write-time deltas, so a quiet shard's poll answers in O(1)
+    and only a shard that needs a split key, or whose entry expired,
+    scans its keys.
+
+    Entries are keyed by the polled span's begin and remember its end; a
+    poll whose end differs (the shard split or merged) misses and scans,
+    and put() evicts the entries strictly inside the new span, so a
+    merged-away boundary cannot keep taking deltas that belong to the
+    survivor.  An entry expires after REFRESH_POLLS answers."""
+
+    MAX_ENTRIES = 4096        # hard bound; overflow clears the cache
+    REFRESH_POLLS = 64        # answers between full scans, a shard
+
+    def __init__(self) -> None:
+        self._begins: List[bytes] = []
+        # begin -> [end, total_bytes, live_keys, polls_left]
+        self._entries: Dict[bytes, list] = {}
+
+    def note_delta(self, key: bytes, dbytes: int, dn: int) -> None:
+        begins = self._begins
+        if not begins:
+            return
+        i = bisect.bisect_right(begins, key) - 1
+        if i < 0:
+            return
+        e = self._entries[begins[i]]
+        if key < e[0]:
+            e[1] += dbytes
+            e[2] += dn
+
+    def get(self, begin: bytes, end: bytes):
+        """(total_bytes, live_keys) when an unexpired entry covers this
+        exact span; None: the caller scans."""
+        e = self._entries.get(begin)
+        if e is None or e[0] != end:
+            return None
+        e[3] -= 1
+        if e[3] <= 0:
+            i = bisect.bisect_left(self._begins, begin)
+            del self._begins[i]
+            del self._entries[begin]
+            return None
+        return max(e[1], 0), max(e[2], 0)
+
+    def put(self, begin: bytes, end: bytes, total: int, n: int) -> None:
+        begins = self._begins
+        lo = bisect.bisect_right(begins, begin)
+        hi = bisect.bisect_left(begins, end)
+        for b in begins[lo:hi]:
+            del self._entries[b]
+        del begins[lo:hi]
+        if begin not in self._entries:
+            if len(begins) >= self.MAX_ENTRIES:
+                self.clear_all()
+            bisect.insort(self._begins, begin)
+        self._entries[begin] = [end, total, n, self.REFRESH_POLLS]
+
+    def clear_all(self) -> None:
+        self._begins = []
+        self._entries = {}
 
 
 class VersionedMap:
@@ -79,6 +169,11 @@ class VersionedMap:
         # a tombstone lands; forget_before only revisits these chains, so GC
         # is amortized O(1) per mutation instead of O(total keys) per call.
         self._gc_heap: List[Tuple[Version, bytes]] = []
+        # The _ShardMetricsCache fed exact (key, dbytes, dn) deltas: every
+        # change of live state passes through set() (clear_range sets a
+        # tombstone a live key); rollback() and load() are the bulk
+        # exceptions and clear it.
+        self._metrics_cache: Optional[_ShardMetricsCache] = None
 
     def _chain(self, key: bytes) -> List[Tuple[Version, Optional[bytes]]]:
         c = self._chains.get(key)
@@ -90,6 +185,16 @@ class VersionedMap:
     def set(self, key: bytes, value: Optional[bytes],
             version: Version) -> None:
         c = self._chain(key)
+        cache = self._metrics_cache
+        if cache is not None:
+            prev = c[-1][1] if c else None
+            if prev is not value:
+                klen = len(key)
+                cache.note_delta(
+                    key,
+                    (klen + len(value) if value is not None else 0) -
+                    (klen + len(prev) if prev is not None else 0),
+                    (value is not None) - (prev is not None))
         if c and c[-1][0] == version:
             c[-1] = (version, value)
         else:
@@ -109,6 +214,24 @@ class VersionedMap:
             raise ValueError("load() takes ascending, distinct keys")
         self._keys = keys
         self._chains = {k: [(version, v)] for k, v in zip(keys, values)}
+        if self._metrics_cache is not None:
+            self._metrics_cache.clear_all()
+
+    def set_rows(self, rows, version: Version) -> None:
+        """set() of each (key, value) of `rows` (ascending, distinct
+        keys), the new keys merged into the key list at once rather than
+        one insort each (a fetched shard)."""
+        new = []
+        chains = self._chains
+        for k, v in rows:
+            if k not in chains:
+                chains[k] = []
+                new.append(k)
+            self.set(k, v, version)
+        if new:
+            lo = bisect.bisect_left(self._keys, new[0])
+            hi = bisect.bisect_right(self._keys, new[-1])
+            self._keys[lo:hi] = sorted(self._keys[lo:hi] + new)
 
     def clear_range(self, begin: bytes, end: bytes, version: Version) -> None:
         lo = bisect.bisect_left(self._keys, begin)
@@ -195,12 +318,15 @@ class VersionedMap:
             del self._chains[key]
             j = bisect.bisect_left(self._keys, key)
             del self._keys[j]
+        if self._metrics_cache is not None:
+            self._metrics_cache.clear_all()
 
     def forget_before(self, version: Version) -> None:
         """Drop history below `version`; keys whose only state is an old
         tombstone disappear entirely (reference forgetVersionsBefore).
         Only chains with queued GC work are visited (amortized; mirrors the
         reference SkipList's lazy removeBefore)."""
+        dead = []
         while self._gc_heap and self._gc_heap[0][0] <= version:
             _, key = heapq.heappop(self._gc_heap)
             c = self._chains.get(key)
@@ -214,8 +340,15 @@ class VersionedMap:
                 del c[:i]
             if len(c) == 1 and c[0][1] is None and c[0][0] <= version:
                 del self._chains[key]
-                j = bisect.bisect_left(self._keys, key)
-                del self._keys[j]
+                dead.append(key)
+        if len(dead) > 64:
+            # A vacated shard: one pass over the key list, not a
+            # memmove of it a key.
+            gone = set(dead)
+            self._keys = [k for k in self._keys if k not in gone]
+        else:
+            for key in dead:
+                del self._keys[bisect.bisect_left(self._keys, key)]
 
     def __len__(self) -> int:
         return len(self._keys)
@@ -223,6 +356,21 @@ class VersionedMap:
 
 # The engine's identity record: above every shard-map range end.
 _META_KEY = b"\xff\xff/storageMeta"
+
+
+class _Fetch:
+    """One fetch in flight (an identity: two adjacent fetches are two
+    spans of the shard map, never one)."""
+
+    __slots__ = ("buffer", "disowns")
+
+    def __init__(self) -> None:
+        self.buffer = []   # [(version, Mutation)] pulled during the fetch
+        # Disownment fences pulled during the fetch, [(begin, end,
+        # version)], judged when it completes: one newer than the
+        # acquiring move (the fetch's min_version) means the span moved
+        # away again while the snapshot loaded, and closes it.
+        self.disowns = []
 
 
 class StorageServer:
@@ -254,6 +402,14 @@ class StorageServer:
         self.interface = StorageServerInterface(ss_id, tag)
         self._parked: set = set()     # reads waiting for their version
         self.read_seconds = 0.0
+        # Data distribution: exact shard sizes for its polls, and the
+        # shard map, (state, x) by span: ("owned", least read version),
+        # ("fetching", _Fetch) or ("absent", 0).
+        self._shard_cache = _ShardMetricsCache()
+        self.data._metrics_cache = self._shard_cache
+        self.shards: RangeMap = RangeMap(default=("owned", 0))
+        # What this server fetched: rows, bytes and the fetches' seconds.
+        self.fetch_stats = {"rows": 0, "bytes": 0, "seconds": 0.0}
 
     @classmethod
     def from_engine(cls, engine) -> Optional["StorageServer"]:
@@ -292,23 +448,74 @@ class StorageServer:
 
     # -- mutation ingestion (reference update :3626) -------------------------
     def _apply(self, m: Mutation, version: Version) -> None:
-        """Apply one pulled mutation (the reference's _apply_direct; its
-        _apply's buffering of fetching ranges and disownment fences have
-        no counterpart here)."""
+        """Apply one pulled mutation: the disownment fence closes its
+        span in-stream; what lands in a span being fetched waits in the
+        fetch's buffer (applied above the snapshot when it lands); a
+        clear over fetching and other spans is cut along them."""
+        if m.type == MutationType.SetValue and \
+                m.param1.startswith(DISOWN_SHARD_PREFIX):
+            # The committing proxy moved [begin, end) off this server at
+            # `version`: consumed, never stored; the rows stay until a
+            # RemoveShardRequest or a fetch that takes the span again.
+            self._disown_shard(m.param1[len(DISOWN_SHARD_PREFIX):],
+                               m.param2, version)
+            return
+        if m.type == MutationType.ClearRange:
+            pieces = list(self.shards.intersecting(m.param1, m.param2))
+            if any(st[0] == "fetching" for _b, _e, st in pieces):
+                for b, e, st in pieces:
+                    cm = Mutation(MutationType.ClearRange, b, e)
+                    if st[0] == "fetching":
+                        st[1].buffer.append((version, cm))
+                    else:
+                        self._apply_direct(cm, version)
+                return
+        else:
+            st = self.shards.lookup(m.param1)
+            if st[0] == "fetching":
+                st[1].buffer.append((version, m))
+                return
+        self._apply_direct(m, version)
+
+    def _disown_shard(self, begin: bytes, end: bytes,
+                      version: Version) -> None:
+        if not begin < end:
+            return
+        closed = 0
+        for b, e, st in list(self.shards.intersecting(begin, end)):
+            if st[0] == "fetching":
+                # Whether this fence postdates the fetch's acquiring move
+                # (close at completion) or comes from an earlier tenure
+                # (the fetch wins) is decided when the fetch completes.
+                st[1].disowns.append((b, e, version))
+                continue
+            if st[0] == "owned":
+                self.shards.set_range(b, e, ("absent", 0))
+                closed += 1
+        if closed:
+            TraceEvent("SSShardDisowned").detail("Id", self.id).detail(
+                "Begin", begin).detail("End", end).detail(
+                "Version", version).log()
+
+    def _apply_direct(self, m: Mutation, version: Version,
+                      queue: bool = True) -> None:
+        """Apply one mutation to the map, and with an engine (and
+        `queue`) queue it for the engine."""
         self.stats["mutations"] += 1
+        engine = queue and self.engine is not None
         if m.type == MutationType.SetValue:
             self.data.set(m.param1, m.param2, version)
-            if self.engine is not None:
+            if engine:
                 self._queue_durable(version, 0, m.param1, m.param2)
         elif m.type == MutationType.ClearRange:
             self.data.clear_range(m.param1, m.param2, version)
-            if self.engine is not None:
+            if engine:
                 self._queue_durable(version, 1, m.param1, m.param2)
         elif m.type in ATOMIC_OPS:
             existing = self.data.latest(m.param1)
             result = apply_atomic(m.type, existing, m.param2)
             self.data.set(m.param1, result, version)
-            if self.engine is not None:
+            if engine:
                 # The engine logs the atomic's result (reference: the
                 # update path expands atomics before updateStorage).
                 self._queue_durable(version, 0, m.param1, result)
@@ -326,6 +533,8 @@ class StorageServer:
         past empty versions too and forget history below the MVCC window;
         with no engine, applied is durable and the log is popped at once
         (with one, update_storage() pops).  True if the version moved."""
+        if self.log_system is None:
+            return False
         reply = self.log_system.peek_tag(self.tag, self._fetch_from)
         new_version = self.version
         for version, msgs in reply.messages:
@@ -454,9 +663,19 @@ class StorageServer:
         if version < self.oldest_version:
             raise err("transaction_too_old")
 
+    def _check_owned(self, begin: bytes, end: bytes,
+                     version: Version) -> None:
+        """A read must fall in owned spans whose snapshot is complete at
+        its version; else wrong_shard_server, and the client locates the
+        key again (the reference's shard availability check)."""
+        for _b, _e, st in self.shards.intersecting(begin, end):
+            if st[0] != "owned" or version < st[1]:
+                raise err("wrong_shard_server")
+
     def get_value(self, req: GetValueRequest) -> None:
         try:
             self._wait_for_version(req.version)
+            self._check_owned(req.key, req.key + b"\x00", req.version)
         except FdbError as e:   # errors travel in the reply
             req.reply.send_error(e)
             return
@@ -466,6 +685,7 @@ class StorageServer:
     def get_key_values(self, req: GetKeyValuesRequest) -> None:
         try:
             self._wait_for_version(req.version)
+            self._check_owned(req.begin, req.end, req.version)
         except FdbError as e:
             req.reply.send_error(e)
             return
@@ -497,6 +717,142 @@ class StorageServer:
             pass
         return version <= self.version
 
+    # -- data distribution (reference fetchKeys :107-123, :711-828) ----------
+    async def _fetch_keys(self, req) -> None:
+        """Become a replica of [begin, end): buffer the mutations that
+        land in it, take a snapshot from the first source that answers,
+        pull up to the snapshot, lay it and the buffered tail above it
+        into the map, and open the span for reads from there."""
+        fetch = _Fetch()
+        t0 = perf_counter()
+        # The snapshot also covers what this server applied to the span
+        # before the fetch began (it may run ahead of the phase-1 commit),
+        # so every row of the span below the snapshot's version is in it.
+        floor = max(req.min_version, self.version)
+        self.shards.set_range(req.begin, req.end, ("fetching", fetch))
+        try:
+            reply = None
+            last: Optional[BaseException] = None
+            for src in req.sources:
+                try:
+                    reply = await RequestStream.at(
+                        src.fetch_shard.endpoint).get_reply(
+                        FetchShardRequest(begin=req.begin, end=req.end,
+                                          min_version=floor))
+                    break
+                except FdbError as e:
+                    last = e
+            if reply is None:
+                raise last or err("operation_failed", "no fetch source")
+            vf = reply.version
+            # Pulled to the snapshot, the buffer holds every mutation of
+            # the span above it, in version order.
+            if not self._reaches(vf):
+                raise err("future_version")
+            # A previous tenure's rows must not survive under the
+            # snapshot (the reference clears the span before loading).
+            self.data.clear_range(req.begin, req.end, vf)
+            self.data.set_rows(reply.data, vf)
+            for version, m in fetch.buffer:
+                if version > vf:      # the snapshot holds the rest
+                    self._apply_direct(m, version, queue=False)
+            min_read = max(vf, self.version)
+            if self.engine is not None:
+                # The span's image at min_read (this server's version),
+                # so the engine's queue stays in version order.
+                self._queue_durable(min_read, 1, req.begin, req.end)
+                for k, v in self.data.range_read(
+                        req.begin, req.end, min_read, 1 << 62, 1 << 62)[0]:
+                    self._queue_durable(min_read, 0, k, v)
+            self.shards.set_range(req.begin, req.end, ("owned", min_read))
+            for db_, de_, dv in fetch.disowns:
+                # Moved away again while the snapshot was in flight: a
+                # fence newer than the acquiring move closes its span.
+                if dv > req.min_version:
+                    self._disown_shard(db_, de_, dv)
+            self.fetch_stats["rows"] += len(reply.data)
+            self.fetch_stats["bytes"] += sum(len(k) + len(v)
+                                             for k, v in reply.data)
+            self.fetch_stats["seconds"] += perf_counter() - t0
+            TraceEvent("SSFetchKeysDone").detail("Id", self.id).detail(
+                "Begin", req.begin).detail("End", req.end).detail(
+                "Keys", len(reply.data)).detail("MinRead", min_read).log()
+            req.reply.send(None)
+        except BaseException as e:  # noqa: BLE001
+            # A failed fetch leaves the span absent (data distribution
+            # rolls the move back and tries again).
+            self.shards.set_range(req.begin, req.end, ("absent", 0))
+            req.reply.send_error(e)
+            if not isinstance(e, Exception):
+                raise   # cancellation keeps unwinding
+
+    async def _fetch_shard(self, req) -> None:
+        """A snapshot of [begin, end) at this server's version, floored
+        at req.min_version (the MoveKeys phase-1 commit): the logs are
+        pulled that far first, tried again once after
+        STORAGE_FUTURE_VERSION_TIMEOUT, else future_version, so the
+        destination moves on to its next source."""
+        if not self._reaches(req.min_version):
+            await delay(float(server_knobs().STORAGE_FUTURE_VERSION_TIMEOUT))
+            if not self._reaches(req.min_version):
+                req.reply.send_error(err("future_version"))
+                return
+        v = self.version
+        data, _more = self.data.range_read(req.begin, req.end, v,
+                                           1 << 62, 1 << 62)
+        req.reply.send(FetchShardReply(data=data, version=v))
+
+    def _shard_metrics(self, req) -> None:
+        """(bytes, split key) of [begin, end) at this server's version:
+        the split key halves the bytes and is sent only past
+        req.split_threshold."""
+        v = self.version
+        if server_knobs().STORAGE_INCREMENTAL_SHARD_METRICS:
+            hit = self._shard_cache.get(req.begin, req.end)
+            if hit is not None and hit[0] <= req.split_threshold:
+                req.reply.send((hit[0], None))
+                return
+            total, n = self.data.range_bytes(req.begin, req.end, v)
+            self._shard_cache.put(req.begin, req.end, total, n)
+        else:
+            total, n = self.data.range_bytes(req.begin, req.end, v)
+        split_key = None
+        if total > req.split_threshold and n >= 2:
+            acc = 0
+            lo = bisect.bisect_left(self.data._keys, req.begin)
+            hi = bisect.bisect_left(self.data._keys, req.end)
+            for k in self.data._keys[lo:hi]:
+                val = self.data.get(k, v)
+                if val is None:
+                    continue
+                acc += len(k) + len(val)
+                if acc * 2 >= total:
+                    if k > req.begin:
+                        split_key = k
+                    break
+        req.reply.send((total, split_key))
+
+    def _remove_shard(self, req) -> None:
+        self.shards.set_range(req.begin, req.end, ("absent", 0))
+        self.data.clear_range(req.begin, req.end, self.version)
+        if self.engine is not None:
+            self._queue_durable(self.version, 1, req.begin, req.end)
+        if req.reply is not None:      # None: sent one way
+            req.reply.send(None)
+
+    async def _serve_shards(self, stream, handler) -> None:
+        """A data-distribution stream: each request after a pull to what
+        every log holds (the reference's pull loop keeps the version that
+        current), an async handler as an actor of its own."""
+        is_async = inspect.iscoroutinefunction(handler)
+        async for req in stream.queue:
+            self._reaches(self.log_system.durable_version()
+                          if self.log_system is not None else 0)
+            if is_async:
+                self._process.spawn(handler(req), f"{self.id}.shards")
+            else:
+                handler(req)
+
     def _park(self, req, handler) -> None:
         async def later():
             await delay(float(server_knobs().STORAGE_FUTURE_VERSION_TIMEOUT))
@@ -512,12 +868,23 @@ class StorageServer:
         self._process = process
         for stream in self.interface.streams():
             process.register(stream)
+        i = self.interface
         return [
-            process.spawn(self._serve(self.interface.get_value,
-                                      self.get_value),
+            process.spawn(self._serve(i.get_value, self.get_value),
                           f"{self.id}.getValue"),
-            process.spawn(self._serve(self.interface.get_key_values,
+            process.spawn(self._serve(i.get_key_values,
                                       self.get_key_values),
                           f"{self.id}.getKeyValues"),
-            process.spawn(hold_wait_failure(self.interface.wait_failure),
+            process.spawn(self._serve_shards(i.fetch_keys, self._fetch_keys),
+                          f"{self.id}.fetchKeys"),
+            process.spawn(self._serve_shards(i.fetch_shard,
+                                             self._fetch_shard),
+                          f"{self.id}.fetchShard"),
+            process.spawn(self._serve_shards(i.shard_metrics,
+                                             self._shard_metrics),
+                          f"{self.id}.shardMetrics"),
+            process.spawn(self._serve_shards(i.remove_shard,
+                                             self._remove_shard),
+                          f"{self.id}.removeShard"),
+            process.spawn(hold_wait_failure(i.wait_failure),
                           f"{self.id}.waitFailure")]

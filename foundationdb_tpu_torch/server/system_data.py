@@ -4,13 +4,16 @@ fdbclient/SystemData.cpp and fdbserver/ApplyMetadataMutation.cpp:52-61).
 
 What the resolution plane and the write path read: the first key of the
 `\\xff` system range, which every resolver owns (RESOLVER_ALL) and whose
-mutations make a transaction a state transaction; and the shard map under
+mutations make a transaction a state transaction; the shard map under
 `\\xff/keyServers/`, whose committed mutations every commit proxy applies
 to its map of storage teams (apply_key_servers_mutation, the shard-map
-part of ApplyMetadataMutation.cpp) and also logs on TXS_TAG.  Of the
-reference's metadata (the server registry, exclusions, configuration,
-backup, lock, tenants, the disownment fence) the port has only the shard
-map.
+part of ApplyMetadataMutation.cpp) and also logs on TXS_TAG; the
+disownment fence the committing proxy sends a server a team change drops
+(DISOWN_SHARD_PREFIX, disowned_spans); and the keys of the server
+registry and the exclusion list that data distribution clears when it
+retires a dead server (server_tag_key, excluded_key).  Of the
+reference's other metadata (the registry's values, configuration,
+backup, lock, tenants) the port has none.
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ SYSTEM_KEYS_BEGIN = b"\xff"
 SYSTEM_KEYS_END = b"\xff\xff"
 KEY_SERVERS_PREFIX = b"\xff/keyServers/"
 KEY_SERVERS_END = b"\xff/keyServers0"
+SERVER_TAG_PREFIX = b"\xff/serverTag/"
+SERVER_TAG_END = b"\xff/serverTag0"
+EXCLUDED_PREFIX = b"\xff/conf/excluded/"
+EXCLUDED_END = b"\xff/conf/excluded0"
 
 
 def key_servers_key(key: bytes) -> bytes:
@@ -44,6 +51,75 @@ def key_servers_value(tags: List[Tag]) -> bytes:
 def decode_key_servers_value(blob: bytes) -> List[Tag]:
     r = Reader(blob)
     return [r.u32() for _ in range(r.u16())]
+
+
+def server_tag_key(tag: Tag) -> bytes:
+    """The registry key of the storage server with `tag` (reference
+    serverTagKeyFor)."""
+    return SERVER_TAG_PREFIX + b"%010d" % tag
+
+
+def excluded_key(tag: Tag) -> bytes:
+    """The exclusion-list key of the storage server with `tag`."""
+    return EXCLUDED_PREFIX + b"%010d" % tag
+
+
+# Private shard-disownment mutations (reference ApplyMetadataMutation's
+# PRIVATIZED \xff/serverKeys/<id>/ writes, routed to the affected
+# server's own tag): when a committed \xff/keyServers/ change removes a
+# tag from a shard's team, the commit proxy appends
+#   SetValue(DISOWN_SHARD_PREFIX + <begin>, <end>)
+# to that tag's messages AT THE MOVE'S COMMIT VERSION.  The storage
+# server applies it in-stream: it cannot pass the move's version without
+# learning that it no longer owns [begin, end), so a server that was
+# unreachable while data distribution moved its shards never serves a
+# read at a version where the writes stopped reaching it.  The
+# RemoveShardRequest that data distribution sends a reachable member
+# drops the rows; this mutation is the fence.  The prefix sorts below
+# every stored key of the system range (\xff\x02 < \xff/) and is consumed,
+# never stored.
+DISOWN_SHARD_PREFIX = b"\xff\x02/disownShard/"
+
+
+def disowned_spans(key_servers: RangeMap, m: Mutation):
+    """The tags that lose a span if `m` (a committed \\xff/keyServers/
+    mutation) is applied to `key_servers`, computed on the map before it
+    is: [(tag, begin, end)], one for each old span a tag leaves.  Empty
+    for any other mutation, for a split and for a team that only grows."""
+    out = []
+    if m.type == MutationType.SetValue and \
+            m.param1.startswith(KEY_SERVERS_PREFIX):
+        boundary = m.param1[len(KEY_SERVERS_PREFIX):]
+        new_team = set(decode_key_servers_value(m.param2))
+        _b, e, _v = key_servers.range_containing(boundary)
+        for b0, e0, team in key_servers.intersecting(boundary, e):
+            for t in team or ():
+                if t not in new_team:
+                    out.append((t, b0, e0))
+    elif m.type == MutationType.ClearRange and \
+            m.param2 > KEY_SERVERS_PREFIX and m.param1 < KEY_SERVERS_END:
+        # A boundary removed: the span joins the PRECEDING shard's team,
+        # and what the absorbed span's teams had beyond it is disowned
+        # (as apply_key_servers_mutation merges).
+        lo = max(m.param1, KEY_SERVERS_PREFIX)[len(KEY_SERVERS_PREFIX):]
+        hi_raw = min(m.param2, KEY_SERVERS_END)
+        hi = (hi_raw[len(KEY_SERVERS_PREFIX):]
+              if hi_raw.startswith(KEY_SERVERS_PREFIX) else SYSTEM_KEYS_END)
+        prev_team = None
+        for b, _e, v in key_servers.ranges():
+            if b < lo:
+                prev_team = v
+            else:
+                break
+        keep = set(prev_team or ())
+        rb, re_, _v = key_servers.range_containing(hi)
+        until = hi if rb == hi else re_
+        if until > lo:
+            for b0, e0, team in key_servers.intersecting(lo, until):
+                for t in team or ():
+                    if t not in keep:
+                        out.append((t, b0, e0))
+    return out
 
 
 def apply_key_servers_mutation(key_servers: RangeMap, m: Mutation) -> bool:

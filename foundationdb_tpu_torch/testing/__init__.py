@@ -1,6 +1,8 @@
 """Workloads that drive the port's client (testing/workloads.py)."""
 
 from .workload import TestWorkload
-from .workloads import CycleWorkload, ReadWriteWorkload
+from .workloads import (ConsistencyCheckWorkload, CycleWorkload,
+                        ReadWriteWorkload)
 
-__all__ = ["CycleWorkload", "ReadWriteWorkload", "TestWorkload"]
+__all__ = ["ConsistencyCheckWorkload", "CycleWorkload", "ReadWriteWorkload",
+           "TestWorkload"]

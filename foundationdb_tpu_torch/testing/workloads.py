@@ -1,5 +1,5 @@
-"""Built-in workloads (the Cycle and ReadWrite workloads of
-foundationdb_tpu/testing/workloads.py:81-192).
+"""Built-in workloads (the Cycle, ReadWrite and ConsistencyCheck
+workloads of foundationdb_tpu/testing/workloads.py:81-192, :850-898).
 
 Reference models:
 - Cycle         (fdbserver/workloads/Cycle.actor.cpp): a ring of keys;
@@ -7,6 +7,8 @@ Reference models:
   any interleaving -- the serializability canary.
 - ReadWrite     (fdbserver/workloads/ReadWrite.actor.cpp): configurable
   read/write load, reports ops/s.
+- ConsistencyCheck (fdbserver/workloads/ConsistencyCheck.actor.cpp):
+  every replica of every shard read at one read version, equal rows.
 
 Left out: the fault injectors (Attrition, RandomClogging), which need
 the simulator, and the other workloads.
@@ -16,8 +18,9 @@ from __future__ import annotations
 
 import random
 
+from ..core.error import FdbError
 from ..core.futures import wait_all
-from ..core.scheduler import now, spawn
+from ..core.scheduler import delay, now, spawn
 from .workload import TestWorkload
 
 
@@ -128,3 +131,60 @@ class ReadWriteWorkload(TestWorkload):
             return len(data)
         n = int(self.config.get("nodeCount", 100))
         return await self.run_transaction(count) == n
+
+
+class ConsistencyCheckWorkload(TestWorkload):
+    """The replica audit (reference ConsistencyCheck.actor.cpp:31, its
+    core check): for every shard, the whole span read at one read
+    version from EVERY replica of its team, the rows required equal.  A
+    replica that answers wrong_shard_server or future_version (still
+    fetching after a move) is asked again after the shard is located
+    again."""
+
+    name = "ConsistencyCheck"
+
+    async def check(self) -> bool:
+        from ..rpc.endpoint import RequestStream
+        from ..server.interfaces import GetKeyValuesRequest
+        shards_audited = 0
+        rows = 0
+        cursor = b""
+        while cursor < b"\xff":
+            b, e, ssis = await self.db.get_shard_location(cursor)
+            if not ssis:
+                cursor = e
+                continue
+            while True:
+                t = self.db.create_transaction()
+                try:
+                    version = await t._ensure_read_version()
+                    replies = []
+                    for ssi in ssis:
+                        replies.append(await RequestStream.at(
+                            ssi.get_key_values.endpoint).get_reply(
+                            GetKeyValuesRequest(
+                                begin=max(b, cursor), end=min(e, b"\xff"),
+                                version=version, limit=1 << 30,
+                                limit_bytes=1 << 40)))
+                    first = replies[0].data
+                    for i, r in enumerate(replies[1:], 1):
+                        if r.data != first:
+                            raise AssertionError(
+                                f"replica divergence in [{b!r},{e!r}): "
+                                f"replica 0 has {len(first)} kvs, "
+                                f"replica {i} has {len(r.data)}")
+                    shards_audited += 1
+                    rows += len(first) * len(replies)
+                    break
+                except FdbError as ex:
+                    if ex.name not in ("wrong_shard_server", "future_version",
+                                       "broken_promise", "transaction_too_old",
+                                       "request_maybe_delivered"):
+                        raise
+                    await delay(0.1)
+                    self.db.invalidate_cache(max(b, cursor))
+                    b, e, ssis = await self.db.get_shard_location(cursor)
+            cursor = e
+        self.metrics["shards_audited"] = shards_audited
+        self.metrics["rows_compared"] = rows
+        return True

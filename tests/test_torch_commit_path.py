@@ -55,7 +55,7 @@ from foundationdb_tpu_torch.server.cluster import StaticCluster
 from foundationdb_tpu_torch.server.commit_proxy import (
     COMMIT_TRANSACTION_BATCH_COUNT_MAX, CommitProxy)
 from foundationdb_tpu_torch.server.interfaces import (
-    TXS_TAG, CommitTransactionRequest, Reply)
+    TXS_TAG, CommitTransactionRequest, GetValueRequest, Reply, ask)
 from foundationdb_tpu_torch.server.real_fs import RealFile
 from foundationdb_tpu_torch.server.shardmap import RangeMap
 from foundationdb_tpu_torch.txn import types as pt
@@ -137,7 +137,7 @@ def assign_specs(seed: int, n: int = 60) -> list:
     verdicts = [rng.choice([0, 1, 2, 2, 2, 2]) for _ in range(n)]
     # The map as the committed splits so far leave it: a split's team is
     # its shard's current team, or that grown by a tag (a team that
-    # shrinks would be fenced, which the port leaves out).
+    # shrinks is fenced: test_shard_team_change_is_refused holds that).
     cur = teams_map(RangeMap, SHARDS)
     specs = []
     for t in range(n):
@@ -590,38 +590,80 @@ def test_batch_over_the_cap_is_refused_and_cut(tmp_path):
     c.close()
 
 
-def test_shard_team_change_is_refused(tmp_path):
-    """A \\xff/keyServers/ set or clear that would hand a key to another
-    storage server is refused before the batch gets a version (shard
-    moves are not ported); one that keeps each key's servers commits."""
+def test_shard_team_change_is_refused(sim, tmp_path):
+    """Shard moves are ported: a \\xff/keyServers/ set or clear that hands
+    a key to other storage servers is no longer refused.  The same
+    batches commit, and the proxy's tag messages, the disownment fences
+    of the tags each change drops included, equal the reference's
+    _assign_mutations_to_tags on the same batch at the same version; so
+    do the shard maps after.  A server a fence reached answers
+    wrong_shard_server for the span, and a new member that fetched
+    nothing (a bare metadata commit, not a move) answers the same."""
     c = StaticCluster(n_resolvers=1, proxy_ids=["p0"], n_storage=4,
                       n_tlogs=2, replication=2, datadir=str(tmp_path),
                       device="cpu", capacity=1 << 10)
+    proxy = c.plane.proxies["p0"]
+    ref = SimCluster(n_storage=4, replication=2).commit_proxies[0]
+    ref.key_servers = teams_map(
+        RefRangeMap, [(b, e, list(t)) for b, e, t in
+                      proxy.key_servers.ranges()])
     ks = sd.key_servers_key
+    seen = []
+    assign = proxy._assign_mutations_to_tags
+
+    def recorded(batch, verdicts, version):
+        out = assign(batch, verdicts, version)
+        seen.append(([int(x) for x in verdicts], version, out))
+        return out
+    proxy._assign_mutations_to_tags = recorded
 
     def meta(*muts):
         return CommitTransactionRequest(to(pt, ([], [], list(muts),
                                                 c.read_version())),
                                         reply=Reply())
 
-    for bad in ((0, ks(b"\x50"), sd.key_servers_value([1, 3])),
-                (1, ks(b"\x40"), ks(b"\x41"))):
-        reqs = [set_req(b"\x10", b"x", c.read_version()), meta(bad)]
-        v0 = c.master.version
-        with pytest.raises(ValueError, match="storage servers"):
-            c.commit("p0", reqs)
-        untouched(c, reqs, v0)
-    # The same servers in another order, then the split merged back.
-    for good in ((0, ks(b"\x50"), sd.key_servers_value([2, 1])),
-                 (1, ks(b"\x50"), ks(b"\x51"))):
-        req = meta(good, (0, b"\x50", b"y"))
-        [(_p, v)] = c.commit("p0", [req])
-        assert req.reply.value.version == v
-    assert [set(t) for _b, _e, t in
-            c.plane.proxies["p0"].key_servers.ranges()] == \
-        [{0, 1}, {1, 2}, {2, 3}, {3, 0}]
+    fences = []
+    for muts in (
+            # A team that loses tag 2 over [\x50, \x80) and gains 3.
+            [(0, ks(b"\x50"), sd.key_servers_value([1, 3]))],
+            # A boundary cleared: [\x40, \x50) joins [0, 1], tag 2 out.
+            [(1, ks(b"\x40"), ks(b"\x41"))],
+            # The same servers in another order, then the split merged
+            # back, with a write in the same transaction.
+            [(0, ks(b"\x50"), sd.key_servers_value([2, 1]))],
+            [(1, ks(b"\x50"), ks(b"\x51")), (0, b"\x50", b"y")]):
+        spec = ([], [], muts, 0)
+        reqs = [set_req(b"\x10", b"x", c.read_version()), meta(*muts)]
+        [(_p, v)] = c.commit("p0", reqs)
+        assert all(r.reply.value.version == v for r in reqs)
+        verdicts, version, got = seen[-1]
+        assert version == v and verdicts == [2, 2]
+        want = ref._assign_mutations_to_tags(
+            [ri.CommitTransactionRequest(to(rt, s)) for s in (
+                ([], [point(b"\x10")], [(0, b"\x10", b"x")], 0), spec)],
+            [rt.CommitResult(x) for x in verdicts], v)
+        assert {t: as_tuples(m) for t, m in got.items()} == \
+            {t: as_tuples(m) for t, m in want.items()}
+        fences.append(sorted(
+            (t, m.param1[len(sd.DISOWN_SHARD_PREFIX):], m.param2)
+            for t, msgs in got.items() for m in msgs
+            if m.param1.startswith(sd.DISOWN_SHARD_PREFIX)))
+        assert list(proxy.key_servers.ranges()) == \
+            list(ref.key_servers.ranges())
+    # The fences: tag 2 leaves [\x50, \x80), then [\x40, \x50); tag 3
+    # leaves [\x50, \x80) when [2, 1] replaces [1, 3]; tag 2 again where
+    # the split's clear merges the span it held into [0, 1].
+    assert fences == [[(2, b"\x50", b"\x80")], [(2, b"\x40", b"\x50")],
+                      [(3, b"\x50", b"\x80")], [(2, b"\x50", b"\x80")]]
+    assert [set(t) for _b, _e, t in proxy.key_servers.ranges()] == \
+        [{0, 1}, {2, 3}, {3, 0}]
     c.pull()
-    assert c.get(b"\x50", v) == [b"y", b"y"]
+    ss = c.storage
+    assert ask(ss[1].get_value, GetValueRequest(b"\x50", v)).value == b"y"
+    for server, key in ((ss[0], b"\x50"), (ss[2], b"\x60")):
+        with pytest.raises(FdbError) as e:
+            ask(server.get_value, GetValueRequest(key, v))
+        assert e.value.name == "wrong_shard_server"
     c.close()
 
 

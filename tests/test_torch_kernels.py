@@ -2143,3 +2143,24 @@ def test_client_small_case(dev):
     assert figures["cycle"]["swaps"] == 128
     assert K.LAUNCHES["compact_prep"] > 0
     assert K.LAUNCHES["interval_fixpoint"] > 0
+
+
+def test_shard_moves_small_case(dev):
+    """chip_smoke.py's phase 27 at a small size with the resolvers' sets
+    on the card: a shard moved, the split sweep, a storage process killed
+    and its shards re-replicated under ReadWrite; every check of the
+    phase, the compact and general steps launched."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    K.reset_counts()
+    figures = chip_smoke.dd_run(
+        device=dev.type, keyspace=20_000, rw_actors=256, rw_txns=5,
+        rw_warmup=1, rw_before=1, split_bytes=200_000,
+        capacity=1 << 14, delta_capacity=1 << 13)
+    assert figures["splits"] > 0 and figures["rereplications"] >= 2
+    assert figures["fence_checks"] > 0
+    assert K.LAUNCHES["compact_prep"] > 0
+    assert K.LAUNCHES["interval_fixpoint"] > 0

@@ -14,8 +14,8 @@ details, the waitFailure request and the interfaces.  The resolver's,
 a commit proxy's and a GRV proxy's interfaces are the reference's field
 for field, so their frames are equal; the master's, a TLog's and a
 storage server's lack streams the port does not serve (the reference's
-configuration and backup nudges, queuing metrics, data distribution),
-so those are held to cross-package decoding only.  A malformed frame and
+configuration and backup nudges, queuing metrics, watches, engine
+migration, TSS), so those are held to cross-package decoding only.  A malformed frame and
 an unregistered class name fail as the reference's do."""
 
 import struct
