@@ -163,13 +163,13 @@ exits non-zero):
      supervised sets on the card (capacity 2^21, delta 2^20,
      MAX_WRITE_TRANSACTION_LIFE_VERSIONS = WINDOW), boundaries from
      seed_resolver_boundaries over a 16-shard map cutting the 1M ids
-     evenly.  Stream A (1 warmup + 4 measured config-2 batches, each
+     evenly.  Stream A (1 warmup + 1 measured config-2 batch, each
      txn's three keys zipf inside one quarter of the ids) at N = 1, 2, 4
      and N = 1 again, one proxy: merged verdicts of every reading equal
      the first N = 1's batch for batch; the requests' build ms, each
      resolver's share and ranges/s, bench.py's aggregate model, the
      serial wall, the collector's time.
-     Stream B (config 2 as generated, 2 + 5 batches) at N = 4, two proxies
+     Stream B (config 2 as generated, 2 + 2 batches) at N = 4, two proxies
      alternating on one chain, 1% state txns, a balancing step after
      every batch: each resolver's codes equal a point oracle over its own
      fragments, the merged verdicts their min, every other proxy's
@@ -326,7 +326,29 @@ exits non-zero):
      rows/s, the kill to full replication, splits, merges and the
      sweep's seconds, committed/s and p50/p99 before and during the
      moves, metadata transactions, launches per path);
- 28. the JSON lines (programs and paths; kernels with launches per path,
+ 28. (new in the twenty-fourth slice; the JSON lines were 28 before)
+     recovery: the port's SimFdbCluster on the card, 3 coordinators, 4
+     storage workers and 8 stateless ones, `double` replication over
+     memory engines (2 TLogs, 4 storage servers in teams of 2), 2
+     Resolver roles on the card, 2 commit proxies, 1 GRV proxy, the
+     KEYSPACE keys of 100-byte values loaded on both replicas; ReadWrite
+     through ClusterConnection from 2,048 actors, one round each before
+     the kills (after a warmup round) and one after each kill; between
+     rounds the master's process, a resolver's, a TLog's and the cluster
+     controller's are killed in turn, each leading to a new epoch
+     through the master's five recovery states.  Every acknowledged write
+     read back from every replica, ConsistencyCheckWorkload clean, each
+     epoch's Resolver roles supervised sets on `cuda` whose kernels
+     launched in that epoch, every epoch's batches replayed through a
+     CPU plane at the same versions giving the same codes; then, with
+     the path's launches already read, the native C++ set on 4 config-2
+     batches, its codes equal to a bare TorchConflictSet's on the card
+     (whose launches are not the path's); the path_recovery line (a kill's
+     seconds to accepting_commits split by state, the new epoch and its
+     recovery version, committed/s and p50/p99 before and after each
+     kill, the native set's ranges/s with the host CPU beside the
+     card's);
+ 29. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -430,7 +452,7 @@ PATH_KERNELS.update({
 })
 # Phase 20: every role of the resolution plane takes the point path (its
 # small straddling stream's range reads take the general step too, which
-# this list does not require); stream B's 12 batches cross a merge.
+# this list does not require); its small exact case crosses merges.
 PATH_KERNELS["plane"] = PATH_KERNELS["point"]
 # Phase 21: the scheduling plane adds no kernel; every role of its readings
 # takes the point path (each reading's 13 batches cross a merge).
@@ -460,6 +482,9 @@ PATH_KERNELS["wire"] = PATH_KERNELS["point"]
 # and re-replication: its metadata transactions are state transactions,
 # sent to every role, and take the same two steps.
 PATH_KERNELS["dd"] = PATH_KERNELS["client"]
+# Phase 28: every epoch's Resolver roles take the client's two steps
+# (point transactions, and the rounds with a get_range).
+PATH_KERNELS["recovery"] = PATH_KERNELS["client"]
 
 
 # ---------------------------------------------------------------- workload
@@ -4270,9 +4295,12 @@ PLANE_A_READINGS = (("1", 1), ("2", 2), ("4", 4), ("1 again", 1))
 PLANE_SHARDS, PLANE_CELLS = 16, 4
 # Cut to hold phase 20 near 150 s on the card (2 + 6 and 3 + 9 took
 # 237.8 s there): batch counts, never the 100K-txn width; stream A cut
-# again from 1 + 4 to 1 + 2 to make room for phase 24.
-N_PLANE_A = (1, 2)              # stream A: warmup, measured batches
-N_PLANE_B = (2, 5)              # stream B
+# again from 1 + 4 to 1 + 2 to make room for phase 24, and to 1 + 1 with
+# stream B from 2 + 5 to 2 + 2 for phase 28 (its balancer moves a
+# boundary after batches 0, 1 and 2).  The phase's merges come from its
+# small exact case.
+N_PLANE_A = (1, 1)              # stream A: warmup, measured batches
+N_PLANE_B = (2, 2)              # stream B
 PLANE_SMALL_CAPACITY = 1 << 12
 # The small straddling stream: waves of txns, the wave after which one
 # balancing step must move a boundary, and the write window it runs under
@@ -7248,6 +7276,420 @@ def dd_path(smi: str) -> tuple:
     return launches, figures
 
 
+# ------------------------------------------------- phase 28: recovery
+# The cluster of phase 27 (double replication, memory engines, 2 TLogs, 4
+# storage servers in teams of 2, 2 Resolver roles on the card, 2 commit
+# proxies, 1 GRV proxy), now recruited by a cluster controller onto
+# fungible workers: 3 coordinators, 4 storage workers, 8 stateless ones.
+# Its shard map at the cold boot is phase 22's (the keyspace cut in
+# quarters); the data distributor runs and watches, with the split size
+# raised out of reach: phase 27 holds the split sweep.  Each kill falls
+# between two rounds of ReadWrite (2,048 actors, a transaction each).
+RECOVERY_RW = (2048, 6, 1)          # actors, rounds, warmup rounds
+RECOVERY_SEED = 2828
+RECOVERY_KILLS = ("master", "resolver", "tlog", "cluster_controller")
+RECOVERY_WORKERS = (4, 8)           # storage workers, stateless workers
+RECOVERY_NATIVE = (4, TXNS)         # config-2 batches, txns a batch
+
+
+def recovery_config(keyspace: int):
+    from foundationdb_tpu_torch.server.interfaces import \
+        DatabaseConfiguration
+    return DatabaseConfiguration(
+        n_tlogs=2, log_replication=2, n_storage=4, storage_replication=2,
+        n_resolvers=2, n_commit_proxies=2, n_grv_proxies=1,
+        storage_engine="memory", conflict_backend="torch",
+        storage_boundaries=[commit_key(keyspace * q // 4)
+                            for q in (1, 2, 3)])
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it: its model name, or where a
+    sandbox reports that as unknown, its vendor, family and model
+    numbers and clock; and the logical CPUs."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break           # the first processor's block
+                k, _, v = line.partition(":")
+                fields[k.strip()] = v.strip()
+    except OSError:
+        pass
+    name = fields.get("model name", "")
+    if name in ("", "unknown"):
+        name = (f"{fields.get('vendor_id', '?')} family "
+                f"{fields.get('cpu family', '?')} model "
+                f"{fields.get('model', '?')} at "
+                f"{fields.get('cpu MHz', '?')} MHz")
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def native_against_card(device: str, batches: int, txns: int,
+                        **set_kwargs) -> dict:
+    """The native C++ set and a TorchConflictSet on `device` on the same
+    config-2 batches, from their transaction objects: equal codes, and
+    each one's ranges/s over the batches' resolve calls."""
+    import torch
+    from foundationdb_tpu_torch.conflict.native import NativeConflictSet
+    from foundationdb_tpu_torch.conflict.torch_backend import \
+        TorchConflictSet
+    stream = make_stream(np.random.default_rng(RECOVERY_SEED), batches,
+                         txns=txns)
+    objs = [to_transactions(kids, snaps) for _v, _e, kids, snaps in stream]
+    native = NativeConflictSet(0)
+    card = TorchConflictSet(0, device=device, **set_kwargs)
+    ranges = sum(enc.n_ranges for _v, enc, _k, _s in stream)
+    t_native = t_card = 0.0
+    for (v, _enc, _k, _s), tx in zip(stream, objs):
+        t0 = time.perf_counter()
+        got = codes_of(native.resolve(tx, v, floor(v)))
+        t1 = time.perf_counter()
+        want = codes_of(card.resolve(tx, v, floor(v)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        t_native += t1 - t0
+        t_card += t2 - t1
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"native set: {int((got != want).sum())} of {len(got)} "
+                f"codes differ from the card's at version {v}")
+    return {"batches": batches, "txns": txns, "ranges": ranges,
+            "native_ranges_per_s": ranges / t_native,
+            "card_ranges_per_s": ranges / t_card,
+            "native_s": t_native, "card_s": t_card,
+            "native_segments": native.segment_count(),
+            "host_cpu": host_cpu()}
+
+
+def recovery_read_back(info, keys, base, model, version: int) -> int:
+    """Every user key of every shard, from every replica of its team, at
+    `version`, equal to the loaded value or the model's; the rows read."""
+    from bisect import bisect_left
+    from foundationdb_tpu_torch.server.interfaces import (
+        GetKeyValuesRequest, ask)
+    proxy = info.commit_proxies[0].role
+    n = 0
+    for b, e, tags in proxy.key_servers.ranges():
+        if b >= b"\xff" or not tags:
+            continue
+        e = min(e, b"\xff")
+        lo, hi = bisect_left(keys, b), bisect_left(keys, e)
+        want = [(k, model.get(k, base[lo + j]))
+                for j, k in enumerate(keys[lo:hi])]
+        for tag in tags:
+            ss = info.storage_servers[tag].role
+            rows = ask(ss.get_key_values, GetKeyValuesRequest(
+                b, e, version, limit=1 << 62, limit_bytes=1 << 62)).data
+            if rows != want:
+                raise AssertionError(
+                    f"recovery read-back: ss{tag} holds {len(rows)} rows of "
+                    f"[{b!r}, {e!r}), the model {len(want)}")
+            n += len(rows)
+    return n
+
+
+def recovery_run(device: str = DEVICE, keyspace: int = KEYSPACE,
+                 rw_actors: int = RECOVERY_RW[0],
+                 rounds: int = RECOVERY_RW[1],
+                 warmup: int = RECOVERY_RW[2],
+                 **set_kwargs) -> dict:
+    """The phase's run (see the section's comment); returns the
+    figures."""
+    import gc
+    import random
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.core.error import FdbError
+    from foundationdb_tpu_torch.core.futures import wait_all
+    from foundationdb_tpu_torch.core.knobs import server_knobs
+    from foundationdb_tpu_torch.core.rng import (DeterministicRandom,
+                                                 set_deterministic_random)
+    from foundationdb_tpu_torch.core.scheduler import (EventLoop, delay,
+                                                       set_event_loop)
+    from foundationdb_tpu_torch.rpc.sim import set_simulator
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    from foundationdb_tpu_torch.server.cluster import SimFdbCluster
+    from foundationdb_tpu_torch.server.commit_proxy import CommitProxy
+    from foundationdb_tpu_torch.testing.workload import TestWorkload
+    from foundationdb_tpu_torch.testing.workloads import (
+        ConsistencyCheckWorkload)
+    if rounds != len(RECOVERY_KILLS) + warmup + 1:
+        raise ValueError("a round before each kill and one after the last")
+    knobs = server_knobs()
+    saved_split = knobs.DD_SHARD_SPLIT_BYTES
+    knobs.DD_SHARD_SPLIT_BYTES = 1 << 62
+    set_deterministic_random(DeterministicRandom(RECOVERY_SEED))
+    rng = np.random.default_rng(RECOVERY_SEED)
+    records = []            # (epoch, proxy, prev, version, txns, codes)
+    orig_commit = CommitProxy.commit_async
+
+    async def commit_async(self, batch):
+        txns = [req.transaction for req in batch]
+        out = await orig_commit(self, batch)
+        prev, v = self.last_versions
+        records.append((int(self.id.rsplit(".e", 1)[1]), self.id, prev, v,
+                        txns, np.array([int(x) for x in self.last_verdicts],
+                                       np.int8)))
+        return out
+    CommitProxy.commit_async = commit_async
+    loop = EventLoop()
+    try:
+        config = recovery_config(keyspace)
+        c = SimFdbCluster(config=config, n_workers=sum(RECOVERY_WORKERS),
+                          n_storage_workers=RECOVERY_WORKERS[0], loop=loop,
+                          device=device, **set_kwargs)
+        db = c.database()
+
+        def serving(epoch: int):
+            cc = c.current_cc()
+            return cc is not None and cc.db_info.epoch >= epoch and \
+                cc.db_info.recovery_state == "accepting_commits"
+
+        async def until_serving(epoch: int) -> None:
+            while not serving(epoch):
+                await delay(0.01)
+
+        async def until_client(epoch: int) -> None:
+            """Until the client's ClusterConnection names the epoch's
+            proxies (its leader monitor polls the coordinators again 0.5
+            s after a lapsed leader)."""
+            while db.cluster.client_info.get().epoch < epoch:
+                await delay(0.01)
+
+        c.run_until(loop.spawn(until_serving(1)), timeout=600)
+        infos = {1: c.current_cc().db_info}    # each epoch's directory
+        # The load: every replica of each shard, in the roles' memory and
+        # their engines, before the first commit.
+        t0 = time.perf_counter()
+        base = commit_values(rng, keyspace)
+        keys = [commit_key(i) for i in range(keyspace)]
+        info = c.current_cc().db_info
+        from bisect import bisect_left
+        per_tag = {tag: ([], []) for tag in info.storage_servers}
+        for b, e, tags in info.commit_proxies[0].role.key_servers.ranges():
+            lo, hi = bisect_left(keys, b), bisect_left(keys, e)
+            for tag in tags or ():
+                per_tag[tag][0].extend(keys[lo:hi])
+                per_tag[tag][1].extend(base[lo:hi])
+        for tag, (ks, vs) in per_tag.items():
+            info.storage_servers[tag].role.load(ks, vs)
+        load_s = time.perf_counter() - t0
+        rw = TestWorkload(c, db, {})
+        gc.collect()
+        gc.freeze()
+        gc.disable()
+        acked = []          # (version, batch index, order, key, value)
+        stats = []          # (round, attempts, wall s)
+        pad = b"." * (COMMIT_VALUE_BYTES - 24)
+
+        async def rw_actor(a: int, rnd: int) -> None:
+            r = random.Random(RECOVERY_SEED * 100_003 + a * 97 + rnd)
+            st = {"attempts": 0}
+
+            async def fn(t):
+                st["attempts"] += 1
+                st["txn"] = t
+                await t.get_read_version()
+                for _ in range(4):
+                    await t.get(commit_key(r.randrange(keyspace)))
+                if rnd % CLIENT_RANGE_EVERY == CLIENT_RANGE_EVERY - 1:
+                    lo = r.randrange(keyspace - CLIENT_RANGE_KEYS)
+                    await t.get_range(commit_key(lo),
+                                      commit_key(lo + CLIENT_RANGE_KEYS))
+                st["writes"] = []
+                for j in range(2):
+                    k = commit_key(r.randrange(keyspace))
+                    v = b"r%06dr%02dw%d" % (a, rnd, j) + pad
+                    st["writes"].append((k, v))
+                    t.set(k, v)
+            t1 = time.perf_counter()
+            await rw.run_transaction(fn)
+            wall = time.perf_counter() - t1
+            stamp = st["txn"]._committed_stamp
+            ver = int.from_bytes(stamp[:8], "big")
+            idx = int.from_bytes(stamp[8:], "big")
+            for j, (k, v) in enumerate(st["writes"]):
+                acked.append((ver, idx, j, k, v))
+            stats.append((rnd, st["attempts"], wall))
+
+        def drive(rnd: int) -> float:
+            t1 = time.perf_counter()
+            c.run_until(wait_all([loop.spawn(rw_actor(a, rnd))
+                                  for a in range(rw_actors)]))
+            if device == "cuda":
+                import torch
+                torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        round_s = {}
+        epoch_launches = {}     # epoch -> compact and general launches
+        for rnd in range(warmup):
+            round_s[rnd] = drive(rnd)
+        kills = []
+        for k, victim in enumerate(RECOVERY_KILLS):
+            rnd = warmup + k
+            before = sum(K.LAUNCHES.values())
+            round_s[rnd] = drive(rnd)
+            cc = c.current_cc()
+            info = cc.db_info
+            epoch_launches.setdefault(info.epoch, 0)
+            epoch_launches[info.epoch] += sum(K.LAUNCHES.values()) - before
+            master_proc = c.process_of(info.master)
+            cc_proc = next(p for p, _w, x, _lv in c.workers if x is cc)
+            if victim == "master":
+                proc = master_proc
+            elif victim == "cluster_controller":
+                proc = cc_proc
+            else:
+                # One that hosts neither the master nor the controller,
+                # where there is one: each kill its own failure.
+                ifaces = info.resolvers if victim == "resolver" \
+                    else info.tlogs
+                procs = [c.process_of(x) for x in ifaces]
+                proc = next((p for p in procs
+                             if p not in (master_proc, cc_proc)), procs[0])
+            t_kill = (loop.now(), time.perf_counter())
+            c.sim.kill_process(proc)
+            c.run_until(loop.spawn(until_serving(info.epoch + 1)),
+                        timeout=600)
+            new = c.current_cc().db_info
+            infos[new.epoch] = new
+            t_serving = (loop.now(), time.perf_counter())
+            c.run_until(loop.spawn(until_client(new.epoch)), timeout=600)
+            t_client = (loop.now(), time.perf_counter())
+            # The new master's states: (state, loop time, wall time).
+            log = new.master.role.recovery_log
+            kills.append({
+                "victim": victim, "process": proc.name,
+                "old_epoch": info.epoch, "new_epoch": new.epoch,
+                "recovery_version": new.recovery_version,
+                "kill_to_accepting_s": log[-1][2] - t_kill[1],
+                "kill_to_reading_cstate_s": log[0][2] - t_kill[1],
+                "state_s": {log[i][0]: log[i + 1][2] - log[i][2]
+                            for i in range(len(log) - 1)},
+                "kill_to_accepting_virtual_s": log[-1][1] - t_kill[0],
+                "state_virtual_s": {log[i][0]: log[i + 1][1] - log[i][1]
+                                    for i in range(len(log) - 1)},
+                "states": [x[0] for x in log],
+                "accepting_to_client_s": t_client[1] - t_serving[1],
+                "accepting_to_client_virtual_s": t_client[0] - t_serving[0]})
+            if [s for s, _t, _w in log] != [
+                    "reading_cstate", "locking_cstate", "recruiting",
+                    "writing_cstate", "accepting_commits"]:
+                raise AssertionError(f"epoch {new.epoch}: states "
+                                     f"{[s for s, _t, _w in log]}")
+        rnd = warmup + len(RECOVERY_KILLS)
+        before = sum(K.LAUNCHES.values())
+        round_s[rnd] = drive(rnd)
+        last = c.current_cc().db_info
+        epoch_launches.setdefault(last.epoch, 0)
+        epoch_launches[last.epoch] += sum(K.LAUNCHES.values()) - before
+        if device == "cuda" and any(
+                n <= 0 for n in epoch_launches.values()):
+            raise AssertionError(f"an epoch launched no kernel: "
+                                 f"{epoch_launches}")
+
+        # Checks: the audit, every replica, every epoch's sets, the CPU
+        # plane's replay of every epoch's batches.
+        audit = ConsistencyCheckWorkload(c, db, {})
+        t3 = time.perf_counter()
+        if not c.run_until(loop.spawn(audit.check()), timeout=600):
+            raise AssertionError("the consistency check failed")
+        audit_s = time.perf_counter() - t3
+        version = c.run_until(loop.spawn(
+            db.create_transaction()._ensure_read_version()))
+        model = {}
+        for _v, _i, _j, k, v in sorted(acked):
+            model[k] = v
+        t4 = time.perf_counter()
+        rows = recovery_read_back(last, keys, base, model, version)
+        readback_s = time.perf_counter() - t4
+        epochs = sorted({r[0] for r in records})
+        resolvers = {}
+        for _p, w, _cc, _lv in c.workers:
+            for role in w.roles:
+                if type(role).__name__ == "Resolver":
+                    resolvers.setdefault(
+                        int(role.id.rsplit(".e", 1)[1]), []).append(role)
+        for e in epochs:
+            for role in resolvers.get(e, []):
+                check_supervised(role.conflict_set, role.resolved_batches,
+                                 "TorchConflictSet", device)
+        t5 = time.perf_counter()
+        replayed = 0
+        for e in epochs:
+            chain = sorted((r for r in records if r[0] == e),
+                           key=lambda r: r[3])
+            user = [r for r in infos[e].resolver_ranges if r[2] >= 0]
+            oracle = ResolutionPlane(
+                len(user), [f"proxy{i}.e{e}"
+                            for i in range(config.n_commit_proxies)],
+                boundaries=[r[1] for r in user[:-1]], backend="cpu",
+                recovery_version=infos[e].recovery_version)
+            for b, (_e, pid, prev, v, txns, got) in enumerate(chain):
+                want = codes_of(oracle.resolve(pid, txns, prev, v).committed)
+                if not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"epoch {e} batch {b}: {int((got != want).sum())} "
+                        f"of {len(got)} replies differ from the CPU plane's")
+                replayed += 1
+        replay_s = time.perf_counter() - t5
+        for p in list(c.sim.processes.values()):
+            c.sim.kill_process(p)
+        loop.run_for(1.0)
+    finally:
+        gc.enable()
+        gc.unfreeze()
+        CommitProxy.commit_async = orig_commit
+        knobs.DD_SHARD_SPLIT_BYTES = saved_split
+        set_simulator(None)
+        set_event_loop(None)
+    gc.collect()
+
+    def rate(rnd: int) -> dict:
+        xs = [x for x in stats if x[0] == rnd]
+        return {"committed": len(xs), "wall_s": round_s[rnd],
+                "committed_txns_per_s": len(xs) / round_s[rnd],
+                "p50_txn_ms": float(np.percentile([x[2] for x in xs], 50))
+                * 1e3,
+                "p99_txn_ms": float(np.percentile([x[2] for x in xs], 99))
+                * 1e3,
+                "retries_per_commit": sum(x[1] - 1 for x in xs) /
+                max(len(xs), 1)}
+    for k, kill in enumerate(kills):
+        kill["before"] = rate(warmup + k)
+        kill["after"] = rate(warmup + k + 1)
+    return {"keyspace": keyspace, "load_s": load_s, "kills": kills,
+            "epochs": epochs, "epoch_launches": epoch_launches,
+            "consistency": dict(audit.metrics), "consistency_s": audit_s,
+            "readback_rows": rows, "readback_s": readback_s,
+            "replayed_batches": replayed, "replay_s": replay_s}
+
+
+def recovery_path(smi: str) -> tuple:
+    """Phase 28: recovery_run on the card, the launches counted over the
+    cluster's run alone; then the native set against a bare set on the
+    card, whose launches are not the path's; the path_recovery line."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+    K.reset_counts()
+    figures = recovery_run(capacity=CAPACITY, delta_capacity=DELTA_CAPACITY)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    figures["launches"] = {k: v for k, v in launches.items() if v}
+    figures["card"] = smi
+    t0 = time.perf_counter()
+    figures["native"] = native_against_card(
+        DEVICE, *RECOVERY_NATIVE, capacity=CAPACITY,
+        delta_capacity=DELTA_CAPACITY)
+    figures["native"]["card"] = smi     # beside the card's figure
+    figures["native_s"] = time.perf_counter() - t0
+    print(f"path_recovery: {json.dumps(figures)}", flush=True)
+    return launches, figures
+
+
 def main() -> int:
     try:
         import torch
@@ -7402,6 +7844,11 @@ def main() -> int:
         "killed and re-replication, under ReadWrite)")
     launches["dd"], path_dd = dd_path(smi)
     phase_done("shard moves")
+    log("phase 28: recovery (the master's, a resolver's, a TLog's and the "
+        "cluster controller's processes killed in turn, under ReadWrite), "
+        "and the native set beside the card")
+    launches["recovery"], path_recovery = recovery_path(smi)
+    phase_done("recovery")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -7440,6 +7887,7 @@ def main() -> int:
                       "path_client": path_client,
                       "path_sim": path_sim, "path_wire": path_wire,
                       "path_dd": path_dd,
+                      "path_recovery": path_recovery,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -35,8 +35,14 @@ HEDGE_REQUEST_DELAY and the latency ordering; and Transaction's reads
 rows, writes, versionstamps, conflict ranges, commit, on_error, run,
 reset and set_read_version.
 
-Left out on purpose: ClusterConnection and open_cluster (coordinators
-and a real network), watches (the port's storage servers have none), the
+ClusterConnection (the reference's :50-125, but get_status) is the
+client's handle to a SimFdbCluster (server/cluster.py): it follows the
+elected cluster controller through the coordinators (monitor_leader) and
+long-polls its ClientDBInfo, so a Database reaches each new epoch's
+proxies after a recovery.
+
+Left out on purpose: open_cluster and get_status (a real network's
+cluster file and a status document), watches (the port's storage servers have none), the
 TSS compare and quarantine, tenants and open_tenant, the \xff\xff/status,
 /management and /metrics special-key modules (they read a status document
 the port does not build), the debug_id trace points, throttle tags on
@@ -67,6 +73,68 @@ RETRYABLE = frozenset({
     "broken_promise", "request_maybe_delivered", "connection_failed",
     "wrong_shard_server",
 })
+
+
+class ClusterConnection:
+    """The dynamic connection: tracks the elected cluster controller
+    through the coordinators and long-polls its ClientDBInfo (reference
+    MonitorLeader.actor.cpp and OpenDatabaseRequest)."""
+
+    def __init__(self, coordinators) -> None:
+        from ..core.futures import AsyncVar
+        from ..core.scheduler import spawn
+        from ..server.coordination import monitor_leader
+        from ..server.interfaces import ClientDBInfo
+        self.coordinators = coordinators
+        self.leader = AsyncVar(None)
+        self.client_info = AsyncVar(ClientDBInfo())
+        self._actors = [
+            spawn(monitor_leader(coordinators, self.leader),
+                  "client.monitorLeader"),
+            spawn(self._open_database_loop(), "client.openDatabase"),
+        ]
+
+    @property
+    def grv_proxies(self):
+        return self.client_info.get().grv_proxies
+
+    @property
+    def commit_proxies(self):
+        return self.client_info.get().commit_proxies
+
+    async def wait_ready(self) -> None:
+        while not (self.grv_proxies and self.commit_proxies):
+            await self.client_info.on_change()
+
+    async def _open_database_loop(self) -> None:
+        from ..core.futures import swallow, wait_any
+        from ..server.interfaces import OpenDatabaseRequest
+        known_epoch = -1
+        while True:
+            leader = self.leader.get()
+            cc = leader.serialized_info if leader else None
+            if cc is None:
+                await self.leader.on_change()
+                continue
+            reply_f = RequestStream.at(cc.open_database.endpoint).get_reply(
+                OpenDatabaseRequest(known_epoch=known_epoch))
+            # A poll parked on a deposed or dead controller must not
+            # strand the client: race it against a leader change.
+            idx, _ = await wait_any([swallow(reply_f),
+                                     self.leader.on_change()])
+            if idx == 1:
+                continue
+            if reply_f.is_error():
+                await delay(0.5)
+                continue
+            info = reply_f.get()
+            known_epoch = info.epoch
+            self.client_info.set(info)
+
+    def close(self) -> None:
+        for a in self._actors:
+            if not a.is_ready():
+                a.cancel()
 
 
 class Database:

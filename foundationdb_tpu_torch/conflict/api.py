@@ -5,8 +5,10 @@ Opaque-factory boundary mirroring the reference's ConflictSet.h:30-52
 backend selector: "torch" (the PyTorch + CUDA backend, on `cuda` unless
 the caller passes device="cpu", under the supervision layer), "torch-raw"
 (the same, bare), "sharded" (the backend with its window
-key-range-sharded over a mesh of the visible cards, supervised), "auto"
-or "cpu" (the exact oracle).
+key-range-sharded over a mesh of the visible cards, supervised), "native"
+(the C++ engine of conflict/native.py, host code), "auto" (the supervised
+torch set with a card, the native engine without) or "cpu" (the exact
+oracle).
 
 Abstract semantics (the parity contract, from fdbserver/SkipList.cpp):
 
@@ -128,12 +130,20 @@ def new_conflict_set(backend: Optional[str] = None,
     cannot be built (no card, a kernel build failure, no memory) raises
     instead of the supervisor beginning degraded on its CPU mirror.
     "torch-raw" is the bare TorchConflictSet
-    (the reference's "tpu-raw").  "auto" is "torch" when a CUDA device is
-    present and the oracle otherwise.  "cpu": the oracle."""
+    (the reference's "tpu-raw").  "native": NativeConflictSet, the C++
+    engine built with g++ at first use.  "auto" is "torch" when a CUDA
+    device is present and "native" otherwise.  "cpu": the oracle."""
     backend = backend or server_knobs().CONFLICT_SET_BACKEND
     if backend == "auto":
         import torch
-        backend = "torch" if torch.cuda.is_available() else "cpu"
+        # Deviation from the reference (foundationdb_tpu/conflict/api.py
+        # :139-143), whose "auto" falls quietly to the oracle when the
+        # native library fails to build: here a failed build raises with
+        # the compiler's stderr, as a failed kernel build does.
+        backend = "torch" if torch.cuda.is_available() else "native"
+    if backend == "native":
+        from .native import NativeConflictSet
+        return NativeConflictSet(oldest_version)
     if backend == "cpu":
         from .oracle import OracleConflictSet
         return OracleConflictSet(oldest_version)

@@ -1,6 +1,6 @@
 """Error codes (trimmed to what the conflict path, its supervisor, the
 commit proxy's replies, the write path and its recovery, the event loop,
-the client and data distribution raise or retry on).
+the client, data distribution and the coordinators raise or retry on).
 
 Mirrors the reference's flow/error_definitions.h error-code contract."""
 
@@ -24,6 +24,7 @@ ERROR_CODES = {
     "operation_failed": 1000,
     "wrong_shard_server": 1001,
     "timed_out": 1004,
+    "coordinated_state_conflict": 1005,
     "transaction_too_old": 1007,
     "future_version": 1009,
     "not_committed": 1020,

@@ -163,6 +163,11 @@ class ServerKnobs:
         self.DD_METRICS_INTERVAL = 0.5
         self.DD_SHARD_MERGE_BYTES = (1 << 20) // 4
 
+        # The control plane (the reference's :441): a coordinator drops a
+        # candidate that neither heartbeats as leader nor re-sends its
+        # candidacy within COORD_CANDIDACY_LEASE_S seconds.
+        self.COORD_CANDIDACY_LEASE_S = 3.0
+
         # The transport (the reference's :127 and :283): per-peer health
         # samples on every send, and the columnar frames of the hot
         # messages (decoding reads either format whatever this says).

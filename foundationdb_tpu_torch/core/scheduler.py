@@ -48,8 +48,10 @@ class TaskPriority(IntEnum):
     """The reference's flow/network.h TaskPriority values the port's
     loop and its streams are handed (higher runs first)."""
 
+    Coordination = 8800
     FailureMonitor = 8700
     ResolutionMetrics = 8700
+    ClusterController = 8650
     TLogPop = 8610
     TLogPeek = 8590
     TLogCommit = 8570

@@ -203,12 +203,54 @@ def lex_min_rows(a: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     return torch.where(lex_less(b, a)[:, None], b, a)
 
 
+def _rows_as_bytes(rows: np.ndarray) -> np.ndarray:
+    """Host: int32[N, 8] rows -> numpy S32[N] whose byte order is the
+    rows' lexicographic order over unsigned lanes (lane 0 first, each
+    lane big-endian); numpy compares S values as memcmp over the width."""
+    return rows.byteswap().view("S32").ravel()
+
+
+def _searchsorted_host(table: torch.Tensor, queries: torch.Tensor,
+                       side_left) -> torch.Tensor:
+    """_searchsorted_plain's loop for CPU tensors in numpy, over the rows
+    as byte strings: the same midpoints level by level, each level's
+    midpoint rows converted as they are read.  A few numpy operations
+    replace the loop's dozen torch operations a level, whose fixed cost
+    of microseconds each dominates at a resolver's small batches."""
+    cap = table.shape[0]
+    nbits = cap.bit_length() - 1
+    assert cap == 1 << nbits, f"capacity {cap} not a power of two"
+    tnp, qb = table.numpy(), _rows_as_bytes(queries.numpy())
+    per_query = isinstance(side_left, torch.Tensor)
+    left = side_left.numpy() if per_query else side_left
+    lo = np.zeros(qb.shape[0], dtype=np.intp)
+    hi = np.full(qb.shape[0], cap, dtype=np.intp)
+    for level in range(nbits + 1):
+        last = level == nbits
+        mid = (lo + hi) >> 1
+        mk = _rows_as_bytes(tnp[np.minimum(mid, cap - 1) if last else mid])
+        if per_query:
+            cmp = np.where(left, mk < qb, mk <= qb)
+        else:
+            cmp = (mk < qb) if left else (mk <= qb)
+        if last:
+            np.copyto(hi, mid, where=(lo < hi) & ~cmp)
+        else:
+            np.copyto(lo, mid + 1, where=cmp)
+            np.copyto(hi, mid, where=~cmp)
+    return torch.from_numpy(hi.astype(np.int32))
+
+
 def _searchsorted_plain(table: torch.Tensor, queries: torch.Tensor,
                         side_left) -> torch.Tensor:
     """The branchless loop of the reference's _searchsorted over rows:
     first index with table[i] >= q (left) or > q (right).  side_left is a
     bool or a bool[Q] tensor (a tie side per query).  Each step compares
-    a query with its midpoint row at the first lane where they differ."""
+    a query with its midpoint row at the first lane where they differ.
+    On the host (CPU tensors) the same loop runs in numpy
+    (_searchsorted_host); on the card it runs as written."""
+    if isinstance(table, torch.Tensor) and table.device.type == "cpu":
+        return _searchsorted_host(table, queries, side_left)
     cap = table.shape[0]
     nbits = cap.bit_length() - 1
     assert cap == 1 << nbits, f"capacity {cap} not a power of two"

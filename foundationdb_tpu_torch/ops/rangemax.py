@@ -71,11 +71,11 @@ def build_sparse_table(values: torch.Tensor,
 
 
 def _floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """floor(log2(x)) for int32 x >= 1, exactly (31 - clz(x))."""
-    j = torch.zeros_like(x)
-    for k in range(1, 31):
-        j = j + (x >= (1 << k)).to(x.dtype)
-    return j
+    """floor(log2(x)) for int32 x >= 1, exactly (31 - clz(x)): x is
+    exact in float64 and frexp's exponent e has x = m * 2**e, m in
+    [0.5, 1)."""
+    _m, e = torch.frexp(x.to(torch.float64))
+    return (e - 1).to(x.dtype)
 
 
 def _gather_index(i: torch.Tensor, n: int) -> torch.Tensor:

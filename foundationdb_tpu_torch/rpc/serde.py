@@ -153,6 +153,46 @@ _REFERENCE_FIELDS: Dict[str, tuple] = {
         ("begin", _MISSING), ("end", _MISSING), ("version", _MISSING),
         ("limit", _MISSING), ("limit_bytes", _MISSING),
         ("reverse", _MISSING), ("debug_id", ""), ("tag", "")),
+    # The control plane's messages (server/interfaces.py): the region,
+    # storage-cache, TSS, backup, lock, tenant and health fields the port
+    # does not keep.
+    "DatabaseConfiguration": (
+        ("n_tlogs", _MISSING), ("n_commit_proxies", _MISSING),
+        ("n_grv_proxies", _MISSING), ("n_resolvers", _MISSING),
+        ("n_storage", _MISSING), ("log_replication", _MISSING),
+        ("storage_replication", _MISSING), ("conflict_backend", _MISSING),
+        ("storage_engine", _MISSING), ("min_workers", _MISSING),
+        ("usable_regions", 1), ("remote_dc", ""), ("n_log_routers", 1),
+        ("n_remote_tlogs", 1), ("n_storage_caches", 0), ("tss_count", 0)),
+    "RegisterWorkerRequest": (
+        ("worker", _MISSING), ("process_class", _MISSING),
+        ("recovered_logs", _MISSING), ("recovered_storage", _MISSING),
+        ("storage_versions", _MISSING), ("locality", _MISSING),
+        ("machine_stats", {}), ("metrics_doc", {}), ("health_report", {})),
+    "WorkerRegistration": (
+        ("worker", _MISSING), ("process_class", _MISSING),
+        ("recovered_logs", _MISSING), ("recovered_storage", _MISSING),
+        ("storage_versions", _MISSING), ("locality", _MISSING),
+        ("machine_stats", {}), ("metrics_doc", {}), ("health_report", {}),
+        ("registered_at", _MISSING)),
+    "InitializeTLogRequest": (
+        ("tlog_id", _MISSING), ("recovery_version", _MISSING),
+        ("recover_tags", _MISSING), ("recover_popped", _MISSING),
+        ("epoch", _MISSING), ("feeder_routers", None), ("feeder_tags", [])),
+    "InitializeCommitProxyRequest": (
+        ("proxy_id", _MISSING), ("epoch", _MISSING), ("master", _MISSING),
+        ("resolvers", _MISSING), ("tlogs", _MISSING),
+        ("key_resolvers_ranges", _MISSING),
+        ("key_servers_ranges", _MISSING),
+        ("storage_interfaces", _MISSING), ("recovery_version", _MISSING),
+        ("backup_active", False), ("db_locked", None),
+        ("region_replication", False), ("storage_caches", []),
+        ("tss_mapping", {}), ("tenants", {}),
+        ("tenant_metadata_version", 0)),
+    "InitializeStorageRequest": (
+        ("ss_id", _MISSING), ("tag", _MISSING), ("pull_tlogs", None),
+        ("cache_role", False), ("tss_role", False), ("own_ranges", []),
+        ("epoch", 0), ("engine", _MISSING)),
 }
 
 def encode_value(w: Writer, v: Any) -> None:
@@ -1114,8 +1154,9 @@ _bootstrapped = False
 def bootstrap_registry() -> None:
     """Register every module that defines types the port's network
     carries (the reference's bootstrap_registry over the port's modules:
-    its messages, interfaces, the waitFailure request and data
-    distribution's module, as the reference registers its; FdbError
+    its messages, interfaces, the coordinators', cluster controller's and
+    master's messages, the waitFailure request and data distribution's
+    module, as the reference registers its; FdbError
     travels as T_ERROR and needs no registration).  Idempotent; called by
     the real transport at startup."""
     global _bootstrapped
@@ -1126,6 +1167,9 @@ def bootstrap_registry() -> None:
     for modname in (
             "foundationdb_tpu_torch.txn.types",
             "foundationdb_tpu_torch.server.interfaces",
+            "foundationdb_tpu_torch.server.coordination",
+            "foundationdb_tpu_torch.server.cluster_controller",
+            "foundationdb_tpu_torch.server.master",
             "foundationdb_tpu_torch.server.failure",
             "foundationdb_tpu_torch.server.data_distribution",
     ):

@@ -7,10 +7,11 @@ clogInterface/clogPair (:375-376).  All simulated processes are actors in
 ONE OS process sharing the deterministic event loop; process boundaries are
 the SimNetwork's latency/failure model plus actor-cancellation on kill.
 
-Left out: a machine's simulated file system (the reference's
-server/sim_fs.py, which the port does not have: the port's durable roles
-write real files), and with it fs_for, power_fail_machine,
-power_fail_all and wipe_machine.
+Each machine carries its simulated file system (server/sim_fs.py, the
+port's trimmed copy: synchronous files whose un-synced writes a power
+failure drops), reached through fs_for(process); power_fail_machine and
+power_fail_all kill processes and drop those writes.  Left out:
+wipe_machine.
 """
 
 from __future__ import annotations
@@ -94,9 +95,11 @@ class Machine:
     """A simulated machine hosting processes (reference MachineInfo)."""
 
     def __init__(self, machineid: str, dcid: str) -> None:
+        from ..server.sim_fs import SimFileSystem
         self.machineid = machineid
         self.dcid = dcid
         self.processes: List[SimProcess] = []
+        self.fs = SimFileSystem()
 
 
 class Simulator:
@@ -147,6 +150,10 @@ class Simulator:
     def alive_processes(self) -> List[SimProcess]:
         return [p for p in self.processes.values() if p.alive]
 
+    def fs_for(self, p: SimProcess):
+        """The SimFileSystem of the machine hosting `p` (durable state)."""
+        return self.machines[p.locality.machineid].fs
+
     # -- faults (reference simulator.h:226-243, :375-376) --------------------
     def kill_process(self, p: SimProcess) -> None:
         """Permanently stop a process (KillType KillInstantly)."""
@@ -176,6 +183,19 @@ class Simulator:
     def kill_machine(self, machineid: str) -> None:
         for p in self.machines[machineid].processes:
             self.kill_process(p)
+
+    def power_fail_machine(self, machineid: str) -> None:
+        """Unclean machine loss: its processes die and its files lose
+        every un-synced write."""
+        m = self.machines[machineid]
+        m.fs.power_fail_all()
+        for p in m.processes:
+            self.kill_process(p)
+
+    def power_fail_all(self) -> None:
+        """Whole-cluster power loss (the restarting tests' scenario)."""
+        for machineid in list(self.machines):
+            self.power_fail_machine(machineid)
 
     def kill_zone(self, zoneid: str) -> None:
         """Kill every process in a failure zone (reference killZone,

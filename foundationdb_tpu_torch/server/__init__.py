@@ -10,10 +10,15 @@ TLogs over their disk queues (with spill, lock and recovery) and the MVCC
 storage servers over their storage engines (kvstore.py, kvstore_btree.py);
 the core state and the epoch end (master.py), the boot scan and
 recruitment over a data directory (worker.py); the planes and the static
-cluster that wire them and reopen it after a kill (cluster.py), and the
-messages a host hands a role."""
+cluster that wire them and reopen it after a kill (cluster.py); the
+control plane that recruits them onto workers and recovers each epoch:
+the coordinators (coordination.py), the cluster controller
+(cluster_controller.py), the Worker (worker.py), the master's recovery
+(master.py master_server) and SimFdbCluster (cluster.py) over the
+machines' simulated files (sim_fs.py); and the messages a host hands a
+role."""
 
-from .cluster import ResolutionPlane, StaticCluster
+from .cluster import ResolutionPlane, SimFdbCluster, StaticCluster
 from .commit_proxy import CommitProxy, LogSystemClient
 from .disk_queue import DiskQueue
 from .grv_proxy import GrvProxy
@@ -25,7 +30,7 @@ from .interfaces import (RESOLVER_ALL, TXS_TAG, CommitID,
 from .kvstore import IKeyValueStore, KVStoreMemory, open_kv_store
 from .kvstore_btree import KVStoreBTree
 from .master import (DBCoreState, EpochEnd, Master, ResolutionBalancer,
-                     epoch_end, seed_resolver_boundaries)
+                     epoch_end, master_server, seed_resolver_boundaries)
 from .notified import NotifiedVersion
 from .ratekeeper import Ratekeeper
 from .real_fs import RealFile, RealFileSystem
@@ -35,7 +40,7 @@ from .storage import StorageServer, VersionedMap
 from .system_data import (KEY_SERVERS_PREFIX, SYSTEM_KEYS_BEGIN,
                           key_servers_key, key_servers_value)
 from .tlog import TLog
-from .worker import BootScan, boot_scan, init_storage, init_tlog
+from .worker import BootScan, Worker, boot_scan, init_storage, init_tlog
 
 __all__ = ["BootScan", "CommitID", "CommitProxy",
            "CommitTransactionRequest", "DBCoreState", "DiskQueue",
@@ -47,7 +52,8 @@ __all__ = ["BootScan", "CommitID", "CommitProxy",
            "ResolutionPlane", "ResolutionSplitRequest", "ResolverHeatRequest",
            "Resolver", "ResolveTransactionBatchReply",
            "ResolveTransactionBatchRequest", "SYSTEM_KEYS_BEGIN",
-           "StaticCluster", "StorageServer", "TLog", "TXS_TAG",
-           "VersionedMap", "ask", "boot_scan", "epoch_end", "init_storage",
-           "init_tlog", "key_servers_key", "key_servers_value",
-           "open_kv_store", "seed_resolver_boundaries"]
+           "SimFdbCluster", "StaticCluster", "StorageServer", "TLog",
+           "TXS_TAG", "VersionedMap", "Worker", "ask", "boot_scan",
+           "epoch_end", "init_storage", "init_tlog", "key_servers_key",
+           "key_servers_value", "master_server", "open_kv_store",
+           "seed_resolver_boundaries"]

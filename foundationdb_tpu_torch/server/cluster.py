@@ -93,11 +93,15 @@ no other (its reads elsewhere answer wrong_shard_server), at the start
 and after a recovery, whose shard map is the core state's with the
 TXS_TAG deltas of the moves replayed onto it.
 
-Left out: the ratekeeper's rate budgets, the coordinators (the core state
-is a file of the data directory), region failover, backup, tenants, the
-database lock, configuration changes and log routers; outside a started
-cluster the roles answer within the call, so batches go in
-version-chain order.
+SimFdbCluster (below) is the reference's real topology over the same
+roles: coordinators, fungible workers, an elected cluster controller and
+a master that recovers each epoch (server/master.py master_server).
+
+Left out of StaticCluster: the ratekeeper's rate budgets, the
+coordinators (the core state is a file of the data directory), region
+failover, backup, tenants, the database lock, configuration changes and
+log routers; outside a started cluster the roles answer within the
+call, so batches go in version-chain order.
 """
 
 from __future__ import annotations
@@ -110,6 +114,7 @@ from ..conflict.window import resolve_device
 from ..core.error import err
 from ..core.futures import Promise, wait_any
 from ..core.scheduler import set_event_loop
+from ..core.trace import TraceEvent
 from ..txn.types import CommitTransactionRef, Version
 from .commit_proxy import (COMMIT_TRANSACTION_BATCH_COUNT_MAX, CommitProxy,
                            LogSystemClient)
@@ -641,3 +646,263 @@ class StaticCluster:
         self.plane = self.master = self.log_system = None
         self.tlogs = self.storage = []
 
+
+
+class SimFdbCluster:
+    """The real topology (a trimmed copy of the JAX package's cluster.py
+    SimFdbCluster, :146-455): coordinators and fungible worker processes
+    on the port's Simulator.  The stateless workers campaign for cluster
+    controller through the coordinators; the winner recruits a master,
+    which recovers (server/master.py master_server) and recruits every
+    role of the transaction system onto workers.  Kill a process of the
+    transaction system (or the controller's) and the cluster recovers
+    into a new epoch.
+
+    The Resolver roles' conflict sets are built with the configuration's
+    backend ("torch" when it names none) on `device`: the card unless the
+    caller passes device="cpu"; with none named, a device backend and no
+    card present, this raises.  `set_kwargs` go to every set (capacity,
+    delta_capacity, ...).  Every durable file lives in its machine's
+    simulated file system (server/sim_fs.py), so a restarted worker finds
+    its TLogs and storage engines and power_fail_reboot() boots the
+    cluster again from what was synced.
+
+    Left out: a second cluster in the same simulation (the reference's
+    `sim` and `name_prefix`), add_coordinator and spec_of (the
+    coordinators change)."""
+
+    def __init__(self, config=None, n_workers: int = 4,
+                 n_storage_workers: int = 2, n_coordinators: int = 3,
+                 loop=None, n_zones: int = 0, device=None,
+                 **set_kwargs) -> None:
+        """n_zones > 0 places the storage workers round-robin into that
+        many failure zones; 0 makes every machine its own zone."""
+        from ..core.scheduler import EventLoop
+        from ..rpc.sim import Simulator, set_simulator
+        from .interfaces import DatabaseConfiguration
+        self.config = config or DatabaseConfiguration()
+        if (self.config.conflict_backend or "torch") in (
+                "torch", "torch-raw", "sharded"):
+            resolve_device(device)
+        self.device = device
+        self.set_kwargs = set_kwargs
+        # Cold-boot recruitment waits for the whole initial pool: the
+        # storage workers and at least one stateless one.
+        self.config.min_workers = max(self.config.min_workers,
+                                      min(n_storage_workers + 1, n_workers))
+        self.n_workers = n_workers
+        self.n_storage_workers = n_storage_workers
+        self.n_coordinators = n_coordinators
+        self.n_zones = n_zones
+        self.loop = loop or EventLoop(sim=True)
+        set_event_loop(self.loop)
+        self.sim = Simulator()
+        set_simulator(self.sim)
+        # Leadership change ids of restarted workers: never reused, and
+        # higher than the originals' (a rebooted worker does not take the
+        # leadership back on a tie).
+        self._next_change_id = 10000
+        self._boot()
+
+    def _boot(self) -> None:
+        """(Re)create the coordinator and worker processes.  Machine ids
+        are stable, so a second _boot after power_fail_all() finds each
+        machine's files (registers, TLog queues, engines)."""
+        from .coordination import (CoordinationClientInterface,
+                                   CoordinationServer)
+        self.coordinators = []
+        self.coordinator_clients = []
+        for i in range(self.n_coordinators):
+            p = self.sim.new_process(name=f"coord{i}",
+                                     machineid=f"mach.coord{i}",
+                                     process_class="coordinator")
+            server = CoordinationServer(f"coord{i}", fs=self.sim.fs_for(p))
+            server.run(p)
+            self.coordinators.append((p, server))
+            self.coordinator_clients.append(
+                CoordinationClientInterface(server))
+        self.workers = []
+        for i in range(self.n_workers):
+            pclass = "storage" if i < self.n_storage_workers else "stateless"
+            zone = (f"z{i % self.n_zones}"
+                    if self.n_zones and pclass == "storage" else "")
+            p = self.sim.new_process(name=f"worker{i}",
+                                     machineid=f"mach.worker{i}",
+                                     process_class=pclass, zoneid=zone)
+            # Only stateless workers campaign (a storage worker leading
+            # would put the control plane on a data node).
+            self.workers.append((p,) + self._spawn_worker_roles(
+                p, campaign=(pclass == "stateless"), change_id=i))
+        self.sim.on_reboot = self._handle_reboot
+
+    def _spawn_worker_roles(self, p, campaign: bool, change_id: int):
+        """(Re)start a worker's stack on process `p`: its candidacy (a
+        campaigner) or its leader monitor, and its Worker (whose boot scan
+        recovers the machine's TLogs and engines).  Returns (worker, cc,
+        leader_var), a self.workers entry without the process."""
+        from ..core.futures import AsyncVar
+        from .cluster_controller import ClusterController
+        from .coordination import monitor_leader, try_become_leader
+        from .worker import Worker
+        p.cc_campaign = campaign
+        leader_var = AsyncVar(None)
+        cc = None
+        if campaign and p.process_class == "stateless":
+            cc = ClusterController(f"cc.{p.name}.c{change_id}",
+                                   self.coordinator_clients, self.config)
+            cc.register_streams(p)   # endpoints exist before any win
+            p.spawn(try_become_leader(self.coordinator_clients,
+                                      cc.interface, leader_var,
+                                      change_id=change_id),
+                    f"{p.name}.campaign")
+            p.spawn(self._cc_runner(p, cc, leader_var, change_id),
+                    f"{p.name}.ccRunner")
+        else:
+            p.spawn(monitor_leader(self.coordinator_clients, leader_var),
+                    f"{p.name}.monitorLeader")
+        worker = Worker(p, self.coordinator_clients,
+                        process_class=p.process_class, config=self.config,
+                        device=self.device, set_kwargs=self.set_kwargs)
+        worker.run(leader_var)
+        return worker, cc, leader_var
+
+    def _bump_change_id(self) -> int:
+        cid = self._next_change_id
+        self._next_change_id += 1
+        return cid
+
+    def _handle_reboot(self, p) -> None:
+        """sim.on_reboot: a rebooted worker re-runs its stack on the same
+        process; a rebooted coordinator its server, at the same address
+        (the well-known tokens every client holds keep reaching it)."""
+        for idx, entry in enumerate(self.workers):
+            if entry[0] is p:
+                self.workers[idx] = (p,) + self._spawn_worker_roles(
+                    p, campaign=getattr(p, "cc_campaign",
+                                        p.process_class == "stateless"),
+                    change_id=self._bump_change_id())
+                TraceEvent("SimWorkerRebooted").detail(
+                    "Worker", p.name).detail("Epoch", p.epoch).log()
+                return
+        for idx, (cp, _server) in enumerate(self.coordinators):
+            if cp is p:
+                self._respawn_coordinator(idx, p)
+                return
+
+    def _respawn_coordinator(self, idx: int, p) -> None:
+        """A fresh CoordinationServer on `p`, its registers recovered from
+        the machine's files; the shared client list is updated in place
+        (its endpoints equal the old ones)."""
+        from .coordination import (CoordinationClientInterface,
+                                   CoordinationServer)
+        server = CoordinationServer(p.name, fs=self.sim.fs_for(p))
+        server.run(p)
+        self.coordinators[idx] = (p, server)
+        self.coordinator_clients[idx] = CoordinationClientInterface(server)
+        TraceEvent("SimCoordinatorRestarted").detail(
+            "Coordinator", p.name).detail("Epoch", p.epoch).log()
+
+    def restart_coordinator(self, i: int, hard: bool = False):
+        """Restart coordinator `i`: a rolling reboot of a live one, or
+        (hard, or dead) a new process on the same machine and address.
+        Its registers come back from its files either way."""
+        p_old, _server = self.coordinators[i]
+        if p_old.alive and not hard:
+            self.sim.reboot_process(p_old)   # respawned by the hook
+            return p_old
+        if p_old.alive:
+            self.sim.kill_process(p_old)
+        p = self.sim.new_process(name=p_old.name,
+                                 machineid=p_old.locality.machineid,
+                                 process_class="coordinator",
+                                 dcid=p_old.locality.dcid,
+                                 address=p_old.address)
+        self._respawn_coordinator(i, p)
+        return p
+
+    def restart_worker(self, i: int):
+        """Bring worker `i` back after a kill: a new process on the same
+        machine (its files are found and recovered); a live one gets a
+        rolling reboot instead."""
+        p_old = self.workers[i][0]
+        if p_old.alive:
+            self.sim.reboot_process(p_old)   # respawned by the hook
+            return p_old
+        p = self.sim.new_process(name=p_old.name,
+                                 machineid=p_old.locality.machineid,
+                                 process_class=p_old.process_class,
+                                 dcid=p_old.locality.dcid,
+                                 zoneid=p_old.locality.zoneid)
+        self.workers[i] = (p,) + self._spawn_worker_roles(
+            p, campaign=getattr(p_old, "cc_campaign",
+                                p_old.process_class == "stateless"),
+            change_id=self._bump_change_id())
+        return p
+
+    def add_worker(self, pclass: str = "stateless",
+                   name: Optional[str] = None, campaign: bool = False,
+                   zoneid: str = ""):
+        """One more worker mid-run (a better-class worker joining makes
+        the controller recruit a better master)."""
+        i = len(self.workers)
+        name = name or f"worker{i}"
+        p = self.sim.new_process(name=name, machineid=f"mach.{name}",
+                                 process_class=pclass, zoneid=zoneid)
+        roles = self._spawn_worker_roles(p, campaign=campaign,
+                                         change_id=100 + i)
+        self.workers.append((p,) + roles)
+        return p, roles[0]
+
+    def power_fail_reboot(self) -> None:
+        """Whole-cluster power loss and restart: every un-synced write is
+        dropped, every process dies, and a fresh boot recovers from the
+        durable files alone."""
+        self.sim.power_fail_all()
+        self._boot()
+
+    @staticmethod
+    async def _cc_runner(process, cc, leader_var, my_change_id) -> None:
+        """Run the controller while this worker leads; halt it when
+        deposed (a deposed controller would recruit a rival system)."""
+        started = False
+        while True:
+            leader = leader_var.get()
+            is_me = leader is not None and leader.change_id == my_change_id
+            if is_me and not started:
+                cc.run(process)
+                started = True
+            elif not is_me and started:
+                cc.halt()
+                started = False
+            await leader_var.on_change()
+
+    def database(self):
+        """A Database that follows the leader to each epoch's proxies."""
+        from ..client.database import ClusterConnection, Database
+        return Database(ClusterConnection(self.coordinator_clients))
+
+    def run_until(self, future, timeout: Optional[float] = None):
+        return self.loop.run_until(future, timeout)
+
+    # -- fault helpers --------------------------------------------------------
+    def process_of(self, interface):
+        """The simulated process hosting a role, by any of its endpoints'
+        address."""
+        for attr in vars(interface).values():
+            ep = getattr(attr, "_endpoint", None)
+            if ep is not None:
+                return self.sim.processes.get(ep.address)
+        return None
+
+    def current_cc(self):
+        """The cluster controller running as the live leader."""
+        for p, _w, cc, leader_var in self.workers:
+            if cc is None or not p.alive:
+                continue
+            leader = leader_var.get()
+            if leader is not None and leader.serialized_info is cc.interface:
+                return cc
+        return None
+
+    def worker_process(self, i: int):
+        return self.workers[i][0]

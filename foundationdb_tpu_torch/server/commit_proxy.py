@@ -55,9 +55,8 @@ than histograms.
 Left out on purpose: tenant validation (_tenant_prefix_ok,
 _validate_tenants) and the lock fence (db_locked), for the port's proxy
 has neither tenants nor a lock; _apply_metadata's side effects other
-than the shard map (backup, lock, configuration, server registry, cache
-ranges: the port's _apply_metadata is apply_key_servers_mutation on this
-proxy's map); the BACKUP, CACHE, TSS and region twin tags; the commit-debug spans and the
+than the shard map and the server registry (backup, lock,
+configuration, cache ranges); the BACKUP, CACHE, TSS and region twin tags; the commit-debug spans and the
 CommitConflictDetail trace of an aborted debug_id txn; the pipelining
 gates (a logged commit() runs its batch to the end within the call, the
 batcher waits for one batch before it closes the next; both refuse a
@@ -108,11 +107,12 @@ from .interfaces import (RESOLVER_ALL, TXS_TAG, CommitID,
                          ResolveTransactionBatchReply,
                          ResolveTransactionBatchRequest, Tag,
                          TLogCommitRequest, TLogPeekRequest, TLogPopRequest,
-                         ask, call, run_within_call)
+                         ask, call, run_within_call, same_incarnation)
 from .failure import hold_wait_failure
 from .shardmap import RangeMap
 from .system_data import (DISOWN_SHARD_PREFIX, SYSTEM_KEYS_BEGIN,
-                          apply_key_servers_mutation, disowned_spans)
+                          apply_key_servers_mutation, disowned_spans,
+                          parse_server_tag_mutation)
 
 # Past this many txns stage (b) takes the one-round in-degree sort
 # (the reference's SCHED_REORDER_EXACT_MAX default).
@@ -265,8 +265,10 @@ class CommitProxy:
         # storage interfaces the location service names by tag, and the
         # batcher's state.
         self.interface = CommitProxyInterface(proxy_id)
+        self.interface.role = self   # in-process backref (not on the wire)
         self.storage_interfaces: Dict[Tag, Any] = {}
         self.broken = False
+        self._wait_failure_actor = None     # the holder run() spawns
         # Seconds the batcher spent on its batches, and of them the
         # seconds waiting on the other roles' replies.
         self.batch_seconds = 0.0
@@ -444,6 +446,13 @@ class CommitProxy:
             for req in reqs:
                 if not req.reply.is_set():
                     req.reply.send_error(err("commit_unknown_result"))
+            # A broken proxy dies visibly (reference :309-318): its
+            # waitFailure breaks, so its master ends the epoch (a proxy
+            # whose TLogs the next epoch locked would otherwise leave its
+            # master serving a dead generation).
+            if self._wait_failure_actor is not None and \
+                    not self._wait_failure_actor.is_ready():
+                self._wait_failure_actor.cancel()
             raise
         finally:
             self.batch_seconds += perf_counter() - t0
@@ -475,11 +484,13 @@ class CommitProxy:
         master, the resolvers and the TLogs through their interfaces."""
         for stream in self.interface.streams():
             process.register(stream)
+        self._wait_failure_actor = process.spawn(
+            hold_wait_failure(self.interface.wait_failure),
+            f"{self.id}.waitFailure")
         return [
             process.spawn(self._commit_batcher(), f"{self.id}.batcher"),
             process.spawn(self._serve_locations(), f"{self.id}.locations"),
-            process.spawn(hold_wait_failure(self.interface.wait_failure),
-                          f"{self.id}.waitFailure")]
+            self._wait_failure_actor]
 
     def _refuse_unloggable(self, batch: List[CommitTransactionRequest]
                            ) -> None:
@@ -832,9 +843,27 @@ class CommitProxy:
             mutations, verdict = merged[key]
             if verdict == CommitResult.COMMITTED:
                 for m in mutations:
-                    apply_key_servers_mutation(self.key_servers, m)
+                    self._apply_metadata(m)
                 out.append((*key, mutations, verdict))
         return out
+
+    def _apply_metadata(self, m: Mutation) -> bool:
+        """One committed system mutation's effect on this proxy: the shard
+        map's, and the server registry's on its storage directory (a
+        retired tag leaves it; a new incarnation replaces the interface
+        held, the same one is kept).  True if the mutation is metadata
+        the next recovery replays from TXS_TAG."""
+        handled = apply_key_servers_mutation(self.key_servers, m)
+        st = parse_server_tag_mutation(m)
+        if st is not None:
+            for tag, iface in st:
+                if iface is None:
+                    self.storage_interfaces.pop(tag, None)
+                elif not same_incarnation(self.storage_interfaces.get(tag),
+                                          iface):
+                    self.storage_interfaces[tag] = iface
+            handled = True
+        return handled
 
     def _determine_committed(self, batch, index_maps, resolutions
                              ) -> List[CommitResult]:
@@ -930,7 +959,7 @@ class CommitProxy:
                             self.key_servers, m):
                         messages.setdefault(dtag, []).append(Mutation(
                             set_val, DISOWN_SHARD_PREFIX + db_, de_))
-                    if apply_key_servers_mutation(self.key_servers, m):
+                    if self._apply_metadata(m):
                         messages.setdefault(TXS_TAG, []).append(m)
                     ks = self.key_servers
                     bounds = ks._bounds

@@ -136,6 +136,7 @@ class DataDistributor:
         self.id = dd_id
         self.db = db                      # client Database (metadata txns)
         self.interface = DataDistributorInterface(dd_id)
+        self.interface.role = self   # in-process backref (not on the wire)
         self.storage = dict(storage_interfaces)
         self.replication = replication
         self.map = BoundaryMap()

@@ -84,6 +84,7 @@ class GrvProxy:
         # default > batch (reference SystemTransactionQueue / DefaultQueue
         # / BatchQueue), and the starter's wakeup.
         self.interface = GrvProxyInterface(proxy_id)
+        self.interface.role = self   # in-process backref (not on the wire)
         self.queues: List[List[GetReadVersionRequest]] = [[], [], []]
         self.stats = {"grvs": 0, "batches": 0}
         self._wakeup: Optional[Promise] = None

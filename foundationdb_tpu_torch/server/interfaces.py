@@ -302,6 +302,11 @@ class GetKeyServerLocationsReply:
 
 
 class MasterInterface:
+    """The reference's MasterInterface.  Its configuration and backup
+    nudges (config_changed, backup_changed) are registered with the rest,
+    so the interface's frame is the reference's, and nothing serves them:
+    the port has no configuration changes or backup."""
+
     def __init__(self) -> None:
         self.get_commit_version = RequestStream(
             "master.getCommitVersion", TaskPriority.ProxyGetRawCommittedVersion)
@@ -313,10 +318,15 @@ class MasterInterface:
             TaskPriority.ProxyGetRawCommittedVersion)
         self.wait_failure = RequestStream(
             "master.waitFailure", TaskPriority.FailureMonitor)
+        self.config_changed = RequestStream(
+            "master.configChanged", TaskPriority.DefaultEndpoint)
+        self.backup_changed = RequestStream(
+            "master.backupChanged", TaskPriority.DefaultEndpoint)
 
     def streams(self) -> List[RequestStream]:
         return [self.get_commit_version, self.report_live_committed_version,
-                self.get_live_committed_version, self.wait_failure]
+                self.get_live_committed_version, self.wait_failure,
+                self.config_changed, self.backup_changed]
 
 
 class ResolverInterface:
@@ -566,3 +576,348 @@ class DataDistributorInterface:
 
     def streams(self) -> List[RequestStream]:
         return [self.wait_failure]
+
+
+# ---------------------------------------------------------------------------
+# The control plane: worker, cluster controller, recruitment (reference
+# fdbserver/WorkerInterface.actor.h Initialize*Request,
+# fdbserver/ClusterController.actor.cpp RegisterWorkerRequest,
+# fdbserver/ServerDBInfo.h ServerDBInfo, fdbclient ClientDBInfo; the JAX
+# package's interfaces.py:56-77, :164-227 and :565-1063)
+# ---------------------------------------------------------------------------
+
+def zone_of(iface) -> str:
+    """Failure-zone key of a storage interface: explicit zoneid, else the
+    machine, else the server id (reference LocalityData::zoneId
+    defaulting to machineId)."""
+    loc = getattr(iface, "locality", None) or ("", "", "")
+    return loc[1] or loc[2] or getattr(iface, "id", "")
+
+
+def same_incarnation(a, b) -> bool:
+    """Do two interface handles name the same role incarnation?  Judged by
+    the wait_failure endpoint: a decoded message is a fresh copy, so
+    object identity means nothing across the wire."""
+    if a is b:
+        return a is not None
+    ea = getattr(getattr(a, "wait_failure", None), "_endpoint", None)
+    eb = getattr(getattr(b, "wait_failure", None), "_endpoint", None)
+    return ea is not None and ea == eb
+
+
+@dataclass
+class DatabaseConfiguration:
+    """Role counts and replication (reference
+    fdbclient/DatabaseConfiguration.h), without the reference's region,
+    storage-cache and TSS fields (rpc/serde.py writes their defaults).
+    `storage_boundaries`, the port's own and never on the wire: the
+    interior cut keys of a cold boot's shard map (None: the reference's
+    n_storage - 1 even byte splits), as StaticCluster takes them."""
+
+    n_tlogs: int = 1
+    n_commit_proxies: int = 1
+    n_grv_proxies: int = 1
+    n_resolvers: int = 1
+    n_storage: int = 2
+    log_replication: int = 1
+    storage_replication: int = 1
+    conflict_backend: Optional[str] = None
+    storage_engine: str = "memory"     # memory | btree (reference ssd-2)
+    min_workers: int = 1
+    storage_boundaries: Optional[List[bytes]] = None
+
+
+@dataclass
+class ServerDBInfo:
+    """Cluster-wide role directory broadcast by the cluster controller."""
+
+    epoch: int = 0                       # master generation (recoveryCount)
+    recovery_state: str = "unrecruited"  # see the master's recovery states
+    recovery_version: Version = 0
+    master: Any = None                   # MasterInterface
+    grv_proxies: List[Any] = field(default_factory=list)
+    commit_proxies: List[Any] = field(default_factory=list)
+    resolvers: List[Any] = field(default_factory=list)
+    tlogs: List[Any] = field(default_factory=list)
+    storage_servers: Dict[Tag, Any] = field(default_factory=dict)
+    ratekeeper: Any = None
+    data_distributor: Any = None
+    # The recruiting cluster controller (reference
+    # ServerDBInfo.clusterInterface).
+    cluster_controller: Any = None
+    # The reference's region plane: empty in the port (no regions).
+    log_routers: List[Any] = field(default_factory=list)
+    remote_tlogs: List[Any] = field(default_factory=list)
+    remote_storage: Dict[Tag, Any] = field(default_factory=dict)
+    # TLog replication factor of this generation.
+    log_replication: int = 1
+    storage_engine: str = ""
+    # Resolution-plane assignment of this generation: (begin, end,
+    # resolver index) with RESOLVER_ALL for the broadcast system range.
+    resolver_ranges: List[Tuple[bytes, bytes, int]] = \
+        field(default_factory=list)
+    regions: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class ClientDBInfo:
+    """What clients need (reference fdbclient ClientDBInfo)."""
+
+    epoch: int = 0
+    grv_proxies: List[Any] = field(default_factory=list)
+    commit_proxies: List[Any] = field(default_factory=list)
+    protocol_version: int = 0
+
+
+@dataclass
+class PingRequest:
+    """Health ping (reference fdbrpc PingRequest): answered at once."""
+
+    echo: int = 0
+    reply: Any = None
+
+
+@dataclass
+class RegisterWorkerRequest:
+    """A worker's registration with the cluster controller, with the
+    durable roles its boot scan brought back and the applied version of
+    each storage role (the tiebreak when two workers hold one tag).  The
+    reference's machine stats, metrics document and health report are
+    not kept (rpc/serde.py writes them empty)."""
+
+    worker: "WorkerInterface"
+    process_class: str = "unset"
+    recovered_logs: Dict[str, Any] = field(default_factory=dict)
+    recovered_storage: Dict[int, Any] = field(default_factory=dict)
+    storage_versions: Dict[int, int] = field(default_factory=dict)
+    # (dcid, zoneid, machineid) of the hosting process.
+    locality: tuple = ("", "", "")
+    reply: Any = None
+
+
+@dataclass
+class WorkerRegistration:
+    """One registry entry of the cluster controller (get_workers)."""
+
+    worker: "WorkerInterface"
+    process_class: str = "unset"
+    recovered_logs: Dict[str, Any] = field(default_factory=dict)
+    recovered_storage: Dict[int, Any] = field(default_factory=dict)
+    storage_versions: Dict[int, int] = field(default_factory=dict)
+    locality: tuple = ("", "", "")
+    registered_at: float = 0.0
+
+
+# Placement fitness (reference flow/ProcessClass machineClassFitness and
+# ClusterController.actor.cpp:3576): lower is better.  BEST=0 (dedicated
+# class), GOOD=1, UNSET=2, OKAY=3, WORST=4 (only when nothing better
+# registered), NEVER=9.
+FITNESS_BEST, FITNESS_GOOD, FITNESS_UNSET = 0, 1, 2
+FITNESS_OKAY, FITNESS_WORST, FITNESS_NEVER = 3, 4, 9
+
+_ROLE_FITNESS: Dict[str, Dict[str, int]] = {
+    "master": {"master": FITNESS_BEST, "stateless": FITNESS_GOOD,
+               "unset": FITNESS_UNSET, "log": FITNESS_OKAY,
+               "transaction": FITNESS_OKAY, "storage": FITNESS_WORST,
+               "coordinator": FITNESS_NEVER, "tester": FITNESS_NEVER},
+    # Proxies, resolvers, ratekeeper, data distributor.
+    "stateless": {"stateless": FITNESS_BEST, "master": FITNESS_GOOD,
+                  "unset": FITNESS_UNSET, "log": FITNESS_OKAY,
+                  "transaction": FITNESS_OKAY, "storage": FITNESS_WORST,
+                  "coordinator": FITNESS_NEVER, "tester": FITNESS_NEVER},
+    "log": {"log": FITNESS_BEST, "transaction": FITNESS_BEST,
+            "stateless": FITNESS_GOOD, "unset": FITNESS_UNSET,
+            "master": FITNESS_OKAY, "storage": FITNESS_WORST,
+            "coordinator": FITNESS_NEVER, "tester": FITNESS_NEVER},
+    "storage": {"storage": FITNESS_BEST, "unset": FITNESS_UNSET,
+                "log": FITNESS_OKAY, "transaction": FITNESS_OKAY,
+                "stateless": FITNESS_WORST, "master": FITNESS_WORST,
+                "coordinator": FITNESS_NEVER, "tester": FITNESS_NEVER},
+}
+
+
+def role_fitness(process_class: str, role: str) -> int:
+    """Placement rank of a worker class for a role; lower is better."""
+    table = _ROLE_FITNESS.get(role) or _ROLE_FITNESS["stateless"]
+    return table.get(process_class, FITNESS_UNSET)
+
+
+@dataclass
+class GetWorkersRequest:
+    reply: Any = None
+
+
+@dataclass
+class OpenDatabaseRequest:
+    """Client -> cluster controller: the ClientDBInfo of an epoch past
+    `known_epoch` that accepts commits (a long poll)."""
+
+    known_epoch: int = -1
+    reply: Any = None
+
+
+@dataclass
+class InitializeMasterRequest:
+    epoch: int
+    cc: Any = None        # ClusterControllerInterface
+    reply: Any = None     # -> MasterInterface
+
+
+@dataclass
+class InitializeTLogRequest:
+    """Recruit a TLog of `epoch` at `recovery_version`, carrying each tag
+    of `recover_tags` (tag -> old-generation TLogInterface) from its
+    popped version.  The reference's remote-feeder fields are not kept
+    (no regions)."""
+
+    tlog_id: str
+    recovery_version: Version
+    recover_tags: Dict[Tag, Any] = field(default_factory=dict)
+    recover_popped: Dict[Tag, Version] = field(default_factory=dict)
+    epoch: int = 0
+    reply: Any = None     # -> TLogInterface
+
+
+@dataclass
+class InitializeCommitProxyRequest:
+    """Recruit a commit proxy of `epoch`.  The reference's backup, lock,
+    region, storage-cache, TSS and tenant fields are not kept."""
+
+    proxy_id: str
+    epoch: int
+    master: Any
+    resolvers: List[Any]
+    tlogs: List[Any]
+    key_resolvers_ranges: List[Tuple[bytes, bytes, int]]
+    key_servers_ranges: List[Tuple[bytes, bytes, List[Tag]]]
+    storage_interfaces: Dict[Tag, Any]
+    recovery_version: Version
+    reply: Any = None     # -> CommitProxyInterface
+
+
+@dataclass
+class InitializeGrvProxyRequest:
+    proxy_id: str
+    epoch: int
+    master: Any
+    tlogs: List[Any]
+    ratekeeper: Any = None
+    reply: Any = None     # -> GrvProxyInterface
+
+
+@dataclass
+class InitializeRatekeeperRequest:
+    rk_id: str
+    storage_interfaces: Dict[Tag, Any] = field(default_factory=dict)
+    tlog_interfaces: List[Any] = field(default_factory=list)
+    resolver_interfaces: List[Any] = field(default_factory=list)
+    reply: Any = None     # -> RatekeeperInterface
+
+
+@dataclass
+class InitializeResolverRequest:
+    resolver_id: str
+    epoch: int
+    recovery_version: Version
+    # The epoch's commit proxies, registered with the role up front.
+    proxy_ids: List[str] = field(default_factory=list)
+    reply: Any = None     # -> ResolverInterface
+
+
+@dataclass
+class InitializeDataDistributorRequest:
+    dd_id: str = ""
+    epoch: int = 0
+    storage_interfaces: Dict[Tag, Any] = field(default_factory=dict)
+    key_servers_ranges: List[Any] = field(default_factory=list)
+    replication: int = 1
+    reply: Any = None    # -> DataDistributorInterface
+
+
+@dataclass
+class InitializeStorageRequest:
+    """Recruit a storage server over a fresh engine of kind `engine` (""
+    is the worker's configured engine).  The reference's remote-replica,
+    storage-cache and TSS fields are not kept."""
+
+    ss_id: str
+    tag: Tag
+    engine: str = ""
+    reply: Any = None     # -> StorageServerInterface
+
+
+class WorkerInterface:
+    """Per-process recruitment surface (reference WorkerInterface).  The
+    log router's and backup worker's init streams are registered with the
+    rest, so the frame is the reference's, and nothing serves them (the
+    port has neither role)."""
+
+    def __init__(self, worker_id: str = "") -> None:
+        self.id = worker_id
+        self.init_master = RequestStream("worker.initMaster",
+                                         TaskPriority.DefaultEndpoint)
+        self.init_tlog = RequestStream("worker.initTLog",
+                                       TaskPriority.DefaultEndpoint)
+        self.init_commit_proxy = RequestStream("worker.initCommitProxy",
+                                               TaskPriority.DefaultEndpoint)
+        self.init_grv_proxy = RequestStream("worker.initGrvProxy",
+                                            TaskPriority.DefaultEndpoint)
+        self.init_resolver = RequestStream("worker.initResolver",
+                                           TaskPriority.DefaultEndpoint)
+        self.init_storage = RequestStream("worker.initStorage",
+                                          TaskPriority.DefaultEndpoint)
+        self.init_ratekeeper = RequestStream("worker.initRatekeeper",
+                                             TaskPriority.DefaultEndpoint)
+        self.init_data_distributor = RequestStream(
+            "worker.initDataDistributor", TaskPriority.DefaultEndpoint)
+        self.init_log_router = RequestStream("worker.initLogRouter",
+                                             TaskPriority.DefaultEndpoint)
+        self.init_backup_worker = RequestStream("worker.initBackupWorker",
+                                                TaskPriority.DefaultEndpoint)
+        self.wait_failure = RequestStream("worker.waitFailure",
+                                          TaskPriority.FailureMonitor)
+        self.ping = RequestStream("worker.ping",
+                                  TaskPriority.FailureMonitor)
+
+    def streams(self) -> List[RequestStream]:
+        return [self.init_master, self.init_tlog, self.init_commit_proxy,
+                self.init_grv_proxy, self.init_resolver, self.init_storage,
+                self.init_ratekeeper, self.init_data_distributor,
+                self.init_log_router, self.init_backup_worker,
+                self.wait_failure, self.ping]
+
+
+class ClusterControllerInterface:
+    """The reference's ClusterControllerInterface; its get_status stream
+    is registered and not served (the port has no status document)."""
+
+    def __init__(self, cc_id: str = "") -> None:
+        self.id = cc_id
+        self.register_worker = RequestStream(
+            "cc.registerWorker", TaskPriority.ClusterController)
+        self.get_workers = RequestStream(
+            "cc.getWorkers", TaskPriority.ClusterController)
+        self.open_database = RequestStream(
+            "cc.openDatabase", TaskPriority.ClusterController)
+        self.master_registration = RequestStream(
+            "cc.masterRegistration", TaskPriority.ClusterController)
+        self.get_server_db_info = RequestStream(
+            "cc.getServerDBInfo", TaskPriority.ClusterController)
+        self.get_status = RequestStream(
+            "cc.getStatus", TaskPriority.ClusterController)
+
+    def streams(self) -> List[RequestStream]:
+        return [self.register_worker, self.get_workers, self.open_database,
+                self.master_registration, self.get_server_db_info,
+                self.get_status]
+
+
+@dataclass
+class MasterRegistrationRequest:
+    """Master -> cluster controller: its recovery's result, the role
+    directory the controller broadcasts (reference
+    clusterRegisterMaster)."""
+
+    epoch: int
+    db_info: ServerDBInfo
+    reply: Any = None

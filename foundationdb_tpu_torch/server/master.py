@@ -36,11 +36,26 @@ version as the least end version over the locked logs, replay the
 TXS_TAG shard-map deltas after map_version onto the snapshot, and build
 the new epoch's Master at the recovery version.
 
-Left out: the balancing loop's interval delay (the caller steps the
-balancer), the DBCoreState persistence of the moved boundaries, and of
-the recovery state machine: region failover, backup, tenants, the
-database lock, configuration changes, log routers and the coordinators
-(the static cluster writes the core state to its data directory).
+master_server (:781-1930) is one epoch of a SimFdbCluster's master
+(server/cluster.py) through the reference's five recovery states:
+reading_cstate (the core state from the coordinators and the worker
+registry, which resolves a packed core state's ids after a whole-cluster
+reboot), locking_cstate (the old TLogs locked over the network, a holder
+and popped version a tag, the recovery version, the TXS_TAG replay),
+recruiting (pools ranked by fitness; the first wave of TLogs, resolvers
+and, at a cold boot, storage; then the ratekeeper, the data distributor,
+the commit and GRV proxies; the resolution boundaries adopted or
+re-seeded), writing_cstate (a lost race ends this master) and
+accepting_commits (the version servers start, the role directory goes to
+the cluster controller); then it watches the recruited roles and ends
+the epoch when one fails.
+
+Left out: the balancing loop (no master_server steps a balancer; a
+StaticCluster's caller steps it), the DBCoreState persistence of the
+moved boundaries, and of the recovery state machine: region failover and
+recruiting, storage caches, backup workers, TSS, tenants, the database
+lock, the configuration watch and poll, log routers and the coordinators
+watch.
 """
 
 from __future__ import annotations
@@ -51,7 +66,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..core.error import FdbError, err
 from ..core.knobs import server_knobs
-from ..core.trace import TraceEvent
+from ..core.trace import Severity, TraceEvent
 from ..core.wire import Reader, Writer
 from ..txn.types import KeyRange, Version
 from .failure import hold_wait_failure
@@ -60,9 +75,11 @@ from .interfaces import (RESOLVER_ALL, TXS_TAG, GetCommitVersionReply,
                          GetRawCommittedVersionRequest, MasterInterface,
                          ReportRawCommittedVersionRequest, Reply,
                          ResolutionMetricsRequest, ResolutionSplitRequest,
-                         Tag, TLogLockReply, TLogLockRequest, ask)
+                         Tag, TLogLockReply, TLogLockRequest, ask,
+                         same_incarnation)
 from .shardmap import RangeMap
-from .system_data import SYSTEM_KEYS_BEGIN, apply_key_servers_mutation
+from .system_data import (SYSTEM_KEYS_BEGIN, apply_key_servers_mutation,
+                          parse_server_tag_mutation)
 from .tlog import peek_through
 
 # Resolution balancing's gates, the reference's knob defaults
@@ -252,7 +269,12 @@ class Master:
         self.clock = clock
         self.balancer = balancer
         self.proxy_states: Dict[str, _ProxyVersionState] = {}
+        # master_server's recovery: the state it is in, and each state
+        # entered with the loop's time and the wall clock's.
+        self.recovery_state = "unrecruited"
+        self.recovery_log: List[Tuple[str, float, float]] = []
         self.interface = MasterInterface()
+        self.interface.role = self   # in-process backref (not on the wire)
 
     # -- version allocation (reference getVersion :1126) ---------------------
     def _allocate_version(self, proxy_id: str) -> GetCommitVersionReply:
@@ -627,3 +649,409 @@ def epoch_end(prev: DBCoreState, old_tlogs: Dict[str, Any],
         key_servers_ranges=[(b, e, team) for b, e, team in map_rm.ranges()
                             if team is not None],
         txs_deltas=deltas, master=master)
+
+
+# ---------------------------------------------------------------------------
+# The recovery state machine (reference masterserver.actor.cpp masterCore
+# :1670; the JAX package's master.py master_server :781-1930)
+# ---------------------------------------------------------------------------
+
+RECOVERY_STATES = ("reading_cstate", "locking_cstate", "recruiting",
+                   "writing_cstate", "accepting_commits")
+
+
+def _own_team_spans(ss, tag: Tag, key_servers_ranges) -> None:
+    """A storage server owns the spans of its teams and no other (the
+    port's rule since PR 23's shard moves: a server never answers a read
+    of a span it does not hold)."""
+    ss.shards = RangeMap(default=("absent", 0))
+    for b, e, team in key_servers_ranges:
+        if tag in team:
+            ss.shards.set_range(b, e, ("owned", 0))
+
+
+async def master_server(master: Master, process, coordinators, config,
+                        cc_interface) -> None:
+    """One master epoch: recover through the five states, recruit every
+    role of the transaction system onto registered workers, then serve
+    until a recruited role fails (or this process dies), which ends the
+    epoch; the cluster controller then recruits the next master.
+
+    `master.recovery_log` records each state entered, with the loop's
+    time and the wall clock's (perf_counter), for the recovery's split.
+    A write of the core state that loses to another master's
+    (coordinated_state_conflict) ends this one."""
+    from time import perf_counter
+
+    from ..core.futures import swallow, wait_all, wait_any
+    from ..core.rng import deterministic_random
+    from ..core.scheduler import now, spawn
+    from ..rpc.endpoint import RequestStream
+    from .commit_proxy import LogSystemClient
+    from .coordination import CoordinatedState
+    from .failure import wait_failure_of
+    from .interfaces import (FITNESS_NEVER, FITNESS_OKAY, FITNESS_UNSET,
+                             FITNESS_WORST, GetWorkersRequest,
+                             InitializeCommitProxyRequest,
+                             InitializeDataDistributorRequest,
+                             InitializeGrvProxyRequest,
+                             InitializeRatekeeperRequest,
+                             InitializeResolverRequest,
+                             InitializeStorageRequest, InitializeTLogRequest,
+                             MasterRegistrationRequest, ServerDBInfo,
+                             role_fitness, zone_of)
+
+    children: list = []
+
+    def adopt(coro, name: str):
+        f = process.spawn(coro, name)
+        children.append(f)
+        return f
+
+    def enter(state: str, **details) -> None:
+        master.recovery_state = state
+        master.recovery_log.append((state, now(), perf_counter()))
+        ev = TraceEvent("MasterRecoveryState").detail("State", state)
+        for k, v in details.items():
+            ev.detail(k, v)
+        ev.log()
+
+    try:
+        master._process = process
+        for s in master.interface.streams():
+            if s._endpoint is None:   # _init_master registers before it
+                process.register(s)   # replies
+        adopt(hold_wait_failure(master.interface.wait_failure),
+              "master.waitFailure")
+
+        # READING_CSTATE (:1678).  After a whole-cluster reboot the
+        # coordinators hold the packed DBCoreState (ids only): the worker
+        # registry resolves them to the roles the boot scans brought back.
+        enter("reading_cstate")
+        cstate = CoordinatedState(coordinators)
+        prev: Optional[DBCoreState] = DBCoreState.coerce(await cstate.read())
+        workers = await RequestStream.at(
+            cc_interface.get_workers.endpoint).get_reply(GetWorkersRequest())
+        if not workers:
+            raise err("master_recovery_failed", "no workers registered")
+        recovered_logs: Dict[str, Any] = {}
+        recovered_storage: Dict[Tag, Any] = {}
+        best_storage_ver: Dict[Tag, int] = {}
+        for reg in workers:
+            recovered_logs.update(reg.recovered_logs)
+            for tag, iface in reg.recovered_storage.items():
+                # Two workers holding one tag (a failed recruitment left
+                # an empty one): the one with the most applied data wins.
+                v = reg.storage_versions.get(tag, 0)
+                if tag not in recovered_storage or \
+                        v > best_storage_ver.get(tag, -1):
+                    recovered_storage[tag] = iface
+                    best_storage_ver[tag] = v
+
+        # LOCKING_CSTATE: lock the previous TLog generation (the epoch
+        # end), choose a holder of each tag, the recovery version, and
+        # replay the shard map's TXS_TAG deltas onto the snapshot.
+        old_tag_holders: Dict[Tag, Any] = {}
+        old_popped: Dict[Tag, Version] = {}
+        recovery_version: Version = 0
+        key_servers_ranges: list = []
+        if prev is not None:
+            enter("locking_cstate", PrevEpoch=prev.epoch)
+            tlog_ids = prev.tlog_ids or [t.id for t in prev.tlogs]
+            old_tlogs = [recovered_logs.get(tid) or prev.tlogs[i]
+                         for i, tid in enumerate(tlog_ids)]
+            old_ls = LogSystemClient(old_tlogs, prev.log_replication)
+            # Every old TLog at once: dead ones cost one failure delay.
+            lock_futures = {
+                i: RequestStream.at(t.lock.endpoint).get_reply(
+                    TLogLockRequest(epoch=master.epoch))
+                for i, t in enumerate(old_tlogs) if t is not None}
+            await wait_all([swallow(f) for f in lock_futures.values()])
+            locked = {i: f.get() for i, f in lock_futures.items()
+                      if not f.is_error()}
+            if not locked:
+                raise err("master_recovery_failed", "no old TLogs reachable")
+
+            def holder_of(tag: Tag) -> int:
+                holder = next((i for i in old_ls.team_for_tag(tag)
+                               if i in locked), None)
+                if holder is None:
+                    raise err("master_recovery_failed",
+                              f"tag {tag} has no surviving TLog holder")
+                return holder
+
+            # Every acknowledged commit reached all old TLogs, so the least
+            # end version covers every visible commit.
+            recovery_version = min(r.end_version for r in locked.values())
+            map_rm: RangeMap = RangeMap(default=None)
+            for b, e, team in prev.key_servers_ranges:
+                map_rm.set_range(b, e, team)
+            n_deltas = 0
+            rejoined: Dict[Tag, Any] = {}
+            for v, msgs in peek_through(old_tlogs[holder_of(TXS_TAG)].role,
+                                        TXS_TAG, prev.map_version + 1,
+                                        recovery_version):
+                if prev.map_version < v:
+                    for m in msgs:
+                        n_deltas += apply_key_servers_mutation(map_rm, m)
+                        for tag, iface in \
+                                parse_server_tag_mutation(m) or ():
+                            rejoined[tag] = iface
+            key_servers_ranges = [(b, e, team)
+                                  for b, e, team in map_rm.ranges()
+                                  if team is not None]
+            # The registry's changes since the snapshot: a rejoined or
+            # recruited server's newest incarnation, a retired tag gone.
+            merged = {t: i for t, i in prev.storage_servers.items()
+                      if rejoined.get(t, i) is not None}
+            for t, i in rejoined.items():
+                if i is not None and not same_incarnation(merged.get(t), i):
+                    merged[t] = i
+            prev.storage_servers = merged
+            for tag in sorted(merged):
+                holder = holder_of(tag)
+                old_tag_holders[tag] = old_tlogs[holder]
+                old_popped[tag] = locked[holder].tags.get(tag, 0)
+            TraceEvent("MasterTxnStateReplayed").detail(
+                "Deltas", n_deltas).detail(
+                "FromVersion", prev.map_version).log()
+
+        master.version = recovery_version
+        master.last_epoch_end = recovery_version
+        master.live_committed_version = recovery_version
+
+        # RECRUITING (:1741): place the roles on registered workers, each
+        # role's pool the best-fitness band that has anyone in it.
+        enter("recruiting", RecoveryVersion=recovery_version)
+
+        def pool(role: str):
+            ranked = sorted(
+                (reg for reg in workers
+                 if role_fitness(reg.process_class, role) < FITNESS_NEVER),
+                key=lambda reg: (role_fitness(reg.process_class, role),
+                                 reg.worker.id))
+            for cut in (FITNESS_UNSET, FITNESS_OKAY, FITNESS_WORST):
+                band = [reg.worker for reg in ranked
+                        if role_fitness(reg.process_class, role) <= cut]
+                if band:
+                    return band
+            return [reg.worker for reg in ranked] or \
+                sorted((reg.worker for reg in workers), key=lambda x: x.id)
+
+        stateless = pool("stateless")
+        log_pool = pool("log")
+        storage_pool = pool("storage")
+        # Away from the master's own worker: a master kill must never also
+        # take the only copy of a TLog.
+        others = [x for x in stateless if x.id != process.name] or stateless
+        log_others = [x for x in log_pool if x.id != process.name] or log_pool
+        zone_by_worker_id = {
+            reg.worker.id: (reg.locality[1] or reg.locality[2]
+                            or reg.worker.id) for reg in workers}
+        # Round-robin across failure zones, so a tag's TLog team
+        # ((tag + j) % n) lands in distinct zones when there are enough.
+        by_zone: Dict[str, list] = {}
+        for w in log_others:
+            by_zone.setdefault(zone_by_worker_id.get(w.id, w.id),
+                               []).append(w)
+        queues = [list(q) for q in by_zone.values()]
+        log_others = []
+        while queues:
+            q = queues.pop(0)
+            log_others.append(q.pop(0))
+            if q:
+                queues.append(q)
+
+        def pick(i: int):
+            return others[i % len(others)]
+
+        # The first wave, in parallel: the new TLog generation (carrying
+        # the surviving tags' data), the resolvers and, at a cold boot,
+        # the storage servers.
+        new_teams = LogSystemClient([None] * config.n_tlogs,
+                                    config.log_replication)
+        # Instance-unique ids: an empty WAL a failed attempt left must
+        # never be taken for this generation's after a reboot.  The
+        # ".e<epoch>" suffix stays last for the worker's file GC.
+        tuid = deterministic_random().random_unique_id()[:8]
+        tlog_futures = []
+        for i in range(config.n_tlogs):
+            mine = {t: h for t, h in old_tag_holders.items()
+                    if i in new_teams.team_for_tag(t)}
+            tlog_futures.append(RequestStream.at(
+                log_others[i % len(log_others)].init_tlog.endpoint
+            ).get_reply(InitializeTLogRequest(
+                tlog_id=f"log{i}.{tuid}.e{master.epoch}",
+                recovery_version=recovery_version, recover_tags=mine,
+                recover_popped={t: old_popped.get(t, 0) for t in mine},
+                epoch=master.epoch)))
+        proxy_ids = [f"proxy{i}.e{master.epoch}"
+                     for i in range(config.n_commit_proxies)]
+        n_resolvers = max(1, min(config.n_resolvers, 255))
+        resolver_futures = [RequestStream.at(
+            pick(i + 1).init_resolver.endpoint).get_reply(
+            InitializeResolverRequest(
+                resolver_id=f"resolver{i}.e{master.epoch}",
+                epoch=master.epoch, recovery_version=recovery_version,
+                proxy_ids=proxy_ids))
+            for i in range(n_resolvers)]
+        storage_futures = []
+        if prev is None:
+            storage_futures = [RequestStream.at(
+                storage_pool[i % len(storage_pool)].init_storage.endpoint
+            ).get_reply(InitializeStorageRequest(
+                ss_id=f"ss{i}", tag=i, engine=config.storage_engine))
+                for i in range(config.n_storage)]
+        tlogs = await wait_all(tlog_futures)
+        resolvers = await wait_all(resolver_futures)
+        if prev is not None:
+            # Storage outlives epochs: the live servers, or the ones the
+            # boot scans rebuilt (same tag) after a reboot.
+            storage_servers = {}
+            for tag, iface in prev.storage_servers.items():
+                resolved = recovered_storage.get(tag) or iface
+                if resolved is None:
+                    raise err("master_recovery_failed",
+                              f"storage tag {tag} not yet re-registered")
+                storage_servers[tag] = resolved
+        else:
+            ssis = await wait_all(storage_futures)
+            storage_servers = dict(enumerate(ssis))
+            cuts = config.storage_boundaries
+            if cuts is None:
+                cuts = _split_points(config.n_storage)
+            bounds = [b""] + list(cuts) + [b"\xff\xff"]
+            for i in range(config.n_storage):
+                # A zone-diverse team (reference PolicyAcross zoneid):
+                # forward from tag i, tags of new zones first, then any.
+                team = [Tag(i)]
+                zones = {zone_of(ssis[i])}
+                for j in range(1, config.n_storage):
+                    if len(team) >= config.storage_replication:
+                        break
+                    cand = Tag((i + j) % config.n_storage)
+                    if zone_of(ssis[cand]) not in zones:
+                        team.append(cand)
+                        zones.add(zone_of(ssis[cand]))
+                j = 1
+                while len(team) < config.storage_replication and \
+                        len(team) < config.n_storage:
+                    cand = Tag((i + j) % config.n_storage)
+                    if cand not in team:
+                        team.append(cand)
+                    j += 1
+                key_servers_ranges.append((bounds[i], bounds[i + 1], team))
+        # A server that has not served yet (fresh, or rebuilt by a boot
+        # scan) learns which spans it owns.
+        for tag, iface in storage_servers.items():
+            role = getattr(iface, "role", None)   # a registry copy has none
+            if role is not None and role.log_system is None:
+                _own_team_spans(role, tag, key_servers_ranges)
+
+        # The second wave (:1384): ratekeeper, data distributor, proxies.
+        ratekeeper = await RequestStream.at(
+            pick(0).init_ratekeeper.endpoint).get_reply(
+            InitializeRatekeeperRequest(
+                rk_id=f"rk.e{master.epoch}",
+                storage_interfaces=storage_servers,
+                tlog_interfaces=list(tlogs),
+                resolver_interfaces=list(resolvers)))
+        data_distributor = await RequestStream.at(
+            pick(2).init_data_distributor.endpoint).get_reply(
+            InitializeDataDistributorRequest(
+                dd_id=f"dd.e{master.epoch}", epoch=master.epoch,
+                storage_interfaces=storage_servers,
+                key_servers_ranges=key_servers_ranges,
+                replication=config.storage_replication))
+        # The resolution boundaries (:1403): the persisted user-keyspace
+        # ownership when the resolver count still matches, else re-seeded
+        # equi-depth from the shard map.
+        prev_rr = list(prev.resolver_ranges) if prev is not None else []
+        if _valid_resolver_ranges(prev_rr, n_resolvers):
+            key_resolvers_ranges = _key_resolver_ranges(
+                n_resolvers, user_ranges=prev_rr)
+        else:
+            key_resolvers_ranges = _key_resolver_ranges(
+                n_resolvers, boundaries=seed_resolver_boundaries(
+                    key_servers_ranges, n_resolvers))
+        resolver_user_ranges = [r for r in key_resolvers_ranges
+                                if r[2] != RESOLVER_ALL]
+        commit_proxies = await wait_all([RequestStream.at(
+            pick(i).init_commit_proxy.endpoint).get_reply(
+            InitializeCommitProxyRequest(
+                proxy_id=proxy_ids[i], epoch=master.epoch,
+                master=master.interface, resolvers=resolvers, tlogs=tlogs,
+                key_resolvers_ranges=key_resolvers_ranges,
+                key_servers_ranges=key_servers_ranges,
+                storage_interfaces=storage_servers,
+                recovery_version=recovery_version))
+            for i in range(config.n_commit_proxies)])
+        grv_proxies = await wait_all([RequestStream.at(
+            pick(i + 1).init_grv_proxy.endpoint).get_reply(
+            InitializeGrvProxyRequest(
+                proxy_id=f"grv{i}.e{master.epoch}", epoch=master.epoch,
+                master=master.interface, tlogs=tlogs, ratekeeper=ratekeeper))
+            for i in range(config.n_grv_proxies)])
+
+        # WRITING_CSTATE (:1908): the new generation made durable.  A
+        # conflict means another master won: this one dies.
+        enter("writing_cstate")
+        await cstate.write(DBCoreState(
+            epoch=master.epoch, recovery_version=recovery_version,
+            tlogs=tlogs, log_replication=config.log_replication,
+            storage_servers=storage_servers,
+            key_servers_ranges=key_servers_ranges, n_resolvers=n_resolvers,
+            resolver_ranges=resolver_user_ranges,
+            map_version=recovery_version))
+
+        # ACCEPTING_COMMITS (:1943): serve versions and announce.
+        i = master.interface
+        adopt(Master._serve(i.get_commit_version,
+                            master.serve_commit_version),
+              "master.getCommitVersion")
+        adopt(Master._serve(i.report_live_committed_version,
+                            master.serve_report_committed),
+              "master.reportLiveCommittedVersion")
+        adopt(Master._serve(i.get_live_committed_version,
+                            master.serve_live_committed),
+              "master.getLiveCommittedVersion")
+        db_info = ServerDBInfo(
+            epoch=master.epoch, recovery_state="accepting_commits",
+            recovery_version=recovery_version, master=master.interface,
+            grv_proxies=grv_proxies, commit_proxies=commit_proxies,
+            resolvers=resolvers, tlogs=tlogs,
+            storage_servers=storage_servers, ratekeeper=ratekeeper,
+            data_distributor=data_distributor,
+            cluster_controller=cc_interface,
+            log_replication=config.log_replication,
+            storage_engine=config.storage_engine,
+            resolver_ranges=key_resolvers_ranges)
+        enter("accepting_commits", Epoch=master.epoch)
+        await RequestStream.at(
+            cc_interface.master_registration.endpoint).get_reply(
+            MasterRegistrationRequest(epoch=master.epoch, db_info=db_info))
+
+        # Steady state: until a recruited role of the transaction system
+        # fails (reference: the master dies on tlog_failed,
+        # commit_proxy_failed, resolver_failed).
+        role_failures = [
+            spawn(wait_failure_of(x), "master.roleWatch")
+            for x in (tlogs + resolvers + commit_proxies + grv_proxies +
+                      [ratekeeper])]
+        children.extend(role_failures)
+        idx, _ = await wait_any(role_failures)
+        TraceEvent("MasterTerminated", Severity.Warn).detail(
+            "Epoch", master.epoch).detail(
+            "Reason", "recruited role failed").detail("RoleIdx", idx).log()
+    except FdbError as e:
+        TraceEvent("MasterRecoveryFailed", Severity.Warn).detail(
+            "Epoch", master.epoch).detail("Error", e.name).detail(
+            "Message", str(e)).log()
+    except Exception as e:  # noqa: BLE001 -- the controller treats any
+        # master death alike; the cause must show in the trace.
+        TraceEvent("MasterRecoveryFailed", Severity.Error).detail(
+            "Epoch", master.epoch).detail("Error", repr(e)).log()
+    finally:
+        for c in children:
+            if not c.is_ready():
+                c.cancel()

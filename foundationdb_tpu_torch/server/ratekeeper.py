@@ -9,6 +9,10 @@ turn of that loop, synchronous: each role answers a ResolverHeatRequest
 within the call (Resolver.serve_heat), and it returns the fold for the
 plane to hand every GRV proxy (server/cluster.py feed()).
 
+As a recruited role (a cluster controller's master recruits one an
+epoch, server/worker.py) it registers RatekeeperInterface's waitFailure
+stream, the failure signal its master watches.
+
 Left out on purpose: the rate budget (storage and TLog queue polls, the
 tps and batch-tps limits), tag throttles and tag metering, the rate-info
 and status streams, and the RPC.
@@ -19,13 +23,39 @@ from __future__ import annotations
 from typing import Any, Dict, List
 
 from ..core.knobs import server_knobs
+from ..core.scheduler import TaskPriority
+from ..rpc.endpoint import RequestStream
 from ..sched.predictor import TABLE_MAX
+from .failure import hold_wait_failure
 from .interfaces import Reply, ResolverHeatRequest
+
+
+class RatekeeperInterface:
+    """The reference's RatekeeperInterface but its rate-info and status
+    streams."""
+
+    def __init__(self, rk_id: str = "rk") -> None:
+        self.id = rk_id
+        self.wait_failure = RequestStream("rk.waitFailure",
+                                          TaskPriority.FailureMonitor)
+
+    def streams(self) -> List[RequestStream]:
+        return [self.wait_failure]
 
 
 class Ratekeeper:
     def __init__(self, ratekeeper_id: str = "ratekeeper") -> None:
         self.id = ratekeeper_id
+        self.interface = RatekeeperInterface(ratekeeper_id)
+        self.interface.role = self   # in-process backref (not on the wire)
+
+    def run(self, process) -> list:
+        """Register the interface on `process` and hold its waitFailure
+        requests there; the holder's future."""
+        for stream in self.interface.streams():
+            process.register(stream)
+        return [process.spawn(hold_wait_failure(self.interface.wait_failure),
+                              f"{self.id}.waitFailure")]
 
     def poll_conflict_heat(self, resolvers: List[Any]) -> List[tuple]:
         """One turn of the reference's _poll_conflict_heat: ask every role

@@ -110,6 +110,7 @@ class Resolver:
             deque()
         self._running = False
         self.interface = ResolverInterface(resolver_id)
+        self.interface.role = self   # in-process backref (not on the wire)
         ev = TraceEvent("ResolverStarted").detail("Id", self.id).detail(
             "Backend", type(self.conflict_set).__name__)
         inner = getattr(self.conflict_set, "device", None)

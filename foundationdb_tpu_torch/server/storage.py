@@ -400,6 +400,7 @@ class StorageServer:
         self.last_engine_commit_s = 0.0
         # The event-loop half (run()), and the seconds its reads took.
         self.interface = StorageServerInterface(ss_id, tag)
+        self.interface.role = self   # in-process backref (not on the wire)
         self._parked: set = set()     # reads waiting for their version
         self.read_seconds = 0.0
         # Data distribution: exact shard sizes for its polls, and the
@@ -439,10 +440,15 @@ class StorageServer:
                 .u32(self.log_epoch).done())
 
     def load(self, keys, values) -> None:
-        """Fill this (empty) replica with sorted `keys` and their `values`
-        at its recovery version, as from_engine fills it from its engine
-        (storage.py:407-408), and image the engine there."""
-        self.data.load(keys, values, self.version)
+        """Fill this replica with sorted `keys` and their `values` at its
+        version, as from_engine fills it from its engine
+        (storage.py:407-408), and image the engine there.  A replica that
+        already holds other keys (the system keys a cluster committed
+        before the load) keeps them."""
+        if len(self.data):
+            self.data.set_rows(list(zip(keys, values)), self.version)
+        else:
+            self.data.load(keys, values, self.version)
         if self.engine is not None:
             self._image_engine(self.engine, self.version)
 
@@ -701,8 +707,11 @@ class StorageServer:
             t0 = perf_counter()
             # The reference's update loop pulls as the logs move; here a
             # read first pulls to what every log holds, so the MVCC
-            # window (and its too-old floor) follows the log as there.
-            self._reaches(self.log_system.durable_version())
+            # window (and its too-old floor) follows the log as there.  A
+            # server its worker rebuilt from disk has no log system until
+            # the next epoch's broadcast re-targets it.
+            if self.log_system is not None:
+                self._reaches(self.log_system.durable_version())
             if req.version > self.version and not self._reaches(
                     req.version):
                 self._park(req, handler)

@@ -9,11 +9,13 @@ mutations make a transaction a state transaction; the shard map under
 to its map of storage teams (apply_key_servers_mutation, the shard-map
 part of ApplyMetadataMutation.cpp) and also logs on TXS_TAG; the
 disownment fence the committing proxy sends a server a team change drops
-(DISOWN_SHARD_PREFIX, disowned_spans); and the keys of the server
-registry and the exclusion list that data distribution clears when it
-retires a dead server (server_tag_key, excluded_key).  Of the
-reference's other metadata (the registry's values, configuration,
-backup, lock, tenants) the port has none.
+(DISOWN_SHARD_PREFIX, disowned_spans); the server registry, whose
+entries a worker commits for the storage servers it recruits or brings
+back from disk and every commit proxy applies to its storage directory
+(server_tag_key, server_tag_value, parse_server_tag_mutation); and the
+exclusion list's keys that data distribution clears when it retires a
+dead server (excluded_key).  Of the reference's other metadata
+(configuration, backup, lock, tenants) the port has none.
 """
 
 from __future__ import annotations
@@ -57,6 +59,46 @@ def server_tag_key(tag: Tag) -> bytes:
     """The registry key of the storage server with `tag` (reference
     serverTagKeyFor)."""
     return SERVER_TAG_PREFIX + b"%010d" % tag
+
+
+def server_tag_value(interface) -> bytes:
+    """A storage server's interface as its registry value: the wire's
+    frame of it (rpc/serde.py, as the reference stores it)."""
+    from ..rpc import serde
+    serde.bootstrap_registry()
+    return serde.encode_message(interface)
+
+
+def decode_server_tag_value(blob: bytes):
+    from ..rpc import serde
+    serde.bootstrap_registry()
+    return serde.decode_message(blob)
+
+
+def parse_server_tag_mutation(m: Mutation):
+    """[(tag, interface)] for a registry write, [(tag, None)] for each
+    tag a registry clear retires, else None (reference :226)."""
+    if m.type == MutationType.SetValue and \
+            m.param1.startswith(SERVER_TAG_PREFIX):
+        tag = int(m.param1[len(SERVER_TAG_PREFIX):])
+        return [(tag, decode_server_tag_value(m.param2))]
+    if m.type == MutationType.ClearRange and \
+            m.param1 < SERVER_TAG_END and m.param2 > SERVER_TAG_PREFIX:
+        # The retired tags exactly: the candidate keys inside the clear
+        # (its bounds need not be registry keys; tags are small ints).
+        lo = max(m.param1, SERVER_TAG_PREFIX)
+        digits = bytes(c for c in lo[len(SERVER_TAG_PREFIX):][:10]
+                       if 48 <= c <= 57)
+        lo_tag = int(digits) if len(digits) == 10 else 0
+        out = []
+        for tag in range(lo_tag, lo_tag + 10_000):
+            k = server_tag_key(tag)
+            if k >= m.param2:
+                break
+            if k >= m.param1:
+                out.append((tag, None))
+        return out or None
+    return None
 
 
 def excluded_key(tag: Tag) -> bytes:

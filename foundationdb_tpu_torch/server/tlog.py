@@ -159,6 +159,7 @@ class TLog:
         self.last_sync_s = 0.0
         # The interface its actors serve once it runs on a process.
         self.interface = TLogInterface(tlog_id)
+        self.interface.role = self   # in-process backref (not on the wire)
 
     @classmethod
     def from_disk(cls, tlog_id: str, disk_queue: DiskQueue,
@@ -275,7 +276,11 @@ class TLog:
         and reply with the appended version.  A resend of a version
         already appended is answered without a second append."""
         if self.stopped:
-            return     # stopped: no reply (the reference drops it)
+            # Locked by the next epoch: broken_promise, as the reference's
+            # dropped reply gives its proxy, but at once and not when the
+            # collector reaches the request.
+            req.reply.send_error(err("broken_promise"))
+            return
         if req.prev_version > self.version:
             raise RuntimeError(
                 f"tlog {self.id}: version {req.version} arrived before its "
@@ -478,9 +483,12 @@ class TLog:
             self.disk_queue.pop(last_seq)
 
     def confirm_running(self, req: TLogConfirmRunningRequest) -> None:
-        """The GRV proxy's liveness confirm: answered unless stopped."""
+        """The GRV proxy's liveness confirm: answered unless stopped, when
+        it breaks at once (the reference drops it)."""
         if not self.stopped:
             req.reply.send(None)
+        else:
+            req.reply.send_error(err("broken_promise"))
 
     # -- the serve loops (a process) -----------------------------------------
     async def _serve(self, stream, handler) -> None:

@@ -218,10 +218,11 @@ def test_factory_sharded_is_supervised():
 
 
 def test_factory_auto(monkeypatch):
-    """"auto": the oracle with no card, the supervised torch set with one
-    (its device set asked for the CPU here)."""
+    """"auto": the native C++ engine with no card, the supervised torch
+    set with one (its device set asked for the CPU here)."""
+    from foundationdb_tpu_torch.conflict.native import NativeConflictSet
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert type(new_conflict_set("auto", **SMALL)) is OracleConflictSet
+    assert type(new_conflict_set("auto", **SMALL)) is NativeConflictSet
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert is_supervised_torch(new_conflict_set("auto", **SMALL))
 

@@ -69,6 +69,12 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.testing",
     "foundationdb_tpu_torch.testing.workload",
     "foundationdb_tpu_torch.testing.workloads",
+    "foundationdb_tpu_torch.conflict.native",
+    "foundationdb_tpu_torch.server.coordination",
+    "foundationdb_tpu_torch.server.cluster_controller",
+    "foundationdb_tpu_torch.server.sim_fs",
+    "foundationdb_tpu_torch.server.data_distribution",
+    "foundationdb_tpu_torch.server.policy",
     "chip_smoke", "scripts.torch_kernel_ab"]
 
 

@@ -2164,3 +2164,27 @@ def test_shard_moves_small_case(dev):
     assert figures["fence_checks"] > 0
     assert K.LAUNCHES["compact_prep"] > 0
     assert K.LAUNCHES["interval_fixpoint"] > 0
+
+
+def test_recovery_small_case(dev):
+    """chip_smoke.py's phase 28 at a small size with the Resolver roles'
+    sets on the card: four kills, four new epochs through the five
+    states, every check of the phase, and the compact and general steps
+    launched in every epoch (counted before the native set's comparison
+    with a bare set on the card); then that comparison."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    K.reset_counts()
+    figures = chip_smoke.recovery_run(
+        device=dev.type, keyspace=20_000, rw_actors=256,
+        capacity=1 << 14, delta_capacity=1 << 13)
+    assert [k["new_epoch"] for k in figures["kills"]] == [2, 3, 4, 5]
+    assert all(n > 0 for n in figures["epoch_launches"].values())
+    assert K.LAUNCHES["compact_prep"] > 0
+    assert K.LAUNCHES["interval_fixpoint"] > 0
+    native = chip_smoke.native_against_card(
+        dev.type, 2, 10_000, capacity=1 << 14, delta_capacity=1 << 13)
+    assert native["ranges"] > 0

@@ -11,11 +11,12 @@ version, key locations and storage reads with their replies, the
 master's version messages, the resolve request and reply, the TLog
 commit, confirm and peek reply, CommitID, an FdbError reply with its
 details, the waitFailure request and the interfaces.  The resolver's,
-a commit proxy's and a GRV proxy's interfaces are the reference's field
-for field, so their frames are equal; the master's, a TLog's and a
-storage server's lack streams the port does not serve (the reference's
-configuration and backup nudges, queuing metrics, watches, engine
-migration, TSS), so those are held to cross-package decoding only.  A malformed frame and
+a commit proxy's, a GRV proxy's and the master's interfaces are the
+reference's field for field, so their frames are equal; a TLog's and a
+storage server's lack streams the port does not serve (queuing metrics,
+watches, engine migration, TSS), so those are held to cross-package
+decoding only.  (The control plane's messages are held in
+tests/test_torch_coordination.py.)  A malformed frame and
 an unregistered class name fail as the reference's do."""
 
 import struct
@@ -187,7 +188,7 @@ def interfaces(m) -> dict:
     return made
 
 
-SAME_FRAME = ("resolver", "commit_proxy", "grv_proxy")
+SAME_FRAME = ("resolver", "commit_proxy", "grv_proxy", "master")
 
 
 def plain(v):
