@@ -348,7 +348,24 @@ exits non-zero):
      recovery version, committed/s and p50/p99 before and after each
      kill, the native set's ranges/s with the host CPU beside the
      card's);
- 29. the JSON lines (programs and paths; kernels with launches per path,
+ 29. the storage fleet, on phase 28's cluster with a spare storage
+     worker: configure n_resolvers=3 (a new epoch through the five
+     states, 3 Resolver roles on the card with boundaries seeded again),
+     a storage worker's process killed (a replacement recruited on the
+     spare under a tag never issued, full replication, the dead tag
+     retired), an excluded tag drained with no team below the
+     replication factor and included again, configure
+     storage_engine=btree and one step of the perpetual wiggle (a server
+     drained and re-imaged onto the B-tree); a ReadWrite round after
+     each, every acknowledged write read back from every replica of its
+     team; then ConsistencyCheckWorkload, every key on every replica,
+     every superseded distributor halted, each new epoch's Resolver
+     roles on `cuda` with kernels launched, every epoch's batches
+     replayed through a CPU plane; the path_fleet line (each step's
+     seconds of wall and loop time, epoch, rows and MB fetched, moves,
+     metadata transactions, committed/s and p50/p99 before and after,
+     the configures' seconds by recovery state, launches per path);
+ 30. the JSON lines (programs and paths; kernels with launches per path,
      each wrapper > 0 on the paths that use it, searchsorted once a
      general step; inclusive_scan and compact_rows, which no path runs
      (window_gc scans and compacts inside its own launch), are held
@@ -485,6 +502,10 @@ PATH_KERNELS["dd"] = PATH_KERNELS["client"]
 # Phase 28: every epoch's Resolver roles take the client's two steps
 # (point transactions, and the rounds with a get_range).
 PATH_KERNELS["recovery"] = PATH_KERNELS["client"]
+# Phase 29: the configured epochs' Resolver roles take the same two steps
+# (point transactions, the rounds with a get_range, and the moves'
+# metadata transactions, state transactions on every role).
+PATH_KERNELS["fleet"] = PATH_KERNELS["client"]
 
 
 # ---------------------------------------------------------------- workload
@@ -7288,6 +7309,8 @@ def dd_path(smi: str) -> tuple:
 RECOVERY_RW = (2048, 6, 1)          # actors, rounds, warmup rounds
 RECOVERY_SEED = 2828
 RECOVERY_KILLS = ("master", "resolver", "tlog", "cluster_controller")
+RECOVERY_STATES = ("reading_cstate", "locking_cstate", "recruiting",
+                   "writing_cstate", "accepting_commits")
 RECOVERY_WORKERS = (4, 8)           # storage workers, stateless workers
 RECOVERY_NATIVE = (4, TXNS)         # config-2 batches, txns a batch
 
@@ -7395,9 +7418,13 @@ def recovery_run(device: str = DEVICE, keyspace: int = KEYSPACE,
                  rw_actors: int = RECOVERY_RW[0],
                  rounds: int = RECOVERY_RW[1],
                  warmup: int = RECOVERY_RW[2],
-                 **set_kwargs) -> dict:
+                 fleet: bool = False, between=None, after=None,
+                 **set_kwargs):
     """The phase's run (see the section's comment); returns the
-    figures."""
+    figures.  With `fleet`, phase 29 (fleet_run) runs next on the same
+    cluster, after `between(figures)` if given, and the return is
+    (phase 28's figures, phase 29's).  `after()`, if given, is called
+    once the last phase has run, before the cluster's teardown."""
     import gc
     import random
     from foundationdb_tpu_torch import kernels as K
@@ -7409,7 +7436,6 @@ def recovery_run(device: str = DEVICE, keyspace: int = KEYSPACE,
     from foundationdb_tpu_torch.core.scheduler import (EventLoop, delay,
                                                        set_event_loop)
     from foundationdb_tpu_torch.rpc.sim import set_simulator
-    from foundationdb_tpu_torch.server import ResolutionPlane
     from foundationdb_tpu_torch.server.cluster import SimFdbCluster
     from foundationdb_tpu_torch.server.commit_proxy import CommitProxy
     from foundationdb_tpu_torch.testing.workload import TestWorkload
@@ -7575,9 +7601,7 @@ def recovery_run(device: str = DEVICE, keyspace: int = KEYSPACE,
                 "states": [x[0] for x in log],
                 "accepting_to_client_s": t_client[1] - t_serving[1],
                 "accepting_to_client_virtual_s": t_client[0] - t_serving[0]})
-            if [s for s, _t, _w in log] != [
-                    "reading_cstate", "locking_cstate", "recruiting",
-                    "writing_cstate", "accepting_commits"]:
+            if [s for s, _t, _w in log] != list(RECOVERY_STATES):
                 raise AssertionError(f"epoch {new.epoch}: states "
                                      f"{[s for s, _t, _w in log]}")
         rnd = warmup + len(RECOVERY_KILLS)
@@ -7618,27 +7642,50 @@ def recovery_run(device: str = DEVICE, keyspace: int = KEYSPACE,
                 check_supervised(role.conflict_set, role.resolved_batches,
                                  "TorchConflictSet", device)
         t5 = time.perf_counter()
-        replayed = 0
-        for e in epochs:
-            chain = sorted((r for r in records if r[0] == e),
-                           key=lambda r: r[3])
-            user = [r for r in infos[e].resolver_ranges if r[2] >= 0]
-            oracle = ResolutionPlane(
-                len(user), [f"proxy{i}.e{e}"
-                            for i in range(config.n_commit_proxies)],
-                boundaries=[r[1] for r in user[:-1]], backend="cpu",
-                recovery_version=infos[e].recovery_version)
-            for b, (_e, pid, prev, v, txns, got) in enumerate(chain):
-                want = codes_of(oracle.resolve(pid, txns, prev, v).committed)
-                if not np.array_equal(got, want):
-                    raise AssertionError(
-                        f"epoch {e} batch {b}: {int((got != want).sum())} "
-                        f"of {len(got)} replies differ from the CPU plane's")
-                replayed += 1
+        replayed = replay_epochs(records, infos, epochs,
+                                 config.n_commit_proxies)
         replay_s = time.perf_counter() - t5
+
+        def rate(rnd: int) -> dict:
+            xs = [x for x in stats if x[0] == rnd]
+            return {"committed": len(xs), "wall_s": round_s[rnd],
+                    "committed_txns_per_s": len(xs) / round_s[rnd],
+                    "p50_txn_ms": float(np.percentile(
+                        [x[2] for x in xs], 50)) * 1e3,
+                    "p99_txn_ms": float(np.percentile(
+                        [x[2] for x in xs], 99)) * 1e3,
+                    "retries_per_commit": sum(x[1] - 1 for x in xs) /
+                    max(len(xs), 1)}
+        for k, kill in enumerate(kills):
+            kill["before"] = rate(warmup + k)
+            kill["after"] = rate(warmup + k + 1)
+        figures = {"keyspace": keyspace, "load_s": load_s, "kills": kills,
+                   "epochs": epochs, "epoch_launches": epoch_launches,
+                   "consistency": dict(audit.metrics),
+                   "consistency_s": audit_s,
+                   "readback_rows": rows, "readback_s": readback_s,
+                   "replayed_batches": replayed, "replay_s": replay_s}
+        fleet_figures = None
+        if fleet:
+            if between is not None:
+                between(figures)
+            fleet_figures = fleet_run(FleetRun(
+                c=c, db=db, loop=loop, device=device, keys=keys, base=base,
+                acked=acked, records=records, infos=infos, config=config,
+                drive=drive, round_s=round_s, rate=rate,
+                until_serving=until_serving,
+                until_client=until_client, next_round=rounds))
+        if after is not None:
+            after()
+        t_down = time.perf_counter()
         for p in list(c.sim.processes.values()):
             c.sim.kill_process(p)
         loop.run_for(1.0)
+        # The replicas' maps and engines go by reference count, before
+        # the collector's pass would walk their tens of millions of
+        # objects.
+        for ss in fleet_roles(c, "StorageServer"):
+            ss.data = ss.engine = None
     finally:
         gc.enable()
         gc.unfreeze()
@@ -7646,48 +7693,454 @@ def recovery_run(device: str = DEVICE, keyspace: int = KEYSPACE,
         knobs.DD_SHARD_SPLIT_BYTES = saved_split
         set_simulator(None)
         set_event_loop(None)
+    t_collect = time.perf_counter()
     gc.collect()
+    last = fleet_figures or figures
+    last["teardown_s"] = time.perf_counter() - t_down
+    last["teardown_collect_s"] = time.perf_counter() - t_collect
+    return (figures, fleet_figures) if fleet else figures
 
-    def rate(rnd: int) -> dict:
-        xs = [x for x in stats if x[0] == rnd]
-        return {"committed": len(xs), "wall_s": round_s[rnd],
-                "committed_txns_per_s": len(xs) / round_s[rnd],
-                "p50_txn_ms": float(np.percentile([x[2] for x in xs], 50))
-                * 1e3,
-                "p99_txn_ms": float(np.percentile([x[2] for x in xs], 99))
-                * 1e3,
-                "retries_per_commit": sum(x[1] - 1 for x in xs) /
-                max(len(xs), 1)}
-    for k, kill in enumerate(kills):
-        kill["before"] = rate(warmup + k)
-        kill["after"] = rate(warmup + k + 1)
-    return {"keyspace": keyspace, "load_s": load_s, "kills": kills,
-            "epochs": epochs, "epoch_launches": epoch_launches,
-            "consistency": dict(audit.metrics), "consistency_s": audit_s,
-            "readback_rows": rows, "readback_s": readback_s,
-            "replayed_batches": replayed, "replay_s": replay_s}
+
+def replay_epochs(records, infos, epochs, n_proxies: int) -> int:
+    """Every epoch's batches, in version order, through a CPU
+    ResolutionPlane of that epoch's resolvers, boundaries and recovery
+    version: each batch's replies equal to those the cluster gave.  The
+    batches replayed."""
+    from foundationdb_tpu_torch.server import ResolutionPlane
+    replayed = 0
+    for e in epochs:
+        chain = sorted((r for r in records if r[0] == e),
+                       key=lambda r: r[3])
+        user = [r for r in infos[e].resolver_ranges if r[2] >= 0]
+        oracle = ResolutionPlane(
+            len(user), [f"proxy{i}.e{e}" for i in range(n_proxies)],
+            boundaries=[r[1] for r in user[:-1]], backend="cpu",
+            recovery_version=infos[e].recovery_version)
+        for b, (_e, pid, prev, v, txns, got) in enumerate(chain):
+            want = codes_of(oracle.resolve(pid, txns, prev, v).committed)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"epoch {e} batch {b}: {int((got != want).sum())} "
+                    f"of {len(got)} replies differ from the CPU plane's")
+            replayed += 1
+    return replayed
 
 
 def recovery_path(smi: str) -> tuple:
-    """Phase 28: recovery_run on the card, the launches counted over the
-    cluster's run alone; then the native set against a bare set on the
-    card, whose launches are not the path's; the path_recovery line."""
+    """Phases 28 and 29 on one cluster.  Phase 28: recovery_run on the
+    card, the launches counted over the cluster's run alone; then the
+    native set against a bare set on the card, whose launches are not
+    the path's; the path_recovery line.  Phase 29 (fleet_run) then runs
+    on the same cluster, its launch counts set to 0 at its start and read
+    at its end, before anything else runs; its phase line ends there, and
+    the shared cluster's teardown has a line of its own (`teardown_s` in
+    the path_fleet line).  Returns both phases' launches and figures."""
     import torch
     from foundationdb_tpu_torch import kernels as K
+    out = {}
+
+    def between(figures):
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        figures["launches"] = {k: v for k, v in launches.items() if v}
+        figures["card"] = smi
+        t0 = time.perf_counter()
+        figures["native"] = native_against_card(
+            DEVICE, *RECOVERY_NATIVE, capacity=CAPACITY,
+            delta_capacity=DELTA_CAPACITY)
+        figures["native"]["card"] = smi     # beside the card's figure
+        figures["native_s"] = time.perf_counter() - t0
+        print(f"path_recovery: {json.dumps(figures)}", flush=True)
+        out["recovery"] = launches
+        phase_done("recovery")
+        log("phase 29: the storage fleet (configure to 3 resolvers, a "
+            "storage process killed and replaced, an exclusion drained, "
+            "a wiggle step onto the B-tree, under ReadWrite)")
+        K.reset_counts()
+
     K.reset_counts()
-    figures = recovery_run(capacity=CAPACITY, delta_capacity=DELTA_CAPACITY)
-    torch.cuda.synchronize()
+    recovery, fleet = recovery_run(
+        capacity=CAPACITY, delta_capacity=DELTA_CAPACITY, fleet=True,
+        between=between, after=lambda: phase_done("fleet"))
+    out["fleet"] = fleet.pop("launches")
+    fleet["launches"] = {k: v for k, v in out["fleet"].items() if v}
+    fleet["card"] = smi
+    print(f"path_fleet: {json.dumps(fleet)}", flush=True)
+    return out, recovery, fleet
+
+
+# ------------------------------------------------- phase 29: the fleet
+# Phase 28's cluster after its last kill, with one spare storage-class
+# worker added: the operator's levers on a running cluster, each followed
+# by a round of ReadWrite (2,048 actors, a transaction each).
+#   1. configure n_resolvers=3: the proxies nudge the master, the epoch
+#      ends, and recovery recruits 3 Resolver roles on the card with
+#      boundaries seeded again from the shard map;
+#   2. a storage worker's process killed: the distributor recruits a
+#      replacement on the spare under a tag never issued, re-replicates
+#      the dead server's shards and retires its tag;
+#   3. exclude a live tag: the drain empties it, then include it again;
+#   4. configure storage_engine=btree (another epoch) and turn the
+#      perpetual wiggle on: one rotation step drains a server and
+#      re-images its store onto the B-tree; the wiggle is turned off.
+# After each step every acknowledged write reads back from every replica
+# of its team; at the end the audit, every user key on every replica,
+# every superseded distributor halted, each new epoch's resolvers on the
+# card, and every epoch's batches replayed through a CPU plane.
+FLEET_STEPS = ("configure", "storage_death", "exclude", "wiggle")
+FLEET_RESOLVERS = 3
+FLEET_ENGINE = "btree"
+FLEET_SETTLE_S = 600.0        # virtual seconds a step may take
+
+
+@dataclass
+class FleetRun:
+    """What phase 29 takes over from phase 28's run."""
+
+    c: Any
+    db: Any
+    loop: Any
+    device: str
+    keys: list
+    base: list
+    acked: list
+    records: list
+    infos: dict
+    config: Any
+    drive: Any
+    round_s: dict
+    rate: Any
+    until_serving: Any
+    until_client: Any
+    next_round: int
+
+
+def fleet_roles(c, kind: str) -> list:
+    """Every role of class `kind` any worker of `c` ran, live or not."""
+    return [r for _p, w, _cc, _lv in c.workers for r in w.roles
+            if type(r).__name__ == kind]
+
+
+def fleet_counters(c) -> dict:
+    """The fetches' rows and bytes over every storage server, and the
+    moves and metadata transactions over every distributor, so far."""
+    ss = fleet_roles(c, "StorageServer")
+    dds = fleet_roles(c, "DataDistributor")
+    return {"fetch_rows": sum(x.fetch_stats["rows"] for x in ss),
+            "fetch_bytes": sum(x.fetch_stats["bytes"] for x in ss),
+            "moves": sum(d.stats["moves"] for d in dds),
+            "metadata_txns": sum(d.stats["metadata_txns"] for d in dds)}
+
+
+def fleet_dd(c):
+    cc = c.current_cc()
+    if cc is None or cc.db_info.data_distributor is None:
+        return None
+    return getattr(cc.db_info.data_distributor, "role", None)
+
+
+def fleet_shards(dd) -> dict:
+    """tag -> the shards whose team names it, over the healthy tags."""
+    out = {t: 0 for t in sorted(dd.healthy)}
+    for _b, _e, team in dd.map.ranges():
+        for t in team or ():
+            out[t] = out.get(t, 0) + 1
+    return out
+
+
+def fleet_healed(dd, replication: int) -> bool:
+    return not dd.moves_in_flight and all(
+        len([t for t in team if t in dd.healthy]) >= replication
+        for _b, _e, team in dd.map.ranges() if team)
+
+
+def fleet_read_back(c, model: dict, version: int) -> int:
+    """Every acknowledged write (`model`) from every replica of its team
+    in the serving epoch's shard map, at `version`: the model's value.
+    The replica reads made."""
+    from foundationdb_tpu_torch.server.interfaces import (
+        GetValueRequest, ask, same_incarnation)
+    info = c.current_cc().db_info
+    proxy = info.commit_proxies[0].role
+    live = {}
+    for ss in fleet_roles(c, "StorageServer"):
+        live.setdefault(ss.tag, []).append(ss)
+    n = 0
+    for k, v in sorted(model.items()):
+        team = proxy.tags_for_key(k)
+        if not team:
+            raise AssertionError(f"fleet read-back: no team for {k!r}")
+        for tag in team:
+            iface = proxy.storage_interfaces[tag]
+            ss = next(x for x in live[tag]
+                      if same_incarnation(x.interface, iface))
+            got = ask(ss.get_value, GetValueRequest(k, version)).value
+            if got != v:
+                raise AssertionError(f"fleet read-back: ss{tag} holds "
+                                     f"{got!r} at {k!r}, the model {v!r}")
+            n += 1
+    return n
+
+
+def fleet_run(r: FleetRun) -> dict:
+    """Phase 29's steps on phase 28's cluster (see the section's
+    comment); the figures, with the run's launches under "launches"."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.client.management import (
+        change_configuration, exclude_servers, include_servers)
+    from foundationdb_tpu_torch.core.knobs import server_knobs
+    from foundationdb_tpu_torch.core.scheduler import delay
+    from foundationdb_tpu_torch.server.interfaces import same_incarnation
+    from foundationdb_tpu_torch.testing.workloads import (
+        ConsistencyCheckWorkload)
+    c, loop = r.c, r.loop
+    knobs = server_knobs()
+    saved_wiggle = knobs.PERPETUAL_STORAGE_WIGGLE
+    t_start = time.perf_counter()
+    c.add_worker(pclass="storage", name="spare")
+    rnd = r.next_round
+    epochs = [c.current_cc().db_info.epoch]
+    epoch_launches = {}
+    steps = []
+
+    def until(pred, what: str):
+        async def wait():
+            deadline = FLEET_SETTLE_S
+            while not pred():
+                if deadline <= 0:
+                    raise AssertionError(f"phase 29: {what} never came")
+                await delay(0.05)
+                deadline -= 0.05
+        c.run_until(loop.spawn(wait()), timeout=FLEET_SETTLE_S + 60.0)
+
+    def new_epoch(e0: int) -> dict:
+        """Wait for the epoch after e0 to accept commits and the client
+        to see it; its directory, kept for the replay."""
+        c.run_until(loop.spawn(r.until_serving(e0 + 1)),
+                    timeout=FLEET_SETTLE_S)
+        info = c.current_cc().db_info
+        r.infos[info.epoch] = info
+        epochs.append(info.epoch)
+        c.run_until(loop.spawn(r.until_client(info.epoch)),
+                    timeout=FLEET_SETTLE_S)
+        return info
+
+    def model() -> dict:
+        out = {}
+        for _v, _i, _j, k, v in sorted(r.acked):
+            out[k] = v
+        return out
+
+    def round_and_check(step: dict) -> None:
+        nonlocal rnd
+        e = c.current_cc().db_info.epoch
+        before = sum(K.LAUNCHES.values())
+        r.round_s[rnd] = r.drive(rnd)
+        epoch_launches[e] = epoch_launches.get(e, 0) + \
+            sum(K.LAUNCHES.values()) - before
+        step["after"] = r.rate(rnd)
+        rnd += 1
+        t0 = time.perf_counter()
+        version = c.run_until(loop.spawn(
+            r.db.create_transaction()._ensure_read_version()))
+        step["readback_rows"] = fleet_read_back(c, model(), version)
+        step["readback_s"] = time.perf_counter() - t0
+
+    def begin(name: str) -> dict:
+        dd = fleet_dd(c)
+        return {"step": name, "before": r.rate(rnd - 1),
+                "_t": (loop.now(), time.perf_counter()),
+                "_n": fleet_counters(c),
+                "shards_before": fleet_shards(dd) if dd else {}}
+
+    def end(step: dict) -> None:
+        t = step.pop("_t")
+        n0 = step.pop("_n")
+        step["wall_s"] = time.perf_counter() - t[1]
+        step["virtual_s"] = loop.now() - t[0]
+        n1 = fleet_counters(c)
+        step["fetch_mb"] = (n1["fetch_bytes"] - n0["fetch_bytes"]) / 1e6
+        step["fetch_rows"] = n1["fetch_rows"] - n0["fetch_rows"]
+        step["moves"] = n1["moves"] - n0["moves"]
+        step["metadata_txns"] = n1["metadata_txns"] - n0["metadata_txns"]
+        step["epoch"] = c.current_cc().db_info.epoch
+        step["shards_after"] = fleet_shards(fleet_dd(c))
+
+    def configure(step: dict, **fields) -> dict:
+        """Commit the configuration; the next epoch's directory, with the
+        seconds to it by recovery state."""
+        e0 = c.current_cc().db_info.epoch
+        c.run_until(loop.spawn(change_configuration(r.db, **fields)),
+                    timeout=FLEET_SETTLE_S)
+        info = new_epoch(e0)
+        log_ = info.master.role.recovery_log
+        t = step["_t"]
+        step["states"] = [x[0] for x in log_]
+        step["to_accepting_s"] = log_[-1][2] - t[1]
+        step["to_accepting_virtual_s"] = log_[-1][1] - t[0]
+        step["state_s"] = {log_[i][0]: log_[i + 1][2] - log_[i][2]
+                           for i in range(len(log_) - 1)}
+        step["state_virtual_s"] = {log_[i][0]: log_[i + 1][1] - log_[i][1]
+                                   for i in range(len(log_) - 1)}
+        if step["states"] != list(RECOVERY_STATES):
+            raise AssertionError(f"epoch {info.epoch}: states "
+                                 f"{step['states']}")
+        return info
+
+    try:
+        # 1. configure n_resolvers=3.
+        step = begin("configure")
+        info = configure(step, n_resolvers=FLEET_RESOLVERS)
+        end(step)
+        step["resolvers"] = len(info.resolvers)
+        step["resolver_boundaries"] = [
+            x[1].hex() for x in info.resolver_ranges if x[2] >= 0][:-1]
+        if step["resolvers"] != FLEET_RESOLVERS:
+            raise AssertionError(f"epoch {info.epoch} recruited "
+                                 f"{step['resolvers']} resolvers")
+        for ri in info.resolvers:
+            cs = ri.role.conflict_set.device
+            if cs.device.type != r.device:
+                raise AssertionError(f"{ri.id} resolves on {cs.device}")
+        round_and_check(step)
+        if r.device == "cuda" and epoch_launches.get(info.epoch, 0) <= 0:
+            raise AssertionError(f"epoch {info.epoch} launched no kernel")
+        step["resolver_batches"] = [ri.role.resolved_batches
+                                    for ri in info.resolvers]
+        if min(step["resolver_batches"]) <= 0:
+            raise AssertionError(f"a resolver of epoch {info.epoch} "
+                                 f"resolved nothing: "
+                                 f"{step['resolver_batches']}")
+        steps.append(step)
+
+        # 2. a storage worker's process killed: replaced from the spare.
+        step = begin("storage_death")
+        dd = fleet_dd(c)
+        tags0 = set(dd.storage)
+        shards = fleet_shards(dd)
+        victim = min(t for t in shards if shards[t] > 0)
+        proc = c.process_of(dd.storage[victim])
+        recruits0 = dd.stats["recruits"]
+        c.sim.kill_process(proc)
+        until(lambda: (set(fleet_dd(c).storage) - tags0) and
+              victim not in fleet_dd(c).storage and
+              fleet_healed(fleet_dd(c), r.config.storage_replication),
+              "full replication on a recruited server")
+        end(step)
+        dd = fleet_dd(c)
+        step.update({"killed_tag": victim, "process": proc.name,
+                     "new_tag": max(set(dd.storage) - tags0),
+                     "recruits": dd.stats["recruits"] - recruits0})
+        if step["new_tag"] <= max(tags0):
+            raise AssertionError(f"tag {step['new_tag']} was issued before")
+        round_and_check(step)
+        steps.append(step)
+
+        # 3. exclude a live tag until no team holds it, then include it.
+        step = begin("exclude")
+        dd = fleet_dd(c)
+        shards = fleet_shards(dd)
+        nxt = min(shards)         # the rotation's next tag (step 4)
+        t = min((x for x in shards if shards[x] > 0 and x != nxt),
+                key=lambda x: (shards[x], x))
+        c.run_until(loop.spawn(exclude_servers(r.db, [t])),
+                    timeout=FLEET_SETTLE_S)
+        smallest = []
+
+        def drained() -> bool:
+            d = fleet_dd(c)
+            teams = [team for _b, _e, team in d.map.ranges() if team]
+            smallest.append(min(len([x for x in team if x in d.healthy])
+                                for team in teams))
+            return t in d.excluded and not d.moves_in_flight and \
+                all(t not in team for team in teams)
+        until(drained, f"the drain of tag {t}")
+        end(step)
+        c.run_until(loop.spawn(include_servers(r.db, [t])),
+                    timeout=FLEET_SETTLE_S)
+        until(lambda: t not in fleet_dd(c).excluded, "the include")
+        step.update({"excluded": t, "least_healthy_team": min(smallest),
+                     "final_tags_holding": sorted(
+                         x for x, n in fleet_shards(fleet_dd(c)).items()
+                         if n)})
+        if min(smallest) < r.config.storage_replication:
+            raise AssertionError(f"a team fell to {min(smallest)} healthy "
+                                 "members during the drain")
+        round_and_check(step)
+        steps.append(step)
+
+        # 4. configure the B-tree, then one step of the wiggle.
+        step = begin("wiggle")
+        info = configure(step, storage_engine=FLEET_ENGINE)
+        dd = fleet_dd(c)
+        wiggles0, migrations0 = dd.stats["wiggles"], \
+            dd.stats["engine_migrations"]
+        t_on = (loop.now(), time.perf_counter())
+        knobs.PERPETUAL_STORAGE_WIGGLE = 1
+        until(lambda: fleet_dd(c).stats["engine_migrations"] > migrations0
+              and not fleet_dd(c).wiggling, "a wiggle's engine migration")
+        knobs.PERPETUAL_STORAGE_WIGGLE = saved_wiggle
+        end(step)
+        dd = fleet_dd(c)
+        wiggled = [x for x, i in dd.storage.items()
+                   if getattr(i, "engine_name", "") == FLEET_ENGINE]
+        step.update({"engine": FLEET_ENGINE, "wiggled_tags": wiggled,
+                     "wiggles": dd.stats["wiggles"] - wiggles0,
+                     "engine_migrations":
+                         dd.stats["engine_migrations"] - migrations0,
+                     "wiggle_wall_s": time.perf_counter() - t_on[1],
+                     "wiggle_virtual_s": loop.now() - t_on[0]})
+        roles = fleet_roles(c, "StorageServer")
+        for x in wiggled:
+            ss = next(y for y in roles if y.tag == x and
+                      same_incarnation(y.interface, dd.storage[x]))
+            if type(ss.engine).__name__ != "KVStoreBTree":
+                raise AssertionError(f"ss{x} runs {type(ss.engine)}")
+        if not wiggled or not fleet_healed(dd, r.config.storage_replication):
+            raise AssertionError(f"wiggle: {wiggled}, {fleet_shards(dd)}")
+        round_and_check(step)
+        steps.append(step)
+    finally:
+        knobs.PERPETUAL_STORAGE_WIGGLE = saved_wiggle
     launches = dict(K.LAUNCHES)
-    figures["launches"] = {k: v for k, v in launches.items() if v}
-    figures["card"] = smi
+
+    # Checks: the audit, every user key on every replica, the halted
+    # distributors, each new epoch's resolvers, the CPU plane's replay.
+    audit = ConsistencyCheckWorkload(c, r.db, {})
     t0 = time.perf_counter()
-    figures["native"] = native_against_card(
-        DEVICE, *RECOVERY_NATIVE, capacity=CAPACITY,
-        delta_capacity=DELTA_CAPACITY)
-    figures["native"]["card"] = smi     # beside the card's figure
-    figures["native_s"] = time.perf_counter() - t0
-    print(f"path_recovery: {json.dumps(figures)}", flush=True)
-    return launches, figures
+    if not c.run_until(loop.spawn(audit.check()), timeout=600):
+        raise AssertionError("the consistency check failed")
+    audit_s = time.perf_counter() - t0
+    version = c.run_until(loop.spawn(
+        r.db.create_transaction()._ensure_read_version()))
+    last = c.current_cc().db_info
+    t1 = time.perf_counter()
+    rows = recovery_read_back(last, r.keys, r.base, model(), version)
+    readback_s = time.perf_counter() - t1
+    live_dd = fleet_dd(c)
+    dds = fleet_roles(c, "DataDistributor")
+    stale = [d.id for d in dds if d is not live_dd and not d.halted]
+    if stale or live_dd.halted:
+        raise AssertionError(f"distributors not halted: {stale}")
+    for e in epochs[1:]:
+        for ri in r.infos[e].resolvers:
+            check_supervised(ri.role.conflict_set, ri.role.resolved_batches,
+                             "TorchConflictSet", r.device)
+    t2 = time.perf_counter()
+    replayed = replay_epochs(r.records, r.infos, epochs,
+                             r.config.n_commit_proxies)
+    replay_s = time.perf_counter() - t2
+    for step in steps:
+        for k in ("shards_before", "shards_after"):
+            step[k] = {str(t): n for t, n in step[k].items()}
+    return {"steps": steps, "epochs": epochs,
+            "epoch_launches": epoch_launches,
+            "halted_distributors": len(dds) - 1,
+            "consistency": dict(audit.metrics), "consistency_s": audit_s,
+            "readback_rows": rows, "readback_s": readback_s,
+            "replayed_batches": replayed, "replay_s": replay_s,
+            "phase_s": time.perf_counter() - t_start,
+            "launches": launches}
 
 
 def main() -> int:
@@ -7847,8 +8300,9 @@ def main() -> int:
     log("phase 28: recovery (the master's, a resolver's, a TLog's and the "
         "cluster controller's processes killed in turn, under ReadWrite), "
         "and the native set beside the card")
-    launches["recovery"], path_recovery = recovery_path(smi)
-    phase_done("recovery")
+    paths, path_recovery, path_fleet = recovery_path(smi)
+    launches.update(paths)
+    phase_done("teardown of the phase 28-29 cluster")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
@@ -7888,6 +8342,7 @@ def main() -> int:
                       "path_sim": path_sim, "path_wire": path_wire,
                       "path_dd": path_dd,
                       "path_recovery": path_recovery,
+                      "path_fleet": path_fleet,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,107 @@
+"""The management API: an operator's actions as ordinary transactions
+(a trimmed copy of foundationdb_tpu/client/management.py).
+
+Reference: fdbclient/ManagementAPI.actor.cpp -- excludeServers and
+includeServers write the exclusion list under `\\xff/conf/excluded/`, and
+the data distributor drains the excluded servers; changeConfig writes the
+configuration's fields under `\\xff/conf/`, and the master ends the epoch
+so that recovery recruits the new shape.  Each call is one serializable
+transaction through the client: the operator has no private channel
+into the cluster, so a change survives what the database survives.
+
+Kept: _retrying, exclude_servers, include_servers, excluded_servers,
+change_configuration and get_configuration.  Left out: lock_database and
+unlock_database (the port's proxies keep no lock), change_coordinators
+and get_coordinators (the coordinators change), set_knob and
+get_knob_overrides (the knobs as data), and cache_range and
+uncache_range (the storage caches).
+
+Usage, on a SimFdbCluster's loop (server/cluster.py):
+    db = cluster.database()
+    await change_configuration(db, n_resolvers=3)
+    await exclude_servers(db, [2])
+    await include_servers(db, [2])
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List, Optional
+
+from ..core.error import FdbError
+from ..server.system_data import (CONF_END, CONF_PREFIX, EXCLUDED_END,
+                                  EXCLUDED_PREFIX, conf_key, excluded_key)
+
+
+async def _retrying(db, fn):
+    """fn(transaction) in a system-key transaction, committed, retried
+    through on_error; fn's result."""
+    t = db.create_transaction()
+    t.access_system_keys = True
+    while True:
+        try:
+            r = await fn(t)
+            await t.commit()
+            return r
+        except FdbError as e:
+            await t.on_error(e)
+
+
+async def exclude_servers(db, tags: Iterable[int]) -> None:
+    """Exclude storage servers by tag: data distribution drains every
+    shard off them, and they stop being placement candidates at once
+    (reference excludeServers)."""
+    async def go(t):
+        for tag in tags:
+            t.set(excluded_key(tag), b"1")
+    await _retrying(db, go)
+
+
+async def include_servers(db, tags: Optional[Iterable[int]] = None) -> None:
+    """Admit excluded servers again (None: every one; reference
+    includeServers)."""
+    async def go(t):
+        if tags is None:
+            t.clear(EXCLUDED_PREFIX, EXCLUDED_END)
+        else:
+            for tag in tags:
+                t.clear(excluded_key(tag))
+    await _retrying(db, go)
+
+
+async def excluded_servers(db) -> List[int]:
+    """The excluded tags, as committed."""
+    t = db.create_transaction()
+    t.access_system_keys = True
+    while True:
+        try:
+            rows = await t.get_range(EXCLUDED_PREFIX, EXCLUDED_END)
+            return [int(k[len(EXCLUDED_PREFIX):]) for k, v in rows
+                    if v == b"1"]
+        except FdbError as e:
+            await t.on_error(e)
+
+
+async def change_configuration(db, **fields) -> None:
+    """Change the database configuration in one transaction (reference
+    `fdbcli configure`, changeConfig): each field's printed value under
+    \\xff/conf/, None clearing it back to the default.  The commit's
+    proxy nudges the master, which ends the epoch where a value differs
+    from the recruited one; the next recovery recruits the new shape."""
+    async def go(t):
+        for name, value in fields.items():
+            if value is None:
+                t.clear(conf_key(name))
+            else:
+                t.set(conf_key(name), str(value).encode())
+    await _retrying(db, go)
+
+
+async def get_configuration(db) -> dict:
+    """The committed \\xff/conf/ fields, {name: printed value} (an absent
+    field is at its static default); the exclusion list is not among
+    them."""
+    async def go(t):
+        rows = await t.get_range(CONF_PREFIX, CONF_END)
+        return {k[len(CONF_PREFIX):].decode(): v for k, v in rows
+                if not k.startswith(EXCLUDED_PREFIX)}
+    return await _retrying(db, go)

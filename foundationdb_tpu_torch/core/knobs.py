@@ -34,7 +34,8 @@ how long a storage server holds a read at a version its logs do not yet
 have (STORAGE_FUTURE_VERSION_TIMEOUT, server/storage.py).  Data
 distribution reads the storage servers' incremental shard metrics switch
 and the DD_* split, poll and merge knobs (server/storage.py,
-server/data_distribution.py).  The transport
+server/data_distribution.py), and its wiggle loop reads
+PERPETUAL_STORAGE_WIGGLE and STORAGE_WIGGLE_INTERVAL each round.  The transport
 reads PEER_HEALTH_ENABLED, the switch of its per-peer samples
 (rpc/network.py, rpc/real_network.py, rpc/transport.py), and
 RPC_COLUMNAR_ENABLED, whether the hot messages are encoded as columnar
@@ -162,6 +163,12 @@ class ServerKnobs:
         self.DD_SHARD_SPLIT_BYTES = 1 << 20
         self.DD_METRICS_INTERVAL = 0.5
         self.DD_SHARD_MERGE_BYTES = (1 << 20) // 4
+        # The perpetual storage wiggle (the reference's :351-352): when
+        # non-zero, data distribution drains one storage server at a time
+        # every STORAGE_WIGGLE_INTERVAL seconds and lets it refill,
+        # re-imaging it onto the configured engine on the way.
+        self.PERPETUAL_STORAGE_WIGGLE = 0
+        self.STORAGE_WIGGLE_INTERVAL = 5.0
 
         # The control plane (the reference's :441): a coordinator drops a
         # candidate that neither heartbeats as leader nor re-sends its

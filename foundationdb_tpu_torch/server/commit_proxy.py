@@ -55,8 +55,8 @@ than histograms.
 Left out on purpose: tenant validation (_tenant_prefix_ok,
 _validate_tenants) and the lock fence (db_locked), for the port's proxy
 has neither tenants nor a lock; _apply_metadata's side effects other
-than the shard map and the server registry (backup, lock,
-configuration, cache ranges); the BACKUP, CACHE, TSS and region twin tags; the commit-debug spans and the
+than the shard map, the server registry and the configuration's
+nudge to the master (backup, lock, cache ranges); the BACKUP, CACHE, TSS and region twin tags; the commit-debug spans and the
 CommitConflictDetail trace of an aborted debug_id txn; the pipelining
 gates (a logged commit() runs its batch to the end within the call, the
 batcher waits for one batch before it closes the next; both refuse a
@@ -112,7 +112,7 @@ from .failure import hold_wait_failure
 from .shardmap import RangeMap
 from .system_data import (DISOWN_SHARD_PREFIX, SYSTEM_KEYS_BEGIN,
                           apply_key_servers_mutation, disowned_spans,
-                          parse_server_tag_mutation)
+                          parse_conf_mutation, parse_server_tag_mutation)
 
 # Past this many txns stage (b) takes the one-round in-degree sort
 # (the reference's SCHED_REORDER_EXACT_MAX default).
@@ -849,11 +849,23 @@ class CommitProxy:
 
     def _apply_metadata(self, m: Mutation) -> bool:
         """One committed system mutation's effect on this proxy: the shard
-        map's, and the server registry's on its storage directory (a
-        retired tag leaves it; a new incarnation replaces the interface
-        held, the same one is kept).  True if the mutation is metadata
+        map's, the server registry's on its storage directory (a retired
+        tag leaves it; a new incarnation replaces the interface held, the
+        same one is kept), and a configuration change's nudge to the
+        master (reference :893-906).  True if the mutation is metadata
         the next recovery replays from TXS_TAG."""
         handled = apply_key_servers_mutation(self.key_servers, m)
+        cf = parse_conf_mutation(m)
+        if cf is not None:
+            # The fields and their values, so that the master can tell a
+            # retried, identical configure (after commit_unknown_result
+            # across the recovery it caused) from a change.
+            try:
+                RequestStream.at(self.master.interface.config_changed
+                                 .endpoint).send(dict(cf))
+            except Exception:  # noqa: BLE001 -- no master to tell (a
+                pass           # StaticCluster's): recovery reads the conf
+            handled = True
         st = parse_server_tag_mutation(m)
         if st is not None:
             for tag, iface in st:

@@ -302,10 +302,12 @@ class GetKeyServerLocationsReply:
 
 
 class MasterInterface:
-    """The reference's MasterInterface.  Its configuration and backup
-    nudges (config_changed, backup_changed) are registered with the rest,
-    so the interface's frame is the reference's, and nothing serves them:
-    the port has no configuration changes or backup."""
+    """The reference's MasterInterface.  config_changed carries a commit
+    proxy's one-way nudge after a committed \\xff/conf/ change (the
+    fields and their new values), which the master's configuration
+    watch reads; backup_changed is registered with the rest, so the
+    interface's frame is the reference's, and nothing serves it: the
+    port has no backup."""
 
     def __init__(self) -> None:
         self.get_commit_version = RequestStream(
@@ -417,13 +419,16 @@ class StorageServerInterface:
             "storage.shardMetrics", TaskPriority.DefaultEndpoint)
         self.remove_shard = RequestStream(
             "storage.removeShard", TaskPriority.DefaultEndpoint)
+        # The perpetual wiggle's engine rewrite (MigrateEngineRequest).
+        self.migrate_engine = RequestStream(
+            "storage.migrateEngine", TaskPriority.DefaultEndpoint)
         self.wait_failure = RequestStream("storage.waitFailure",
                                           TaskPriority.FailureMonitor)
 
     def streams(self) -> List[RequestStream]:
         return [self.get_value, self.get_key_values, self.fetch_keys,
                 self.fetch_shard, self.shard_metrics, self.remove_shard,
-                self.wait_failure]
+                self.migrate_engine, self.wait_failure]
 
 
 # -- TLog (reference fdbserver/TLogInterface.h) ------------------------------
@@ -625,6 +630,32 @@ class DatabaseConfiguration:
     storage_engine: str = "memory"     # memory | btree (reference ssd-2)
     min_workers: int = 1
     storage_boundaries: Optional[List[bytes]] = None
+
+    _INT_FIELDS = ("n_tlogs", "n_commit_proxies", "n_grv_proxies",
+                   "n_resolvers", "n_storage", "log_replication",
+                   "storage_replication", "min_workers")
+    _STR_FIELDS = ("conflict_backend", "storage_engine")
+
+    def with_conf(self, conf: Dict[str, Optional[bytes]]
+                  ) -> "DatabaseConfiguration":
+        """This configuration overridden by committed \\xff/conf/ values
+        (reference :196-230, DatabaseConfiguration parsed from system
+        keys): an absent or None field keeps this one's value, "*" (a
+        broad clear) and a field the port does not keep are skipped, and
+        an integer field whose value does not parse keeps its own."""
+        import dataclasses as _dc
+        out = _dc.replace(self)
+        for name, raw in conf.items():
+            if raw is None or name == "*":
+                continue
+            if name in self._INT_FIELDS:
+                try:
+                    setattr(out, name, int(raw))
+                except ValueError:
+                    pass
+            elif name in self._STR_FIELDS:
+                setattr(out, name, raw.decode() or None)
+        return out
 
 
 @dataclass
@@ -832,6 +863,17 @@ class InitializeDataDistributorRequest:
     key_servers_ranges: List[Any] = field(default_factory=list)
     replication: int = 1
     reply: Any = None    # -> DataDistributorInterface
+
+
+@dataclass
+class MigrateEngineRequest:
+    """Data distribution (the wiggle) -> a storage server: re-image the
+    durable store onto `engine`.  Answered once the new store is durable
+    and the old one's files are gone (the boot scan recovers by file
+    extension: a leftover would bring back a stale twin)."""
+
+    engine: str = "memory"
+    reply: Any = None
 
 
 @dataclass

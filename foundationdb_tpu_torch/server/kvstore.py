@@ -24,6 +24,7 @@ from __future__ import annotations
 import bisect
 import struct
 import zlib
+from itertools import repeat
 from typing import Dict, List, Optional, Tuple
 
 from ..core.trace import TraceEvent
@@ -32,10 +33,13 @@ from .disk_queue import DiskQueue
 _OP_SET = 0
 _OP_CLEAR = 1
 _U32 = struct.Struct("<I")
+_HDR = struct.Struct("<BI")     # op, then the first operand's length
 
 
-def _enc_kv(op: int, a: bytes, b: bytes) -> bytes:
-    return bytes([op]) + _U32.pack(len(a)) + a + _U32.pack(len(b)) + b
+def _enc_ops(ops) -> bytes:
+    """(op, a, b) triples as WAL or snapshot records, concatenated."""
+    hp, up = _HDR.pack, _U32.pack
+    return b"".join([hp(op, len(a)) + a + up(len(b)) + b for op, a, b in ops])
 
 
 def _dec_ops(blob: bytes) -> List[Tuple[int, bytes, bytes]]:
@@ -110,14 +114,47 @@ class KVStoreMemory(IKeyValueStore):
         then apply to the in-memory image."""
         batch, self._uncommitted = self._uncommitted, []
         if batch:
-            blob = b"".join(_enc_kv(op, a, b) for op, a, b in batch)
+            blob = _enc_ops(batch)
             self.queue.push(blob)
             self._wal_bytes_since_snapshot += len(blob)
         self.queue.commit()
-        for op, a, b in batch:
-            self._apply(op, a, b)
+        self._apply_batch(batch)
         if self._wal_bytes_since_snapshot >= self.SNAPSHOT_EVERY_BYTES:
             self._write_snapshot()
+
+    # Past this many keys new to the image in a run of sets, they are
+    # merged into the key list at once rather than one insort each.
+    BULK_MERGE_KEYS = 32
+
+    def _apply_batch(self, batch) -> None:
+        """_apply of each operation in order, with the keys a run of sets
+        adds merged into the key list at once (a fetched shard's image):
+        the same image as one _apply each."""
+        m = self._map
+        new: List[bytes] = []
+        for op, a, b in batch:
+            if op == _OP_SET:
+                if a not in m:
+                    new.append(a)
+                m[a] = b
+            else:
+                if new:
+                    self._merge_keys(new)
+                    new = []
+                self._apply(op, a, b)
+        if new:
+            self._merge_keys(new)
+
+    def _merge_keys(self, new: List[bytes]) -> None:
+        keys = self._keys
+        if len(new) <= self.BULK_MERGE_KEYS:
+            for k in new:
+                bisect.insort(keys, k)
+            return
+        new.sort()
+        lo = bisect.bisect_left(keys, new[0])
+        hi = bisect.bisect_right(keys, new[-1])
+        keys[lo:hi] = sorted(keys[lo:hi] + new)
 
     def _apply(self, op: int, a: bytes, b: bytes) -> None:
         if op == _OP_SET:
@@ -152,8 +189,8 @@ class KVStoreMemory(IKeyValueStore):
         (the WAL is trimmed only after the snapshot is durable)."""
         snap_seq = self.queue.next_seq - 1
         blob = _U32.pack(snap_seq if snap_seq >= 0 else 0)
-        items = b"".join(_enc_kv(_OP_SET, k, self._map[k])
-                         for k in self._keys)
+        values = list(map(self._map.__getitem__, self._keys))
+        items = _enc_ops(zip(repeat(_OP_SET), self._keys, values))
         payload = _U32.pack(len(items)) + items
         f = self.fs.open(self.prefix + ".snap.new")
         f.truncate(0)
@@ -177,15 +214,13 @@ class KVStoreMemory(IKeyValueStore):
                 if zlib.crc32(data[:-4]) == crc_stored:
                     base_seq = _U32.unpack_from(data, 0)[0]
                     (items_len,) = _U32.unpack_from(data, 4)
-                    for op, k, v in _dec_ops(data[8:8 + items_len]):
-                        self._apply(op, k, v)
+                    self._apply_batch(_dec_ops(data[8:8 + items_len]))
         records = self.queue.recover()
         replayed = 0
         for seq, blob in records:
             if seq <= base_seq:
                 continue
-            for op, a, b in _dec_ops(blob):
-                self._apply(op, a, b)
+            self._apply_batch(_dec_ops(blob))
             replayed += 1
         TraceEvent("KVStoreRecovered").detail(
             "Prefix", self.prefix).detail("SnapshotSeq", base_seq).detail(

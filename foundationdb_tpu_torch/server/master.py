@@ -48,14 +48,22 @@ the commit and GRV proxies; the resolution boundaries adopted or
 re-seeded), writing_cstate (a lost race ends this master) and
 accepting_commits (the version servers start, the role directory goes to
 the cluster controller); then it watches the recruited roles and ends
-the epoch when one fails.
+the epoch when one fails, or when the committed configuration differs
+from the recruited one.
+
+Configuration as data (:991-1002, :1083-1090, :1775-1839): locking_cstate
+replays the \\xff/conf/ mutations of TXS_TAG onto the core state's
+`conf`, recruiting takes the static configuration overridden by it
+(DatabaseConfiguration.with_conf), writing_cstate stores it, and in the
+steady state _config_change_watch (a commit proxy's nudge) and
+_config_poll (every 5 s of the loop's time) end the epoch on a field
+whose committed value differs from the recruited one.
 
 Left out: the balancing loop (no master_server steps a balancer; a
 StaticCluster's caller steps it), the DBCoreState persistence of the
 moved boundaries, and of the recovery state machine: region failover and
 recruiting, storage caches, backup workers, TSS, tenants, the database
-lock, the configuration watch and poll, log routers and the coordinators
-watch.
+lock, log routers and the coordinators watch.
 """
 
 from __future__ import annotations
@@ -79,7 +87,7 @@ from .interfaces import (RESOLVER_ALL, TXS_TAG, GetCommitVersionReply,
                          same_incarnation)
 from .shardmap import RangeMap
 from .system_data import (SYSTEM_KEYS_BEGIN, apply_key_servers_mutation,
-                          parse_server_tag_mutation)
+                          parse_conf_mutation, parse_server_tag_mutation)
 from .tlog import peek_through
 
 # Resolution balancing's gates, the reference's knob defaults
@@ -670,6 +678,73 @@ def _own_team_spans(ss, tag: Tag, key_servers_ranges) -> None:
             ss.shards.set_range(b, e, ("owned", 0))
 
 
+def _differs(config, static, fname: str, raw: Optional[bytes]) -> bool:
+    """Would the committed value `raw` of field `fname` recruit another
+    value than the recruited `config`'s?  None (cleared) means the static
+    configuration's.  The value is taken as with_conf takes it (the
+    reference compares the printed text, so a value with_conf cannot
+    parse, or an empty engine name, ends every later epoch too)."""
+    want = getattr(static if raw is None else config.with_conf(
+        {fname: raw}), fname, None)
+    return getattr(config, fname, None) != want
+
+
+def _known_fields() -> set:
+    from .interfaces import DatabaseConfiguration
+    return set(DatabaseConfiguration._INT_FIELDS) | \
+        set(DatabaseConfiguration._STR_FIELDS)
+
+
+async def _config_change_watch(master: Master, config, static) -> None:
+    """Return (ending the epoch) on a proxy's nudge that names a field
+    whose committed value differs from the recruited `config`'s, or on a
+    broad clear (:1775-1797).  An unknown field, and a value equal to the
+    recruited one, are ignored: ending the epoch for either would bounce
+    every later epoch too (a retried, identical configure)."""
+    known = _known_fields()
+    async for req in master.interface.config_changed.queue:
+        for fname, raw in (req or {}).items():
+            if fname == "*":
+                return
+            if fname in known and _differs(config, static, fname, raw):
+                return
+
+
+async def _config_poll(coordinators, config, static, seeded_fields: set,
+                       interval: float = 5.0) -> None:
+    """The heal of a lost nudge (:1799-1839; the nudge is a one-way send,
+    and a master recruited after the commit never got it): every
+    `interval` seconds read the committed configuration and return on a
+    real difference.  A committed field compares with the recruited
+    value; a field this epoch took from the database and that is now
+    cleared compares with the static configuration's; another absent
+    field is
+    ignored (a configuration set in code, never committed, must not end
+    every epoch)."""
+    from ..client.database import ClusterConnection, Database
+    from ..client.management import get_configuration
+    from ..core.scheduler import delay
+    known = _known_fields()
+    db = Database(ClusterConnection(coordinators))
+    try:
+        while True:
+            await delay(interval)
+            try:
+                committed = await get_configuration(db)
+            except Exception:  # noqa: BLE001 -- mid-recovery: next round
+                continue
+            for fname in sorted(known & (set(committed) | seeded_fields)):
+                raw = committed.get(fname)
+                if _differs(config, static, fname, raw):
+                    TraceEvent("MasterConfigPollDiff").detail(
+                        "Field", fname).detail(
+                        "Recruited", str(getattr(config, fname, None))
+                    ).detail("Committed", raw).log()
+                    return
+    finally:
+        db.cluster.close()
+
+
 async def master_server(master: Master, process, coordinators, config,
                         cc_interface) -> None:
     """One master epoch: recover through the five states, recruit every
@@ -797,13 +872,25 @@ async def master_server(master: Master, process, coordinators, config,
                         for tag, iface in \
                                 parse_server_tag_mutation(m) or ():
                             rejoined[tag] = iface
+                        # Configuration committed since the snapshot:
+                        # this recovery adopts it (:991-1002).
+                        for fname, raw in parse_conf_mutation(m) or ():
+                            if fname == "*":
+                                prev.conf.clear()
+                            elif raw is None:
+                                prev.conf.pop(fname, None)
+                            else:
+                                prev.conf[fname] = raw
             key_servers_ranges = [(b, e, team)
                                   for b, e, team in map_rm.ranges()
                                   if team is not None]
             # The registry's changes since the snapshot: a rejoined or
             # recruited server's newest incarnation, a retired tag gone.
+            # A tag of the snapshot stays unless a clear retired it: after
+            # a power failure the packed snapshot names it by id alone
+            # (None here), and the worker registry resolves it below.
             merged = {t: i for t, i in prev.storage_servers.items()
-                      if rejoined.get(t, i) is not None}
+                      if not (t in rejoined and rejoined[t] is None)}
             for t, i in rejoined.items():
                 if i is not None and not same_incarnation(merged.get(t), i):
                     merged[t] = i
@@ -819,6 +906,21 @@ async def master_server(master: Master, process, coordinators, config,
         master.version = recovery_version
         master.last_epoch_end = recovery_version
         master.live_committed_version = recovery_version
+
+        # The effective configuration (:1083-1090): the static one
+        # overridden by the committed \xff/conf/ fields, so the role
+        # counts below come from the database.  seeded_fields are those
+        # taken from it: the poll compares one that is cleared later with
+        # the static default.
+        static_config = config
+        seeded_fields: set = set()
+        if prev is not None and prev.conf:
+            config = config.with_conf(prev.conf)
+            seeded_fields = {k for k, v in prev.conf.items()
+                             if v is not None and k != "*"}
+            TraceEvent("MasterConfigFromDatabase").detail(
+                "Conf", {k: v.decode(errors="replace")
+                         for k, v in prev.conf.items()}).log()
 
         # RECRUITING (:1741): place the roles on registered workers, each
         # role's pool the best-fitness band that has anyone in it.
@@ -1002,7 +1104,8 @@ async def master_server(master: Master, process, coordinators, config,
             storage_servers=storage_servers,
             key_servers_ranges=key_servers_ranges, n_resolvers=n_resolvers,
             resolver_ranges=resolver_user_ranges,
-            map_version=recovery_version))
+            map_version=recovery_version,
+            conf=dict(prev.conf) if prev is not None else {}))
 
         # ACCEPTING_COMMITS (:1943): serve versions and announce.
         i = master.interface
@@ -1033,16 +1136,25 @@ async def master_server(master: Master, process, coordinators, config,
 
         # Steady state: until a recruited role of the transaction system
         # fails (reference: the master dies on tlog_failed,
-        # commit_proxy_failed, resolver_failed).
+        # commit_proxy_failed, resolver_failed) or the committed
+        # configuration differs from the recruited one.
         role_failures = [
             spawn(wait_failure_of(x), "master.roleWatch")
             for x in (tlogs + resolvers + commit_proxies + grv_proxies +
                       [ratekeeper])]
+        config_watch = spawn(
+            _config_change_watch(master, config, static_config),
+            "master.confWatch")
+        config_poll = spawn(
+            _config_poll(coordinators, config, static_config,
+                         seeded_fields), "master.confPoll")
         children.extend(role_failures)
-        idx, _ = await wait_any(role_failures)
+        children.extend([config_watch, config_poll])
+        idx, _ = await wait_any(role_failures + [config_watch, config_poll])
         TraceEvent("MasterTerminated", Severity.Warn).detail(
             "Epoch", master.epoch).detail(
-            "Reason", "recruited role failed").detail("RoleIdx", idx).log()
+            "Reason", "configuration changed" if idx >= len(role_failures)
+            else "recruited role failed").detail("RoleIdx", idx).log()
     except FdbError as e:
         TraceEvent("MasterRecoveryFailed", Severity.Warn).detail(
             "Epoch", master.epoch).detail("Error", e.name).detail(

@@ -65,9 +65,18 @@ _remove_shard drops a vacated span.  A StaticCluster gives each server
 the spans of its teams as owned and the rest as absent; a server built
 alone owns everything, as the reference's cold boot does.
 
-Left out: the update-storage loop's delay, buggify and engine
-migration, watches, read heat and tag sampling, TSS, and the
-commit-debug trace points.
+Engine migration (:1001-1075): the migrate_engine stream queues a
+MigrateEngineRequest (_migrate_engine), and the next update_storage(),
+after its commit, images the state at durable_version into a fresh
+engine of the asked kind from the worker's factory, swaps it in and
+deletes the old files (_do_migrate_engine, over _image_engine);
+engine_name names the kind, on the interface too.  With an engine, a
+fetch is answered once the fetched span is durable (the reference's
+fetchKeys waits for its transferred version to be durable), so a move
+never names a destination whose engine lacks the span.
+
+Left out: the update-storage loop's delay and buggify, watches, read
+heat and tag sampling, TSS, and the commit-debug trace points.
 """
 
 from __future__ import annotations
@@ -223,7 +232,16 @@ class VersionedMap:
         one insort each (a fetched shard)."""
         new = []
         chains = self._chains
+        cache = self._metrics_cache
         for k, v in rows:
+            if k not in chains and v is not None:
+                # What set() does for a key new to the map: one entry, no
+                # history for the GC, the whole row a delta of the cache.
+                chains[k] = [(version, v)]
+                new.append(k)
+                if cache is not None:
+                    cache.note_delta(k, len(k) + len(v), 1)
+                continue
             if k not in chains:
                 chains[k] = []
                 new.append(k)
@@ -234,12 +252,28 @@ class VersionedMap:
             self._keys[lo:hi] = sorted(self._keys[lo:hi] + new)
 
     def clear_range(self, begin: bytes, end: bytes, version: Version) -> None:
+        """set(key, None, version) of every live key in [begin, end),
+        inline: a vacated shard clears hundreds of thousands."""
         lo = bisect.bisect_left(self._keys, begin)
         hi = bisect.bisect_left(self._keys, end)
+        chains = self._chains
+        cache = self._metrics_cache
+        heap = self._gc_heap
         for key in self._keys[lo:hi]:
-            c = self._chains[key]
-            if c and c[-1][1] is not None:
-                self.set(key, None, version)
+            c = chains[key]
+            if not c:
+                continue
+            prev = c[-1][1]
+            if prev is None:
+                continue
+            if cache is not None:
+                cache.note_delta(key, -(len(key) + len(prev)), -1)
+            if c[-1][0] == version:
+                c[-1] = (version, None)
+            else:
+                assert c[-1][0] < version
+                c.append((version, None))
+            heapq.heappush(heap, (version, key))
 
     def get(self, key: bytes, version: Version) -> Optional[bytes]:
         c = self._chains.get(key)
@@ -398,6 +432,12 @@ class StorageServer:
         self.log_epoch = 0
         # Seconds of the last update_storage()'s engine commit.
         self.last_engine_commit_s = 0.0
+        # The engine's kind, the worker's `name -> (new engine, cleanup of
+        # the old one's files)` factory, and a MigrateEngineRequest that
+        # the next update_storage() carries out.
+        self.engine_name = ""
+        self._engine_factory = None
+        self._pending_engine = None
         # The event-loop half (run()), and the seconds its reads took.
         self.interface = StorageServerInterface(ss_id, tag)
         self.interface.role = self   # in-process backref (not on the wire)
@@ -567,18 +607,28 @@ class StorageServer:
 
     # -- durability (reference updateStorage :4002) ---------------------------
     def update_storage(self) -> bool:
-        """One pass of _update_storage_loop (:564-629), with no delay, no
-        buggify and no engine migration: the pending mutations up to the
-        target version and the meta key into the engine, its commit, then
-        durable_version moves to the target and the log is popped to it.
-        The target is the applied version, capped at the version durable
-        on every TLog of the log system (the reference takes the applied
-        version: a version one log appended and another lost can reach
-        its engine, and a later recovery ends below it, where the rebuilt
-        server has no history to roll back to).  True if the durable
-        version moved."""
+        """One pass of _update_storage_loop (:564-629), with no delay and
+        no buggify: the pending mutations up to the target version and
+        the meta key into the engine, its commit, then durable_version
+        moves to the target and the log is popped to it; then a queued
+        engine migration.  The target is the applied version, capped at
+        the version durable on every TLog of the log system (the
+        reference takes the applied version: a version one log appended
+        and another lost can reach its engine, and a later recovery ends
+        below it, where the rebuilt server has no history to roll back
+        to).  The migration comes after the commit (the reference's
+        before it), so a drained server's clears are in the image it
+        takes and its rows are not copied through the swap.  True if the
+        durable version moved."""
         if self.engine is None:
             return False
+        moved = self._commit_durable()
+        if self._pending_engine is not None:
+            req, self._pending_engine = self._pending_engine, None
+            self._do_migrate_engine(req)
+        return moved
+
+    def _commit_durable(self) -> bool:
         target = self.version
         if self.log_system is not None:
             target = min(target, self.log_system.durable_version())
@@ -643,6 +693,50 @@ class StorageServer:
 
     def _rebuild_engine(self, version: Version) -> None:
         self._image_engine(self.engine, version)
+
+    # -- engine migration (reference storage.py:1001-1075) --------------------
+    def _migrate_engine(self, req) -> None:
+        """Queue an engine rewrite for the next update_storage(), so the
+        swap falls between two durability batches; False if the engine is
+        already `req.engine`."""
+        if self.engine is None or self._engine_factory is None:
+            req.reply.send_error(err(
+                "client_invalid_operation",
+                "role has no durable engine or no factory"))
+            return
+        if req.engine == self.engine_name:
+            req.reply.send(False)
+            return
+        if self._pending_engine is not None:
+            req.reply.send_error(err("operation_failed",
+                                     "migration already in flight"))
+            return
+        self._pending_engine = req
+
+    def _do_migrate_engine(self, req) -> None:
+        """Image the state at durable_version into a fresh engine of the
+        requested kind, swap, and delete the old engine's files.  What is
+        queued past durable_version stays queued and lands on the new
+        engine in later batches: no mutation is lost or applied twice.
+        On a failure the old engine, untouched until the swap, stays."""
+        try:
+            new_engine, cleanup_old = self._engine_factory(req.engine)
+            dv = self.durable_version
+            self._image_engine(new_engine, dv)
+            old_name = self.engine_name
+            self.engine = new_engine
+            self.engine_name = req.engine
+            self.interface.engine_name = req.engine
+            cleanup_old()
+            TraceEvent("SSEngineMigrated").detail("Id", self.id).detail(
+                "From", old_name).detail("To", req.engine).detail(
+                "Version", dv).log()
+            req.reply.send(True)
+        except Exception as e:  # noqa: BLE001 -- answered with the error
+            TraceEvent("SSEngineMigrateFailed", Severity.Error).detail(
+                "Id", self.id).detail("Error", repr(e)).log()
+            req.reply.send_error(e if isinstance(e, FdbError) else
+                                 err("operation_failed", repr(e)))
 
     def pull(self) -> int:
         """Pull until the log has nothing newer for this tag; returns the
@@ -768,10 +862,14 @@ class StorageServer:
             min_read = max(vf, self.version)
             if self.engine is not None:
                 # The span's image at min_read (this server's version),
-                # so the engine's queue stays in version order.
+                # so the engine's queue stays in version order: the
+                # snapshot itself when nothing landed in the span above it.
                 self._queue_durable(min_read, 1, req.begin, req.end)
-                for k, v in self.data.range_read(
-                        req.begin, req.end, min_read, 1 << 62, 1 << 62)[0]:
+                rows = reply.data if all(
+                    version <= vf for version, _m in fetch.buffer) else \
+                    self.data.range_read(req.begin, req.end, min_read,
+                                         1 << 62, 1 << 62)[0]
+                for k, v in rows:
                     self._queue_durable(min_read, 0, k, v)
             self.shards.set_range(req.begin, req.end, ("owned", min_read))
             for db_, de_, dv in fetch.disowns:
@@ -779,6 +877,16 @@ class StorageServer:
                 # fence newer than the acquiring move closes its span.
                 if dv > req.min_version:
                     self._disown_shard(db_, de_, dv)
+            if self.engine is not None:
+                # Answered once the span's image is durable (the
+                # reference's fetchKeys waits for its transferred version
+                # to be durable): the move's phase 2 then names a server
+                # whose engine holds the span.  The snapshot is in no
+                # log, so a power failure before this point would lose
+                # it from a destination the recovered shard map names.
+                while self.durable_version < min_read:
+                    if not self.update_storage():
+                        await delay(0.01)
             self.fetch_stats["rows"] += len(reply.data)
             self.fetch_stats["bytes"] += sum(len(k) + len(v)
                                              for k, v in reply.data)
@@ -895,5 +1003,8 @@ class StorageServer:
             process.spawn(self._serve_shards(i.remove_shard,
                                              self._remove_shard),
                           f"{self.id}.removeShard"),
+            process.spawn(self._serve_shards(i.migrate_engine,
+                                             self._migrate_engine),
+                          f"{self.id}.migrateEngine"),
             process.spawn(hold_wait_failure(i.wait_failure),
                           f"{self.id}.waitFailure")]

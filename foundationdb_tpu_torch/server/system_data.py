@@ -12,10 +12,15 @@ disownment fence the committing proxy sends a server a team change drops
 (DISOWN_SHARD_PREFIX, disowned_spans); the server registry, whose
 entries a worker commits for the storage servers it recruits or brings
 back from disk and every commit proxy applies to its storage directory
-(server_tag_key, server_tag_value, parse_server_tag_mutation); and the
-exclusion list's keys that data distribution clears when it retires a
-dead server (excluded_key).  Of the reference's other metadata
-(configuration, backup, lock, tenants) the port has none.
+(server_tag_key, server_tag_value, parse_server_tag_mutation); the
+exclusion list under `\\xff/conf/excluded/`, which the operator writes
+(client/management.py) and data distribution follows and clears when it
+retires a dead server (excluded_key); the database configuration as
+committed `\\xff/conf/<field>` keys (conf_key, parse_conf_mutation, which
+leaves the exclusion list out); the committed floor of storage tags
+(MAX_TAG_KEY) and the perpetual wiggle's position
+(STORAGE_WIGGLE_POS_KEY).  Of the reference's other metadata (backup,
+lock, tenants, coordinators, knobs, cache ranges) the port has none.
 """
 
 from __future__ import annotations
@@ -33,8 +38,24 @@ KEY_SERVERS_PREFIX = b"\xff/keyServers/"
 KEY_SERVERS_END = b"\xff/keyServers0"
 SERVER_TAG_PREFIX = b"\xff/serverTag/"
 SERVER_TAG_END = b"\xff/serverTag0"
+# Tag -> b"1": the storage servers the operator excluded (reference
+# excludedServersPrefix under \xff/conf/).  Data distribution drains
+# every shard off them; they stay fetch sources while they drain.
 EXCLUDED_PREFIX = b"\xff/conf/excluded/"
 EXCLUDED_END = b"\xff/conf/excluded0"
+# The database configuration as ordinary keys (reference \xff/conf/
+# parsed by DatabaseConfiguration, changed by ManagementAPI `configure`):
+# field name -> its printed value, e.g. \xff/conf/n_resolvers = b"2".
+# The exclusion list nests here and is not a configuration field.
+CONF_PREFIX = b"\xff/conf/"
+CONF_END = b"\xff/conf0"
+# The floor of storage tags, committed in the transaction that claims a
+# tag: no tag is issued twice across recoveries, even after a retired
+# tag's registry and exclusion entries are cleared.
+MAX_TAG_KEY = b"\xff/maxServerTag"
+# The last tag the perpetual wiggle finished (reference
+# perpetualStorageWiggleIDPrefix): a new distributor resumes after it.
+STORAGE_WIGGLE_POS_KEY = b"\xff/storageWigglePos"
 
 
 def key_servers_key(key: bytes) -> bytes:
@@ -104,6 +125,35 @@ def parse_server_tag_mutation(m: Mutation):
 def excluded_key(tag: Tag) -> bytes:
     """The exclusion-list key of the storage server with `tag`."""
     return EXCLUDED_PREFIX + b"%010d" % tag
+
+
+def conf_key(field_name: str) -> bytes:
+    return CONF_PREFIX + field_name.encode()
+
+
+def parse_conf_mutation(m: Mutation):
+    """[(field name, value or None)] for a \\xff/conf/ configuration
+    mutation (None: the field cleared back to its default), else None
+    (reference :198).  The exclusion list is not configuration: a write
+    or a clear inside it alone parses as None."""
+    if m.type == MutationType.SetValue:
+        if not m.param1.startswith(CONF_PREFIX) or \
+                m.param1.startswith(EXCLUDED_PREFIX):
+            return None
+        return [(m.param1[len(CONF_PREFIX):].decode(), m.param2)]
+    if m.type == MutationType.ClearRange:
+        lo = max(m.param1, CONF_PREFIX)
+        hi = min(m.param2, CONF_END)
+        if hi <= lo:
+            return None
+        if lo >= EXCLUDED_PREFIX and hi <= EXCLUDED_END:
+            return None
+        if hi == lo + b"\x00" and lo.startswith(CONF_PREFIX):
+            # A point clear ([key, key + \x00)) reverts one field.
+            return [(lo[len(CONF_PREFIX):].decode(), None)]
+        # A broad clear cannot name its keys: "*" resets every field.
+        return [("*", None)]
+    return None
 
 
 # Private shard-disownment mutations (reference ApplyMetadataMutation's

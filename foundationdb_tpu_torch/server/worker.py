@@ -37,10 +37,18 @@ at a time).
 
 _commit_server_tags and _rejoin_storage write the server registry for
 each storage server recruited here or brought back by the boot scan.
+Every storage server here carries its engine's kind (engine_name, on
+its interface too) and make_engine_factory's factory (the reference's
+_ENGINE_FILES, here ENGINE_FILES, and _make_engine_factory), with which
+the wiggle's MigrateEngineRequest re-images it onto another engine.  A
+storage server recruited into a serving epoch (by data distribution,
+for a lost one) owns no span until a move's fetch gives it one.
+_init_data_distributor runs the distributor with this worker's
+ServerDBInfo and the request's epoch.
 
-Left out: engine migration, the backup worker, the log router, the
-storage cache and its watch, the knob watch, the health monitor and the
-machine stats and metrics of the registration.
+Left out: the backup worker, the log router, the storage cache and its
+watch, the knob watch, the health monitor and the machine stats and
+metrics of the registration.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from .disk_queue import DiskQueue
 from .interfaces import Tag
 from .kvstore import open_kv_store
 from .kvstore_btree import PAGE_SIZE
+from .shardmap import RangeMap
 from .storage import _META_KEY, StorageServer
 from .tlog import TLog
 
@@ -180,9 +189,32 @@ def init_storage(fs, ss_id: str, tag: Tag, engine: str,
             fs.delete(prefix + ext)
     kv = open_kv_store(engine, fs, prefix)
     ss = StorageServer(ss_id, tag, log_system, engine=kv)
+    ss.engine_name = engine
+    ss.interface.engine_name = engine
     kv.set(_META_KEY, ss._meta_blob(0))
     kv.commit()
     return ss
+
+
+def make_engine_factory(fs, tag: Tag, ss: StorageServer):
+    """The storage server's `name -> (new engine, cleanup_old)` factory
+    for an engine migration (reference _make_engine_factory :251-270):
+    stale files of the target kind are deleted before the new engine
+    opens, and cleanup_old deletes the old kind's files (the boot scan
+    recovers by extension: a leftover would come back as a twin)."""
+    prefix = f"storage-{tag}"
+
+    def factory(name: str):
+        for ext in ENGINE_FILES.get(name, ()):
+            fs.delete(prefix + ext)
+        new_engine = open_kv_store(name, fs, prefix)
+
+        def cleanup_old(_old=ss.engine_name):
+            for ext in ENGINE_FILES.get(_old, ()):
+                fs.delete(prefix + ext)
+        return new_engine, cleanup_old
+
+    return factory
 
 
 class Worker:
@@ -250,6 +282,9 @@ class Worker:
                 self._run_role(tlog)
                 self.recovered_logs[tlog_id] = tlog.interface
             for tag, ss in sorted(scan.storage.items()):
+                ss.engine_name = scan.engines[tag]
+                ss.interface.engine_name = ss.engine_name
+                ss._engine_factory = make_engine_factory(self._fs(), tag, ss)
                 self._run_role(ss)
                 self._stamp_locality(ss)
                 self.storage_roles.append(ss)
@@ -385,7 +420,10 @@ class Worker:
                              Database(ClusterConnection(self.coordinators)),
                              req.storage_interfaces, req.key_servers_ranges,
                              replication=req.replication)
-        self._run_role(dd)
+        # This worker's ServerDBInfo: the distributor recruits through its
+        # cluster controller and halts when a later epoch names another.
+        dd.run(self.process, db_info_var=self.db_info, epoch=req.epoch)
+        self.roles.append(dd)
         req.reply.send(dd.interface)
 
     async def _init_resolver(self, req) -> None:
@@ -423,6 +461,11 @@ class Worker:
         engine = req.engine or getattr(self.config, "storage_engine",
                                        "memory")
         ss = init_storage(self._fs(), req.ss_id, req.tag, engine, ls)
+        ss._engine_factory = make_engine_factory(self._fs(), req.tag, ss)
+        if ls is not None:
+            # Recruited by data distribution into a serving epoch: it
+            # holds nothing until a move's fetch gives it a span.
+            ss.shards = RangeMap(default=("absent", 0))
         self._run_role(ss)
         self._stamp_locality(ss)
         self.storage_roles.append(ss)

@@ -66,6 +66,7 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.server.failure",
     "foundationdb_tpu_torch.client", "foundationdb_tpu_torch.client.database",
     "foundationdb_tpu_torch.client.writemap",
+    "foundationdb_tpu_torch.client.management",
     "foundationdb_tpu_torch.testing",
     "foundationdb_tpu_torch.testing.workload",
     "foundationdb_tpu_torch.testing.workloads",

@@ -2188,3 +2188,30 @@ def test_recovery_small_case(dev):
     native = chip_smoke.native_against_card(
         dev.type, 2, 10_000, capacity=1 << 14, delta_capacity=1 << 13)
     assert native["ranges"] > 0
+
+
+def test_fleet_small_case(dev):
+    """chip_smoke.py's phase 29 at a small size with the Resolver roles'
+    sets on the card, on phase 28's cluster: the configure to 3
+    resolvers, whose new epoch's three roles resolve on the card with
+    the compact and general steps launched there (counted from the
+    phase's start), then the storage death, the exclusion and the wiggle
+    step, with every check of the phase."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+
+    def between(_figures):
+        K.reset_counts()
+    _rec, fleet = chip_smoke.recovery_run(
+        device=dev.type, keyspace=20_000, rw_actors=256, fleet=True,
+        between=between, capacity=1 << 14, delta_capacity=1 << 13)
+    configure = fleet["steps"][0]
+    assert configure["resolvers"] == 3 and configure["epoch"] == 6
+    assert min(configure["resolver_batches"]) > 0
+    assert all(n > 0 for n in fleet["epoch_launches"].values())
+    assert fleet["launches"]["compact_prep"] > 0
+    assert fleet["launches"]["interval_fixpoint"] > 0
+    assert fleet["steps"][3]["engine_migrations"] >= 1
