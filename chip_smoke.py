@@ -384,7 +384,8 @@ import subprocess
 import sys
 import time
 from collections import deque
-from dataclasses import dataclass
+from contextlib import contextmanager
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
@@ -490,7 +491,7 @@ PATH_KERNELS["restart"] = PATH_KERNELS["commit"]
 PATH_KERNELS["client"] = PATH_KERNELS["commit"]
 # Phase 25: the client's drive with a storage process killed and a
 # resolver's process clogged takes the same two steps.
-PATH_KERNELS["sim"] = PATH_KERNELS["client"]
+PATH_KERNELS["simnet"] = PATH_KERNELS["client"]
 # Phase 26: the Resolver role in another OS process, over TCP, on phase
 # 19's requests: the point path (13 batches cross a merge), counted in
 # that process and read back over the network.
@@ -502,6 +503,14 @@ PATH_KERNELS["dd"] = PATH_KERNELS["client"]
 # Phase 28: every epoch's Resolver roles take the client's two steps
 # (point transactions, and the rounds with a get_range).
 PATH_KERNELS["recovery"] = PATH_KERNELS["client"]
+# Phase 30: the coordinators change on phase 29's cluster: the client's
+# two steps in each new epoch.
+PATH_KERNELS["coord"] = PATH_KERNELS["client"]
+# Phase 31: the port's simulator, the Resolver roles on the card: Cycle's
+# and ReadWrite's point batches, ConflictRange's range reads and clears
+# and the \xff state transactions on the general step, a merge every <= 8
+# batches.
+PATH_KERNELS["sim"] = [*PATH_KERNELS["commit"], "merge"]
 # Phase 29: the configured epochs' Resolver roles take the same two steps
 # (point transactions, the rounds with a get_range, and the moves'
 # metadata transactions, state transactions on every role).
@@ -7414,17 +7423,16 @@ def recovery_read_back(info, keys, base, model, version: int) -> int:
     return n
 
 
-def recovery_run(device: str = DEVICE, keyspace: int = KEYSPACE,
-                 rw_actors: int = RECOVERY_RW[0],
-                 rounds: int = RECOVERY_RW[1],
-                 warmup: int = RECOVERY_RW[2],
-                 fleet: bool = False, between=None, after=None,
-                 **set_kwargs):
-    """The phase's run (see the section's comment); returns the
-    figures.  With `fleet`, phase 29 (fleet_run) runs next on the same
-    cluster, after `between(figures)` if given, and the return is
-    (phase 28's figures, phase 29's).  `after()`, if given, is called
-    once the last phase has run, before the cluster's teardown."""
+@contextmanager
+def recovery_cluster(device: str = DEVICE, keyspace: int = KEYSPACE,
+                     rw_actors: int = RECOVERY_RW[0],
+                     rounds: int = RECOVERY_RW[1],
+                     warmup: int = RECOVERY_RW[2], **set_kwargs):
+    """The phase's run (see the section's comment), then its live
+    cluster as a FleetRun, whose `figures` are the phase's: phases 29
+    (fleet_run) and 30 (coord_run) run on it inside the `with`.  On
+    leaving it the cluster is torn down, and `teardown` holds the
+    teardown's seconds."""
     import gc
     import random
     from foundationdb_tpu_torch import kernels as K
@@ -7665,18 +7673,13 @@ def recovery_run(device: str = DEVICE, keyspace: int = KEYSPACE,
                    "consistency_s": audit_s,
                    "readback_rows": rows, "readback_s": readback_s,
                    "replayed_batches": replayed, "replay_s": replay_s}
-        fleet_figures = None
-        if fleet:
-            if between is not None:
-                between(figures)
-            fleet_figures = fleet_run(FleetRun(
-                c=c, db=db, loop=loop, device=device, keys=keys, base=base,
-                acked=acked, records=records, infos=infos, config=config,
-                drive=drive, round_s=round_s, rate=rate,
-                until_serving=until_serving,
-                until_client=until_client, next_round=rounds))
-        if after is not None:
-            after()
+        run = FleetRun(
+            c=c, db=db, loop=loop, device=device, keys=keys, base=base,
+            acked=acked, records=records, infos=infos, config=config,
+            drive=drive, round_s=round_s, rate=rate,
+            until_serving=until_serving, until_client=until_client,
+            next_round=rounds, figures=figures)
+        yield run
         t_down = time.perf_counter()
         for p in list(c.sim.processes.values()):
             c.sim.kill_process(p)
@@ -7695,10 +7698,8 @@ def recovery_run(device: str = DEVICE, keyspace: int = KEYSPACE,
         set_event_loop(None)
     t_collect = time.perf_counter()
     gc.collect()
-    last = fleet_figures or figures
-    last["teardown_s"] = time.perf_counter() - t_down
-    last["teardown_collect_s"] = time.perf_counter() - t_collect
-    return (figures, fleet_figures) if fleet else figures
+    run.teardown = {"teardown_s": time.perf_counter() - t_down,
+                    "teardown_collect_s": time.perf_counter() - t_collect}
 
 
 def replay_epochs(records, infos, epochs, n_proxies: int) -> int:
@@ -7727,46 +7728,56 @@ def replay_epochs(records, infos, epochs, n_proxies: int) -> int:
 
 
 def recovery_path(smi: str) -> tuple:
-    """Phases 28 and 29 on one cluster.  Phase 28: recovery_run on the
-    card, the launches counted over the cluster's run alone; then the
-    native set against a bare set on the card, whose launches are not
-    the path's; the path_recovery line.  Phase 29 (fleet_run) then runs
-    on the same cluster, its launch counts set to 0 at its start and read
-    at its end, before anything else runs; its phase line ends there, and
-    the shared cluster's teardown has a line of its own (`teardown_s` in
-    the path_fleet line).  Returns both phases' launches and figures."""
+    """Phases 28, 29 and 30 on one cluster, each phase's launch counts
+    set to 0 at its start and read at its end.  Phase 28: the cluster's
+    run, then the native set against a bare set on the card, whose
+    launches are not the path's; the path_recovery line.  Phase 29
+    (fleet_run) and its path_fleet line; phase 30 (coord_run), whose
+    path_coordinators line follows the shared cluster's teardown
+    (`teardown_s`).  Returns the three phases' launches and figures."""
     import torch
     from foundationdb_tpu_torch import kernels as K
     out = {}
 
-    def between(figures):
+    def counted(path: str, figures: dict, launches: dict) -> None:
         torch.cuda.synchronize()
-        launches = dict(K.LAUNCHES)
+        out[path] = launches
         figures["launches"] = {k: v for k, v in launches.items() if v}
         figures["card"] = smi
+
+    K.reset_counts()
+    with recovery_cluster(capacity=CAPACITY,
+                          delta_capacity=DELTA_CAPACITY) as run:
+        recovery = run.figures
+        counted("recovery", recovery, dict(K.LAUNCHES))
         t0 = time.perf_counter()
-        figures["native"] = native_against_card(
+        recovery["native"] = native_against_card(
             DEVICE, *RECOVERY_NATIVE, capacity=CAPACITY,
             delta_capacity=DELTA_CAPACITY)
-        figures["native"]["card"] = smi     # beside the card's figure
-        figures["native_s"] = time.perf_counter() - t0
-        print(f"path_recovery: {json.dumps(figures)}", flush=True)
-        out["recovery"] = launches
+        recovery["native"]["card"] = smi    # beside the card's figure
+        recovery["native_s"] = time.perf_counter() - t0
+        print(f"path_recovery: {json.dumps(recovery)}", flush=True)
         phase_done("recovery")
+
         log("phase 29: the storage fleet (configure to 3 resolvers, a "
             "storage process killed and replaced, an exclusion drained, "
             "a wiggle step onto the B-tree, under ReadWrite)")
         K.reset_counts()
+        fleet = fleet_run(run)
+        counted("fleet", fleet, fleet.pop("launches"))
+        print(f"path_fleet: {json.dumps(fleet)}", flush=True)
+        phase_done("fleet")
 
-    K.reset_counts()
-    recovery, fleet = recovery_run(
-        capacity=CAPACITY, delta_capacity=DELTA_CAPACITY, fleet=True,
-        between=between, after=lambda: phase_done("fleet"))
-    out["fleet"] = fleet.pop("launches")
-    fleet["launches"] = {k: v for k, v in out["fleet"].items() if v}
-    fleet["card"] = smi
-    print(f"path_fleet: {json.dumps(fleet)}", flush=True)
-    return out, recovery, fleet
+        log("phase 30: the coordinators change (3 coordinators added, the "
+            "quorum moved to them, the old ones and the master killed, "
+            "under ReadWrite)")
+        K.reset_counts()
+        coord = coord_run(run)
+        counted("coord", coord, coord.pop("launches"))
+        phase_done("coordinators")
+    coord.update(run.teardown)
+    print(f"path_coordinators: {json.dumps(coord)}", flush=True)
+    return out, recovery, fleet, coord
 
 
 # ------------------------------------------------- phase 29: the fleet
@@ -7813,6 +7824,8 @@ class FleetRun:
     until_serving: Any
     until_client: Any
     next_round: int
+    figures: dict           # phase 28's
+    teardown: dict = field(default_factory=dict)
 
 
 def fleet_roles(c, kind: str) -> list:
@@ -8133,6 +8146,7 @@ def fleet_run(r: FleetRun) -> dict:
     for step in steps:
         for k in ("shards_before", "shards_after"):
             step[k] = {str(t): n for t, n in step[k].items()}
+    r.next_round = rnd
     return {"steps": steps, "epochs": epochs,
             "epoch_launches": epoch_launches,
             "halted_distributors": len(dds) - 1,
@@ -8141,6 +8155,287 @@ def fleet_run(r: FleetRun) -> dict:
             "replayed_batches": replayed, "replay_s": replay_s,
             "phase_s": time.perf_counter() - t_start,
             "launches": launches}
+
+
+# ------------------------------------- phase 30: the coordinators change
+# Phase 29's cluster after its last step (phase 28's when phase 29 does
+# not run): three coordinators added, change_coordinators to them (the
+# management API's probe, then \xff/coordinators committed); the master's
+# watch seeds the new quorum, forwards the old one and ends the epoch;
+# every old coordinator answers with the forward; a ReadWrite round; every
+# old coordinator's process and the master's killed; recovery on the new
+# quorum alone; a second round; every acknowledged write read back from
+# every replica, and every epoch's batches replayed through a CPU plane.
+COORD_NEW = 3
+
+
+def coord_run(r: FleetRun) -> dict:
+    """Phase 30's steps on `r`'s cluster; the figures, with the run's
+    launches under "launches"."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.client.management import (
+        change_coordinators, get_coordinators)
+    from foundationdb_tpu_torch.core.scheduler import delay
+    from foundationdb_tpu_torch.server.coordination import normalize_spec
+    c, loop = r.c, r.loop
+    t_start = time.perf_counter()
+    rnd = r.next_round
+    e0 = c.current_cc().db_info.epoch
+    epochs = [e0]
+    epoch_launches = {}
+    rounds = []
+    old = list(c.coordinators)
+    new = [c.add_coordinator(name=f"newcoord{i}") for i in range(COORD_NEW)]
+    spec = c.spec_of(new)
+
+    def model() -> dict:
+        out = {}
+        for _v, _i, _j, k, v in sorted(r.acked):
+            out[k] = v
+        return out
+
+    def new_epoch(e: int):
+        c.run_until(loop.spawn(r.until_serving(e + 1)),
+                    timeout=FLEET_SETTLE_S)
+        info = c.current_cc().db_info
+        r.infos[info.epoch] = info
+        epochs.append(info.epoch)
+        c.run_until(loop.spawn(r.until_client(info.epoch)),
+                    timeout=FLEET_SETTLE_S)
+        return info
+
+    def split(info, t) -> dict:
+        """Seconds from `t` (loop, wall) to accepting_commits, and by
+        recovery state, on both clocks."""
+        log_ = info.master.role.recovery_log
+        states = [x[0] for x in log_]
+        if states != list(RECOVERY_STATES):
+            raise AssertionError(f"epoch {info.epoch}: states {states}")
+        return {"epoch": info.epoch, "states": states,
+                "to_accepting_s": log_[-1][2] - t[1],
+                "to_accepting_virtual_s": log_[-1][1] - t[0],
+                "state_s": {log_[i][0]: log_[i + 1][2] - log_[i][2]
+                            for i in range(len(log_) - 1)},
+                "state_virtual_s": {log_[i][0]: log_[i + 1][1] - log_[i][1]
+                                    for i in range(len(log_) - 1)}}
+
+    def round_() -> dict:
+        nonlocal rnd
+        e = c.current_cc().db_info.epoch
+        before = sum(K.LAUNCHES.values())
+        r.round_s[rnd] = r.drive(rnd)
+        epoch_launches[e] = epoch_launches.get(e, 0) + \
+            sum(K.LAUNCHES.values()) - before
+        rate = r.rate(rnd)
+        rnd += 1
+        rounds.append(rate)
+        return rate
+
+    # 1-2. the change, committed, and read back.
+    c.run_until(loop.spawn(change_coordinators(r.db, spec)),
+                timeout=FLEET_SETTLE_S)
+    t_commit = (loop.now(), time.perf_counter())
+    got = c.run_until(loop.spawn(get_coordinators(r.db)),
+                      timeout=FLEET_SETTLE_S)
+    if got != spec:
+        raise AssertionError(f"committed spec {got!r} != {spec!r}")
+    moved = split(new_epoch(e0), t_commit)
+
+    # 3. every old coordinator answers with the forward.
+    async def forwarded():
+        waited = 0.0
+        while not all(sv._forward_spec() == spec for _p, sv in old):
+            if waited > FLEET_SETTLE_S:
+                raise AssertionError("phase 30: an old coordinator was "
+                                     "never forwarded")
+            await delay(0.05)
+            waited += 0.05
+    c.run_until(loop.spawn(forwarded()), timeout=FLEET_SETTLE_S + 60.0)
+    followed = normalize_spec(",".join(
+        f"{x.reg_read.address.ip}:{x.reg_read.address.port}"
+        for x in c.coordinator_clients))
+    if followed != spec:
+        raise AssertionError(f"the processes follow {followed}, not {spec}")
+
+    # 4. a round on the moved quorum.
+    round_()
+
+    # 5-6. every old coordinator and the master's process killed; the
+    # recovery on the new quorum alone, and a round.
+    info = c.current_cc().db_info
+    master_proc = c.process_of(info.master)
+    t_kill = (loop.now(), time.perf_counter())
+    for p, _sv in old:
+        c.sim.kill_process(p)
+    c.sim.kill_process(master_proc)
+    killed = split(new_epoch(info.epoch), t_kill)
+    killed["master_process"] = master_proc.name
+    round_()
+    if any(p.alive for p, _sv in old):
+        raise AssertionError("an old coordinator came back")
+    launches = dict(K.LAUNCHES)
+    if r.device == "cuda" and any(
+            epoch_launches.get(e, 0) <= 0 for e in epochs[1:]):
+        raise AssertionError(f"an epoch launched no kernel: "
+                             f"{epoch_launches}")
+
+    # Checks: every acknowledged write on every replica, each new epoch's
+    # resolvers on the device, every epoch's batches through a CPU plane.
+    # A storage worker re-polls a controller that broke its poll after a
+    # second of the loop's time, so its servers may still pull from the
+    # previous epoch's logs: wait until each live one follows this epoch.
+    last = c.current_cc().db_info.epoch
+
+    async def following():
+        waited = 0.0
+        while any(ss.log_epoch < last
+                  for ss in fleet_roles(c, "StorageServer")
+                  if c.process_of(ss.interface).alive):
+            if waited > FLEET_SETTLE_S:
+                raise AssertionError("phase 30: a storage server never "
+                                     f"followed epoch {last}")
+            await delay(0.05)
+            waited += 0.05
+    c.run_until(loop.spawn(following()), timeout=FLEET_SETTLE_S + 60.0)
+    t0 = time.perf_counter()
+    version = c.run_until(loop.spawn(
+        r.db.create_transaction()._ensure_read_version()))
+    rows = fleet_read_back(c, model(), version)
+    readback_s = time.perf_counter() - t0
+    for e in epochs[1:]:
+        for ri in r.infos[e].resolvers:
+            check_supervised(ri.role.conflict_set, ri.role.resolved_batches,
+                             "TorchConflictSet", r.device)
+    t1 = time.perf_counter()
+    replayed = replay_epochs(r.records, r.infos, epochs,
+                             r.config.n_commit_proxies)
+    replay_s = time.perf_counter() - t1
+    r.next_round = rnd
+    return {"spec": spec, "old": [p.name for p, _sv in old],
+            "epochs": epochs, "epoch_launches": epoch_launches,
+            "commit_to_accepting": moved, "kill_to_accepting": killed,
+            "rounds": rounds, "readback_rows": rows,
+            "readback_s": readback_s, "replayed_batches": replayed,
+            "replay_s": replay_s,
+            "phase_s": time.perf_counter() - t_start,
+            "launches": launches}
+
+
+# ------------------------------------------------ phase 31: the simulator
+# The port's own run_simulation (foundationdb_tpu_torch/testing/tester.py)
+# with every Resolver role's supervised set on the card at the factory's
+# default capacity, seed 107, the specs at their own sizes: one unrecorded
+# ChaosTest run first (the CUDA context, the caching allocator and the
+# libraries warm before anything is compared), then CycleTest once,
+# ChaosTest twice (equal unseeds, digests, folds and metrics, an empty
+# audit, a fault loop fired) and SerializabilityTest once.  Every set's
+# batches of every run are replayed through an OracleConflictSet from the
+# same floor, codes equal; no set degrades or falls back.
+SIM_SEED = 107
+SIM_RUNS = ("CycleTest", "ChaosTest", "ChaosTest", "SerializabilityTest")
+
+
+def simulator_run(device: str = DEVICE, warm: bool = True,
+                  runs=SIM_RUNS, **set_kwargs) -> dict:
+    """Phase 31's runs; the figures, with the launches of the recorded
+    runs under "launches"."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+    from foundationdb_tpu_torch.server import resolver as resolver_mod
+    from foundationdb_tpu_torch.testing.tester import (_divergence_report,
+                                                       run_simulation)
+    specs = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests", "specs")
+    orig_new = resolver_mod.new_conflict_set
+    sets = []
+
+    def recording(backend=None, oldest_version=0, **kw):
+        cs = orig_new(backend, oldest_version=oldest_version, **kw)
+        entry = {"oldest": oldest_version, "calls": [], "cs": cs}
+        inner = cs.resolve_with_conflicts
+
+        def rec(txns, now, new_oldest_version=None):
+            out = inner(txns, now, new_oldest_version=new_oldest_version)
+            entry["calls"].append((list(txns), now, new_oldest_version,
+                                   [int(x) for x in out[0]]))
+            return out
+        cs.resolve_with_conflicts = rec
+        sets.append(entry)
+        return cs
+
+    def one(name: str) -> tuple:
+        with open(os.path.join(specs, f"{name}.toml")) as f:
+            text = f.read()
+        del sets[:]
+        rep = run_simulation(text, SIM_SEED, device=device, **set_kwargs)
+        if rep.nondeterminism:
+            raise AssertionError(f"{name}: audit {rep.nondeterminism}")
+        # Every set's batches through an oracle from the same floor.
+        batches = 0
+        for entry in sets:
+            check_supervised(entry["cs"], len(entry["calls"]),
+                             "TorchConflictSet", device)
+            oracle = OracleConflictSet(entry["oldest"])
+            for b, (txns, now, floor_, got) in enumerate(entry["calls"]):
+                want = [int(x) for x in oracle.resolve_with_conflicts(
+                    txns, now, new_oldest_version=floor_)[0]]
+                if want != got:
+                    raise AssertionError(
+                        f"{name}: batch {b} at {now}: "
+                        f"{sum(x != y for x, y in zip(want, got))} of "
+                        f"{len(got)} codes differ from the oracle's")
+                batches += 1
+        fig = {"spec": name, "wall_s": rep.wall_s,
+               "virtual_s": rep.virtual_s, "unseed": f"{rep.unseed:#010x}",
+               "digest": f"{rep.digest:#010x}", "folds": rep.folds,
+               "sets": len(sets), "batches": batches,
+               "slow_tasks": len(rep.slow_tasks),
+               "slowest_callback": list(rep.slowest_callback),
+               "metrics": rep.metrics}
+        return rep, fig
+
+    resolver_mod.new_conflict_set = recording
+    try:
+        warm_fig = None
+        if warm:
+            _rep, warm_fig = one("ChaosTest")
+            del warm_fig["metrics"]
+        K.reset_counts()
+        reps, figs = [], []
+        for name in runs:
+            rep, fig = one(name)
+            reps.append(rep)
+            figs.append(fig)
+        launches = dict(K.LAUNCHES)
+    finally:
+        resolver_mod.new_conflict_set = orig_new
+    chaos = [rep for rep, fig in zip(reps, figs) if fig["spec"] ==
+             "ChaosTest"]
+    for a, b in zip(chaos, chaos[1:]):
+        if (a.unseed, a.digest, a.folds) != (b.unseed, b.digest, b.folds):
+            raise AssertionError(_divergence_report(a, b))
+        if a.metrics != b.metrics:
+            raise AssertionError(f"metrics {a.metrics} != {b.metrics}")
+    for rep, fig in zip(reps, figs):
+        m = rep.metrics
+        if "Cycle" in m and m["Cycle"]["swaps"] <= 0:
+            raise AssertionError(f"{fig['spec']}: no Cycle swap")
+        if "ChaosNemesis" in m and sum(m["ChaosNemesis"].values()) <= 0:
+            raise AssertionError(f"{fig['spec']}: no fault loop fired")
+        if "ReadWrite" in m and m["ReadWrite"]["operations"] <= 0:
+            raise AssertionError(f"{fig['spec']}: no ReadWrite operation")
+    return {"runs": figs, "warm": warm_fig, "launches": launches}
+
+
+def simulator_path(smi: str) -> tuple:
+    """Phase 31 on the card; its launches and figures (the path_simulation
+    line)."""
+    figures = simulator_run(DEVICE)
+    launches = figures.pop("launches")
+    figures["launches"] = {k: v for k, v in launches.items() if v}
+    figures["card"] = smi
+    print(f"path_simulation: {json.dumps(figures)}", flush=True)
+    return launches, figures
 
 
 def main() -> int:
@@ -8286,7 +8581,7 @@ def main() -> int:
     phase_done("client")
     log("phase 25: faults on the simulated network (ReadWrite, a storage "
         "process killed, a resolver's process clogged)")
-    launches["sim"], path_sim = sim_path(smi)
+    launches["simnet"], path_sim = sim_path(smi)
     phase_done("simulated network faults")
     log("phase 26: the Resolver over TCP in another OS process")
     launches["wire"], path_wire = wire_path(
@@ -8300,14 +8595,21 @@ def main() -> int:
     log("phase 28: recovery (the master's, a resolver's, a TLog's and the "
         "cluster controller's processes killed in turn, under ReadWrite), "
         "and the native set beside the card")
-    paths, path_recovery, path_fleet = recovery_path(smi)
+    paths, path_recovery, path_fleet, path_coordinators = \
+        recovery_path(smi)
     launches.update(paths)
-    phase_done("teardown of the phase 28-29 cluster")
+    phase_done("teardown of the phase 28-30 cluster")
+    log("phase 31: the port's simulator (CycleTest, the ChaosTest double "
+        "run, SerializabilityTest) with the Resolver roles on the card")
+    launches["sim"], path_simulation = simulator_path(smi)
+    phase_done("simulator")
 
     for row in rows:
         by_path = {p: launches[p][row["name"]] for p in PATH_KERNELS}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        row["coord"] = by_path["coord"]
+        row["sim"] = by_path["sim"]
         for at in row.get("at_shapes", []):
             if "path" in at:  # the probes' shapes: that path's calls
                 at["launches_on_path"] = by_path[at["path"]]
@@ -8343,6 +8645,8 @@ def main() -> int:
                       "path_dd": path_dd,
                       "path_recovery": path_recovery,
                       "path_fleet": path_fleet,
+                      "path_coordinators": path_coordinators,
+                      "path_simulation": path_simulation,
                       "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

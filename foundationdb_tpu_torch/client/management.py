@@ -10,9 +10,9 @@ transaction through the client: the operator has no private channel
 into the cluster, so a change survives what the database survives.
 
 Kept: _retrying, exclude_servers, include_servers, excluded_servers,
-change_configuration and get_configuration.  Left out: lock_database and
-unlock_database (the port's proxies keep no lock), change_coordinators
-and get_coordinators (the coordinators change), set_knob and
+change_configuration, get_configuration, change_coordinators (:136) and
+get_coordinators (:175).  Left out: lock_database and
+unlock_database (the port's proxies keep no lock), set_knob and
 get_knob_overrides (the knobs as data), and cache_range and
 uncache_range (the storage caches).
 
@@ -27,8 +27,9 @@ from __future__ import annotations
 
 from typing import Iterable, List, Optional
 
-from ..core.error import FdbError
-from ..server.system_data import (CONF_END, CONF_PREFIX, EXCLUDED_END,
+from ..core.error import FdbError, err
+from ..server.system_data import (CONF_END, CONF_PREFIX, COORDINATORS_KEY,
+                                  EXCLUDED_END,
                                   EXCLUDED_PREFIX, conf_key, excluded_key)
 
 
@@ -104,4 +105,49 @@ async def get_configuration(db) -> dict:
         rows = await t.get_range(CONF_PREFIX, CONF_END)
         return {k[len(CONF_PREFIX):].decode(): v for k, v in rows
                 if not k.startswith(EXCLUDED_PREFIX)}
+    return await _retrying(db, go)
+
+
+async def change_coordinators(db, new_spec: str) -> None:
+    """changeQuorum (reference ManagementAPI changeQuorumChecker): check
+    that the target quorum answers a coordinated read, then commit the
+    new connection spec to \\xff/coordinators.  The master seeds the new
+    quorum, forwards the old one and ends its epoch; workers and clients
+    follow the forward replies (server/coordination.py
+    move_coordinated_state)."""
+    from ..server.coordination import (CoordinatedState, normalize_spec,
+                                       parse_spec)
+    new_spec = normalize_spec(new_spec)   # the committed form is canonical
+    coords = parse_spec(new_spec)
+    if not coords:
+        raise err("client_invalid_operation", "empty coordinator spec")
+    cur_coords = getattr(db.cluster, "coordinators", None) or []
+    cur_addrs = {(c.reg_read.address.ip, c.reg_read.address.port)
+                 for c in cur_coords
+                 if getattr(c.reg_read, "address", None) is not None}
+    new_addrs = {(c.reg_read.address.ip, c.reg_read.address.port)
+                 for c in coords}
+    if cur_addrs & new_addrs:
+        raise err("client_invalid_operation",
+                  "new quorum must not share members with the current one "
+                  "(change in two disjoint steps)")
+    probe = CoordinatedState(coords)
+    try:
+        await probe.read()
+    except FdbError as e:
+        if e.name == "coordinators_changed":
+            raise err("client_invalid_operation",
+                      f"target quorum {new_spec} is itself forwarded")
+        raise
+
+    async def go(t):
+        t.set(COORDINATORS_KEY, new_spec.encode())
+    await _retrying(db, go)
+
+
+async def get_coordinators(db) -> str:
+    """The committed coordinator spec ("" before any change)."""
+    async def go(t):
+        raw = await t.get(COORDINATORS_KEY)
+        return raw.decode() if raw else ""
     return await _retrying(db, go)

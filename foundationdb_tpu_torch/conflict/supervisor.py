@@ -70,7 +70,7 @@ from ..core.buggify import buggify
 from ..core.error import FdbError, err
 from ..core.histogram import CounterCollection
 from ..core.knobs import server_knobs
-from ..core.scheduler import current_event_loop_or_none
+from ..core.scheduler import EventLoop, current_event_loop_or_none
 from ..core.trace import Severity, TraceEvent
 # Single source of truth for the digest geometry (ops/digest.py): the
 # 8-byte tenant-salt column + 23 relative bytes digest exactly, so only
@@ -117,11 +117,15 @@ def _now() -> float:
 
 
 def _wall() -> float:
-    """Device-profiling clock: WALL time on purpose, even under sim.
-    Device dispatch/wait and mirror resolves are real host/device work
-    whose cost the TorchBackend histograms must report in real seconds;
-    none of these readings feed back into scheduling or verdicts, so
-    seeded runs still replay identically."""
+    """Device-profiling clock: wall time, so the dispatch, wait and
+    mirror histograms report real host and device seconds; under the
+    port's own simulation (a sim-mode port EventLoop installed) the
+    loop's virtual time instead, so no wall-clock read happens inside a
+    simulated run (testing/tester.py NondeterminismAudit) and nothing
+    the run folds can depend on one."""
+    loop = current_event_loop_or_none()
+    if isinstance(loop, EventLoop) and loop.sim:
+        return loop.now()
     return _time.monotonic()
 
 

@@ -37,6 +37,7 @@ ERROR_CODES = {
     "broken_promise": 1100,
     "operation_cancelled": 1101,
     "master_recovery_failed": 1201,
+    "coordinators_changed": 1203,
     "movekeys_conflict": 1208,
     "io_error": 1510,
     "client_invalid_operation": 2000,

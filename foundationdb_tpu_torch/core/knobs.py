@@ -175,6 +175,10 @@ class ServerKnobs:
         # candidacy within COORD_CANDIDACY_LEASE_S seconds.
         self.COORD_CANDIDACY_LEASE_S = 3.0
 
+        # The simulated disk's ambient fault profile (the reference's
+        # :388), attached to fresh files when its BUGGIFY site fires.
+        self.SIM_DISK_LATENCY_SPIKE_P = 0.01
+
         # The transport (the reference's :127 and :283): per-peer health
         # samples on every send, and the columnar frames of the hot
         # messages (decoding reads either format whatever this says).

@@ -27,9 +27,13 @@ do for the supervisor's clock and its metrics actor (a caller may install
 the reference's loop); with no loop installed, now() is monotonic wall
 time and the others raise.
 
-Left out: the run digest's fold of each dispatched task and the callback
-hook of the reference's slow-task profiler, which belong to its
-simulator's unseed check; and PollBackoff.
+In sim mode each dispatched task's (time, seq) folds into the run digest
+that was current when the loop was made (core/rng.py RunDigest, the
+simulator's unseed check); `callback_hook`, when set, is handed every
+dispatched callback and must call it (core/profiler.py's slow-task
+detector).
+
+Left out: PollBackoff.
 """
 
 from __future__ import annotations
@@ -82,12 +86,23 @@ class EventLoop:
         # __next__ is one C call (a __del__-driven broken promise may
         # schedule from whatever thread the collector runs on).
         self._seq_counter = itertools.count(1)
+        # The run digest this loop's world belongs to (sim mode only).
+        from .rng import run_digest
+        self._run_digest = run_digest() if sim else None
+        # Wraps each dispatched callback when set (core/profiler.py).
+        self.callback_hook = None
         self._tasks: set = set()
         self._stopped = False
         # The real-IO half (reference Net2: the reactor fused with the
         # task queue, Net2.actor.cpp:1400 Net2::run); real mode only.
         self._selector = None
         self._io_cbs: dict = {}   # fileobj -> [reader_cb, writer_cb]
+
+    def _dispatch(self, fn) -> None:
+        if self.callback_hook is None:
+            fn()
+        else:
+            self.callback_hook(fn)
 
     # -- real-IO reactor (real mode only) ------------------------------------
     def _sel(self):
@@ -145,10 +160,10 @@ class EventLoop:
             if cbs is None:
                 continue
             if (mask & selectors.EVENT_READ) and cbs[0] is not None:
-                cbs[0]()
+                self._dispatch(cbs[0])
                 ran = True
             if (mask & selectors.EVENT_WRITE) and cbs[1] is not None:
-                cbs[1]()
+                self._dispatch(cbs[1])
                 ran = True
         return ran
 
@@ -231,14 +246,15 @@ class EventLoop:
         if self.sim:
             if not self._heap:
                 return False
-            when, _negprio, _seq, fn = self._heap[0]
+            when, _negprio, seq, fn = self._heap[0]
             if deadline is not None and when > deadline:
                 self._time = deadline
                 return False
             heapq.heappop(self._heap)
             if when > self._time:
                 self._time = when
-            fn()
+            self._run_digest.fold_task(when, seq)
+            self._dispatch(fn)
             return True
         # Real mode: wait for whichever comes first -- the next timer, the
         # deadline or IO readiness -- running IO as it arrives (reference
@@ -268,7 +284,7 @@ class EventLoop:
             if when is None:
                 continue                    # IO only: keep waiting
         _when, _negprio, _seq, fn = heapq.heappop(self._heap)
-        fn()
+        self._dispatch(fn)
         return True
 
     def stop(self) -> None:

@@ -2,7 +2,15 @@
 
 TraceEvent builds one record and log() appends it to an in-process ring
 that tests read with `recent_events()`.  The ring is the port's own: its
-events never reach another package's tracer or any simulation digest.
+events never reach another package's tracer.
+
+In sim mode log() folds the event's type and time (not its details,
+which may carry nondeterministic ids) into the run digest of the
+installed loop (reference Tracer.emit, trace.py:95-105).  Unlike the
+reference, the types in UNFOLDED_TYPES are never folded: a wall clock
+decides whether they are logged at all (core/profiler.py's SlowTask), so
+folding them would make a same-seed double run's digest depend on the
+host's load.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ class Severity:
 
 
 _ring: Deque[Dict[str, Any]] = deque(maxlen=RING_SIZE)
+
+#: Event types whose logging a wall clock decides: kept out of the digest.
+UNFOLDED_TYPES = frozenset({"SlowTask", "ProfilerHotStack"})
 
 
 class TraceEvent:
@@ -50,6 +61,12 @@ class TraceEvent:
     def log(self) -> None:
         if not self._logged:
             self._logged = True
+            from .scheduler import EventLoop, current_event_loop_or_none
+            loop = current_event_loop_or_none()
+            if isinstance(loop, EventLoop) and loop.sim and \
+                    self._event["Type"] not in UNFOLDED_TYPES:
+                loop._run_digest.fold_event(self._event["Type"],
+                                            self._event["Time"])
             _ring.append(self._event)
 
     def __del__(self) -> None:  # auto-log on drop, like the reference

@@ -8,9 +8,10 @@ ONE OS process sharing the deterministic event loop; process boundaries are
 the SimNetwork's latency/failure model plus actor-cancellation on kill.
 
 Each machine carries its simulated file system (server/sim_fs.py, the
-port's trimmed copy: synchronous files whose un-synced writes a power
-failure drops), reached through fs_for(process); power_fail_machine and
-power_fail_all kill processes and drop those writes.  Left out:
+port's copy: synchronous files whose un-synced writes a power failure
+keeps, drops or tears), reached through fs_for(process);
+power_fail_machine and power_fail_all kill processes and fail those
+writes.  Left out:
 wipe_machine.
 """
 

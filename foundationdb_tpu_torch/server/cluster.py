@@ -667,9 +667,11 @@ class SimFdbCluster:
     its TLogs and storage engines and power_fail_reboot() boots the
     cluster again from what was synced.
 
+    add_coordinator and spec_of (:363-378) start the coordinators a
+    quorum change moves to and name them.
+
     Left out: a second cluster in the same simulation (the reference's
-    `sim` and `name_prefix`), add_coordinator and spec_of (the
-    coordinators change)."""
+    `sim` and `name_prefix`)."""
 
     def __init__(self, config=None, n_workers: int = 4,
                  n_storage_workers: int = 2, n_coordinators: int = 3,
@@ -838,6 +840,26 @@ class SimFdbCluster:
                                 p_old.process_class == "stateless"),
             change_id=self._bump_change_id())
         return p
+
+    def add_coordinator(self, name: Optional[str] = None):
+        """Start one more coordination server mid-run (a quorum change's
+        target must serve its registers before the management probe
+        reaches it); returns (process, server)."""
+        from .coordination import CoordinationServer
+        i = len(self.coordinators)
+        name = name or f"coord{i}"
+        p = self.sim.new_process(name=name, machineid=f"mach.{name}",
+                                 process_class="coordinator")
+        server = CoordinationServer(name, fs=self.sim.fs_for(p))
+        server.run(p)
+        self.coordinators.append((p, server))
+        return p, server
+
+    @staticmethod
+    def spec_of(pairs) -> str:
+        """The connection spec "ip:port,..." of (process, server) pairs."""
+        return ",".join(f"{p.address.ip}:{p.address.port}"
+                        for p, _ in pairs)
 
     def add_worker(self, pclass: str = "stateless",
                    name: Optional[str] = None, campaign: bool = False,

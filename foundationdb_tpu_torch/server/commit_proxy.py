@@ -61,8 +61,8 @@ CommitConflictDetail trace of an aborted debug_id txn; the pipelining
 gates (a logged commit() runs its batch to the end within the call, the
 batcher waits for one batch before it closes the next; both refuse a
 batch over COMMIT_TRANSACTION_BATCH_COUNT_MAX, and StaticCluster.commit
-cuts requests to it); the latency histograms; and the core/coverage.py
-test_coverage calls, which belong to the simulator.  Its counters are the sched stages', the batcher's
+cuts requests to it); and the latency histograms.  Its counters are the
+sched stages', the batcher's
 (CommitBatches, CommitBatchTxns) and the replies' (TxnCommitted,
 TxnConflicted, TxnTooOld, the reference's).
 
@@ -89,6 +89,7 @@ from bisect import bisect_right
 from time import perf_counter
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..core.coverage import test_coverage
 from ..core.error import FdbError, err
 from ..core.futures import Future, wait_all
 from ..core.histogram import CounterCollection
@@ -516,6 +517,7 @@ class CommitProxy:
         if moved:
             batch = [batch[i] for i in order]
             self.metrics.counter("ReorderSwaps").add(moved)
+            test_coverage("ProxyBatchReordered")
         return batch
 
     def _send_replies(self, batch, verdicts, conflict_ranges,
@@ -541,6 +543,7 @@ class CommitProxy:
                         self._repair_ladder.note_success(
                             (r.begin, r.end) for r in
                             req.transaction.read_conflict_ranges)
+                    test_coverage("ProxyTxnRepairCommitted")
                 req.reply.send(CommitID(version=commit_version,
                                         txn_batch_id=batch_num,
                                         txn_batch_index=t_idx))
@@ -597,8 +600,10 @@ class CommitProxy:
                 # Ladder backoff gates CLIMBS only (rung 2+): the first
                 # repair of any abort stays unconditional.
                 self.metrics.counter("RepairBackedOff").add(1)
+                test_coverage("ProxyRepairBackedOff")
                 continue
             self.metrics.counter("RepairAttempted").add(1)
+            test_coverage("ProxyTxnRepaired")
             repaired.add(t_idx)
             out.append(CommitTransactionRequest(
                 transaction=dataclasses.replace(

@@ -21,10 +21,11 @@ CoordinationServer (:111) over the port's KVStoreMemory (synchronous: a
 register's state is committed before the reply that promises it),
 CoordinationClientInterface (:405), parse_spec / normalize_spec,
 CoordinatedState (:479), try_become_leader (:643), monitor_leader (:711)
-and _lead (:760).  Left out: the coordinators change
-(move_coordinated_state :562, the forward marker pack_forward /
-unpack_forward, _follow_forward, set_forward_hook): a register never
-holds a forward here, so no reply is a forward.
+and _lead (:760), and the coordinators change: the forward marker
+(pack_forward / unpack_forward :445), a forwarded register's replies
+(_forward_spec), move_coordinated_state (:562) and _follow_forward
+(:629).  Left out: set_forward_hook (:624) and the on_forward arguments,
+whose only caller is the cluster-file rewriter of fdbserver.py.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..core.buggify import buggify
-from ..core.error import err
+from ..core.error import FdbError, err
 from ..core.futures import Future, Promise, swallow, wait_any
 from ..core.rng import deterministic_random
 from ..core.scheduler import TaskPriority, delay, now
@@ -208,9 +209,34 @@ class CoordinationServer:
                 self._reg[req.key] = (req.value, req.gen, max(rgen, req.gen))
                 await self._persist(req.key)
                 req.reply.send(GenRegWriteReply(gen=req.gen))
+                # A forward write deposes any elected leader and redirects
+                # every waiting candidate and observer at once.
+                spec = (unpack_forward(req.value)
+                        if req.key == CSTATE_KEY else None)
+                if spec is not None:
+                    TraceEvent("CoordinatorForwarded").detail(
+                        "Id", self.id).detail("NewSpec", spec).log()
+                    self._set_nominee(LEADER_KEY, LeaderInfo(
+                        change_id=-2, serialized_info=spec, forward=True))
             else:
                 # Refused: the winning generation tells the caller it lost.
                 req.reply.send(GenRegWriteReply(gen=max(vgen, rgen)))
+
+    def _forward_spec(self) -> Optional[str]:
+        """The new connection spec if a quorum change forwarded this
+        coordinator's cstate register, else None."""
+        value, _, _ = self._reg.get(CSTATE_KEY,
+                                    (None, Generation(), Generation()))
+        return unpack_forward(value)
+
+    def _forward_reply(self, req) -> bool:
+        """Answer `req` with the forward when the register holds one."""
+        spec = self._forward_spec()
+        if spec is None:
+            return False
+        req.reply.send(LeaderInfo(change_id=-2, serialized_info=spec,
+                                  forward=True))
+        return True
 
     # -- leader election -----------------------------------------------------
     def _best_candidate(self, key: bytes) -> Optional[LeaderInfo]:
@@ -238,6 +264,8 @@ class CoordinationServer:
                                 f"{self.id}.candidacy")
 
     async def _handle_candidacy(self, req: CandidacyRequest) -> None:
+        if self._forward_reply(req):
+            return
         self._candidates.setdefault(req.key, {})[
             req.my_info.change_id] = req.my_info
         self._cand_time.setdefault(req.key, {})[
@@ -258,6 +286,8 @@ class CoordinationServer:
         req.reply.send(await p.get_future())
 
     def _maybe_renominate(self, key: bytes) -> None:
+        if self._forward_spec() is not None:
+            return                      # forwarded: never elect again
         cur = self._nominee.get(key)
         best = self._best_candidate(key)
         stale = (cur is not None and
@@ -272,6 +302,8 @@ class CoordinationServer:
                                 f"{self.id}.leaderGet")
 
     async def _handle_leader_get(self, req: LeaderGetRequest) -> None:
+        if self._forward_reply(req):
+            return
         nominee = self._nominee.get(req.key)
         if nominee is not None and \
                 nominee.change_id != req.known_leader_change_id:
@@ -283,6 +315,9 @@ class CoordinationServer:
 
     async def _serve_heartbeat(self) -> None:
         async for req in self.heartbeat.queue:
+            if self._forward_spec() is not None:
+                req.reply.send(False)     # forwarded: depose the leader
+                continue
             cur = self._nominee.get(req.key)
             if cur is not None and cur.change_id == req.my_info.change_id:
                 self._last_heartbeat[req.key] = now()
@@ -297,6 +332,8 @@ class CoordinationServer:
         from ..core.knobs import server_knobs
         while True:
             await delay(1.0)
+            if self._forward_spec() is not None:
+                continue
             lease = float(server_knobs().COORD_CANDIDACY_LEASE_S)
             for key in list(self._candidates):
                 cands = self._candidates.get(key, {})
@@ -389,6 +426,23 @@ def normalize_spec(spec: str) -> str:
 
 CSTATE_KEY = b"dbCoreState"
 
+# The forward marker a quorum change writes into the old quorum's cstate
+# register (reference MovableValue::MovedFrom and LeaderInfo.forward): a
+# forwarded coordinator answers every cstate read and election request
+# with the new connection spec.
+FORWARD_MAGIC = b"\xffMOVEDTO\xff"
+
+
+def pack_forward(spec: str) -> bytes:
+    return FORWARD_MAGIC + spec.encode()
+
+
+def unpack_forward(value) -> Optional[str]:
+    if isinstance(value, (bytes, bytearray)) and \
+            bytes(value[:len(FORWARD_MAGIC)]) == FORWARD_MAGIC:
+        return bytes(value[len(FORWARD_MAGIC):]).decode()
+    return None
+
 
 class CoordinatedState:
     """Two-phase quorum state machine over the coordinators."""
@@ -444,7 +498,14 @@ class CoordinatedState:
             if lost:
                 continue
             self._gen = gen
-            return best.value if best else None
+            value = best.value if best else None
+            spec = unpack_forward(value)
+            if spec is not None:
+                e = err("coordinators_changed",
+                        f"coordinated state moved to {spec}")
+                e.new_spec = spec
+                raise e
+            return value
 
     async def write(self, value: bytes) -> None:
         """Phase 2: quorum write at the read generation; raises
@@ -460,11 +521,59 @@ class CoordinatedState:
                       "another process wrote the coordinated state")
 
 
+async def move_coordinated_state(cstate: CoordinatedState,
+                                 new_spec: str) -> None:
+    """Quorum change (reference changeQuorum + MovableCoordinatedState):
+    seed the new quorum with the current DBCoreState, then forward the
+    old quorum.  Run by the master when the committed \\xff/coordinators
+    differs from the quorum it recovered on; the epoch ends right after.
+    Before the forward write the old quorum stays authoritative (the
+    seeded copy is inert); once it lands every reader finds the new
+    spec."""
+    new_coords = parse_spec(new_spec)
+    old_addrs = {(c.reg_read.address.ip, c.reg_read.address.port)
+                 for c in cstate.coordinators
+                 if getattr(c.reg_read, "address", None) is not None}
+    new_addrs = {(c.reg_read.address.ip, c.reg_read.address.port)
+                 for c in new_coords}
+    if old_addrs & new_addrs:
+        # A coordinator in both quorums would hold one cstate register for
+        # the seeded state and the forward marker at once.
+        raise err("client_invalid_operation",
+                  "new quorum must not share members with the old one "
+                  f"(shared: {sorted(old_addrs & new_addrs)})")
+    cur = await cstate.read()     # fresh generation; raises if moved
+    packed = (bytes(cur) if isinstance(cur, (bytes, bytearray))
+              else cur.pack() if cur is not None else None)
+    cs_new = CoordinatedState(new_coords)
+    try:
+        await cs_new.read()
+    except FdbError as e:
+        if e.name != "coordinators_changed":
+            raise
+        raise err("coordinated_state_conflict",
+                  f"target quorum {new_spec} is itself forwarded")
+    if packed is not None:
+        await cs_new.write(packed)
+    await cstate.write(pack_forward(new_spec))
+    TraceEvent("CoordinatorsMoved").detail("NewSpec", new_spec).log()
+
+
 # ---------------------------------------------------------------------------
 # Leader election client (reference fdbserver/LeaderElection.h:40)
 # ---------------------------------------------------------------------------
 
 LEADER_KEY = b"clusterLeader"
+
+def _follow_forward(coordinators: List[CoordinationClientInterface],
+                    spec: str) -> None:
+    """Redirect to a moved quorum: swap the shared coordinator list in
+    place (workers, the master and clients hold the same list object), so
+    whichever of a process's loops sees a forward first redirects them
+    all."""
+    TraceEvent("CoordinatorsForwardFollowed", Severity.Warn).detail(
+        "NewSpec", spec).log()
+    coordinators[:] = parse_spec(spec)
 
 
 async def try_become_leader(coordinators: List[CoordinationClientInterface],
@@ -473,8 +582,9 @@ async def try_become_leader(coordinators: List[CoordinationClientInterface],
                             change_id: Optional[int] = None) -> None:
     """Campaign forever: register candidacy with every coordinator;
     whoever a majority nominates is leader.  If we are, heartbeat until
-    deposed; `out_current_leader` follows the majority's leader.  Runs
-    until cancelled."""
+    deposed; `out_current_leader` follows the majority's leader.  A
+    forward reply swaps the coordinator list in place and campaigns on
+    the new quorum.  Runs until cancelled."""
     my_info = LeaderInfo(
         change_id=(change_id if change_id is not None
                    else deterministic_random().random_int(0, 1 << 30)),
@@ -486,6 +596,10 @@ async def try_become_leader(coordinators: List[CoordinationClientInterface],
                              known_leader_change_id=known_change_id))
             for c in coordinators]
         elected = await _majority_nominee(futures, len(coordinators))
+        if elected is not None and elected.forward:
+            _follow_forward(coordinators, elected.serialized_info)
+            known_change_id = -1
+            continue
         if elected is None:
             await delay(0.5)
             continue
@@ -506,9 +620,9 @@ async def try_become_leader(coordinators: List[CoordinationClientInterface],
 
 async def _majority_nominee(futures: List[Future], n: int,
                             give_up: bool = False) -> Optional[LeaderInfo]:
-    """The nominee a majority of the `n` registers answers with, or None
-    when the answers run out first (`give_up`: also once too many failed
-    for a majority)."""
+    """The nominee a majority of the `n` registers answers with, the first
+    forward any register answers with, or None when the answers run out
+    first (`give_up`: also once too many failed for a majority)."""
     quorum = n // 2 + 1
     votes: Dict[int, int] = {}
     pending = list(futures)
@@ -524,6 +638,8 @@ async def _majority_nominee(futures: List[Future], n: int,
         nominee = f.get()
         if nominee is None:
             continue
+        if nominee.forward:
+            return nominee
         votes[nominee.change_id] = votes.get(nominee.change_id, 0) + 1
         if votes[nominee.change_id] >= quorum:
             return nominee
@@ -534,7 +650,8 @@ async def monitor_leader(coordinators: List[CoordinationClientInterface],
                          out_leader) -> None:
     """Track the elected leader without campaigning (reference
     MonitorLeader): `out_leader` (an AsyncVar) follows the majority's
-    nominee.  Runs until cancelled."""
+    nominee; a forward reply swaps the coordinator list in place.  Runs
+    until cancelled."""
     known_change_id = -1
     while True:
         futures = [RequestStream.at(c.leader_get).get_reply(
@@ -543,6 +660,10 @@ async def monitor_leader(coordinators: List[CoordinationClientInterface],
             for c in coordinators]
         elected = await _majority_nominee(futures, len(coordinators),
                                           give_up=True)
+        if elected is not None and elected.forward:
+            _follow_forward(coordinators, elected.serialized_info)
+            known_change_id = -1
+            continue
         if elected is not None and elected.change_id != known_change_id:
             known_change_id = elected.change_id
             out_leader.set(elected)

@@ -50,7 +50,7 @@ _set_wiggle_pos, _wiggle_one, _maybe_migrate_engine, _wiggle_loop),
 _check_removed and run().  Run with no ServerDBInfo (a StaticCluster's
 distributor), _recruit_replacement recruits nothing, the reference's own
 branch for that case: re-replication uses the surviving healthy servers.
-Left out: the coverage points.  The distributor records each move it
+The distributor records each move it
 makes (`move_log`) and counts its metadata transactions, recruitments,
 wiggles and engine migrations (`stats`).
 """
@@ -61,6 +61,7 @@ import bisect
 from time import perf_counter
 from typing import Any, Dict, List, Optional
 
+from ..core.coverage import test_coverage
 from ..core.error import FdbError, err
 from ..core.futures import Promise, wait_all
 from ..core.knobs import server_knobs
@@ -651,6 +652,7 @@ class DataDistributor:
                     self._shard_sizes.pop(b2, None)
                     self._shard_sizes[b1] = left + right
                     self.stats["merges"] += 1
+                    test_coverage("DDShardMerge")
                     TraceEvent("DDShardMerge").detail("At", b2).detail(
                         "Bytes", left + right).log()
                     merged = True

@@ -26,6 +26,7 @@ import struct
 import zlib
 from typing import List, Optional, Tuple
 
+from ..core.coverage import test_coverage
 from ..core.error import err
 from ..core.trace import Severity, TraceEvent
 
@@ -83,6 +84,7 @@ class DiskQueue:
         magic, hseq, popped, hlen, crc = _HDR.unpack(hdr)
         if magic != _MAGIC or hseq != seq or hlen != length or \
                 _frame_crc(hseq, popped, payload) != crc:
+            test_coverage("DiskQueueCrcCaught")
             TraceEvent("DiskQueueCorruptRecord", Severity.Error).detail(
                 "File", self.file.name).detail("Seq", seq).detail(
                 "Offset", offset).log()
@@ -129,6 +131,7 @@ class DiskQueue:
             payload = self.file.read(offset + _HDR.size, length)
             if _frame_crc(seq, popped, payload) != crc:
                 # Corrupt record: recovery keeps the valid prefix only.
+                test_coverage("DiskQueueCrcCaught")
                 TraceEvent("DiskQueueCrcMismatch", Severity.Warn).detail(
                     "File", self.file.name).detail("Seq", seq).log()
                 break                      # corrupt tail

@@ -38,8 +38,7 @@ Left out on purpose: the ratekeeper's tps and batch-tps budgets and
 their token buckets (every queued request is released), tag throttles,
 the predictor's deferral at GRV (the port defers at admit()), the
 confirm's timeout (a TLog that does not answer fails the batch's
-replies with its error), the latency histograms and the core/coverage.py
-test_coverage call, which belongs to the simulator.
+replies with its error) and the latency histograms.
 """
 
 from __future__ import annotations
@@ -47,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Iterable, List, Optional
 
+from ..core.coverage import test_coverage
 from ..core.error import FdbError, err
 from ..core.futures import Promise, wait_all
 from ..core.histogram import CounterCollection
@@ -217,6 +217,7 @@ class GrvProxy:
         req._sched_defers = defers + 1
         self._sched_deferred.append(req)
         self.metrics.counter("SchedDeferrals").add(1)
+        test_coverage("GrvSchedDeferral")
         return True
 
     def fold_conflict_heat(self, rows) -> None:

@@ -44,6 +44,7 @@ import bisect
 import zlib
 from typing import Dict, List, Optional, Tuple, Union
 
+from ..core.coverage import test_coverage
 from ..core.error import err
 from ..core.knobs import server_knobs
 from ..core.trace import Severity, TraceEvent
@@ -568,6 +569,7 @@ class KVStoreBTree(IKeyValueStore):
                 # The double-slot protocol's whole point: a torn or rotted
                 # header slot is DETECTED here and the other (older but
                 # intact) slot wins — never a half-written root.
+                test_coverage("BTreeSlotCrcCaught")
                 TraceEvent("BTreeHeaderSlotCorrupt", Severity.Warn).detail(
                     "File", self.file.name).detail("Slot", slot).log()
                 continue

@@ -59,16 +59,25 @@ steady state _config_change_watch (a commit proxy's nudge) and
 _config_poll (every 5 s of the loop's time) end the epoch on a field
 whose committed value differs from the recruited one.
 
+The coordinators change (:1841-1903): _coordinators_watch polls the
+committed \\xff/coordinators every 2 s of the loop's time; when it
+differs from the quorum this epoch recovered on, it seeds the new quorum
+with the core state, forwards the old one (coordination.py
+move_coordinated_state) and ends the epoch.
+
 Left out: the balancing loop (no master_server steps a balancer; a
 StaticCluster's caller steps it), the DBCoreState persistence of the
 moved boundaries, and of the recovery state machine: region failover and
 recruiting, storage caches, backup workers, TSS, tenants, the database
-lock, log routers and the coordinators watch.
+lock and log routers.
 """
 
 from __future__ import annotations
 
 import time
+# The recovery log's wall stamp, recorded for chip_smoke.py's report
+# only: nothing may ever branch on it.
+from time import perf_counter as _perf_counter
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -745,6 +754,58 @@ async def _config_poll(coordinators, config, static, seeded_fields: set,
         db.cluster.close()
 
 
+async def _coordinators_watch(coordinators, cstate,
+                              interval: float = 2.0) -> None:
+    """Return (ending the epoch) once the quorum moved: when the committed
+    \\xff/coordinators names another quorum than the one this epoch
+    recovered on, seed it with the core state and forward the old one.
+    A target that cannot take the move (it shares members with this
+    quorum) is traced and left alone: ending the epoch would retry it
+    forever."""
+    from ..client.database import ClusterConnection, Database
+    from ..client.management import _retrying
+    from ..core.scheduler import delay
+    from .coordination import move_coordinated_state, normalize_spec
+    from .system_data import COORDINATORS_KEY
+    parts = []
+    for c in coordinators:
+        addr = getattr(getattr(c, "reg_read", None), "address", None)
+        if addr is None:
+            return              # address-less coordinators cannot move
+        parts.append(f"{addr.ip}:{addr.port}")
+    cur_spec = ",".join(parts)
+    db = Database(ClusterConnection(coordinators))
+    try:
+        while True:
+            await delay(interval)
+
+            async def go(t):
+                return await t.get(COORDINATORS_KEY)
+            try:
+                raw = await _retrying(db, go)
+            except Exception:  # noqa: BLE001 -- mid-recovery: next round
+                continue
+            try:
+                want = normalize_spec(raw.decode()) if raw else ""
+            except (ValueError, UnicodeDecodeError):
+                continue        # an unparsable committed spec
+            if want and want != cur_spec:
+                TraceEvent("CoordinatorsChangeDetected").detail(
+                    "From", cur_spec).detail("To", want).log()
+                try:
+                    await move_coordinated_state(cstate, want)
+                except FdbError as e:
+                    if e.name != "client_invalid_operation":
+                        raise
+                    TraceEvent("CoordinatorsMoveRejected",
+                               Severity.Warn).detail("To", want).detail(
+                        "Error", str(e)).log()
+                    continue
+                return
+    finally:
+        db.cluster.close()
+
+
 async def master_server(master: Master, process, coordinators, config,
                         cc_interface) -> None:
     """One master epoch: recover through the five states, recruit every
@@ -755,9 +816,9 @@ async def master_server(master: Master, process, coordinators, config,
     `master.recovery_log` records each state entered, with the loop's
     time and the wall clock's (perf_counter), for the recovery's split.
     A write of the core state that loses to another master's
-    (coordinated_state_conflict) ends this one."""
-    from time import perf_counter
-
+    (coordinated_state_conflict) ends this one.  The wall stamps are
+    bound at import (_perf_counter) and only recorded: nothing here
+    branches on one."""
     from ..core.futures import swallow, wait_all, wait_any
     from ..core.rng import deterministic_random
     from ..core.scheduler import now, spawn
@@ -785,7 +846,7 @@ async def master_server(master: Master, process, coordinators, config,
 
     def enter(state: str, **details) -> None:
         master.recovery_state = state
-        master.recovery_log.append((state, now(), perf_counter()))
+        master.recovery_log.append((state, now(), _perf_counter()))
         ev = TraceEvent("MasterRecoveryState").detail("State", state)
         for k, v in details.items():
             ev.detail(k, v)
@@ -1148,13 +1209,18 @@ async def master_server(master: Master, process, coordinators, config,
         config_poll = spawn(
             _config_poll(coordinators, config, static_config,
                          seeded_fields), "master.confPoll")
+        coord_watch = spawn(_coordinators_watch(coordinators, cstate),
+                            "master.coordWatch")
         children.extend(role_failures)
-        children.extend([config_watch, config_poll])
-        idx, _ = await wait_any(role_failures + [config_watch, config_poll])
+        children.extend([config_watch, config_poll, coord_watch])
+        idx, _ = await wait_any(role_failures +
+                                [config_watch, config_poll, coord_watch])
+        reason = ("coordinators changed" if idx == len(role_failures) + 2
+                  else "configuration changed" if idx >= len(role_failures)
+                  else "recruited role failed")
         TraceEvent("MasterTerminated", Severity.Warn).detail(
-            "Epoch", master.epoch).detail(
-            "Reason", "configuration changed" if idx >= len(role_failures)
-            else "recruited role failed").detail("RoleIdx", idx).log()
+            "Epoch", master.epoch).detail("Reason", reason).detail(
+            "RoleIdx", idx).log()
     except FdbError as e:
         TraceEvent("MasterRecoveryFailed", Severity.Warn).detail(
             "Epoch", master.epoch).detail("Error", e.name).detail(

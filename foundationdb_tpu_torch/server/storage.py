@@ -88,6 +88,7 @@ from time import perf_counter
 from typing import Dict, List, Optional, Tuple
 
 from ..core.error import FdbError, err
+from ..core.coverage import test_coverage
 from ..core.knobs import server_knobs
 from ..core.scheduler import delay
 from ..core.trace import Severity, TraceEvent
@@ -539,6 +540,7 @@ class StorageServer:
                 self.shards.set_range(b, e, ("absent", 0))
                 closed += 1
         if closed:
+            test_coverage("SSDisownShardFence")
             TraceEvent("SSShardDisowned").detail("Id", self.id).detail(
                 "Begin", begin).detail("End", end).detail(
                 "Version", version).log()

@@ -49,6 +49,12 @@ EXCLUDED_END = b"\xff/conf/excluded0"
 # The exclusion list nests here and is not a configuration field.
 CONF_PREFIX = b"\xff/conf/"
 CONF_END = b"\xff/conf0"
+
+# The coordinators' connection spec as committed data (reference
+# \xff/coordinators, ManagementAPI changeQuorum): the management API
+# writes the new spec here and the master's _coordinators_watch moves
+# the coordinated state when it differs from the running quorum.
+COORDINATORS_KEY = b"\xff/coordinators"
 # The floor of storage tags, committed in the transaction that claims a
 # tag: no tag is issued twice across recoveries, even after a retired
 # tag's registry and exclusion entries are cleared.

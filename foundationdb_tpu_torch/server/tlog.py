@@ -46,6 +46,7 @@ from collections import deque
 from time import perf_counter
 from typing import Deque, Dict, List, Optional, Tuple
 
+from ..core.coverage import test_coverage
 from ..core.knobs import server_knobs
 from ..core.wire import Reader, Writer
 from ..txn.types import Mutation, MutationType, Version
@@ -329,17 +330,29 @@ class TLog:
             t0 = perf_counter()
             try:
                 self.disk_queue.commit()
-            except BaseException:
+            except Exception as e:
                 # A log that cannot fsync must not ack again: the role is
-                # dead from here on, as the reference's process is
-                # (_die_on_disk_error), and the error goes to the caller.
+                # dead from here on, and so is its process; the error
+                # goes to the caller.
                 self.stopped = True
+                self._die_on_disk_error("commit", e)
                 raise
             self.last_sync_s = perf_counter() - t0
         self.durable_version = target
         # Entries appended before this sync are durable now, so a pending
         # overflow can evict them.
         self._maybe_spill()
+
+    def _die_on_disk_error(self, op: str, e: Exception) -> None:
+        """A disk fault kills the process (reference _die_on_disk_error:
+        never limp on a bad disk); the controller recruits anew.  A TLog
+        not running on a process (a StaticCluster's) only raises."""
+        test_coverage("TLogIoErrorDeath")
+        TraceEvent("TLogDiskError", Severity.Error).detail(
+            "Id", self.id).detail("Op", op).detail("Error", repr(e)).log()
+        proc = getattr(self, "_process", None)
+        if proc is not None and hasattr(proc, "die"):
+            proc.die(f"TLogDiskError:{op}:{e!r}")
 
     # -- spill-by-reference (reference TLogData spill fields :293) -----------
     def _maybe_spill(self) -> None:
@@ -379,6 +392,7 @@ class TLog:
             if not progressed:
                 break          # nothing durable to evict yet
         if spilled_bytes:
+            test_coverage("TLogSpillActivated")
             self.bytes_spilled += spilled_bytes
             TraceEvent("TLogSpilled").detail("Id", self.id).detail(
                 "Bytes", spilled_bytes).detail(
@@ -515,6 +529,7 @@ class TLog:
     def run(self, process) -> list:
         """Register the interface's streams on `process` and spawn its
         serve loops there; their futures."""
+        self._process = process
         for stream in self.interface.streams():
             process.register(stream)
         i = self.interface

@@ -46,6 +46,11 @@ for a lost one) owns no span until a move's fetch gives it one.
 _init_data_distributor runs the distributor with this worker's
 ServerDBInfo and the request's epoch.
 
+Worker.run installs the slow-task detector on the loop (:878-881) and
+starts the sampling profiler under FDB_PROFILE=1.  A storage server whose
+durability pass fails (an io_error from its disk) kills its process, as a
+TLog whose sync fails does (server/tlog.py _die_on_disk_error).
+
 Left out: the backup worker, the log router, the storage cache and its
 watch, the knob watch, the health monitor and the machine stats and
 metrics of the registration.
@@ -513,8 +518,25 @@ class Worker:
             for ss in list(self.storage_roles):
                 if ss.log_system is None:
                     continue
-                ss._reaches(ss.log_system.durable_version())
-                ss.update_storage()
+                try:
+                    ss._reaches(ss.log_system.durable_version())
+                    ss.update_storage()
+                except Exception as e:
+                    self._die_on_storage_error(ss, e)
+                    raise
+
+    def _die_on_storage_error(self, ss, e: Exception) -> None:
+        """A storage server whose durability pass fails kills its process
+        (reference: io_error kills fdbserver): durable_version would
+        freeze while the cluster acknowledged commits, so the failure
+        monitors must fire and data distribution re-replicate."""
+        from ..core.coverage import test_coverage
+        from ..core.error import FdbError
+        if isinstance(e, FdbError) and e.name == "io_error":
+            test_coverage("StorageIoErrorDeath")
+        TraceEvent("SSUpdateStorageError", Severity.Error).detail(
+            "Id", ss.id).detail("Error", repr(e)).log()
+        self.process.die(f"SSUpdateStorageError:{e!r}")
 
     async def _serve_wait_failure(self) -> None:
         """Held requests break when this process dies: the failure
@@ -589,6 +611,13 @@ class Worker:
         p = self.process
         for s in self.interface.streams():
             p.register(s)
+        # Every worker's loop gets slow-task detection (core/profiler.py),
+        # and FDB_PROFILE=1 starts the process's sampling profiler.
+        from ..core.profiler import (install_slow_task_detection,
+                                     maybe_start_profiler)
+        from ..core.scheduler import get_event_loop
+        install_slow_task_detection(get_event_loop())
+        maybe_start_profiler(spawn=p.spawn)
         p.spawn(self._boot_scan(), f"{p.name}.bootScan")
         inits = [
             (self.interface.init_master, self._init_master, "master"),

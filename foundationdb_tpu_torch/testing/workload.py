@@ -10,13 +10,14 @@ against the same simulated cluster.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Type
 
 from ..core.error import FdbError
 
 
 class TestWorkload:
-    """Base class of a workload."""
+    """Base class of a workload; a subclass registers with
+    @register_workload under its `name`, which a spec's testName names."""
 
     name = "base"
 
@@ -50,3 +51,10 @@ class TestWorkload:
             except FdbError as e:
                 await txn.on_error(e)
 
+
+workload_registry: Dict[str, Type[TestWorkload]] = {}
+
+
+def register_workload(cls: Type[TestWorkload]) -> Type[TestWorkload]:
+    workload_registry[cls.name] = cls
+    return cls

@@ -26,6 +26,10 @@ build new sets) gives equal unseeds, digests and folds and an empty
 nondeterminism audit; no set degrades or falls back; and the slowest port
 call of each run costs under a quarter of the simulator's SlowTask
 threshold in CPU time and takes under the threshold on the wall clock.
+Each failing assertion names its check (check_slowest, the unseed and
+digest comparison with the divergence report and each run's SlowTask
+events, or check()), and every run records the simulator's SlowTask
+events (their Callback and DurationMs) as the tracer logs them.
 With the roles on the port, one reactor callback may resolve several
 batches (a request and the parked ones it wakes): such a callback is held
 under the threshold on the wall clock.
@@ -64,6 +68,7 @@ except ImportError:
     foundationdb_tpu.ops.digest = _digest
 
 from foundationdb_tpu.core import scheduler as sim_scheduler  # noqa: E402
+from foundationdb_tpu.core import trace as sim_trace  # noqa: E402
 from foundationdb_tpu.core.buggify import buggify as sim_buggify  # noqa: E402
 from foundationdb_tpu.core.knobs import server_knobs as sim_knobs  # noqa: E402
 from foundationdb_tpu.core.profiler import SLOW_TASK_THRESHOLD_S  # noqa: E402
@@ -112,6 +117,9 @@ class PortSets:
         self.sets = []
         self.slowest_s = 0.0
         self.slowest_wall_s = 0.0
+        # The simulator's SlowTask events of this run: (Callback,
+        # DurationMs), recorded by the fixture's tracer hook.
+        self.slow_tasks = []
 
     def __call__(self, backend=None, oldest_version=0, **kwargs):
         port_scheduler.set_event_loop(
@@ -144,19 +152,30 @@ class PortSets:
     def check(self) -> int:
         """Every set stayed on the device and answered every batch there;
         returns the batches resolved."""
-        assert self.sets, "no resolver was built"
+        assert self.sets, "check(): no resolver was built"
         total = 0
-        for cs, calls in self.sets:
+        for i, (cs, calls) in enumerate(self.sets):
             st = cs.status()
-            assert isinstance(cs, SupervisedConflictSet)
-            assert type(cs.device) is TorchConflictSet
-            assert cs.device.device.type == self.device
-            assert st["degraded"] is False, st
+            assert isinstance(cs, SupervisedConflictSet), \
+                f"check(): set {i} is a {type(cs).__name__}"
+            assert type(cs.device) is TorchConflictSet, \
+                f"check(): set {i} device is a {type(cs.device).__name__}"
+            assert cs.device.device.type == self.device, \
+                f"check(): set {i} on {cs.device.device}"
+            assert st["degraded"] is False, f"check(): set {i} degraded {st}"
             assert (st["degrades"], st["fallback_batches"],
-                    st["promotions"]) == (0, 0, 0), st
-            assert st["device_batches"] == calls, st
+                    st["promotions"]) == (0, 0, 0), \
+                f"check(): set {i} left the device {st}"
+            assert st["device_batches"] == calls, \
+                f"check(): set {i} device batches != {calls} calls {st}"
             total += calls
         return total
+
+    def slow_task_report(self, label: str) -> str:
+        """The run's SlowTask events, one line each."""
+        lines = [f"  {label} SlowTask events: {len(self.slow_tasks)}"]
+        lines += [f"    {cb} {ms} ms" for cb, ms in self.slow_tasks]
+        return "\n".join(lines)
 
     def check_slowest(self) -> None:
         """The slowest call costs under a quarter of the SlowTask
@@ -166,8 +185,13 @@ class PortSets:
         print(f"slowest port call: {1e3 * self.slowest_s:.1f} ms of CPU "
               f"time, {1e3 * self.slowest_wall_s:.1f} ms of wall time",
               flush=True)
-        assert self.slowest_s < SLOWEST_LIMIT_S, report
-        assert self.slowest_wall_s < SLOW_TASK_THRESHOLD_S, report
+        assert self.slowest_s < SLOWEST_LIMIT_S, (
+            f"check_slowest: slowest port call {1e3 * self.slowest_s:.1f} "
+            f"ms of CPU time, limit {1e3 * SLOWEST_LIMIT_S:.1f} ms", report)
+        assert self.slowest_wall_s < SLOW_TASK_THRESHOLD_S, (
+            f"check_slowest: slowest port call "
+            f"{1e3 * self.slowest_wall_s:.1f} ms of wall time, limit "
+            f"{1e3 * SLOW_TASK_THRESHOLD_S:.1f} ms", report)
 
 
 class PortResolverHost:
@@ -289,8 +313,10 @@ class PortRoles(PortSets):
         print(f"slowest resolve_batch callback: "
               f"{1e3 * self.slowest_callback_s:.1f} ms of wall time",
               flush=True)
-        assert self.slowest_callback_s < SLOW_TASK_THRESHOLD_S, \
-            self.slowest_callback_s
+        assert self.slowest_callback_s < SLOW_TASK_THRESHOLD_S, (
+            f"check_slowest: slowest resolve_batch callback "
+            f"{1e3 * self.slowest_callback_s:.1f} ms of wall time, limit "
+            f"{1e3 * SLOW_TASK_THRESHOLD_S:.1f} ms")
 
 
 def warm(device: str) -> None:
@@ -313,6 +339,17 @@ def port_cluster(monkeypatch):
     removed after."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    current = []
+    tracer = sim_trace.get_tracer()
+    emit = tracer.emit
+
+    def emit_recording(event):
+        if event.get("Type") == "SlowTask" and current:
+            current[-1].slow_tasks.append((event.get("Callback"),
+                                           event.get("DurationMs")))
+        emit(event)
+
+    monkeypatch.setattr(tracer, "emit", emit_recording)
 
     def install(device: str, roles: bool = False) -> PortSets:
         if roles:
@@ -322,6 +359,7 @@ def port_cluster(monkeypatch):
         else:
             sets = PortSets(device)
             monkeypatch.setattr(sim_resolver, "new_conflict_set", sets)
+        current.append(sets)
         return sets
 
     try:
@@ -354,9 +392,10 @@ def run_cycle(port_cluster, device: str, roles: bool) -> None:
     sets = port_cluster(device, roles)
     kernels.reset_counts()
     got = run_simulation(spec("CycleTest.toml"), SEED)
-    assert got.metrics["Cycle"]["swaps"] == want
+    assert got.metrics["Cycle"]["swaps"] == want, \
+        (got.metrics, want, sets.slow_task_report("run"))
     assert got.metrics["Cycle"]["swaps"] > 0
-    assert got.nondeterminism == []
+    assert got.nondeterminism == [], got.nondeterminism
     assert sets.check() > 0
     if device == "cuda":
         assert sum(kernels.LAUNCHES.values()) > 0, kernels.LAUNCHES
@@ -375,10 +414,15 @@ def run_chaos_twice(port_cluster, roles: bool) -> None:
         sets = port_cluster("cpu", roles)
         runs.append((run_simulation(spec("ChaosTest.toml"), SEED), sets))
     (r1, s1), (r2, s2) = runs
+    for sets in (s1, s2):
+        print(sets.slow_task_report("run"), flush=True)
     assert (r1.unseed, r1.digest, r1.folds) == \
-        (r2.unseed, r2.digest, r2.folds), _divergence_report(r1, r2)
+        (r2.unseed, r2.digest, r2.folds), "\n".join((
+            "unseed/digest comparison:", _divergence_report(r1, r2),
+            s1.slow_task_report("run1"), s2.slow_task_report("run2")))
     assert r1.folds > 0
-    assert r1.metrics == r2.metrics
+    assert r1.metrics == r2.metrics, ("metrics comparison", r1.metrics,
+                                      r2.metrics)
     assert r1.metrics["Cycle"]["swaps"] > 0
     assert r1.nondeterminism == [] and r2.nondeterminism == []
     for sets in (s1, s2):
@@ -449,3 +493,56 @@ def test_cycle_on_the_card_with_port_roles(port_cluster):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     run_cycle(port_cluster, "cuda", roles=True)
+
+
+def test_chip_smoke_coordinators_on_cpu():
+    """chip_smoke.py's phase 30 at a small size on the CPU, on phase 28's
+    cluster after its last kill: the quorum moved to three new
+    coordinators (a new epoch through the five states, every old
+    coordinator forwarded, every process following), a ReadWrite round,
+    the old coordinators and the master killed, a recovery on the new
+    quorum alone and a second round; every acknowledged write read back
+    from every replica and every epoch's batches equal to a CPU plane's
+    replay."""
+    import chip_smoke
+    from foundationdb_tpu_torch.server.master import RECOVERY_STATES
+    with chip_smoke.recovery_cluster(
+            device="cpu", keyspace=4_000, rw_actors=64, capacity=CAPACITY,
+            delta_capacity=DELTA_CAPACITY) as run:
+        rec = run.figures
+        coord = chip_smoke.coord_run(run)
+    assert rec["epochs"] == [1, 2, 3, 4, 5]
+    # The move ends epoch 5; the kills end 6 (a recovery may take more
+    # than one epoch to reach accepting_commits).
+    assert coord["epochs"][:2] == [5, 6] and coord["epochs"][2] >= 7
+    for step in ("commit_to_accepting", "kill_to_accepting"):
+        assert coord[step]["states"] == list(RECOVERY_STATES)
+        assert coord[step]["to_accepting_virtual_s"] > 0
+    assert coord["old"] == ["coord0", "coord1", "coord2"]
+    assert [r["committed"] for r in coord["rounds"]] == [64, 64]
+    assert coord["readback_rows"] > 0
+    assert coord["replayed_batches"] > 0
+
+
+def test_chip_smoke_simulation_on_cpu():
+    """chip_smoke.py's phase 31 on the CPU at test_torch_cluster's
+    capacity, without the warm run: CycleTest, the ChaosTest double run
+    (equal unseeds, digests, folds and metrics, an empty audit, a fault
+    loop fired) and SerializabilityTest on the port's simulator, every
+    set's batches equal to an oracle's replay."""
+    import chip_smoke
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        fig = chip_smoke.simulator_run(
+            device="cpu", warm=False, capacity=CAPACITY,
+            delta_capacity=DELTA_CAPACITY)
+    finally:
+        torch.set_num_threads(threads)
+    runs = fig["runs"]
+    assert [r["spec"] for r in runs] == list(chip_smoke.SIM_RUNS)
+    chaos = [r for r in runs if r["spec"] == "ChaosTest"]
+    assert chaos[0]["unseed"] == chaos[1]["unseed"]
+    assert chaos[0]["digest"] == chaos[1]["digest"]
+    assert all(r["batches"] > 0 and r["sets"] > 0 for r in runs)
+    assert chaos[0]["metrics"]["ChaosNemesis"]["resolver_kills"] > 0

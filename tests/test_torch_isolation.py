@@ -76,6 +76,9 @@ PORT_MODULES = [
     "foundationdb_tpu_torch.server.sim_fs",
     "foundationdb_tpu_torch.server.data_distribution",
     "foundationdb_tpu_torch.server.policy",
+    "foundationdb_tpu_torch.core.profiler",
+    "foundationdb_tpu_torch.core.coverage",
+    "foundationdb_tpu_torch.testing.tester",
     "chip_smoke", "scripts.torch_kernel_ab"]
 
 

@@ -2178,9 +2178,10 @@ def test_recovery_small_case(dev):
         __file__))))
     import chip_smoke
     K.reset_counts()
-    figures = chip_smoke.recovery_run(
-        device=dev.type, keyspace=20_000, rw_actors=256,
-        capacity=1 << 14, delta_capacity=1 << 13)
+    with chip_smoke.recovery_cluster(
+            device=dev.type, keyspace=20_000, rw_actors=256,
+            capacity=1 << 14, delta_capacity=1 << 13) as run:
+        figures = run.figures
     assert [k["new_epoch"] for k in figures["kills"]] == [2, 3, 4, 5]
     assert all(n > 0 for n in figures["epoch_launches"].values())
     assert K.LAUNCHES["compact_prep"] > 0
@@ -2203,11 +2204,11 @@ def test_fleet_small_case(dev):
         __file__))))
     import chip_smoke
 
-    def between(_figures):
+    with chip_smoke.recovery_cluster(
+            device=dev.type, keyspace=20_000, rw_actors=256,
+            capacity=1 << 14, delta_capacity=1 << 13) as run:
         K.reset_counts()
-    _rec, fleet = chip_smoke.recovery_run(
-        device=dev.type, keyspace=20_000, rw_actors=256, fleet=True,
-        between=between, capacity=1 << 14, delta_capacity=1 << 13)
+        fleet = chip_smoke.fleet_run(run)
     configure = fleet["steps"][0]
     assert configure["resolvers"] == 3 and configure["epoch"] == 6
     assert min(configure["resolver_batches"]) > 0

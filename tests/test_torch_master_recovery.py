@@ -453,8 +453,9 @@ def test_chip_smoke_recovery_on_cpu():
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
         __file__))))
     import chip_smoke
-    fig = chip_smoke.recovery_run(device="cpu", keyspace=4_000, rw_actors=64,
-                                  **SET_KWARGS)
+    with chip_smoke.recovery_cluster(device="cpu", keyspace=4_000,
+                                     rw_actors=64, **SET_KWARGS) as run:
+        fig = run.figures
     native = chip_smoke.native_against_card("cpu", 2, 2_000, **SET_KWARGS)
     kills = fig["kills"]
     assert [k["victim"] for k in kills] == list(chip_smoke.RECOVERY_KILLS)

@@ -538,9 +538,10 @@ def test_chip_smoke_fleet_on_cpu():
     plane's replay."""
     import chip_smoke
     from test_torch_master_recovery import SET_KWARGS
-    rec, fleet = chip_smoke.recovery_run(
-        device="cpu", keyspace=4_000, rw_actors=64, fleet=True,
-        **SET_KWARGS)
+    with chip_smoke.recovery_cluster(device="cpu", keyspace=4_000,
+                                     rw_actors=64, **SET_KWARGS) as run:
+        rec = run.figures
+        fleet = chip_smoke.fleet_run(run)
     assert rec["epochs"] == [1, 2, 3, 4, 5]
     steps = fleet["steps"]
     assert [s["step"] for s in steps] == list(chip_smoke.FLEET_STEPS)
